@@ -1,0 +1,63 @@
+"""Process state: the global seed, one ``torch.Generator`` per device,
+and the default device.
+
+The JAX package keeps one splitting key (``paddle_tpu/core/state.py``);
+here each device gets its own generator, all seeded from the same
+integer by :func:`seed`, as ``paddle.seed`` fans out to every device's
+generator.  Torch's generators and JAX's threefry never give the same
+numbers: parity between the packages goes through copied weights
+(``Layer.set_state_dict``), never through a shared seed."""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+import torch
+
+_lock = threading.Lock()
+_seed = 0
+_generators: Dict[str, torch.Generator] = {}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The entry points' device rule: ``cuda`` unless the caller asks for
+    another device.  Asking for CUDA (explicitly or by default) on a
+    machine without it raises — nothing quietly carries on on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def seed(s: int) -> int:
+    """Reseed every device's generator (existing and future ones)."""
+    global _seed
+    with _lock:
+        _seed = int(s)
+        for g in _generators.values():
+            g.manual_seed(_seed)
+    return _seed
+
+
+def get_seed() -> int:
+    return _seed
+
+
+def generator(device) -> torch.Generator:
+    """The global generator of `device`, created on first use from the
+    current seed."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = str(dev)
+    with _lock:
+        g = _generators.get(key)
+        if g is None:
+            g = torch.Generator(device=dev)
+            g.manual_seed(_seed)
+            _generators[key] = g
+    return g

@@ -1,0 +1,240 @@
+"""Llama decoder-only transformer (``paddle_tpu/models/llama.py``).
+
+Same configuration fields, layer names and ``[in, out]`` weight layout
+as the JAX package, so ``state_dict`` names match one for one.  Every
+decoder layer runs
+
+    fused_rmsnorm_qkv -> RoPE -> attention (paged cache or dense)
+    -> o_proj + residual -> RMSNorm -> fused_mlp -> residual
+
+where the two fused functions launch their CUDA kernels for CUDA tensors
+at every row count (the TPU package routes them only where Mosaic can
+tile the shape) and take their plain versions on the CPU.  The RoPE
+tables stay fp32 in a bf16 model.  Training (``loss``), ``generate``,
+the whole-block decoder kernel and ``partition_specs`` come with later
+slices of the port."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from paddle_tpu_torch.core.state import resolve_device
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.common_layers import Embedding, Linear
+from paddle_tpu_torch.nn.layer import Layer
+from paddle_tpu_torch.nn.norm_layers import RMSNorm
+
+__all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
+           "LlamaModel", "LlamaForCausalLM"]
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None  # None -> MHA
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.num_key_value_heads is None:
+            self.num_key_value_heads = self.num_attention_heads
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    @staticmethod
+    def llama3_8b():
+        return LlamaConfig(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=32, num_attention_heads=32,
+            num_key_value_heads=8, max_position_embeddings=8192,
+            rope_theta=500000.0, dtype="bfloat16")
+
+    @staticmethod
+    def tiny(**over):
+        cfg = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=128)
+        cfg.update(over)
+        return LlamaConfig(**cfg)
+
+
+class LlamaAttention(Layer):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__(dtype=config.dtype, device=device)
+        c = config
+        self.num_heads = c.num_attention_heads
+        self.num_kv_heads = c.num_key_value_heads
+        self.head_dim = c.head_dim
+        kw = dict(bias_attr=False, dtype=c.dtype, device=device)
+        self.q_proj = Linear(c.hidden_size, self.num_heads * self.head_dim,
+                             **kw)
+        self.k_proj = Linear(c.hidden_size, self.num_kv_heads * self.head_dim,
+                             **kw)
+        self.v_proj = Linear(c.hidden_size, self.num_kv_heads * self.head_dim,
+                             **kw)
+        self.o_proj = Linear(self.num_heads * self.head_dim, c.hidden_size,
+                             **kw)
+
+    def attend(self, q, k, v, rope_cos, rope_sin, attn_mask=None,
+               cache=None, position_offset=0):
+        """Everything after the projections: RoPE, the cache, attention,
+        o_proj.  With a cache returns ``(out, new_cache)``."""
+        b, s = q.shape[0], q.shape[1]
+        q = q.reshape(b, s, self.num_heads, self.head_dim)
+        k = k.reshape(b, s, self.num_kv_heads, self.head_dim)
+        v = v.reshape(b, s, self.num_kv_heads, self.head_dim)
+        q = F.apply_rotary_emb(q, rope_cos, rope_sin, position_offset)
+        k = F.apply_rotary_emb(k, rope_cos, rope_sin, position_offset)
+        if cache is not None:
+            from paddle_tpu_torch.inference.kv_cache import (
+                PagedCache, paged_cache_attention)
+            if not isinstance(cache, PagedCache):
+                raise NotImplementedError(
+                    "only the paged KV cache is ported; StaticCache and "
+                    "concatenated caches wait for the slot-contiguous "
+                    "engine (ROADMAP.md, queue 1)")
+            out, new_cache = paged_cache_attention(q, k, v, cache,
+                                                   position_offset,
+                                                   attn_mask)
+            return self.o_proj(out.reshape(b, s, -1)), new_cache
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                             is_causal=attn_mask is None)
+        return self.o_proj(out.reshape(b, s, -1))
+
+
+class LlamaMLP(Layer):
+    """SwiGLU ``down(silu(gate(x)) * up(x))`` through ``F.fused_mlp``."""
+
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__(dtype=config.dtype, device=device)
+        c = config
+        kw = dict(bias_attr=False, dtype=c.dtype, device=device)
+        self.gate_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+        self.up_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+        self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
+
+    def forward(self, x):
+        return F.fused_mlp(x, self.gate_proj.weight, self.up_proj.weight,
+                           self.down_proj.weight)
+
+
+class LlamaDecoderLayer(Layer):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__(dtype=config.dtype, device=device)
+        kw = dict(epsilon=config.rms_norm_eps, dtype=config.dtype,
+                  device=device)
+        self.input_layernorm = RMSNorm(config.hidden_size, **kw)
+        self.self_attn = LlamaAttention(config, device=device)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, **kw)
+        self.mlp = LlamaMLP(config, device=device)
+
+    def forward(self, x, rope_cos, rope_sin, attn_mask=None, cache=None,
+                position_offset=0):
+        attn = self.self_attn
+        q, k, v = F.fused_rmsnorm_qkv(
+            x, self.input_layernorm.weight, attn.q_proj.weight,
+            attn.k_proj.weight, attn.v_proj.weight,
+            epsilon=self.input_layernorm._epsilon)
+        h = attn.attend(q, k, v, rope_cos, rope_sin, attn_mask, cache,
+                        position_offset)
+        new_cache = None
+        if cache is not None:
+            h, new_cache = h
+        x = x + h
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        if cache is not None:
+            return x, new_cache
+        return x
+
+
+class LlamaModel(Layer):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__(dtype=config.dtype, device=device)
+        self.config = config
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      dtype=config.dtype, device=device)
+        self.layers = []
+        for i in range(config.num_hidden_layers):
+            layer = LlamaDecoderLayer(config, device=device)
+            self.add_sublayer(f"layers_{i}", layer)
+            self.layers.append(layer)
+        self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
+                            dtype=config.dtype, device=device)
+        cos, sin = F.rotary_freqs(config.head_dim,
+                                  config.max_position_embeddings,
+                                  base=config.rope_theta, device=device)
+        self.register_buffer("rope_cos", cos, persistable=False)
+        self.register_buffer("rope_sin", sin, persistable=False)
+
+    def astype(self, dtype):
+        """Cast the weights; the RoPE tables stay fp32 (they are applied
+        in fp32 whatever the weights' dtype)."""
+        cos, sin = self.rope_cos.data, self.rope_sin.data
+        super().astype(dtype)
+        self.rope_cos.data, self.rope_sin.data = cos, sin
+        return self
+
+    def forward(self, input_ids, attn_mask=None, caches=None,
+                position_offset=0):
+        x = self.embed_tokens(input_ids)
+        new_caches = [] if caches is not None else None
+        for i, layer in enumerate(self.layers):
+            cache = caches[i] if caches is not None else None
+            x = layer(x, self.rope_cos, self.rope_sin, attn_mask, cache,
+                      position_offset)
+            if caches is not None:
+                x, c = x
+                new_caches.append(c)
+        x = self.norm(x)
+        if caches is not None:
+            return x, new_caches
+        return x
+
+
+class LlamaForCausalLM(Layer):
+    """Entry point: parameters are created on ``device`` (``cuda``
+    unless the caller passes another; CUDA absent and not asked for the
+    CPU raises), in ``config.dtype``, from the device's seeded
+    generator."""
+
+    def __init__(self, config: LlamaConfig, device=None):
+        device = resolve_device(device)
+        super().__init__(dtype=config.dtype, device=device)
+        self.config = config
+        self.model = LlamaModel(config, device=device)
+        if config.tie_word_embeddings:
+            self.lm_head = None
+        else:
+            self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                                  bias_attr=False, dtype=config.dtype,
+                                  device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def forward(self, input_ids, attn_mask=None, caches=None,
+                position_offset=0):
+        h = self.model(input_ids, attn_mask, caches, position_offset)
+        new_caches = None
+        if caches is not None:
+            h, new_caches = h
+        if self.lm_head is None:
+            logits = torch.matmul(h, self.model.embed_tokens.weight.t())
+        else:
+            logits = self.lm_head(h)
+        if caches is not None:
+            return logits, new_caches
+        return logits

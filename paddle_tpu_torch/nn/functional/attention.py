@@ -1,0 +1,95 @@
+"""Attention functionals (``paddle_tpu/nn/functional/attention.py``).
+
+Layout is the JAX package's: ``[batch, seq, num_heads, head_dim]``.
+``scaled_dot_product_attention`` runs the plain reference in torch ops
+(``matmul`` and ``softmax``); routing to a flash kernel comes with the
+port of the flash-attention kernels."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["scaled_dot_product_attention", "rotary_freqs",
+           "apply_rotary_emb"]
+
+_NEG = -1e30
+
+
+def _sdpa_reference(q, k, v, attn_mask=None, is_causal=False, scale=None):
+    """Dense attention with fp32 scores and softmax; probabilities are
+    cast to q's dtype before the product with v, as in the JAX
+    reference (``attention.py:20-52``).  GQA repeats the kv heads."""
+    if k.shape[2] != q.shape[2]:
+        rep = q.shape[2] // k.shape[2]
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [b, h, s, d]
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    scores = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * scale
+    if is_causal:
+        sq, sk = scores.shape[-2], scores.shape[-1]
+        causal = torch.ones((sq, sk), dtype=torch.bool,
+                            device=scores.device).tril(sk - sq)
+        scores = torch.where(causal, scores, _NEG)
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            scores = torch.where(attn_mask, scores, _NEG)
+        else:
+            scores = scores + attn_mask.float()
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.matmul(probs, vt).transpose(1, 2)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 is_causal=False, scale=None):
+    """``softmax(q k^T * scale + mask) v`` over ``[b, s, h, d]`` inputs;
+    a boolean mask keeps True positions, a float mask is added."""
+    return _sdpa_reference(query, key, value, attn_mask, is_causal, scale)
+
+
+def rotary_freqs(head_dim, max_position, base=10000.0, device="cpu"):
+    """RoPE cos/sin tables, each ``[max_position, head_dim // 2]`` fp32."""
+    inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                       device=device) / head_dim))
+    t = torch.arange(max_position, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rotary_emb(x, cos, sin, position_offset=0):
+    """Rotary embedding, Llama/NeoX half-rotation, computed in fp32 and
+    cast back.
+
+    x: ``[batch, seq, heads, head_dim]``; cos/sin: tables from
+    :func:`rotary_freqs`.  ``position_offset`` is an int, or a ``[B]``
+    integer tensor of per-row offsets (continuous batching).  A position
+    outside the table raises for both forms: the JAX package clamps
+    per-row offsets silently (``attention.py:246``).  Per-row offsets
+    are checked where they lie; a host tensor costs no device sync."""
+    seq = x.shape[1]
+    table = cos.shape[0]
+    if torch.is_tensor(position_offset) and position_offset.ndim == 1:
+        lo = int(position_offset.min())
+        hi = int(position_offset.max()) + seq
+        if lo < 0 or hi > table:
+            raise ValueError(
+                f"RoPE table overflow: per-row positions [{lo}, {hi}) "
+                f"exceed table length {table} (max_position_embeddings)")
+        off = position_offset.to(device=cos.device, dtype=torch.long)
+        pos = off[:, None] + torch.arange(seq, device=cos.device)[None]
+        c = cos[pos][:, :, None, :]                         # [B, s, 1, h]
+        s = sin[pos][:, :, None, :]
+    else:
+        off = int(position_offset)
+        if off < 0 or off + seq > table:
+            raise ValueError(
+                f"RoPE table overflow: positions [{off}, {off + seq}) "
+                f"exceed table length {table} (max_position_embeddings)")
+        c = cos[off:off + seq][None, :, None, :]
+        s = sin[off:off + seq][None, :, None, :]
+    half = x.shape[-1] // 2
+    x32 = x.float()
+    x1, x2 = x32[..., :half], x32[..., half:]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,140 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` compiles with ``nvcc -gencode arch=compute_90a,
+code=sm_90a -O3 -shared -Xcompiler -fPIC`` into its own shared library
+with a plain C interface, loaded with ``ctypes``.  The build happens at
+first use, from the sources in this directory alone, into
+``ops/kernels/build/`` (ignored by git); a library whose name carries the
+hash of its sources and flags is reused.  All sources build at once, one
+``nvcc`` each, started together.
+
+Every C entry point takes its pointers and the stream as ``c_void_p`` and
+returns the CUDA error of its launch, which :func:`check` raises on."""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+__all__ = ["library", "build_all", "check", "stream_of", "DTYPE_CODES",
+           "BUILD_DIR"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("fused_block", "paged_attention")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC")
+# dtype codes of the C interface (csrc/common.cuh, enum DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of every exported function, by library
+_SIGNATURES = {
+    "fused_block": {
+        "ptt_rmsnorm_qkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _F, _P],
+        "ptt_mlp_gate_up": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+        "ptt_matmul": [_I, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "paged_attention": {
+        "ptt_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _F, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (CUDA_HOME, /usr/local/cuda/bin, PATH): the "
+            "port's CUDA kernels are built from source at first use")
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every source whose library is missing, all in parallel;
+    returns the wall seconds spent (0.0 when everything was cached).
+    A failed compile raises with nvcc's output."""
+    todo = [(n, _target(n)) for n in SOURCES if not _target(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for name, out, tmp, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{name}.cu:\n{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)    # atomic: concurrent builds agree
+    seconds = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        build_all()
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.ptt_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str):
+    """Raise if a launch reported a CUDA error (a refused launch never
+    runs, and a later synchronize would not say so)."""
+    if err != 0:
+        msg = lib.ptt_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on `t`'s device, as an integer handle."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,160 @@
+"""Fused RMSNorm+QKV and gated SwiGLU MLP — wrappers of the CUDA kernels
+in ``csrc/fused_block.cu`` and their plain PyTorch versions.
+
+Counterparts of ``paddle_tpu/ops/pallas/fused_block.py``:
+``fused_rmsnorm_qkv`` replaces ``_qkv_kernel`` (forward-only variant)
+and ``fused_mlp`` replaces ``_mlp_kernel`` (gated silu).  A tensor on
+the CPU takes the plain version; a CUDA tensor launches the kernel or
+raises.  There is no fallback between the two.
+
+The TPU kernels route only where Mosaic can tile the shape
+(``fused_qkv_eligible``: rows a multiple of 8/16); the CUDA kernels mask
+ragged row tiles themselves and take any row count.  They need the
+feature widths (d, dq, dkv, f) to be multiples of 64, all operands of
+one dtype (float32 or bfloat16), contiguous and 16-byte aligned.
+
+Each wrapper counts its launches in a plain integer attribute
+(``fused_rmsnorm_qkv.launches``), so a run can show the kernels were on
+its path."""
+
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch.ops.kernels import _build
+
+__all__ = ["fused_rmsnorm_qkv", "fused_mlp", "qkv_reference",
+           "mlp_reference"]
+
+
+# -- plain versions (the CPU path and the kernels' reference) ---------------
+
+def qkv_reference(x, norm_weight, wq, wk, wv, epsilon=1e-5):
+    """``_qkv_reference`` (``fused_block.py:345-356``): fp32 statistics,
+    xn cast to x's dtype before the products, fp32 accumulation, outputs
+    in x's dtype."""
+    xf = x.float()
+    inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + epsilon)
+    xn = ((xf * inv) * norm_weight.float()).to(x.dtype)
+
+    def proj(w):
+        return torch.matmul(xn.float(), w.float()).to(x.dtype)
+
+    return proj(wq), proj(wk), proj(wv)
+
+
+def mlp_reference(x, w_gate, w_up, w_down):
+    """``_mlp_gated_reference`` (``fused_block.py:581-585``): fp32
+    products, h = silu(g) * u cast to x's dtype, fp32 down product."""
+    g = torch.matmul(x.float(), w_gate.float())
+    u = torch.matmul(x.float(), w_up.float())
+    h = (g * torch.sigmoid(g) * u).to(x.dtype)
+    return torch.matmul(h.float(), w_down.float()).to(x.dtype)
+
+
+# -- wrappers -----------------------------------------------------------------
+
+def _check_cuda(what, tensors, dtype):
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}, expected "
+                             "the CUDA device of x")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected {dtype} "
+                            "(all operands share one dtype)")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    if dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {dtype} not supported (float32, "
+                        "bfloat16)")
+
+
+def _check_width(what, **dims):
+    for name, n in dims.items():
+        if n % 64:
+            raise ValueError(f"{what}: {name}={n} must be a multiple of 64")
+
+
+def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5):
+    """``q, k, v = (rmsnorm(x) * norm_weight) @ (wq | wk | wv)``.
+
+    x ``[..., d]``; norm_weight ``[d]``; wq ``[d, dq]``; wk/wv
+    ``[d, dkv]`` (``[in, out]``).  Returns projections with x's leading
+    dims, in x's dtype."""
+    if x.device.type == "cpu":
+        return qkv_reference(x, norm_weight, wq, wk, wv, epsilon)
+    what = "fused_rmsnorm_qkv"
+    lead, d = x.shape[:-1], x.shape[-1]
+    dq, dkv = wq.shape[1], wk.shape[1]
+    if norm_weight.shape != (d,) or wq.shape[0] != d or \
+            wk.shape != (d, dkv) or wv.shape != (d, dkv):
+        raise ValueError(
+            f"{what}: shapes x {tuple(x.shape)}, norm_weight "
+            f"{tuple(norm_weight.shape)}, wq {tuple(wq.shape)}, wk "
+            f"{tuple(wk.shape)}, wv {tuple(wv.shape)} do not agree")
+    _check_cuda(what, dict(x=x, norm_weight=norm_weight, wq=wq, wk=wk,
+                           wv=wv), x.dtype)
+    _check_width(what, d=d, dq=dq, dkv=dkv)
+    x2 = x.reshape(-1, d)
+    T = x2.shape[0]
+    q = torch.empty((T, dq), dtype=x.dtype, device=x.device)
+    k = torch.empty((T, dkv), dtype=x.dtype, device=x.device)
+    v = torch.empty((T, dkv), dtype=x.dtype, device=x.device)
+    if T:
+        lib = _build.library("fused_block")
+        err = lib.ptt_rmsnorm_qkv(
+            _build.DTYPE_CODES[x.dtype], x2.data_ptr(),
+            norm_weight.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+            wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), T, d,
+            dq, dkv, float(epsilon), _build.stream_of(x))
+        _build.check(lib, err, what)
+        fused_rmsnorm_qkv.launches += 1
+    return (q.reshape(*lead, dq), k.reshape(*lead, dkv),
+            v.reshape(*lead, dkv))
+
+
+fused_rmsnorm_qkv.launches = 0
+
+
+def fused_mlp(x, w_gate, w_up, w_down):
+    """``y = (silu(x @ w_gate) * (x @ w_up)) @ w_down`` (SwiGLU).
+
+    x ``[..., d]``; w_gate/w_up ``[d, f]``; w_down ``[f, d]``.  On the
+    card this is two launches: gate/up with the activation product
+    written to a ``[T, f]`` workspace in x's dtype, then the down
+    product (``csrc/fused_block.cu`` says why)."""
+    if x.device.type == "cpu":
+        return mlp_reference(x, w_gate, w_up, w_down)
+    what = "fused_mlp"
+    d = x.shape[-1]
+    f = w_gate.shape[1]
+    if w_gate.shape != (d, f) or w_up.shape != (d, f) or \
+            w_down.shape != (f, d):
+        raise ValueError(
+            f"{what}: shapes x {tuple(x.shape)}, w_gate "
+            f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, w_down "
+            f"{tuple(w_down.shape)} do not agree")
+    _check_cuda(what, dict(x=x, w_gate=w_gate, w_up=w_up, w_down=w_down),
+                x.dtype)
+    _check_width(what, d=d, f=f)
+    x2 = x.reshape(-1, d)
+    T = x2.shape[0]
+    y = torch.empty((T, d), dtype=x.dtype, device=x.device)
+    if T:
+        h = torch.empty((T, f), dtype=x.dtype, device=x.device)
+        lib = _build.library("fused_block")
+        code, stream = _build.DTYPE_CODES[x.dtype], _build.stream_of(x)
+        err = lib.ptt_mlp_gate_up(code, x2.data_ptr(), w_gate.data_ptr(),
+                                  w_up.data_ptr(), h.data_ptr(), T, d, f,
+                                  stream)
+        _build.check(lib, err, what + " (gate/up)")
+        err = lib.ptt_matmul(code, h.data_ptr(), w_down.data_ptr(),
+                             y.data_ptr(), T, f, d, stream)
+        _build.check(lib, err, what + " (down)")
+        fused_mlp.launches += 1
+    return y.reshape(x.shape)
+
+
+fused_mlp.launches = 0

@@ -1,0 +1,149 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs an NVIDIA GPU with sm_90 and nvcc: on a
+machine without one they skip.  Run on the card with
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest sets JAX up, which this file
+does not use).  Inputs come from numpy with a fixed seed; tolerances
+are stated per dtype: the kernels sum in another order than cuBLAS
+(fp32) and round activations to bf16 at the same points as the plain
+versions (bf16)."""
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops.kernels import fused_block as FB
+from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+pytestmark = pytest.mark.cuda
+
+# (atol, rtol) per dtype: fp32 differs by summation order only; bf16
+# outputs carry one bf16 rounding (2^-8 relative) plus order effects
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    if torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("the kernels are built for sm_90a (Hopper)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(rng, shape, dtype, dev, scale=1.0):
+    return torch.as_tensor(rng.standard_normal(shape) * scale,
+                           dtype=torch.float32).to(dev, dtype)
+
+
+def _close(got, ref, dtype):
+    atol, rtol = TOL[dtype]
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,dq,dkv", [(1, 128, 128, 64), (8, 256, 256, 64),
+                                        (37, 128, 192, 128),
+                                        (100, 256, 256, 64),
+                                        (256, 512, 512, 128)])
+def test_rmsnorm_qkv_matches_plain(dev, dtype, T, d, dq, dkv):
+    rng = np.random.default_rng(T * 7 + d)
+    x = _t(rng, (T, d), dtype, dev)
+    wn = _t(rng, (d,), dtype, dev, 0.5) + 1.0
+    wq = _t(rng, (d, dq), dtype, dev, d ** -0.5)
+    wk = _t(rng, (d, dkv), dtype, dev, d ** -0.5)
+    wv = _t(rng, (d, dkv), dtype, dev, d ** -0.5)
+    n0 = FB.fused_rmsnorm_qkv.launches
+    got = FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, 1e-5)
+    ref = FB.qkv_reference(x, wn, wq, wk, wv, 1e-5)
+    assert FB.fused_rmsnorm_qkv.launches == n0 + 1
+    for g, r in zip(got, ref):
+        _close(g, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,f", [(1, 128, 256), (8, 256, 512),
+                                   (37, 128, 192), (200, 256, 512)])
+def test_mlp_matches_plain(dev, dtype, T, d, f):
+    rng = np.random.default_rng(T * 11 + f)
+    x = _t(rng, (T, d), dtype, dev)
+    wg = _t(rng, (d, f), dtype, dev, d ** -0.5)
+    wu = _t(rng, (d, f), dtype, dev, d ** -0.5)
+    wd = _t(rng, (f, d), dtype, dev, f ** -0.5)
+    n0 = FB.fused_mlp.launches
+    got = FB.fused_mlp(x, wg, wu, wd)
+    assert FB.fused_mlp.launches == n0 + 1
+    _close(got, FB.mlp_reference(x, wg, wu, wd), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,hd,bs", [(4, 2, 32, 4), (32, 8, 128, 16),
+                                         (8, 8, 64, 16), (16, 2, 256, 8),
+                                         (8, 8, 64, 256)])
+def test_paged_decode_matches_plain(dev, dtype, h, kvh, hd, bs):
+    rng = np.random.default_rng(h * 3 + hd)
+    B, nb, mb = 5, 40, 12
+    q = _t(rng, (B, h, hd), dtype, dev)
+    kp = _t(rng, (nb, bs, kvh, hd), dtype, dev)
+    vp = _t(rng, (nb, bs, kvh, hd), dtype, dev)
+    bt = torch.as_tensor(rng.integers(1, nb, (B, mb)), dtype=torch.int32,
+                         device=dev)
+    bt[0] = 0                      # an inactive row: scratch block, length 1
+    lengths = torch.as_tensor([1, 1, bs, mb * bs - 3, mb * bs],
+                              dtype=torch.int32, device=dev)
+    n0 = PA.paged_decode_attention.launches
+    got = PA.paged_decode_attention(q, kp, vp, bt, lengths)
+    assert PA.paged_decode_attention.launches == n0 + 1
+    _close(got, PA.paged_decode_reference(q, kp, vp, bt, lengths), dtype)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((4, 96), device=dev)
+    w = torch.zeros((96, 64), device=dev)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        FB.fused_rmsnorm_qkv(x, torch.ones(96, device=dev), w, w, w)
+    with pytest.raises(TypeError, match="dtype"):
+        FB.fused_mlp(x.half(), w.half(), w.half(), w.t().contiguous().half())
+    q = torch.zeros((2, 6, 32), device=dev)
+    pool = torch.zeros((3, 4, 2, 32), device=dev)
+    bt = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="kv_heads"):
+        PA.paged_decode_attention(q, pool, pool, bt,
+                                  torch.ones(2, dtype=torch.int32,
+                                             device=dev))
+
+
+def test_engine_on_the_card_matches_the_cpu_engine(dev):
+    """The whole paged path at a small width on the card (all three
+    kernels) against the same fp32 weights on the CPU (plain versions):
+    greedy tokens agree and every kernel launched."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    cfg = LlamaConfig.tiny(hidden_size=128, intermediate_size=256,
+                           num_attention_heads=4, num_key_value_heads=2)
+    seed(0)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.set_state_dict({k: v.numpy() for k, v in cpu.state_dict().items()})
+    kw = dict(slots=2, max_len=64, prefill_buckets=(16, 32),
+              kv_block_size=4, prefill_chunk=8)
+    prompts = [np.random.default_rng(i).integers(0, 256, n)
+               for i, n in enumerate((5, 17, 11))]
+    outs = []
+    kernels.reset_launch_counts()
+    for model in (cpu, gpu):
+        eng = ContinuousBatchingEngine(model, **kw)
+        rids = [eng.add_request(p, max_new_tokens=6) for p in prompts]
+        res = eng.run()
+        outs.append([res[r][1] for r in rids])
+    assert outs[0] == outs[1]
+    assert all(fn.launches > 0 for fn in kernels.KERNELS)

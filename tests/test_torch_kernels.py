@@ -1,0 +1,189 @@
+"""The PyTorch port's kernel modules and the functions around them,
+against the JAX package on the same inputs (CPU).
+
+Each port module that holds a kernel is held to its JAX counterpart:
+the port's wrapper takes its plain version on CPU tensors, the JAX
+function runs its Pallas kernel in interpret mode.  Inputs are made with
+``numpy.random.default_rng`` and handed to both; everything is fp32 and
+must agree within 1e-5 (summation order only), unless a test states
+otherwise.  The same kernels on the card are tested in
+``test_torch_cuda.py``."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import fused_block as JFB
+from paddle_tpu.ops.pallas import paged_attention as JPA
+
+from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch.ops.kernels import fused_block as FB
+from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+ATOL = 1e-5
+
+
+def _both(rng, shape, scale=1.0):
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return jnp.asarray(a), torch.from_numpy(a.copy())
+
+
+def _close(got, ref, atol=ATOL, rtol=ATOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("T,d,dq,dkv", [(16, 128, 128, 128),
+                                        (32, 128, 256, 128)])
+def test_fused_rmsnorm_qkv_matches_pallas(T, d, dq, dkv):
+    rng = np.random.default_rng(T + dq)
+    jx, tx = _both(rng, (T, d))
+    jn, tn = _both(rng, (d,))
+    jq, tq = _both(rng, (d, dq), 0.05)
+    jk, tk = _both(rng, (d, dkv), 0.05)
+    jv, tv = _both(rng, (d, dkv), 0.05)
+    ref = JFB.fused_rmsnorm_qkv(jx, jn, jq, jk, jv, epsilon=1e-5,
+                                use_pallas=True, interpret=True)
+    got = FB.fused_rmsnorm_qkv(tx, tn, tq, tk, tv, epsilon=1e-5)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and tuple(g.shape) == r.shape
+        _close(g, r)
+
+
+@pytest.mark.parametrize("T,d,f", [(16, 128, 256), (32, 128, 512)])
+def test_fused_mlp_matches_pallas(T, d, f):
+    rng = np.random.default_rng(T + f)
+    jx, tx = _both(rng, (T, d))
+    jg, tg = _both(rng, (d, f), d ** -0.5)
+    ju, tu = _both(rng, (d, f), d ** -0.5)
+    jd, td = _both(rng, (f, d), f ** -0.5)
+    ref = JFB.fused_mlp(jx, jg, ju, jd, use_pallas=True, interpret=True)
+    got = FB.fused_mlp(tx, tg, tu, td)
+    assert tuple(got.shape) == ref.shape
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("B,h,kvh,hd,bs,lengths", [
+    (3, 4, 2, 16, 4, [5, 9, 16]),
+    (4, 8, 2, 32, 8, [1, 8, 17, 32]),     # 1 = an inactive row's scratch read
+])
+def test_paged_decode_matches_pallas(B, h, kvh, hd, bs, lengths):
+    rng = np.random.default_rng(B * h)
+    nb, mb = 9, 4
+    jq, tq = _both(rng, (B, h, hd))
+    jk, tk = _both(rng, (nb, bs, kvh, hd))
+    jv, tv = _both(rng, (nb, bs, kvh, hd))
+    bt = rng.integers(1, nb, size=(B, mb)).astype(np.int32)
+    bt[0] = 0
+    ln = np.asarray(lengths, np.int32)
+    ref = JPA.paged_decode_attention(jq, jk, jv, jnp.asarray(bt),
+                                     jnp.asarray(ln), interpret=True)
+    got = PA.paged_decode_attention(tq, tk, tv, torch.from_numpy(bt),
+                                    torch.from_numpy(ln))
+    _close(got, ref)
+
+
+def test_wrappers_count_only_kernel_launches():
+    """A CPU tensor takes the plain version, which is not a launch."""
+    x = torch.randn(4, 64)
+    w = torch.randn(64, 64)
+    before = (FB.fused_rmsnorm_qkv.launches, FB.fused_mlp.launches)
+    FB.fused_rmsnorm_qkv(x, torch.ones(64), w, w, w)
+    FB.fused_mlp(x, w, w, w)
+    assert (FB.fused_rmsnorm_qkv.launches, FB.fused_mlp.launches) == before
+
+
+# -- functionals around the kernels ------------------------------------------
+
+def test_rms_norm_matches_jax():
+    from paddle_tpu.nn import functional as JF
+    rng = np.random.default_rng(1)
+    jx, tx = _both(rng, (3, 5, 64))
+    jw, tw = _both(rng, (64,))
+    _close(TF.rms_norm(tx, tw, 1e-5),
+           np.asarray(JF.rms_norm(jx, jw, 1e-5)))
+
+
+def test_rotary_freqs_match_jax():
+    from paddle_tpu.nn.functional.attention import rotary_freqs
+    jc, js = rotary_freqs(32, 64, base=500000.0)
+    tc, ts = TF.rotary_freqs(32, 64, base=500000.0)
+    # fp32 pow and cos/sin of angles up to 63 rad: a few ulp of 63
+    _close(tc, np.asarray(jc), atol=2e-5)
+    _close(ts, np.asarray(js), atol=2e-5)
+
+
+@pytest.mark.parametrize("offset", [0, 5, "rows"])
+def test_apply_rotary_emb_matches_jax(offset):
+    from paddle_tpu.nn.functional.attention import (apply_rotary_emb,
+                                                    rotary_freqs)
+    rng = np.random.default_rng(2)
+    jx, tx = _both(rng, (3, 4, 2, 16))
+    cos, sin = rotary_freqs(16, 32)
+    tcos, tsin = torch.from_numpy(np.array(cos)), \
+        torch.from_numpy(np.array(sin))
+    if offset == "rows":
+        off = np.asarray([0, 7, 28], np.int32)
+        joff, toff = jnp.asarray(off), torch.from_numpy(off)
+    else:
+        joff = toff = offset
+    ref = apply_rotary_emb(jx, cos, sin, joff)
+    got = TF.apply_rotary_emb(tx, tcos, tsin, toff)
+    _close(got, np.asarray(ref))
+
+
+@pytest.mark.parametrize("offset", [29, "rows"])
+def test_apply_rotary_emb_raises_past_the_table(offset):
+    """The JAX package clamps per-row positions past the table
+    (attention.py:246); the port refuses them, like the scalar form."""
+    x = torch.zeros(2, 4, 1, 8)
+    cos, sin = TF.rotary_freqs(8, 32)
+    off = torch.tensor([0, 29], dtype=torch.int32) if offset == "rows" \
+        else offset
+    with pytest.raises(ValueError, match="RoPE table overflow"):
+        TF.apply_rotary_emb(x, cos, sin, off)
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa_causal", "bool_mask",
+                                  "additive_mask"])
+def test_sdpa_matches_jax_reference(case):
+    from paddle_tpu.nn.functional.attention import _sdpa_reference
+    rng = np.random.default_rng(3)
+    kvh = 2 if case == "gqa_causal" else 4
+    jq, tq = _both(rng, (2, 5, 4, 16))
+    jk, tk = _both(rng, (2, 7, kvh, 16))
+    jv, tv = _both(rng, (2, 7, kvh, 16))
+    jm = tm = None
+    if case == "bool_mask":
+        m = rng.random((2, 1, 5, 7)) > 0.3
+        m[..., 0] = True
+        jm, tm = jnp.asarray(m), torch.from_numpy(m)
+    elif case == "additive_mask":
+        jm, tm = _both(rng, (2, 1, 5, 7))
+    causal = case in ("causal", "gqa_causal")
+    ref = _sdpa_reference(jq, jk, jv, jm, is_causal=causal)
+    got = TF.scaled_dot_product_attention(tq, tk, tv, attn_mask=tm,
+                                          is_causal=causal)
+    _close(got, np.asarray(ref))
+
+
+# -- the package boundary ------------------------------------------------------
+
+def test_package_imports_neither_jax_nor_paddle_tpu():
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch\n"
+        "import paddle_tpu_torch.models, paddle_tpu_torch.inference\n"
+        "import paddle_tpu_torch.ops.kernels\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
+        "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
