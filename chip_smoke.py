@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (kernels two: the serving rows and
+the training rows; serve and train one more each, for a profiled
+window):
 
 1. env      versions, the card, TF32 switched off for fp32 references.
 2. build    nvcc builds the port's CUDA kernels from ``paddle_tpu_torch/
@@ -15,17 +17,31 @@ Phases, each printing one JSON line:
             held against its plain PyTorch version in bf16 and fp32, and
             timed with CUDA events beside the plain version, one PyTorch
             library call computing the same function, and its bound.
+            The training slice's kernels at its own shapes (b=4,
+            s=2048, 32/8 heads, head_dim 128, causal): flash attention
+            forward, dq and dk/dv in bf16 (fp32 at b=1), each bf16 row
+            within its own limit (FLASH_TOL), and the QKV kernel's
+            training variant and the MLP kernel pair at T = 8192.
 4. parity   a 2-layer model at full Llama-3-8B width (bf16, seeded random
             weights) on the card against the same weights through the
             plain path (the CPU, fp32): the last prefill chunk's logits
             within a stated tolerance, and 8 greedy tokens.
-5. serve    the full 32-layer Llama-3-8B in bf16 (random weights from a
+5. train_parity  a 1-layer model at full width (vocab cut to 32000),
+            fp32, b=1, s=256 (flash routes): loss and every parameter's
+            gradient on the card against the CPU's plain path.
+6. serve    the full 32-layer Llama-3-8B in bf16 (random weights from a
             seeded generator) behind the paged ContinuousBatchingEngine:
             8 requests, prompts of 64..700 tokens, 32 new tokens each.
-            Every request must end "ok" with 32 tokens, and every kernel's
-            launch count must have grown during this run.  Then a short
-            window under torch.profiler: device time by kernel and the
-            device's busy share.
+            Every request must end "ok" with 32 tokens, and every serving
+            kernel's launch count must have grown during this run.  Then
+            a short window under torch.profiler: device time by kernel
+            and the device's busy share.
+7. train    4 layers at Llama-3-8B width in bf16, TrainStep with
+            AdamW(learning_rate=1e-4, multi_precision=True) and the
+            non-finite guard, b=4, s=2048, one fixed random batch: 1
+            warm-up and 5 timed steps.  Every loss finite, the last below
+            the first, no step skipped, every training kernel launched.
+            Then one step under torch.profiler.
 
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -49,6 +65,14 @@ EPS = 1e-5
 # only; bf16 outputs carry a final bf16 rounding (2^-8 relative) of fp32
 # sums taken in another order, and bf16-rounded intermediates (xn, h)
 TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (3e-2, 3e-2)}
+# the flash rows' bf16 limits, (atol, rtol).  Each output is a bf16
+# rounding of an fp32 sum, so kernel and plain version may differ by one
+# bf16 step, at most 2^-7 of the value; atol covers the P and dS
+# roundings that the kernel's running max and summation order move.
+# fwd and dq values are small (a causal row over n keys has |out| ~
+# sqrt(e/n), 0.035 median at s=2048); dk and dv reach ~8.
+FLASH_TOL = {"fwd": (4e-3, 2 ** -7), "dq": (4e-3, 2 ** -7),
+             "dkv": (8e-3, 2 ** -7)}
 
 
 def emit(phase, **kw):
@@ -93,18 +117,26 @@ def bound_ms(nbytes, flops):
     return max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
-def check_close(what, got, ref, dtype):
-    atol, rtol = TOL[dtype]
+def check_close(what, got, ref, dtype, tol=None, used=None):
+    """Max abs error of `got` against `ref`, raising where an element is
+    outside atol + rtol |ref| (`tol`, else TOL[dtype]); with a dict
+    `used`, records under `what` the largest share of its limit that an
+    element takes."""
+    atol, rtol = tol or TOL[dtype]
     torch.cuda.synchronize()
     g, r = got.float(), ref.float()
-    err = float((g - r).abs().max())
+    diff = (g - r).abs()
+    err = float(diff.max())
     if not torch.isfinite(g).all():
         raise AssertionError(f"{what}: non-finite kernel output")
-    bad = (g - r).abs() > atol + rtol * r.abs()
+    limit = atol + rtol * r.abs()
+    bad = diff > limit
     if bool(bad.any()):
         raise AssertionError(f"{what} [{dtype}]: {int(bad.sum())} elements "
                              f"outside atol={atol} rtol={rtol}; max abs "
                              f"err {err}")
+    if used is not None:
+        used[what] = float((diff / limit).max())
     return err
 
 
@@ -145,7 +177,9 @@ def kernel_qkv(FB, dev, timer, T):
     return out
 
 
-def kernel_mlp(FB, dev, timer, T):
+def kernel_mlp(FB, dev, timer, T, plain_iters=10):
+    """The gated MLP kernel pair at T rows: 8 and 256 serve, and the
+    train step's T = b * s = 8192 runs the same pair in its forward."""
     g = torch.Generator(device=dev).manual_seed(100 + T)
     errs, out = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -159,7 +193,8 @@ def kernel_mlp(FB, dev, timer, T):
         del got
     F_ = torch.nn.functional
     out["ms"] = timer(lambda: FB.fused_mlp(x, wg, wu, wd))
-    out["plain_ms"] = timer(lambda: FB.mlp_reference(x, wg, wu, wd))
+    out["plain_ms"] = timer(lambda: FB.mlp_reference(x, wg, wu, wd),
+                            iters=plain_iters)
     out["library_ms"] = timer(lambda: (F_.silu(x @ wg) * (x @ wu)) @ wd)
     out["bound_ms"], out["bound_by"] = bound_ms(
         2 * (2 * T * D + 3 * D * F), 6 * T * D * F)
@@ -167,6 +202,7 @@ def kernel_mlp(FB, dev, timer, T):
     out["max_abs_err_fp32"] = errs[str(torch.float32)]
     # the two-launch design's extra traffic: h written, then read back
     out["workspace_bytes"] = 2 * T * F * 2
+    out["shape"] = f"T={T} d={D} f={F} bf16"
     return out
 
 
@@ -214,6 +250,156 @@ def kernel_paged(PA, dev, timer):
     return out
 
 
+# -- phase 3, training rows: flash attention and the QKV train variant -------
+
+FB_, FS, FH, FHK, FD = 4, 2048, 32, 8, 128       # the train step's attention
+
+
+def flash_bounds(b):
+    """(fwd, dq, dkv) (bytes, flops) of causal attention at the train
+    shapes: each input read once, each output written once; a causal
+    product is half the dense one, 2 b h s^2 d / 2 FLOPs."""
+    q = b * FS * FH * FD * 2
+    kv = b * FS * FHK * FD * 2
+    stat = b * FH * FS * 4
+    prod = 2 * b * FH * FS * FS * FD // 2
+    return ((q + 2 * kv + q + stat, 2 * prod),
+            (q + 2 * kv + q + 2 * stat + q, 3 * prod),
+            (q + 2 * kv + q + 2 * stat + 2 * kv, 4 * prod))
+
+
+def kernel_flash(FA, dev, timer):
+    """The three flash kernels against their plain versions (bf16 at
+    b=4, fp32 at b=1), then timed in bf16 beside the plain versions and
+    F.scaled_dot_product_attention (forward; its autograd backward for
+    the two backward rows)."""
+    F_ = torch.nn.functional
+    errs, used = {}, {}
+    for dtype, b in ((torch.float32, 1), (torch.bfloat16, FB_)):
+        g = torch.Generator(device=dev).manual_seed(11)
+        q = rand(g, (b, FS, FH, FD), dtype, dev)
+        k = rand(g, (b, FS, FHK, FD), dtype, dev)
+        v = rand(g, (b, FS, FHK, FD), dtype, dev)
+        do = rand(g, (b, FS, FH, FD), dtype, dev)
+
+        def close(what, got, ref, row):
+            if dtype != torch.bfloat16:
+                return check_close(what, got, ref, dtype)
+            return check_close(what, got, ref, dtype, FLASH_TOL[row],
+                               used.setdefault(row, {}))
+
+        out, lse = FA.flash_attention_fwd(q, k, v, True)
+        ref, ref_lse = FA.flash_fwd_reference(q, k, v, True)
+        e_out = close("flash_attention_fwd", out, ref, "fwd")
+        check_close("flash_attention_fwd lse", lse, ref_lse, torch.float32)
+        del ref, ref_lse
+        delta = FA.flash_delta(out, do)
+        dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
+        dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+        rdq, rdk, rdv = FA.flash_bwd_reference(q, k, v, do, lse, delta, True)
+        errs[dtype] = {
+            "flash_attention_fwd": e_out,
+            "flash_attention_bwd_dq": close("flash_attention_bwd_dq",
+                                            dq, rdq, "dq"),
+            "flash_attention_bwd_dkv": max(
+                close("flash_attention_bwd_dk", dk, rdk, "dkv"),
+                close("flash_attention_bwd_dv", dv, rdv, "dkv"))}
+        del dq, dk, dv, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    # q..delta are the bf16 b=4 tensors now
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_in = [t.detach().clone().requires_grad_(True) for t in (qt, kt, vt)]
+    lib_out = F_.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                              enable_gqa=True)
+    do_t = do.transpose(1, 2)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, lib_in, do_t, retain_graph=True)
+
+    lib_bwd_ms = timer(lib_bwd)
+    res = {}
+    bounds = flash_bounds(FB_)
+    calls = {
+        "flash_attention_fwd": (
+            lambda: FA.flash_attention_fwd(q, k, v, True),
+            lambda: FA.flash_fwd_reference(q, k, v, True),
+            timer(lambda: F_.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))),
+        "flash_attention_bwd_dq": (
+            lambda: FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+            lambda: FA.flash_bwd_reference(q, k, v, do, lse, delta, True),
+            lib_bwd_ms),
+        "flash_attention_bwd_dkv": (
+            lambda: FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               True),
+            lambda: FA.flash_bwd_reference(q, k, v, do, lse, delta, True),
+            lib_bwd_ms),
+    }
+    for (name, (kern, plain, lib_ms)), (nbytes, flops) in zip(calls.items(),
+                                                               bounds):
+        out = {"ms": timer(kern), "plain_ms": timer(plain, iters=3,
+                                                    warmup=1),
+               "library_ms": lib_ms}
+        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
+        out["max_abs_err"] = errs[torch.bfloat16][name]
+        out["max_abs_err_fp32"] = errs[torch.float32][name]
+        row = name.rsplit("_", 1)[-1]
+        out["tolerance_bf16"] = dict(zip(("atol", "rtol"), FLASH_TOL[row]))
+        out["limit_used_bf16"] = used[row]
+        out["flops"] = flops
+        out["shape"] = (f"b={FB_} s={FS} h={FH} hk={FHK} d={FD} causal "
+                        "bf16")
+        res[name] = out
+        torch.cuda.empty_cache()
+    res["flash_attention_fwd"]["library"] = \
+        "F.scaled_dot_product_attention(enable_gqa=True)"
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        res[name]["library"] = ("autograd backward of "
+                                "F.scaled_dot_product_attention (dq, dk "
+                                "and dv together)")
+    del lib_out, lib_in
+    torch.cuda.empty_cache()
+    return res
+
+
+def kernel_qkv_train(FB, dev, timer, T=8192):
+    """The QKV kernel's training variant (q, k, v, xn, inv) at the
+    train step's T = b * s rows."""
+    g = torch.Generator(device=dev).manual_seed(T + 1)
+    errs, out = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = rand(g, (T, D), dtype, dev)
+        wn = rand(g, (D,), dtype, dev, 0.1) + 1
+        s = (2.0 / (D + DQ)) ** 0.5
+        wq = rand(g, (D, DQ), dtype, dev, s)
+        wk = rand(g, (D, DKV), dtype, dev, s)
+        wv = rand(g, (D, DKV), dtype, dev, s)
+        got = FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, EPS, residuals=True)
+        ref = FB.qkv_reference(x, wn, wq, wk, wv, EPS, residuals=True)
+        errs[dtype] = max(check_close(f"fused_rmsnorm_qkv train {n}", a, b_,
+                                      dtype if n != "inv" else torch.float32)
+                          for n, a, b_ in zip(("q", "k", "v", "xn", "inv"),
+                                              got, ref))
+        del got, ref
+    F_ = torch.nn.functional
+    out["ms"] = timer(lambda: FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, EPS,
+                                                   residuals=True))
+    out["plain_ms"] = timer(lambda: FB.qkv_reference(
+        x, wn, wq, wk, wv, EPS, residuals=True), iters=3, warmup=1)
+
+    def library():
+        xn = F_.rms_norm(x, (D,), wn, EPS)
+        return xn @ wq, xn @ wk, xn @ wv
+    out["library_ms"] = timer(library)
+    n = DQ + 2 * DKV
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        2 * (T * D + D + D * n + T * n + T * D) + 4 * T, 2 * T * D * n)
+    out["max_abs_err"] = errs[torch.bfloat16]
+    out["max_abs_err_fp32"] = errs[torch.float32]
+    out["shape"] = f"T={T} d={D} dq={DQ} dkv={DKV} bf16"
+    return out
+
+
 # -- phase 4: full-width parity against the plain path -----------------------
 
 def drive(model, prompt, chunk, n_new):
@@ -226,7 +412,7 @@ def drive(model, prompt, chunk, n_new):
     bs, mb = 16, 64
     pool = PagedKVPool(cfg.num_hidden_layers, 1 + mb, bs,
                        cfg.num_key_value_heads, cfg.head_dim,
-                       next(model.parameters()).dtype, dev)
+                       model.parameters()[0].dtype, dev)
     bt = torch.arange(1, 1 + mb, dtype=torch.int32, device=dev)[None]
     caches = [PagedCache(k, v, bt) for k, v in zip(pool.kpools, pool.vpools)]
 
@@ -279,7 +465,64 @@ def parity(dev):
     del card, host
 
 
-# -- phase 5: serve the full model -------------------------------------------
+# -- phase 5: the training step at full width against the plain path --------
+
+def train_parity(dev):
+    """Loss and every gradient of a 1-layer full-width model (vocab cut
+    to 32000), fp32 with TF32 off, b=1, s=256: the card (flash, QKV train
+    variant, MLP kernels) against the same weights on the CPU (plain
+    versions)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers, cfg.vocab_size, cfg.dtype = 1, 32000, "float32"
+    seed(2)
+    card = LlamaForCausalLM(cfg, device=dev)
+    host = LlamaForCausalLM(cfg, device="cpu")
+    host.set_state_dict({k: v.cpu().numpy()
+                         for k, v in card.state_dict().items()})
+    ids = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 257))
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    losses, grads = [], []
+    for model in (card, host):
+        x = torch.as_tensor(ids[:, :-1]).to(model.device)
+        y = torch.as_tensor(ids[:, 1:]).to(model.device)
+        loss = model.loss(x, y)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    launched = {fn.__name__: fn.launches for fn in kernels.TRAINING}
+    if not all(launched.values()):
+        raise AssertionError(f"train_parity: kernels not launched "
+                             f"{launched}")
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    if not rel <= 1e-4:
+        raise AssertionError(f"train_parity: loss {losses[0]} vs plain "
+                             f"{losses[1]} (rel {rel})")
+    # fp32 on both sides, sums taken in other orders (up to 14336 terms
+    # per product, through attention and the chunked CE): 1e-3 of each
+    # gradient's largest magnitude
+    worst = {}
+    for n, ref in grads[1].items():
+        got = grads[0][n].cpu()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        if not torch.isfinite(got).all() or err > 1e-3 * scale + 1e-12:
+            raise AssertionError(f"train_parity: grad {n} max abs err {err} "
+                                 f"> 1e-3 * {scale}")
+        worst[n] = err / scale if scale else 0.0
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    emit("train_parity", layers=1, vocab=cfg.vocab_size, batch=1, seq=256,
+         dtype="float32", loss=losses[0], plain_loss=losses[1],
+         loss_rel_err=rel, grad_tolerance="1e-3 of each grad's max |g|",
+         worst_grad_rel_err=dict(top), launches=launched,
+         seconds=time.perf_counter() - t0)
+    del card, host, grads
+
+
+# -- phase 6: serve the full model -------------------------------------------
 
 def serve(dev, kernels):
     from paddle_tpu_torch import seed
@@ -307,7 +550,7 @@ def serve(dev, kernels):
     out = eng.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    launches = {fn.__name__: fn.launches for fn in kernels.SERVING}
     for rid in rids:
         st = eng.request_status(rid)
         toks = out[rid][1]
@@ -364,6 +607,95 @@ def profile(eng, cfg, rng):
                "calls": e.count} for e in top])
 
 
+# -- phase 7: the training step ----------------------------------------------
+
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 4, 2048, 5
+
+
+def train(dev, kernels):
+    """The slice's main path: TrainStep(LlamaForCausalLM, AdamW) at
+    Llama-3-8B width, 4 layers, bf16, b=4, s=2048, one fixed batch."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = TRAIN_LAYERS
+    seed(0)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev)
+    opt = AdamW(learning_rate=1e-4, multi_precision=True)
+    step = TrainStep(model, opt, guard_nonfinite=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (TRAIN_B, TRAIN_S + 1))
+    batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+             "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+    t0 = time.perf_counter()
+    losses = [float(step(batch))]                  # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(batch)
+        losses.append(float(loss))      # the guard has synced already
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in kernels.TRAINING}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall {losses}")
+    if any(step.skipped.values()) or step.step_count != 1 + TRAIN_STEPS:
+        raise AssertionError(f"train: skipped steps {step.skipped}, "
+                             f"step_count {step.step_count}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"train: kernel {name} never launched")
+    dt = float(np.median(times))
+    tokens = TRAIN_B * TRAIN_S
+    # bench.py's formula: 6N + 12 L s d FLOPs per token over the bf16 peak
+    flops_tok = 6 * n_params + 12 * TRAIN_LAYERS * TRAIN_S * cfg.hidden_size
+    emit("train", layers=TRAIN_LAYERS, dtype=cfg.dtype, batch=TRAIN_B,
+         seq=TRAIN_S, params=n_params, optimizer="AdamW(lr=1e-4, "
+         "multi_precision=True)", model_build_s=build_s, warmup_s=warm_s,
+         step_s=times, step_s_median=dt, tokens_per_s=tokens / dt,
+         mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S,
+         peak_mem_gb=peak, losses=losses,
+         launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()})
+    train_profile(step, batch)
+    return launches
+
+
+def train_profile(step, batch):
+    """One more step under torch.profiler: the device's busy share of
+    the step's wall time and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:15]
+    emit("train_profile", steps=1, wall_s=wall,
+         device_busy_s=busy_us / 1e6 if kern else None,
+         device_busy_share=busy_us / 1e6 / wall if kern else None,
+         top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3,
+               "calls": e.count} for e in top])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -371,6 +703,7 @@ def main():
     # the port itself: an ImportError here (script copied alone) is fatal
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import fused_block as FB
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
@@ -396,12 +729,22 @@ def main():
            "paged_decode_attention": {8: kernel_paged(PA, dev, timer)}}
     emit("kernels", results={k: {str(t): v for t, v in r.items()}
                              for k, r in res.items()})
+    train_rows = kernel_flash(FA, dev, timer)
+    train_rows["fused_rmsnorm_qkv_train"] = kernel_qkv_train(FB, dev, timer)
+    train_rows["fused_mlp_train"] = kernel_mlp(FB, dev, timer,
+                                               TRAIN_B * TRAIN_S,
+                                               plain_iters=3)
+    emit("kernels_train", results=train_rows)
     del timer
     torch.cuda.empty_cache()
 
     parity(dev)
     torch.cuda.empty_cache()
+    train_parity(dev)
+    torch.cuda.empty_cache()
     launches = serve(dev, kernels)
+    torch.cuda.empty_cache()
+    train_launches = train(dev, kernels)
 
     where = {
         "fused_rmsnorm_qkv": ("paddle_tpu_torch/ops/kernels/csrc/"
@@ -425,6 +768,29 @@ def main():
         if 256 in by_t:
             entry["prefill_T256"] = {k: by_t[256][k] for k in keys}
         line.append(entry)
+    flash_src = "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
+    train_where = {
+        "flash_attention_fwd": (
+            flash_src, "paddle_tpu/ops/pallas/flash_attention.py:71"),
+        "flash_attention_bwd_dq": (
+            flash_src, "paddle_tpu/ops/pallas/flash_attention.py:192"),
+        "flash_attention_bwd_dkv": (
+            flash_src, "paddle_tpu/ops/pallas/flash_attention.py:242"),
+        "fused_rmsnorm_qkv_train": (
+            "paddle_tpu_torch/ops/kernels/csrc/fused_block.cu",
+            "paddle_tpu/ops/pallas/fused_block.py:249"),
+        "fused_mlp_train": (
+            "paddle_tpu_torch/ops/kernels/csrc/fused_block.cu",
+            "paddle_tpu/ops/pallas/fused_block.py:494"),
+    }
+    for name, (src, rep) in train_where.items():
+        row = train_rows[name]
+        wrapper = name.removesuffix("_train")
+        line.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep,
+                     "launches": train_launches[wrapper],
+                     **{k: row[k] for k in keys}, "shape": row["shape"],
+                     "path": "train"})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

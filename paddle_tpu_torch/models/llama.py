@@ -9,10 +9,13 @@ decoder layer runs
 
 where the two fused functions launch their CUDA kernels for CUDA tensors
 at every row count (the TPU package routes them only where Mosaic can
-tile the shape) and take their plain versions on the CPU.  The RoPE
-tables stay fp32 in a bf16 model.  Training (``loss``), ``generate``,
-the whole-block decoder kernel and ``partition_specs`` come with later
-slices of the port."""
+tile the shape) and take their plain versions on the CPU.  The dense
+(no-cache) attention reaches the flash-attention kernels on CUDA for
+eligible shapes.  Under autograd the fused functions and flash attention
+run their custom VJPs, so ``loss`` trains through the same kernels.  The
+RoPE tables stay fp32 in a bf16 model.  ``generate``, the whole-block
+decoder kernel and ``partition_specs`` come with later slices of the
+port."""
 
 from __future__ import annotations
 
@@ -238,3 +241,14 @@ class LlamaForCausalLM(Layer):
         if caches is not None:
             return logits, new_caches
         return logits
+
+    def loss(self, input_ids, labels):
+        """Next-token cross-entropy through the fused chunked lm-head +
+        CE (``models/llama.py:372-382``): the ``[T, V]`` fp32 logits are
+        never materialised whole."""
+        h = self.model(input_ids)
+        d = h.shape[-1]
+        w = self.model.embed_tokens.weight.t() if self.lm_head is None \
+            else self.lm_head.weight
+        return F.fused_linear_cross_entropy(h.reshape(-1, d), w,
+                                            labels.reshape(-1))

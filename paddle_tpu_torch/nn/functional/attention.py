@@ -1,13 +1,17 @@
 """Attention functionals (``paddle_tpu/nn/functional/attention.py``).
 
 Layout is the JAX package's: ``[batch, seq, num_heads, head_dim]``.
-``scaled_dot_product_attention`` runs the plain reference in torch ops
-(``matmul`` and ``softmax``); routing to a flash kernel comes with the
-port of the flash-attention kernels."""
+``scaled_dot_product_attention`` routes CUDA tensors of the shapes the
+JAX package sends to its flash kernel (``attention.py:55-132``) to the
+port's flash-attention kernels, whose backward is a kernel too; every
+other call, and every call on the CPU, takes the plain reference in
+torch ops (``matmul`` and ``softmax``)."""
 
 from __future__ import annotations
 
 import torch
+
+from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention
 
 __all__ = ["scaled_dot_product_attention", "rotary_freqs",
            "apply_rotary_emb"]
@@ -41,10 +45,39 @@ def _sdpa_reference(q, k, v, attn_mask=None, is_causal=False, scale=None):
     return torch.matmul(probs, vt).transpose(1, 2)
 
 
+def _flash_eligible(query, head_dim):
+    """``_use_pallas`` on the card: a CUDA tensor, lane-aligned head_dim
+    and a block-aligned sequence (seq >= 128, seq % 128 == 0)."""
+    s = query.shape[1]
+    return query.device.type == "cuda" and head_dim % 128 == 0 and \
+        s >= 128 and s % 128 == 0
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal=False, scale=None):
     """``softmax(q k^T * scale + mask) v`` over ``[b, s, h, d]`` inputs;
-    a boolean mask keeps True positions, a float mask is added."""
+    a boolean mask keeps True positions, a float mask is added.
+
+    With no mask, ``sq == sk`` and an eligible shape a CUDA tensor goes
+    through flash attention (heads a multiple of kv heads, KV never
+    repeated).  head_dim 32 or 64 at seq >= 1024 is zero-padded to 128
+    and sliced back (exact: the pad adds nothing to q k^T or p v, and the
+    scale keeps the true head_dim)."""
+    hd = query.shape[-1]
+    same = attn_mask is None and query.shape[1] == key.shape[1]
+    if same and hd in (32, 64) and query.shape[1] >= 1024 and \
+            _flash_eligible(query, 128):
+        pad = (0, 128 - hd)
+        qp, kp, vp = (torch.nn.functional.pad(t, pad)
+                      for t in (query, key, value))
+        out = flash_attention(qp, kp, vp, causal=is_causal,
+                              scale=scale if scale is not None
+                              else hd ** -0.5)
+        return out[..., :hd]
+    if same and _flash_eligible(query, hd):
+        # no try/except: a failed build or launch surfaces
+        return flash_attention(query, key, value, causal=is_causal,
+                               scale=scale)
     return _sdpa_reference(query, key, value, attn_mask, is_causal, scale)
 
 

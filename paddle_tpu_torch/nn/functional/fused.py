@@ -1,8 +1,44 @@
 """Fused-block functionals (``paddle_tpu/nn/functional/fused.py``): the
-public names of the fused RMSNorm+QKV and SwiGLU MLP kernels, whose
-wrappers live in ``ops/kernels/fused_block.py``."""
+fused RMSNorm+QKV and SwiGLU MLP, differentiable.
 
-from paddle_tpu_torch.ops.kernels.fused_block import (fused_mlp,
-                                                      fused_rmsnorm_qkv)
+Where autograd needs a gradient (grad mode on and an input that requires
+one) the call goes through the custom VJP, whose forward launches the
+QKV kernel's training variant (``_qkv_fwd``); under ``inference_mode`` /
+``no_grad`` it is the forward-only launch (``_qkv_core``'s primal), as
+the JAX package chooses between them (``fused_block.py:359-383``).  The
+kernel wrappers live in ``ops/kernels/fused_block.py``."""
+
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch.ops.kernels import fused_block as _FB
 
 __all__ = ["fused_rmsnorm_qkv", "fused_mlp"]
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5):
+    """``q, k, v = (rmsnorm(x) * norm_weight) @ (wq | wk | wv)``; x
+    ``[..., d]``, weights ``[in, out]``.  Differentiable in every
+    tensor."""
+    if not _needs_grad(x, norm_weight, wq, wk, wv):
+        return _FB.fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon)
+    lead, d = x.shape[:-1], x.shape[-1]
+    q, k, v = _FB.FusedRMSNormQKV.apply(x.reshape(-1, d), norm_weight, wq,
+                                        wk, wv, float(epsilon))
+    return (q.reshape(*lead, -1), k.reshape(*lead, -1),
+            v.reshape(*lead, -1))
+
+
+def fused_mlp(x, w_gate, w_up, w_down):
+    """``(silu(x @ w_gate) * (x @ w_up)) @ w_down`` (SwiGLU); x
+    ``[..., d]``.  Differentiable in every tensor."""
+    if not _needs_grad(x, w_gate, w_up, w_down):
+        return _FB.fused_mlp(x, w_gate, w_up, w_down)
+    d = x.shape[-1]
+    y = _FB.FusedMLP.apply(x.reshape(-1, d), w_gate, w_up, w_down)
+    return y.reshape(x.shape)

@@ -37,8 +37,9 @@ class Layer(nn.Module):
 
     ``dtype`` is the parameter dtype new parameters are created in and
     ``device`` where they live (CPU when not given: the models resolve
-    their device once and hand it down).  Parameters are created without
-    gradients: this slice of the port serves; training comes later."""
+    their device once and hand it down).  Parameters are trainable
+    (``requires_grad=True``); serving runs under ``torch.inference_mode``
+    and builds no graph."""
 
     def __init__(self, dtype="float32", device=None):
         super().__init__()
@@ -68,7 +69,20 @@ class Layer(nn.Module):
         if init is None:
             init = I.Constant(0.0) if is_bias else I.XavierNormal()
         data = init(shape, dtype or self._dtype, self._device)
-        return nn.Parameter(data, requires_grad=False)
+        return nn.Parameter(data, requires_grad=True)
+
+    # -- parameters ----------------------------------------------------------
+    def parameters(self, recurse: bool = True):
+        """The parameters as a list (the JAX package's return type), in
+        state-dict order: what an optimizer walks.  ``recurse`` is the
+        JAX package's ``include_sublayers``, under torch's name, which
+        torch's own callers pass."""
+        return [p for _, p in self.named_parameters(recurse=recurse)]
+
+    def clear_gradients(self):
+        """Drop every parameter's gradient."""
+        for p in self.parameters():
+            p.grad = None
 
     # -- state ---------------------------------------------------------------
     def set_state_dict(self, state_dict: Dict[str, np.ndarray]):

@@ -30,7 +30,7 @@ __all__ = ["library", "build_all", "check", "stream_of", "DTYPE_CODES",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fused_block", "paged_attention")
+SOURCES = ("fused_block", "paged_attention", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of the C interface (csrc/common.cuh, enum DType)
@@ -42,14 +42,22 @@ _F = ctypes.c_float
 # argtypes of every exported function, by library
 _SIGNATURES = {
     "fused_block": {
-        "ptt_rmsnorm_qkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _F, _P],
+        "ptt_rmsnorm_qkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _F, _P],
         "ptt_mlp_gate_up": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
         "ptt_matmul": [_I, _P, _P, _P, _I, _I, _I, _P],
     },
     "paged_attention": {
         "ptt_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _P],
+    },
+    "flash_attention": {
+        "ptt_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                          _P],
+        "ptt_flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _F, _I, _P],
+        "ptt_flash_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _F, _I, _P],
     },
 }
 

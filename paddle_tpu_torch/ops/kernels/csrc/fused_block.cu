@@ -12,7 +12,12 @@
 //               type (the cast point of _qkv_reference, fused_block.py:348),
 //               so the normalised activations never exist in device memory.
 //               The grid's columns walk the concatenation q | k | v; each
-//               column tile lies inside one of the three.
+//               column tile lies inside one of the three.  The training
+//               variant (non-null xn / inv) also writes the normalised rows
+//               xn [T, d] in x's type and the fp32 inverse RMS [T], the
+//               residuals of _qkv_fwd (fused_block.py:371-383); only the
+//               blocks of the first column tile store them, so each row is
+//               written once.
 //   MODE_GATEUP A = x, two weight tiles (gate, up) per k step; the epilogue
 //               writes h = silu(x @ Wg) * (x @ Wu) cast to the io type, which
 //               is the TPU kernel's cast of h to Wd's type (fused_block.py:526).
@@ -68,6 +73,8 @@ struct GemmArgs {
   int T, K;
   int n0, n1;       // QKV: dq, dkv; otherwise n0 = N
   float eps;
+  void* xn = nullptr;     // QKV training variant: normalised rows [T, K]
+  float* inv = nullptr;   // QKV training variant: inverse RMS [T]
 };
 
 template <typename T>
@@ -237,6 +244,18 @@ gemm_kernel(GemmArgs g) {
         as[r * LDA + c] = ptt::from_f<T>(xn);
       }
       __syncthreads();
+      if (g.xn != nullptr && blockIdx.x == 0) {
+        // training variant: the first column tile stores this k slice of
+        // the normalised rows (16-byte copies) and, once, the inverse RMS
+        T* xg = static_cast<T*>(g.xn) + (size_t)m0 * K + kt * BK;
+        for (int e = tid; e < rows * (BK / VEC); e += NT) {
+          int r = e / (BK / VEC), c = (e % (BK / VEC)) * VEC;
+          *reinterpret_cast<uint4*>(xg + (size_t)r * K + c) =
+              *reinterpret_cast<const uint4*>(as + r * LDA + c);
+        }
+        if (kt == 0)
+          for (int r = tid; r < rows; r += NT) g.inv[m0 + r] = s_inv[r];
+      }
     }
     if constexpr (TC) {
 #pragma unroll
@@ -371,12 +390,18 @@ int launch(int dtype, const GemmArgs& g, int ncols, void* stream) {
 extern "C" {
 
 // q, k, v = (rmsnorm(x) * wn) @ (wq | wk | wv); x [T, d], wq [d, dq],
-// wk/wv [d, dkv]; outputs row-major [T, dq], [T, dkv], [T, dkv].
+// wk/wv [d, dkv]; outputs row-major [T, dq], [T, dkv], [T, dkv].  With
+// non-null xn [T, d] (x's type) and inv [T] (fp32) the training variant
+// also writes the normalised rows and the inverse RMS.
 int ptt_rmsnorm_qkv(int dtype, const void* x, const void* wn, const void* wq,
                     const void* wk, const void* wv, void* q, void* k, void* v,
-                    int T, int d, int dq, int dkv, float eps, void* stream) {
-  if (dq % BN != 0 || dkv % BN != 0) return (int)cudaErrorInvalidValue;
+                    void* xn, void* inv, int T, int d, int dq, int dkv,
+                    float eps, void* stream) {
+  if (dq % BN != 0 || dkv % BN != 0 || (xn == nullptr) != (inv == nullptr))
+    return (int)cudaErrorInvalidValue;
   GemmArgs g{x, wq, wk, wv, wn, q, k, v, T, d, dq, dkv, eps};
+  g.xn = xn;
+  g.inv = static_cast<float*>(inv);
   return launch<MODE_QKV>(dtype, g, dq + 2 * dkv, stream);
 }
 

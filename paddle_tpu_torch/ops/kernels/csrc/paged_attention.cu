@@ -27,8 +27,9 @@
 // with few operations per byte).  This version keeps one block per
 // (row, kv head) - 64 blocks at B = 8, kv_heads = 8, fewer than the 132 SMs -
 // and walks the sequence serially; splitting long rows across blocks
-// (flash-decoding) is later work.  Probabilities stay fp32 in the p * V
-// product, where the TPU kernel casts them to V's type.
+// (flash-decoding) is later work.  The unnormalised probabilities are
+// rounded to V's type before the p * V product and summed unrounded, as
+// the TPU kernel does (paged_attention.py:129-133).
 #include "common.cuh"
 
 namespace {
@@ -117,7 +118,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       float sum = 0.f;
       for (int t = lane; t < ntok; t += 32) {
         const float p = expf(pg[t] - m_new);
-        pg[t] = p;
+        pg[t] = ptt::to_f(ptt::from_f<T>(p));   // p.astype(v.dtype)
         sum += p;
       }
       sum = ptt::warp_sum(sum);

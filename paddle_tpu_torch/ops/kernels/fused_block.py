@@ -2,10 +2,15 @@
 in ``csrc/fused_block.cu`` and their plain PyTorch versions.
 
 Counterparts of ``paddle_tpu/ops/pallas/fused_block.py``:
-``fused_rmsnorm_qkv`` replaces ``_qkv_kernel`` (forward-only variant)
-and ``fused_mlp`` replaces ``_mlp_kernel`` (gated silu).  A tensor on
-the CPU takes the plain version; a CUDA tensor launches the kernel or
-raises.  There is no fallback between the two.
+``fused_rmsnorm_qkv`` replaces ``_qkv_kernel`` (the forward-only variant,
+and with ``residuals=True`` the training variant that also emits
+``(xn, inv)``) and ``fused_mlp`` replaces ``_mlp_kernel`` (gated silu).
+``FusedRMSNormQKV`` and ``FusedMLP`` are the custom VJPs around them
+(``_qkv_fwd``/``_qkv_bwd``, ``_mlp_gated_fwd``/``_mlp_gated_bwd``); their
+backward passes are plain matrix products, as in the JAX package, where
+they run outside any Pallas kernel.  A tensor on the CPU takes the plain
+version; a CUDA tensor launches the kernel or raises.  There is no
+fallback between the two.
 
 The TPU kernels route only where Mosaic can tile the shape
 (``fused_qkv_eligible``: rows a multiple of 8/16); the CUDA kernels mask
@@ -24,15 +29,17 @@ import torch
 from paddle_tpu_torch.ops.kernels import _build
 
 __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "qkv_reference",
-           "mlp_reference"]
+           "mlp_reference", "FusedRMSNormQKV", "FusedMLP"]
 
 
 # -- plain versions (the CPU path and the kernels' reference) ---------------
 
-def qkv_reference(x, norm_weight, wq, wk, wv, epsilon=1e-5):
+def qkv_reference(x, norm_weight, wq, wk, wv, epsilon=1e-5,
+                  residuals=False):
     """``_qkv_reference`` (``fused_block.py:345-356``): fp32 statistics,
     xn cast to x's dtype before the products, fp32 accumulation, outputs
-    in x's dtype."""
+    in x's dtype.  ``residuals`` adds ``xn`` (x's dtype) and ``inv``
+    (``[..., 1]`` fp32)."""
     xf = x.float()
     inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + epsilon)
     xn = ((xf * inv) * norm_weight.float()).to(x.dtype)
@@ -40,7 +47,8 @@ def qkv_reference(x, norm_weight, wq, wk, wv, epsilon=1e-5):
     def proj(w):
         return torch.matmul(xn.float(), w.float()).to(x.dtype)
 
-    return proj(wq), proj(wk), proj(wv)
+    out = (proj(wq), proj(wk), proj(wv))
+    return out + (xn, inv) if residuals else out
 
 
 def mlp_reference(x, w_gate, w_up, w_down):
@@ -77,14 +85,17 @@ def _check_width(what, **dims):
             raise ValueError(f"{what}: {name}={n} must be a multiple of 64")
 
 
-def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5):
+def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
+                      residuals=False):
     """``q, k, v = (rmsnorm(x) * norm_weight) @ (wq | wk | wv)``.
 
     x ``[..., d]``; norm_weight ``[d]``; wq ``[d, dq]``; wk/wv
     ``[d, dkv]`` (``[in, out]``).  Returns projections with x's leading
-    dims, in x's dtype."""
+    dims, in x's dtype; with ``residuals`` also the normalised rows
+    ``xn`` (``[..., d]``, x's dtype) and the inverse RMS ``inv``
+    (``[..., 1]`` fp32) from the same launch (the training variant)."""
     if x.device.type == "cpu":
-        return qkv_reference(x, norm_weight, wq, wk, wv, epsilon)
+        return qkv_reference(x, norm_weight, wq, wk, wv, epsilon, residuals)
     what = "fused_rmsnorm_qkv"
     lead, d = x.shape[:-1], x.shape[-1]
     dq, dkv = wq.shape[1], wk.shape[1]
@@ -102,17 +113,26 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5):
     q = torch.empty((T, dq), dtype=x.dtype, device=x.device)
     k = torch.empty((T, dkv), dtype=x.dtype, device=x.device)
     v = torch.empty((T, dkv), dtype=x.dtype, device=x.device)
+    xn = inv = None
+    if residuals:
+        xn = torch.empty((T, d), dtype=x.dtype, device=x.device)
+        inv = torch.empty((T, 1), dtype=torch.float32, device=x.device)
     if T:
         lib = _build.library("fused_block")
         err = lib.ptt_rmsnorm_qkv(
             _build.DTYPE_CODES[x.dtype], x2.data_ptr(),
             norm_weight.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-            wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), T, d,
-            dq, dkv, float(epsilon), _build.stream_of(x))
+            wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            xn.data_ptr() if residuals else None,
+            inv.data_ptr() if residuals else None, T, d, dq, dkv,
+            float(epsilon), _build.stream_of(x))
         _build.check(lib, err, what)
         fused_rmsnorm_qkv.launches += 1
-    return (q.reshape(*lead, dq), k.reshape(*lead, dkv),
-            v.reshape(*lead, dkv))
+    out = (q.reshape(*lead, dq), k.reshape(*lead, dkv),
+           v.reshape(*lead, dkv))
+    if residuals:
+        out += (xn.reshape(*lead, d), inv.reshape(*lead, 1))
+    return out
 
 
 fused_rmsnorm_qkv.launches = 0
@@ -158,3 +178,72 @@ def fused_mlp(x, w_gate, w_up, w_down):
 
 
 fused_mlp.launches = 0
+
+
+# -- custom VJPs --------------------------------------------------------------
+
+class FusedRMSNormQKV(torch.autograd.Function):
+    """``_qkv_fwd`` / ``_qkv_bwd`` over ``[T, d]`` rows: the forward
+    launches the training variant, which also emits ``xn`` and ``inv``,
+    so the backward never recomputes the norm.  The backward keeps the
+    JAX package's precision: the dx products and their sum in the io
+    dtype, weight grads accumulated in fp32 and cast to the weight dtype,
+    the rmsnorm backward in fp32 from the saved ``inv``."""
+
+    @staticmethod
+    def forward(ctx, x2d, norm_weight, wq, wk, wv, epsilon):
+        q, k, v, xn, inv = fused_rmsnorm_qkv(x2d, norm_weight, wq, wk, wv,
+                                             epsilon, residuals=True)
+        ctx.save_for_backward(x2d, norm_weight, wq, wk, wv, xn, inv)
+        return q, k, v
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        x2d, wn, wq, wk, wv, xn, inv = ctx.saved_tensors
+        dt = x2d.dtype
+        dq, dk, dv = (g.to(dt) for g in (dq, dk, dv))
+        # products of io-dtype operands accumulate in fp32 and round once
+        # to the io dtype, as dot_general without preferred_element_type
+        dxn = (dq @ wq.t() + dk @ wk.t() + dv @ wv.t()).float()
+        dwq = (xn.t() @ dq).to(wq.dtype)
+        dwk = (xn.t() @ dk).to(wk.dtype)
+        dwv = (xn.t() @ dv).to(wv.dtype)
+        xf = x2d.float()
+        xhat = xf * inv
+        dwn = (dxn * xhat).sum(0).to(wn.dtype)
+        # rmsnorm backward: dx = inv * g - x * inv^3 * mean(g * x)
+        gx = dxn * wn.float()
+        dot = torch.mean(gx * xf, dim=-1, keepdim=True)
+        dx = (inv * gx - xf * inv ** 3 * dot).to(dt)
+        return dx, dwn, dwq, dwk, dwv, None
+
+
+class FusedMLP(torch.autograd.Function):
+    """``_mlp_gated_fwd`` / ``_mlp_gated_bwd`` over ``[T, d]`` rows: the
+    forward is the fused kernel pair; the backward recomputes the gate
+    and up products in the io dtype (fp32 accumulation), as the JAX
+    package does, instead of saving the ``[T, f]`` intermediates."""
+
+    @staticmethod
+    def forward(ctx, x2d, w_gate, w_up, w_down):
+        ctx.save_for_backward(x2d, w_gate, w_up, w_down)
+        return fused_mlp(x2d, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, wg, wu, wd = ctx.saved_tensors
+        dt = x2d.dtype
+        dy = dy.to(dt)
+        g = x2d @ wg                                   # recompute
+        u = x2d @ wu
+        sg = torch.sigmoid(g)
+        s = g * sg                                     # silu(g)
+        h = s * u
+        dh = dy @ wd.t()                               # [T, f]
+        dwd = (h.t() @ dy).to(wd.dtype)
+        du = dh * s
+        dg = ((dh * u) * (sg * (1 + g * (1 - sg)))).to(dt)   # silu'
+        dx = dg @ wg.t() + du @ wu.t()
+        dwg = (x2d.t() @ dg).to(wg.dtype)
+        dwu = (x2d.t() @ du).to(wu.dtype)
+        return dx.to(dt), dwg, dwu, dwd

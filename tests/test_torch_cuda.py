@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import fused_block as FB
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
@@ -146,4 +147,155 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
         res = eng.run()
         outs.append([res[r][1] for r in rids])
     assert outs[0] == outs[1]
-    assert all(fn.launches > 0 for fn in kernels.KERNELS)
+    assert all(fn.launches > 0 for fn in kernels.SERVING)
+
+
+# -- the training slice's kernels ---------------------------------------------
+
+FLASH_SHAPES = [(1, 128, 4, 4), (2, 256, 12, 4), (1, 192, 8, 2)]
+
+
+def _flash_inputs(rng, b, s, h, hk, dtype, dev):
+    d = 128
+    return (_t(rng, (b, s, h, d), dtype, dev), _t(rng, (b, s, hk, d), dtype,
+                                                  dev),
+            _t(rng, (b, s, hk, d), dtype, dev), _t(rng, (b, s, h, d), dtype,
+                                                   dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,hk", FLASH_SHAPES)
+def test_flash_fwd_matches_plain(dev, dtype, causal, b, s, h, hk):
+    rng = np.random.default_rng(b * s + h)
+    q, k, v, _ = _flash_inputs(rng, b, s, h, hk, dtype, dev)
+    n0 = FA.flash_attention_fwd.launches
+    out, lse = FA.flash_attention_fwd(q, k, v, causal)
+    assert FA.flash_attention_fwd.launches == n0 + 1
+    ref, ref_lse = FA.flash_fwd_reference(q, k, v, causal)
+    _close(out, ref, dtype)
+    # lse: fp32 statistics of the same rounded inputs, sums in another order
+    _close(lse, ref_lse, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,hk", FLASH_SHAPES)
+def test_flash_bwd_matches_plain(dev, dtype, causal, b, s, h, hk):
+    rng = np.random.default_rng(b * s + h + 1)
+    q, k, v, g = _flash_inputs(rng, b, s, h, hk, dtype, dev)
+    out, lse = FA.flash_fwd_reference(q, k, v, causal)
+    delta = FA.flash_delta(out, g)
+    n0 = (FA.flash_attention_bwd_dq.launches,
+          FA.flash_attention_bwd_dkv.launches)
+    dq = FA.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    assert (FA.flash_attention_bwd_dq.launches,
+            FA.flash_attention_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    for got, ref in zip((dq, dk, dv), FA.flash_bwd_reference(
+            q, k, v, g, lse, delta, causal)):
+        _close(got, ref, dtype)
+
+
+def test_flash_function_backward_runs_the_kernels(dev):
+    rng = np.random.default_rng(5)
+    q, k, v, g = _flash_inputs(rng, 1, 128, 4, 2, torch.float32, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    FA.flash_attention(*leaves, causal=True).backward(g)
+    out, lse = FA.flash_fwd_reference(q, k, v, True)
+    ref = FA.flash_bwd_reference(q, k, v, g, lse, FA.flash_delta(out, g),
+                                 True)
+    for t, r in zip(leaves, ref):
+        _close(t.grad, r, torch.float32)
+
+
+def test_sdpa_routes_eligible_cuda_shapes_to_flash(dev):
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(6)
+    q, k, v, _ = _flash_inputs(rng, 1, 128, 4, 2, torch.float32, dev)
+    n0 = FA.flash_attention_fwd.launches
+    got = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert FA.flash_attention_fwd.launches == n0 + 1
+    _close(got, FA.flash_fwd_reference(q, k, v, True)[0], torch.float32)
+    F.scaled_dot_product_attention(q[:, :64], k[:, :64], v[:, :64],
+                                   is_causal=True)       # seq 64: reference
+    assert FA.flash_attention_fwd.launches == n0 + 1
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_sdpa_pads_small_head_dims_to_flash_at_long_seq(dev, hd):
+    """head_dim 32/64 at seq >= 1024 is zero-padded to 128, run through
+    flash with the true head_dim's scale, and sliced back (exact)."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(hd)
+    q = _t(rng, (1, 1024, 4, hd), torch.float32, dev)
+    k = _t(rng, (1, 1024, 2, hd), torch.float32, dev)
+    v = _t(rng, (1, 1024, 2, hd), torch.float32, dev)
+    n0 = FA.flash_attention_fwd.launches
+    got = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert FA.flash_attention_fwd.launches == n0 + 1
+    assert got.shape == q.shape
+    _close(got, FA.flash_fwd_reference(q, k, v, True)[0], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,dq,dkv", [(37, 128, 192, 128),
+                                        (256, 512, 512, 128)])
+def test_rmsnorm_qkv_train_variant_matches_plain(dev, dtype, T, d, dq, dkv):
+    rng = np.random.default_rng(T + d)
+    x = _t(rng, (T, d), dtype, dev)
+    wn = _t(rng, (d,), dtype, dev, 0.5) + 1.0
+    wq = _t(rng, (d, dq), dtype, dev, d ** -0.5)
+    wk = _t(rng, (d, dkv), dtype, dev, d ** -0.5)
+    wv = _t(rng, (d, dkv), dtype, dev, d ** -0.5)
+    got = FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, 1e-5, residuals=True)
+    ref = FB.qkv_reference(x, wn, wq, wk, wv, 1e-5, residuals=True)
+    for g, r in zip(got[:4], ref[:4]):
+        _close(g, r, dtype)
+    _close(got[4], ref[4], torch.float32)
+
+
+def test_train_step_on_the_card_matches_the_cpu_port(dev):
+    """A tiny flash-eligible config (head_dim 128, seq 128) in fp32: the
+    loss and every parameter's gradient through the card's kernels
+    (flash fwd/bwd, QKV train variant, MLP) against the CPU port's plain
+    path, then one TrainStep on each: the updated parameters agree."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           max_position_embeddings=256)
+    seed(0)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.set_state_dict({k: v.numpy() for k, v in cpu.state_dict().items()})
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 129))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    kernels.reset_launch_counts()
+    losses, grads = [], []
+    for model in (cpu, gpu):
+        t = {k: torch.as_tensor(v).to(model.device) for k, v in batch.items()}
+        loss = model.loss(t["input_ids"], t["labels"])
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+        model.clear_gradients()
+    assert all(fn.launches > 0 for fn in kernels.TRAINING)
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
+    for n, ref in grads[0].items():
+        # fp32 sums in another order: 1e-4 of the largest magnitude
+        scale = float(ref.abs().max())
+        err = float((grads[1][n] - ref).abs().max())
+        assert err <= 1e-4 * scale + 1e-7, (n, err, scale)
+    for model in (cpu, gpu):
+        TrainStep(model, AdamW(learning_rate=1e-3))(batch)
+    # Adam's first update is lr * g / (|g| + eps) per element: where a
+    # gradient is near eps the two sum orders can move an element by up
+    # to lr; elsewhere they agree to fp32 rounding.  0.1 lr bounds both.
+    for (n, a), b in zip(cpu.state_dict().items(),
+                         gpu.state_dict().values()):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-4,
+                                   rtol=1e-4, err_msg=n)

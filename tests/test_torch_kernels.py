@@ -18,10 +18,14 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
+from paddle_tpu.ops.pallas import flash_attention as JFA
 from paddle_tpu.ops.pallas import fused_block as JFB
 from paddle_tpu.ops.pallas import paged_attention as JPA
 
 from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import fused_block as FB
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 
@@ -172,7 +176,7 @@ def test_sdpa_matches_jax_reference(case):
     _close(got, np.asarray(ref))
 
 
-# -- the package boundary ------------------------------------------------------
+# -- the package boundary -----------------------------------------------------
 
 def test_package_imports_neither_jax_nor_paddle_tpu():
     code = (
@@ -180,6 +184,7 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.models, paddle_tpu_torch.inference\n"
         "import paddle_tpu_torch.ops.kernels\n"
+        "import paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"
@@ -187,3 +192,160 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+# -- the training slice: flash attention, the fused blocks' VJPs -------------
+
+def _bhsd(t):
+    return jnp.swapaxes(t, 1, 2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hk", [(1, 4), (1, 2), (2, 4), (2, 2)])
+def test_flash_fwd_matches_pallas(b, hk, causal):
+    """Plain out and lse against ``_fwd_pallas`` in interpret mode (s=256,
+    4 query heads, d=128).  fp32 sums of 128 products in another order
+    and another blocking of the softmax: 2e-5."""
+    rng = np.random.default_rng(10 * b + hk)
+    s, h, d = 256, 4, 128
+    jq, tq = _both(rng, (b, s, h, d))
+    jk, tk = _both(rng, (b, s, hk, d))
+    jv, tv = _both(rng, (b, s, hk, d))
+    ref, ref_lse = JFA._fwd_pallas(_bhsd(jq), _bhsd(jk), _bhsd(jv),
+                                   scale=d ** -0.5, causal=causal,
+                                   block_q=128, block_k=128, interpret=True)
+    out, lse = FA.flash_attention_fwd(tq, tk, tv, causal)
+    _close(out, np.asarray(_bhsd(ref)), atol=2e-5, rtol=2e-5)
+    _close(lse, np.asarray(ref_lse), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("pallas_bwd", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hk", [(1, 4), (2, 2)])
+def test_flash_bwd_matches_jax(b, hk, causal, pallas_bwd):
+    """dq/dk/dv through the port's autograd Function against jax.grad of
+    the JAX flash attention with its Pallas dq/dkv kernels
+    (``pallas_bwd=True``) and with its in-model blockwise recompute
+    (``False``).  fp32; sums over 256 keys and a GQA group in another
+    order: 5e-5 of values of order one."""
+    rng = np.random.default_rng(20 * b + hk)
+    s, h, d = 256, 4, 128
+    jq, tq = _both(rng, (b, s, h, d))
+    jk, tk = _both(rng, (b, s, hk, d))
+    jv, tv = _both(rng, (b, s, hk, d))
+    jg, tg = _both(rng, (b, s, h, d))
+    _, vjp = jax.vjp(lambda q, k, v: JFA.flash_attention(
+        q, k, v, causal=causal, interpret=True, pallas_bwd=pallas_bwd),
+        jq, jk, jv)
+    refs = vjp(jg)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    FA.flash_attention(*leaves, causal=causal).backward(tg)
+    for t, r in zip(leaves, refs):
+        _close(t.grad, np.asarray(r), atol=5e-5, rtol=5e-5)
+
+
+def test_sdpa_on_cpu_takes_the_reference_at_flash_shapes():
+    """A flash-eligible shape (s=128, d=128, no mask) on the CPU equals
+    JAX's ``_sdpa_reference`` and never reaches the flash wrappers."""
+    from paddle_tpu.nn.functional.attention import _sdpa_reference
+    rng = np.random.default_rng(4)
+    jq, tq = _both(rng, (1, 128, 4, 128))
+    jk, tk = _both(rng, (1, 128, 2, 128))
+    jv, tv = _both(rng, (1, 128, 2, 128))
+    before = [fn.launches for fn in (FA.flash_attention_fwd,
+                                     FA.flash_attention_bwd_dq,
+                                     FA.flash_attention_bwd_dkv)]
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    got = TF.scaled_dot_product_attention(*leaves, is_causal=True)
+    got.sum().backward()
+    _close(got.detach(), np.asarray(_sdpa_reference(jq, jk, jv,
+                                                    is_causal=True)))
+    assert [fn.launches for fn in (FA.flash_attention_fwd,
+                                   FA.flash_attention_bwd_dq,
+                                   FA.flash_attention_bwd_dkv)] == before
+
+
+def test_flash_wrapper_on_cpu_takes_any_head_dim_and_checks_groups():
+    """On the CPU the wrapper is the plain version, which takes any
+    head_dim (the kernels take 128 only); heads that are not a multiple
+    of kv heads are refused on every device."""
+    q = torch.zeros(1, 64, 2, 64)
+    out, lse = FA.flash_attention_fwd(q, q, q, True)
+    assert out.shape == q.shape and lse.shape == (1, 2, 64)
+    with pytest.raises(ValueError, match="kv heads"):
+        FA.flash_attention_fwd(q, q[:, :, :1].expand(1, 64, 3, 64)
+                               .contiguous(), q[:, :, :1].expand(
+                                   1, 64, 3, 64).contiguous())
+
+
+def test_qkv_residuals_match_pallas_training_variant():
+    """The residual outputs (q, k, v, xn, inv) against ``_qkv_pallas``
+    with ``residuals=True`` in interpret mode."""
+    rng = np.random.default_rng(8)
+    T, d, dq, dkv = 32, 128, 256, 128
+    jx, tx = _both(rng, (T, d))
+    jn, tn = _both(rng, (d,))
+    jq, tq = _both(rng, (d, dq), 0.05)
+    jk, tk = _both(rng, (d, dkv), 0.05)
+    jv, tv = _both(rng, (d, dkv), 0.05)
+    ref = JFB._qkv_pallas(jx, jn, jq, jk, jv, eps=1e-5, block_t=16,
+                          block_o=128, interpret=True, residuals=True)
+    got = FB.fused_rmsnorm_qkv(tx, tn, tq, tk, tv, 1e-5, residuals=True)
+    assert len(got) == 5 and tuple(got[4].shape) == (T, 1)
+    for g, r in zip(got, ref):
+        _close(g, np.asarray(r))
+
+
+def test_fused_rmsnorm_qkv_grads_match_pallas_vjp():
+    """Grads of every input through ``FusedRMSNormQKV`` against the JAX
+    custom VJP around the Pallas kernel (interpret mode), for the same
+    random cotangents.  fp32: 2e-5."""
+    rng = np.random.default_rng(9)
+    T, d, dq, dkv = 32, 128, 256, 128
+    arrs = [_both(rng, sh, sc) for sh, sc in (((2, 16, d), 1.0), ((d,), 1.0),
+                                              ((d, dq), 0.05),
+                                              ((d, dkv), 0.05),
+                                              ((d, dkv), 0.05))]
+    cts = [_both(rng, (2, 16, n)) for n in (dq, dkv, dkv)]
+    _, vjp = jax.vjp(lambda *a: JFB.fused_rmsnorm_qkv(
+        *a, epsilon=1e-5, use_pallas=True, interpret=True),
+        *[a for a, _ in arrs])
+    refs = vjp(tuple(c for c, _ in cts))
+    leaves = [t.clone().requires_grad_(True) for _, t in arrs]
+    outs = TF.fused_rmsnorm_qkv(*leaves, epsilon=1e-5)
+    torch.autograd.backward(outs, [t for _, t in cts])
+    for t, r in zip(leaves, refs):
+        _close(t.grad, np.asarray(r), atol=2e-5, rtol=2e-5)
+
+
+def test_fused_mlp_grads_match_pallas_vjp():
+    """Grads through ``FusedMLP`` (kernel pair forward, recompute
+    backward) against the JAX custom VJP around the Pallas MLP kernel.
+    fp32: 2e-5."""
+    rng = np.random.default_rng(11)
+    d, f = 128, 256
+    arrs = [_both(rng, (2, 16, d)), _both(rng, (d, f), d ** -0.5),
+            _both(rng, (d, f), d ** -0.5), _both(rng, (f, d), f ** -0.5)]
+    jct, tct = _both(rng, (2, 16, d))
+    _, vjp = jax.vjp(lambda *a: JFB.fused_mlp(*a, use_pallas=True,
+                                              interpret=True),
+                     *[a for a, _ in arrs])
+    refs = vjp(jct)
+    leaves = [t.clone().requires_grad_(True) for _, t in arrs]
+    TF.fused_mlp(*leaves).backward(tct)
+    for t, r in zip(leaves, refs):
+        _close(t.grad, np.asarray(r), atol=2e-5, rtol=2e-5)
+
+
+def test_fused_functionals_take_the_forward_only_launch_without_grad():
+    """Under ``no_grad`` the functionals call the kernel wrappers
+    directly (the forward-only variant), not the custom VJPs."""
+    x = torch.randn(4, 64, requires_grad=True)
+    w = torch.randn(64, 64, requires_grad=True)
+    with torch.no_grad():
+        q, _, _ = TF.fused_rmsnorm_qkv(x, torch.ones(64), w, w, w)
+        y = TF.fused_mlp(x, w, w, w)
+    assert q.grad_fn is None and y.grad_fn is None
+    q, _, _ = TF.fused_rmsnorm_qkv(x, torch.ones(64), w, w, w)
+    node = q.grad_fn.next_functions[0][0]       # under the reshape's view
+    assert type(node).__name__.startswith("FusedRMSNormQKV")
