@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (kernels two: the serving rows and
-the training rows; serve and train one more each, for a profiled
-window):
+Phases, each printing one JSON line (kernels three: the serving, the
+training and the quantized serving rows; serve, serve_quant and train
+one more each, for a profiled window; serve_quant two, one per engine):
 
 1. env      versions, the card, TF32 switched off for fp32 references.
 2. build    nvcc builds the port's CUDA kernels from ``paddle_tpu_torch/
@@ -22,10 +22,22 @@ window):
             forward, dq and dk/dv in bf16 (fp32 at b=1), each bf16 row
             within its own limit (FLASH_TOL), and the QKV kernel's
             training variant and the MLP kernel pair at T = 8192.
+            The quantized serving path's kernels (kernels_quant): the
+            quant matmul (int8 weights, bf16 io) at T = 8 for each of the
+            five (K, N) of a decode step, int8 and fp8 at T = 150 (the
+            prefill tile, last tile partial) for each of them, int8 at
+            T = 256, fp8 at T = 8 and 256, one fp32-io row, each bf16 row
+            within QUANT_MM_TOL; the int8 paged decode at the fp row's
+            shapes, bf16 and fp32 q, both paged rows' bf16 within
+            PAGED_TOL.
 4. parity   a 2-layer model at full Llama-3-8B width (bf16, seeded random
             weights) on the card against the same weights through the
             plain path (the CPU, fp32): the last prefill chunk's logits
-            within a stated tolerance, and 8 greedy tokens.
+            within a stated tolerance, and 8 greedy tokens.  Then
+            parity_quant: the same two models converted with
+            quantize_for_serving, the host carrying the card's qweight /
+            w_scale buffers: int8 weights with int8 KV pools, then fp8
+            weights with fp pools, each within the same tolerance.
 5. train_parity  a 1-layer model at full width (vocab cut to 32000),
             fp32, b=1, s=256 (flash routes): loss and every parameter's
             gradient on the card against the CPU's plain path.
@@ -35,7 +47,13 @@ window):
             Every request must end "ok" with 32 tokens, and every serving
             kernel's launch count must have grown during this run.  Then
             a short window under torch.profiler: device time by kernel
-            and the device's busy share.
+            and the device's busy share.  serve_quant: the same model, in
+            place, behind ContinuousBatchingEngine(quant_weights="int8",
+            quant_kv="int8") and then (quant_weights="fp8"), the same 8
+            requests: every request "ok" with 32 tokens, the quant
+            kernels launched and the fused fp kernels not, 1025 int8
+            blocks, the model restored by close(); then a profiled
+            window of the int8 engine (profile_quant).
 7. train    4 layers at Llama-3-8B width in bf16, TrainStep with
             AdamW(learning_rate=1e-4, multi_precision=True) and the
             non-finite guard, b=4, s=2048, one fixed random batch: 1
@@ -59,6 +77,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
+FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores
 D, DQ, DKV, F = 4096, 4096, 1024, 14336
 EPS = 1e-5
 # kernel vs plain version, (atol, rtol): fp32 differs by summation order
@@ -73,6 +92,13 @@ TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (3e-2, 3e-2)}
 # sqrt(e/n), 0.035 median at s=2048); dk and dv reach ~8.
 FLASH_TOL = {"fwd": (4e-3, 2 ** -7), "dq": (4e-3, 2 ** -7),
              "dkv": (8e-3, 2 ** -7)}
+# the paged decode rows' bf16 limit (fp and int8 pools): the same one-step
+# bound; an output is a softmax average over n tokens of unit-normal V, so
+# |out| ~ sqrt(e/n), 0.035-0.09 for most rows at lengths 147..1024
+PAGED_TOL = (4e-3, 2 ** -7)
+# the quant matmul's bf16 limit: codes up-convert exactly, so kernel and
+# plain version differ by the fp32 summation order and one bf16 rounding
+QUANT_MM_TOL = (2e-3, 2 ** -7)
 
 
 def emit(phase, **kw):
@@ -111,9 +137,9 @@ class Timer:
         return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / BF16_FLOP_PER_S * 1e3
+    tf = flops / flop_per_s * 1e3
     return max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
@@ -214,7 +240,7 @@ def kernel_paged(PA, dev, timer):
     # each row's blocks are a random slice of a permutation of 1..nb-1
     perm = torch.randperm(nb - 1, generator=g, device=dev) + 1
     bt = perm.reshape(B, mb).to(torch.int32).contiguous()
-    errs, out = {}, {}
+    errs, out, used = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         q = rand(g, (B, h, hd), dtype, dev)
         kp = rand(g, (nb, bs, kvh, hd), dtype, dev)
@@ -222,7 +248,8 @@ def kernel_paged(PA, dev, timer):
         got = PA.paged_decode_attention(q, kp, vp, bt, lengths)
         errs[str(dtype)] = check_close(
             "paged_decode_attention", got,
-            PA.paged_decode_reference(q, kp, vp, bt, lengths), dtype)
+            PA.paged_decode_reference(q, kp, vp, bt, lengths), dtype,
+            *paged_limit(dtype, used))
     F_ = torch.nn.functional
     out["ms"] = timer(lambda: PA.paged_decode_attention(q, kp, vp, bt,
                                                          lengths))
@@ -245,9 +272,17 @@ def kernel_paged(PA, dev, timer):
         4 * tokens * h * hd)
     out["max_abs_err"] = errs[str(torch.bfloat16)]
     out["max_abs_err_fp32"] = errs[str(torch.float32)]
+    out["tolerance_bf16"] = dict(zip(("atol", "rtol"), PAGED_TOL))
+    out["limit_used_bf16"] = used["paged_decode_attention"]
     out["shape"] = (f"B={B} h={h} kvh={kvh} hd={hd} bs={bs} "
                     f"lengths={lengths.tolist()}")
     return out
+
+
+def paged_limit(dtype, used):
+    """check_close's (tol, used) for a paged decode row: PAGED_TOL and
+    the share of it used in bf16, TOL in fp32."""
+    return (PAGED_TOL, used) if dtype == torch.bfloat16 else (None, None)
 
 
 # -- phase 3, training rows: flash attention and the QKV train variant -------
@@ -400,21 +435,141 @@ def kernel_qkv_train(FB, dev, timer, T=8192):
     return out
 
 
+# -- phase 3, quantized serving rows: quant matmul and int8 paged decode -----
+
+# the (K, N) of a decode step's quantized projections: 7 per layer and the
+# lm_head, 225 launches a step at 32 layers
+QUANT_SHAPES = {"q_proj/o_proj": (D, DQ), "k_proj/v_proj": (D, DKV),
+                "gate_proj/up_proj": (D, F), "down_proj": (F, D),
+                "lm_head": (D, 128256)}
+
+
+def kernel_quant(QM, quantize, dev, timer, T, K, N, mode, dtype):
+    """One quant-matmul shape: the kernel against its plain version, then
+    timed beside it and the library call, a bf16 (or fp32) torch.matmul
+    with the weight dequantized beforehand (what the unquantized engine
+    pays: twice the weight bytes in bf16)."""
+    g = torch.Generator(device=dev).manual_seed(T + K + N)
+    x = rand(g, (T, K), dtype, dev)
+    qw, scale = quantize(rand(g, (K, N), torch.float32, dev, K ** -0.5),
+                         mode)
+    got = QM.quant_matmul(x, qw, scale, mode=mode)
+    tol = QUANT_MM_TOL if dtype == torch.bfloat16 else TOL[dtype]
+    what, used = f"quant_matmul {mode} T={T} K={K} N={N}", {}
+    err = check_close(what, got, QM.quant_matmul_reference(x, qw, scale),
+                      dtype, tol, used)
+    del got
+    w = (qw.float() * scale).to(dtype)
+    out = {"ms": timer(lambda: QM.quant_matmul(x, qw, scale, mode=mode)),
+           "plain_ms": timer(lambda: QM.quant_matmul_reference(x, qw,
+                                                               scale)),
+           "library_ms": timer(lambda: x @ w)}
+    isz = x.element_size()
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        T * K * isz + K * N + 4 * N + T * N * isz, 2 * T * K * N,
+        BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+    out["max_abs_err"] = err
+    out["tolerance"] = dict(zip(("atol", "rtol"), tol))
+    out["limit_used"] = used[what]
+    out["weight_bytes"] = K * N + 4 * N
+    out["shape"] = f"T={T} K={K} N={N} {mode} {str(dtype)[6:]}"
+    del w, qw, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_quant_rows(QM, quantize, dev, timer):
+    """The quant matmul at the decode step's five shapes (T = 8, int8,
+    bf16), at every shape again through the prefill's 64-row tile with a
+    partial last tile (T = 150, int8 and fp8), the prefill chunk's
+    T = 256, fp8 at T = 8 and 256, and one fp32-io row."""
+    rows = {}
+    for name, (K, N) in QUANT_SHAPES.items():
+        rows[f"int8 T=8 {name}"] = kernel_quant(QM, quantize, dev, timer, 8,
+                                                K, N, "int8", torch.bfloat16)
+    for mode in ("int8", "fp8"):
+        for name, (K, N) in QUANT_SHAPES.items():
+            rows[f"{mode} T=150 {name}"] = kernel_quant(
+                QM, quantize, dev, timer, 150, K, N, mode, torch.bfloat16)
+    K, N = QUANT_SHAPES["gate_proj/up_proj"]
+    for mode, T, dtype in (("int8", 256, torch.bfloat16),
+                           ("fp8", 8, torch.bfloat16),
+                           ("fp8", 256, torch.bfloat16),
+                           ("int8", 8, torch.float32)):
+        rows[f"{mode} T={T} gate_proj/up_proj {str(dtype)[6:]}"] = \
+            kernel_quant(QM, quantize, dev, timer, T, K, N, mode, dtype)
+    return rows
+
+
+def kernel_paged_int8(PA, quantize_kv, dev, timer):
+    """The int8 paged decode at the fp row's shapes (B = 8, 32/8 heads,
+    head_dim 128, block 16, lengths 1..1024), q in bf16 and fp32; the
+    library yardstick gathers, dequantizes and calls SDPA."""
+    B, h, kvh, hd, bs, mb = 8, 32, 8, 128, 16, 64
+    nb = 1 + B * mb
+    g = torch.Generator(device=dev).manual_seed(7)
+    lengths = torch.linspace(1, mb * bs, B).round().to(torch.int32).to(dev)
+    perm = torch.randperm(nb - 1, generator=g, device=dev) + 1
+    bt = perm.reshape(B, mb).to(torch.int32).contiguous()
+    errs, out, used = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = rand(g, (B, h, hd), dtype, dev)
+        kp, ks = quantize_kv(rand(g, (nb, bs, kvh, hd), dtype, dev))
+        vp, vs = quantize_kv(rand(g, (nb, bs, kvh, hd), dtype, dev))
+        got = PA.paged_decode_attention_int8(q, kp, vp, bt, lengths, ks, vs)
+        errs[str(dtype)] = check_close(
+            "paged_decode_attention_int8", got,
+            PA.paged_decode_reference(q, kp, vp, bt, lengths, k_scale=ks,
+                                      v_scale=vs), dtype,
+            *paged_limit(dtype, used))
+    F_ = torch.nn.functional
+    out["ms"] = timer(lambda: PA.paged_decode_attention_int8(
+        q, kp, vp, bt, lengths, ks, vs))
+    out["plain_ms"] = timer(lambda: PA.paged_decode_reference(
+        q, kp, vp, bt, lengths, k_scale=ks, v_scale=vs))
+    live = (torch.arange(mb * bs, device=dev)[None, :]
+            < lengths.long()[:, None])[:, None, None, :]
+
+    def library():
+        idx = bt.long()
+        kb = (kp[idx].float() * ks[idx][..., None]).to(q.dtype)
+        vb = (vp[idx].float() * vs[idx][..., None]).to(q.dtype)
+        kb = kb.reshape(B, mb * bs, kvh, hd).transpose(1, 2)
+        vb = vb.reshape(B, mb * bs, kvh, hd).transpose(1, 2)
+        return F_.scaled_dot_product_attention(q[:, :, None], kb, vb,
+                                               attn_mask=live,
+                                               enable_gqa=True)
+    out["library_ms"] = timer(library)
+    tokens = int(lengths.sum())
+    # int8 K and V rows plus one fp32 scale each: 264 bytes per token and
+    # kv head at head_dim 128 (bf16 pools: 512)
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        2 * (2 * B * h * hd) + tokens * kvh * 2 * (hd + 4)
+        + 4 * (B * mb + B), 4 * tokens * h * hd)
+    out["max_abs_err"] = errs[str(torch.bfloat16)]
+    out["max_abs_err_fp32"] = errs[str(torch.float32)]
+    out["tolerance_bf16"] = dict(zip(("atol", "rtol"), PAGED_TOL))
+    out["limit_used_bf16"] = used["paged_decode_attention_int8"]
+    out["shape"] = (f"B={B} h={h} kvh={kvh} hd={hd} bs={bs} int8 pools "
+                    f"lengths={lengths.tolist()}")
+    return out
+
+
 # -- phase 4: full-width parity against the plain path -----------------------
 
-def drive(model, prompt, chunk, n_new):
+def drive(model, prompt, chunk, n_new, quant_kv=None):
     """Chunked prefill then greedy decode of one sequence through the
-    model's paged-cache forward; returns (last chunk's fp32 logits,
-    greedy tokens)."""
-    from paddle_tpu_torch.inference.kv_cache import PagedCache, PagedKVPool
+    model's paged-cache forward (int8 pools with `quant_kv`); returns
+    (last chunk's fp32 logits, greedy tokens)."""
+    from paddle_tpu_torch.inference.kv_cache import PagedKVPool
     cfg = model.config
     dev = model.device
     bs, mb = 16, 64
     pool = PagedKVPool(cfg.num_hidden_layers, 1 + mb, bs,
                        cfg.num_key_value_heads, cfg.head_dim,
-                       model.parameters()[0].dtype, dev)
+                       model.parameters()[0].dtype, dev, quant=quant_kv)
     bt = torch.arange(1, 1 + mb, dtype=torch.int32, device=dev)[None]
-    caches = [PagedCache(k, v, bt) for k, v in zip(pool.kpools, pool.vpools)]
+    caches = pool.caches(bt)
 
     def fwd(ids, pos):
         ids_t = torch.as_tensor(ids, dtype=torch.long, device=dev)[None]
@@ -462,7 +617,48 @@ def parity(dev):
          tolerance=tol, greedy_tokens=toks, plain_tokens=ref_toks,
          tokens_agree=f"{agree}/{len(toks)}",
          seconds=time.perf_counter() - t0)
-    del card, host
+    return card, host, prompt
+
+
+def parity_quant(card, host, prompt, kernels):
+    """The parity phase's two models converted for quantized serving:
+    int8 weights with int8 KV pools, then fp8 weights with fp pools.  The
+    host carries the card's qweight / w_scale buffers (and its weights in
+    fp32), so both sides multiply by the same quantized values; the last
+    chunk's logits within 5% of their largest magnitude."""
+    from paddle_tpu_torch.quantization.serving import (quantize_for_serving,
+                                                       restore_from_serving)
+    for wmode, kvq in (("int8", "int8"), ("fp8", None)):
+        t0 = time.perf_counter()
+        info = quantize_for_serving(card, wmode)
+        quantize_for_serving(host, wmode)
+        host.set_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        kernels.reset_launch_counts()
+        got, toks = drive(card, prompt, 256, 8, quant_kv=kvq)
+        launched = {fn.__name__: fn.launches
+                    for fn in kernels.SERVING + kernels.SERVING_QUANT}
+        ref, ref_toks = drive(host, prompt, 256, 8, quant_kv=kvq)
+        restore_from_serving(card)
+        restore_from_serving(host)
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        tol = 0.05 * scale
+        if not torch.isfinite(got).all() or err > tol:
+            raise AssertionError(f"parity_quant {wmode}/{kvq}: logits max "
+                                 f"abs err {err} > {tol}")
+        paged = "paged_decode_attention_int8" if kvq else \
+            "paged_decode_attention"
+        if not launched["quant_matmul"] or not launched[paged] or \
+                launched["fused_rmsnorm_qkv"] or launched["fused_mlp"]:
+            raise AssertionError(f"parity_quant {wmode}/{kvq}: launches "
+                                 f"{launched}")
+        agree = sum(a == b for a, b in zip(toks, ref_toks))
+        emit("parity_quant", layers=2, weights=wmode, kv=kvq or "bf16",
+             converted_layers=info["layers"], prompt=len(prompt), chunk=256,
+             max_abs_err=err, ref_max_abs=scale, tolerance=tol,
+             greedy_tokens=toks, plain_tokens=ref_toks,
+             tokens_agree=f"{agree}/{len(toks)}", launches=launched,
+             seconds=time.perf_counter() - t0)
 
 
 # -- phase 5: the training step at full width against the plain path --------
@@ -524,6 +720,8 @@ def train_parity(dev):
 
 # -- phase 6: serve the full model -------------------------------------------
 
+SERVE_LENGTHS = [64, 150, 256, 333, 420, 512, 600, 700]
+
 def serve(dev, kernels):
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.inference import ContinuousBatchingEngine
@@ -541,9 +739,8 @@ def serve(dev, kernels):
     # are set up outside the measured run
     eng.add_request(rng.integers(0, cfg.vocab_size, 16), max_new_tokens=2)
     eng.run()
-    lengths = [64, 150, 256, 333, 420, 512, 600, 700]
-    rids = [eng.add_request(rng.integers(0, cfg.vocab_size, n),
-                            max_new_tokens=32) for n in lengths]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENGTHS]
+    rids = [eng.add_request(p, max_new_tokens=32) for p in prompts]
     stats0 = dict(eng.stats)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -565,7 +762,7 @@ def serve(dev, kernels):
     dec_tok = eng.stats["decode_tokens"] - stats0["decode_tokens"]
     dec_s = eng.stats["decode_seconds"] - stats0["decode_seconds"]
     emit("serve", layers=cfg.num_hidden_layers, dtype=cfg.dtype,
-         requests=len(rids), prompt_lengths=lengths, max_new_tokens=32,
+         requests=len(rids), prompt_lengths=SERVE_LENGTHS, max_new_tokens=32,
          model_build_s=build_s, run_s=run_s,
          ttft_p50_s=float(np.percentile(ttft, 50)),
          ttft_p99_s=float(np.percentile(ttft, 99)),
@@ -577,10 +774,100 @@ def serve(dev, kernels):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
          launches=launches, first_tokens=[out[r][1][:4] for r in rids])
     profile(eng, cfg, rng)
-    return launches
+    return launches, model, prompts, [out[r][1] for r in rids]
 
 
-def profile(eng, cfg, rng):
+def serve_quant(dev, kernels, model, prompts, bf16_tokens):
+    """The serve phase's 32-layer model, converted in place, behind the
+    quantized engines: int8 weights with int8 KV pools, then fp8 weights
+    with bf16 pools; the same 8 requests.  Returns each engine's launch
+    counts."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.quantization import QuantedLinear
+    cfg = model.config
+    rng = np.random.default_rng(1)
+    runs = {}
+    for wmode, kvq in (("int8", "int8"), ("fp8", None)):
+        t0 = time.perf_counter()
+        eng = ContinuousBatchingEngine(model, slots=8, max_len=1024,
+                                       kv_block_size=16, prefill_chunk=256,
+                                       quant_weights=wmode, quant_kv=kvq)
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        if kvq and eng._num_blocks != 1 + 2 * 8 * 64:
+            raise AssertionError(f"serve_quant: {eng._num_blocks} int8 "
+                                 "blocks, expected 1025")
+        quanted = [m for m in model.modules() if isinstance(m, QuantedLinear)]
+        q_bytes = sum(m.qweight.numel() * m.qweight.element_size()
+                      + m.w_scale.numel() * 4 for m in quanted)
+        fp_bytes = sum(m._orig.weight.numel() * m._orig.weight.element_size()
+                       for m in quanted)
+        eng.add_request(rng.integers(0, cfg.vocab_size, 16),
+                        max_new_tokens=2)          # warm-up, as in serve
+        eng.run()
+        rids = [eng.add_request(p, max_new_tokens=32) for p in prompts]
+        stats0 = dict(eng.stats)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        qm = kernels.SERVING_QUANT[0]
+        launches = {fn.__name__: fn.launches
+                    for fn in kernels.SERVING + kernels.SERVING_QUANT}
+        launches["quant_matmul_by_mode"] = dict(qm.launches_by_mode)
+        for rid in rids:
+            st, toks = eng.request_status(rid), out[rid][1]
+            if st != "ok" or len(toks) != 32 or \
+                    not all(0 <= t < cfg.vocab_size for t in toks):
+                raise AssertionError(f"serve_quant {wmode}: request {rid} "
+                                     f"status {st!r}, {len(toks)} tokens")
+        paged = "paged_decode_attention_int8" if kvq else \
+            "paged_decode_attention"
+        if not qm.launches_by_mode[wmode] or not launches[paged]:
+            raise AssertionError(f"serve_quant {wmode}: quant kernels not "
+                                 f"launched {launches}")
+        if launches["fused_rmsnorm_qkv"] or launches["fused_mlp"]:
+            raise AssertionError(f"serve_quant {wmode}: fused fp kernels "
+                                 f"launched {launches}")
+        ttft = np.array([eng.request_status(r).timings["ttft_s"]
+                         for r in rids])
+        dec_tok = eng.stats["decode_tokens"] - stats0["decode_tokens"]
+        dec_s = eng.stats["decode_seconds"] - stats0["decode_seconds"]
+        agree = sum(a == b for r, ref in zip(rids, bf16_tokens)
+                    for a, b in zip(out[r][1], ref))
+        emit("serve_quant", layers=cfg.num_hidden_layers, weights=wmode,
+             kv=kvq or "bf16", requests=len(rids),
+             prompt_lengths=SERVE_LENGTHS, max_new_tokens=32,
+             convert_s=convert_s, run_s=run_s,
+             ttft_p50_s=float(np.percentile(ttft, 50)),
+             ttft_p99_s=float(np.percentile(ttft, 99)),
+             decode_steps=eng.stats["decode_steps"] - stats0["decode_steps"],
+             decode_tokens=dec_tok, decode_tok_s=dec_tok / dec_s,
+             prefill_chunks=eng.stats["prefill_chunks"]
+             - stats0["prefill_chunks"],
+             output_tok_s=sum(len(out[r][1]) for r in rids) / run_s,
+             converted_layers=len(quanted), quant_weight_bytes=q_bytes,
+             bf16_weight_bytes=fp_bytes, kv_blocks=eng._num_blocks,
+             pool_bytes=eng._pool.nbytes,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+             tokens_agree_with_bf16=f"{agree}/{32 * len(rids)}",
+             launches=launches, first_tokens=[out[r][1][:4] for r in rids])
+        if kvq:
+            profile(eng, cfg, rng, phase="profile_quant")
+        eng.close()
+        if not hasattr(model.lm_head, "weight") or \
+                getattr(model, "_serving_quant_refs", 0) != 0:
+            raise AssertionError("serve_quant: close() did not restore the "
+                                 "model")
+        runs[wmode] = launches
+        del eng, out
+        torch.cuda.empty_cache()
+    return runs
+
+
+def profile(eng, cfg, rng, phase="profile"):
     """Where a serving window's time goes: 8 requests (64-token prompts,
     16 new tokens) under torch.profiler; device time by kernel and the
     device's busy share of the window's wall time.  Run after the
@@ -600,7 +887,7 @@ def profile(eng, cfg, rng):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
-    emit("profile", requests=8, prompt=64, new_tokens=16, wall_s=wall,
+    emit(phase, requests=8, prompt=64, new_tokens=16, wall_s=wall,
          device_busy_s=busy_us / 1e6 if kernels else None,
          device_busy_share=busy_us / 1e6 / wall if kernels else None,
          top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3,
@@ -706,6 +993,9 @@ def main():
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import fused_block as FB
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
+    from paddle_tpu_torch.ops.kernels import quant_matmul as QM
+    from paddle_tpu_torch.inference.kv_cache import _quantize_kv
+    from paddle_tpu_torch.quantization.serving import quantize_linear_weight
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -735,14 +1025,23 @@ def main():
                                                TRAIN_B * TRAIN_S,
                                                plain_iters=3)
     emit("kernels_train", results=train_rows)
+    quant_rows = kernel_quant_rows(QM, quantize_linear_weight, dev, timer)
+    quant_rows["paged_decode_attention_int8"] = kernel_paged_int8(
+        PA, _quantize_kv, dev, timer)
+    emit("kernels_quant", results=quant_rows)
     del timer
     torch.cuda.empty_cache()
 
-    parity(dev)
+    card, host, prompt = parity(dev)
+    parity_quant(card, host, prompt, kernels)
+    del card, host
     torch.cuda.empty_cache()
     train_parity(dev)
     torch.cuda.empty_cache()
-    launches = serve(dev, kernels)
+    launches, model, prompts, bf16_tokens = serve(dev, kernels)
+    torch.cuda.empty_cache()
+    quant_launches = serve_quant(dev, kernels, model, prompts, bf16_tokens)
+    del model
     torch.cuda.empty_cache()
     train_launches = train(dev, kernels)
 
@@ -791,6 +1090,30 @@ def main():
                      "launches": train_launches[wrapper],
                      **{k: row[k] for k in keys}, "shape": row["shape"],
                      "path": "train"})
+    # the quantized serving path: the gate/up shape at decode stands for
+    # the quant matmul (its other shapes are in the kernels_quant line);
+    # launches from each engine's serve_quant run
+    src = "paddle_tpu_torch/ops/kernels/csrc/"
+    for name, row, rep, n, path in (
+            ("quant_matmul", "int8 T=8 gate_proj/up_proj",
+             "paddle_tpu/ops/pallas/quant_matmul.py:133",
+             quant_launches["int8"]["quant_matmul_by_mode"]["int8"],
+             "serve_quant int8 weights"),
+            ("quant_matmul_fp8", "fp8 T=8 gate_proj/up_proj bfloat16",
+             "paddle_tpu/ops/pallas/quant_matmul.py:133",
+             quant_launches["fp8"]["quant_matmul_by_mode"]["fp8"],
+             "serve_quant fp8 weights"),
+            ("paged_decode_attention_int8", "paged_decode_attention_int8",
+             "paddle_tpu/ops/pallas/paged_attention.py:145",
+             quant_launches["int8"]["paged_decode_attention_int8"],
+             "serve_quant int8 KV")):
+        r = quant_rows[row]
+        cu = "paged_attention.cu" if name.startswith("paged") else \
+            "quant_matmul.cu"
+        line.append({"name": name, "route": "cuda", "source": src + cu,
+                     "replaces": rep, "launches": n,
+                     **{k: r[k] for k in keys}, "shape": r["shape"],
+                     "path": path})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

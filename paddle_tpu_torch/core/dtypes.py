@@ -10,6 +10,7 @@ _NAME_TO_TORCH = {
     "float64": torch.float64,
     "float16": torch.float16,
     "bfloat16": torch.bfloat16,
+    "float8_e4m3fn": torch.float8_e4m3fn,
     "int8": torch.int8,
     "uint8": torch.uint8,
     "int16": torch.int16,

@@ -8,12 +8,13 @@
   copy-on-write, and a trie over full blocks of token ids so requests
   sharing a prompt prefix share its physical blocks.
 * :class:`PagedKVPool` — per-layer ``[num_blocks, block_size, kv_heads,
-  head_dim]`` k/v pools (fp pools; quantized int8 pools wait for the
-  quant-KV port).
+  head_dim]`` k/v pools, in the model's dtype or (``quant="int8"``) as
+  int8 with per-layer ``[num_blocks, block_size, kv_heads]`` fp32 scales.
 * :func:`paged_cache_attention` — writes the step's k/v through the block
-  table, then attends: decode (one token, no mask) through the CUDA
-  paged-decode kernel, chunked prefill over the gathered table with the
-  plain reference attention.
+  table (quantized on the way into int8 pools), then attends: decode (one
+  token, no mask) through the CUDA paged-decode kernel (its int8 variant
+  over int8 pools), chunked prefill over the gathered (and, for int8
+  pools, dequantized) table with the plain reference attention.
 
 Torch tensors are mutable, so the pools are updated **in place**
 (``index_put_``) where the JAX package returns new pools that its jitted
@@ -21,6 +22,7 @@ steps donate (``serving.py:1751-1757``)."""
 
 from __future__ import annotations
 
+import os
 from collections import OrderedDict, deque
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
     Tuple
@@ -35,7 +37,37 @@ from paddle_tpu_torch.ops.kernels.paged_attention import \
     paged_decode_attention
 
 __all__ = ["BlockAllocator", "SequenceBlocks", "PrefixCache",
-           "PagedKVPool", "PagedCache", "paged_cache_attention"]
+           "PagedKVPool", "PagedCache", "paged_cache_attention",
+           "quant_kv_mode"]
+
+
+def quant_kv_mode(explicit: Optional[str] = None) -> Optional[str]:
+    """The KV-quant mode: an explicit value wins, else the
+    ``PADDLE_TPU_QUANT_KV`` environment knob.  ``"int8"`` stores the
+    paged pools as int8 with fp32 scales (at the same payload bytes, 2x
+    the blocks of a bf16 pool, 4x of fp32); None keeps fp pools."""
+    raw = explicit if explicit is not None \
+        else os.environ.get("PADDLE_TPU_QUANT_KV")
+    if raw is None:
+        return None
+    raw = str(raw).strip().lower()
+    if raw in ("", "0", "off", "none", "false"):
+        return None
+    if raw != "int8":
+        raise ValueError(
+            f"PADDLE_TPU_QUANT_KV={raw!r}: only int8 is supported "
+            "(or unset/0 for fp pools)")
+    return raw
+
+
+def _quantize_kv(x):
+    """Symmetric int8 quantization of K/V rows along head_dim: one fp32
+    scale per (token, kv head), ``max(|x|, 1e-8) / 127``, values rounded
+    half to even and clipped to ±127 (``kv_cache.py:92-102``)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 # -- host-side block bookkeeping ---------------------------------------------
@@ -266,33 +298,62 @@ class PrefixCache:
 class PagedKVPool:
     """Per-layer ``[num_blocks, block_size, kv_heads, head_dim]`` k/v
     pools on `device`.  One physical block id addresses the same slice in
-    every layer."""
+    every layer.
+
+    ``quant="int8"`` stores the pools as int8 plus per-layer
+    ``kscales``/``vscales`` ``[num_blocks, block_size, kv_heads]`` fp32
+    (one scale per token and kv head), block-shaped so they follow the
+    same block ids through copy-on-write; `dtype` is then the compute
+    dtype the pools dequantize into."""
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
-                 kv_heads: int, head_dim: int, dtype, device):
+                 kv_heads: int, head_dim: int, dtype, device,
+                 quant: Optional[str] = None):
+        if quant not in (None, "int8"):
+            raise ValueError(f"PagedKVPool quant={quant!r}: only int8")
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.quant = quant
+        store = torch.int8 if quant else dtype
         shape = (num_blocks, block_size, kv_heads, head_dim)
-        self.kpools = [torch.zeros(shape, dtype=dtype, device=device)
+        self.kpools = [torch.zeros(shape, dtype=store, device=device)
                        for _ in range(num_layers)]
-        self.vpools = [torch.zeros(shape, dtype=dtype, device=device)
+        self.vpools = [torch.zeros(shape, dtype=store, device=device)
                        for _ in range(num_layers)]
+        sshape = (num_blocks, block_size, kv_heads)
+        n = num_layers if quant else 0
+        self.kscales = [torch.zeros(sshape, dtype=torch.float32,
+                                    device=device) for _ in range(n)]
+        self.vscales = [torch.zeros(sshape, dtype=torch.float32,
+                                    device=device) for _ in range(n)]
         self.cow_copies = 0
+
+    def _all(self):
+        return self.kpools + self.vpools + self.kscales + self.vscales
 
     @property
     def nbytes(self) -> int:
-        return sum(p.numel() * p.element_size()
-                   for p in self.kpools + self.vpools)
+        """Device bytes of the pools and their scales."""
+        return sum(p.numel() * p.element_size() for p in self._all())
+
+    def caches(self, block_table) -> List["PagedCache"]:
+        """Each layer's :class:`PagedCache` over `block_table`."""
+        if not self.quant:
+            return [PagedCache(k, v, block_table)
+                    for k, v in zip(self.kpools, self.vpools)]
+        return [PagedCache(k, v, block_table, ks, vs)
+                for k, v, ks, vs in zip(self.kpools, self.vpools,
+                                        self.kscales, self.vscales)]
 
     def copy_block(self, src: int, dst: int):
         """Copy-on-write body: duplicate block `src` into `dst` in every
-        layer's k and v pool, in place."""
-        for p in self.kpools + self.vpools:
+        layer's k and v pool (and scales), in place."""
+        for p in self._all():
             p[dst].copy_(p[src])
         self.cow_copies += 1
 
     def reset(self):
-        for p in self.kpools + self.vpools:
+        for p in self._all():
             p.zero_()
 
 
@@ -301,10 +362,13 @@ class PagedKVPool:
 class PagedCache(NamedTuple):
     """One layer's paged KV view: the pools plus this batch's block table
     ``[B, max_blocks]`` int32 on the pools' device (logical block ->
-    physical block id; unallocated entries point at scratch block 0)."""
+    physical block id; unallocated entries point at scratch block 0).
+    Int8 pools also carry their scales; fp pools leave them None."""
     k: torch.Tensor             # [num_blocks, block_size, kv_heads, hd]
     v: torch.Tensor
     block_table: torch.Tensor   # [B, max_blocks] int32
+    k_scale: Optional[torch.Tensor] = None   # [num_blocks, bs, kvh] fp32
+    v_scale: Optional[torch.Tensor] = None
 
 
 def paged_cache_attention(q, k, v, cache: PagedCache, position_offset,
@@ -333,18 +397,35 @@ def paged_cache_attention(q, k, v, cache: PagedCache, position_offset,
     bids = torch.gather(bt.long(), 1, lb.clamp(max=mb - 1))
     bids = torch.where(lb < mb, bids, 0)
     slot = qpos % bs
-    kp.index_put_((bids, slot), k.to(kp.dtype))
-    vp.index_put_((bids, slot), v.to(vp.dtype))
+    ksc, vsc = cache.k_scale, cache.v_scale
+    if ksc is not None:
+        # int8 pools: the step's K/V are quantized on their way in, one
+        # scale per (token, kv head) written beside them
+        kq, ks_new = _quantize_kv(k)
+        vq, vs_new = _quantize_kv(v)
+        kp.index_put_((bids, slot), kq)
+        vp.index_put_((bids, slot), vq)
+        ksc.index_put_((bids, slot), ks_new)
+        vsc.index_put_((bids, slot), vs_new)
+    else:
+        kp.index_put_((bids, slot), k.to(kp.dtype))
+        vp.index_put_((bids, slot), v.to(vp.dtype))
 
     if attn_mask is None and S == 1:
         lengths = (qpos[:, 0] + 1).to(torch.int32)
-        out = paged_decode_attention(q[:, 0], kp, vp, bt, lengths)
+        out = paged_decode_attention(q[:, 0], kp, vp, bt, lengths,
+                                     k_scale=ksc, v_scale=vsc)
         return out[:, None], cache
 
     # gather the block table back into logical order: [B, mb*bs, kvh, hd]
     idx = bt.long()
-    kb = kp[idx].reshape((B, mb * bs) + tuple(kp.shape[2:]))
-    vb = vp[idx].reshape((B, mb * bs) + tuple(vp.shape[2:]))
+    kb, vb = kp[idx], vp[idx]
+    if ksc is not None:
+        # int8 blocks widen through their scales into q's dtype
+        kb = (kb.float() * ksc[idx][..., None]).to(q.dtype)
+        vb = (vb.float() * vsc[idx][..., None]).to(q.dtype)
+    kb = kb.reshape((B, mb * bs) + tuple(kp.shape[2:]))
+    vb = vb.reshape((B, mb * bs) + tuple(vp.shape[2:]))
     kpos = torch.arange(mb * bs, device=dev)
     mask = kpos[None, None, None, :] <= qpos[:, None, :, None]  # [B,1,S,T]
     if attn_mask is not None:

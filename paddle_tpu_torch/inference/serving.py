@@ -15,9 +15,18 @@ chunks are not padded to a fixed width (nothing is compiled per shape),
 so no position past the prompt is ever written or rotated during
 prefill.
 
-Not ported in this slice — each raises ``NotImplementedError``: the
+Quantized serving: ``quant_weights="int8"|"fp8"`` (or the
+``PADDLE_TPU_QUANT_WEIGHTS`` knob) converts the model's large Linears to
+weight-only ``QuantedLinear`` in place at construction (refcounted;
+``close()`` restores them), and ``quant_kv="int8"`` (or
+``PADDLE_TPU_QUANT_KV``) stores the paged pools as int8 with fp32
+scales, with ``itemsize`` times the blocks by default (2x in bf16, 4x in
+fp32).
+
+Not ported yet — each raises ``NotImplementedError``: the
 slot-contiguous engine (``paged_kv=False``), speculative decoding,
-weight and KV quantization, the KV tier (park/resume/handoff),
+``int8_weights`` (the parameter-dict path, which dequantizes every
+weight each step and has no kernel), the KV tier (park/resume/handoff),
 ahead-of-time warmup, program analysis, and the telemetry/forensics
 hooks (ROADMAP.md, queue 1)."""
 
@@ -32,9 +41,13 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.generation import GenerationConfig, _sample
-from paddle_tpu_torch.inference.kv_cache import (BlockAllocator, PagedCache,
+from paddle_tpu_torch.inference.kv_cache import (BlockAllocator,
                                                  PagedKVPool, PrefixCache,
-                                                 SequenceBlocks)
+                                                 SequenceBlocks,
+                                                 quant_kv_mode)
+from paddle_tpu_torch.quantization.serving import (quant_weights_mode,
+                                                   quantize_for_serving,
+                                                   restore_from_serving)
 
 __all__ = ["ContinuousBatchingEngine", "RequestStatus", "QueueFullError"]
 
@@ -141,12 +154,22 @@ class ContinuousBatchingEngine:
                  quant_kv: Optional[str] = None,
                  kv_tier=None,
                  auto_park_s: Optional[float] = None):
+        # the JAX engine's checks of the quantization knobs
+        # (serving.py:395-398, 440-444), before anything else
+        kv_quant = quant_kv_mode(quant_kv)
+        quant_mode = quant_weights_mode(quant_weights)
+        if kv_quant and not paged_kv:
+            raise ValueError(
+                "PADDLE_TPU_QUANT_KV / quant_kv= requires the paged KV "
+                "engine (paged_kv=True)")
+        if quant_mode and int8_weights:
+            raise ValueError(
+                "int8_weights (the legacy param-dict path) and "
+                "quant_weights= are mutually exclusive")
         unported = {
             "paged_kv=False (the slot-contiguous engine)": not paged_kv,
             "spec_decode": bool(spec_decode),
             "int8_weights": bool(int8_weights),
-            "quant_weights": quant_weights is not None,
-            "quant_kv": quant_kv is not None,
             "kv_tier / auto_park_s": kv_tier is not None
             or auto_park_s is not None,
             "analyze": analyze is not None,
@@ -166,6 +189,8 @@ class ContinuousBatchingEngine:
         self._gen_cfg = GenerationConfig(do_sample=do_sample,
                                          temperature=temperature,
                                          top_k=top_k, top_p=top_p)
+        self.quant_mode = quant_mode
+        self.kv_quant = kv_quant
         params = list(model.parameters())
         self._device = params[0].device
         self._dtype = next((p.dtype for p in params
@@ -189,16 +214,18 @@ class ContinuousBatchingEngine:
                              f"{kv_block_size}")
         self._max_blocks = -(-max_len // self._block_size)
         # default pool: every slot can hold a worst-case sequence, plus
-        # the reserved scratch block
+        # the reserved scratch block.  Int8 pools hold itemsize times the
+        # blocks at the same payload bytes (serving.py:485-490)
+        ratio = self._dtype.itemsize if kv_quant else 1
         self._num_blocks = int(num_kv_blocks) if num_kv_blocks \
-            else 1 + slots * self._max_blocks
+            else 1 + ratio * slots * self._max_blocks
         self._allocator = BlockAllocator(self._num_blocks)
         self._prefix = PrefixCache(self._block_size, self._allocator) \
             if prefix_cache else None
         self._pool = PagedKVPool(
             cfgm.num_hidden_layers, self._num_blocks, self._block_size,
             cfgm.num_key_value_heads, cfgm.head_dim, self._dtype,
-            self._device)
+            self._device, quant=kv_quant)
         # per-slot block-table rows; 0 = reserved scratch block
         self._bt = np.zeros((slots, self._max_blocks), np.int32)
         self._seq: List[Optional[SequenceBlocks]] = [None] * slots
@@ -231,6 +258,13 @@ class ContinuousBatchingEngine:
         self._error_streak = 0
         self._max_consecutive_errors = max(1, int(max_consecutive_errors))
 
+        # weight-only quantized serving, once every argument has passed:
+        # the model's large Linears become QuantedLinear in place
+        # (refcounted; close() restores them)
+        self._quant_converted = False
+        if quant_mode:
+            quantize_for_serving(model, quant_mode)
+            self._quant_converted = True
         # serving runs the model in eval mode; close() hands it back
         self._was_training = getattr(model, "training", False)
         if self._was_training:
@@ -249,9 +283,8 @@ class ContinuousBatchingEngine:
             bt_t = torch.from_numpy(np.ascontiguousarray(bt, np.int32)) \
                 .to(dev)
             pos_t = torch.from_numpy(np.ascontiguousarray(pos, np.int32))
-            caches = [PagedCache(k, v, bt_t)
-                      for k, v in zip(self._pool.kpools, self._pool.vpools)]
-            logits, _ = self.model(ids_t, None, caches, pos_t)
+            logits, _ = self.model(ids_t, None, self._pool.caches(bt_t),
+                                   pos_t)
             return logits.float()
 
     # -- public API ----------------------------------------------------------
@@ -551,8 +584,13 @@ class ContinuousBatchingEngine:
         return {rid: (p, out) for rid, p, out in self.finished()}
 
     def close(self):
-        """Hand the model back (train mode restored if the engine flipped
-        it)."""
+        """Hand the model back: train mode restored if the engine flipped
+        it, and this engine's weight-quantization reference dropped (the
+        original Linears return when the last engine holding the
+        conversion closes)."""
+        if self._quant_converted:
+            restore_from_serving(self.model)
+            self._quant_converted = False
         if self._was_training:
             self.model.train()
             self._was_training = False

@@ -9,7 +9,13 @@ decoder layer runs
 
 where the two fused functions launch their CUDA kernels for CUDA tensors
 at every row count (the TPU package routes them only where Mosaic can
-tile the shape) and take their plain versions on the CPU.  The dense
+tile the shape) and take their plain versions on the CPU.  Projections
+converted to weight-only ``QuantedLinear`` (``quantize_for_serving``) have
+no fp weight for the fused kernels, so, as in the JAX package
+(``models/llama.py:173-185, 245-256``), a layer with any quantized q/k/v
+projection takes RMSNorm then the projections one by one, and an MLP
+with any quantized projection takes ``down(silu(gate(x)) * up(x))``;
+each projection then runs the quant-matmul kernel.  The dense
 (no-cache) attention reaches the flash-attention kernels on CUDA for
 eligible shapes.  Under autograd the fused functions and flash attention
 run their custom VJPs, so ``loss`` trains through the same kernels.  The
@@ -90,6 +96,14 @@ class LlamaAttention(Layer):
         self.o_proj = Linear(self.num_heads * self.head_dim, c.hidden_size,
                              **kw)
 
+    def forward(self, x, rope_cos, rope_sin, attn_mask=None, cache=None,
+                position_offset=0):
+        """The unfused path over normalised x: each projection on its
+        own, then :meth:`attend`."""
+        return self.attend(self.q_proj(x), self.k_proj(x), self.v_proj(x),
+                           rope_cos, rope_sin, attn_mask, cache,
+                           position_offset)
+
     def attend(self, q, k, v, rope_cos, rope_sin, attn_mask=None,
                cache=None, position_offset=0):
         """Everything after the projections: RoPE, the cache, attention,
@@ -117,8 +131,14 @@ class LlamaAttention(Layer):
         return self.o_proj(out.reshape(b, s, -1))
 
 
+def _quantized(*layers) -> bool:
+    """Whether any of `layers` is a weight-only ``QuantedLinear``."""
+    return any(getattr(p, "quantized", False) for p in layers)
+
+
 class LlamaMLP(Layer):
-    """SwiGLU ``down(silu(gate(x)) * up(x))`` through ``F.fused_mlp``."""
+    """SwiGLU ``down(silu(gate(x)) * up(x))`` through ``F.fused_mlp``, or
+    projection by projection when any of them is quantized."""
 
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__(dtype=config.dtype, device=device)
@@ -129,6 +149,8 @@ class LlamaMLP(Layer):
         self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
 
     def forward(self, x):
+        if _quantized(self.gate_proj, self.up_proj, self.down_proj):
+            return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
         return F.fused_mlp(x, self.gate_proj.weight, self.up_proj.weight,
                            self.down_proj.weight)
 
@@ -146,12 +168,16 @@ class LlamaDecoderLayer(Layer):
     def forward(self, x, rope_cos, rope_sin, attn_mask=None, cache=None,
                 position_offset=0):
         attn = self.self_attn
-        q, k, v = F.fused_rmsnorm_qkv(
-            x, self.input_layernorm.weight, attn.q_proj.weight,
-            attn.k_proj.weight, attn.v_proj.weight,
-            epsilon=self.input_layernorm._epsilon)
-        h = attn.attend(q, k, v, rope_cos, rope_sin, attn_mask, cache,
-                        position_offset)
+        if _quantized(attn.q_proj, attn.k_proj, attn.v_proj):
+            h = attn(self.input_layernorm(x), rope_cos, rope_sin, attn_mask,
+                     cache, position_offset)
+        else:
+            q, k, v = F.fused_rmsnorm_qkv(
+                x, self.input_layernorm.weight, attn.q_proj.weight,
+                attn.k_proj.weight, attn.v_proj.weight,
+                epsilon=self.input_layernorm._epsilon)
+            h = attn.attend(q, k, v, rope_cos, rope_sin, attn_mask, cache,
+                            position_offset)
         new_cache = None
         if cache is not None:
             h, new_cache = h

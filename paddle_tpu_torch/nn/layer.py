@@ -20,16 +20,37 @@ from paddle_tpu_torch.core import dtypes as _dtypes
 __all__ = ["Layer"]
 
 
+# ml_dtypes' types (what JAX's bf16 and fp8 arrays become under
+# ``np.asarray``), which torch cannot read directly: their bits are
+# reinterpreted through an integer view of the same width, not converted
+_ML_DTYPES = {"bfloat16": (np.int16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+# stored types whose values are codes, not numbers: loaded bit for bit
+_EXACT = (torch.int8, torch.float8_e4m3fn)
+
+
 def _from_numpy(arr: np.ndarray) -> torch.Tensor:
-    """numpy → CPU tensor, including ml_dtypes' bfloat16 (what a JAX
-    bf16 array becomes under ``np.asarray``), which torch cannot read
-    directly: its bits are reinterpreted, not converted."""
+    """numpy → CPU tensor, including ml_dtypes' bfloat16 and
+    float8_e4m3fn."""
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:     # torch tensors may not alias read-only
         arr = arr.copy()
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    if arr.dtype.name in _ML_DTYPES:
+        view, dt = _ML_DTYPES[arr.dtype.name]
+        return torch.from_numpy(arr.view(view)).view(dt)
     return torch.from_numpy(arr)
+
+
+def _dtype_of(value) -> torch.dtype:
+    """The torch dtype that ``value`` (a tensor or an array) would load
+    as, without converting it."""
+    if torch.is_tensor(value):
+        return value.dtype
+    dt = np.dtype(value.dtype) if hasattr(value, "dtype") else \
+        np.asarray(value).dtype
+    if dt.name in _ML_DTYPES:
+        return _ML_DTYPES[dt.name][1]
+    return torch.from_numpy(np.empty(0, dtype=dt)).dtype
 
 
 class Layer(nn.Module):
@@ -86,11 +107,13 @@ class Layer(nn.Module):
 
     # -- state ---------------------------------------------------------------
     def set_state_dict(self, state_dict: Dict[str, np.ndarray]):
-        """Load ``{name: numpy array}`` (e.g. a JAX model's weights via
-        ``np.asarray``).  Names must match this layer's state dict
-        exactly and every shape must agree; anything else raises before
-        a single value is written.  Values are converted to each
-        parameter's dtype and copied in place on its device."""
+        """Load ``{name: numpy array or tensor}`` (e.g. a JAX model's
+        weights via ``np.asarray``).  Names must match this layer's state
+        dict exactly and every shape must agree; anything else raises
+        before a single value is written.  Values are converted to each
+        parameter's dtype and copied in place on its device, except the
+        quantized buffers (int8, ``float8_e4m3fn``): those take a value of
+        their own dtype only and copy its bits."""
         own = self.state_dict(keep_vars=True)
         missing = sorted(set(own) - set(state_dict))
         unexpected = sorted(set(state_dict) - set(own))
@@ -98,14 +121,24 @@ class Layer(nn.Module):
             raise ValueError(f"state dict mismatch: missing {missing}, "
                              f"unexpected {unexpected}")
         for name, t in own.items():
-            shape = tuple(np.shape(state_dict[name]))
+            value = state_dict[name]
+            shape = tuple(np.shape(value))
             if shape != tuple(t.shape):
                 raise ValueError(
                     f"shape mismatch for '{name}': checkpoint {shape} vs "
                     f"layer {tuple(t.shape)}")
+            dt = _dtype_of(value)
+            if t.dtype in _EXACT and dt != t.dtype:
+                raise TypeError(
+                    f"'{name}' holds {t.dtype} codes; the checkpoint's "
+                    f"{dt} would be converted, not copied")
+        # one value converted at a time: a read-only (JAX) array is copied
+        # to the host by _from_numpy, and never more than one at once
         with torch.no_grad():
             for name, t in own.items():
-                src = _from_numpy(np.asarray(state_dict[name]))
+                value = state_dict[name]
+                src = value.detach() if torch.is_tensor(value) else \
+                    _from_numpy(np.asarray(value))
                 t.copy_(src.to(t.dtype))
 
     # -- dtype ---------------------------------------------------------------

@@ -1,31 +1,41 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) — the port's
 counterpart of ``paddle_tpu/ops/pallas``.  Sources are in ``csrc/``;
-``_build.py`` compiles them at first use."""
+``_build.py`` compiles them at first use.
+
+``quant_matmul`` here names the module; its wrapper is
+``quant_matmul.quant_matmul``."""
 
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
 from paddle_tpu_torch.ops.kernels.fused_block import (fused_mlp,
                                                       fused_rmsnorm_qkv)
-from paddle_tpu_torch.ops.kernels.paged_attention import \
-    paged_decode_attention
+from paddle_tpu_torch.ops.kernels.paged_attention import (
+    paged_decode_attention, paged_decode_attention_int8)
+from paddle_tpu_torch.ops.kernels import quant_matmul as _qm
 
 # the kernel wrappers, each with a `launches` count, and the ones each
-# path runs: serving (paged decode) and a training step (flash fwd/bwd)
+# path runs: serving (paged decode), quantized serving (quant matmul in
+# every projection, int8 paged decode over int8 pools) and a training
+# step (flash fwd/bwd)
 KERNELS = (fused_rmsnorm_qkv, fused_mlp, paged_decode_attention,
+           paged_decode_attention_int8, _qm.quant_matmul,
            flash_attention_fwd, flash_attention_bwd_dq,
            flash_attention_bwd_dkv)
 SERVING = (fused_rmsnorm_qkv, fused_mlp, paged_decode_attention)
+SERVING_QUANT = (_qm.quant_matmul, paged_decode_attention_int8)
 TRAINING = (fused_rmsnorm_qkv, fused_mlp, flash_attention_fwd,
             flash_attention_bwd_dq, flash_attention_bwd_dkv)
 
 
 def reset_launch_counts():
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch count (and per-mode count) to 0."""
     for fn in KERNELS:
         fn.launches = 0
+    _qm.quant_matmul.launches_by_mode = dict.fromkeys(
+        _qm.QUANT_WEIGHT_DTYPES, 0)
 
 
 __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "paged_decode_attention",
-           "flash_attention_fwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv", "KERNELS", "SERVING", "TRAINING",
-           "reset_launch_counts"]
+           "paged_decode_attention_int8", "flash_attention_fwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "KERNELS",
+           "SERVING", "SERVING_QUANT", "TRAINING", "reset_launch_counts"]

@@ -26,15 +26,18 @@ from typing import Dict
 import torch
 
 __all__ = ["library", "build_all", "check", "stream_of", "DTYPE_CODES",
-           "BUILD_DIR"]
+           "WEIGHT_CODES", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fused_block", "paged_attention", "flash_attention")
+SOURCES = ("fused_block", "paged_attention", "flash_attention",
+           "quant_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
-# dtype codes of the C interface (csrc/common.cuh, enum DType)
+# dtype codes of the C interface (csrc/common.cuh, enum DType): the io
+# types every kernel takes, and the stored types of quantized weights
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+WEIGHT_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +53,8 @@ _SIGNATURES = {
     "paged_attention": {
         "ptt_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _P],
+        "ptt_paged_decode_quant": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _I, _F, _P],
     },
     "flash_attention": {
         "ptt_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -58,6 +63,9 @@ _SIGNATURES = {
                              _I, _F, _I, _P],
         "ptt_flash_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _F, _I, _P],
+    },
+    "quant_matmul": {
+        "ptt_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

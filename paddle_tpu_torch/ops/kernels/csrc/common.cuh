@@ -8,8 +8,9 @@
 
 namespace ptt {
 
-// dtype codes of the C interface (ops/kernels/_build.py DTYPE_CODES)
-enum DType { DT_FLOAT32 = 0, DT_BFLOAT16 = 1 };
+// dtype codes of the C interface (ops/kernels/_build.py DTYPE_CODES for
+// the io types, WEIGHT_CODES for quantized weights)
+enum DType { DT_FLOAT32 = 0, DT_BFLOAT16 = 1, DT_INT8 = 2, DT_FP8_E4M3 = 3 };
 
 // 16-byte global -> shared copy that bypasses the registers; with
 // pred == false the destination is zero-filled and nothing is read.

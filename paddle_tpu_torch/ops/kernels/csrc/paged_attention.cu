@@ -1,10 +1,11 @@
 // Paged decode attention over block-table KV pools, for Hopper.
 //
-// Replaces the Pallas TPU kernel paddle_tpu/ops/pallas/paged_attention.py
-// `_decode_kernel` (:86) for fp pools: one query token per sequence attends
-// to its cached keys/values, which live scattered through
-// [num_blocks, block_size, kv_heads, head_dim] pools and are found through
-// the row's block table.  Nothing is gathered into contiguous memory.
+// Replaces the Pallas TPU kernels paddle_tpu/ops/pallas/paged_attention.py
+// `_decode_kernel` (:86, fp pools) and `_decode_kernel_quant` (:145, int8
+// pools): one query token per sequence attends to its cached keys/values,
+// which live scattered through [num_blocks, block_size, kv_heads, head_dim]
+// pools and are found through the row's block table.  Nothing is gathered
+// into contiguous memory.
 //
 // One block per (sequence b, kv head).  The TPU kernel receives the block
 // table by scalar prefetch and walks it with its sequential grid axis; here
@@ -23,8 +24,18 @@
 // Blocks at or past lengths[b] are never read.  Inactive engine rows carry
 // a zero table row and length 1, so they read scratch block 0 only.
 //
+// Int8 pools carry one fp32 scale per (token, kv head) in [num_blocks,
+// block_size, kv_heads] arrays that follow the same block ids.  They are
+// dequantized at the load, as the TPU kernel does (paged_attention.py:
+// 110-115): k = float(int8) * scale rounded to q's type, then the fp32
+// dot; v likewise, before the p * V product.  A K row is then 128 bytes
+// (eight 16-byte loads); its scale is read as a scalar (the 32 bytes of
+// one token's scales are not 16-byte aligned per token), and the chunk's
+// V scales go to shared memory in step 1 for step 3.
+//
 // What bounds it: device-memory bytes (the live K/V rows are read once,
-// with few operations per byte).  This version keeps one block per
+// with few operations per byte; int8 pools read 264 bytes per token and kv
+// head at head_dim 128, against 512 in bf16).  This version keeps one block per
 // (row, kv head) - 64 blocks at B = 8, kv_heads = 8, fewer than the 132 SMs -
 // and walks the sequence serially; splitting long rows across blocks
 // (flash-decoding) is later work.  The unnormalised probabilities are
@@ -38,13 +49,30 @@ constexpr int NT = 128;          // threads per block (4 warps)
 constexpr int NWARP = NT / 32;
 constexpr float NEG = -1e30f;
 
-template <typename T, int G, int HD>
+// a K/V element as the products see it: fp pools as stored; int8 pools
+// dequantized with the token's scale and rounded to q's type T
+template <typename T, typename KV>
+struct KVElem {
+  static __device__ __forceinline__ float f(KV e, float) {
+    return ptt::to_f(e);
+  }
+};
+template <typename T>
+struct KVElem<T, int8_t> {
+  static __device__ __forceinline__ float f(int8_t e, float s) {
+    return ptt::to_f(ptt::from_f<T>((float)e * s));
+  }
+};
+
+template <typename T, typename KV, int G, int HD>
 __global__ void __launch_bounds__(NT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ bt,
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                    const KV* __restrict__ vp, const float* __restrict__ ks,
+                    const float* __restrict__ vs, const int* __restrict__ bt,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     int kvh, int bs, int mb, int cb, float scale) {
-  constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte load
+  constexpr bool QUANT = sizeof(KV) == 1;  // int8 pools with scales
+  constexpr int VEC = 16 / sizeof(KV);    // elements per 16-byte load
   constexpr int ND = (HD + NT - 1) / NT;  // head_dim columns per thread
   extern __shared__ __align__(16) float smem[];
   const int CH = cb * bs;                 // tokens per chunk
@@ -54,6 +82,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* l_s = m_s + G;                   // [G] running sum
   float* c_s = l_s + G;                   // [G] this chunk's correction
   int* pb_s = reinterpret_cast<int*>(c_s + G);   // [cb] physical blocks
+  float* vs_s = reinterpret_cast<float*>(pb_s + cb);   // int8: [CH] V scales
 
   const int b = blockIdx.x, kh = blockIdx.y;
   const int h = kvh * G;
@@ -87,16 +116,18 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int slot = t % bs;
       const size_t row = ((size_t)pb_s[t / bs] * bs + slot) * kvh + kh;
       const uint4* krow = reinterpret_cast<const uint4*>(kp + row * HD);
+      const float ksc = QUANT ? ks[row] : 0.f;
+      if (QUANT) vs_s[t] = vs[row];
       float dot[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) dot[g] = 0.f;
 #pragma unroll 4
       for (int c = 0; c < HD / VEC; ++c) {
         const uint4 raw = krow[c];
-        const T* e = reinterpret_cast<const T*>(&raw);
+        const KV* e = reinterpret_cast<const KV*>(&raw);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
-          const float kf = ptt::to_f(e[i]);
+          const float kf = KVElem<T, KV>::f(e[i], ksc);
 #pragma unroll
           for (int g = 0; g < G; ++g)
             dot[g] = fmaf(q_s[g * HD + c * VEC + i], kf, dot[g]);
@@ -141,7 +172,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll 8
         for (int t = 0; t < ntok; ++t) {
           const size_t row = ((size_t)pb_s[t / bs] * bs + t % bs) * kvh + kh;
-          const float v = ptt::to_f(vp[row * HD + d]);
+          const float v = KVElem<T, KV>::f(vp[row * HD + d],
+                                           QUANT ? vs_s[t] : 0.f);
 #pragma unroll
           for (int g = 0; g < G; ++g)
             acc[i][g] = fmaf(p_s[g * CH + t], v, acc[i][g]);
@@ -165,49 +197,69 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-template <typename T, int G, int HD>
-int launch_g(const T* q, const T* kp, const T* vp, const int* bt,
-             const int* lengths, T* out, int B, int kvh, int bs, int mb,
-             float scale, cudaStream_t stream) {
-  const int cb = bs >= NT ? 1 : NT / bs;   // live blocks per chunk
-  const size_t smem = sizeof(float) * (G * HD + G * cb * bs + 3 * G) +
-                      sizeof(int) * cb;
-  auto kern = paged_decode_kernel<T, G, HD>;
+// the kernel's pointers and sizes, passed down the dispatch by value
+template <typename T, typename KV>
+struct Args {
+  const T* q;
+  const KV* kp;
+  const KV* vp;
+  const float* ks;   // int8 pools: [nb, bs, kvh] scales; fp pools: null
+  const float* vs;
+  const int* bt;
+  const int* lengths;
+  T* out;
+  int B, kvh, bs, mb;
+  float scale;
+};
+
+template <typename T, typename KV, int G, int HD>
+int launch_g(const Args<T, KV>& a, cudaStream_t stream) {
+  const int cb = a.bs >= NT ? 1 : NT / a.bs;   // live blocks per chunk
+  const int ch = cb * a.bs;                     // tokens per chunk
+  const size_t smem = sizeof(float) * (G * HD + G * ch + 3 * G) +
+                      sizeof(int) * cb +
+                      (sizeof(KV) == 1 ? sizeof(float) * ch : 0);
+  auto kern = paged_decode_kernel<T, KV, G, HD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B, kvh);
-  kern<<<grid, NT, smem, stream>>>(q, kp, vp, bt, lengths, out, kvh, bs, mb,
-                                   cb, scale);
+  dim3 grid(a.B, a.kvh);
+  kern<<<grid, NT, smem, stream>>>(a.q, a.kp, a.vp, a.ks, a.vs, a.bt,
+                                   a.lengths, a.out, a.kvh, a.bs, a.mb, cb,
+                                   a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int G>
-int launch_hd(const T* q, const T* kp, const T* vp, const int* bt,
-              const int* lengths, T* out, int B, int kvh, int hd, int bs,
-              int mb, float scale, cudaStream_t s) {
+template <typename T, typename KV, int G>
+int launch_hd(const Args<T, KV>& a, int hd, cudaStream_t s) {
   switch (hd) {
-    case 32: return launch_g<T, G, 32>(q, kp, vp, bt, lengths, out, B, kvh, bs, mb, scale, s);
-    case 64: return launch_g<T, G, 64>(q, kp, vp, bt, lengths, out, B, kvh, bs, mb, scale, s);
-    case 128: return launch_g<T, G, 128>(q, kp, vp, bt, lengths, out, B, kvh, bs, mb, scale, s);
-    case 256: return launch_g<T, G, 256>(q, kp, vp, bt, lengths, out, B, kvh, bs, mb, scale, s);
+    case 32: return launch_g<T, KV, G, 32>(a, s);
+    case 64: return launch_g<T, KV, G, 64>(a, s);
+    case 128: return launch_g<T, KV, G, 128>(a, s);
+    case 256: return launch_g<T, KV, G, 256>(a, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int launch_t(const void* q, const void* kp, const void* vp, const int* bt,
-             const int* lengths, void* out, int B, int h, int kvh, int hd,
-             int bs, int mb, float scale, cudaStream_t s) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(kp);
-  const T* v_ = static_cast<const T*>(vp);
-  T* o_ = static_cast<T*>(out);
+template <typename T, typename KV>
+int launch_t(const void* q, const void* kp, const void* vp, const void* ks,
+             const void* vs, const void* bt, const void* lengths, void* out,
+             int B, int h, int kvh, int hd, int bs, int mb, float scale,
+             cudaStream_t s) {
+  const Args<T, KV> a{static_cast<const T*>(q),
+                      static_cast<const KV*>(kp),
+                      static_cast<const KV*>(vp),
+                      static_cast<const float*>(ks),
+                      static_cast<const float*>(vs),
+                      static_cast<const int*>(bt),
+                      static_cast<const int*>(lengths),
+                      static_cast<T*>(out),
+                      B, kvh, bs, mb, scale};
   switch (h / kvh) {
-    case 1: return launch_hd<T, 1>(q_, k_, v_, bt, lengths, o_, B, kvh, hd, bs, mb, scale, s);
-    case 2: return launch_hd<T, 2>(q_, k_, v_, bt, lengths, o_, B, kvh, hd, bs, mb, scale, s);
-    case 4: return launch_hd<T, 4>(q_, k_, v_, bt, lengths, o_, B, kvh, hd, bs, mb, scale, s);
-    case 8: return launch_hd<T, 8>(q_, k_, v_, bt, lengths, o_, B, kvh, hd, bs, mb, scale, s);
+    case 1: return launch_hd<T, KV, 1>(a, hd, s);
+    case 2: return launch_hd<T, KV, 2>(a, hd, s);
+    case 4: return launch_hd<T, KV, 4>(a, hd, s);
+    case 8: return launch_hd<T, KV, 8>(a, hd, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -227,14 +279,34 @@ int ptt_paged_decode(int dtype, const void* q, const void* kp, const void* vp,
   if (B <= 0 || kvh <= 0 || h % kvh != 0 || bs <= 0 || mb <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt_ = static_cast<const int*>(bt);
-  const int* ln_ = static_cast<const int*>(lengths);
   if (dtype == ptt::DT_BFLOAT16)
-    return launch_t<__nv_bfloat16>(q, kp, vp, bt_, ln_, out, B, h, kvh, hd,
-                                   bs, mb, scale, s);
+    return launch_t<__nv_bfloat16, __nv_bfloat16>(
+        q, kp, vp, nullptr, nullptr, bt, lengths, out, B, h, kvh, hd, bs, mb,
+        scale, s);
   if (dtype == ptt::DT_FLOAT32)
-    return launch_t<float>(q, kp, vp, bt_, ln_, out, B, h, kvh, hd, bs, mb,
-                           scale, s);
+    return launch_t<float, float>(q, kp, vp, nullptr, nullptr, bt, lengths,
+                                  out, B, h, kvh, hd, bs, mb, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same over int8 pools kp/vp [nb, bs, kvh, hd] with fp32 scales ks/vs
+// [nb, bs, kvh]: each K/V element is float(int8) * its token's scale,
+// rounded to q's type (`dtype`).
+int ptt_paged_decode_quant(int dtype, const void* q, const void* kp,
+                           const void* vp, const void* ks, const void* vs,
+                           const void* bt, const void* lengths, void* out,
+                           int B, int h, int kvh, int hd, int bs, int mb,
+                           float scale, void* stream) {
+  if (B <= 0 || kvh <= 0 || h % kvh != 0 || bs <= 0 || mb <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::DT_BFLOAT16)
+    return launch_t<__nv_bfloat16, int8_t>(q, kp, vp, ks, vs, bt, lengths,
+                                           out, B, h, kvh, hd, bs, mb, scale,
+                                           s);
+  if (dtype == ptt::DT_FLOAT32)
+    return launch_t<float, int8_t>(q, kp, vp, ks, vs, bt, lengths, out, B, h,
+                                   kvh, hd, bs, mb, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

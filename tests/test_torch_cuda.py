@@ -14,9 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.inference.kv_cache import _quantize_kv
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import fused_block as FB
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
+from paddle_tpu_torch.ops.kernels import quant_matmul as QM
+from paddle_tpu_torch.quantization.serving import quantize_linear_weight
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +106,121 @@ def test_paged_decode_matches_plain(dev, dtype, h, kvh, hd, bs):
     got = PA.paged_decode_attention(q, kp, vp, bt, lengths)
     assert PA.paged_decode_attention.launches == n0 + 1
     _close(got, PA.paged_decode_reference(q, kp, vp, bt, lengths), dtype)
+
+
+# -- the quantized serving slice's kernels ------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("T,K,N", [(1, 128, 256), (3, 256, 192),
+                                   (8, 512, 1024), (17, 128, 320),
+                                   (256, 512, 512)])
+def test_quant_matmul_matches_plain(dev, dtype, mode, T, K, N):
+    rng = np.random.default_rng(T * 13 + N)
+    x = _t(rng, (T, K), dtype, dev)
+    qw, scale = quantize_linear_weight(
+        _t(rng, (K, N), torch.float32, dev, K ** -0.5), mode)
+    n0 = (QM.quant_matmul.launches, QM.quant_matmul.launches_by_mode[mode])
+    got = QM.quant_matmul(x, qw, scale, mode=mode)
+    assert (QM.quant_matmul.launches,
+            QM.quant_matmul.launches_by_mode[mode]) == (n0[0] + 1, n0[1] + 1)
+    assert got.dtype == dtype and got.shape == (T, N)
+    _close(got, QM.quant_matmul_reference(x, qw, scale), dtype)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quant_matmul_leading_dims(dev, mode):
+    rng = np.random.default_rng(3)
+    x = _t(rng, (2, 5, 256), torch.bfloat16, dev)
+    qw, scale = quantize_linear_weight(
+        _t(rng, (256, 128), torch.float32, dev, 0.0625), mode)
+    got = QM.quant_matmul(x, qw, scale, mode=mode)
+    assert got.shape == (2, 5, 128)
+    flat = QM.quant_matmul(x.reshape(10, 256), qw, scale, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got.reshape(10, 128), flat)
+    _close(got, QM.quant_matmul_reference(x, qw, scale), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,hd,bs", [(4, 2, 32, 4), (32, 8, 128, 16),
+                                         (8, 8, 64, 16), (16, 2, 256, 8),
+                                         (8, 8, 64, 256)])
+def test_int8_paged_decode_matches_plain(dev, dtype, h, kvh, hd, bs):
+    rng = np.random.default_rng(h * 5 + hd)
+    B, nb, mb = 5, 40, 12
+    q = _t(rng, (B, h, hd), dtype, dev)
+    kp, ks = _quantize_kv(_t(rng, (nb, bs, kvh, hd), dtype, dev))
+    vp, vs = _quantize_kv(_t(rng, (nb, bs, kvh, hd), dtype, dev))
+    bt = torch.as_tensor(rng.integers(1, nb, (B, mb)), dtype=torch.int32,
+                         device=dev)
+    bt[0] = 0                      # an inactive row: scratch block, length 1
+    lengths = torch.as_tensor([1, 1, bs, mb * bs - 3, mb * bs],
+                              dtype=torch.int32, device=dev)
+    n0 = (PA.paged_decode_attention.launches,
+          PA.paged_decode_attention_int8.launches)
+    got = PA.paged_decode_attention(q, kp, vp, bt, lengths, k_scale=ks,
+                                    v_scale=vs)
+    assert (PA.paged_decode_attention.launches,
+            PA.paged_decode_attention_int8.launches) == (n0[0], n0[1] + 1)
+    _close(got, PA.paged_decode_reference(q, kp, vp, bt, lengths,
+                                          k_scale=ks, v_scale=vs), dtype)
+
+
+def test_quant_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    qw = torch.zeros((64, 96), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        QM.quant_matmul(torch.zeros((4, 64), device=dev), qw,
+                        torch.ones(96, device=dev))
+    qw = torch.zeros((64, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        QM.quant_matmul(torch.zeros((4, 64), device=dev).half(), qw,
+                        torch.ones(64, device=dev))
+    with pytest.raises(TypeError, match="scale"):
+        QM.quant_matmul(torch.zeros((4, 64), device=dev), qw,
+                        torch.ones(64, device=dev, dtype=torch.bfloat16))
+    q = torch.zeros((2, 4, 32), device=dev)
+    pool = torch.zeros((3, 4, 2, 32), device=dev)
+    bt = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    sc = torch.ones((3, 4, 2), device=dev)
+    with pytest.raises(TypeError, match="int8"):
+        PA.paged_decode_attention(q, pool, pool, bt,
+                                  torch.ones(2, dtype=torch.int32,
+                                             device=dev),
+                                  k_scale=sc, v_scale=sc)
+
+
+def test_quant_engine_on_the_card_matches_the_cpu_engine(dev):
+    """int8 weights and int8 pools at a small width (every projection
+    converted, head_dim 32), fp32 on the card against the same model on
+    the CPU: greedy tokens agree, both quant kernels launched and the
+    fused fp kernels did not."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    cfg = LlamaConfig.tiny(hidden_size=128, intermediate_size=256,
+                           num_attention_heads=4, num_key_value_heads=2)
+    seed(0)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.set_state_dict(cpu.state_dict())
+    kw = dict(slots=2, max_len=64, prefill_buckets=(16, 32),
+              kv_block_size=4, prefill_chunk=8, quant_weights="int8",
+              quant_kv="int8")
+    prompts = [np.random.default_rng(i).integers(0, 256, n)
+               for i, n in enumerate((5, 17, 11))]
+    outs = []
+    kernels.reset_launch_counts()
+    for model in (cpu, gpu):
+        with ContinuousBatchingEngine(model, **kw) as eng:
+            rids = [eng.add_request(p, max_new_tokens=6) for p in prompts]
+            res = eng.run()
+            outs.append([res[r][1] for r in rids])
+    assert outs[0] == outs[1]
+    assert all(fn.launches > 0 for fn in kernels.SERVING_QUANT)
+    assert FB.fused_rmsnorm_qkv.launches == FB.fused_mlp.launches == 0
+    assert PA.paged_decode_attention.launches == 0
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

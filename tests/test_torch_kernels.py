@@ -185,6 +185,9 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.models, paddle_tpu_torch.inference\n"
         "import paddle_tpu_torch.ops.kernels\n"
         "import paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
+        "import paddle_tpu_torch.quantization\n"
+        "import paddle_tpu_torch.quantization.serving\n"
+        "import paddle_tpu_torch.ops.kernels.quant_matmul\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"

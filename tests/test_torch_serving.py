@@ -1,8 +1,10 @@
 """The whole slice: the PyTorch port's paged continuous-batching engine
 against the JAX package's (``paged_kv=True``) on the same tiny model,
 weights and prompts, on the CPU in fp32.  Greedy tokens must be
-identical.  Plus the engine's own contract: input checks, the bounded
-queue, deadlines, and the options outside this slice refusing loudly."""
+identical, with fp weights and pools and with quantized ones
+(``quant_weights``, ``quant_kv``).  Plus the engine's own contract: input
+checks, the bounded queue, deadlines, the quantization knobs, and the
+options outside the port so far refusing loudly."""
 
 import numpy as np
 import pytest
@@ -84,6 +86,111 @@ def test_greedy_tokens_match_jax_engine(pair, scenario):
         assert reused == 2 * 12   # 3 blocks of 4 for each later request
 
 
+# quantized serving: engine options, then phases as above.  The tiny
+# config converts q, o, gate, up, down and lm_head (k/v stay fp: 2048
+# elements < 4096), so the decoder layers take the mixed routing
+QUANT_SCENARIOS = {
+    "int8_weights": ({"quant_weights": "int8"},
+                     [(_prompts(5, [17, 6, 11]), 6)]),
+    "fp8_weights": ({"quant_weights": "fp8"},
+                    [(_prompts(6, [9, 14]), 6)]),
+    "int8_kv": ({"quant_kv": "int8"}, [(_prompts(7, [17, 4, 12]), 6)]),
+    "int8_both_prefix_reuse": (
+        {"quant_weights": "int8", "quant_kv": "int8"},
+        [([_SHARED], 4), (_prompts(3, [2, 7], prefix=_SHARED), 6)]),
+}
+
+
+@pytest.mark.parametrize("scenario", sorted(QUANT_SCENARIOS))
+def test_quantized_greedy_tokens_match_jax_engine(pair, scenario):
+    jm, tm = pair
+    over, phases = QUANT_SCENARIOS[scenario]
+    kw = dict(ENGINE, **over)
+    je = JEngine(jm, paged_kv=True, **kw)
+    te = ContinuousBatchingEngine(tm, **kw)
+    try:
+        assert te._num_blocks == je._num_blocks
+        assert (te.quant_mode, te.kv_quant) == (je.quant_mode, je.kv_quant)
+        reused = 0
+        for prompts, max_new in phases:
+            jr = [je.add_request(p, max_new_tokens=max_new) for p in prompts]
+            tr = [te.add_request(p, max_new_tokens=max_new) for p in prompts]
+            jout, tout = je.run(), te.run()
+            for a, b in zip(jr, tr):
+                assert te.request_status(b) == "ok"
+                assert len(tout[b][1]) == max_new
+                assert [int(t) for t in tout[b][1]] == \
+                    [int(t) for t in jout[a][1]]
+                reused += te.request_status(b).timings[
+                    "prefix_tokens_reused"]
+        if "prefix" in scenario:
+            assert reused == 2 * 12
+    finally:
+        je.close()
+        te.close()
+    assert getattr(tm, "_serving_quant_refs", 0) == 0
+
+
+@pytest.mark.parametrize("dtype,ratio", [("float32", 4), ("bfloat16", 2)])
+def test_int8_pool_holds_itemsize_times_the_blocks(pair, dtype, ratio):
+    """At the same payload bytes an int8 pool holds 4x the blocks of an
+    fp32 pool and 2x of a bf16 one (the JAX engine's count for fp32)."""
+    tm = pair[1] if dtype == "float32" else \
+        LlamaForCausalLM(LlamaConfig.tiny(**TINY, dtype=dtype), device="cpu")
+    base = ContinuousBatchingEngine(tm, **ENGINE)
+    quant = ContinuousBatchingEngine(tm, quant_kv="int8", **ENGINE)
+    assert quant._num_blocks - 1 == ratio * (base._num_blocks - 1)
+    assert quant._pool.kpools[0].dtype == torch.int8
+    assert quant._pool.kscales[0].shape == (quant._num_blocks, 4, 2)
+
+    def payload(e):
+        return sum(p.numel() * p.element_size() // e._num_blocks
+                   * (e._num_blocks - 1)
+                   for p in e._pool.kpools + e._pool.vpools)
+    assert payload(quant) == payload(base)
+    if dtype == "float32":
+        je = JEngine(pair[0], paged_kv=True, quant_kv="int8", **ENGINE)
+        assert je._num_blocks == quant._num_blocks
+
+
+def test_engines_share_one_conversion_and_close_restores(pair):
+    from paddle_tpu_torch.quantization import QuantedLinear
+    tm = pair[1]
+    a = ContinuousBatchingEngine(tm, quant_weights="int8", **ENGINE)
+    b = ContinuousBatchingEngine(tm, quant_weights="int8", **ENGINE)
+    assert isinstance(tm.lm_head, QuantedLinear)
+    assert tm._serving_quant_refs == 2
+    a.close()
+    assert isinstance(tm.lm_head, QuantedLinear)
+    with b:
+        pass
+    assert tm._serving_quant_refs == 0
+    assert "lm_head.weight" in tm.state_dict()
+    b.close()                                 # a second close is harmless
+    assert tm._serving_quant_refs == 0
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"quant_kv": "int8", "paged_kv": False}, "paged KV"),
+    ({"quant_weights": "int8", "int8_weights": True}, "mutually exclusive"),
+    ({"quant_weights": "int4"}, "int8|fp8"),
+    ({"quant_kv": "fp8"}, "only int8"),
+])
+def test_quant_options_are_validated(pair, kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        ContinuousBatchingEngine(pair[1], **dict(ENGINE, **kwargs))
+    assert getattr(pair[1], "_serving_quant_refs", 0) == 0
+
+
+def test_quant_env_knobs_reach_the_engine(pair, monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_QUANT_WEIGHTS", "fp8")
+    monkeypatch.setenv("PADDLE_TPU_QUANT_KV", "int8")
+    with ContinuousBatchingEngine(pair[1], **ENGINE) as te:
+        assert (te.quant_mode, te.kv_quant) == ("fp8", "int8")
+        assert pair[1].lm_head.qweight.dtype == torch.float8_e4m3fn
+    assert getattr(pair[1], "_serving_quant_refs", 0) == 0
+
+
 def test_empty_prompt_raises(pair):
     te = ContinuousBatchingEngine(pair[1], **ENGINE)
     with pytest.raises(ValueError, match="empty prompt"):
@@ -118,8 +225,8 @@ def test_deadline_retires_with_timeout(pair):
 
 @pytest.mark.parametrize("kwargs", [
     {"paged_kv": False}, {"spec_decode": 2}, {"int8_weights": True},
-    {"quant_weights": "int8"}, {"quant_kv": "int8"}, {"kv_tier": object()},
-    {"auto_park_s": 1.0}, {"analyze": "warn"}, {"role": "prefill"},
+    {"kv_tier": object()}, {"auto_park_s": 1.0}, {"analyze": "warn"},
+    {"role": "prefill"},
 ])
 def test_unported_engine_options_raise(pair, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
