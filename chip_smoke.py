@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (kernels three: the serving, the
-training and the quantized serving rows; serve, serve_quant and train
-one more each, for a profiled window; serve_quant two, one per engine):
+Phases, each printing one JSON line (kernels four: the serving, the
+training, the quantized serving and the MoE rows; serve, serve_quant,
+train and train_moe one more each, for a profiled window; serve_quant
+and train_moe two, one per engine or dispatch mode):
 
 1. env      versions, the card, TF32 switched off for fp32 references.
 2. build    nvcc builds the port's CUDA kernels from ``paddle_tpu_torch/
@@ -60,6 +61,22 @@ one more each, for a profiled window; serve_quant two, one per engine):
             warm-up and 5 timed steps.  Every loss finite, the last below
             the first, no step skipped, every training kernel launched.
             Then one step under torch.profiler.
+
+8. moe     the MoE slice at ERNIE-4.5-21B-A3B width.  kernels_moe (with
+            the kernel phases): the grouped expert FFN against its plain
+            version at the step's shape (G = E = 64, C = 960, d = 2560,
+            h = 1536, bf16, counts of a real routing), with counts 0, C
+            and partial, in fp32 at C = 64 and with G = 2E, each timed
+            beside its plain version, the baddbmm -> gelu -> baddbmm
+            chain and its bound.  moe_parity: one full-width MoELayer,
+            forward and backward, kernel path against plain path on the
+            card (fp32, bf16), then a 2-layer fp32 ERNIE loss on the card
+            against the CPU, with the expert choices that differ.
+            train_moe: TrainStep(ErnieForCausalLM) with 4 of 28 layers
+            (1 dense, 3 MoE), bf16, b=4, s=2048, AdamW(multi_precision),
+            einsum dispatch 1 + 5 steps (then train_moe_profile), index
+            dispatch 1 + 3 steps on a fresh model; launch counts checked
+            per step.
 
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -961,9 +978,10 @@ def train(dev, kernels):
     return launches
 
 
-def train_profile(step, batch):
+def train_profile(step, batch, phase="train_profile", top_n=15):
     """One more step under torch.profiler: the device's busy share of
-    the step's wall time and the top kernels by device time."""
+    the step's wall time, the top kernels by device time, and the device
+    time of the port's own kernels by family."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -975,12 +993,326 @@ def train_profile(step, batch):
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kern)
-    top = sorted(kern, key=lambda e: -e.device_time_total)[:15]
-    emit("train_profile", steps=1, wall_s=wall,
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:top_n]
+    port = {}
+    for fam in ("grouped_kernel", "gemm_kernel", "flash_fwd_kernel",
+                "flash_dq_kernel", "flash_dkv_kernel"):
+        hits = [e for e in kern if f"::{fam}<" in e.key]
+        port[fam] = {"ms": sum(e.device_time_total for e in hits) / 1e3,
+                     "calls": sum(e.count for e in hits)}
+    emit(phase, steps=1, wall_s=wall,
          device_busy_s=busy_us / 1e6 if kern else None,
          device_busy_share=busy_us / 1e6 / wall if kern else None,
+         port_kernels=port,
          top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3,
                "calls": e.count} for e in top])
+
+
+# -- the MoE slice: ERNIE-4.5-21B-A3B width ----------------------------------
+
+ME, MK, MD, MH = 64, 6, 2560, 1536     # experts, top-k, d, expert hidden
+MOE_B, MOE_S = 4, 2048
+MOE_C = int(1.25 * MK * MOE_B * MOE_S / ME)     # 960 capacity slots
+# the grouped kernel's bf16 limit: kernel and plain version round the
+# hidden to bf16 at the same point and the output once, so they differ by
+# the fp32 summation order, a rare one-step flip of a hidden element, and
+# one bf16 rounding of outputs of order 1
+GROUPED_TOL = (1e-2, 2 ** -7)
+
+
+def moe_routed_counts(TM, dev, g, T, C):
+    """Per-expert kept counts of a real routing: T random bf16 tokens
+    through a Xavier-initialised [d, E] router and the port's gating."""
+    x = rand(g, (T, MD), torch.bfloat16, dev)
+    gate = rand(g, (MD, ME), torch.bfloat16, dev, (2.0 / (MD + ME)) ** 0.5)
+    topi, _, _, keep, _ = TM.top_k_gating_indices(x @ gate, MK, C)
+    return TM._expert_counts(topi, keep, ME)
+
+
+def grouped_case(GM, dev, timer, G, C, dtype, counts, g):
+    """One grouped expert-FFN case: the kernel pair against its plain
+    version (rows past each count exactly zero), then timed beside the
+    plain version and the library chain baddbmm -> gelu -> baddbmm."""
+    F_ = torch.nn.functional
+    rep = G // ME
+    x = rand(g, (G, C, MD), dtype, dev)
+    w1 = rand(g, (ME, MD, MH), dtype, dev, MD ** -0.5)
+    b1 = rand(g, (ME, MH), dtype, dev, 0.1)
+    w2 = rand(g, (ME, MH, MD), dtype, dev, MH ** -0.5)
+    b2 = rand(g, (ME, MD), dtype, dev, 0.1)
+    args = (x, w1, b1, w2, b2)
+    got = GM.grouped_expert_ffn(*args, counts=counts)
+    tol = GROUPED_TOL if dtype == torch.bfloat16 else TOL[dtype]
+    what, used = f"grouped_expert_ffn G={G} C={C} {dtype}", {}
+    err = check_close(what, got, GM.grouped_expert_ffn_reference(
+        *args, counts=counts), dtype, tol, used)
+    past = torch.arange(C, device=dev)[None, :] >= counts[:, None].long()
+    if bool(got[past].any()):
+        raise AssertionError(f"{what}: rows past the count are not zero")
+    del got
+    xr = x.reshape(ME, rep * C, MD)
+
+    def library():
+        h = F_.gelu(torch.baddbmm(b1[:, None, :], xr, w1))
+        return torch.baddbmm(b2[:, None, :], h, w2)
+
+    n = int(counts.sum())
+    isz = x.element_size()
+    out = {"ms": timer(lambda: GM.grouped_expert_ffn(*args, counts=counts)),
+           "plain_ms": timer(lambda: GM.grouped_expert_ffn_reference(
+               *args, counts=counts), iters=3, warmup=1),
+           "library_ms": timer(library)}
+    # rows read: the routed ones; y written whole (zeros past the counts)
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        n * MD * isz + ME * (2 * MD * MH + MH + MD) * isz
+        + G * C * MD * isz + 4 * G, 4 * n * MD * MH,
+        BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+    out["max_abs_err"] = err
+    out["tolerance"] = dict(zip(("atol", "rtol"), tol))
+    out["limit_used"] = used[what]
+    out["routed_rows"] = n
+    out["counts_min_max"] = [int(counts.min()), int(counts.max())]
+    out["workspace_bytes"] = 2 * G * C * MH * isz
+    out["shape"] = (f"G={G} E={ME} C={C} d={MD} h={MH} "
+                    f"{str(dtype)[6:]}")
+    del args, x, w1, w2, xr
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernels_moe(GM, TM, dev, timer):
+    """The grouped kernel at the MoE step's shape (bf16, counts from a
+    real routing of b*s = 8192 tokens), with counts 0, C and partial in
+    turn, in fp32 at C = 64, and with G = 2E groups (rep 2)."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    routed = moe_routed_counts(TM, dev, g, MOE_B * MOE_S, MOE_C)
+    pattern = [0, MOE_C, MOE_C // 2 + 5, 37]
+    mixed = torch.tensor([pattern[i % 4] for i in range(ME)],
+                         dtype=torch.int32, device=dev)
+    half = MOE_C // 2
+    rep2 = torch.tensor([(0, half, half // 2 + 5, 37)[i % 4]
+                         for i in range(2 * ME)],
+                        dtype=torch.int32, device=dev)
+    return {
+        "routed bf16": grouped_case(GM, dev, timer, ME, MOE_C,
+                                    torch.bfloat16, routed, g),
+        "counts 0/C/partial bf16": grouped_case(GM, dev, timer, ME, MOE_C,
+                                                torch.bfloat16, mixed, g),
+        "fp32 C=64": grouped_case(
+            GM, dev, timer, ME, 64, torch.float32,
+            torch.tensor([(0, 64, 37, 63)[i % 4] for i in range(ME)],
+                         dtype=torch.int32, device=dev), g),
+        "rep 2 bf16": grouped_case(GM, dev, timer, 2 * ME, half,
+                                   torch.bfloat16, rep2, g),
+    }
+
+
+def _plain_expert_ffn(GM):
+    """``_expert_ffn`` through the plain version, differentiated by
+    autograd: the plain path of the parity phases."""
+    def ffn(x, w1, b1, w2, b2, act, counts=None):
+        return GM.grouped_expert_ffn_reference(x, w1, b1, w2, b2, counts,
+                                               act)
+    return ffn
+
+
+def moe_layer_parity(GM, TM, dev, dtype):
+    """One full-width MoELayer (d 2560, 64 experts of 1536, top-6, T =
+    2048, capacity 240), forward and backward of sum(out * r) + aux on the
+    card, kernel path against plain path on the same input: the same
+    routing (checked by the per-expert loads), the output and the
+    gradient of x and of every parameter within 2e-2 (bf16) / 1e-3
+    (fp32) of each array's largest magnitude."""
+    from paddle_tpu_torch import seed
+    seed(5)
+    layer = TM.MoELayer(d_model=MD, num_experts=ME, d_hidden=MH,
+                        gate="naive", top_k=MK, capacity_factor=1.25,
+                        dtype=dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = rand(g, (2, 1024, MD), dtype, dev)
+    r = rand(g, (2, 1024, MD), torch.float32, dev)
+    runs = []
+    kernel_ffn = TM._expert_ffn
+    for ffn in (kernel_ffn, _plain_expert_ffn(GM)):
+        TM._expert_ffn = ffn
+        try:
+            layer.clear_gradients()
+            xi = x.detach().clone().requires_grad_(True)
+            out = layer(xi)
+            ((out.float() * r).sum() + layer.aux_loss.float()).backward()
+        finally:
+            TM._expert_ffn = kernel_ffn
+        grads = {n: p.grad.detach().clone()
+                 for n, p in layer.named_parameters()}
+        grads["x"] = xi.grad.detach()
+        runs.append((out.detach(), grads,
+                     layer.router_stats["load"].clone(),
+                     float(layer.router_stats["dropped_frac"])))
+    (out, grads, load, dropped), (rout, rgrads, rload, _) = runs
+    if not torch.equal(load, rload):
+        raise AssertionError("moe_parity: the two paths routed differently")
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-3
+    worst = {}
+    for name, a, b in [("out", out, rout)] + [
+            (n, grads[n], rgrads[n]) for n in rgrads]:
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        if not torch.isfinite(a).all() or err > rel * scale + 1e-12:
+            raise AssertionError(f"moe_parity {dtype}: {name} max abs err "
+                                 f"{err} > {rel} * {scale}")
+        worst[name] = err / scale if scale else 0.0
+    return {"tolerance": f"{rel} of each array's max |.|",
+            "rel_err": worst, "dropped_frac": dropped,
+            "load_max_over_mean": float(load.max() / load.float().mean())}
+
+
+def moe_parity(GM, TM, dev):
+    """The MoELayer check in fp32 and bf16, then a 2-layer full-width
+    ERNIE (one dense, one MoE layer) in fp32: the loss on the card (the
+    kernels) against the same weights on the CPU (plain versions),
+    with the token-expert choices of the two paths compared."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import ErnieForCausalLM, ernie45_moe_config
+    t0 = time.perf_counter()
+    layer = {str(dt)[6:]: moe_layer_parity(GM, TM, dev, dt)
+             for dt in (torch.float32, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    cfg = ernie45_moe_config(num_hidden_layers=2, dtype="float32")
+    seed(3)
+    card = ErnieForCausalLM(cfg, device=dev)
+    host = ErnieForCausalLM(cfg, device="cpu")
+    host.set_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 513))
+    choices, gating = [], TM.top_k_gating_indices
+
+    def spy(*a, **kw):
+        res = gating(*a, **kw)
+        choices.append(res[0].cpu())
+        return res
+
+    losses = []
+    TM.top_k_gating_indices = spy
+    try:
+        with torch.no_grad():
+            for model in (card, host):
+                x = torch.as_tensor(ids[:, :-1]).to(model.device)
+                y = torch.as_tensor(ids[:, 1:]).to(model.device)
+                losses.append(float(model.loss(x, y)))
+    finally:
+        TM.top_k_gating_indices = gating
+    differ = int((choices[0] != choices[1]).sum())
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    # fp32 on both sides, sums in other orders; a near-tie choice that
+    # flips moves one token's expert mix by two nearly equal weights
+    if not np.isfinite(losses[0]) or rel > 1e-4:
+        raise AssertionError(f"moe_parity: loss {losses[0]} vs plain "
+                             f"{losses[1]} (rel {rel}), {differ} choices "
+                             "differ")
+    emit("moe_parity", layer_T=2048, layer_capacity=240, layer=layer,
+         model_layers=2, model_dtype="float32", seq=512, loss=losses[0],
+         plain_loss=losses[1], loss_rel_err=rel, loss_tolerance=1e-4,
+         choices=int(choices[0].numel()), choices_differ=differ,
+         seconds=time.perf_counter() - t0)
+    del card, host
+
+
+MOE_LAYERS, MOE_STEPS = 4, {"einsum": 5, "index": 3}
+
+
+def train_moe(dev, kernels):
+    """The slice's main path: TrainStep(ErnieForCausalLM, AdamW) at
+    ERNIE-4.5-21B-A3B width, 4 of 28 layers (1 dense, 3 MoE), bf16, b=4,
+    s=2048, one fixed batch; einsum dispatch for 1 + 5 steps, then a
+    fresh model with index dispatch for 1 + 3.  Returns each run's
+    launch counts."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import ErnieForCausalLM, ernie45_moe_config
+    from paddle_tpu_torch.optimizer import AdamW
+    runs = {}
+    for mode, n_steps in MOE_STEPS.items():
+        cfg = ernie45_moe_config(num_hidden_layers=MOE_LAYERS,
+                                 dispatch_mode=mode)
+        n_moe = MOE_LAYERS - cfg.first_k_dense_replace
+        seed(0)
+        t0 = time.perf_counter()
+        model = ErnieForCausalLM(cfg, device=dev)
+        opt = AdamW(learning_rate=1e-4, multi_precision=True)
+        step = TrainStep(model, opt, guard_nonfinite=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        named = dict(model.named_parameters())
+        n_params = sum(p.numel() for p in named.values())
+        expert = sum(p.numel() for n, p in named.items() if ".experts." in n)
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (MOE_B, MOE_S + 1))
+        batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+                 "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+        t0 = time.perf_counter()
+        losses = [float(step(batch))]                   # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {fn.__name__: fn.launches for fn in kernels.TRAINING_MOE}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        moes = [layer.moe for layer in model.model.layers
+                if not layer.is_dense]
+        dropped = [float(m.router_stats["dropped_frac"]) for m in moes]
+        loads = [m.router_stats["load"].float() for m in moes]
+        imbalance = [float(ld.max() / ld.mean()) for ld in loads]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train_moe {mode}: non-finite loss "
+                                 f"{losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train_moe {mode}: loss did not fall "
+                                 f"{losses}")
+        if any(step.skipped.values()) or step.step_count != 1 + n_steps:
+            raise AssertionError(f"train_moe {mode}: skipped steps "
+                                 f"{step.skipped}, step_count "
+                                 f"{step.step_count}")
+        # per step: the grouped FFN once a MoE layer; flash forward and
+        # both backward kernels once a layer; the SwiGLU pair in the dense
+        # layer and in each MoE layer's shared experts
+        want = {"grouped_expert_ffn": n_moe, "flash_attention_fwd":
+                MOE_LAYERS, "flash_attention_bwd_dq": MOE_LAYERS,
+                "flash_attention_bwd_dkv": MOE_LAYERS,
+                "fused_mlp": MOE_LAYERS}
+        for name, per_step in want.items():
+            if launches[name] != per_step * n_steps:
+                raise AssertionError(f"train_moe {mode}: {name} launched "
+                                     f"{launches[name]} times in {n_steps} "
+                                     f"steps, expected {per_step} a step")
+        dt = float(np.median(times))
+        tokens = MOE_B * MOE_S
+        # bench.py:477-488: activated parameters (the idle experts' share
+        # of the expert weights left out), 6 N_act + 12 L s d a token
+        idle = int(expert * (cfg.num_experts - cfg.num_experts_per_tok)
+                   / cfg.num_experts)
+        flops_tok = 6 * (n_params - idle) + \
+            12 * MOE_LAYERS * MOE_S * cfg.hidden_size
+        emit("train_moe", dispatch_mode=mode, layers=MOE_LAYERS,
+             moe_layers=n_moe, dtype=cfg.dtype, batch=MOE_B, seq=MOE_S,
+             capacity=MOE_C, params=n_params, activated_params=n_params -
+             idle, optimizer="AdamW(lr=1e-4, multi_precision=True)",
+             model_build_s=build_s, warmup_s=warm_s, step_s=times,
+             step_s_median=dt, tokens_per_s=tokens / dt,
+             mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S, peak_mem_gb=peak,
+             losses=losses, dropped_frac=dropped,
+             load_max_over_mean=imbalance, launches=launches,
+             launches_per_step={k: v / n_steps for k, v in launches.items()})
+        if mode == "einsum":
+            train_profile(step, batch, phase="train_moe_profile", top_n=25)
+        runs[mode] = launches
+        del model, opt, step, named, batch, moes, loads
+        torch.cuda.empty_cache()
+    return runs
 
 
 def main():
@@ -992,7 +1324,9 @@ def main():
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import fused_block as FB
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as GM
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
+    from paddle_tpu_torch.distributed import moe as TM
     from paddle_tpu_torch.ops.kernels import quant_matmul as QM
     from paddle_tpu_torch.inference.kv_cache import _quantize_kv
     from paddle_tpu_torch.quantization.serving import quantize_linear_weight
@@ -1029,6 +1363,8 @@ def main():
     quant_rows["paged_decode_attention_int8"] = kernel_paged_int8(
         PA, _quantize_kv, dev, timer)
     emit("kernels_quant", results=quant_rows)
+    moe_rows = kernels_moe(GM, TM, dev, timer)
+    emit("kernels_moe", results=moe_rows)
     del timer
     torch.cuda.empty_cache()
 
@@ -1044,6 +1380,10 @@ def main():
     del model
     torch.cuda.empty_cache()
     train_launches = train(dev, kernels)
+    torch.cuda.empty_cache()
+    moe_parity(GM, TM, dev)
+    torch.cuda.empty_cache()
+    moe_launches = train_moe(dev, kernels)
 
     where = {
         "fused_rmsnorm_qkv": ("paddle_tpu_torch/ops/kernels/csrc/"
@@ -1114,6 +1454,17 @@ def main():
                      "replaces": rep, "launches": n,
                      **{k: r[k] for k in keys}, "shape": r["shape"],
                      "path": path})
+    # the MoE training path: the slice's routed shape; launches from the
+    # einsum run (the config's default), the index run's beside them
+    r = moe_rows["routed bf16"]
+    line.append({"name": "grouped_expert_ffn", "route": "cuda",
+                 "source": src + "grouped_matmul.cu",
+                 "replaces": "paddle_tpu/ops/pallas/grouped_matmul.py:121",
+                 "launches": moe_launches["einsum"]["grouped_expert_ffn"],
+                 **{k: r[k] for k in keys}, "shape": r["shape"],
+                 "path": "train_moe einsum dispatch",
+                 "launches_index_dispatch":
+                     moe_launches["index"]["grouped_expert_ffn"]})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

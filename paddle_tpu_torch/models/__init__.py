@@ -4,6 +4,12 @@ from paddle_tpu_torch.models.llama import (LlamaAttention, LlamaConfig,
                                            LlamaDecoderLayer,
                                            LlamaForCausalLM, LlamaMLP,
                                            LlamaModel)
+from paddle_tpu_torch.models.moe_llm import (MoEConfig, MoEDecoderLayer,
+                                             MoEForCausalLM, MoEModel)
+from paddle_tpu_torch.models.ernie import (ErnieForCausalLM,
+                                           ernie45_moe_config)
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
-           "LlamaModel", "LlamaForCausalLM"]
+           "LlamaModel", "LlamaForCausalLM",
+           "MoEConfig", "MoEDecoderLayer", "MoEModel", "MoEForCausalLM",
+           "ErnieForCausalLM", "ernie45_moe_config"]

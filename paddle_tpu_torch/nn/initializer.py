@@ -18,10 +18,19 @@ __all__ = ["Constant", "Normal", "XavierNormal"]
 
 
 def _fans(shape):
+    """(fan_in, fan_out), the JAX package's rule (``initializer.py:23-33``):
+    a 2-D weight is ``[in, out]``; above two dimensions the conv layout
+    ``[out, in, *rest]``, each fan times the product of the rest (so a
+    stacked expert weight ``[E, d, h]`` has fans d*h and E*h)."""
     shape = tuple(shape)
+    if len(shape) == 0:
+        return 1, 1
     if len(shape) == 1:
         return shape[0], shape[0]
-    return shape[0], shape[1]
+    if len(shape) == 2:
+        return shape[0], shape[1]
+    receptive = math.prod(shape[2:])
+    return shape[1] * receptive, shape[0] * receptive
 
 
 class Constant:

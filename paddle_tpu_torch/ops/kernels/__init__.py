@@ -9,6 +9,7 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
 from paddle_tpu_torch.ops.kernels.fused_block import (fused_mlp,
                                                       fused_rmsnorm_qkv)
+from paddle_tpu_torch.ops.kernels.grouped_matmul import grouped_expert_ffn
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_int8)
 from paddle_tpu_torch.ops.kernels import quant_matmul as _qm
@@ -16,15 +17,18 @@ from paddle_tpu_torch.ops.kernels import quant_matmul as _qm
 # the kernel wrappers, each with a `launches` count, and the ones each
 # path runs: serving (paged decode), quantized serving (quant matmul in
 # every projection, int8 paged decode over int8 pools) and a training
-# step (flash fwd/bwd)
+# step (flash fwd/bwd) and an MoE training step (the grouped expert FFN;
+# its attention is unfused, so no QKV kernel)
 KERNELS = (fused_rmsnorm_qkv, fused_mlp, paged_decode_attention,
            paged_decode_attention_int8, _qm.quant_matmul,
            flash_attention_fwd, flash_attention_bwd_dq,
-           flash_attention_bwd_dkv)
+           flash_attention_bwd_dkv, grouped_expert_ffn)
 SERVING = (fused_rmsnorm_qkv, fused_mlp, paged_decode_attention)
 SERVING_QUANT = (_qm.quant_matmul, paged_decode_attention_int8)
 TRAINING = (fused_rmsnorm_qkv, fused_mlp, flash_attention_fwd,
             flash_attention_bwd_dq, flash_attention_bwd_dkv)
+TRAINING_MOE = (fused_mlp, flash_attention_fwd, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv, grouped_expert_ffn)
 
 
 def reset_launch_counts():
@@ -37,5 +41,6 @@ def reset_launch_counts():
 
 __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "paged_decode_attention",
            "paged_decode_attention_int8", "flash_attention_fwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "KERNELS",
-           "SERVING", "SERVING_QUANT", "TRAINING", "reset_launch_counts"]
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "grouped_expert_ffn", "KERNELS", "SERVING", "SERVING_QUANT",
+           "TRAINING", "TRAINING_MOE", "reset_launch_counts"]

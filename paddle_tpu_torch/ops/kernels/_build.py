@@ -31,7 +31,7 @@ __all__ = ["library", "build_all", "check", "stream_of", "DTYPE_CODES",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_block", "paged_attention", "flash_attention",
-           "quant_matmul")
+           "quant_matmul", "grouped_matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of the C interface (csrc/common.cuh, enum DType): the io
@@ -66,6 +66,12 @@ _SIGNATURES = {
     },
     "quant_matmul": {
         "ptt_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "grouped_matmul": {
+        "ptt_grouped_ffn_up": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P],
+        "ptt_grouped_ffn_down": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _P],
     },
 }
 

@@ -17,6 +17,7 @@ import torch
 from paddle_tpu_torch.inference.kv_cache import _quantize_kv
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import fused_block as FB
+from paddle_tpu_torch.ops.kernels import grouped_matmul as GM
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 from paddle_tpu_torch.ops.kernels import quant_matmul as QM
 from paddle_tpu_torch.quantization.serving import quantize_linear_weight
@@ -417,3 +418,132 @@ def test_train_step_on_the_card_matches_the_cpu_port(dev):
                          gpu.state_dict().values()):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-4,
                                    rtol=1e-4, err_msg=n)
+
+
+# -- the MoE training slice: the grouped expert FFN ---------------------------
+
+def _grouped_inputs(rng, G, E, C, d, h, dtype, dev):
+    x = _t(rng, (G, C, d), dtype, dev)
+    w1 = _t(rng, (E, d, h), dtype, dev, d ** -0.5)
+    b1 = _t(rng, (E, h), dtype, dev, 0.1)
+    w2 = _t(rng, (E, h, d), dtype, dev, h ** -0.5)
+    b2 = _t(rng, (E, d), dtype, dev, 0.1)
+    return x, w1, b1, w2, b2
+
+
+def _grouped_counts(G, C):
+    """Per group: 0, C, a partial count, C - 1, repeating."""
+    pattern = [0, C, C // 2 + 3, C - 1]
+    return torch.tensor([pattern[g % 4] for g in range(G)],
+                        dtype=torch.int32)
+
+
+# (G, E, C, d, h): full 64-row tiles; C = 100, the last tile partial; rep 2
+GROUPED_SHAPES = [(4, 4, 64, 128, 64), (4, 4, 100, 128, 192),
+                  (8, 4, 96, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,E,C,d,h", GROUPED_SHAPES)
+def test_grouped_ffn_matches_plain(dev, dtype, G, E, C, d, h):
+    """Counts 0, C, partial and C - 1 in turn: the kernel pair against
+    its plain version; rows past each count exactly zero; one launch."""
+    rng = np.random.default_rng(G * 13 + C)
+    args = _grouped_inputs(rng, G, E, C, d, h, dtype, dev)
+    counts = _grouped_counts(G, C).to(dev)
+    n0 = GM.grouped_expert_ffn.launches
+    got = GM.grouped_expert_ffn(*args, counts=counts)
+    assert GM.grouped_expert_ffn.launches == n0 + 1
+    _close(got, GM.grouped_expert_ffn_reference(*args, counts=counts), dtype)
+    rows = torch.arange(C, device=dev)[None, :] >= counts[:, None].long()
+    assert not got[rows].any()
+    full = GM.grouped_expert_ffn(*args)            # counts None: every row
+    _close(full, GM.grouped_expert_ffn_reference(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffn_gradients_on_the_card(dev, dtype):
+    """``GroupedExpertFFN`` on the card (kernel forward, the masked
+    product chain backward) against the same Function on the CPU (plain
+    forward and backward) on the same inputs: output and the gradient of
+    x and every weight."""
+    G, E, C, d, h = 8, 4, 100, 128, 64
+    rng = np.random.default_rng(5)
+    args = _grouped_inputs(rng, G, E, C, d, h, dtype, dev)
+    counts = _grouped_counts(G, C)
+    r = _t(rng, (G, C, d), dtype, dev)
+    outs, grads = [], []
+    for where in (dev, torch.device("cpu")):
+        ts = [a.detach().to(where).requires_grad_(True) for a in args]
+        y = GM.GroupedExpertFFN.apply(*ts, counts.to(where), "gelu")
+        (y.float() * r.to(where).float()).sum().backward()
+        outs.append(y.detach().cpu())
+        grads.append([t.grad.cpu() for t in ts])
+    _close(outs[0], outs[1], dtype)
+    for g, ref in zip(grads[0], grads[1]):
+        _close(g, ref, dtype)
+
+
+def test_grouped_ffn_refuses_what_the_kernel_does_not_take(dev):
+    rng = np.random.default_rng(9)
+    x, w1, b1, w2, b2 = _grouped_inputs(rng, 2, 2, 64, 128, 64,
+                                        torch.bfloat16, dev)
+    with pytest.raises(TypeError, match="w1"):
+        GM.grouped_expert_ffn(x, w1.float(), b1, w2, b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        GM.grouped_expert_ffn(x.transpose(1, 2).contiguous().transpose(1, 2),
+                              w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        GM.grouped_expert_ffn(x[..., :96].contiguous(), w1[:, :96].contiguous(),
+                              b1, w2[..., :96].contiguous(),
+                              b2[:, :96].contiguous())
+    with pytest.raises(ValueError, match="counts is on"):
+        GM.grouped_expert_ffn(x, w1, b1, w2, b2,
+                              counts=torch.tensor([1, 2], dtype=torch.int32))
+    with pytest.raises(ValueError, match="exact gelu only"):
+        GM.grouped_expert_ffn(x, w1, b1, w2, b2, act="relu")
+
+
+def test_moe_train_step_on_the_card_matches_the_cpu_port(dev):
+    """A tiny flash-eligible ERNIE-shaped config (head_dim 128, seq 128;
+    one dense and one MoE layer) in fp32, einsum then index dispatch: two
+    TrainStep updates on the card and on the CPU from the same weights;
+    losses within 1e-5 relative, the parameters within 1e-4; the grouped
+    kernel launched once a forward (one MoE layer), flash in both layers
+    and the SwiGLU pair in the dense and shared MLPs."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import ErnieForCausalLM, ernie45_moe_config
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = np.random.default_rng(3).integers(0, 256, (2, 129))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    for mode in ("einsum", "index"):
+        cfg = ernie45_moe_config(
+            vocab_size=256, hidden_size=256, intermediate_size=256,
+            moe_intermediate_size=64, num_hidden_layers=2,
+            num_attention_heads=2, num_key_value_heads=1, num_experts=4,
+            num_experts_per_tok=2, num_shared_experts=1,
+            max_position_embeddings=256, dtype="float32",
+            dispatch_mode=mode)
+        seed(0)
+        cpu = ErnieForCausalLM(cfg, device="cpu")
+        gpu = ErnieForCausalLM(cfg, device=dev)
+        gpu.set_state_dict({k: v.numpy()
+                            for k, v in cpu.state_dict().items()})
+        steps = [TrainStep(m, AdamW(learning_rate=1e-3,
+                                    multi_precision=True))
+                 for m in (cpu, gpu)]
+        kernels.reset_launch_counts()
+        for _ in range(2):
+            ref, got = (float(st(batch)) for st in steps)
+            assert abs(got - ref) <= 1e-5 * abs(ref), (mode, got, ref)
+        launched = {fn.__name__: fn.launches for fn in kernels.TRAINING_MOE}
+        assert launched["grouped_expert_ffn"] == 2, launched
+        assert launched["flash_attention_fwd"] == 4, launched
+        assert launched["flash_attention_bwd_dq"] == 4, launched
+        assert launched["fused_mlp"] == 4, launched
+        for (n, a), b in zip(cpu.state_dict().items(),
+                             gpu.state_dict().values()):
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
+                                       atol=1e-4, rtol=1e-4, err_msg=n)
