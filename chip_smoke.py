@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (kernels four: the serving, the
-training, the quantized serving and the MoE rows; serve, serve_quant,
-train and train_moe one more each, for a profiled window; serve_quant
-and train_moe two, one per engine or dispatch mode):
+Phases, each printing one JSON line (kernels six: the serving, the
+training, the quantized serving, the MoE, the cross-entropy and the
+feed-forward rows; serve, serve_quant, train, train_moe, train_gpt and
+transformer_infer one more each, for a profiled window; serve_quant and
+train_moe two, one per engine or dispatch mode):
 
 1. env      versions, the card, TF32 switched off for fp32 references.
 2. build    nvcc builds the port's CUDA kernels from ``paddle_tpu_torch/
@@ -77,6 +78,30 @@ and train_moe two, one per engine or dispatch mode):
             einsum dispatch 1 + 5 steps (then train_moe_profile), index
             dispatch 1 + 3 steps on a fresh model; launch counts checked
             per step.
+9. gpt      the GPT slice at GPT-2-medium width.  kernels_ce (with the
+            kernel phases): the fused softmax cross-entropy forward and
+            backward against their plain versions at the step's shape (bf16
+            T = 8192, V = 50304), fp32 at T = 1024, and bf16 T = 1000 over
+            the unpadded V = 50257 (rows off the 16-byte grid, a tail, some
+            labels outside [0, V)); loss, lse and dx within CE_TOL, each
+            timed beside its plain version, F.cross_entropy on fp32 logits
+            (forward; its autograd backward) and its bound.  gpt_parity: a
+            2-layer fp32 GPTForCausalLM at full width, b=1, s=1024 (flash
+            through the head_dim-64 pad), loss and every gradient on the card
+            against the CPU.  train_gpt: TrainStep(GPTForCausalLM) with all
+            24 layers, bf16, dropout 0, b=8, s=1024, AdamW(multi_precision),
+            1 + 5 steps, launch counts checked per step; then
+            train_gpt_profile.
+10. transformer  nn.Transformer() (the base model: d_model 512, 8 heads,
+            6 + 6 layers, FFN 2048, relu, post-LN).  kernels_ffn (with the
+            kernel phases): fused_ffn against ffn_reference at T = 8192,
+            d = 512, f = 2048, relu / gelu / silu in bf16 and relu in fp32,
+            timed beside the plain version, addmm -> act -> addmm and its
+            bound.  transformer_infer: the full model in bf16, eval, b=32,
+            source and target 256 with the causal target mask: the output
+            against the plain FFN route on the card, forward seconds, tokens
+            per second, fused_ffn launched 12 times a forward; a 2 + 2-layer
+            fp32 card-vs-CPU parity; then transformer_profile.
 
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -116,6 +141,12 @@ PAGED_TOL = (4e-3, 2 ** -7)
 # the quant matmul's bf16 limit: codes up-convert exactly, so kernel and
 # plain version differ by the fp32 summation order and one bf16 rounding
 QUANT_MM_TOL = (2e-3, 2 ** -7)
+# the cross-entropy rows' limits, (atol, rtol): loss and lse are fp32 sums
+# of V exponentials in another order (and __expf, ~2 ulp) on both sides;
+# dx is one rounding to the logits' type of fp32 values that differ by
+# those few ulp, so in bf16 at most one bf16 step (2^-7 of the value)
+CE_TOL = {"loss": (1e-4, 1e-5), "lse": (1e-4, 1e-5),
+          "dx_bf16": (1e-7, 2 ** -7), "dx_fp32": (1e-7, 1e-5)}
 
 
 def emit(phase, **kw):
@@ -572,6 +603,144 @@ def kernel_paged_int8(PA, quantize_kv, dev, timer):
     return out
 
 
+# -- phase 9, kernel rows: the fused softmax cross-entropy --------------------
+
+GPT_V, GPT_T = 50304, 8192          # GPT-2 medium's padded vocab, b * s
+
+
+def kernel_ce(CE, dev, timer, T, V, dtype, ignored=0):
+    """The CE forward and backward kernels against their plain versions
+    (loss, lse, dx within CE_TOL), then each timed beside its plain
+    version, F.cross_entropy on fp32 logits (forward; the backward of
+    its autograd graph) and its bound: the logits read once (and dx
+    written once), 4 fp32 operations an element."""
+    F_ = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(T + V)
+    x = rand(g, (T, V), dtype, dev, 2.0)
+    lbl = torch.randint(0, V, (T,), generator=g, device=dev)
+    if ignored:
+        lbl[::T // ignored] = -100     # outside [0, V): no gold, loss = lse
+    cot = rand(g, (T,), torch.float32, dev)
+    errs, used = {}, {}
+    loss, lse = CE.cross_entropy_fwd(x, lbl)
+    rloss, rlse = CE.ce_fwd_reference(x, lbl)
+    errs["loss"] = check_close(f"ce loss T={T} V={V}", loss, rloss, dtype,
+                               CE_TOL["loss"], used)
+    errs["lse"] = check_close(f"ce lse T={T} V={V}", lse, rlse, dtype,
+                              CE_TOL["lse"], used)
+    del rloss, rlse
+    dkey = "dx_bf16" if dtype == torch.bfloat16 else "dx_fp32"
+    dx = CE.cross_entropy_bwd(x, lbl, lse, cot)
+    errs["dx"] = check_close(f"ce dx T={T} V={V}", dx,
+                             CE.ce_bwd_reference(x, lbl, lse, cot), dtype,
+                             CE_TOL[dkey], used)
+    del dx
+    torch.cuda.empty_cache()
+    xf = x.float().requires_grad_(True)
+    safe = lbl.clamp(0, V - 1)
+    lib_loss = F_.cross_entropy(xf, safe, reduction="none")
+
+    def lib_bwd():
+        torch.autograd.grad(lib_loss, xf, cot, retain_graph=True)
+
+    isz = x.element_size()
+    nbytes = T * V * isz + 8 * T
+    rows = {}
+    for name, kern, plain, lib, nb in (
+            ("cross_entropy_fwd", lambda: CE.cross_entropy_fwd(x, lbl),
+             lambda: CE.ce_fwd_reference(x, lbl),
+             lambda: F_.cross_entropy(xf.detach(), safe, reduction="none"),
+             nbytes + 8 * T),
+            ("cross_entropy_bwd",
+             lambda: CE.cross_entropy_bwd(x, lbl, lse, cot),
+             lambda: CE.ce_bwd_reference(x, lbl, lse, cot), lib_bwd,
+             nbytes + 8 * T + T * V * isz)):
+        out = {"ms": timer(kern), "plain_ms": timer(plain, iters=3,
+                                                    warmup=1),
+               "library_ms": timer(lib, iters=5)}
+        out["bound_ms"], out["bound_by"] = bound_ms(nb, 4 * T * V,
+                                                    FP32_FLOP_PER_S)
+        out["bytes"] = nb
+        rows[name] = out
+    rows["cross_entropy_fwd"]["max_abs_err"] = max(errs["loss"], errs["lse"])
+    rows["cross_entropy_fwd"]["max_abs_err_loss_lse"] = [errs["loss"],
+                                                         errs["lse"]]
+    rows["cross_entropy_bwd"]["max_abs_err"] = errs["dx"]
+    for name in rows:
+        rows[name]["tolerance"] = {k: dict(zip(("atol", "rtol"), CE_TOL[k]))
+                                   for k in (("loss", "lse") if "fwd" in name
+                                             else (dkey,))}
+        rows[name]["limit_used"] = used
+        rows[name]["library"] = ("F.cross_entropy(fp32 logits, "
+                                 "reduction='none')" + (
+                                     "" if "fwd" in name else
+                                     ", autograd backward"))
+        rows[name]["shape"] = (f"T={T} V={V} {str(dtype)[6:]}"
+                               + (f", {ignored} labels -100" if ignored
+                                  else ""))
+    del x, xf, lib_loss, lse, loss
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernels_ce(CE, dev, timer):
+    return {"bf16 T=8192 V=50304": kernel_ce(CE, dev, timer, GPT_T, GPT_V,
+                                             torch.bfloat16),
+            "fp32 T=1024 V=50304": kernel_ce(CE, dev, timer, 1024, GPT_V,
+                                             torch.float32),
+            "bf16 T=1000 V=50257": kernel_ce(CE, dev, timer, 1000, 50257,
+                                             torch.bfloat16, ignored=40)}
+
+
+# -- phase 10, kernel rows: the act + bias feed-forward -----------------------
+
+TB, TS, TD, TF_ = 32, 256, 512, 2048     # Transformer-base: b, s, d, FFN
+
+
+def kernel_ffn(FB, dev, timer, act, dtype):
+    """fused_ffn against ffn_reference at the Transformer cell's FFN
+    shape (T = b * s rows), timed beside the plain version, addmm -> act
+    -> addmm (the F.linear chain on [in, out] weights) and its bound."""
+    F_ = torch.nn.functional
+    T = TB * TS
+    g = torch.Generator(device=dev).manual_seed(len(act) + T)
+    x = rand(g, (T, TD), dtype, dev)
+    w1 = rand(g, (TD, TF_), dtype, dev, TD ** -0.5)
+    w2 = rand(g, (TF_, TD), dtype, dev, TF_ ** -0.5)
+    b1 = rand(g, (TF_,), dtype, dev, 0.1)
+    b2 = rand(g, (TD,), dtype, dev, 0.1)
+    used = {}
+    what = f"fused_ffn {act} {dtype}"
+    err = check_close(what, FB.fused_ffn(x, w1, w2, b1, b2, act),
+                      FB.ffn_reference(x, w1, b1, w2, b2, act), dtype,
+                      None, used)
+    fn = {"relu": F_.relu, "gelu": F_.gelu, "silu": F_.silu}[act]
+    out = {"ms": timer(lambda: FB.fused_ffn(x, w1, w2, b1, b2, act)),
+           "plain_ms": timer(lambda: FB.ffn_reference(x, w1, b1, w2, b2,
+                                                      act)),
+           "library_ms": timer(lambda: torch.addmm(
+               b2, fn(torch.addmm(b1, x, w1)), w2))}
+    isz = x.element_size()
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        (2 * T * TD + 2 * TD * TF_ + TF_ + TD) * isz, 4 * T * TD * TF_,
+        BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+    out["max_abs_err"] = err
+    out["tolerance"] = dict(zip(("atol", "rtol"), TOL[dtype]))
+    out["limit_used"] = used[what]
+    out["workspace_bytes"] = 2 * T * TF_ * isz
+    out["library"] = "addmm(b1, x, w1) -> act -> addmm(b2, h, w2)"
+    out["shape"] = f"T={T} d={TD} f={TF_} {act} {str(dtype)[6:]}"
+    return out
+
+
+def kernels_ffn(FB, dev, timer):
+    rows = {f"{act} bf16": kernel_ffn(FB, dev, timer, act, torch.bfloat16)
+            for act in ("relu", "gelu", "silu")}
+    rows["relu fp32"] = kernel_ffn(FB, dev, timer, "relu", torch.float32)
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 4: full-width parity against the plain path -----------------------
 
 def drive(model, prompt, chunk, n_new, quant_kv=None):
@@ -978,16 +1147,26 @@ def train(dev, kernels):
     return launches
 
 
-def train_profile(step, batch, phase="train_profile", top_n=15):
-    """One more step under torch.profiler: the device's busy share of
-    the step's wall time, the top kernels by device time, and the device
-    time of the port's own kernels by family."""
+TRAIN_FAMILIES = ("grouped_kernel", "gemm_kernel", "flash_fwd_kernel",
+                  "flash_dq_kernel", "flash_dkv_kernel")
+
+
+def train_profile(step, batch, phase="train_profile", top_n=15,
+                  families=TRAIN_FAMILIES):
+    """One more step under torch.profiler (profile_call)."""
+    profile_call(lambda: step(batch), phase, families, top_n, steps=1)
+
+
+def profile_call(fn, phase, families, top_n=15, **extra):
+    """One call of `fn` under torch.profiler: the device's busy share of
+    its wall time, the top kernels by device time, and the device time of
+    the port's own kernels by family."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.key_averages()
@@ -995,12 +1174,11 @@ def train_profile(step, batch, phase="train_profile", top_n=15):
     busy_us = sum(e.device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.device_time_total)[:top_n]
     port = {}
-    for fam in ("grouped_kernel", "gemm_kernel", "flash_fwd_kernel",
-                "flash_dq_kernel", "flash_dkv_kernel"):
+    for fam in families:
         hits = [e for e in kern if f"::{fam}<" in e.key]
         port[fam] = {"ms": sum(e.device_time_total for e in hits) / 1e3,
                      "calls": sum(e.count for e in hits)}
-    emit(phase, steps=1, wall_s=wall,
+    emit(phase, **extra, wall_s=wall,
          device_busy_s=busy_us / 1e6 if kern else None,
          device_busy_share=busy_us / 1e6 / wall if kern else None,
          port_kernels=port,
@@ -1315,6 +1493,258 @@ def train_moe(dev, kernels):
     return runs
 
 
+# -- phase 9: the GPT slice at GPT-2-medium width ---------------------------
+
+GPT_B, GPT_S, GPT_STEPS = 8, 1024, 5
+
+
+def grad_parity(what, card, host, ids):
+    """Loss and every gradient of `card` and `host` (the same weights) on
+    one batch: the loss within 1e-4 relative, each gradient within 1e-3
+    of its largest magnitude (train_parity's limits).  Returns the
+    losses and the four worst gradients' relative errors."""
+    losses, grads = [], []
+    for model in (card, host):
+        x = torch.as_tensor(ids[:, :-1]).to(model.device)
+        y = torch.as_tensor(ids[:, 1:]).to(model.device)
+        loss = model.loss(x, y)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    if not rel <= 1e-4:
+        raise AssertionError(f"{what}: loss {losses[0]} vs plain "
+                             f"{losses[1]} (rel {rel})")
+    worst = {}
+    for n, ref in grads[1].items():
+        got = grads[0][n].cpu()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        if not torch.isfinite(got).all() or err > 1e-3 * scale + 1e-12:
+            raise AssertionError(f"{what}: grad {n} max abs err {err} > "
+                                 f"1e-3 * {scale}")
+        worst[n] = err / scale if scale else 0.0
+    return losses, rel, dict(sorted(worst.items(), key=lambda kv: -kv[1])[:4])
+
+
+def gpt_parity(dev, kernels):
+    """A 2-layer fp32 GPTForCausalLM at GPT-2-medium width (vocab 50304,
+    d 1024, 16 heads of 64), b=1, s=1024: loss and every gradient on the
+    card (the CE kernels, flash through the head_dim pad) against the
+    same weights on the CPU (plain versions), TF32 off."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                    attention_dropout_prob=0.0)
+    seed(4)
+    t0 = time.perf_counter()
+    card = GPTForCausalLM(cfg, device=dev)
+    host = GPTForCausalLM(cfg, device="cpu")
+    host.set_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = np.random.default_rng(4).integers(0, cfg.vocab_size, (1, 1025))
+    kernels.reset_launch_counts()
+    losses, rel, worst = grad_parity("gpt_parity", card, host, ids)
+    launched = {fn.__name__: fn.launches for fn in kernels.TRAINING_GPT}
+    want = {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
+            "flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+            "flash_attention_bwd_dkv": 2}
+    if launched != want:
+        raise AssertionError(f"gpt_parity: launches {launched}, expected "
+                             f"{want}")
+    emit("gpt_parity", layers=2, vocab=cfg.vocab_size, batch=1, seq=1024,
+         dtype="float32", loss=losses[0], plain_loss=losses[1],
+         loss_rel_err=rel, loss_tolerance=1e-4,
+         grad_tolerance="1e-3 of each grad's max |g|",
+         worst_grad_rel_err=worst, launches=launched,
+         seconds=time.perf_counter() - t0)
+    del card, host
+
+
+def train_gpt(dev, kernels):
+    """The slice's main path: TrainStep(GPTForCausalLM, AdamW) at
+    GPT-2-medium width with all 24 layers, bf16, dropout 0, b=8,
+    s=1024, one fixed batch; launch counts checked per step."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = GPTConfig(dtype="bfloat16", hidden_dropout_prob=0.0,
+                    attention_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    seed(0)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=dev)
+    step = TrainStep(model, AdamW(learning_rate=1e-4, multi_precision=True),
+                     guard_nonfinite=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (GPT_B, GPT_S + 1))
+    batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+             "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+    t0 = time.perf_counter()
+    losses = [float(step(batch))]                   # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(GPT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in kernels.TRAINING_GPT}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_gpt: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_gpt: loss did not fall {losses}")
+    if any(step.skipped.values()) or step.step_count != 1 + GPT_STEPS:
+        raise AssertionError(f"train_gpt: skipped steps {step.skipped}, "
+                             f"step_count {step.step_count}")
+    # per step: the CE pair once; flash forward and both backward kernels
+    # once a layer (head_dim 64 padded to 128, seq 1024)
+    want = {"cross_entropy_fwd": 1, "cross_entropy_bwd": 1,
+            "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L}
+    for name, per_step in want.items():
+        if launches[name] != per_step * GPT_STEPS:
+            raise AssertionError(f"train_gpt: {name} launched "
+                                 f"{launches[name]} times in {GPT_STEPS} "
+                                 f"steps, expected {per_step} a step")
+    dt = float(np.median(times))
+    tokens = GPT_B * GPT_S
+    # bench.py:1141-1144: 6N + 12 L s d FLOPs a token over the bf16 peak
+    flops_tok = 6 * n_params + 12 * L * GPT_S * cfg.hidden_size
+    emit("train_gpt", layers=L, dtype=cfg.dtype, vocab=cfg.vocab_size,
+         hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+         batch=GPT_B, seq=GPT_S, params=n_params, flops_per_token=flops_tok,
+         optimizer="AdamW(lr=1e-4, multi_precision=True)",
+         model_build_s=build_s, warmup_s=warm_s, step_s=times,
+         step_s_median=dt, tokens_per_s=tokens / dt,
+         mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S, peak_mem_gb=peak,
+         losses=losses, launches=launches,
+         launches_per_step={k: v / GPT_STEPS for k, v in launches.items()})
+    train_profile(step, batch, phase="train_gpt_profile", top_n=20,
+                  families=("ce_fwd_kernel", "ce_bwd_kernel",
+                            "flash_fwd_kernel", "flash_dq_kernel",
+                            "flash_dkv_kernel"))
+    return launches
+
+
+# -- phase 10: nn.Transformer inference (the base model) ---------------------
+
+TRANSFORMER_FWDS = 5
+
+
+def transformer_infer(dev, kernels):
+    """nn.Transformer() in bf16, eval, b=32, source and target length 256,
+    the causal target mask: the output against the same model with its
+    FFN on the plain route (ffn_reference, on the card); forward seconds
+    (median of TRANSFORMER_FWDS, each ending in a synchronize), tokens per
+    second and fused_ffn launches (12 a forward).  Then a 2 + 2-layer fp32
+    card-vs-CPU parity and a profiled forward."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nn import Transformer
+    from paddle_tpu_torch.nn import transformer as TT
+    from paddle_tpu_torch.ops.kernels import fused_block as FB
+    seed(0)
+    t0 = time.perf_counter()
+    model = Transformer(dtype="bfloat16", device=dev).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_layers = len(model.encoder.layers) + len(model.decoder.layers)
+    g = torch.Generator(device=dev).manual_seed(9)
+    src = rand(g, (TB, TS, TD), torch.bfloat16, dev)
+    tgt = rand(g, (TB, TS, TD), torch.bfloat16, dev)
+    mask = Transformer.generate_square_subsequent_mask(TS, device=dev)
+
+    def fwd():
+        with torch.inference_mode():
+            return model(src, tgt, tgt_mask=mask)
+
+    fwd()                                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(TRANSFORMER_FWDS):
+        t0 = time.perf_counter()
+        out = fwd()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in kernels.TRANSFORMER}
+    if launches["fused_ffn"] != n_layers * TRANSFORMER_FWDS:
+        raise AssertionError(f"transformer_infer: fused_ffn launched "
+                             f"{launches['fused_ffn']} times in "
+                             f"{TRANSFORMER_FWDS} forwards, expected "
+                             f"{n_layers} a forward")
+    kernel_ffn = TT.F.fused_ffn
+
+    def plain_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
+        return FB.ffn_reference(x, w1, b1, w2, b2, activation)
+
+    TT.F.fused_ffn = plain_ffn
+    try:
+        ref = fwd()
+    finally:
+        TT.F.fused_ffn = kernel_ffn
+    err = float((out.float() - ref.float()).abs().max())
+    mean_err = float((out.float() - ref.float()).abs().mean())
+    scale = float(ref.float().abs().max())
+    # both routes round h to bf16 at the same point and y once; an fp32
+    # summation order that flips one bf16 step of h carries through the
+    # later layers' post-LN outputs of unit scale
+    tol = 0.05 * scale
+    if not torch.isfinite(out).all() or err > tol:
+        raise AssertionError(f"transformer_infer: max abs err {err} > {tol}")
+    dt = float(np.median(times))
+    emit("transformer_infer", d_model=TD, heads=8, encoder_layers=6,
+         decoder_layers=6, ffn=TF_, activation="relu", dtype="bfloat16",
+         batch=TB, src_len=TS, tgt_len=TS, model_build_s=build_s,
+         fwd_s=times, fwd_s_median=dt, tokens_per_s=TB * 2 * TS / dt,
+         target_tokens_per_s=TB * TS / dt, out_shape=list(out.shape),
+         max_abs_err_vs_plain_ffn=err, mean_abs_err=mean_err,
+         ref_max_abs=scale, tolerance=tol, launches=launches,
+         launches_per_forward={k: v / TRANSFORMER_FWDS
+                               for k, v in launches.items()},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+         parity_fp32=transformer_parity(dev))
+    profile_call(fwd, "transformer_profile",
+                 families=("gemm_kernel",), top_n=15)
+    del model, out, ref
+    return launches
+
+
+def transformer_parity(dev):
+    """A 2 + 2-layer fp32 Transformer at the base width (d_model 512, FFN
+    2048), b=2, length 256, on the card against the same weights on the
+    CPU: the output within 1e-4 of its largest magnitude."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.nn import Transformer
+    seed(5)
+    kw = dict(num_encoder_layers=2, num_decoder_layers=2)
+    card = Transformer(**kw, device=dev).eval()
+    host = Transformer(**kw, device="cpu").eval()
+    host.set_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.default_rng(5)
+    src, tgt = (torch.as_tensor(rng.standard_normal((2, TS, TD)),
+                                dtype=torch.float32) for _ in range(2))
+    mask = Transformer.generate_square_subsequent_mask(TS)
+    with torch.inference_mode():
+        got = card(src.to(dev), tgt.to(dev), tgt_mask=mask.to(dev)).cpu()
+        ref = host(src, tgt, tgt_mask=mask)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not torch.isfinite(got).all() or err > 1e-4 * scale:
+        raise AssertionError(f"transformer parity: max abs err {err} > "
+                             f"1e-4 * {scale}")
+    return {"layers": "2+2", "batch": 2, "len": TS, "max_abs_err": err,
+            "ref_max_abs": scale, "tolerance": "1e-4 of the largest |out|"}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1322,6 +1752,7 @@ def main():
     # the port itself: an ImportError here (script copied alone) is fatal
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import cross_entropy as CE
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import fused_block as FB
     from paddle_tpu_torch.ops.kernels import grouped_matmul as GM
@@ -1365,6 +1796,10 @@ def main():
     emit("kernels_quant", results=quant_rows)
     moe_rows = kernels_moe(GM, TM, dev, timer)
     emit("kernels_moe", results=moe_rows)
+    ce_rows = kernels_ce(CE, dev, timer)
+    emit("kernels_ce", results=ce_rows)
+    ffn_rows = kernels_ffn(FB, dev, timer)
+    emit("kernels_ffn", results=ffn_rows)
     del timer
     torch.cuda.empty_cache()
 
@@ -1384,6 +1819,12 @@ def main():
     moe_parity(GM, TM, dev)
     torch.cuda.empty_cache()
     moe_launches = train_moe(dev, kernels)
+    torch.cuda.empty_cache()
+    gpt_parity(dev, kernels)
+    torch.cuda.empty_cache()
+    gpt_launches = train_gpt(dev, kernels)
+    torch.cuda.empty_cache()
+    ffn_launches = transformer_infer(dev, kernels)
 
     where = {
         "fused_rmsnorm_qkv": ("paddle_tpu_torch/ops/kernels/csrc/"
@@ -1465,6 +1906,26 @@ def main():
                  "path": "train_moe einsum dispatch",
                  "launches_index_dispatch":
                      moe_launches["index"]["grouped_expert_ffn"]})
+    # the GPT training path: the step's shape; launches from train_gpt
+    for name, rep_ in (("cross_entropy_fwd",
+                        "paddle_tpu/ops/pallas/cross_entropy.py:75"),
+                       ("cross_entropy_bwd",
+                        "paddle_tpu/ops/pallas/cross_entropy.py:145")):
+        r = ce_rows["bf16 T=8192 V=50304"][name]
+        line.append({"name": name, "route": "cuda",
+                     "source": src + "cross_entropy.cu", "replaces": rep_,
+                     "launches": gpt_launches[name],
+                     **{k: r[k] for k in keys}, "shape": r["shape"],
+                     "path": "train_gpt"})
+    # the nn.Transformer path: relu bf16 at its FFN shape; launches from
+    # transformer_infer
+    r = ffn_rows["relu bf16"]
+    line.append({"name": "fused_ffn", "route": "cuda",
+                 "source": src + "fused_block.cu",
+                 "replaces": "paddle_tpu/ops/pallas/fused_block.py:494",
+                 "launches": ffn_launches["fused_ffn"],
+                 **{k: r[k] for k in keys}, "shape": r["shape"],
+                 "path": "transformer_infer"})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,12 @@ import math
 
 import torch
 
-__all__ = ["silu", "gelu"]
+__all__ = ["relu", "silu", "gelu"]
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0)."""
+    return torch.relu(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

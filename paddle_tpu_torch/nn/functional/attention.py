@@ -4,13 +4,14 @@ Layout is the JAX package's: ``[batch, seq, num_heads, head_dim]``.
 ``scaled_dot_product_attention`` routes CUDA tensors of the shapes the
 JAX package sends to its flash kernel (``attention.py:55-132``) to the
 port's flash-attention kernels, whose backward is a kernel too; every
-other call, and every call on the CPU, takes the plain reference in
-torch ops (``matmul`` and ``softmax``)."""
+other call, every call with active dropout and every call on the CPU
+takes the plain reference in torch ops (``matmul`` and ``softmax``)."""
 
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core import state as _state
 from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention
 
 __all__ = ["scaled_dot_product_attention", "rotary_freqs",
@@ -19,10 +20,14 @@ __all__ = ["scaled_dot_product_attention", "rotary_freqs",
 _NEG = -1e30
 
 
-def _sdpa_reference(q, k, v, attn_mask=None, is_causal=False, scale=None):
+def _sdpa_reference(q, k, v, attn_mask=None, is_causal=False, scale=None,
+                    dropout_p=0.0):
     """Dense attention with fp32 scores and softmax; probabilities are
     cast to q's dtype before the product with v, as in the JAX
-    reference (``attention.py:20-52``).  GQA repeats the kv heads."""
+    reference (``attention.py:20-52``).  GQA repeats the kv heads.  A
+    mask lying elsewhere is moved to the scores' device.  With
+    ``dropout_p > 0`` the probabilities are dropped (and the kept ones
+    scaled by ``1 / (1 - p)``) with a mask from q's device generator."""
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = torch.repeat_interleave(k, rep, dim=2)
@@ -37,11 +42,19 @@ def _sdpa_reference(q, k, v, attn_mask=None, is_causal=False, scale=None):
                             device=scores.device).tril(sk - sq)
         scores = torch.where(causal, scores, _NEG)
     if attn_mask is not None:
+        attn_mask = attn_mask.to(scores.device)
         if attn_mask.dtype == torch.bool:
             scores = torch.where(attn_mask, scores, _NEG)
         else:
             scores = scores + attn_mask.float()
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if dropout_p > 0.0:
+        keep = torch.rand(probs.shape, device=probs.device,
+                          generator=_state.generator(probs.device)) \
+            < (1.0 - dropout_p)
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros((), dtype=probs.dtype,
+                                        device=probs.device)).to(q.dtype)
     return torch.matmul(probs, vt).transpose(1, 2)
 
 
@@ -54,17 +67,22 @@ def _flash_eligible(query, head_dim):
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False, scale=None):
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, scale=None):
     """``softmax(q k^T * scale + mask) v`` over ``[b, s, h, d]`` inputs;
-    a boolean mask keeps True positions, a float mask is added.
+    a boolean mask keeps True positions, a float mask is added; with
+    ``training`` and ``dropout_p > 0`` the probabilities are dropped.
 
-    With no mask, ``sq == sk`` and an eligible shape a CUDA tensor goes
-    through flash attention (heads a multiple of kv heads, KV never
-    repeated).  head_dim 32 or 64 at seq >= 1024 is zero-padded to 128
-    and sliced back (exact: the pad adds nothing to q k^T or p v, and the
-    scale keeps the true head_dim)."""
+    With no mask, no active dropout, ``sq == sk`` and an eligible shape a
+    CUDA tensor goes through flash attention (heads a multiple of kv
+    heads, KV never repeated); active dropout takes the plain path, as in
+    the JAX package (``attention.py:77, 96``).  head_dim 32 or 64 at seq
+    >= 1024 is zero-padded to 128 and sliced back (exact: the pad adds
+    nothing to q k^T or p v, and the scale keeps the true head_dim)."""
+    use_dropout = dropout_p > 0.0 and training
     hd = query.shape[-1]
-    same = attn_mask is None and query.shape[1] == key.shape[1]
+    same = attn_mask is None and not use_dropout and \
+        query.shape[1] == key.shape[1]
     if same and hd in (32, 64) and query.shape[1] >= 1024 and \
             _flash_eligible(query, 128):
         pad = (0, 128 - hd)
@@ -78,7 +96,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         # no try/except: a failed build or launch surfaces
         return flash_attention(query, key, value, causal=is_causal,
                                scale=scale)
-    return _sdpa_reference(query, key, value, attn_mask, is_causal, scale)
+    return _sdpa_reference(query, key, value, attn_mask, is_causal, scale,
+                           dropout_p if use_dropout else 0.0)
 
 
 def rotary_freqs(head_dim, max_position, base=10000.0, device="cpu"):

@@ -1,5 +1,6 @@
 """Fused-block functionals (``paddle_tpu/nn/functional/fused.py``): the
-fused RMSNorm+QKV and SwiGLU MLP, differentiable.
+fused RMSNorm+QKV, the SwiGLU MLP and the act + bias feed-forward,
+differentiable.
 
 Where autograd needs a gradient (grad mode on and an input that requires
 one) the call goes through the custom VJP, whose forward launches the
@@ -14,7 +15,7 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import fused_block as _FB
 
-__all__ = ["fused_rmsnorm_qkv", "fused_mlp"]
+__all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn"]
 
 
 def _needs_grad(*tensors):
@@ -41,4 +42,15 @@ def fused_mlp(x, w_gate, w_up, w_down):
         return _FB.fused_mlp(x, w_gate, w_up, w_down)
     d = x.shape[-1]
     y = _FB.FusedMLP.apply(x.reshape(-1, d), w_gate, w_up, w_down)
+    return y.reshape(x.shape)
+
+
+def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
+    """``act(x @ w1 + b1) @ w2 + b2`` with relu, exact-erf gelu or silu;
+    x ``[..., d]``, b1/b2 may be None (zeros).  Differentiable in x, the
+    weights and the biases given."""
+    if not _needs_grad(*(t for t in (x, w1, w2, b1, b2) if t is not None)):
+        return _FB.fused_ffn(x, w1, w2, b1, b2, activation)
+    d = x.shape[-1]
+    y = _FB.FusedFFN.apply(x.reshape(-1, d), w1, b1, w2, b2, activation)
     return y.reshape(x.shape)

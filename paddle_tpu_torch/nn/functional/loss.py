@@ -1,14 +1,16 @@
 """Losses (``paddle_tpu/nn/functional/loss.py``): the fused chunked
-lm-head + cross-entropy that ``LlamaForCausalLM.loss`` runs, and the
-hard-label ``cross_entropy`` of models without a ``.loss()``.
-
-``cross_entropy`` is the plain fp32 log-softmax form; the JAX package's
-Pallas cross-entropy kernels (``ops/pallas/cross_entropy.py``) wait in
-ROADMAP.md, queue 2."""
+lm-head + cross-entropy that ``LlamaForCausalLM.loss`` runs, and
+``cross_entropy``, whose hard-label case goes through the fused softmax
+cross-entropy (``ops/kernels/cross_entropy.py``: the CUDA kernels on the
+card, their plain versions on the CPU), as ``GPTForCausalLM.loss`` and
+``nn.CrossEntropyLoss`` use it."""
 
 from __future__ import annotations
 
 import torch
+
+from paddle_tpu_torch.ops.kernels.cross_entropy import (
+    fused_softmax_cross_entropy)
 
 __all__ = ["cross_entropy", "fused_linear_cross_entropy"]
 
@@ -24,19 +26,81 @@ def _reduce(loss, reduction):
                      f"{reduction!r}")
 
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
-    """Softmax cross-entropy of ``[..., V]`` logits against integer
-    labels (``[...]`` or ``[..., 1]``), in fp32; ``ignore_index`` entries
-    give no loss and no gradient, and the mean is over the rest."""
+def _is_int(t):
+    return not (t.is_floating_point() or t.is_complex()) and \
+        t.dtype != torch.bool
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """Softmax cross-entropy of logits against labels along `axis`
+    (``loss.py:32-110``).
+
+    Hard integer labels (``[...]`` or ``[..., 1]``) with no class
+    `weight`, no `label_smoothing`, ``use_softmax`` and the last axis go
+    through the fused softmax cross-entropy: ``ignore_index`` labels are
+    mapped to class 0 before it and their loss zeroed after it (so their
+    cotangent, and their gradient, is zero), and the mean divides by the
+    count of valid labels.  Every other case is the plain fp32 form:
+    ``soft_label`` targets (smoothed toward uniform), class weights (a
+    weighted mean divides by the sum of the weights), label smoothing,
+    ``use_softmax=False`` (the input is taken as probabilities) and any
+    axis."""
+    ax = axis % input.ndim
+    if (use_softmax and not soft_label and weight is None
+            and label_smoothing == 0.0 and input.ndim >= 2
+            and ax == input.ndim - 1):
+        lbl = label
+        if lbl.ndim == input.ndim and lbl.shape[-1] == 1:
+            lbl = lbl.squeeze(-1)
+        if lbl.ndim == input.ndim - 1 and _is_int(lbl):
+            v = input.shape[-1]
+            lbl = lbl.to(device=input.device, dtype=torch.long)
+            valid = lbl != ignore_index
+            safe = torch.where(valid, lbl, 0)
+            per = fused_softmax_cross_entropy(input.reshape(-1, v),
+                                              safe.reshape(-1))
+            loss = torch.where(valid, per.reshape(lbl.shape), 0.0)
+            if reduction == "mean":
+                return loss.sum() / valid.sum().clamp(min=1)
+            return _reduce(loss, reduction)
     x = input.float()
-    lbl = label
-    if lbl.ndim == x.ndim and lbl.shape[-1] == 1:
-        lbl = lbl.squeeze(-1)
-    lbl = lbl.to(device=x.device, dtype=torch.long)
+    if use_softmax:
+        logp = torch.log_softmax(x, dim=ax)
+    else:
+        logp = torch.log(torch.clamp(x, min=1e-30))
+    n_classes = x.shape[ax]
+
+    if soft_label:
+        tgt = label.to(device=x.device, dtype=torch.float32)
+        if label_smoothing > 0:
+            tgt = (1 - label_smoothing) * tgt + label_smoothing / n_classes
+        loss = -(tgt * logp).sum(dim=ax)
+        if weight is not None:
+            w = (tgt * weight.to(x.device)).sum(dim=ax)
+            loss = loss * w
+            if reduction == "mean":
+                return loss.sum() / w.sum().clamp(min=1e-12)
+        return _reduce(loss, reduction)
+
+    lbl = label.to(x.device)
+    if lbl.ndim == x.ndim and lbl.shape[ax] == 1:
+        lbl = lbl.squeeze(ax)
+    lbl = lbl.long()
     valid = lbl != ignore_index
     safe = torch.where(valid, lbl, 0)
-    logp = torch.log_softmax(x, dim=-1)
-    loss = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    picked = torch.gather(logp, ax, safe.unsqueeze(ax)).squeeze(ax)
+    if label_smoothing > 0:
+        smooth = logp.mean(dim=ax)
+        picked = (1 - label_smoothing) * picked + label_smoothing * smooth
+    loss = -picked
+    if weight is not None:
+        w = weight.to(x.device)[safe]
+        loss = torch.where(valid, loss * w, 0.0)
+        if reduction == "mean":
+            return loss.sum() / torch.where(valid, w, 0.0).sum().clamp(
+                min=1e-12)
     loss = torch.where(valid, loss, 0.0)
     if reduction == "mean":
         return loss.sum() / valid.sum().clamp(min=1)

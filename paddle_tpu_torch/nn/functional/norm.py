@@ -4,7 +4,27 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["rms_norm"]
+__all__ = ["layer_norm", "rms_norm"]
+
+
+def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the trailing ``normalized_shape`` axes, statistics
+    in fp32 (``norm.py:16-32``): the normalised activations are cast back
+    to x's dtype, and only then multiplied by the weight and shifted by
+    the bias."""
+    ndim = 1 if isinstance(normalized_shape, int) else \
+        len(tuple(normalized_shape))
+    axes = tuple(range(x.ndim - ndim, x.ndim))
+    xf = x.float()
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = torch.square(xf - mean).mean(dim=axes, keepdim=True)
+    out = ((xf - mean) / torch.sqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
 
 
 def rms_norm(x: torch.Tensor, weight=None, epsilon: float = 1e-6

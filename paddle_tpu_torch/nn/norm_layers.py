@@ -1,4 +1,4 @@
-"""RMSNorm (``paddle_tpu/nn/norm_layers.py``)."""
+"""LayerNorm and RMSNorm (``paddle_tpu/nn/norm_layers.py``)."""
 
 from __future__ import annotations
 
@@ -6,7 +6,35 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.layer import Layer
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
+
+
+class LayerNorm(Layer):
+    """``F.layer_norm`` over the trailing ``normalized_shape`` axes with
+    a weight of ones and a bias of zeros (``:24-46``); ``weight_attr`` /
+    ``bias_attr`` False drop them."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, dtype="float32", device=None):
+        super().__init__(dtype=dtype, device=device)
+        for attr in (weight_attr, bias_attr):
+            if attr not in (None, False):
+                raise NotImplementedError(
+                    "LayerNorm takes weight_attr / bias_attr None or False "
+                    "(ParamAttr initializers: ROADMAP.md, queue 1, item 2)")
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = None if weight_attr is False else \
+            self.create_parameter(self._normalized_shape,
+                                  default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else \
+            self.create_parameter(self._normalized_shape, is_bias=True)
+
+    def forward(self, x):
+        return F.layer_norm(x, self._normalized_shape, self.weight,
+                            self.bias, self._epsilon)
 
 
 class RMSNorm(Layer):

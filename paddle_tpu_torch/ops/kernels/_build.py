@@ -26,18 +26,20 @@ from typing import Dict
 import torch
 
 __all__ = ["library", "build_all", "check", "stream_of", "DTYPE_CODES",
-           "WEIGHT_CODES", "BUILD_DIR"]
+           "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_block", "paged_attention", "flash_attention",
-           "quant_matmul", "grouped_matmul")
+           "quant_matmul", "grouped_matmul", "cross_entropy")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of the C interface (csrc/common.cuh, enum DType): the io
-# types every kernel takes, and the stored types of quantized weights
+# types every kernel takes, the stored types of quantized weights, and
+# float16, which only the cross-entropy kernels take
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 WEIGHT_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
+FLOAT16_CODE = 4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,7 +50,8 @@ _SIGNATURES = {
         "ptt_rmsnorm_qkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                             _I, _I, _I, _F, _P],
         "ptt_mlp_gate_up": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-        "ptt_matmul": [_I, _P, _P, _P, _I, _I, _I, _P],
+        "ptt_matmul": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+        "ptt_ffn_up": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "paged_attention": {
         "ptt_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -66,6 +69,10 @@ _SIGNATURES = {
     },
     "quant_matmul": {
         "ptt_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "cross_entropy": {
+        "ptt_ce_fwd": [_I, _P, _P, _P, _P, _I, _I, _P],
+        "ptt_ce_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
     },
     "grouped_matmul": {
         "ptt_grouped_ffn_up": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -10,7 +11,14 @@ namespace ptt {
 
 // dtype codes of the C interface (ops/kernels/_build.py DTYPE_CODES for
 // the io types, WEIGHT_CODES for quantized weights)
-enum DType { DT_FLOAT32 = 0, DT_BFLOAT16 = 1, DT_INT8 = 2, DT_FP8_E4M3 = 3 };
+// (float16: the cross-entropy kernels only)
+enum DType {
+  DT_FLOAT32 = 0,
+  DT_BFLOAT16 = 1,
+  DT_INT8 = 2,
+  DT_FP8_E4M3 = 3,
+  DT_FLOAT16 = 4
+};
 
 // 16-byte global -> shared copy that bypasses the registers; with
 // pred == false the destination is zero-filled and nothing is read.
@@ -36,6 +44,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -47,6 +56,10 @@ __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

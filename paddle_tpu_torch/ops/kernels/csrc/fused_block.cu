@@ -1,10 +1,11 @@
 // Fused RMSNorm + QKV projection and the gated SwiGLU MLP, for Hopper.
 //
 // Replaces the Pallas TPU kernels paddle_tpu/ops/pallas/fused_block.py
-// `_qkv_kernel` (:249) and `_mlp_kernel` (:494, gated silu).
+// `_qkv_kernel` (:249) and `_mlp_kernel` (:494: gated silu, and the
+// non-gated act + bias variant of `fused_ffn`).
 //
 // One tiled GEMM body C[T, N] = A[T, K] @ B[K, N] (row-major, weights in
-// the [in, out] layout) serves three launches through its prologue and
+// the [in, out] layout) serves four launches through its prologue and
 // epilogue:
 //   MODE_QKV    A = x.  The block first computes its rows' inverse RMS in
 //               fp32; every x tile that lands in shared memory is then
@@ -21,12 +22,17 @@
 //   MODE_GATEUP A = x, two weight tiles (gate, up) per k step; the epilogue
 //               writes h = silu(x @ Wg) * (x @ Wu) cast to the io type, which
 //               is the TPU kernel's cast of h to Wd's type (fused_block.py:526).
-//   MODE_PLAIN  y = h @ Wd.
+//   MODE_PLAIN  y = h @ Wd (+ b, added to the fp32 sum before the one cast:
+//               the down half of both MLPs).
+//   MODE_FFN_UP A = x; the epilogue writes h = act(x @ W1 + b1) cast to the
+//               io type (relu, exact-erf gelu or silu on the fp32 sum plus
+//               the fp32 bias: the TPU kernel's u, h and cast of h to W2's
+//               type, fused_block.py:520-529), the up half of `fused_ffn`.
 // The TPU kernel keeps a [bt, d] fp32 down-projection accumulator in VMEM
 // across the hidden axis; a Hopper block cannot hold that (16 rows of
-// d = 4096 fp32 are 256 KB, over the 227 KB a block may use), so the MLP
+// d = 4096 fp32 are 256 KB, over the 227 KB a block may use), so each MLP
 // is two launches here and h makes one round trip through device memory
-// (T * f * itemsize bytes each way).
+// (T * f * itemsize bytes each way: 32 MB at T = 8192, f = 2048 in bf16).
 //
 // What bounds it: at decode (T = 8 rows) the weights are read once for very
 // few operations, so the launch is bound by device-memory bytes.  The design
@@ -46,7 +52,9 @@ using namespace nvcuda;
 
 namespace {
 
-enum Mode { MODE_QKV = 0, MODE_GATEUP = 1, MODE_PLAIN = 2 };
+enum Mode { MODE_QKV = 0, MODE_GATEUP = 1, MODE_PLAIN = 2, MODE_FFN_UP = 3 };
+// MODE_FFN_UP activations (ops/kernels/fused_block.py ACT_CODES)
+enum Act { ACT_RELU = 0, ACT_GELU = 1, ACT_SILU = 2 };
 
 constexpr int BN = 64;       // output columns per block
 constexpr int BK = 64;       // reduction depth per pipeline stage
@@ -75,7 +83,15 @@ struct GemmArgs {
   float eps;
   void* xn = nullptr;     // QKV training variant: normalised rows [T, K]
   float* inv = nullptr;   // QKV training variant: inverse RMS [T]
+  const void* bias = nullptr;   // FFN_UP: b1 [N]; PLAIN: b [N] or null
+  int act = ACT_RELU;           // FFN_UP
 };
+
+__device__ __forceinline__ float activate(float u, int act) {
+  if (act == ACT_RELU) return fmaxf(u, 0.f);
+  if (act == ACT_GELU) return 0.5f * u * erfcf(-u * 0.70710678118654752f);
+  return u / (1.f + expf(-u));   // silu
+}
 
 template <typename T>
 struct Tile {
@@ -343,6 +359,7 @@ gemm_kernel(GemmArgs g) {
   }
   __syncthreads();
   const int ldc = MODE == MODE_QKV ? ldb : g.n0;
+  const T* bias = static_cast<const T*>(g.bias);
   for (int e = tid; e < BM * BN; e += NT) {
     int r = e / BN, c = e % BN;
     if (m0 + r >= T_) continue;
@@ -352,6 +369,9 @@ gemm_kernel(GemmArgs g) {
       float sg = 1.f / (1.f + expf(-v));
       v = (v * sg) * u;
     }
+    if ((MODE == MODE_PLAIN || MODE == MODE_FFN_UP) && bias != nullptr)
+      v += ptt::to_f(bias[col + c]);
+    if (MODE == MODE_FFN_UP) v = activate(v, g.act);
     C[(size_t)(m0 + r) * ldc + col + c] = ptt::from_f<T>(v);
   }
 }
@@ -413,12 +433,26 @@ int ptt_mlp_gate_up(int dtype, const void* x, const void* wg, const void* wu,
   return launch<MODE_GATEUP>(dtype, g, f, stream);
 }
 
-// y = a @ w; a [T, K], w [K, N], y [T, N].
-int ptt_matmul(int dtype, const void* a, const void* w, void* y, int T, int K,
-               int N, void* stream) {
+// y = a @ w (+ b); a [T, K], w [K, N], b [N] or null, y [T, N].
+int ptt_matmul(int dtype, const void* a, const void* w, const void* b,
+               void* y, int T, int K, int N, void* stream) {
   GemmArgs g{a, w, nullptr, nullptr, nullptr, y, nullptr, nullptr, T, K, N, 0,
              0.f};
+  g.bias = b;
   return launch<MODE_PLAIN>(dtype, g, N, stream);
+}
+
+// h = act(x @ w1 + b1); x [T, d], w1 [d, f], b1 [f], h [T, f]; act 0 relu,
+// 1 exact-erf gelu, 2 silu.
+int ptt_ffn_up(int dtype, const void* x, const void* w1, const void* b1,
+               void* h, int T, int d, int f, int act, void* stream) {
+  if (act < ACT_RELU || act > ACT_SILU || b1 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  GemmArgs g{x, w1, nullptr, nullptr, nullptr, h, nullptr, nullptr, T, d, f, 0,
+             0.f};
+  g.bias = b1;
+  g.act = act;
+  return launch<MODE_FFN_UP>(dtype, g, f, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,15 @@
-"""Fused RMSNorm+QKV and gated SwiGLU MLP — wrappers of the CUDA kernels
-in ``csrc/fused_block.cu`` and their plain PyTorch versions.
+"""Fused RMSNorm+QKV, gated SwiGLU MLP and the act + bias feed-forward —
+wrappers of the CUDA kernels in ``csrc/fused_block.cu`` and their plain
+PyTorch versions.
 
 Counterparts of ``paddle_tpu/ops/pallas/fused_block.py``:
 ``fused_rmsnorm_qkv`` replaces ``_qkv_kernel`` (the forward-only variant,
 and with ``residuals=True`` the training variant that also emits
-``(xn, inv)``) and ``fused_mlp`` replaces ``_mlp_kernel`` (gated silu).
-``FusedRMSNormQKV`` and ``FusedMLP`` are the custom VJPs around them
-(``_qkv_fwd``/``_qkv_bwd``, ``_mlp_gated_fwd``/``_mlp_gated_bwd``); their
+``(xn, inv)``), ``fused_mlp`` replaces ``_mlp_kernel`` (gated silu) and
+``fused_ffn`` its non-gated variant (``act(x W1 + b1) W2 + b2`` with
+relu, exact-erf gelu or silu).  ``FusedRMSNormQKV``, ``FusedMLP`` and
+``FusedFFN`` are the custom VJPs around them (``_qkv_fwd``/``_qkv_bwd``,
+``_mlp_gated_fwd``/``_mlp_gated_bwd``, ``_ffn_fwd``/``_ffn_bwd``); their
 backward passes are plain matrix products, as in the JAX package, where
 they run outside any Pallas kernel.  A tensor on the CPU takes the plain
 version; a CUDA tensor launches the kernel or raises.  There is no
@@ -28,8 +31,39 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import _build
 
-__all__ = ["fused_rmsnorm_qkv", "fused_mlp", "qkv_reference",
-           "mlp_reference", "FusedRMSNormQKV", "FusedMLP"]
+__all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn", "qkv_reference",
+           "mlp_reference", "ffn_reference", "FusedRMSNormQKV", "FusedMLP",
+           "FusedFFN", "SUPPORTED_ACTS"]
+
+# fused_ffn's activations and their codes in csrc/fused_block.cu (enum Act)
+ACT_CODES = {"relu": 0, "gelu": 1, "silu": 2}
+SUPPORTED_ACTS = tuple(ACT_CODES)
+
+
+def _act(name, u):
+    """relu, exact-erf gelu (``jax.nn.gelu(approximate=False)``) or
+    silu of `u`, in u's dtype."""
+    if name == "relu":
+        return torch.relu(u)
+    if name == "gelu":
+        return 0.5 * u * torch.erfc(-u * 0.5 ** 0.5)
+    return u * torch.sigmoid(u)
+
+
+def gelu_grad(u):
+    """d gelu / du of the exact gelu: Phi(u) + u phi(u)."""
+    return 0.5 * torch.erfc(-u * 0.5 ** 0.5) + \
+        u * torch.exp(-0.5 * u * u) * (2 * torch.pi) ** -0.5
+
+
+def _act_grad(name, u):
+    """d act / d u at `u` (fp32)."""
+    if name == "relu":
+        return (u > 0).to(u.dtype)
+    if name == "gelu":
+        return gelu_grad(u)
+    sg = torch.sigmoid(u)
+    return sg * (1 + u * (1 - sg))
 
 
 # -- plain versions (the CPU path and the kernels' reference) ---------------
@@ -49,6 +83,16 @@ def qkv_reference(x, norm_weight, wq, wk, wv, epsilon=1e-5,
 
     out = (proj(wq), proj(wk), proj(wv))
     return out + (xn, inv) if residuals else out
+
+
+def ffn_reference(x, w1, b1, w2, b2, activation="relu"):
+    """``_ffn_reference`` (``fused_block.py:633-637``): fp32 products with
+    the fp32 biases added, h = act(u) cast to x's dtype, fp32 down
+    product plus b2, one cast to x's dtype."""
+    u = torch.matmul(x.float(), w1.float()) + b1.float()
+    h = _act(activation, u).to(x.dtype)
+    y = torch.matmul(h.float(), w2.float()) + b2.float()
+    return y.to(x.dtype)
 
 
 def mlp_reference(x, w_gate, w_up, w_down):
@@ -170,7 +214,7 @@ def fused_mlp(x, w_gate, w_up, w_down):
                                   w_up.data_ptr(), h.data_ptr(), T, d, f,
                                   stream)
         _build.check(lib, err, what + " (gate/up)")
-        err = lib.ptt_matmul(code, h.data_ptr(), w_down.data_ptr(),
+        err = lib.ptt_matmul(code, h.data_ptr(), w_down.data_ptr(), None,
                              y.data_ptr(), T, f, d, stream)
         _build.check(lib, err, what + " (down)")
         fused_mlp.launches += 1
@@ -178,6 +222,57 @@ def fused_mlp(x, w_gate, w_up, w_down):
 
 
 fused_mlp.launches = 0
+
+
+def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
+    """``y = act(x @ w1 + b1) @ w2 + b2``, the classic Transformer
+    feed-forward (``fused_block.py:1172``).
+
+    x ``[..., d]``; w1 ``[d, f]``; w2 ``[f, d]``; b1 ``[f]`` and b2
+    ``[d]`` may be None (zeros, as the JAX wrapper makes them);
+    ``activation`` one of relu, gelu (exact erf) and silu.  On the card
+    this is two launches, as ``fused_mlp``: x @ w1 + b1 and the
+    activation into a ``[T, f]`` workspace in x's dtype, then the down
+    product plus b2."""
+    if activation not in ACT_CODES:
+        raise ValueError(f"unsupported activation {activation!r}; "
+                         f"expected one of {SUPPORTED_ACTS}")
+    d = x.shape[-1]
+    f = w1.shape[-1]
+    if b1 is None:
+        b1 = torch.zeros((f,), dtype=x.dtype, device=x.device)
+    if b2 is None:
+        b2 = torch.zeros((w2.shape[-1],), dtype=x.dtype, device=x.device)
+    if x.device.type == "cpu":
+        return ffn_reference(x, w1, b1, w2, b2, activation)
+    what = "fused_ffn"
+    if w1.shape != (d, f) or w2.shape != (f, d) or b1.shape != (f,) or \
+            b2.shape != (d,):
+        raise ValueError(
+            f"{what}: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 "
+            f"{tuple(w2.shape)}, b1 {tuple(b1.shape)}, b2 "
+            f"{tuple(b2.shape)} do not agree")
+    _check_cuda(what, dict(x=x, w1=w1, w2=w2, b1=b1, b2=b2), x.dtype)
+    _check_width(what, d=d, f=f)
+    x2 = x.reshape(-1, d)
+    T = x2.shape[0]
+    y = torch.empty((T, d), dtype=x.dtype, device=x.device)
+    if T:
+        h = torch.empty((T, f), dtype=x.dtype, device=x.device)
+        lib = _build.library("fused_block")
+        code, stream = _build.DTYPE_CODES[x.dtype], _build.stream_of(x)
+        err = lib.ptt_ffn_up(code, x2.data_ptr(), w1.data_ptr(),
+                             b1.data_ptr(), h.data_ptr(), T, d, f,
+                             ACT_CODES[activation], stream)
+        _build.check(lib, err, what + " (up)")
+        err = lib.ptt_matmul(code, h.data_ptr(), w2.data_ptr(),
+                             b2.data_ptr(), y.data_ptr(), T, f, d, stream)
+        _build.check(lib, err, what + " (down)")
+        fused_ffn.launches += 1
+    return y.reshape(x.shape)
+
+
+fused_ffn.launches = 0
 
 
 # -- custom VJPs --------------------------------------------------------------
@@ -247,3 +342,40 @@ class FusedMLP(torch.autograd.Function):
         dwg = (x2d.t() @ dg).to(wg.dtype)
         dwu = (x2d.t() @ du).to(wu.dtype)
         return dx.to(dt), dwg, dwu, dwd
+
+
+class FusedFFN(torch.autograd.Function):
+    """``_ffn_fwd`` / ``_ffn_bwd`` (``fused_block.py:648-672``) over
+    ``[T, d]`` rows: the forward is the kernel pair; the backward
+    recomputes u = x W1 + b1 (fp32 sum, cast to the io dtype), as the JAX
+    package does, with its rounding points: dh, du and dx in the io
+    dtype, weight grads from fp32 sums cast to each weight's dtype, bias
+    grads summed in fp32.  The activation's derivative is written out in
+    fp32 (JAX differentiates it in the io dtype: equal in fp32).  A bias
+    may be None (no bias, no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x2d, w1, b1, w2, b2, activation):
+        ctx.save_for_backward(x2d, w1, b1, w2, b2)
+        ctx.activation = activation
+        return fused_ffn(x2d, w1, w2, b1, b2, activation)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, w1, b1, w2, b2 = ctx.saved_tensors
+        act = ctx.activation
+        dt = x2d.dtype
+        dy = dy.to(dt)
+        u = torch.matmul(x2d.float(), w1.float())
+        if b1 is not None:
+            u = u + b1.float()
+        u = u.to(dt)
+        h = _act(act, u)
+        dh = dy @ w2.t()                                  # [T, f]
+        dw2 = (h.t() @ dy).to(w2.dtype)
+        db2 = None if b2 is None else dy.float().sum(0).to(b2.dtype)
+        du = (dh.float() * _act_grad(act, u.float())).to(dt)
+        dx = du @ w1.t()
+        dw1 = (x2d.t() @ du).to(w1.dtype)
+        db1 = None if b1 is None else du.float().sum(0).to(b1.dtype)
+        return dx.to(dt), dw1, db1, dw2, db2, None

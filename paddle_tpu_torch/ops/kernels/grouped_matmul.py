@@ -19,22 +19,16 @@ contiguous and 16-byte aligned, and the exact-erf gelu only (what
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from paddle_tpu_torch.nn.functional.activation import gelu
 from paddle_tpu_torch.ops.kernels import _build
-from paddle_tpu_torch.ops.kernels.fused_block import _check_cuda, _check_width
+from paddle_tpu_torch.ops.kernels.fused_block import (_check_cuda,
+                                                      _check_width,
+                                                      gelu_grad)
 
 __all__ = ["grouped_expert_ffn", "grouped_expert_ffn_reference",
            "GroupedExpertFFN"]
-
-
-def _gelu_grad(u):
-    """d gelu / du of the exact gelu: Phi(u) + u phi(u)."""
-    return 0.5 * torch.erfc(-u * math.sqrt(0.5)) + \
-        u * torch.exp(-0.5 * u * u) / math.sqrt(2.0 * math.pi)
 
 
 def _check_act(act):
@@ -185,7 +179,7 @@ class GroupedExpertFFN(torch.autograd.Function):
         dh = _bmm_f32(gy, w2.transpose(1, 2))
         dw2 = torch.bmm(s.to(dt).transpose(1, 2), gy).to(w2.dtype)
         db2 = gy.float().sum(dim=1).to(b2.dtype)
-        du = dh * _gelu_grad(u)
+        du = dh * gelu_grad(u)
         del s, dh, u
         dub = du.to(dt)
         dw1 = torch.bmm(xm.transpose(1, 2), dub).to(w1.dtype)

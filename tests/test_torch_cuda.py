@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.inference.kv_cache import _quantize_kv
+from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import cross_entropy as CE
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import fused_block as FB
 from paddle_tpu_torch.ops.kernels import grouped_matmul as GM
@@ -26,7 +28,8 @@ pytestmark = pytest.mark.cuda
 
 # (atol, rtol) per dtype: fp32 differs by summation order only; bf16
 # outputs carry one bf16 rounding (2^-8 relative) plus order effects
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2),
+       torch.float16: (2e-3, 2e-3)}
 
 
 @pytest.fixture
@@ -547,3 +550,290 @@ def test_moe_train_step_on_the_card_matches_the_cpu_port(dev):
                              gpu.state_dict().values()):
             np.testing.assert_allclose(b.cpu().numpy(), a.numpy(),
                                        atol=1e-4, rtol=1e-4, err_msg=n)
+
+
+# -- the GPT slice: the fused softmax cross-entropy ---------------------------
+
+# (T, V): a warp per row (V < 256 vectors), V = 1 and 5, the unpadded GPT-2
+# vocab (rows off the 16-byte grid, a tail), a padded one
+CE_SHAPES = [(1, 5), (7, 1), (3, 100), (37, 50257), (64, 1024), (5, 129)]
+
+
+def _ce_inputs(rng, T, V, dtype, dev):
+    x = _t(rng, (T, V), dtype, dev, 3.0)
+    lbl = torch.as_tensor(rng.integers(0, V, T)).to(dev)
+    if T > 2:
+        lbl[1] = V                       # outside [0, V): loss = lse
+        lbl[2] = -7
+    if V > 4:
+        x[:, 3] = -float("inf")          # a masked vocab entry: p = 0
+        lbl[lbl == 3] = 4
+    return x, lbl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("T,V", CE_SHAPES)
+def test_cross_entropy_kernels_match_plain(dev, dtype, T, V):
+    """Loss and lse (fp32, summed in another order: 1e-4) and dx (one
+    rounding to the logits' type) of each kernel against its plain
+    version; one launch each."""
+    rng = np.random.default_rng(T * 31 + V)
+    x, lbl = _ce_inputs(rng, T, V, dtype, dev)
+    n0, n1 = CE.cross_entropy_fwd.launches, CE.cross_entropy_bwd.launches
+    loss, lse = CE.cross_entropy_fwd(x, lbl)
+    rloss, rlse = CE.ce_fwd_reference(x, lbl)
+    _close(loss, rloss, torch.float32)
+    _close(lse, rlse, torch.float32)
+    g = _t(rng, (T,), torch.float32, dev)
+    _close(CE.cross_entropy_bwd(x, lbl, lse, g),
+           CE.ce_bwd_reference(x, lbl, lse, g), dtype)
+    assert CE.cross_entropy_fwd.launches == n0 + 1
+    assert CE.cross_entropy_bwd.launches == n1 + 1
+
+
+def test_cross_entropy_kernels_past_2_31_elements(dev):
+    """T * V = 2^31 + V bf16 logits (4.3 GB): the last row starts at
+    element 2^31, past a 32-bit offset.  Its loss, lse and dx against the
+    plain version on that row alone."""
+    T, V = 16385, 131072
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((T, V), generator=g, device=dev, dtype=torch.bfloat16)
+    lbl = torch.randint(0, V, (T,), generator=g, device=dev)
+    loss, lse = CE.cross_entropy_fwd(x, lbl)
+    rloss, rlse = CE.ce_fwd_reference(x[-2:], lbl[-2:])
+    _close(loss[-2:], rloss, torch.float32)
+    _close(lse[-2:], rlse, torch.float32)
+    cot = torch.ones(T, device=dev)
+    dx = CE.cross_entropy_bwd(x, lbl, lse, cot)
+    _close(dx[-2:], CE.ce_bwd_reference(x[-2:], lbl[-2:], lse[-2:],
+                                        cot[-2:]), torch.bfloat16)
+    del x, dx
+    torch.cuda.empty_cache()
+
+
+def test_cross_entropy_kernels_on_a_row_of_neg_inf(dev):
+    """A row that is -inf throughout: lse -inf, the loss NaN for a label
+    in range and -inf for one outside, as the plain version gives."""
+    x = torch.zeros(3, 300, device=dev)
+    x[1] = -float("inf")
+    x[2] = -float("inf")
+    lbl = torch.tensor([0, 5, 300], device=dev)
+    loss, lse = CE.cross_entropy_fwd(x, lbl)
+    rloss, rlse = CE.ce_fwd_reference(x, lbl)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(lse.cpu().numpy(), rlse.cpu().numpy())
+    np.testing.assert_array_equal(loss.cpu().numpy(), rloss.cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_entropy_gradients_on_the_card(dev, dtype):
+    """``F.cross_entropy`` with ``ignore_index`` labels through the fused
+    CE Function on the card against the same call on the CPU (plain
+    versions): the mean loss within 1e-5 relative and dlogits within the
+    dtype's limit; ignored rows get exactly zero gradient; one launch of
+    each kernel."""
+    from paddle_tpu_torch.nn import functional as TF
+    rng = np.random.default_rng(8)
+    x = _t(rng, (4, 33, 1000), dtype, dev, 2.0)
+    lbl = torch.as_tensor(rng.integers(0, 1000, (4, 33)))
+    lbl[0, :9] = -100
+    n0, n1 = CE.cross_entropy_fwd.launches, CE.cross_entropy_bwd.launches
+    res = []
+    for where in (dev, torch.device("cpu")):
+        xi = x.detach().to(where).requires_grad_(True)
+        loss = TF.cross_entropy(xi, lbl.to(where))
+        loss.backward()
+        res.append((float(loss.detach()), xi.grad.cpu()))
+    assert CE.cross_entropy_fwd.launches == n0 + 1
+    assert CE.cross_entropy_bwd.launches == n1 + 1
+    assert abs(res[0][0] - res[1][0]) <= 1e-5 * abs(res[1][0])
+    _close(res[0][1], res[1][1], dtype)
+    assert not res[0][1][0, :9].any()
+
+
+# -- the nn.Transformer slice: the act + bias feed-forward --------------------
+
+FFN_SHAPES = [(1, 64, 128), (37, 128, 192), (300, 512, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["relu", "gelu", "silu"])
+@pytest.mark.parametrize("T,d,f", FFN_SHAPES)
+def test_fused_ffn_matches_plain(dev, dtype, act, T, d, f):
+    """The kernel pair against ``ffn_reference`` with biases (and with
+    none, which the wrapper makes zeros); one launch per call."""
+    rng = np.random.default_rng(T + d + f)
+    x = _t(rng, (T, d), dtype, dev)
+    w1 = _t(rng, (d, f), dtype, dev, d ** -0.5)
+    w2 = _t(rng, (f, d), dtype, dev, f ** -0.5)
+    b1 = _t(rng, (f,), dtype, dev, 0.5)
+    b2 = _t(rng, (d,), dtype, dev, 0.5)
+    n0 = FB.fused_ffn.launches
+    _close(FB.fused_ffn(x, w1, w2, b1, b2, act),
+           FB.ffn_reference(x, w1, b1, w2, b2, act), dtype)
+    zeros = torch.zeros(f, dtype=dtype, device=dev)
+    _close(FB.fused_ffn(x, w1, w2, activation=act),
+           FB.ffn_reference(x, w1, zeros, w2, zeros[:d], act), dtype)
+    assert FB.fused_ffn.launches == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_gradients_on_the_card(dev, dtype):
+    """``FusedFFN`` through ``F.fused_ffn`` on the card (kernel forward,
+    product backward) against the same call on the CPU (plain forward)
+    on the same inputs: the output and the gradient of x, both weights
+    and both biases."""
+    from paddle_tpu_torch.nn import functional as TF
+    rng = np.random.default_rng(12)
+    T, d, f = 70, 128, 256
+    args = [_t(rng, s, dtype, dev, sc) for s, sc in
+            (((T, d), 1.0), ((d, f), d ** -0.5), ((f, d), f ** -0.5),
+             ((f,), 0.5), ((d,), 0.5))]
+    r = _t(rng, (T, d), dtype, dev)
+    outs, grads = [], []
+    for where in (dev, torch.device("cpu")):
+        ts = [a.detach().to(where).requires_grad_(True) for a in args]
+        y = TF.fused_ffn(*ts, activation="gelu")
+        (y.float() * r.to(where).float()).sum().backward()
+        outs.append(y.detach().cpu())
+        grads.append([t.grad.cpu() for t in ts])
+    _close(outs[0], outs[1], dtype)
+    for g, ref in zip(grads[0], grads[1]):
+        _close(g, ref, dtype)
+
+
+def test_ce_and_ffn_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(4, 128, device=dev)
+    w = torch.zeros(128, 128, device=dev)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        FB.fused_ffn(x[:, :96].contiguous(), w[:96, :96].contiguous(),
+                     w[:96, :96].contiguous())
+    with pytest.raises(TypeError, match="w1"):
+        FB.fused_ffn(x, w.bfloat16(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        CE.cross_entropy_fwd(x.t(), torch.zeros(128, dtype=torch.long,
+                                                device=dev))
+    with pytest.raises(ValueError, match="labels is on"):
+        CE.cross_entropy_fwd(x, torch.zeros(4, dtype=torch.long))
+    with pytest.raises(TypeError, match="float64"):
+        CE.cross_entropy_fwd(x.double(), torch.zeros(4, dtype=torch.long,
+                                                     device=dev))
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+def test_ce_and_ffn_wrappers_raise_when_the_library_fails(dev, monkeypatch,
+                                                          failure):
+    """With the library loader patched to fail (or to hand back a library
+    whose every launch reports a CUDA error), the CE and FFN wrappers
+    raise on CUDA tensors and count no launch: nothing carries on in
+    plain PyTorch."""
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "ptt_error_string":
+                return lambda code: b"invalid argument"
+            return lambda *args: 1          # cudaErrorInvalidValue
+
+    def loader(name):
+        if failure == "build":
+            raise RuntimeError("nvcc failed: patched")
+        return Refusing()
+
+    monkeypatch.setattr(_build, "library", loader)
+    x = torch.zeros(4, 128, device=dev)
+    lbl = torch.zeros(4, dtype=torch.long, device=dev)
+    w = torch.zeros(128, 128, device=dev)
+    n = (CE.cross_entropy_fwd.launches, CE.cross_entropy_bwd.launches,
+         FB.fused_ffn.launches)
+    match = "patched" if failure == "build" else "CUDA error 1"
+    with pytest.raises(RuntimeError, match=match):
+        CE.cross_entropy_fwd(x, lbl)
+    with pytest.raises(RuntimeError, match=match):
+        CE.cross_entropy_bwd(x, lbl, torch.zeros(4, device=dev),
+                             torch.ones(4, device=dev))
+    with pytest.raises(RuntimeError, match=match):
+        FB.fused_ffn(x, w, w)
+    assert n == (CE.cross_entropy_fwd.launches,
+                 CE.cross_entropy_bwd.launches, FB.fused_ffn.launches)
+
+
+def test_sdpa_with_active_dropout_skips_flash(dev):
+    """An eligible flash shape with dropout in training takes the plain
+    path (no flash launch); in eval the same call launches flash."""
+    from paddle_tpu_torch.nn import functional as TF
+    rng = np.random.default_rng(13)
+    q = _t(rng, (1, 128, 2, 128), torch.bfloat16, dev)
+    n0 = FA.flash_attention_fwd.launches
+    TF.scaled_dot_product_attention(q, q, q, is_causal=True, dropout_p=0.1,
+                                    training=True)
+    assert FA.flash_attention_fwd.launches == n0
+    TF.scaled_dot_product_attention(q, q, q, is_causal=True, dropout_p=0.1,
+                                    training=False)
+    assert FA.flash_attention_fwd.launches == n0 + 1
+
+
+def test_gpt_train_step_on_the_card_matches_the_cpu_port(dev):
+    """A tiny GPT whose attention takes flash through the head_dim-64 pad
+    (2 heads of 64, seq 1024), fp32: three TrainStep updates on the card
+    and on the CPU from the same weights; losses within 1e-5 relative and
+    the parameters within 1e-4 (the key bias excepted: its gradient is
+    zero up to rounding, so Adam steps it by up to lr either way); the CE
+    kernels once a step each, flash in both layers."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = GPTConfig.tiny(hidden_size=128, num_attention_heads=2,
+                         max_position_embeddings=1024)
+    seed(0)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    gpu = GPTForCausalLM(cfg, device=dev)
+    gpu.set_state_dict({k: v.numpy() for k, v in cpu.state_dict().items()})
+    ids = np.random.default_rng(4).integers(0, cfg.vocab_size, (1, 1025))
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    steps = [TrainStep(m, AdamW(learning_rate=1e-3, multi_precision=True))
+             for m in (cpu, gpu)]
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        ref, got = (float(st(batch)) for st in steps)
+        assert abs(got - ref) <= 1e-5 * abs(ref), (got, ref)
+    launched = {fn.__name__: fn.launches for fn in kernels.TRAINING_GPT}
+    assert launched == {"cross_entropy_fwd": 3, "cross_entropy_bwd": 3,
+                        "flash_attention_fwd": 6,
+                        "flash_attention_bwd_dq": 6,
+                        "flash_attention_bwd_dkv": 6}, launched
+    d = cfg.hidden_size
+    for (n, a), b in zip(cpu.state_dict().items(),
+                         gpu.state_dict().values()):
+        a, b = a.numpy(), b.cpu().numpy()
+        if n.endswith("qkv_proj.bias"):
+            np.testing.assert_allclose(b[d:2 * d], a[d:2 * d], atol=3e-3)
+            a, b = np.delete(a, np.s_[d:2 * d]), np.delete(b, np.s_[d:2 * d])
+        np.testing.assert_allclose(b, a, atol=1e-4, rtol=1e-4, err_msg=n)
+
+
+def test_transformer_on_the_card_matches_the_cpu_port(dev):
+    """A 2 + 2-layer Transformer (d_model 128, FFN 256, relu) in eval,
+    fp32, with the causal target mask: the card (fused FFN kernel in all
+    four layers) against the CPU port on the same weights, 1e-4."""
+    from paddle_tpu_torch.nn import Transformer
+    from paddle_tpu_torch import seed
+    seed(1)
+    kw = dict(d_model=128, nhead=4, num_encoder_layers=2,
+              num_decoder_layers=2, dim_feedforward=256)
+    cpu = Transformer(**kw, device="cpu").eval()
+    gpu = Transformer(**kw, device=dev).eval()
+    gpu.set_state_dict({k: v.numpy() for k, v in cpu.state_dict().items()})
+    rng = np.random.default_rng(14)
+    src = torch.as_tensor(rng.standard_normal((3, 40, 128)),
+                          dtype=torch.float32)
+    tgt = torch.as_tensor(rng.standard_normal((3, 24, 128)),
+                          dtype=torch.float32)
+    mask = Transformer.generate_square_subsequent_mask(24)
+    n0 = FB.fused_ffn.launches
+    with torch.inference_mode():
+        got = gpu(src.to(dev), tgt.to(dev), tgt_mask=mask.to(dev))
+        ref = cpu(src, tgt, tgt_mask=mask)
+    assert FB.fused_ffn.launches == n0 + 4
+    _close(got, ref, torch.float32)

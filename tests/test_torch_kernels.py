@@ -188,6 +188,11 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.quantization\n"
         "import paddle_tpu_torch.quantization.serving\n"
         "import paddle_tpu_torch.ops.kernels.quant_matmul\n"
+        "import paddle_tpu_torch.ops.kernels.cross_entropy\n"
+        "import paddle_tpu_torch.nn.transformer\n"
+        "import paddle_tpu_torch.nn.loss_layers\n"
+        "import paddle_tpu_torch.nn.functional.common\n"
+        "import paddle_tpu_torch.models.gpt\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"
