@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (kernels six: the serving, the
-training, the quantized serving, the MoE, the cross-entropy and the
-feed-forward rows; serve, serve_quant, train, train_moe, train_gpt and
-transformer_infer one more each, for a profiled window; serve_quant and
-train_moe two, one per engine or dispatch mode):
+Phases, each printing one JSON line (kernels seven: the serving, the
+training, the quantized serving, the MoE, the cross-entropy, the
+feed-forward and the decoder-tier rows; serve, serve_quant, train,
+train_moe, train_gpt, train_decoder and transformer_infer one more each,
+for a profiled window; serve_quant and train_moe two, one per engine or
+dispatch mode):
 
 1. env      versions, the card, TF32 switched off for fp32 references.
 2. build    nvcc builds the port's CUDA kernels from ``paddle_tpu_torch/
@@ -102,6 +103,26 @@ train_moe two, one per engine or dispatch mode):
             against the plain FFN route on the card, forward seconds, tokens
             per second, fused_ffn launched 12 times a forward; a 2 + 2-layer
             fp32 card-vs-CPU parity; then transformer_profile.
+11. decoder  the Llama decoder tier (PADDLE_TPU_FUSED_BLOCK=decoder).
+            kernels_decoder (with the kernel phases): the whole-block
+            kernel against decoder_reference in fp32 at b=1, s=512 and in
+            bf16 at the train shape (b=4, s=2048, Llama-3-8B width), each
+            within DECODER_TOL of the largest |out| and timed beside the
+            plain version and its bound, the bf16 one beside the library
+            chain; the
+            rmsnorm kernel against rmsnorm_reference at T=8192, d=4096
+            (bf16 with and without a residual, fp32), beside x + r then
+            F.rms_norm.  score_decoder (on the serve model, before it is
+            freed): 32-layer cache-free scoring of b=4 x 2048 tokens at
+            the decoder tier (32 block launches a forward) and at the
+            default tier, logits within 5% of their largest.
+            decoder_parity (after train): one fp32 full-width layer at the
+            tier, loss and every gradient against the CPU.  train_decoder:
+            the train step at the tier, 1 + 3 steps, launches exact per
+            step (block 4, rmsnorm, QKV, MLP and flash 4 each), the peak
+            beside train's; then train_decoder_profile.  norm_residual
+            (last): F.rms_norm_residual forward and backward at T=8192,
+            one launch a call.
 
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -109,7 +130,10 @@ script exits non-zero without the last line; so it does where CUDA is
 missing or the package is not beside it.  Imports nothing of JAX or of
 ``paddle_tpu``."""
 
+import contextlib
+import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1144,7 +1168,7 @@ def train(dev, kernels):
          launches=launches,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()})
     train_profile(step, batch)
-    return launches
+    return launches, peak
 
 
 TRAIN_FAMILIES = ("grouped_kernel", "gemm_kernel", "flash_fwd_kernel",
@@ -1745,6 +1769,429 @@ def transformer_parity(dev):
             "ref_max_abs": scale, "tolerance": "1e-4 of the largest |out|"}
 
 
+# -- phase 11: the Llama decoder tier (PADDLE_TPU_FUSED_BLOCK=decoder) -------
+
+DEC_B, DEC_S, DEC_STEPS, DEC_FWDS = 4, 2048, 3, 2
+DEC_H, DEC_HK, DEC_HD = 32, 8, 128
+# the block kernel against decoder_reference, as a share of the output's
+# largest magnitude: fp32 products in another order (1e-4); in bf16 both
+# round at the same cast points, and a bf16 step flipped by another
+# summation order carries through the block (3e-2, the JAX tests' limit)
+DECODER_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# the rmsnorm rows: h is the same fp32 sum rounded once (equal); inv an
+# fp32 sum of d squares in another order; y in bf16 within one bf16 step
+# (inv's last bits may flip a rounding), in fp32 within 1e-5
+NORM_TOL = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-6, 2 ** -7)}
+NORM_T = 8192
+
+
+@contextlib.contextmanager
+def decoder_tier():
+    """PADDLE_TPU_FUSED_BLOCK=decoder inside the block (the knob is read
+    at call time), the caller's value restored after."""
+    old = os.environ.get("PADDLE_TPU_FUSED_BLOCK")
+    os.environ["PADDLE_TPU_FUSED_BLOCK"] = "decoder"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_FUSED_BLOCK")
+        else:
+            os.environ["PADDLE_TPU_FUSED_BLOCK"] = old
+
+
+def check_share(what, got, ref, limit):
+    """(max abs err, its share of ref's largest magnitude), raising on a
+    non-finite output or a share above `limit`."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = float((got.float() - ref.float()).abs().max())
+    share = err / max(float(ref.float().abs().max()), 1e-30)
+    if share > limit:
+        raise AssertionError(f"{what}: max abs err {err} is {share} of the "
+                             f"largest |ref|, above {limit}")
+    return err, share
+
+
+def decoder_args(g, dev, b, s, dtype):
+    """x, Xavier-scaled weights at Llama-3-8B width and the model's RoPE
+    tables (theta 500000), in the block's argument order."""
+    from paddle_tpu_torch.nn.functional import rotary_freqs
+    w = lambda i, o: rand(g, (i, o), dtype, dev, (2.0 / (i + o)) ** 0.5)
+    cos, sin = rotary_freqs(DEC_HD, 8192, base=500000.0, device=dev)
+    return (rand(g, (b, s, D), dtype, dev), rand(g, (D,), dtype, dev, 0.1) + 1,
+            w(D, DQ), w(D, DKV), w(D, DKV), cos, sin, w(DQ, D),
+            rand(g, (D,), dtype, dev, 0.1) + 1, w(D, F), w(D, F), w(F, D),
+            DEC_H, DEC_HK, EPS)
+
+
+def decoder_bound(b, s, dtype):
+    """(bytes, flops, rate) of one block: x read and y written once, the
+    weights once; 2 T (d (dq + 2 dkv) + dq d + 3 d f) product FLOPs plus
+    causal attention, 4 b h s^2 hd / 2."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    w = D * (DQ + 2 * DKV) + DQ * D + 3 * D * F + 2 * D
+    nbytes = item * (2 * b * s * D + w) + 2 * 4 * s * DEC_HD // 2
+    flops = 2 * b * s * (w - 2 * D) + 4 * b * DEC_H * s * s * DEC_HD // 2
+    return nbytes, flops, BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S
+
+
+def kernel_decoder(FB, dev, timer):
+    """The block kernel against decoder_reference: fp32 at b=1, s=512,
+    then bf16 at the train shape (b=4, s=2048), each timed beside the
+    plain version; the bf16 one also beside the library chain
+    (F.rms_norm, one QKV matmul, RoPE, SDPA, matmul + add, F.rms_norm,
+    the gate/up matmul, silu, the down matmul + add)."""
+    F_ = torch.nn.functional
+    from paddle_tpu_torch.ops.kernels import _build
+    rows = {}
+    for dtype, b, s in ((torch.float32, 1, 512),
+                        (torch.bfloat16, DEC_B, DEC_S)):
+        g = torch.Generator(device=dev).manual_seed(13)
+        args = decoder_args(g, dev, b, s, dtype)
+        n0 = FB.fused_decoder_block.launches
+        got = FB.fused_decoder_block(*args)
+        if FB.fused_decoder_block.launches != n0 + 1:
+            raise AssertionError("kernels_decoder: the block did not launch")
+        ref = FB.decoder_reference(*args)
+        err, share = check_share(f"fused_decoder_block {dtype}", got, ref,
+                                 DECODER_TOL[dtype])
+        del got, ref
+        torch.cuda.empty_cache()
+        grid = (ctypes.c_int * 3)()
+        lib = _build.library("fused_decoder")
+        _build.check(lib, lib.ptt_fused_decoder_grid(
+            _build.DTYPE_CODES[dtype], ctypes.addressof(grid)),
+            "fused_decoder grid")
+        nbytes, flops, rate = decoder_bound(b, s, dtype)
+        row = {"max_abs_err": err, "err_share_of_max": share,
+               "tolerance_share": DECODER_TOL[dtype],
+               "grid": {"blocks_per_sm": grid[0], "sms": grid[1],
+                        "smem_bytes": grid[2]},
+               "flops": flops, "shape": f"b={b} s={s} d={D} h={DEC_H} "
+               f"hk={DEC_HK} f={F} {str(dtype).split('.')[1]}"}
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, rate)
+        row["ms"] = timer(lambda: FB.fused_decoder_block(*args), iters=5)
+        row["plain_ms"] = timer(lambda: FB.decoder_reference(*args),
+                                iters=2, warmup=1)
+        rows[str(dtype).split(".")[1]] = row
+    # the library chain at the train shape in bf16 (the last case's args)
+    (x, wn1, wq, wk, wv, cos, sin, wo, wn2, wg, wu, wd) = args[:12]
+    wqkv = torch.cat([wq, wk, wv], dim=1)
+    wgu = torch.cat([wg, wu], dim=1)
+    c = cos[:DEC_S][None, :, None, :]
+    sn = sin[:DEC_S][None, :, None, :]
+
+    def rope(t):
+        t1, t2 = t.float().chunk(2, dim=-1)
+        return torch.cat([t1 * c - t2 * sn, t2 * c + t1 * sn], -1).to(t.dtype)
+
+    def library():
+        b, s = x.shape[:2]
+        qkv = F_.rms_norm(x, (D,), wn1, EPS) @ wqkv
+        q, k, v = qkv.split([DQ, DKV, DKV], dim=-1)
+        q = rope(q.reshape(b, s, DEC_H, DEC_HD)).transpose(1, 2)
+        k = rope(k.reshape(b, s, DEC_HK, DEC_HD)).transpose(1, 2)
+        v = v.reshape(b, s, DEC_HK, DEC_HD).transpose(1, 2)
+        o = F_.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                            enable_gqa=True)
+        x2 = x + o.transpose(1, 2).reshape(b, s, DQ) @ wo
+        gu = F_.rms_norm(x2, (D,), wn2, EPS) @ wgu
+        return x2 + (F_.silu(gu[..., :F]) * gu[..., F:]) @ wd
+
+    row["library_ms"] = timer(library, iters=5)
+    row["library"] = ("F.rms_norm, QKV matmul, RoPE, SDPA(enable_gqa), "
+                      "o-proj matmul + add, F.rms_norm, gate/up matmul, "
+                      "silu * up, down matmul + add")
+    del wqkv, wgu, args, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_rmsnorm(RN, dev, timer):
+    """The rmsnorm kernel against rmsnorm_reference at T=8192, d=4096:
+    bf16 with and without a residual, fp32 with one; each timed beside
+    the plain version and x + r then F.rms_norm."""
+    F_ = torch.nn.functional
+    rows = {}
+    for dtype, res in ((torch.bfloat16, True), (torch.bfloat16, False),
+                       (torch.float32, True)):
+        g = torch.Generator(device=dev).manual_seed(17)
+        x = rand(g, (NORM_T, D), dtype, dev)
+        r = rand(g, (NORM_T, D), dtype, dev) if res else None
+        w = rand(g, (D,), dtype, dev, 0.1) + 1
+        n0 = RN.fused_rmsnorm.launches
+        y, h, inv = RN.fused_rmsnorm(x, w, r, EPS)
+        if RN.fused_rmsnorm.launches != n0 + 1:
+            raise AssertionError("kernels_decoder: rmsnorm did not launch")
+        ry, rh, rinv = RN.rmsnorm_reference(x, w, r, EPS)
+        torch.cuda.synchronize()
+        if not torch.equal(h, rh):
+            raise AssertionError(f"fused_rmsnorm {dtype}: h differs")
+        check_close("fused_rmsnorm inv", inv, rinv, torch.float32, (0, 1e-5))
+        err = check_close(f"fused_rmsnorm y {dtype}", y, ry, dtype,
+                          NORM_TOL[dtype])
+        item = x.element_size()
+        nbytes = item * (NORM_T * D * (3 + res) + D) + 4 * NORM_T
+        out = {"max_abs_err": err, "tolerance": dict(zip(
+                   ("atol", "rtol"), NORM_TOL[dtype])),
+               "ms": timer(lambda: RN.fused_rmsnorm(x, w, r, EPS)),
+               "plain_ms": timer(lambda: RN.rmsnorm_reference(x, w, r, EPS)),
+               "library_ms": timer(
+                   (lambda: F_.rms_norm(x + r, (D,), w, EPS)) if res else
+                   (lambda: F_.rms_norm(x, (D,), w, EPS))),
+               "library": "x + r, F.rms_norm" if res else "F.rms_norm",
+               "shape": f"T={NORM_T} d={D} {str(dtype).split('.')[1]}"
+                        + (" residual" if res else "")}
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            nbytes, 5 * NORM_T * D,
+            BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S)
+        rows[out["shape"]] = out
+        del x, r, y, h, ry, rh
+        torch.cuda.empty_cache()
+    return rows
+
+
+def decoder_parity(dev, kernels):
+    """One full-width layer (vocab cut to 32000), fp32, b=1, s=256, at the
+    decoder tier: the loss and every gradient on the card (the block
+    kernel's forward, the remat through the per-segment kernels) against
+    the CPU's plain path (decoder_reference and its autograd),
+    train_parity's limits."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import fused_block as FB
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers, cfg.vocab_size, cfg.dtype = 1, 32000, "float32"
+    seed(6)
+    t0 = time.perf_counter()
+    card = LlamaForCausalLM(cfg, device=dev)
+    host = LlamaForCausalLM(cfg, device="cpu")
+    host.set_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 257))
+    with decoder_tier():
+        kernels.reset_launch_counts()
+        losses, rel, worst = grad_parity("decoder_parity", card, host, ids)
+    launched = {fn.__name__: fn.launches for fn in kernels.DECODER_TRAINING}
+    routes = dict(FB.fused_decoder_block.routes)
+    if launched != dict.fromkeys(launched, 1) or \
+            routes != {"decoder": 2, "segments": 0}:
+        raise AssertionError(f"decoder_parity: launches {launched}, routes "
+                             f"{routes}")
+    emit("decoder_parity", layers=1, vocab=cfg.vocab_size, batch=1, seq=256,
+         dtype="float32", loss=losses[0], plain_loss=losses[1],
+         loss_rel_err=rel, loss_tolerance=1e-4,
+         grad_tolerance="1e-3 of each grad's max |g|",
+         worst_grad_rel_err=worst, launches=launched, routes=routes,
+         seconds=time.perf_counter() - t0)
+    del card, host
+
+
+def train_decoder(dev, kernels, train_peak):
+    """The train phase's step (Llama-3-8B width, 4 layers, bf16, b=4,
+    s=2048, AdamW(multi_precision), the guard) at the decoder tier: 1
+    warm-up and DEC_STEPS timed steps on a fresh model.  Each step
+    launches the block kernel 4 times (the forward) and, in the
+    backward's recompute, the rmsnorm, QKV, MLP and flash kernels once a
+    layer each.  Then one profiled step."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import fused_block as FB
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = TRAIN_LAYERS
+    with decoder_tier():
+        seed(0)
+        t0 = time.perf_counter()
+        model = LlamaForCausalLM(cfg, device=dev)
+        step = TrainStep(model, AdamW(learning_rate=1e-4,
+                                      multi_precision=True),
+                         guard_nonfinite=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (DEC_B, DEC_S + 1))
+        batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+                 "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+        t0 = time.perf_counter()
+        losses = [float(step(batch))]                  # warm-up
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(DEC_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {fn.__name__: fn.launches
+                    for fn in kernels.DECODER_TRAINING}
+        routes = dict(FB.fused_decoder_block.routes)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train_decoder: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train_decoder: loss did not fall {losses}")
+        if any(step.skipped.values()) or step.step_count != 1 + DEC_STEPS:
+            raise AssertionError(f"train_decoder: skipped steps "
+                                 f"{step.skipped}, step_count "
+                                 f"{step.step_count}")
+        # per step: the block once a layer in the forward; the recompute
+        # runs the QKV training variant, flash forward, rmsnorm (norm2)
+        # and the MLP pair once a layer, flash's backward pair once a layer
+        want = dict.fromkeys(launches, TRAIN_LAYERS * DEC_STEPS)
+        if launches != want or routes != {
+                "decoder": TRAIN_LAYERS * DEC_STEPS, "segments": 0}:
+            raise AssertionError(f"train_decoder: launches {launches}, "
+                                 f"routes {routes}; expected "
+                                 f"{TRAIN_LAYERS} a step each")
+        dt = float(np.median(times))
+        tokens = DEC_B * DEC_S
+        flops_tok = 6 * n_params + 12 * TRAIN_LAYERS * DEC_S * cfg.hidden_size
+        emit("train_decoder", layers=TRAIN_LAYERS, dtype=cfg.dtype,
+             batch=DEC_B, seq=DEC_S, params=n_params,
+             optimizer="AdamW(lr=1e-4, multi_precision=True)",
+             model_build_s=build_s, warmup_s=warm_s, step_s=times,
+             step_s_median=dt, tokens_per_s=tokens / dt,
+             mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S, peak_mem_gb=peak,
+             train_phase_peak_mem_gb=train_peak, losses=losses,
+             launches=launches, routes=routes,
+             launches_per_step={k: v / DEC_STEPS
+                                for k, v in launches.items()})
+        train_profile(step, batch, phase="train_decoder_profile", top_n=15,
+                      families=("decoder_kernel", "rmsnorm_kernel",
+                                "gemm_kernel", "flash_fwd_kernel",
+                                "flash_dq_kernel", "flash_dkv_kernel"))
+    del model, step
+    return launches
+
+
+def score_decoder(model, kernels):
+    """The serve phase's 32-layer bf16 model scoring b=4 sequences of
+    2048 tokens without a cache (`LlamaForCausalLM(input_ids)` under
+    inference_mode): at the decoder tier (the block kernel, 32 launches a
+    forward) and at the default tier (the per-segment kernels), 1 warm-up
+    and DEC_FWDS timed forwards each.  The two tiers' logits differ by
+    norm2's cast point (the block multiplies by the weight in fp32 before
+    its one cast; the RMSNorm layer casts first) carried through 32
+    layers: within 5% of their largest magnitude, the serving parity's
+    limit."""
+    from paddle_tpu_torch.ops.kernels import fused_block as FB
+    cfg = model.config
+    dev = model.device
+    ids = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (DEC_B, DEC_S))).to(dev)
+
+    def fwd():
+        with torch.inference_mode():
+            return model(ids)
+
+    def timed():
+        fwd()                                           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(DEC_FWDS):
+            t0 = time.perf_counter()
+            out = fwd()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS
+                    if fn.launches}
+        res = {"fwd_s": times, "fwd_s_median": float(np.median(times)),
+               "tokens_per_s": DEC_B * DEC_S / float(np.median(times)),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": launches,
+               "routes": dict(FB.fused_decoder_block.routes)}
+        return out, res
+
+    t0 = time.perf_counter()
+    with decoder_tier():
+        got, dec = timed()
+    n = cfg.num_hidden_layers * DEC_FWDS
+    if dec["launches"].get("fused_decoder_block") != n or \
+            dec["routes"] != {"decoder": n, "segments": 0}:
+        raise AssertionError(f"score_decoder: launches {dec['launches']}, "
+                             f"routes {dec['routes']}; expected "
+                             f"{cfg.num_hidden_layers} blocks a forward")
+    ref, seg = timed()
+    if seg["launches"].get("fused_decoder_block"):
+        raise AssertionError("score_decoder: the default tier launched the "
+                             "block kernel")
+    err = scale = mean = 0.0
+    for i in range(DEC_B):                  # one row at a time: 1 GB fp32
+        diff = (got[i].float() - ref[i].float()).abs()
+        if not torch.isfinite(got[i]).all():
+            raise AssertionError("score_decoder: non-finite logits")
+        err = max(err, float(diff.max()))
+        mean += float(diff.mean()) / DEC_B
+        scale = max(scale, float(ref[i].float().abs().max()))
+    if err > 0.05 * scale:
+        raise AssertionError(f"score_decoder: logits max abs err {err} > "
+                             f"0.05 * {scale}")
+    emit("score_decoder", layers=cfg.num_hidden_layers, dtype=cfg.dtype,
+         batch=DEC_B, seq=DEC_S, logits_shape=list(got.shape),
+         decoder=dec, segments=seg, max_abs_err_vs_segments=err,
+         mean_abs_err=mean, ref_max_abs=scale, tolerance=0.05 * scale,
+         launches_per_forward=dec["launches"]["fused_decoder_block"]
+         / DEC_FWDS, seconds=time.perf_counter() - t0)
+    del got, ref
+    torch.cuda.empty_cache()
+    return dec["launches"]["fused_decoder_block"]
+
+
+def norm_residual(dev, kernels):
+    """F.rms_norm_residual forward and backward at T=8192, d=4096 in
+    bf16: y, h and inv of the forward against rmsnorm_reference (the
+    rows' limits), finite gradients of x, the residual and the weight,
+    and one rmsnorm launch a call (the backward is plain products);
+    seconds of 5 calls each way after one warm-up."""
+    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.ops.kernels import rmsnorm as RN
+    g = torch.Generator(device=dev).manual_seed(19)
+    x, r = (rand(g, (NORM_T, D), torch.bfloat16, dev).requires_grad_(True)
+            for _ in range(2))
+    w = (rand(g, (D,), torch.bfloat16, dev, 0.1) + 1).requires_grad_(True)
+    gy, gh = (rand(g, (NORM_T, D), torch.bfloat16, dev) for _ in range(2))
+
+    def call():
+        y, h = TF.rms_norm_residual(x, w, r, EPS)
+        torch.autograd.backward((y, h), (gy, gh))
+        return y, h
+
+    call()                                             # warm-up
+    x.grad = r.grad = w.grad = None
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        y, h = call()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in kernels.NORM}
+    if launches != {"fused_rmsnorm": 5}:
+        raise AssertionError(f"norm_residual: launches {launches}")
+    with torch.no_grad():
+        ry, rh, _ = RN.rmsnorm_reference(x, w, r, EPS)
+    if not torch.equal(h, rh):
+        raise AssertionError("norm_residual: h differs from the plain sum")
+    err = check_close("norm_residual y", y, ry, torch.bfloat16,
+                      NORM_TOL[torch.bfloat16])
+    for name, t in (("x", x), ("residual", r), ("weight", w)):
+        if t.grad is None or not torch.isfinite(t.grad).all():
+            raise AssertionError(f"norm_residual: gradient of {name}")
+    emit("norm_residual", T=NORM_T, d=D, dtype="bfloat16", calls=5,
+         fwd_bwd_s=times, fwd_bwd_s_median=float(np.median(times)),
+         max_abs_err=err, launches=launches,
+         launches_per_call=launches["fused_rmsnorm"] / 5)
+    return launches["fused_rmsnorm"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1759,6 +2206,7 @@ def main():
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
     from paddle_tpu_torch.distributed import moe as TM
     from paddle_tpu_torch.ops.kernels import quant_matmul as QM
+    from paddle_tpu_torch.ops.kernels import rmsnorm as RN
     from paddle_tpu_torch.inference.kv_cache import _quantize_kv
     from paddle_tpu_torch.quantization.serving import quantize_linear_weight
 
@@ -1800,6 +2248,10 @@ def main():
     emit("kernels_ce", results=ce_rows)
     ffn_rows = kernels_ffn(FB, dev, timer)
     emit("kernels_ffn", results=ffn_rows)
+    dec_rows = kernel_decoder(FB, dev, timer)
+    norm_rows = kernel_rmsnorm(RN, dev, timer)
+    emit("kernels_decoder", results={"fused_decoder_block": dec_rows,
+                                     "fused_rmsnorm": norm_rows})
     del timer
     torch.cuda.empty_cache()
 
@@ -1812,9 +2264,15 @@ def main():
     launches, model, prompts, bf16_tokens = serve(dev, kernels)
     torch.cuda.empty_cache()
     quant_launches = serve_quant(dev, kernels, model, prompts, bf16_tokens)
+    torch.cuda.empty_cache()
+    score_launches = score_decoder(model, kernels)
     del model
     torch.cuda.empty_cache()
-    train_launches = train(dev, kernels)
+    train_launches, train_peak = train(dev, kernels)
+    torch.cuda.empty_cache()
+    decoder_parity(dev, kernels)
+    torch.cuda.empty_cache()
+    dec_launches = train_decoder(dev, kernels, train_peak)
     torch.cuda.empty_cache()
     moe_parity(GM, TM, dev)
     torch.cuda.empty_cache()
@@ -1825,6 +2283,8 @@ def main():
     gpt_launches = train_gpt(dev, kernels)
     torch.cuda.empty_cache()
     ffn_launches = transformer_infer(dev, kernels)
+    torch.cuda.empty_cache()
+    norm_launches = norm_residual(dev, kernels)
 
     where = {
         "fused_rmsnorm_qkv": ("paddle_tpu_torch/ops/kernels/csrc/"
@@ -1926,6 +2386,26 @@ def main():
                  "launches": ffn_launches["fused_ffn"],
                  **{k: r[k] for k in keys}, "shape": r["shape"],
                  "path": "transformer_infer"})
+    # the decoder tier: the block at the train shape (bf16), launches from
+    # train_decoder's forwards, score_decoder's beside them; the rmsnorm
+    # kernel at T=8192 d=4096 bf16 with a residual, launches from
+    # train_decoder's recompute (norm2, no residual), norm_residual's beside
+    r = dec_rows["bfloat16"]
+    line.append({"name": "fused_decoder_block", "route": "cuda",
+                 "source": src + "fused_decoder.cu",
+                 "replaces": "paddle_tpu/ops/pallas/fused_block.py:830",
+                 "launches": dec_launches["fused_decoder_block"],
+                 **{k: r[k] for k in keys}, "shape": r["shape"],
+                 "path": "train_decoder",
+                 "launches_score_decoder": score_launches})
+    r = norm_rows[f"T={NORM_T} d={D} bfloat16 residual"]
+    line.append({"name": "fused_rmsnorm", "route": "cuda",
+                 "source": src + "rmsnorm.cu",
+                 "replaces": "paddle_tpu/ops/pallas/rmsnorm.py:39",
+                 "launches": dec_launches["fused_rmsnorm"],
+                 **{k: r[k] for k in keys}, "shape": r["shape"],
+                 "path": "train_decoder (norm2 of the recompute)",
+                 "launches_norm_residual": norm_launches})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,18 @@ each projection then runs the quant-matmul kernel.  The dense
 (no-cache) attention reaches the flash-attention kernels on CUDA for
 eligible shapes.  Under autograd the fused functions and flash attention
 run their custom VJPs, so ``loss`` trains through the same kernels.  The
-RoPE tables stay fp32 in a bf16 model.  ``generate``, the whole-block
-decoder kernel and ``partition_specs`` come with later slices of the
+RoPE tables stay fp32 in a bf16 model.
+
+At ``PADDLE_TPU_FUSED_BLOCK=decoder`` a cache-free, mask-free, offset-0
+call (``.loss()``, scoring, a full prompt without a cache) runs each
+layer whose shape the gate takes as ``F.fused_decoder_block``
+(``paddle_tpu/models/llama.py:188-225, 268-278``): one launch of the
+whole-block kernel on the card, the plain block on the CPU, and in
+training the block-boundary remat, whose backward recomputes the layer
+through the per-segment kernels.  ``fused_decoder_block.routes`` counts
+the layers each way.  The paged engine always carries a cache, so it
+never reaches the tier.
+``generate`` and ``partition_specs`` come with later slices of the
 port."""
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.common_layers import Embedding, Linear
 from paddle_tpu_torch.nn.layer import Layer
 from paddle_tpu_torch.nn.norm_layers import RMSNorm
+from paddle_tpu_torch.ops.kernels import fused_block as _FB
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM"]
@@ -155,6 +166,38 @@ class LlamaMLP(Layer):
                            self.down_proj.weight)
 
 
+def _fused_decoder(layer, x, rope_cos, rope_sin):
+    """The whole block through ``F.fused_decoder_block`` at the
+    ``PADDLE_TPU_FUSED_BLOCK=decoder`` tier where the layer has no
+    quantized projection, the RoPE tables cover s rows and
+    ``fused_decoder_eligible`` takes the shape; None sends the caller to
+    the per-segment path.  Counts the choice in
+    ``fused_decoder_block.routes`` (JAX's ``record_path("decoder_block",
+    ...)``, ``paddle_tpu/models/llama.py:215``)."""
+    if _FB.fused_block_tier() != "decoder":
+        return None
+    attn, mlp = layer.self_attn, layer.mlp
+    b, s, d = x.shape
+    dq = attn.num_heads * attn.head_dim
+    dkv = attn.num_kv_heads * attn.head_dim
+    fused = not _quantized(attn.q_proj, attn.k_proj, attn.v_proj,
+                           attn.o_proj, mlp.gate_proj, mlp.up_proj,
+                           mlp.down_proj) and \
+        rope_cos.shape[0] >= s and _FB.fused_decoder_eligible(
+            b, s, d, dq, dkv, attn.head_dim, mlp.gate_proj.weight.shape[-1],
+            x.dtype)
+    _FB.fused_decoder_block.routes["decoder" if fused else "segments"] += 1
+    if not fused:
+        return None
+    return F.fused_decoder_block(
+        x, layer.input_layernorm.weight, attn.q_proj.weight,
+        attn.k_proj.weight, attn.v_proj.weight, rope_cos, rope_sin,
+        attn.o_proj.weight, layer.post_attention_layernorm.weight,
+        mlp.gate_proj.weight, mlp.up_proj.weight, mlp.down_proj.weight,
+        num_heads=attn.num_heads, num_kv_heads=attn.num_kv_heads,
+        epsilon=layer.input_layernorm._epsilon)
+
+
 class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__(dtype=config.dtype, device=device)
@@ -167,6 +210,12 @@ class LlamaDecoderLayer(Layer):
 
     def forward(self, x, rope_cos, rope_sin, attn_mask=None, cache=None,
                 position_offset=0):
+        # the decoder tier: the cache-free, mask-free, offset-0 form
+        if cache is None and attn_mask is None and \
+                isinstance(position_offset, int) and position_offset == 0:
+            y = _fused_decoder(self, x, rope_cos, rope_sin)
+            if y is not None:
+                return y
         attn = self.self_attn
         if _quantized(attn.q_proj, attn.k_proj, attn.v_proj):
             h = attn(self.input_layernorm(x), rope_cos, rope_sin, attn_mask,
@@ -267,6 +316,12 @@ class LlamaForCausalLM(Layer):
         if caches is not None:
             return logits, new_caches
         return logits
+
+    def generate(self, input_ids, generation_config=None, **kwargs):
+        raise NotImplementedError(
+            "LlamaForCausalLM.generate (the static-cache decoding of "
+            "generation/__init__.py) is not ported yet "
+            "(ROADMAP.md, queue 1, items 1 and 3)")
 
     def loss(self, input_ids, labels):
         """Next-token cross-entropy through the fused chunked lm-head +

@@ -1,6 +1,6 @@
 """Fused-block functionals (``paddle_tpu/nn/functional/fused.py``): the
-fused RMSNorm+QKV, the SwiGLU MLP and the act + bias feed-forward,
-differentiable.
+fused RMSNorm+QKV, the SwiGLU MLP, the act + bias feed-forward and the
+whole Llama decoder block, differentiable.
 
 Where autograd needs a gradient (grad mode on and an input that requires
 one) the call goes through the custom VJP, whose forward launches the
@@ -15,7 +15,8 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import fused_block as _FB
 
-__all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn"]
+__all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
+           "fused_decoder_block"]
 
 
 def _needs_grad(*tensors):
@@ -54,3 +55,25 @@ def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
     d = x.shape[-1]
     y = _FB.FusedFFN.apply(x.reshape(-1, d), w1, b1, w2, b2, activation)
     return y.reshape(x.shape)
+
+
+def fused_decoder_block(x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
+                        norm2_weight, wg, wu, wd, num_heads, num_kv_heads,
+                        epsilon=1e-5):
+    """One whole Llama decoder block (rmsnorm -> QKV -> RoPE -> causal
+    attention -> o-proj + residual -> rmsnorm -> SwiGLU MLP + residual)
+    of x ``[b, s, d]``; weights ``[in, out]``, rope tables
+    ``[max_pos, head_dim // 2]`` (rows ``[0, s)``).  One launch of the
+    block kernel on the card where its gate takes the shape (the
+    per-segment kernels elsewhere), the plain version on the CPU.
+    Differentiable in x and every weight through the block-boundary
+    remat (``FusedDecoderBlock``); ``PADDLE_TPU_FUSED_BLOCK=decoder``
+    routes eligible Llama layers here."""
+    args = (x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
+            norm2_weight, wg, wu, wd)
+    if not _needs_grad(x, norm1_weight, wq, wk, wv, wo, norm2_weight, wg,
+                       wu, wd):
+        return _FB.fused_decoder_block(*args, num_heads, num_kv_heads,
+                                       epsilon)
+    return _FB.FusedDecoderBlock.apply(*args, int(num_heads),
+                                       int(num_kv_heads), float(epsilon))

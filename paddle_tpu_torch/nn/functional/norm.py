@@ -4,7 +4,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["layer_norm", "rms_norm"]
+from paddle_tpu_torch.nn.functional.fused import _needs_grad
+from paddle_tpu_torch.ops.kernels import rmsnorm as _RN
+
+__all__ = ["layer_norm", "rms_norm", "rms_norm_residual"]
 
 
 def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
@@ -27,14 +30,36 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
     return out
 
 
-def rms_norm(x: torch.Tensor, weight=None, epsilon: float = 1e-6
-             ) -> torch.Tensor:
-    """RMS norm over the last axis, statistics in fp32.  The cast points
-    are the JAX package's (``norm.py:35``): the normalised activations
-    are cast back to x's dtype before the weight multiplies them."""
+def rms_norm(x: torch.Tensor, weight=None, epsilon: float = 1e-6,
+             axis: int = -1) -> torch.Tensor:
+    """RMS norm over ``axis``, statistics in fp32.  The cast points are
+    the JAX package's (``norm.py:34-42``): the normalised activations
+    are cast back to x's dtype before the weight multiplies them, and the
+    weight broadcasts against x's trailing axes."""
     xf = x.float()
-    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    ms = torch.mean(xf * xf, dim=axis, keepdim=True)
     out = (xf * torch.reciprocal(torch.sqrt(ms + epsilon))).to(x.dtype)
     if weight is not None:
         out = out * weight
     return out
+
+
+def rms_norm_residual(x: torch.Tensor, weight: torch.Tensor, residual=None,
+                      epsilon: float = 1e-5):
+    """``(y, h)``: h = x (+ residual), y = RMSNorm(h) * weight in the fused
+    form (fp32 statistics and weight multiply, one cast), as
+    ``norm.py:45-63``.  The returned ``h`` is the pre-norm sum the next
+    residual branch consumes.  On the card the fused kernel
+    (``ops/kernels/rmsnorm.py``), on the CPU its plain version; where
+    autograd needs a gradient, through the custom VJP of both."""
+    d = x.shape[-1]
+    if not _needs_grad(*(t for t in (x, weight, residual) if t is not None)):
+        y, h, _ = _RN.fused_rmsnorm(x, weight, residual, epsilon)
+        return y, h
+    x2d = x.reshape(-1, d)
+    has_res = residual is not None
+    # no residual: x is the unread placeholder, as in the JAX package
+    res2d = residual.reshape(-1, d) if has_res else x2d
+    y, h = _RN.FusedRMSNorm.apply(x2d, res2d, weight, float(epsilon),
+                                  has_res)
+    return y.reshape(x.shape), h.reshape(x.shape)

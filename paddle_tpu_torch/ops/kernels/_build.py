@@ -31,7 +31,8 @@ __all__ = ["library", "build_all", "check", "stream_of", "DTYPE_CODES",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_block", "paged_attention", "flash_attention",
-           "quant_matmul", "grouped_matmul", "cross_entropy")
+           "quant_matmul", "grouped_matmul", "cross_entropy", "rmsnorm",
+           "fused_decoder")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of the C interface (csrc/common.cuh, enum DType): the io
@@ -73,6 +74,13 @@ _SIGNATURES = {
     "cross_entropy": {
         "ptt_ce_fwd": [_I, _P, _P, _P, _P, _I, _I, _P],
         "ptt_ce_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
+    "rmsnorm": {
+        "ptt_rmsnorm": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    },
+    "fused_decoder": {
+        "ptt_fused_decoder": [_I] + [_P] * 20 + [_I] * 8 + [_F, _P],
+        "ptt_fused_decoder_grid": [_I, _P],
     },
     "grouped_matmul": {
         "ptt_grouped_ffn_up": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

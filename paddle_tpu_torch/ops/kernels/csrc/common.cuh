@@ -62,6 +62,15 @@ __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
 }
 
+// a load through L2 only (ld.global.cg): data that another block wrote in
+// the same launch, before a grid-wide barrier, is never read from a stale
+// L1 line
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ __nv_bfloat16 ldcg(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -1,5 +1,6 @@
-"""Fused RMSNorm+QKV, gated SwiGLU MLP and the act + bias feed-forward —
-wrappers of the CUDA kernels in ``csrc/fused_block.cu`` and their plain
+"""Fused RMSNorm+QKV, gated SwiGLU MLP, the act + bias feed-forward and
+the whole Llama decoder block — wrappers of the CUDA kernels in
+``csrc/fused_block.cu`` and ``csrc/fused_decoder.cu`` and their plain
 PyTorch versions.
 
 Counterparts of ``paddle_tpu/ops/pallas/fused_block.py``:
@@ -7,13 +8,15 @@ Counterparts of ``paddle_tpu/ops/pallas/fused_block.py``:
 and with ``residuals=True`` the training variant that also emits
 ``(xn, inv)``), ``fused_mlp`` replaces ``_mlp_kernel`` (gated silu) and
 ``fused_ffn`` its non-gated variant (``act(x W1 + b1) W2 + b2`` with
-relu, exact-erf gelu or silu).  ``FusedRMSNormQKV``, ``FusedMLP`` and
-``FusedFFN`` are the custom VJPs around them (``_qkv_fwd``/``_qkv_bwd``,
+relu, exact-erf gelu or silu), and ``fused_decoder_block`` replaces
+``_decoder_kernel``.  ``FusedRMSNormQKV``, ``FusedMLP`` and ``FusedFFN``
+are the custom VJPs around the first three (``_qkv_fwd``/``_qkv_bwd``,
 ``_mlp_gated_fwd``/``_mlp_gated_bwd``, ``_ffn_fwd``/``_ffn_bwd``); their
 backward passes are plain matrix products, as in the JAX package, where
-they run outside any Pallas kernel.  A tensor on the CPU takes the plain
-version; a CUDA tensor launches the kernel or raises.  There is no
-fallback between the two.
+they run outside any Pallas kernel.  ``FusedDecoderBlock`` is the
+block's block-boundary remat (``_decoder_fwd``/``_decoder_bwd``).  A
+tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernel or raises.  There is no fallback between the two.
 
 The TPU kernels route only where Mosaic can tile the shape
 (``fused_qkv_eligible``: rows a multiple of 8/16); the CUDA kernels mask
@@ -21,19 +24,31 @@ ragged row tiles themselves and take any row count.  They need the
 feature widths (d, dq, dkv, f) to be multiples of 64, all operands of
 one dtype (float32 or bfloat16), contiguous and 16-byte aligned.
 
+The decoder tier (``PADDLE_TPU_FUSED_BLOCK=decoder``) routes a Llama
+layer to the block kernel where ``fused_decoder_eligible`` takes its
+shape: JAX's shape conditions, with the Hopper kernel's own needs in
+place of the TPU's VMEM budget.
+
 Each wrapper counts its launches in a plain integer attribute
 (``fused_rmsnorm_qkv.launches``), so a run can show the kernels were on
 its path."""
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels.flash_attention import (KERNEL_HEAD_DIM,
+                                                          flash_fwd_reference)
 
-__all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn", "qkv_reference",
-           "mlp_reference", "ffn_reference", "FusedRMSNormQKV", "FusedMLP",
-           "FusedFFN", "SUPPORTED_ACTS"]
+__all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
+           "fused_decoder_block", "qkv_reference", "mlp_reference",
+           "ffn_reference", "decoder_reference", "decoder_segments",
+           "fused_block_tier", "fused_decoder_eligible",
+           "decoder_workspace_bytes", "FusedRMSNormQKV", "FusedMLP",
+           "FusedFFN", "FusedDecoderBlock", "SUPPORTED_ACTS"]
 
 # fused_ffn's activations and their codes in csrc/fused_block.cu (enum Act)
 ACT_CODES = {"relu": 0, "gelu": 1, "silu": 2}
@@ -379,3 +394,246 @@ class FusedFFN(torch.autograd.Function):
         dw1 = (x2d.t() @ du).to(w1.dtype)
         db1 = None if b1 is None else du.float().sum(0).to(b1.dtype)
         return dx.to(dt), dw1, db1, dw2, db2, None
+
+
+# -- the whole-block decoder kernel (csrc/fused_decoder.cu) ----------------
+
+def fused_block_tier() -> str:
+    """The ``PADDLE_TPU_FUSED_BLOCK`` knob, read at call time
+    (``fused_block.py:109-131``): ``"decoder"`` routes eligible Llama
+    layers through the whole-block kernel; ``measured`` (the JAX
+    package's choice per shape from its calibration ledger) raises
+    ``NotImplementedError``; every other value, unset included, is
+    ``"segments"``: the per-segment kernels (fused RMSNorm+QKV, flash,
+    fused MLP), which the port runs on every device and every knob value,
+    as ``nn/transformer.py`` says of its feed-forward, so JAX's ``off``
+    and auto tiers have no counterpart here."""
+    env = os.environ.get("PADDLE_TPU_FUSED_BLOCK", "").strip().lower()
+    if env == "decoder":
+        return "decoder"
+    if env == "measured":
+        raise NotImplementedError(
+            "PADDLE_TPU_FUSED_BLOCK=measured (the tier chosen per shape "
+            "from the calibration ledger) is not ported yet (ROADMAP.md, "
+            "queue 1, item 9)")
+    return "segments"
+
+
+# the most scratch one launch may ask for: 5% of an H100's 80 GB
+# (T = 65,536 rows at Llama-3-8B width in bf16)
+DECODER_WORKSPACE_BUDGET = 4 << 30
+
+
+def _row_quantum(dtype) -> int:
+    """JAX's sublane tile (``fused_block.py:187-190``): 16 rows for
+    16-bit types, 8 otherwise."""
+    s = str(dtype)
+    return 16 if ("bfloat16" in s or "float16" in s) else 8
+
+
+def _workspace_widths(d, dq, dkv, f):
+    """Widths of the block kernel's workspace, each ``[b * s, width]`` in
+    the io dtype, in the C entry point's order: the normalised rows, q,
+    k, v, the attention output, x2 and h."""
+    return (d, dq, dkv, dkv, dq, d, f)
+
+
+def decoder_workspace_bytes(b, s, d, dq, dkv, f, dtype) -> int:
+    """Bytes of the block kernel's workspace."""
+    item = 2 if "bfloat16" in str(dtype) else 4
+    return b * s * sum(_workspace_widths(d, dq, dkv, f)) * item
+
+
+def fused_decoder_eligible(b, s, d, dq, dkv, hd, f, dtype="float32") -> bool:
+    """The port's gate for the block kernel.  JAX's shape conditions
+    (``fused_block.py:810-827``): s a multiple of the row quantum and of
+    ``min(128, s)``; d, dq, dkv and f multiples of 128; whole heads and
+    GQA groups.  In place of the TPU's 12 MB VMEM budget, what the Hopper
+    kernel needs: head_dim 128 (its flash tile's, and the backward's
+    flash), s a multiple of 64 (its q and key blocks), float32 or
+    bfloat16, and a workspace within ``DECODER_WORKSPACE_BUDGET``.  Its
+    shared memory plan is fixed (checked when it compiles) and a
+    cooperative grid that cannot be formed raises at launch, so neither
+    depends on the shape.  Llama-3-8B width passes at every s it runs;
+    JAX's VMEM budget refuses it at every s."""
+    q = _row_quantum(dtype)
+    if s < q or s % q or s % min(128, s):
+        return False
+    if d % 128 or dq % 128 or dkv % 128 or f % 128:
+        return False
+    if hd <= 0 or hd % 128 or dq % hd or dkv % hd:
+        return False
+    if (dq // hd) % (dkv // hd):
+        return False
+    if hd != KERNEL_HEAD_DIM or s % 64 or \
+            not any(t in str(dtype) for t in ("float32", "bfloat16")):
+        return False
+    return decoder_workspace_bytes(b, s, d, dq, dkv, f, dtype) <= \
+        DECODER_WORKSPACE_BUDGET
+
+
+def _rope_ref(x, cos, sin):
+    """``_rope_ref`` (``fused_block.py:1031-1040``): the half rotation of
+    ``[b, s, heads, hd]`` with ``[s, hd // 2]`` tables, in fp32, cast
+    back to x's dtype."""
+    c = cos[None, :, None, :].float()
+    s_ = sin[None, :, None, :].float()
+    half = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * c - x2 * s_, x2 * c + x1 * s_],
+                     dim=-1).to(x.dtype)
+
+
+def decoder_reference(x, wn1, wq, wk, wv, rope_cos, rope_sin, wo, wn2, wg,
+                      wu, wd, num_heads, num_kv_heads, epsilon=1e-5):
+    """``_decoder_reference`` (``fused_block.py:1043-1073``) in plain
+    torch with fp32 products: the fused-form norm and projections, RoPE,
+    causal attention (``flash_fwd_reference``'s math), the o-projection
+    cast to x's dtype, ``x2 = x + .``, norm2 in the fused form (fp32
+    multiply by the weight, one cast), the SwiGLU MLP, ``x2 + .``.
+    Differentiable in every weight and x; the RoPE tables (rows
+    ``[0, s)`` are used) take no gradient."""
+    b, s, d = x.shape
+    dq = wq.shape[1]
+    nh, nkvh = int(num_heads), int(num_kv_heads)
+    hd = dq // nh
+    q, k, v = qkv_reference(x.reshape(-1, d), wn1, wq, wk, wv, epsilon)
+    cos, sin = rope_cos[:s].detach(), rope_sin[:s].detach()
+    q = _rope_ref(q.reshape(b, s, nh, hd), cos, sin)
+    k = _rope_ref(k.reshape(b, s, nkvh, hd), cos, sin)
+    o, _ = flash_fwd_reference(q, k, v.reshape(b, s, nkvh, hd), causal=True)
+    h = torch.matmul(o.reshape(-1, dq).float(), wo.float()).to(x.dtype)
+    x2 = x + h.reshape(b, s, d)
+    xf = x2.float()
+    inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + epsilon)
+    xn2 = ((xf * inv) * wn2.float()).to(x.dtype)
+    y = mlp_reference(xn2.reshape(-1, d), wg, wu, wd)
+    return x2 + y.reshape(b, s, d)
+
+
+def decoder_segments(x, wn1, wq, wk, wv, rope_cos, rope_sin, wo, wn2, wg,
+                     wu, wd, num_heads, num_kv_heads, epsilon=1e-5):
+    """The block through the per-segment kernels, at the block's cast
+    points: the QKV kernel (its training variant where autograd needs
+    it), RoPE, causal attention through
+    ``F.scaled_dot_product_attention`` (flash on the card where it is
+    eligible), the o-projection as ``torch.matmul`` (JAX computes it
+    outside any kernel), the residual add in x's dtype, norm2 as the
+    rmsnorm kernel with no residual (the fused form), the MLP kernel
+    pair and the residual add.  Each piece is differentiable through its
+    own custom VJP: the recompute of ``FusedDecoderBlock``'s backward on
+    the card, and the card's route for shapes the block kernel does not
+    take."""
+    from paddle_tpu_torch.nn import functional as F
+    b, s, d = x.shape
+    dq = wq.shape[1]
+    nh, nkvh = int(num_heads), int(num_kv_heads)
+    hd = dq // nh
+    q, k, v = F.fused_rmsnorm_qkv(x, wn1, wq, wk, wv, epsilon)
+    q = F.apply_rotary_emb(q.reshape(b, s, nh, hd), rope_cos, rope_sin)
+    k = F.apply_rotary_emb(k.reshape(b, s, nkvh, hd), rope_cos, rope_sin)
+    o = F.scaled_dot_product_attention(q, k, v.reshape(b, s, nkvh, hd),
+                                       is_causal=True)
+    x2 = x + torch.matmul(o.reshape(b, s, dq), wo)
+    xn2, _ = F.rms_norm_residual(x2, wn2, epsilon=epsilon)
+    return x2 + F.fused_mlp(xn2, wg, wu, wd)
+
+
+def fused_decoder_block(x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
+                        norm2_weight, wg, wu, wd, num_heads, num_kv_heads,
+                        epsilon=1e-5):
+    """One whole Llama decoder block, ``y [b, s, d]`` of x ``[b, s, d]``:
+    rmsnorm, QKV, RoPE, causal attention, o-projection + residual,
+    rmsnorm, SwiGLU MLP + residual (``fused_block.py:1110``).  Weights
+    ``[in, out]``; rope_cos / rope_sin ``[max_pos, head_dim // 2]``
+    tables, rows ``[0, s)`` used (the cache-free, offset-0 form).
+
+    On the CPU the plain version.  On the card one launch of the block
+    kernel where ``fused_decoder_eligible`` takes the shape and the
+    tables have s rows, else the per-segment kernels
+    (``decoder_segments``): the API is total, as JAX's is.  x and the
+    weights share one dtype, contiguous and 16-byte aligned.
+    ``fused_decoder_block.routes`` counts the Llama layers routed to the
+    block and to the segments (bumped by ``models/llama.py`` on every
+    device)."""
+    if x.ndim != 3:
+        raise ValueError(f"fused_decoder_block expects [b, s, d], got shape "
+                         f"{tuple(x.shape)}")
+    args = (x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
+            norm2_weight, wg, wu, wd, num_heads, num_kv_heads, epsilon)
+    if x.device.type == "cpu":
+        return decoder_reference(*args)
+    what = "fused_decoder_block"
+    b, s, d = x.shape
+    dq, dkv, f = wq.shape[1], wk.shape[1], wg.shape[1]
+    nh, nkvh = int(num_heads), int(num_kv_heads)
+    if rope_cos.shape[0] < s or not fused_decoder_eligible(
+            b, s, d, dq, dkv, dq // nh, f, x.dtype):
+        return decoder_segments(*args)
+    if norm1_weight.shape != (d,) or norm2_weight.shape != (d,) or \
+            wq.shape != (d, dq) or wk.shape != (d, dkv) or \
+            wv.shape != (d, dkv) or wo.shape != (dq, d) or \
+            wg.shape != (d, f) or wu.shape != (d, f) or wd.shape != (f, d) \
+            or dkv != nkvh * (dq // nh):
+        raise ValueError(f"{what}: weight shapes do not agree with x "
+                         f"{tuple(x.shape)}, {nh} heads and {nkvh} kv heads")
+    _check_cuda(what, dict(x=x, norm1_weight=norm1_weight, wq=wq, wk=wk,
+                           wv=wv, wo=wo, norm2_weight=norm2_weight, wg=wg,
+                           wu=wu, wd=wd), x.dtype)
+    cos = rope_cos[:s].to(device=x.device, dtype=torch.float32).contiguous()
+    sin = rope_sin[:s].to(device=x.device, dtype=torch.float32).contiguous()
+    T = b * s
+    y = torch.empty_like(x)
+    ws = [torch.empty((T, n), dtype=x.dtype, device=x.device)
+          for n in _workspace_widths(d, dq, dkv, f)]
+    lib = _build.library("fused_decoder")
+    err = lib.ptt_fused_decoder(
+        _build.DTYPE_CODES[x.dtype],
+        *(t.data_ptr() for t in (x, norm1_weight, wq, wk, wv, cos, sin, wo,
+                                 norm2_weight, wg, wu, wd, y, *ws)),
+        b, s, d, dq, dkv, f, nh, nkvh, float(epsilon), _build.stream_of(x))
+    _build.check(lib, err, what)
+    fused_decoder_block.launches += 1
+    return y
+
+
+fused_decoder_block.launches = 0
+fused_decoder_block.routes = {"decoder": 0, "segments": 0}
+
+
+class FusedDecoderBlock(torch.autograd.Function):
+    """``_decoder_fwd`` / ``_decoder_bwd`` (``fused_block.py:1086-1107``):
+    block-boundary remat.  The forward is ``fused_decoder_block`` (one
+    launch of the block kernel on the card) and saves only its inputs;
+    the backward recomputes the block from them under autograd
+    (``decoder_segments``' kernels on the card, ``decoder_reference`` on
+    the CPU) and differentiates that.  The RoPE tables take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, wn1, wq, wk, wv, rope_cos, rope_sin, wo, wn2, wg,
+                wu, wd, num_heads, num_kv_heads, epsilon):
+        ctx.save_for_backward(x, wn1, wq, wk, wv, rope_cos, rope_sin, wo,
+                              wn2, wg, wu, wd)
+        ctx.config = (num_heads, num_kv_heads, epsilon)
+        return fused_decoder_block(x, wn1, wq, wk, wv, rope_cos, rope_sin,
+                                   wo, wn2, wg, wu, wd, num_heads,
+                                   num_kv_heads, epsilon)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        tables = (5, 6)
+        want = [i for i in range(len(saved))
+                if ctx.needs_input_grad[i] and i not in tables]
+        leaves = [t.detach().requires_grad_(i in want)
+                  for i, t in enumerate(saved)]
+        recompute = decoder_reference if dy.device.type == "cpu" \
+            else decoder_segments
+        with torch.enable_grad():
+            y = recompute(*leaves, *ctx.config)
+        grads = dict(zip(want, torch.autograd.grad(
+            y, [leaves[i] for i in want], dy)))
+        return tuple(grads.get(i) for i in range(len(saved))) + \
+            (None, None, None)

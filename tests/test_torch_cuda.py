@@ -22,6 +22,7 @@ from paddle_tpu_torch.ops.kernels import fused_block as FB
 from paddle_tpu_torch.ops.kernels import grouped_matmul as GM
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 from paddle_tpu_torch.ops.kernels import quant_matmul as QM
+from paddle_tpu_torch.ops.kernels import rmsnorm as RN
 from paddle_tpu_torch.quantization.serving import quantize_linear_weight
 
 pytestmark = pytest.mark.cuda
@@ -837,3 +838,228 @@ def test_transformer_on_the_card_matches_the_cpu_port(dev):
         ref = cpu(src, tgt, tgt_mask=mask)
     assert FB.fused_ffn.launches == n0 + 4
     _close(got, ref, torch.float32)
+
+
+# -- the decoder tier: the whole-block kernel and the residual rmsnorm --------
+
+def _rel_err(got, ref):
+    torch.cuda.synchronize()
+    g, r = got.float(), ref.float()
+    assert torch.isfinite(g).all()
+    return float((g - r).abs().max()) / max(float(r.abs().max()), 1e-6)
+
+
+def _decoder_args(rng, b, s, d, nh, nkvh, f, dtype, dev):
+    from paddle_tpu_torch.nn.functional import rotary_freqs
+    hd = 128
+    dq, dkv = nh * hd, nkvh * hd
+    w = lambda i, o: _t(rng, (i, o), dtype, dev, i ** -0.5)
+    cos, sin = rotary_freqs(hd, s + 64, base=500000.0, device=dev)
+    return (_t(rng, (b, s, d), dtype, dev),
+            _t(rng, (d,), dtype, dev, 0.1) + 1.0, w(d, dq), w(d, dkv),
+            w(d, dkv), cos, sin, w(dq, d),
+            _t(rng, (d,), dtype, dev, 0.1) + 1.0, w(d, f), w(d, f), w(f, d),
+            nh, nkvh, 1e-5)
+
+
+# (b, s, d, heads, kv heads, f): GQA rep 1, rep 4, and b=1 at an s that is
+# a multiple of 128 but not of 256
+DECODER_SHAPES = [(2, 128, 256, 2, 2, 512), (2, 256, 512, 4, 1, 768),
+                  (1, 384, 256, 2, 1, 256)]
+# the block against its plain version, as a share of the output's largest
+# magnitude: fp32 products in another order (1e-4); in bf16 both round at
+# the same cast points, and a bf16 step flipped by another summation order
+# carries through the block (3e-2, the JAX test's bf16 limit)
+DECODER_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d,nh,nkvh,f", DECODER_SHAPES)
+def test_decoder_block_matches_plain(dev, dtype, b, s, d, nh, nkvh, f):
+    args = _decoder_args(np.random.default_rng(s + nh), b, s, d, nh, nkvh,
+                         f, dtype, dev)
+    assert FB.fused_decoder_eligible(b, s, d, nh * 128, nkvh * 128, 128, f,
+                                     dtype)
+    n0 = FB.fused_decoder_block.launches
+    got = FB.fused_decoder_block(*args)
+    assert FB.fused_decoder_block.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (b, s, d)
+    assert _rel_err(got, FB.decoder_reference(*args)) < DECODER_TOL[dtype]
+
+
+def test_decoder_block_backward_matches_the_plain_remat(dev):
+    """fp32, rep 2: F.fused_decoder_block's gradients (the block kernel
+    forward, then the recompute through the QKV training variant, flash,
+    the rmsnorm kernel and the MLP pair) against autograd of the plain
+    version on the card, within 1e-4 of each gradient's largest
+    magnitude; one launch of each kernel."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import kernels
+    args = _decoder_args(np.random.default_rng(3), 2, 128, 256, 2, 1, 512,
+                         torch.float32, dev)
+    g = _t(np.random.default_rng(4), (2, 128, 256), torch.float32, dev)
+    grads = []
+    kernels.reset_launch_counts()
+    for fn in (F.fused_decoder_block, FB.decoder_reference):
+        leaves = [a.detach().clone().requires_grad_(i not in (5, 6))
+                  if torch.is_tensor(a) else a for i, a in enumerate(args)]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves[:12] if torch.is_tensor(t)
+                      and t.grad is not None])
+    assert {fn.__name__: fn.launches for fn in kernels.DECODER_TRAINING} \
+        == dict.fromkeys((fn.__name__ for fn in kernels.DECODER_TRAINING), 1)
+    assert len(grads[0]) == len(grads[1]) == 10
+    for got, ref in zip(*grads):
+        assert _rel_err(got, ref) < 1e-4
+
+
+def test_decoder_block_at_an_ineligible_shape_takes_the_segments(dev):
+    """head_dim 64: no block launch; the per-segment kernels compute the
+    same block (fp32, 1e-4 of the largest magnitude)."""
+    from paddle_tpu_torch.nn.functional import rotary_freqs
+    rng = np.random.default_rng(8)
+    b, s, d, nh, f = 2, 128, 256, 4, 512
+    args = list(_decoder_args(rng, b, s, d, 2, 2, f, torch.float32, dev))
+    args[5], args[6] = rotary_freqs(64, s, device=dev)
+    args[12:14] = [nh, nh]
+    n0 = (FB.fused_decoder_block.launches, FB.fused_rmsnorm_qkv.launches)
+    got = FB.fused_decoder_block(*args)
+    assert FB.fused_decoder_block.launches == n0[0]
+    assert FB.fused_rmsnorm_qkv.launches == n0[1] + 1
+    assert _rel_err(got, FB.decoder_reference(*args)) < 1e-4
+
+
+def test_decoder_tier_train_step_on_the_card_matches_the_cpu_port(dev,
+                                                                  monkeypatch):
+    """The tiny hd-128 config (2 layers, s=128) at the decoder tier, fp32:
+    the loss and every gradient on the card (block kernel forward, remat
+    through the per-segment kernels) against the CPU port's plain path,
+    loss within 1e-5 relative and each gradient within 1e-4 of its
+    largest magnitude; two block launches."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    monkeypatch.setenv("PADDLE_TPU_FUSED_BLOCK", "decoder")
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           max_position_embeddings=256)
+    seed(0)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.set_state_dict({k: v.numpy() for k, v in cpu.state_dict().items()})
+    ids = torch.as_tensor(np.random.default_rng(1).integers(0, 256,
+                                                            (2, 129)))
+    kernels.reset_launch_counts()
+    losses, grads = [], []
+    for model in (cpu, gpu):
+        loss = model.loss(ids[:, :-1].to(model.device),
+                          ids[:, 1:].to(model.device))
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert FB.fused_decoder_block.launches == 2
+    assert FB.fused_decoder_block.routes == {"decoder": 4, "segments": 0}
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0])
+    for n, ref in grads[0].items():
+        assert _rel_err(grads[1][n], ref) < 1e-4, n
+
+
+# (rows, d): ragged rows at the step's width, an odd d, a d whose bf16
+# rows are off the 16-byte grid, a tiny row
+NORM_SHAPES = [(37, 4096), (5, 1001), (16, 100), (3, 8)]
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", NORM_SHAPES)
+def test_rmsnorm_matches_plain(dev, dtype, residual, rows, d):
+    """y, h and inv against rmsnorm_reference: h is the same fp32 sum
+    rounded once (equal); inv an fp32 sum of d squares in another order
+    (1e-5); y in fp32 within 1e-5, in bf16 within one bf16 step (2^-7
+    of the value: inv's last bits may flip a rounding)."""
+    rng = np.random.default_rng(rows * d)
+    x = _t(rng, (rows, d), dtype, dev)
+    r = _t(rng, (rows, d), dtype, dev) if residual else None
+    w = _t(rng, (d,), dtype, dev, 0.1) + 1.0
+    n0 = RN.fused_rmsnorm.launches
+    y, h, inv = RN.fused_rmsnorm(x, w, r, 1e-5)
+    assert RN.fused_rmsnorm.launches == n0 + 1
+    ry, rh, rinv = RN.rmsnorm_reference(x, w, r, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(h, rh)
+    np.testing.assert_allclose(inv.cpu().numpy(), rinv.cpu().numpy(),
+                               rtol=1e-5)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ry.float().cpu().numpy(), rtol=tol, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_off_the_16_byte_grid(dev, dtype):
+    """Operands that start one element past a 16-byte boundary take the
+    element-wise path: the same results."""
+    rng = np.random.default_rng(21)
+    rows, d = 9, 256
+    buf = torch.zeros(2 * rows * d + 2, dtype=dtype, device=dev)
+    x = buf[1:1 + rows * d].view(rows, d)
+    r = buf[2 + rows * d:].view(rows, d)
+    x.copy_(_t(rng, (rows, d), dtype, dev))
+    r.copy_(_t(rng, (rows, d), dtype, dev))
+    w = _t(rng, (d,), dtype, dev, 0.1) + 1.0
+    assert x.data_ptr() % 16 and r.data_ptr() % 16
+    y, h, inv = RN.fused_rmsnorm(x, w, r, 1e-5)
+    ry, rh, _ = RN.rmsnorm_reference(x, w, r, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(h, rh)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ry.float().cpu().numpy(), rtol=tol, atol=1e-6)
+
+
+def test_rms_norm_residual_gradients_on_the_card(dev):
+    """F.rms_norm_residual forward and backward on the card against the
+    CPU port (the same custom VJP over the plain version), fp32, 1e-5."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(22)
+    host = [torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+            for s in ((4, 33, 512), (4, 33, 512), (512,))]
+    gy, gh = (torch.as_tensor(rng.standard_normal((4, 33, 512)),
+                              dtype=torch.float32) for _ in range(2))
+    out = []
+    for where in ("cpu", dev):
+        leaves = [t.clone().to(where).requires_grad_(True) for t in host]
+        y, h = F.rms_norm_residual(leaves[0], leaves[2], leaves[1], 1e-5)
+        torch.autograd.backward((y, h), (gy.to(where), gh.to(where)))
+        out.append([y.detach().cpu(), h.detach().cpu()] +
+                   [t.grad.cpu() for t in leaves])
+    for got, ref in zip(out[1], out[0]):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+def test_decoder_and_rmsnorm_wrappers_raise_when_the_library_fails(
+        dev, monkeypatch, failure):
+    """A failed build, or a launch (the cooperative one included) that
+    reports a CUDA error, raises on CUDA tensors and counts no launch."""
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "ptt_error_string":
+                return lambda code: b"too many blocks in cooperative launch"
+            return lambda *args: 720   # cudaErrorCooperativeLaunchTooLarge
+
+    def loader(name):
+        if failure == "build":
+            raise RuntimeError("nvcc failed: patched")
+        return Refusing()
+
+    monkeypatch.setattr(_build, "library", loader)
+    args = _decoder_args(np.random.default_rng(9), 1, 128, 256, 2, 1, 256,
+                         torch.bfloat16, dev)
+    n = (FB.fused_decoder_block.launches, RN.fused_rmsnorm.launches)
+    match = "patched" if failure == "build" else "CUDA error 720"
+    with pytest.raises(RuntimeError, match=match):
+        FB.fused_decoder_block(*args)
+    with pytest.raises(RuntimeError, match=match):
+        RN.fused_rmsnorm(args[0], args[1])
+    assert n == (FB.fused_decoder_block.launches, RN.fused_rmsnorm.launches)

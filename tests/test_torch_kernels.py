@@ -193,6 +193,9 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.nn.loss_layers\n"
         "import paddle_tpu_torch.nn.functional.common\n"
         "import paddle_tpu_torch.models.gpt\n"
+        "import paddle_tpu_torch.ops.kernels.rmsnorm\n"
+        "import paddle_tpu_torch.nn.functional.norm\n"
+        "import paddle_tpu_torch.nn.functional.fused\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"
