@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (kernels seven: the serving, the
-training, the quantized serving, the MoE, the cross-entropy, the
-feed-forward and the decoder-tier rows; serve, serve_quant, train,
-train_moe, train_gpt, train_decoder and transformer_infer one more each,
-for a profiled window; serve_quant and train_moe two, one per engine or
-dispatch mode):
+Phases, each printing one JSON line (build and ptxas one each; kernels
+seven: the serving, the training, the quantized serving, the MoE, the
+cross-entropy, the feed-forward and the decoder-tier rows; serve,
+serve_quant, train, train_moe, train_gpt, train_decoder and
+transformer_infer one more each, for a profiled window; serve_quant and
+train_moe two, one per engine or dispatch mode):
 
 1. env      versions, the card, TF32 switched off for fp32 references.
 2. build    nvcc builds the port's CUDA kernels from ``paddle_tpu_torch/
-            ops/kernels/csrc`` (or finds them built).
+            ops/kernels/csrc`` (or finds them built); beside it, ptxas
+            reports the Hopper kernels (the bf16 flash forward, the QKV
+            row pass and wgmma GEMM): registers, shared memory, spills
+            and any wgmma serialisation (-Xptxas -v).
 3. kernels  every kernel of the serving path at the path's own shapes
             (Llama-3-8B widths: fused RMSNorm+QKV and fused SwiGLU MLP at
             T = 8 decode rows and T = 256 prefill rows; paged decode at
@@ -24,7 +27,9 @@ dispatch mode):
             s=2048, 32/8 heads, head_dim 128, causal): flash attention
             forward, dq and dk/dv in bf16 (fp32 at b=1), each bf16 row
             within its own limit (FLASH_TOL), and the QKV kernel's
-            training variant and the MLP kernel pair at T = 8192.
+            training variant, its forward variant (the scoring forward's
+            launch) and the MLP kernel pair at T = 8192.  In bf16 the
+            flash forward and QKV at T > 16 are the wgmma / TMA kernels.
             The quantized serving path's kernels (kernels_quant): the
             quant matmul (int8 weights, bf16 io) at T = 8 for each of the
             five (K, N) of a decode step, int8 and fp8 at T = 150 (the
@@ -108,8 +113,8 @@ dispatch mode):
             kernel against decoder_reference in fp32 at b=1, s=512 and in
             bf16 at the train shape (b=4, s=2048, Llama-3-8B width), each
             within DECODER_TOL of the largest |out| and timed beside the
-            plain version and its bound, the bf16 one beside the library
-            chain; the
+            plain version, its bound and the library chain in its dtype;
+            the
             rmsnorm kernel against rmsnorm_reference at T=8192, d=4096
             (bf16 with and without a residual, fp32), beside x + r then
             F.rms_norm.  score_decoder (on the serve model, before it is
@@ -130,6 +135,7 @@ script exits non-zero without the last line; so it does where CUDA is
 missing or the package is not beside it.  Imports nothing of JAX or of
 ``paddle_tpu``."""
 
+import concurrent.futures
 import contextlib
 import ctypes
 import json
@@ -171,6 +177,12 @@ QUANT_MM_TOL = (2e-3, 2 ** -7)
 # those few ulp, so in bf16 at most one bf16 step (2^-7 of the value)
 CE_TOL = {"loss": (1e-4, 1e-5), "lse": (1e-4, 1e-5),
           "dx_bf16": (1e-7, 2 ** -7), "dx_fp32": (1e-7, 1e-5)}
+
+
+# the kernels redesigned for Hopper (wgmma, TMA, mbarriers), whose
+# -Xptxas -v the ptxas line reports, and their sources
+PTXAS_SOURCES = ("flash_attention", "fused_block")
+PTXAS_KERNELS = ("flash_fwd_hopper", "qkv_gemm_kernel", "qkv_rows_kernel")
 
 
 def emit(phase, **kw):
@@ -244,7 +256,10 @@ def rand(g, shape, dtype, dev, scale=1.0):
 
 # -- phase 3: the kernels at the path's shapes -------------------------------
 
-def kernel_qkv(FB, dev, timer, T):
+def kernel_qkv(FB, dev, timer, T, plain_iters=10):
+    """The QKV kernel's forward variant at T rows: 8 and 256 serve (a
+    decode step, a prefill chunk), 8192 is the 32-layer scoring forward
+    at the default tier."""
     g = torch.Generator(device=dev).manual_seed(T)
     errs, out = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -261,7 +276,8 @@ def kernel_qkv(FB, dev, timer, T):
                                for n, a, b in zip("qkv", got, ref))
     F_ = torch.nn.functional
     out["ms"] = timer(lambda: FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, EPS))
-    out["plain_ms"] = timer(lambda: FB.qkv_reference(x, wn, wq, wk, wv, EPS))
+    out["plain_ms"] = timer(lambda: FB.qkv_reference(x, wn, wq, wk, wv, EPS),
+                            iters=plain_iters)
 
     def library():
         xn = F_.rms_norm(x, (D,), wn, EPS)
@@ -272,6 +288,7 @@ def kernel_qkv(FB, dev, timer, T):
         2 * (T * D + D + D * n + T * n), 2 * T * D * n)
     out["max_abs_err"] = errs[str(torch.bfloat16)]
     out["max_abs_err_fp32"] = errs[str(torch.float32)]
+    out["shape"] = f"T={T} d={D} dq={DQ} dkv={DKV} bf16"
     return out
 
 
@@ -1171,8 +1188,9 @@ def train(dev, kernels):
     return launches, peak
 
 
-TRAIN_FAMILIES = ("grouped_kernel", "gemm_kernel", "flash_fwd_kernel",
-                  "flash_dq_kernel", "flash_dkv_kernel")
+TRAIN_FAMILIES = ("grouped_kernel", "gemm_kernel", "flash_fwd_hopper",
+                  "qkv_rows_kernel", "qkv_gemm_kernel", "flash_dq_kernel",
+                  "flash_dkv_kernel")
 
 
 def train_profile(step, batch, phase="train_profile", top_n=15,
@@ -1199,7 +1217,8 @@ def profile_call(fn, phase, families, top_n=15, **extra):
     top = sorted(kern, key=lambda e: -e.device_time_total)[:top_n]
     port = {}
     for fam in families:
-        hits = [e for e in kern if f"::{fam}<" in e.key]
+        hits = [e for e in kern
+                if f"::{fam}<" in e.key or f"::{fam}(" in e.key]
         port[fam] = {"ms": sum(e.device_time_total for e in hits) / 1e3,
                      "calls": sum(e.count for e in hits)}
     emit(phase, **extra, wall_s=wall,
@@ -1653,7 +1672,7 @@ def train_gpt(dev, kernels):
          launches_per_step={k: v / GPT_STEPS for k, v in launches.items()})
     train_profile(step, batch, phase="train_gpt_profile", top_n=20,
                   families=("ce_fwd_kernel", "ce_bwd_kernel",
-                            "flash_fwd_kernel", "flash_dq_kernel",
+                            "flash_fwd_hopper", "flash_dq_kernel",
                             "flash_dkv_kernel"))
     return launches
 
@@ -1840,10 +1859,9 @@ def decoder_bound(b, s, dtype):
 def kernel_decoder(FB, dev, timer):
     """The block kernel against decoder_reference: fp32 at b=1, s=512,
     then bf16 at the train shape (b=4, s=2048), each timed beside the
-    plain version; the bf16 one also beside the library chain
-    (F.rms_norm, one QKV matmul, RoPE, SDPA, matmul + add, F.rms_norm,
-    the gate/up matmul, silu, the down matmul + add)."""
-    F_ = torch.nn.functional
+    plain version and the library chain in its dtype (F.rms_norm, one
+    QKV matmul, RoPE, SDPA, matmul + add, F.rms_norm, the gate/up
+    matmul, silu, the down matmul + add)."""
     from paddle_tpu_torch.ops.kernels import _build
     rows = {}
     for dtype, b, s in ((torch.float32, 1, 512),
@@ -1875,20 +1893,31 @@ def kernel_decoder(FB, dev, timer):
         row["ms"] = timer(lambda: FB.fused_decoder_block(*args), iters=5)
         row["plain_ms"] = timer(lambda: FB.decoder_reference(*args),
                                 iters=2, warmup=1)
+        row["library_ms"] = timer(decoder_library(args, b, s), iters=5)
+        row["library"] = ("F.rms_norm, QKV matmul, RoPE, SDPA(enable_gqa), "
+                          "o-proj matmul + add, F.rms_norm, gate/up "
+                          "matmul, silu * up, down matmul + add")
         rows[str(dtype).split(".")[1]] = row
-    # the library chain at the train shape in bf16 (the last case's args)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def decoder_library(args, b, s):
+    """The block as one chain of PyTorch calls on the block's own
+    arguments (cuBLAS matmuls, SDPA), in their dtype: the library row."""
+    F_ = torch.nn.functional
     (x, wn1, wq, wk, wv, cos, sin, wo, wn2, wg, wu, wd) = args[:12]
     wqkv = torch.cat([wq, wk, wv], dim=1)
     wgu = torch.cat([wg, wu], dim=1)
-    c = cos[:DEC_S][None, :, None, :]
-    sn = sin[:DEC_S][None, :, None, :]
+    c = cos[:s][None, :, None, :]
+    sn = sin[:s][None, :, None, :]
 
     def rope(t):
         t1, t2 = t.float().chunk(2, dim=-1)
         return torch.cat([t1 * c - t2 * sn, t2 * c + t1 * sn], -1).to(t.dtype)
 
     def library():
-        b, s = x.shape[:2]
         qkv = F_.rms_norm(x, (D,), wn1, EPS) @ wqkv
         q, k, v = qkv.split([DQ, DKV, DKV], dim=-1)
         q = rope(q.reshape(b, s, DEC_H, DEC_HD)).transpose(1, 2)
@@ -1900,13 +1929,7 @@ def kernel_decoder(FB, dev, timer):
         gu = F_.rms_norm(x2, (D,), wn2, EPS) @ wgu
         return x2 + (F_.silu(gu[..., :F]) * gu[..., F:]) @ wd
 
-    row["library_ms"] = timer(library, iters=5)
-    row["library"] = ("F.rms_norm, QKV matmul, RoPE, SDPA(enable_gqa), "
-                      "o-proj matmul + add, F.rms_norm, gate/up matmul, "
-                      "silu * up, down matmul + add")
-    del wqkv, wgu, args, x
-    torch.cuda.empty_cache()
-    return rows
+    return library
 
 
 def kernel_rmsnorm(RN, dev, timer):
@@ -2064,7 +2087,8 @@ def train_decoder(dev, kernels, train_peak):
                                 for k, v in launches.items()})
         train_profile(step, batch, phase="train_decoder_profile", top_n=15,
                       families=("decoder_kernel", "rmsnorm_kernel",
-                                "gemm_kernel", "flash_fwd_kernel",
+                                "gemm_kernel", "qkv_rows_kernel",
+                                "qkv_gemm_kernel", "flash_fwd_hopper",
                                 "flash_dq_kernel", "flash_dkv_kernel"))
     del model, step
     return launches
@@ -2221,9 +2245,15 @@ def main():
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     t0 = time.perf_counter()
-    nvcc_s = _build.build_all()
-    emit("build", nvcc_s=nvcc_s, cached=nvcc_s == 0.0,
-         seconds=time.perf_counter() - t0, dir=str(_build.BUILD_DIR))
+    # -Xptxas -v of the Hopper kernels, compiled beside the build
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ptxas = pool.submit(_build.ptxas_report, PTXAS_SOURCES,
+                            PTXAS_KERNELS)
+        nvcc_s = _build.build_all()
+        emit("build", nvcc_s=nvcc_s, cached=nvcc_s == 0.0,
+             seconds=time.perf_counter() - t0, dir=str(_build.BUILD_DIR))
+        emit("ptxas", seconds=time.perf_counter() - t0,
+             kernels=ptxas.result())
 
     timer = Timer(dev)
     res = {"fused_rmsnorm_qkv": {T: kernel_qkv(FB, dev, timer, T)
@@ -2234,6 +2264,8 @@ def main():
                              for k, r in res.items()})
     train_rows = kernel_flash(FA, dev, timer)
     train_rows["fused_rmsnorm_qkv_train"] = kernel_qkv_train(FB, dev, timer)
+    train_rows["fused_rmsnorm_qkv_fwd_T8192"] = kernel_qkv(
+        FB, dev, timer, TRAIN_B * TRAIN_S, plain_iters=3)
     train_rows["fused_mlp_train"] = kernel_mlp(FB, dev, timer,
                                                TRAIN_B * TRAIN_S,
                                                plain_iters=3)
@@ -2307,6 +2339,10 @@ def main():
                  **{k: decode[k] for k in keys}, "shape": "decode"}
         if 256 in by_t:
             entry["prefill_T256"] = {k: by_t[256][k] for k in keys}
+        if name == "fused_rmsnorm_qkv":   # the scoring forward's shape
+            entry["forward_T8192"] = {
+                k: train_rows["fused_rmsnorm_qkv_fwd_T8192"][k]
+                for k in keys}
         line.append(entry)
     flash_src = "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu"
     train_where = {

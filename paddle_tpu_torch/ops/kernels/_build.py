@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,8 +26,9 @@ from typing import Dict
 
 import torch
 
-__all__ = ["library", "build_all", "check", "stream_of", "DTYPE_CODES",
-           "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR"]
+__all__ = ["library", "build_all", "ptxas_report", "parse_ptxas", "check",
+           "stream_of", "DTYPE_CODES", "WEIGHT_CODES", "FLOAT16_CODE",
+           "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -53,6 +55,7 @@ _SIGNATURES = {
         "ptt_mlp_gate_up": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
         "ptt_matmul": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
         "ptt_ffn_up": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ptt_wgmma_check": [_I, _P, _P, _P, _I, _P],
     },
     "paged_attention": {
         "ptt_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -144,6 +147,65 @@ def build_all() -> float:
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return seconds
+
+
+def parse_ptxas(log: str, kernels, source: str, report: Dict[str, dict]):
+    """Add to `report`, under its mangled name, what a ``-Xptxas -v`` log
+    says of each kernel whose mangled name contains one of `kernels`:
+    registers, static shared memory, stack, spill stores and loads (bytes
+    a thread), and every line that names a performance loss (wgmma
+    serialised, for one)."""
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?"
+                      r"([\w$]+)", line)
+        if m:
+            kern = next((k for k in kernels if k in m.group(1)), None)
+            entry = None if kern is None else report.setdefault(
+                m.group(1), {"kernel": kern, "source": source})
+            continue
+        if entry is None:
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem_static", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                entry[key] = int(m.group(1))
+        if "Performance" in line or "serialized" in line:
+            entry.setdefault("notes", []).append(line.strip())
+    return report
+
+
+def ptxas_report(names, kernels) -> Dict[str, dict]:
+    """:func:`parse_ptxas` of the sources `names`, compiled once more
+    (device code only) with ``-Xptxas -v`` into cubins beside the
+    libraries, all at once; the libraries themselves are built with
+    FLAGS alone."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    flags = [f for f in FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    procs = []
+    for n in names:
+        cubin = BUILD_DIR / f"{n}.{os.getpid()}.cubin"
+        procs.append((n, cubin, subprocess.Popen(
+            [nvcc, *flags, "-cubin", "-Xptxas", "-v", "-o", str(cubin),
+             str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    report: Dict[str, dict] = {}
+    errors = []
+    for name, cubin, p in procs:
+        log = p.communicate()[0].decode(errors="replace")
+        cubin.unlink(missing_ok=True)
+        if p.returncode != 0:
+            errors.append(f"{name}.cu:\n{log}")
+        else:
+            parse_ptxas(log, kernels, f"{name}.cu", report)
+    if errors:
+        raise RuntimeError("nvcc -Xptxas -v failed:\n" + "\n".join(errors))
+    return report
 
 
 def library(name: str) -> ctypes.CDLL:

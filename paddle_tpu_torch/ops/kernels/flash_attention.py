@@ -14,7 +14,10 @@ A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.  There is no fallback between the two.  The kernels
 take float32 and bfloat16, head_dim 128, sequences that are a multiple
 of 64, and heads a multiple of kv heads; every operand contiguous and
-16-byte aligned.  Each wrapper counts its launches (``.launches``)."""
+16-byte aligned.  In bf16 the forward is the Hopper kernel (wgmma fed
+by TMA through an mbarrier ring, 128-row tiles, the softmax in the exp2
+domain); fp32 and the backward run the first, shared-memory design.
+Each wrapper counts its launches (``.launches``)."""
 
 from __future__ import annotations
 

@@ -50,6 +50,11 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
            "decoder_workspace_bytes", "FusedRMSNormQKV", "FusedMLP",
            "FusedFFN", "FusedDecoderBlock", "SUPPORTED_ACTS"]
 
+# the smallest row count at which the bf16 QKV kernel runs as a row pass
+# and a wgmma GEMM (csrc/fused_block.cu, kRowPassMinT); the forward
+# variant's normalised rows then go to a workspace
+ROW_PASS_MIN_T = 17
+
 # fused_ffn's activations and their codes in csrc/fused_block.cu (enum Act)
 ACT_CODES = {"relu": 0, "gelu": 1, "silu": 2}
 SUPPORTED_ACTS = tuple(ACT_CODES)
@@ -152,7 +157,11 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     ``[d, dkv]`` (``[in, out]``).  Returns projections with x's leading
     dims, in x's dtype; with ``residuals`` also the normalised rows
     ``xn`` (``[..., d]``, x's dtype) and the inverse RMS ``inv``
-    (``[..., 1]`` fp32) from the same launch (the training variant)."""
+    (``[..., 1]`` fp32) from the same call (the training variant).  On
+    the card, bf16 at ``ROW_PASS_MIN_T`` rows or more is a row pass and
+    a wgmma GEMM over its ``xn`` (a workspace in the forward variant),
+    two launches of one call; fewer rows and fp32 are one launch of the
+    wmma tile."""
     if x.device.type == "cpu":
         return qkv_reference(x, norm_weight, wq, wk, wv, epsilon, residuals)
     what = "fused_rmsnorm_qkv"
@@ -176,14 +185,17 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     if residuals:
         xn = torch.empty((T, d), dtype=x.dtype, device=x.device)
         inv = torch.empty((T, 1), dtype=torch.float32, device=x.device)
+    elif x.dtype == torch.bfloat16 and T >= ROW_PASS_MIN_T:
+        # the row pass's output, read by the GEMM: a workspace here
+        xn = torch.empty((T, d), dtype=x.dtype, device=x.device)
     if T:
         lib = _build.library("fused_block")
         err = lib.ptt_rmsnorm_qkv(
             _build.DTYPE_CODES[x.dtype], x2.data_ptr(),
             norm_weight.data_ptr(), wq.data_ptr(), wk.data_ptr(),
             wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            xn.data_ptr() if residuals else None,
-            inv.data_ptr() if residuals else None, T, d, dq, dkv,
+            None if xn is None else xn.data_ptr(),
+            None if inv is None else inv.data_ptr(), T, d, dq, dkv,
             float(epsilon), _build.stream_of(x))
         _build.check(lib, err, what)
         fused_rmsnorm_qkv.launches += 1

@@ -1063,3 +1063,166 @@ def test_decoder_and_rmsnorm_wrappers_raise_when_the_library_fails(
     with pytest.raises(RuntimeError, match=match):
         RN.fused_rmsnorm(args[0], args[1])
     assert n == (FB.fused_decoder_block.launches, RN.fused_rmsnorm.launches)
+
+
+# -- the Hopper redesigns: wgmma / TMA flash forward and QKV GEMM -------------
+
+# (mode, n) of hopper.cuh's descriptor check: B K-major (flash's K rows),
+# MN-major (the weights, flash's V), MN-major with A from registers
+# (flash's P)
+WGMMA_CASES = [(0, 128), (0, 256), (1, 128), (1, 256), (2, 128)]
+
+
+@pytest.mark.parametrize("mode,n", WGMMA_CASES)
+def test_wgmma_descriptors_match_matmul(dev, mode, n):
+    """One 64 x n x 64 wgmma tile through TMA's 128-byte swizzle and the
+    header's descriptors against torch.matmul in fp32: exact products of
+    bf16 values, summed in fp32 in another order (1e-5 of |C| ~ 8)."""
+    rng = np.random.default_rng(mode * 7 + n)
+    a = _t(rng, (64, 64), torch.bfloat16, dev)
+    b = _t(rng, (64, n), torch.bfloat16, dev)
+    bt = b.t().contiguous() if mode == 0 else b
+    c = torch.empty((64, n), dtype=torch.float32, device=dev)
+    lib = _build.library("fused_block")
+    _build.check(lib, lib.ptt_wgmma_check(mode, a.data_ptr(), bt.data_ptr(),
+                                          c.data_ptr(), n,
+                                          _build.stream_of(a)),
+                 "ptt_wgmma_check")
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(c.cpu().numpy(),
+                               (a.float() @ b.float()).cpu().numpy(),
+                               atol=1e-4, rtol=1e-5)
+
+
+# the bf16 flash rows' limits (chip_smoke.py FLASH_TOL): one bf16 step of
+# the output, plus the P roundings that another running max moves
+FLASH_FWD_TOL = (4e-3, 2 ** -7)
+FLASH_BWD_TOL = {"dq": (4e-3, 2 ** -7), "dkv": (8e-3, 2 ** -7)}
+
+
+def _close_tol(got, ref, tol):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=tol[0],
+                               rtol=tol[1])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [64, 128, 192, 2048])
+@pytest.mark.parametrize("hk", [8, 32])
+def test_flash_fwd_hopper_matches_plain(dev, causal, s, hk):
+    """The bf16 forward (wgmma, TMA, 128-row tiles; s = 64 and 192 end in
+    a 64-row tile) at 32 query heads against flash_fwd_reference: out
+    within FLASH_FWD_TOL, lse (fp32 statistics of the same inputs, exp2
+    in place of exp) within 1e-4; one launch a call."""
+    rng = np.random.default_rng(s + hk + causal)
+    q, k, v, _ = _flash_inputs(rng, 1, s, 32, hk, torch.bfloat16, dev)
+    n0 = FA.flash_attention_fwd.launches
+    out, lse = FA.flash_attention_fwd(q, k, v, causal)
+    assert FA.flash_attention_fwd.launches == n0 + 1
+    ref, ref_lse = FA.flash_fwd_reference(q, k, v, causal)
+    _close_tol(out, ref, FLASH_FWD_TOL)
+    _close(lse, ref_lse, torch.float32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_hopper_lse_feeds_the_backward(dev, causal):
+    """The new forward's out and lse through the unchanged dq and dk/dv
+    kernels, against flash_bwd_reference from the plain forward's: the
+    backward recomputes P from lse, so a wrong lse convention shows
+    here."""
+    rng = np.random.default_rng(41 + causal)
+    q, k, v, g = _flash_inputs(rng, 2, 320, 8, 2, torch.bfloat16, dev)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal)
+    delta = FA.flash_delta(out, g)
+    dq = FA.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    ref_out, ref_lse = FA.flash_fwd_reference(q, k, v, causal)
+    rdq, rdk, rdv = FA.flash_bwd_reference(
+        q, k, v, g, ref_lse, FA.flash_delta(ref_out, g), causal)
+    _close_tol(dq, rdq, FLASH_BWD_TOL["dq"])
+    _close_tol(dk, rdk, FLASH_BWD_TOL["dkv"])
+    _close_tol(dv, rdv, FLASH_BWD_TOL["dkv"])
+
+
+@pytest.mark.parametrize("residuals", [True, False])
+@pytest.mark.parametrize("T", [17, 64, 150, 256, 8192])
+@pytest.mark.parametrize("d,dq,dkv", [(256, 192, 64), (4096, 4096, 1024)])
+def test_rmsnorm_qkv_hopper_matches_plain(dev, residuals, T, d, dq, dkv):
+    """bf16 at T > 16: the row pass and the wgmma GEMM (128 x 256 or
+    64 x 128 tiles; 192 / 64 leave a part's last tile partial) against
+    qkv_reference: q, k, v within the bf16 limit; xn within one bf16 step
+    and inv within 1e-6 (the same fp32 sums in another order); one launch
+    counted a call."""
+    rng = np.random.default_rng(T + d + residuals)
+    x = _t(rng, (T, d), torch.bfloat16, dev)
+    wn = _t(rng, (d,), torch.bfloat16, dev, 0.5) + 1.0
+    wq = _t(rng, (d, dq), torch.bfloat16, dev, d ** -0.5)
+    wk = _t(rng, (d, dkv), torch.bfloat16, dev, d ** -0.5)
+    wv = _t(rng, (d, dkv), torch.bfloat16, dev, d ** -0.5)
+    n0 = FB.fused_rmsnorm_qkv.launches
+    got = FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, 1e-5, residuals=residuals)
+    assert FB.fused_rmsnorm_qkv.launches == n0 + 1
+    ref = FB.qkv_reference(x, wn, wq, wk, wv, 1e-5, residuals=residuals)
+    assert len(got) == len(ref)
+    for g, r in zip(got[:3], ref[:3]):
+        _close(g, r, torch.bfloat16)
+    if residuals:
+        _close_tol(got[3], ref[3], (0.0, 2 ** -7))
+        _close_tol(got[4], ref[4], (0.0, 1e-6))
+
+
+def test_hopper_kernels_raise_on_a_refused_launch(dev):
+    """The C entries refuse what their kernels do not take, and the
+    wrappers' check raises it: bf16 QKV at T > 16 without somewhere for
+    the row pass to write xn, and flash at head_dim 64."""
+    x = torch.zeros((32, 128), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((128, 128), dtype=torch.bfloat16, device=dev)
+    lib = _build.library("fused_block")
+    err = lib.ptt_rmsnorm_qkv(1, x.data_ptr(), w[0].data_ptr(),
+                              w.data_ptr(), w.data_ptr(), w.data_ptr(),
+                              x.data_ptr(), x.data_ptr(), x.data_ptr(), None,
+                              None, 32, 128, 128, 128, 1e-5,
+                              _build.stream_of(x))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _build.check(lib, err, "fused_rmsnorm_qkv")
+    q = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros((1, 2, 128), device=dev)
+    fl = _build.library("flash_attention")
+    err = fl.ptt_flash_fwd(1, q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                           q.data_ptr(), lse.data_ptr(), 1, 128, 2, 2, 64,
+                           0.125, 1, _build.stream_of(q))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _build.check(fl, err, "flash_attention_fwd")
+
+
+@pytest.mark.parametrize("failure", ["build", "launch"])
+def test_flash_and_qkv_wrappers_raise_when_the_library_fails(
+        dev, monkeypatch, failure):
+    """A failed build, or a launch that reports a CUDA error, raises from
+    the bf16 flash forward and the bf16 QKV path at T > 16, and counts no
+    launch."""
+    class Refusing:
+        def __getattr__(self, name):
+            if name == "ptt_error_string":
+                return lambda code: b"invalid argument"
+            return lambda *args: 1          # cudaErrorInvalidValue
+
+    def loader(name):
+        if failure == "build":
+            raise RuntimeError("nvcc failed: patched")
+        return Refusing()
+
+    monkeypatch.setattr(_build, "library", loader)
+    rng = np.random.default_rng(12)
+    q, k, v, _ = _flash_inputs(rng, 1, 128, 4, 2, torch.bfloat16, dev)
+    x = _t(rng, (64, 128), torch.bfloat16, dev)
+    w = _t(rng, (128, 128), torch.bfloat16, dev)
+    n = (FA.flash_attention_fwd.launches, FB.fused_rmsnorm_qkv.launches)
+    match = "patched" if failure == "build" else "CUDA error 1"
+    with pytest.raises(RuntimeError, match=match):
+        FA.flash_attention_fwd(q, k, v, True)
+    with pytest.raises(RuntimeError, match=match):
+        FB.fused_rmsnorm_qkv(x, w[0].contiguous(), w, w, w)
+    assert n == (FA.flash_attention_fwd.launches,
+                 FB.fused_rmsnorm_qkv.launches)
