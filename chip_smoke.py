@@ -13,9 +13,9 @@ train_moe two, one per engine or dispatch mode):
 1. env      versions, the card, TF32 switched off for fp32 references.
 2. build    nvcc builds the port's CUDA kernels from ``paddle_tpu_torch/
             ops/kernels/csrc`` (or finds them built); beside it, ptxas
-            reports the Hopper kernels (the bf16 flash forward, the QKV
-            row pass and wgmma GEMM): registers, shared memory, spills
-            and any wgmma serialisation (-Xptxas -v).
+            reports the Hopper kernels (the bf16 flash forward, dq and
+            dk/dv, the QKV row pass and wgmma GEMM): registers, shared
+            memory, spills and any wgmma serialisation (-Xptxas -v).
 3. kernels  every kernel of the serving path at the path's own shapes
             (Llama-3-8B widths: fused RMSNorm+QKV and fused SwiGLU MLP at
             T = 8 decode rows and T = 256 prefill rows; paged decode at
@@ -26,10 +26,13 @@ train_moe two, one per engine or dispatch mode):
             The training slice's kernels at its own shapes (b=4,
             s=2048, 32/8 heads, head_dim 128, causal): flash attention
             forward, dq and dk/dv in bf16 (fp32 at b=1), each bf16 row
-            within its own limit (FLASH_TOL), and the QKV kernel's
-            training variant, its forward variant (the scoring forward's
-            launch) and the MLP kernel pair at T = 8192.  In bf16 the
-            flash forward and QKV at T > 16 are the wgmma / TMA kernels.
+            within its own limit (FLASH_TOL), the same three at GPT-2
+            medium's step through the head_dim pad (b=8, s=1024, 16/16
+            heads, head_dim 128) and flash_delta at both shapes, and the
+            QKV kernel's training variant, its forward variant (the
+            scoring forward's launch) and the MLP kernel pair at T =
+            8192.  In bf16 the three flash kernels and QKV at T > 16 are
+            the wgmma / TMA kernels.
             The quantized serving path's kernels (kernels_quant): the
             quant matmul (int8 weights, bf16 io) at T = 8 for each of the
             five (K, N) of a decode step, int8 and fp8 at T = 150 (the
@@ -182,7 +185,8 @@ CE_TOL = {"loss": (1e-4, 1e-5), "lse": (1e-4, 1e-5),
 # the kernels redesigned for Hopper (wgmma, TMA, mbarriers), whose
 # -Xptxas -v the ptxas line reports, and their sources
 PTXAS_SOURCES = ("flash_attention", "fused_block")
-PTXAS_KERNELS = ("flash_fwd_hopper", "qkv_gemm_kernel", "qkv_rows_kernel")
+PTXAS_KERNELS = ("flash_fwd_hopper", "flash_dq_hopper", "flash_dkv_hopper",
+                 "qkv_gemm_kernel", "qkv_rows_kernel")
 
 
 def emit(phase, **kw):
@@ -377,60 +381,70 @@ def paged_limit(dtype, used):
 # -- phase 3, training rows: flash attention and the QKV train variant -------
 
 FB_, FS, FH, FHK, FD = 4, 2048, 32, 8, 128       # the train step's attention
+# GPT-2 medium's step through the head_dim pad (64 -> 128): b, s, h, hk
+GPT_FLASH = (8, 1024, 16, 16)
 
 
-def flash_bounds(b):
-    """(fwd, dq, dkv) (bytes, flops) of causal attention at the train
-    shapes: each input read once, each output written once; a causal
-    product is half the dense one, 2 b h s^2 d / 2 FLOPs."""
-    q = b * FS * FH * FD * 2
-    kv = b * FS * FHK * FD * 2
-    stat = b * FH * FS * 4
-    prod = 2 * b * FH * FS * FS * FD // 2
+def flash_bounds(b, s=FS, h=FH, hk=FHK):
+    """(fwd, dq, dkv) (bytes, flops) of causal attention: each input read
+    once, each output written once; a causal product is half the dense
+    one, 2 b h s^2 d / 2 FLOPs."""
+    q = b * s * h * FD * 2
+    kv = b * s * hk * FD * 2
+    stat = b * h * s * 4
+    prod = 2 * b * h * s * s * FD // 2
     return ((q + 2 * kv + q + stat, 2 * prod),
             (q + 2 * kv + q + 2 * stat + q, 3 * prod),
             (q + 2 * kv + q + 2 * stat + 2 * kv, 4 * prod))
 
 
-def kernel_flash(FA, dev, timer):
-    """The three flash kernels against their plain versions (bf16 at
-    b=4, fp32 at b=1), then timed in bf16 beside the plain versions and
-    F.scaled_dot_product_attention (forward; its autograd backward for
-    the two backward rows)."""
+def flash_parity(FA, dev, dtype, b, s, h, hk, used):
+    """The three flash kernels against their plain versions at one shape
+    (causal; bf16 rows within FLASH_TOL, the share of it used recorded in
+    `used`); returns the errors and the inputs with the kernel forward's
+    lse and delta."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = rand(g, (b, s, h, FD), dtype, dev)
+    k = rand(g, (b, s, hk, FD), dtype, dev)
+    v = rand(g, (b, s, hk, FD), dtype, dev)
+    do = rand(g, (b, s, h, FD), dtype, dev)
+
+    def close(what, got, ref, row):
+        if dtype != torch.bfloat16:
+            return check_close(what, got, ref, dtype)
+        return check_close(what, got, ref, dtype, FLASH_TOL[row],
+                           used.setdefault(row, {}))
+
+    out, lse = FA.flash_attention_fwd(q, k, v, True)
+    ref, ref_lse = FA.flash_fwd_reference(q, k, v, True)
+    e_out = close("flash_attention_fwd", out, ref, "fwd")
+    check_close("flash_attention_fwd lse", lse, ref_lse, torch.float32)
+    del ref, ref_lse
+    delta = FA.flash_delta(out, do)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+    rdq, rdk, rdv = FA.flash_bwd_reference(q, k, v, do, lse, delta, True)
+    errs = {
+        "flash_attention_fwd": e_out,
+        "flash_attention_bwd_dq": close("flash_attention_bwd_dq", dq, rdq,
+                                        "dq"),
+        "flash_attention_bwd_dkv": max(
+            close("flash_attention_bwd_dk", dk, rdk, "dkv"),
+            close("flash_attention_bwd_dv", dv, rdv, "dkv"))}
+    del out, dq, dk, dv, rdq, rdk, rdv
+    torch.cuda.empty_cache()
+    return errs, (q, k, v, do, lse, delta)
+
+
+def flash_timed(FA, timer, tensors, shape, errs, used):
+    """The three kernels timed in bf16 at one shape beside their plain
+    versions and F.scaled_dot_product_attention (forward; its autograd
+    backward, dq, dk and dv together, for the two backward rows), with
+    their bounds; and flash_delta, the reduction before every
+    backward."""
     F_ = torch.nn.functional
-    errs, used = {}, {}
-    for dtype, b in ((torch.float32, 1), (torch.bfloat16, FB_)):
-        g = torch.Generator(device=dev).manual_seed(11)
-        q = rand(g, (b, FS, FH, FD), dtype, dev)
-        k = rand(g, (b, FS, FHK, FD), dtype, dev)
-        v = rand(g, (b, FS, FHK, FD), dtype, dev)
-        do = rand(g, (b, FS, FH, FD), dtype, dev)
-
-        def close(what, got, ref, row):
-            if dtype != torch.bfloat16:
-                return check_close(what, got, ref, dtype)
-            return check_close(what, got, ref, dtype, FLASH_TOL[row],
-                               used.setdefault(row, {}))
-
-        out, lse = FA.flash_attention_fwd(q, k, v, True)
-        ref, ref_lse = FA.flash_fwd_reference(q, k, v, True)
-        e_out = close("flash_attention_fwd", out, ref, "fwd")
-        check_close("flash_attention_fwd lse", lse, ref_lse, torch.float32)
-        del ref, ref_lse
-        delta = FA.flash_delta(out, do)
-        dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
-        dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
-        rdq, rdk, rdv = FA.flash_bwd_reference(q, k, v, do, lse, delta, True)
-        errs[dtype] = {
-            "flash_attention_fwd": e_out,
-            "flash_attention_bwd_dq": close("flash_attention_bwd_dq",
-                                            dq, rdq, "dq"),
-            "flash_attention_bwd_dkv": max(
-                close("flash_attention_bwd_dk", dk, rdk, "dkv"),
-                close("flash_attention_bwd_dv", dv, rdv, "dkv"))}
-        del dq, dk, dv, rdq, rdk, rdv
-        torch.cuda.empty_cache()
-    # q..delta are the bf16 b=4 tensors now
+    q, k, v, do, lse, delta = tensors
+    b, s, h, hk = shape
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_in = [t.detach().clone().requires_grad_(True) for t in (qt, kt, vt)]
     lib_out = F_.scaled_dot_product_attention(*lib_in, is_causal=True,
@@ -441,8 +455,6 @@ def kernel_flash(FA, dev, timer):
         torch.autograd.grad(lib_out, lib_in, do_t, retain_graph=True)
 
     lib_bwd_ms = timer(lib_bwd)
-    res = {}
-    bounds = flash_bounds(FB_)
     calls = {
         "flash_attention_fwd": (
             lambda: FA.flash_attention_fwd(q, k, v, True),
@@ -459,20 +471,19 @@ def kernel_flash(FA, dev, timer):
             lambda: FA.flash_bwd_reference(q, k, v, do, lse, delta, True),
             lib_bwd_ms),
     }
-    for (name, (kern, plain, lib_ms)), (nbytes, flops) in zip(calls.items(),
-                                                               bounds):
+    res = {}
+    for (name, (kern, plain, lib_ms)), (nbytes, flops) in zip(
+            calls.items(), flash_bounds(b, s, h, hk)):
         out = {"ms": timer(kern), "plain_ms": timer(plain, iters=3,
                                                     warmup=1),
                "library_ms": lib_ms}
         out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
-        out["max_abs_err"] = errs[torch.bfloat16][name]
-        out["max_abs_err_fp32"] = errs[torch.float32][name]
+        out["max_abs_err"] = errs[name]
         row = name.rsplit("_", 1)[-1]
         out["tolerance_bf16"] = dict(zip(("atol", "rtol"), FLASH_TOL[row]))
         out["limit_used_bf16"] = used[row]
         out["flops"] = flops
-        out["shape"] = (f"b={FB_} s={FS} h={FH} hk={FHK} d={FD} causal "
-                        "bf16")
+        out["shape"] = f"b={b} s={s} h={h} hk={hk} d={FD} causal bf16"
         res[name] = out
         torch.cuda.empty_cache()
     res["flash_attention_fwd"]["library"] = \
@@ -481,8 +492,37 @@ def kernel_flash(FA, dev, timer):
         res[name]["library"] = ("autograd backward of "
                                 "F.scaled_dot_product_attention (dq, dk "
                                 "and dv together)")
-    del lib_out, lib_in
+    # delta = rowsum(dO * O): O read from the forward's output
+    out = FA.flash_attention_fwd(q, k, v, True)[0]
+    res["flash_delta"] = {
+        "ms": timer(lambda: FA.flash_delta(out, do)),
+        "bound_ms": bound_ms(2 * q.numel() * 2 + 4 * b * h * s, 0)[0],
+        "bound_by": "bytes",
+        "shape": f"b={b} s={s} h={h} d={FD} bf16 -> fp32 [b, h, s]"}
+    del lib_out, lib_in, out
     torch.cuda.empty_cache()
+    return res
+
+
+def kernel_flash(FA, dev, timer):
+    """The three flash kernels against their plain versions (fp32 at b=1
+    and bf16 at the train step's shape, bf16 at GPT-2 medium's step
+    through the head_dim pad, b=8 s=1024 16 heads), then timed in bf16 at
+    both bf16 shapes (flash_timed); the GPT rows carry the suffix
+    ``_gpt``."""
+    errs32 = flash_parity(FA, dev, torch.float32, 1, FS, FH, FHK, {})[0]
+    torch.cuda.empty_cache()
+    res = {}
+    for suffix, shape in (("", (FB_, FS, FH, FHK)), ("_gpt", GPT_FLASH)):
+        used = {}
+        errs, tensors = flash_parity(FA, dev, torch.bfloat16, *shape, used)
+        rows = flash_timed(FA, timer, tensors, shape, errs, used)
+        del tensors
+        torch.cuda.empty_cache()
+        for name, row in rows.items():
+            if not suffix and name in errs32:
+                row["max_abs_err_fp32"] = errs32[name]
+            res[name + suffix] = row
     return res
 
 
@@ -1189,8 +1229,8 @@ def train(dev, kernels):
 
 
 TRAIN_FAMILIES = ("grouped_kernel", "gemm_kernel", "flash_fwd_hopper",
-                  "qkv_rows_kernel", "qkv_gemm_kernel", "flash_dq_kernel",
-                  "flash_dkv_kernel")
+                  "qkv_rows_kernel", "qkv_gemm_kernel", "flash_dq_hopper",
+                  "flash_dkv_hopper")
 
 
 def train_profile(step, batch, phase="train_profile", top_n=15,
@@ -1672,8 +1712,8 @@ def train_gpt(dev, kernels):
          launches_per_step={k: v / GPT_STEPS for k, v in launches.items()})
     train_profile(step, batch, phase="train_gpt_profile", top_n=20,
                   families=("ce_fwd_kernel", "ce_bwd_kernel",
-                            "flash_fwd_hopper", "flash_dq_kernel",
-                            "flash_dkv_kernel"))
+                            "flash_fwd_hopper", "flash_dq_hopper",
+                            "flash_dkv_hopper"))
     return launches
 
 
@@ -2089,7 +2129,7 @@ def train_decoder(dev, kernels, train_peak):
                       families=("decoder_kernel", "rmsnorm_kernel",
                                 "gemm_kernel", "qkv_rows_kernel",
                                 "qkv_gemm_kernel", "flash_fwd_hopper",
-                                "flash_dq_kernel", "flash_dkv_kernel"))
+                                "flash_dq_hopper", "flash_dkv_hopper"))
     del model, step
     return launches
 
@@ -2362,11 +2402,21 @@ def main():
     for name, (src, rep) in train_where.items():
         row = train_rows[name]
         wrapper = name.removesuffix("_train")
-        line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep,
-                     "launches": train_launches[wrapper],
-                     **{k: row[k] for k in keys}, "shape": row["shape"],
-                     "path": "train"})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": train_launches[wrapper],
+                 **{k: row[k] for k in keys}, "shape": row["shape"],
+                 "path": "train"}
+        if name.startswith("flash"):   # GPT-2 medium's shape, train_gpt's
+            gpt = train_rows[name + "_gpt"]
+            entry["gpt_shape"] = {"launches": gpt_launches[name],
+                                  **{k: gpt[k] for k in keys},
+                                  "shape": gpt["shape"],
+                                  "path": "train_gpt"}
+        if "_bwd_" in name:            # the reduction before each backward
+            entry["flash_delta_ms"] = train_rows["flash_delta"]["ms"]
+            entry["gpt_shape"]["flash_delta_ms"] = \
+                train_rows["flash_delta_gpt"]["ms"]
+        line.append(entry)
     # the quantized serving path: the gate/up shape at decode stands for
     # the quant matmul (its other shapes are in the kernels_quant line);
     # launches from each engine's serve_quant run

@@ -262,9 +262,11 @@ int qkv_hopper(const void* x, const void* wn, const void* const w[3],
 
 // C [64, N] fp32 = A [64, 64] . B on one warpgroup, the operands through
 // TMA (128-byte swizzle) and wgmma: mode 0 takes B^T as [N, 64] (K-major,
-// as flash's K rows), mode 1 B as [64, N] (MN-major, as the weights and
-// flash's V), mode 2 as mode 1 with A from registers (N = 128, as flash's
-// P).  tests/test_torch_cuda.py holds it against torch.matmul.
+// as flash's K rows; N = 64 is every score tile of the flash forward and
+// backward: S, dP, S^T, dP^T), mode 1 B as [64, N] (MN-major, as the
+// weights and flash's V), mode 2 as mode 1 with A from registers (N = 128,
+// as flash's P V, dS K, P^T dO and dS^T Q).  tests/test_torch_cuda.py
+// holds it against torch.matmul.
 struct CheckParams {
   CUtensorMap a, b;
   const bf16* a_raw;
@@ -316,7 +318,8 @@ wgmma_check_kernel(const __grid_constant__ CheckParams p) {
     if constexpr (MODE == 0) {
       const uint64_t db = desc_kmajor(Bs + 32 * kk);
       if constexpr (N == 256) wgmma_ss_n256<0>(acc, da, db);
-      else wgmma_ss_n128<0>(acc, da, db);
+      else if constexpr (N == 128) wgmma_ss_n128<0>(acc, da, db);
+      else wgmma_ss_n64<0>(acc, da, db);
     } else {
       const uint64_t db = desc_mnmajor(Bs + 2048 * kk, 8192);
       if constexpr (MODE == 2) wgmma_rs_n128<1>(acc, af[kk], db);
@@ -409,11 +412,11 @@ int ptt_ffn_up(int dtype, const void* x, const void* w1, const void* b1,
 
 // hopper.cuh's descriptor check: c [64, n] fp32 = a [64, 64] . b (bf16);
 // b is [n, 64] (B^T) in mode 0, [64, n] in modes 1 and 2 (mode 2: a from
-// registers, n = 128 only); n 128 or 256.
+// registers, n = 128 only); n 128 or 256, and 64 in mode 0.
 int ptt_wgmma_check(int mode, const void* a, const void* b, void* c, int n,
                     void* stream) {
   if (!((mode == 0 || mode == 1) && (n == 128 || n == 256)) &&
-      !(mode == 2 && n == 128))
+      !(mode == 2 && n == 128) && !(mode == 0 && n == 64))
     return (int)cudaErrorInvalidValue;
   CheckParams p{};
   p.a_raw = static_cast<const bf16*>(a);
@@ -429,8 +432,9 @@ int ptt_wgmma_check(int mode, const void* a, const void* b, void* c, int n,
   e = ptt::hopper::make_map(&p.b, b, 2, bdims, bstride, bbox);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == 0) return n == 128 ? launch_check<128, 0>(p, s)
-                                 : launch_check<256, 0>(p, s);
+  if (mode == 0) return n == 64    ? launch_check<64, 0>(p, s)
+                        : n == 128 ? launch_check<128, 0>(p, s)
+                                   : launch_check<256, 0>(p, s);
   if (mode == 1) return n == 128 ? launch_check<128, 1>(p, s)
                                  : launch_check<256, 1>(p, s);
   return launch_check<128, 2>(p, s);

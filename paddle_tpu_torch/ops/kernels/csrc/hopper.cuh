@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's wgmma / TMA kernels, shared
-// by flash_attention.cu (the bf16 flash forward) and, through
+// by flash_attention.cu (the bf16 flash forward, dq and dk/dv) and, through
 // hopper_gemm.cuh, fused_block.cu (the RMSNorm+QKV GEMM):
 //   - mbarriers: init, expect-tx, arrive and a parity wait;
 //   - TMA: cp.async.bulk.tensor loads of 2-d and 4-d boxes into shared
-//     memory, completed on an mbarrier, and the host-side CUtensorMap
-//     encoder, fetched from libcuda through the runtime
-//     (cudaGetDriverEntryPoint*), so no library links -lcuda;
+//     memory and 1-d bulk copies, completed on an mbarrier, and the
+//     host-side CUtensorMap encoder, fetched from libcuda through the
+//     runtime (cudaGetDriverEntryPoint*), so no library links -lcuda;
 //   - wgmma: shared-memory descriptors for 128-byte-swizzled tiles,
 //     fence / commit / wait, and the m64nNk16 bf16 products with fp32
 //     accumulators in registers (A from shared memory or from registers);
@@ -120,6 +120,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of device memory at src into shared memory at
+// dst, both 16-byte aligned, completing on bar (which must expect them):
+// the flash backward's per-slot lse and delta rows
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -14,10 +14,13 @@ A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.  There is no fallback between the two.  The kernels
 take float32 and bfloat16, head_dim 128, sequences that are a multiple
 of 64, and heads a multiple of kv heads; every operand contiguous and
-16-byte aligned.  In bf16 the forward is the Hopper kernel (wgmma fed
-by TMA through an mbarrier ring, 128-row tiles, the softmax in the exp2
-domain); fp32 and the backward run the first, shared-memory design.
-Each wrapper counts its launches (``.launches``)."""
+16-byte aligned.  In bf16 all three are Hopper kernels (wgmma fed by TMA
+through mbarrier rings, a producer warpgroup and two consumers, scores
+and accumulators in registers, 128-row tiles, P in the exp2 domain from
+the natural-log lse): the forward and dq per q tile, dk/dv per key tile
+walking its GQA group in one block, so its sums are deterministic.
+fp32, a parity path, runs the first, shared-memory design.  Each wrapper
+counts its launches (``.launches``)."""
 
 from __future__ import annotations
 

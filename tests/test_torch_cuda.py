@@ -276,6 +276,9 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
 # -- the training slice's kernels ---------------------------------------------
 
 FLASH_SHAPES = [(1, 128, 4, 4), (2, 256, 12, 4), (1, 192, 8, 2)]
+# the backward's edges besides: a last 64-row tile of the bf16 kernels'
+# 128-row tiles with one kv head for 4 query heads, and MHA (hk = h)
+FLASH_BWD_EDGES = [(1, 320, 4, 1), (2, 192, 8, 8)]
 
 
 def _flash_inputs(rng, b, s, h, hk, dtype, dev):
@@ -303,7 +306,7 @@ def test_flash_fwd_matches_plain(dev, dtype, causal, b, s, h, hk):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("b,s,h,hk", FLASH_SHAPES)
+@pytest.mark.parametrize("b,s,h,hk", FLASH_SHAPES + FLASH_BWD_EDGES)
 def test_flash_bwd_matches_plain(dev, dtype, causal, b, s, h, hk):
     rng = np.random.default_rng(b * s + h + 1)
     q, k, v, g = _flash_inputs(rng, b, s, h, hk, dtype, dev)
@@ -1067,10 +1070,11 @@ def test_decoder_and_rmsnorm_wrappers_raise_when_the_library_fails(
 
 # -- the Hopper redesigns: wgmma / TMA flash forward and QKV GEMM -------------
 
-# (mode, n) of hopper.cuh's descriptor check: B K-major (flash's K rows),
-# MN-major (the weights, flash's V), MN-major with A from registers
-# (flash's P)
-WGMMA_CASES = [(0, 128), (0, 256), (1, 128), (1, 256), (2, 128)]
+# (mode, n) of hopper.cuh's descriptor check: B K-major (flash's K rows;
+# n = 64 is every flash score tile, forward and backward: S, dP, S^T,
+# dP^T), MN-major (the weights, flash's V), MN-major with A from registers
+# (flash's P V and the backward's dS K, P^T dO and dS^T Q)
+WGMMA_CASES = [(0, 64), (0, 128), (0, 256), (1, 128), (1, 256), (2, 128)]
 
 
 @pytest.mark.parametrize("mode,n", WGMMA_CASES)
@@ -1145,6 +1149,88 @@ def test_flash_hopper_lse_feeds_the_backward(dev, causal):
     _close_tol(dv, rdv, FLASH_BWD_TOL["dkv"])
 
 
+# (b, s, h, hk) of the bf16 backward (flash_dq_hopper, flash_dkv_hopper):
+# one 64-row tile, the edges, and the Llama step's heads
+FLASH_BWD_HOPPER_SHAPES = [(1, 64, 4, 1)] + FLASH_BWD_EDGES + \
+    [(1, 2048, 32, 8)]
+
+
+def _flash_bwd_check(q, k, v, g, causal, scale=None, tol=FLASH_BWD_TOL):
+    """dq and dk/dv from the plain forward's out and lse, one launch
+    each, within `tol` (FLASH_BWD_TOL) of flash_bwd_reference."""
+    out, lse = FA.flash_fwd_reference(q, k, v, causal, scale)
+    delta = FA.flash_delta(out, g)
+    n0 = (FA.flash_attention_bwd_dq.launches,
+          FA.flash_attention_bwd_dkv.launches)
+    dq = FA.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal, scale)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal,
+                                        scale)
+    assert (FA.flash_attention_bwd_dq.launches,
+            FA.flash_attention_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    rdq, rdk, rdv = FA.flash_bwd_reference(q, k, v, g, lse, delta, causal,
+                                           scale)
+    _close_tol(dq, rdq, tol["dq"])
+    _close_tol(dk, rdk, tol["dkv"])
+    _close_tol(dv, rdv, tol["dkv"])
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,hk", FLASH_BWD_HOPPER_SHAPES)
+def test_flash_bwd_hopper_matches_plain(dev, causal, b, s, h, hk):
+    """The bf16 dq and dk/dv kernels (wgmma, TMA, 128-row tiles) at
+    their edge shapes against flash_bwd_reference, which rounds P and dS
+    to bf16 where the kernels do: within FLASH_BWD_TOL."""
+    rng = np.random.default_rng(s + 3 * h + hk + causal)
+    _flash_bwd_check(*_flash_inputs(rng, b, s, h, hk, torch.bfloat16, dev),
+                     causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_hopper_takes_a_scale(dev, causal):
+    """A scale other than head_dim ** -0.5 (0.3: a peakier softmax)
+    reaches both P recomputes and dS.  The limit's atol grows with the
+    scale: dS carries it, and a dS whose fp32 value the kernel's exp2 and
+    the plain exp put on two sides of a bf16 rounding moves an output by
+    about |dS| 2^-8 |k|."""
+    rng = np.random.default_rng(77 + causal)
+    grow = 0.3 / 128 ** -0.5
+    tol = {k: (a * grow, r) for k, (a, r) in FLASH_BWD_TOL.items()}
+    _flash_bwd_check(*_flash_inputs(rng, 1, 320, 8, 2, torch.bfloat16, dev),
+                     causal, scale=0.3, tol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_hopper_gpt_padded_shape(dev, causal):
+    """GPT's attention through the head_dim pad (b2 s1024 h16 hk16):
+    head_dim 64 zero-padded to 128, scale 64 ** -0.5, dO zero in the pad,
+    as F.scaled_dot_product_attention hands them over.  The pad's columns
+    of dq, dk and dv come out exactly zero."""
+    rng = np.random.default_rng(1024 + causal)
+    ts = _flash_inputs(rng, 2, 1024, 16, 16, torch.bfloat16, dev)
+    for t in ts:
+        t[..., 64:] = 0
+    grads = _flash_bwd_check(*ts, causal, scale=64 ** -0.5)
+    for t in grads:
+        assert not bool(t[..., 64:].any())
+
+
+def test_flash_dkv_hopper_is_deterministic(dev):
+    """dk/dv sum each GQA group inside one block, in one order, without
+    atomics: two launches on the same inputs are bitwise equal (and dq's
+    too, at the Llama step's heads)."""
+    rng = np.random.default_rng(99)
+    q, k, v, g = _flash_inputs(rng, 2, 2048, 32, 8, torch.bfloat16, dev)
+    out, lse = FA.flash_fwd_reference(q, k, v, True)
+    delta = FA.flash_delta(out, g)
+    runs = [(FA.flash_attention_bwd_dq(q, k, v, g, lse, delta, True),
+             *FA.flash_attention_bwd_dkv(q, k, v, g, lse, delta, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("residuals", [True, False])
 @pytest.mark.parametrize("T", [17, 64, 150, 256, 8192])
 @pytest.mark.parametrize("d,dq,dkv", [(256, 192, 64), (4096, 4096, 1024)])
@@ -1175,7 +1261,8 @@ def test_rmsnorm_qkv_hopper_matches_plain(dev, residuals, T, d, dq, dkv):
 def test_hopper_kernels_raise_on_a_refused_launch(dev):
     """The C entries refuse what their kernels do not take, and the
     wrappers' check raises it: bf16 QKV at T > 16 without somewhere for
-    the row pass to write xn, and flash at head_dim 64."""
+    the row pass to write xn, and flash (forward, dq, dk/dv) at head_dim
+    64."""
     x = torch.zeros((32, 128), dtype=torch.bfloat16, device=dev)
     w = torch.zeros((128, 128), dtype=torch.bfloat16, device=dev)
     lib = _build.library("fused_block")
@@ -1194,14 +1281,26 @@ def test_hopper_kernels_raise_on_a_refused_launch(dev):
                            0.125, 1, _build.stream_of(q))
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         _build.check(fl, err, "flash_attention_fwd")
+    err = fl.ptt_flash_bwd_dq(1, q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                              q.data_ptr(), lse.data_ptr(), lse.data_ptr(),
+                              q.data_ptr(), 1, 128, 2, 2, 64, 0.125, 1,
+                              _build.stream_of(q))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _build.check(fl, err, "flash_attention_bwd_dq")
+    err = fl.ptt_flash_bwd_dkv(1, q.data_ptr(), q.data_ptr(), q.data_ptr(),
+                               q.data_ptr(), lse.data_ptr(), lse.data_ptr(),
+                               q.data_ptr(), q.data_ptr(), 1, 128, 2, 2, 64,
+                               0.125, 1, _build.stream_of(q))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _build.check(fl, err, "flash_attention_bwd_dkv")
 
 
 @pytest.mark.parametrize("failure", ["build", "launch"])
 def test_flash_and_qkv_wrappers_raise_when_the_library_fails(
         dev, monkeypatch, failure):
     """A failed build, or a launch that reports a CUDA error, raises from
-    the bf16 flash forward and the bf16 QKV path at T > 16, and counts no
-    launch."""
+    the bf16 flash forward, dq and dk/dv and the bf16 QKV path at T > 16,
+    and counts no launch."""
     class Refusing:
         def __getattr__(self, name):
             if name == "ptt_error_string":
@@ -1215,14 +1314,20 @@ def test_flash_and_qkv_wrappers_raise_when_the_library_fails(
 
     monkeypatch.setattr(_build, "library", loader)
     rng = np.random.default_rng(12)
-    q, k, v, _ = _flash_inputs(rng, 1, 128, 4, 2, torch.bfloat16, dev)
+    q, k, v, g = _flash_inputs(rng, 1, 128, 4, 2, torch.bfloat16, dev)
+    lse = torch.zeros((1, 4, 128), device=dev)
     x = _t(rng, (64, 128), torch.bfloat16, dev)
     w = _t(rng, (128, 128), torch.bfloat16, dev)
-    n = (FA.flash_attention_fwd.launches, FB.fused_rmsnorm_qkv.launches)
+    wrappers = (FA.flash_attention_fwd, FA.flash_attention_bwd_dq,
+                FA.flash_attention_bwd_dkv, FB.fused_rmsnorm_qkv)
+    n = [fn.launches for fn in wrappers]
     match = "patched" if failure == "build" else "CUDA error 1"
     with pytest.raises(RuntimeError, match=match):
         FA.flash_attention_fwd(q, k, v, True)
     with pytest.raises(RuntimeError, match=match):
+        FA.flash_attention_bwd_dq(q, k, v, g, lse, lse, True)
+    with pytest.raises(RuntimeError, match=match):
+        FA.flash_attention_bwd_dkv(q, k, v, g, lse, lse, True)
+    with pytest.raises(RuntimeError, match=match):
         FB.fused_rmsnorm_qkv(x, w[0].contiguous(), w, w, w)
-    assert n == (FA.flash_attention_fwd.launches,
-                 FB.fused_rmsnorm_qkv.launches)
+    assert n == [fn.launches for fn in wrappers]

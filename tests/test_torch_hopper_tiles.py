@@ -143,6 +143,135 @@ def test_flash_hopper_tiles_match_pallas(dtype, causal, s, hk, bk):
     _close(lse, plain_lse, torch.float32)
 
 
+# -- flash backward: dq and dk/dv ---------------------------------------------
+
+def _p_exp2(s, lse, scale):
+    """P = 2^(S scale log2 e - lse log2 e): the kernels' recompute of the
+    softmax from the forward's natural-log lse."""
+    return torch.exp2(s * (scale * LOG2E) - lse * LOG2E)
+
+
+def hopper_flash_bwd_model(q, k, v, dout, lse, delta, causal, scale,
+                           rounded=True, bt=128, bb=64):
+    """flash_dq_hopper's and flash_dkv_hopper's arithmetic, tile by tile.
+    Both cut their tiles of `bt` rows into two consumers of `bb` rows; a
+    last tile of 64 rows (s % 128 == 64) has one.  dq: per q tile and
+    query head, key blocks of `bb` up to the consumer's diagonal, S and dP
+    in fp32, P from the natural lse in the exp2 domain, dS = P (dP -
+    delta) scale cast to q's dtype, dQ += dS K in fp32.  dk/dv: per key
+    tile and kv head, in transposed score space, every (group head, q
+    block) pair in the kernel's order (heads outer, q blocks from the
+    first that reaches the tile under the causal mask), P^T and dS^T cast
+    to the input dtype, dV += P^T dO and dK += dS^T Q summed in fp32
+    inside the tile; q blocks wholly before a consumer's keys skipped.
+    Masked scores give P = 0.  With ``rounded=False`` P and dS stay fp32,
+    as the Pallas kernels keep them (:277-288).  q/dout ``[b, s, h, d]``,
+    k/v ``[b, s, hk, d]``, lse/delta ``[b, h, s]`` fp32."""
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    rep = h // hk
+    dt = q.dtype
+    pdt = dt if rounded else torch.float32   # P and dS for the products
+    f = {n: t.float() for n, t in (("q", q), ("k", k), ("v", v),
+                                   ("g", dout))}
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    nt = -(-s // bt)
+    for bi in range(b):
+        for t0 in range(0, nt * bt, bt):
+            for c0 in range(t0, min(t0 + bt, s), bb):   # active consumers
+                rows = torch.arange(c0, c0 + bb)
+                # dq of query rows c0.. for each query head
+                nk = s // bb
+                if causal:
+                    nk = min(nk, (c0 + bb) // bb)
+                for hi in range(h):
+                    kh = hi // rep
+                    qc, gc = f["q"][bi, c0:c0 + bb, hi], f["g"][bi, c0:c0 + bb,
+                                                             hi]
+                    l_, dl = lse[bi, hi, c0:c0 + bb], delta[bi, hi,
+                                                           c0:c0 + bb]
+                    acc = torch.zeros((bb, d))
+                    for k0 in range(0, nk * bb, bb):
+                        kt = f["k"][bi, k0:k0 + bb, kh]
+                        vt = f["v"][bi, k0:k0 + bb, kh]
+                        p = _p_exp2(qc @ kt.T, l_[:, None], scale)
+                        if causal:
+                            keys = torch.arange(k0, k0 + bb)
+                            p = p.masked_fill(keys[None, :] > rows[:, None],
+                                              0.0)
+                        ds = p * (gc @ vt.T - dl[:, None]) * scale
+                        acc = acc + ds.to(pdt).float() @ kt
+                    dq[bi, c0:c0 + bb, hi] = acc.to(dt)
+                # dk / dv of key rows c0.. for each kv head
+                qb0 = (t0 // bb) if causal else 0
+                for kh in range(hk):
+                    kc, vc = f["k"][bi, c0:c0 + bb, kh], f["v"][bi, c0:c0 + bb,
+                                                             kh]
+                    ak = torch.zeros((bb, d))
+                    av = torch.zeros((bb, d))
+                    for hi in range(kh * rep, (kh + 1) * rep):
+                        for q0 in range(qb0 * bb, s, bb):
+                            if causal and q0 + bb - 1 < c0:
+                                continue    # every key after every query
+                            qt = f["q"][bi, q0:q0 + bb, hi]
+                            gt = f["g"][bi, q0:q0 + bb, hi]
+                            pt = _p_exp2(kc @ qt.T,
+                                         lse[bi, hi, q0:q0 + bb][None, :],
+                                         scale)
+                            if causal:
+                                qs = torch.arange(q0, q0 + bb)
+                                pt = pt.masked_fill(
+                                    rows[:, None] > qs[None, :], 0.0)
+                            dst = pt * (vc @ gt.T -
+                                        delta[bi, hi, q0:q0 + bb][None, :]) \
+                                * scale
+                            av = av + pt.to(pdt).float() @ gt
+                            ak = ak + dst.to(pdt).float() @ qt
+                    dk[bi, c0:c0 + bb, kh] = ak.to(dt)
+                    dv[bi, c0:c0 + bb, kh] = av.to(dt)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,hk", [(192, 1), (192, 4), (320, 1), (320, 4)])
+def test_flash_bwd_hopper_tiles_match_pallas(dtype, causal, s, hk):
+    """s % 128 == 64: the last q tile and the last key tile hold 64 rows
+    (one consumer).  hk = 1 sums a group of 4 heads in one key tile, hk =
+    4 is MHA.  The blockwise model of the two backward kernels against
+    ``_bwd_pallas`` (interpret mode, its own 64-row blocks, P and dS in
+    fp32) and against the port's plain version (P and dS rounded as the
+    kernels round them), from the plain forward's out and lse.  Against
+    Pallas the model keeps P and dS in fp32 as Pallas does: rounded, as
+    the kernels round them, bf16 dv moves by up to six times the limit
+    (the rounding choice of ROADMAP.md queue 3, held by the plain
+    version)."""
+    rng = np.random.default_rng(2 * s + 3 * hk + causal)
+    h, d = 4, 128
+    jq, tq = _both(rng, (1, s, h, d), dtype)
+    jk, tk = _both(rng, (1, s, hk, d), dtype)
+    jv, tv = _both(rng, (1, s, hk, d), dtype)
+    jg, tg = _both(rng, (1, s, h, d), dtype)
+    scale = d ** -0.5
+    out, lse = FA.flash_attention_fwd(tq, tk, tv, causal)
+    delta = FA.flash_delta(out, tg)
+    got = hopper_flash_bwd_model(tq, tk, tv, tg, lse, delta, causal, scale)
+    unrounded = hopper_flash_bwd_model(tq, tk, tv, tg, lse, delta, causal,
+                                       scale, rounded=False)
+    jout = jnp.asarray(out.float().numpy()).astype(JDT[dtype])
+    sw = lambda t: jnp.swapaxes(t, 1, 2)
+    ref = JFA._bwd_pallas(
+        (sw(jq), sw(jk), sw(jv), sw(jout), jnp.asarray(lse.numpy())),
+        sw(jg), scale=scale, causal=causal, block_q=64, block_k=64,
+        interpret=True)
+    plain = FA.flash_bwd_reference(tq, tk, tv, tg, lse, delta, causal)
+    for g, u, r, p in zip(got, unrounded, ref, plain):
+        assert g.dtype == dtype and tuple(g.shape) == tuple(p.shape)
+        _close(u.float(), np.swapaxes(_np(r), 1, 2), dtype)
+        _close(g.float(), p.float(), dtype)
+
+
 # -- RMSNorm + QKV: row pass, then the GEMM over xn ---------------------------
 
 def hopper_qkv_model(x, wn, wq, wk, wv, eps, bn):
