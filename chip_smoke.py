@@ -14,8 +14,10 @@ train_moe two, one per engine or dispatch mode):
 2. build    nvcc builds the port's CUDA kernels from ``paddle_tpu_torch/
             ops/kernels/csrc`` (or finds them built); beside it, ptxas
             reports the Hopper kernels (the bf16 flash forward, dq and
-            dk/dv, the QKV row pass and wgmma GEMM): registers, shared
-            memory, spills and any wgmma serialisation (-Xptxas -v).
+            dk/dv, the QKV row pass and wgmma GEMM, the MLP / fused_ffn
+            wgmma GEMM, the quant matmul's split-K and wgmma kernels):
+            registers, shared memory, spills (none allowed) and any wgmma
+            serialisation (-Xptxas -v).
 3. kernels  every kernel of the serving path at the path's own shapes
             (Llama-3-8B widths: fused RMSNorm+QKV and fused SwiGLU MLP at
             T = 8 decode rows and T = 256 prefill rows; paged decode at
@@ -31,14 +33,17 @@ train_moe two, one per engine or dispatch mode):
             heads, head_dim 128) and flash_delta at both shapes, and the
             QKV kernel's training variant, its forward variant (the
             scoring forward's launch) and the MLP kernel pair at T =
-            8192.  In bf16 the three flash kernels and QKV at T > 16 are
-            the wgmma / TMA kernels.
+            8192.  In bf16 the three flash kernels, and QKV, the MLP
+            and fused_ffn at T > 16, are the wgmma / TMA kernels; each
+            MLP and FFN row names its path.
             The quantized serving path's kernels (kernels_quant): the
             quant matmul (int8 weights, bf16 io) at T = 8 for each of the
             five (K, N) of a decode step, int8 and fp8 at T = 150 (the
             prefill tile, last tile partial) for each of them, int8 at
             T = 256, fp8 at T = 8 and 256, one fp32-io row, each bf16 row
-            within QUANT_MM_TOL; the int8 paged decode at the fp row's
+            within QUANT_MM_TOL; bf16 at T <= 16 is the split-K kernel,
+            whose output must be bitwise equal over two calls, past 16
+            the wgmma kernel; the int8 paged decode at the fp row's
             shapes, bf16 and fp32 q, both paged rows' bf16 within
             PAGED_TOL.
 4. parity   a 2-layer model at full Llama-3-8B width (bf16, seeded random
@@ -56,13 +61,16 @@ train_moe two, one per engine or dispatch mode):
             seeded generator) behind the paged ContinuousBatchingEngine:
             8 requests, prompts of 64..700 tokens, 32 new tokens each.
             Every request must end "ok" with 32 tokens, and every serving
-            kernel's launch count must have grown during this run.  Then
+            kernel's launch count must have grown during this run (the
+            MLP on both paths: wgmma for prefill chunks, the tile at
+            decode).  Then
             a short window under torch.profiler: device time by kernel
             and the device's busy share.  serve_quant: the same model, in
             place, behind ContinuousBatchingEngine(quant_weights="int8",
             quant_kv="int8") and then (quant_weights="fp8"), the same 8
             requests: every request "ok" with 32 tokens, the quant
-            kernels launched and the fused fp kernels not, 1025 int8
+            kernels launched (split-K at decode, wgmma for prefill, the
+            fp32 tile never) and the fused fp kernels not, 1025 int8
             blocks, the model restored by close(); then a profiled
             window of the int8 engine (profile_quant).
 7. train    4 layers at Llama-3-8B width in bf16, TrainStep with
@@ -182,15 +190,37 @@ CE_TOL = {"loss": (1e-4, 1e-5), "lse": (1e-4, 1e-5),
           "dx_bf16": (1e-7, 2 ** -7), "dx_fp32": (1e-7, 1e-5)}
 
 
-# the kernels redesigned for Hopper (wgmma, TMA, mbarriers), whose
-# -Xptxas -v the ptxas line reports, and their sources
-PTXAS_SOURCES = ("flash_attention", "fused_block")
+# the kernels redesigned for Hopper (wgmma, TMA, mbarriers; the quant
+# matmul's split-K on mma.sync), whose -Xptxas -v the ptxas line reports
+# (none may spill), and their sources
+PTXAS_SOURCES = ("flash_attention", "fused_block", "quant_matmul")
 PTXAS_KERNELS = ("flash_fwd_hopper", "flash_dq_hopper", "flash_dkv_hopper",
-                 "qkv_gemm_kernel", "qkv_rows_kernel")
+                 "qkv_gemm_kernel", "qkv_rows_kernel", "mlp_gemm_kernel",
+                 "quant_splitk_kernel", "quant_wgmma_kernel")
 
 
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def gemm_paths(kernels):
+    """Each GEMM wrapper's launches by design (``launches_by_path``:
+    splitk / wgmma / tile)."""
+    from paddle_tpu_torch.ops.kernels import quant_matmul as QM
+    return {fn.__name__: dict(fn.launches_by_path)
+            for fn in (kernels.fused_rmsnorm_qkv, kernels.fused_mlp,
+                       kernels.fused_ffn, QM.quant_matmul)}
+
+
+def require_paths(what, got, want):
+    """Raise unless every (wrapper, path) of `want` launched exactly the
+    count given, or at least once where it gives None."""
+    for (name, path), n in want.items():
+        have = got[name][path]
+        if (have < 1) if n is None else (have != n):
+            raise AssertionError(f"{what}: {name} took its {path} path "
+                                 f"{have} times, expected "
+                                 f"{'some' if n is None else n}; {got}")
 
 
 def nvidia_smi():
@@ -322,6 +352,7 @@ def kernel_mlp(FB, dev, timer, T, plain_iters=10):
     # the two-launch design's extra traffic: h written, then read back
     out["workspace_bytes"] = 2 * T * F * 2
     out["shape"] = f"T={T} d={D} f={F} bf16"
+    out["path"] = FB.gemm_path(T, torch.bfloat16)
     return out
 
 
@@ -587,6 +618,10 @@ def kernel_quant(QM, quantize, dev, timer, T, K, N, mode, dtype):
     what, used = f"quant_matmul {mode} T={T} K={K} N={N}", {}
     err = check_close(what, got, QM.quant_matmul_reference(x, qw, scale),
                       dtype, tol, used)
+    path = QM.kernel_path(T, dtype)
+    if path == "splitk" and not torch.equal(
+            got, QM.quant_matmul(x, qw, scale, mode=mode)):
+        raise AssertionError(f"{what}: split-K differs between two calls")
     del got
     w = (qw.float() * scale).to(dtype)
     out = {"ms": timer(lambda: QM.quant_matmul(x, qw, scale, mode=mode)),
@@ -602,6 +637,13 @@ def kernel_quant(QM, quantize, dev, timer, T, K, N, mode, dtype):
     out["limit_used"] = used[what]
     out["weight_bytes"] = K * N + 4 * N
     out["shape"] = f"T={T} K={K} N={N} {mode} {str(dtype)[6:]}"
+    out["path"] = path
+    if path == "splitk":
+        splits = QM.splitk_splits(
+            K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+        out["splits"] = splits
+        out["workspace_bytes"] = 4 * splits * T * N if splits > 1 else 0
+        out["bitwise_equal_twice"] = True
     del w, qw, x
     torch.cuda.empty_cache()
     return out
@@ -811,6 +853,7 @@ def kernel_ffn(FB, dev, timer, act, dtype):
     out["workspace_bytes"] = 2 * T * TF_ * isz
     out["library"] = "addmm(b1, x, w1) -> act -> addmm(b2, h, w2)"
     out["shape"] = f"T={T} d={TD} f={TF_} {act} {str(dtype)[6:]}"
+    out["path"] = FB.gemm_path(T, dtype)
     return out
 
 
@@ -1025,6 +1068,11 @@ def serve(dev, kernels):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"serve: kernel {name} never launched")
+    # prefill chunks (> 16 rows) on the wgmma ring, decode steps (8 rows)
+    # on the tile
+    by_path = gemm_paths(kernels)
+    require_paths("serve", by_path, {("fused_mlp", "wgmma"): None,
+                                     ("fused_mlp", "tile"): None})
     ttft = np.array([eng.request_status(r).timings["ttft_s"] for r in rids])
     dec_tok = eng.stats["decode_tokens"] - stats0["decode_tokens"]
     dec_s = eng.stats["decode_seconds"] - stats0["decode_seconds"]
@@ -1039,7 +1087,8 @@ def serve(dev, kernels):
          - stats0["prefill_chunks"],
          output_tok_s=sum(len(out[r][1]) for r in rids) / run_s,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-         launches=launches, first_tokens=[out[r][1][:4] for r in rids])
+         launches=launches, launches_by_path=by_path,
+         first_tokens=[out[r][1][:4] for r in rids])
     profile(eng, cfg, rng)
     return launches, model, prompts, [out[r][1] for r in rids]
 
@@ -1098,6 +1147,13 @@ def serve_quant(dev, kernels, model, prompts, bf16_tokens):
         if launches["fused_rmsnorm_qkv"] or launches["fused_mlp"]:
             raise AssertionError(f"serve_quant {wmode}: fused fp kernels "
                                  f"launched {launches}")
+        # decode steps on split-K, prefill chunks on wgmma, none on the
+        # fp32 tile
+        launches["quant_matmul_by_path"] = dict(qm.launches_by_path)
+        require_paths(f"serve_quant {wmode}", gemm_paths(kernels),
+                      {("quant_matmul", "splitk"): None,
+                       ("quant_matmul", "wgmma"): None,
+                       ("quant_matmul", "tile"): 0})
         ttft = np.array([eng.request_status(r).timings["ttft_s"]
                          for r in rids])
         dec_tok = eng.stats["decode_tokens"] - stats0["decode_tokens"]
@@ -1212,6 +1268,10 @@ def train(dev, kernels):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"train: kernel {name} never launched")
+    by_path = gemm_paths(kernels)
+    require_paths("train", by_path,
+                  {("fused_mlp", "wgmma"): TRAIN_LAYERS * TRAIN_STEPS,
+                   ("fused_mlp", "tile"): 0})
     dt = float(np.median(times))
     tokens = TRAIN_B * TRAIN_S
     # bench.py's formula: 6N + 12 L s d FLOPs per token over the bf16 peak
@@ -1222,7 +1282,7 @@ def train(dev, kernels):
          step_s=times, step_s_median=dt, tokens_per_s=tokens / dt,
          mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S,
          peak_mem_gb=peak, losses=losses,
-         launches=launches,
+         launches=launches, launches_by_path=by_path,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()})
     train_profile(step, batch)
     return launches, peak
@@ -1764,6 +1824,10 @@ def transformer_infer(dev, kernels):
                              f"{launches['fused_ffn']} times in "
                              f"{TRANSFORMER_FWDS} forwards, expected "
                              f"{n_layers} a forward")
+    by_path = gemm_paths(kernels)
+    require_paths("transformer_infer", by_path,
+                  {("fused_ffn", "wgmma"): n_layers * TRANSFORMER_FWDS,
+                   ("fused_ffn", "tile"): 0})
     kernel_ffn = TT.F.fused_ffn
 
     def plain_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
@@ -1791,6 +1855,7 @@ def transformer_infer(dev, kernels):
          target_tokens_per_s=TB * TS / dt, out_shape=list(out.shape),
          max_abs_err_vs_plain_ffn=err, mean_abs_err=mean_err,
          ref_max_abs=scale, tolerance=tol, launches=launches,
+         launches_by_path=by_path["fused_ffn"],
          launches_per_forward={k: v / TRANSFORMER_FWDS
                                for k, v in launches.items()},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2171,6 +2236,7 @@ def score_decoder(model, kernels):
                "tokens_per_s": DEC_B * DEC_S / float(np.median(times)),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
                "launches": launches,
+               "launches_by_path": gemm_paths(kernels),
                "routes": dict(FB.fused_decoder_block.routes)}
         return out, res
 
@@ -2187,6 +2253,11 @@ def score_decoder(model, kernels):
     if seg["launches"].get("fused_decoder_block"):
         raise AssertionError("score_decoder: the default tier launched the "
                              "block kernel")
+    # the default tier's QKV and MLP at T = 8192: the wgmma ring, every
+    # layer
+    require_paths("score_decoder (default tier)", seg["launches_by_path"],
+                  {("fused_rmsnorm_qkv", "wgmma"): n,
+                   ("fused_mlp", "wgmma"): n, ("fused_mlp", "tile"): 0})
     err = scale = mean = 0.0
     for i in range(DEC_B):                  # one row at a time: 1 GB fp32
         diff = (got[i].float() - ref[i].float()).abs()
@@ -2292,8 +2363,14 @@ def main():
         nvcc_s = _build.build_all()
         emit("build", nvcc_s=nvcc_s, cached=nvcc_s == 0.0,
              seconds=time.perf_counter() - t0, dir=str(_build.BUILD_DIR))
-        emit("ptxas", seconds=time.perf_counter() - t0,
-             kernels=ptxas.result())
+        report = ptxas.result()
+        emit("ptxas", seconds=time.perf_counter() - t0, kernels=report)
+        spills = {k: v for k, v in report.items()
+                  if v.get("spill_stores") or v.get("spill_loads")}
+        if spills or {v["kernel"] for v in report.values()} != \
+                set(PTXAS_KERNELS):
+            raise AssertionError(f"ptxas: spills {spills}, or a kernel "
+                                 f"missing from {sorted(report)}")
 
     timer = Timer(dev)
     res = {"fused_rmsnorm_qkv": {T: kernel_qkv(FB, dev, timer, T)
@@ -2379,6 +2456,9 @@ def main():
                  **{k: decode[k] for k in keys}, "shape": "decode"}
         if 256 in by_t:
             entry["prefill_T256"] = {k: by_t[256][k] for k in keys}
+        if name == "fused_mlp":   # T = 8 on the tile, T = 256 on wgmma
+            entry["path"] = decode["path"]
+            entry["prefill_T256"]["path"] = by_t[256]["path"]
         if name == "fused_rmsnorm_qkv":   # the scoring forward's shape
             entry["forward_T8192"] = {
                 k: train_rows["fused_rmsnorm_qkv_fwd_T8192"][k]
@@ -2421,6 +2501,9 @@ def main():
     # the quant matmul (its other shapes are in the kernels_quant line);
     # launches from each engine's serve_quant run
     src = "paddle_tpu_torch/ops/kernels/csrc/"
+    # (the prefill chunk's T = 256 beside it, on the wgmma design)
+    prefill = {"quant_matmul": "int8 T=256 gate_proj/up_proj bfloat16",
+               "quant_matmul_fp8": "fp8 T=256 gate_proj/up_proj bfloat16"}
     for name, row, rep, n, path in (
             ("quant_matmul", "int8 T=8 gate_proj/up_proj",
              "paddle_tpu/ops/pallas/quant_matmul.py:133",
@@ -2437,10 +2520,18 @@ def main():
         r = quant_rows[row]
         cu = "paged_attention.cu" if name.startswith("paged") else \
             "quant_matmul.cu"
-        line.append({"name": name, "route": "cuda", "source": src + cu,
-                     "replaces": rep, "launches": n,
-                     **{k: r[k] for k in keys}, "shape": r["shape"],
-                     "path": path})
+        entry = {"name": name, "route": "cuda", "source": src + cu,
+                 "replaces": rep, "launches": n, **{k: r[k] for k in keys},
+                 "shape": r["shape"], "path": path}
+        if name in prefill:
+            wmode = "int8" if name == "quant_matmul" else "fp8"
+            entry["kernel_path"] = r["path"]
+            entry["launches_by_path"] = \
+                quant_launches[wmode]["quant_matmul_by_path"]
+            pre = quant_rows[prefill[name]]
+            entry["prefill_T256"] = {**{k: pre[k] for k in keys},
+                                     "kernel_path": pre["path"]}
+        line.append(entry)
     # the MoE training path: the slice's routed shape; launches from the
     # einsum run (the config's default), the index run's beside them
     r = moe_rows["routed bf16"]

@@ -9,7 +9,8 @@ from paddle_tpu_torch.ops.kernels.cross_entropy import (cross_entropy_bwd,
                                                         cross_entropy_fwd)
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
-from paddle_tpu_torch.ops.kernels.fused_block import (fused_decoder_block,
+from paddle_tpu_torch.ops.kernels.fused_block import (GEMM_PATHS,
+                                                      fused_decoder_block,
                                                       fused_ffn, fused_mlp,
                                                       fused_rmsnorm_qkv)
 from paddle_tpu_torch.ops.kernels.grouped_matmul import grouped_expert_ffn
@@ -52,12 +53,15 @@ NORM = (fused_rmsnorm,)
 
 
 def reset_launch_counts():
-    """Set every wrapper's launch count (and per-mode count) and the
-    decoder tier's route counts to 0."""
+    """Set every wrapper's launch count (and its per-mode and per-path
+    counts) and the decoder tier's route counts to 0."""
     for fn in KERNELS:
         fn.launches = 0
     _qm.quant_matmul.launches_by_mode = dict.fromkeys(
         _qm.QUANT_WEIGHT_DTYPES, 0)
+    _qm.quant_matmul.launches_by_path = dict.fromkeys(_qm.QUANT_PATHS, 0)
+    for fn in (fused_rmsnorm_qkv, fused_mlp, fused_ffn):
+        fn.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
     fused_decoder_block.routes = dict.fromkeys(("decoder", "segments"), 0)
 
 

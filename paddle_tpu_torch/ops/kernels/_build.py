@@ -72,7 +72,9 @@ _SIGNATURES = {
                               _I, _I, _F, _I, _P],
     },
     "quant_matmul": {
-        "ptt_quant_matmul": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+        "ptt_quant_matmul": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _P],
+        "ptt_quant_splits": [_I, _I, _I, _I],
     },
     "cross_entropy": {
         "ptt_ce_fwd": [_I, _P, _P, _P, _P, _I, _I, _P],

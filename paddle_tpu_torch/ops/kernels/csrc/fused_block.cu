@@ -1,4 +1,5 @@
-// Fused RMSNorm + QKV projection and the gated SwiGLU MLP, for Hopper.
+// Fused RMSNorm + QKV projection, the gated SwiGLU MLP and fused_ffn, for
+// Hopper.
 //
 // Replaces the Pallas TPU kernels paddle_tpu/ops/pallas/fused_block.py
 // `_qkv_kernel` (:249) and `_mlp_kernel` (:494: gated silu, and the
@@ -41,7 +42,7 @@
 // ring (6 stages for 16-row tiles, 3 for 64-row tiles; rows past T are
 // zero-filled), so each block streams its weight columns without waiting on
 // every load.  Row tiles are 16 rows at decode (one wmma row) and 64 rows
-// for prefill chunks.  bf16 runs on the tensor cores through nvcuda::wmma
+// past 16 (fp32 only: bf16 there is the wgmma GEMM below).  bf16 runs on the tensor cores through nvcuda::wmma
 // 16x16x16 with fp32 accumulators; fp32 runs on the CUDA cores with fp32
 // FMAs (no TF32).  The tile itself is gemm_tile.cuh's, which the
 // whole-block decoder kernel (fused_decoder.cu) calls too.
@@ -70,6 +71,22 @@
 // ms).  Normalising inside the GEMM would make each of the 96 column
 // tiles of a row tile re-read x for its inverse RMS and renormalise
 // every k slice; the GEMM reads xn as it is.
+//
+// The MLP and fused_ffn in bf16 at T > 16 run their three GEMM modes on the
+// same ring (mlp_gemm_kernel, persistent: a block a SM, or two for the
+// 64-row single-weight tile, each walking its tiles so that one tile's
+// stores overlap the next one's loads): gate/up takes two B operands a
+// slot (A 128 x 64, Bg and Bu 64 x 128: 48 KB, four slots) and keeps two
+// accumulators a consumer, writing h = silu(g) * u from fp32 once cast;
+// fused_ffn's up adds the fp32 bias and applies the activation before its
+// cast; the down product adds the optional bias before its cast.  Tiles:
+// 128 x 256 (gate/up 128 x 128 of each weight) where every SM gets two,
+// 128 x 128 where every SM gets one, else 64 x 128; bands of 16 row tiles,
+// a partial last column tile zero-filled by TMA and masked at the store.
+// What bounds the training forward's MLP (T = 8192, d 4096, f 14336): the
+// products, 2.9 TFLOP (2.9 ms at 989 TFLOP/s); a 256-row prefill chunk:
+// the weight bytes (352 MB, 0.105 ms) and the products (90 GFLOP, 0.091
+// ms) about equally.
 // T <= 16 (decode, bound by the weight bytes) and fp32 keep the wmma tile
 // below, as one launch.
 //
@@ -103,9 +120,9 @@ int launch_bm(const GemmArgs& g, int ncols, cudaStream_t stream) {
 template <typename T, int MODE>
 int launch_t(const GemmArgs& g, int ncols, cudaStream_t stream) {
   // decode-sized row counts take one 16-row wmma tile; longer chunks 64
-  // (bf16 QKV past 16 rows is qkv_hopper's)
+  // (bf16 past 16 rows is qkv_hopper's and mlp_hopper's)
   if (g.T <= 16) return launch_bm<T, 16, MODE>(g, ncols, stream);
-  if constexpr (MODE == MODE_QKV && sizeof(T) == 2)
+  if constexpr (sizeof(T) == 2)
     return (int)cudaErrorInvalidValue;
   else
     return launch_bm<T, 64, MODE>(g, ncols, stream);
@@ -258,6 +275,145 @@ int qkv_hopper(const void* x, const void* wn, const void* const w[3],
   return launch_qkv_gemm<1, 128>(p, xn, w, stream);
 }
 
+// -- gate/up, fused_ffn's up and the down product at T > 16 in bf16 ---------
+
+struct MlpParams {
+  CUtensorMap a, b0, b1;   // A; B (the gate, or the one weight); the up
+  bf16* out;               // [T, N]
+  const bf16* bias;        // FFN_UP: b1 [N]; PLAIN: b [N] or null
+  int T, K, N, row_tiles, col_tiles;
+};
+
+// The output tiles of MODE_GATEUP (B = wg and wu, two accumulators),
+// MODE_FFN_UP or MODE_PLAIN on hopper_gemm.cuh's ring, with the epilogue
+// of gemm_tile.cuh's mode in fp32 and one cast.  Persistent: block b
+// takes tiles b, b + gridDim.x, ... in the order of QKV's GEMM
+// (column-major inside bands of kBand row tiles), and its producer loads
+// the next tile while the consumers store this one.  FFN_UP's activation
+// is a template argument: with all three inlined into the unrolled
+// epilogue, the relu kernel ran several times slower than the plain
+// product.
+template <int NC, int BN, int MODE, int ACT>
+__global__ void __launch_bounds__(128 * (NC + 1),
+                                  NC == 1 && MODE != MODE_GATEUP ? 2 : 1)
+mlp_gemm_kernel(const __grid_constant__ MlpParams p) {
+  using namespace ptt::hopper;
+  constexpr int NB = MODE == MODE_GATEUP ? 2 : 1;
+  using P = GemmPlan<NC, BN, kStages, NB>;
+  extern __shared__ unsigned char smem_raw[];
+  const auto ring = gemm_ring<NC, BN, kStages, NB>(smem_raw);
+  const int tiles = p.row_tiles * p.col_tiles, band = kBand * p.col_tiles;
+  auto origin = [&](int t, int& m0, int& n0) {
+    const int first = t / band * kBand;
+    const int rows_in = min(kBand, p.row_tiles - first);
+    const int in = t % band;
+    m0 = (first + in % rows_in) * P::BM;
+    n0 = in / rows_in * BN;
+  };
+  int it = 0, m0, n0;
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    if constexpr (NC == 2) regs_dec<40>();
+    if (threadIdx.x == 0)
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        origin(t, m0, n0);
+        gemm_produce(ring, &p.a, &p.b0, m0, n0, p.K, &p.b1, it);
+      }
+    return;
+  }
+  if constexpr (NC == 2) regs_inc<232>();
+  const int c = threadIdx.x / 128 - 1;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32 % 4;
+  float acc[BN / 2];
+  float acc1[NB == 2 ? BN / 2 : 1];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    origin(t, m0, n0);
+    gemm_consume(ring, p.K, c, acc, acc1, it);
+    // epilogue: fp32 values, one cast, bf16 pairs from the fragment,
+    // masked past T and past N
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + 64 * c + 16 * w + lane / 4 + 8 * hh;
+      if (row >= p.T) continue;
+      uint32_t* orow = reinterpret_cast<uint32_t*>(p.out + (size_t)row * p.N);
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int col = n0 + 8 * i + 2 * (lane % 4);
+        if (col >= p.N) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = acc[4 * i + 2 * hh + e];
+          if constexpr (MODE == MODE_GATEUP) {
+            const float sg = 1.f / (1.f + expf(-v[e]));
+            v[e] = (v[e] * sg) * acc1[NB == 2 ? 4 * i + 2 * hh + e : 0];
+          } else {
+            if (p.bias != nullptr) v[e] += __bfloat162float(p.bias[col + e]);
+            if constexpr (MODE == MODE_FFN_UP) v[e] = activate(v[e], ACT);
+          }
+        }
+        orow[col / 2] = ptt::hopper::pack_bf16(v[0], v[1]);
+      }
+    }
+  }
+}
+
+template <int NC, int BN, int MODE, int ACT>
+int launch_mlp_gemm(MlpParams& p, const void* a, const void* b0,
+                    const void* b1, cudaStream_t stream) {
+  constexpr int NB = MODE == MODE_GATEUP ? 2 : 1;
+  using P = ptt::hopper::GemmPlan<NC, BN, kStages, NB>;
+  const uint64_t adims[2] = {(uint64_t)p.K, (uint64_t)p.T};
+  const uint64_t astride[1] = {(uint64_t)p.K * 2};
+  const uint32_t abox[2] = {64, (uint32_t)P::BM};
+  cudaError_t e = ptt::hopper::make_map(&p.a, a, 2, adims, astride, abox);
+  const uint64_t bdims[2] = {(uint64_t)p.N, (uint64_t)p.K};
+  const uint64_t bstride[1] = {(uint64_t)p.N * 2};
+  const uint32_t bbox[2] = {64, 64};
+  if (e == cudaSuccess)
+    e = ptt::hopper::make_map(&p.b0, b0, 2, bdims, bstride, bbox);
+  if (e == cudaSuccess && NB == 2)
+    e = ptt::hopper::make_map(&p.b1, b1, 2, bdims, bstride, bbox);
+  if (e != cudaSuccess) return (int)e;
+  p.row_tiles = (p.T + P::BM - 1) / P::BM;
+  p.col_tiles = (p.N + BN - 1) / BN;
+  auto kern = mlp_gemm_kernel<NC, BN, MODE, ACT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)P::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // as many blocks as are resident at once (two a SM for the 64-row
+  // single-weight tile, else one), each walking its share of the tiles
+  const int per_sm = NC == 1 && NB == 1 ? 2 : 1;
+  const int grid = min(p.row_tiles * p.col_tiles, per_sm * sm_count());
+  kern<<<grid, P::THREADS, P::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// C [T, N] = A [T, K] . B [K, N] with MODE's epilogue (ACT: FFN_UP's
+// activation).  The tile: 128 rows x 256 columns (gate/up: 128 of each
+// weight) where every SM gets two tiles; else 128 x 128 where every SM
+// gets one; else 64 x 128 (a down product of few columns at a 256-row
+// chunk: 128 tiles), so a chunk bound by the weight bytes still spreads
+// over the card.
+template <int MODE, int ACT>
+int mlp_hopper(const void* a, const void* b0, const void* b1,
+               const void* bias, void* out, int T, int K, int N,
+               cudaStream_t stream) {
+  if (K % 64 != 0 || N % 64 != 0) return (int)cudaErrorInvalidValue;
+  MlpParams p{};
+  p.out = static_cast<bf16*>(out);
+  p.bias = static_cast<const bf16*>(bias);
+  p.T = T;
+  p.K = K;
+  p.N = N;
+  constexpr int WIDE = MODE == MODE_GATEUP ? 128 : 256;
+  const int rows = (T + 127) / 128, sms = sm_count();
+  if (rows * ((N + WIDE - 1) / WIDE) >= 2 * sms)
+    return launch_mlp_gemm<2, WIDE, MODE, ACT>(p, a, b0, b1, stream);
+  if (rows * ((N + 127) / 128) >= sms)
+    return launch_mlp_gemm<2, 128, MODE, ACT>(p, a, b0, b1, stream);
+  return launch_mlp_gemm<1, 128, MODE, ACT>(p, a, b0, b1, stream);
+}
+
 // -- the descriptor check of hopper.cuh ---------------------------------------
 
 // C [64, N] fp32 = A [64, 64] . B on one warpgroup, the operands through
@@ -265,11 +421,15 @@ int qkv_hopper(const void* x, const void* wn, const void* const w[3],
 // as flash's K rows; N = 64 is every score tile of the flash forward and
 // backward: S, dP, S^T, dP^T), mode 1 B as [64, N] (MN-major, as the
 // weights and flash's V), mode 2 as mode 1 with A from registers (N = 128,
-// as flash's P V, dS K, P^T dO and dS^T Q).  tests/test_torch_cuda.py
-// holds it against torch.matmul.
+// as flash's P V, dS K, P^T dO and dS^T Q), modes 3 and 4 B as [64, N]
+// int8 (3) or e4m3 (4) bytes that the threads up-convert into the swizzled
+// MN-major tile themselves (w8_store_sw128, as the quant matmul's prefill
+// GEMM does), then the proxy fence and a barrier before wgmma reads it.
+// tests/test_torch_cuda.py holds it against torch.matmul.
 struct CheckParams {
   CUtensorMap a, b;
   const bf16* a_raw;
+  const unsigned char* b_raw;   // modes 3, 4
   float* c;
 };
 
@@ -287,13 +447,23 @@ wgmma_check_kernel(const __grid_constant__ CheckParams p) {
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect_tx(&bar, 8192 + N * 128);
+    mbar_expect_tx(&bar, 8192 + (MODE >= 3 ? 0 : N * 128));
     tma_load_2d(As, &p.a, &bar, 0, 0);
     if (MODE == 0)
       tma_load_2d(Bs, &p.b, &bar, 0, 0);
-    else
+    else if (MODE <= 2)
       for (int j = 0; j < N / 64; ++j)
         tma_load_2d(Bs + j * 8192, &p.b, &bar, 64 * j, 0);
+  }
+  if constexpr (MODE >= 3) {
+    for (int u = threadIdx.x; u < 64 * N / 16; u += 128) {
+      const int k = u / (N / 16), n = u % (N / 16) * 16;
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(p.b_raw + (size_t)k * N + n);
+      w8_store_sw128<MODE == 4>(Bs, k, n, raw);
+    }
+    fence_proxy_async();
+    __syncthreads();
   }
   const int t = threadIdx.x, lane = t % 32, r0 = 16 * (t / 32) + lane / 4;
   uint32_t af[4][4];
@@ -383,6 +553,9 @@ int ptt_rmsnorm_qkv(int dtype, const void* x, const void* wn, const void* wq,
 // h = silu(x @ wg) * (x @ wu); x [T, d], wg/wu [d, f], h [T, f].
 int ptt_mlp_gate_up(int dtype, const void* x, const void* wg, const void* wu,
                     void* h, int T, int d, int f, void* stream) {
+  if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT)
+    return mlp_hopper<MODE_GATEUP, 0>(x, wg, wu, nullptr, h, T, d, f,
+                                      static_cast<cudaStream_t>(stream));
   GemmArgs g{x, wg, wu, nullptr, nullptr, h, nullptr, nullptr, T, d, f, 0,
              0.f};
   return launch<MODE_GATEUP>(dtype, g, f, stream);
@@ -391,6 +564,9 @@ int ptt_mlp_gate_up(int dtype, const void* x, const void* wg, const void* wu,
 // y = a @ w (+ b); a [T, K], w [K, N], b [N] or null, y [T, N].
 int ptt_matmul(int dtype, const void* a, const void* w, const void* b,
                void* y, int T, int K, int N, void* stream) {
+  if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT)
+    return mlp_hopper<MODE_PLAIN, 0>(a, w, nullptr, b, y, T, K, N,
+                                     static_cast<cudaStream_t>(stream));
   GemmArgs g{a, w, nullptr, nullptr, nullptr, y, nullptr, nullptr, T, K, N, 0,
              0.f};
   g.bias = b;
@@ -403,6 +579,17 @@ int ptt_ffn_up(int dtype, const void* x, const void* w1, const void* b1,
                void* h, int T, int d, int f, int act, void* stream) {
   if (act < ACT_RELU || act > ACT_SILU || b1 == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (act == ACT_RELU)
+      return mlp_hopper<MODE_FFN_UP, ACT_RELU>(x, w1, nullptr, b1, h, T, d,
+                                               f, s);
+    if (act == ACT_GELU)
+      return mlp_hopper<MODE_FFN_UP, ACT_GELU>(x, w1, nullptr, b1, h, T, d,
+                                               f, s);
+    return mlp_hopper<MODE_FFN_UP, ACT_SILU>(x, w1, nullptr, b1, h, T, d, f,
+                                             s);
+  }
   GemmArgs g{x, w1, nullptr, nullptr, nullptr, h, nullptr, nullptr, T, d, f, 0,
              0.f};
   g.bias = b1;
@@ -412,26 +599,34 @@ int ptt_ffn_up(int dtype, const void* x, const void* w1, const void* b1,
 
 // hopper.cuh's descriptor check: c [64, n] fp32 = a [64, 64] . b (bf16);
 // b is [n, 64] (B^T) in mode 0, [64, n] in modes 1 and 2 (mode 2: a from
-// registers, n = 128 only); n 128 or 256, and 64 in mode 0.
+// registers, n = 128 only), [64, n] int8 (mode 3) or e4m3 (mode 4) bytes
+// converted by the threads; n 128 or 256, and 64 in mode 0.
 int ptt_wgmma_check(int mode, const void* a, const void* b, void* c, int n,
                     void* stream) {
-  if (!((mode == 0 || mode == 1) && (n == 128 || n == 256)) &&
+  if (!((mode == 0 || mode == 1 || mode == 3 || mode == 4) &&
+        (n == 128 || n == 256)) &&
       !(mode == 2 && n == 128) && !(mode == 0 && n == 64))
     return (int)cudaErrorInvalidValue;
   CheckParams p{};
   p.a_raw = static_cast<const bf16*>(a);
+  p.b_raw = static_cast<const unsigned char*>(b);
   p.c = static_cast<float*>(c);
   const uint64_t adims[2] = {64, 64}, astride[1] = {128};
   const uint32_t abox[2] = {64, 64};
   cudaError_t e = ptt::hopper::make_map(&p.a, a, 2, adims, astride, abox);
   if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode >= 3) {
+    if (mode == 3) return n == 128 ? launch_check<128, 3>(p, s)
+                                   : launch_check<256, 3>(p, s);
+    return n == 128 ? launch_check<128, 4>(p, s) : launch_check<256, 4>(p, s);
+  }
   const uint64_t bdims[2] = {mode == 0 ? 64u : (uint64_t)n,
                              mode == 0 ? (uint64_t)n : 64u};
   const uint64_t bstride[1] = {mode == 0 ? 128u : (uint64_t)n * 2};
   const uint32_t bbox[2] = {64, mode == 0 ? (uint32_t)n : 64u};
   e = ptt::hopper::make_map(&p.b, b, 2, bdims, bstride, bbox);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 0) return n == 64    ? launch_check<64, 0>(p, s)
                         : n == 128 ? launch_check<128, 0>(p, s)
                                    : launch_check<256, 0>(p, s);

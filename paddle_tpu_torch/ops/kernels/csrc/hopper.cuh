@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's wgmma / TMA kernels, shared
-// by flash_attention.cu (the bf16 flash forward, dq and dk/dv) and, through
-// hopper_gemm.cuh, fused_block.cu (the RMSNorm+QKV GEMM):
+// by flash_attention.cu (the bf16 flash forward, dq and dk/dv),
+// quant_matmul.cu (the bf16 prefill GEMM over 8-bit weights) and, through
+// hopper_gemm.cuh, fused_block.cu (the QKV, MLP and fused_ffn GEMMs):
 //   - mbarriers: init, expect-tx, arrive and a parity wait;
 //   - TMA: cp.async.bulk.tensor loads of 2-d and 4-d boxes into shared
 //     memory and 1-d bulk copies, completed on an mbarrier, and the
@@ -10,9 +11,12 @@
 //     fence / commit / wait, and the m64nNk16 bf16 products with fp32
 //     accumulators in registers (A from shared memory or from registers);
 //   - setmaxnreg, to move registers from a producer warpgroup to the
-//     consumers.
+//     consumers;
+//   - tiles that threads write for wgmma: 8-bit weights up-converted to
+//     bf16 in registers and stored in TMA's swizzled layout, and the proxy
+//     fence between those stores and wgmma's reads.
 //
-// Operand tiles.  Every operand tile is written by TMA with
+// Operand tiles.  Every bf16 operand tile is written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B: boxes of 64 bf16 (128 bytes) along the
 // contiguous dimension, one 128-byte row per element of the other
 // dimension, 8 rows to a 1024-byte swizzle atom; every tile starts on a
@@ -26,7 +30,8 @@
 //            64-column chunks along N, SBO = 1024 bytes between 8-row
 //            groups along K.  A k16 step is +16 rows = +2048 bytes.
 // fused_block.cu's ptt_wgmma_check holds one 64 x N x 64 product of each
-// kind against torch.matmul on the card.
+// kind against torch.matmul on the card, and one whose B tile threads
+// converted from int8 (w8_store_sw128).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums: types only
@@ -355,6 +360,75 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "n"(TB));
 }
 
+// -- threads writing operand tiles ------------------------------------------
+
+// after threads write shared memory that wgmma or TMA (the async proxy)
+// will read or overwrite: each thread fences, then signals (a barrier or
+// an mbarrier arrival) the threads that issue the async operation
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 8-bit weights up-converted exactly.  Byte i (0..3) of the word w as an
+// fp32 value: int8 through the 2^23 magic number (w's bytes biased by
+// 128, placed under the exponent of 2^23, 2^23 + 128 subtracted), e4m3
+// by moving its exponent and mantissa into fp32's fields (the value is
+// then 2^-120 of the e4m3 value, subnormals included) and scaling by
+// 2^120.  Both are exact, and the value fits bf16 (pack_bf16_exact).
+template <bool FP8>
+__device__ __forceinline__ float w8_to_f(uint32_t w, int i) {
+  if constexpr (FP8) {
+    const uint32_t b = w >> (8 * i);
+    return __uint_as_float(((b & 0x80u) << 24) | ((b & 0x7Fu) << 20)) *
+           0x1p120f;
+  } else {
+    return __uint_as_float(
+               __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7540 + i)) -
+           8388736.f;
+  }
+}
+
+// byte c (0..15) of a 16-byte vector as fp32
+template <bool FP8>
+__device__ __forceinline__ float w8_at(const uint4& v, int c) {
+  const uint32_t w = c < 4 ? v.x : c < 8 ? v.y : c < 12 ? v.z : v.w;
+  return w8_to_f<FP8>(w, c % 4);
+}
+
+// two fp32 values that bf16 holds exactly (an int8 or e4m3 value has at
+// most 8 significant bits, so the low 16 bits of its fp32 are zero) as a
+// bf16 pair, low half first: their high halves, one byte permute in
+// place of a conversion
+__device__ __forceinline__ uint32_t pack_bf16_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// bytes c and c + 1 of a 16-byte vector as a bf16 pair (c even)
+template <bool FP8>
+__device__ __forceinline__ uint32_t w8_pair(const uint4& v, int c) {
+  return pack_bf16_exact(w8_at<FP8>(v, c), w8_at<FP8>(v, c + 1));
+}
+
+// 16 weight bytes of row k (the reduction index), columns n .. n + 15 (n
+// a multiple of 16) up-converted into a bf16 B tile laid out as TMA's
+// 128-byte swizzle writes it for desc_mnmajor: 64-column chunks of 8192
+// bytes, row k at k * 128 in its chunk, the 16-byte unit u (columns 8 u
+// .. 8 u + 7 of the chunk) at unit u ^ (k % 8).
+template <bool FP8>
+__device__ __forceinline__ void w8_store_sw128(unsigned char* tile, int k,
+                                               int n, const uint4& raw) {
+  unsigned char* row = tile + (n / 64) * 8192 + k * 128;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int u = (n % 64) / 8 + h;
+    uint4 o;
+    o.x = w8_pair<FP8>(raw, 8 * h + 0);
+    o.y = w8_pair<FP8>(raw, 8 * h + 2);
+    o.z = w8_pair<FP8>(raw, 8 * h + 4);
+    o.w = w8_pair<FP8>(raw, 8 * h + 6);
+    *reinterpret_cast<uint4*>(row + 16 * (u ^ (k % 8))) = o;
+  }
+}
 
 }  // namespace hopper
 }  // namespace ptt
@@ -390,24 +464,41 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
+inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type,
+                          CUtensorMapSwizzle swizzle, const void* base,
+                          int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base),
+                  reinterpret_cast<const cuuint64_t*>(dims),
+                  reinterpret_cast<const cuuint64_t*>(strides),
+                  reinterpret_cast<const cuuint32_t*>(box), elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // a bf16 tensor map with 128-byte swizzle and zero fill out of bounds:
 // `rank` dimensions innermost first, the byte strides of dimensions
 // 1..rank-1, and the box (box[0] = 64 elements: one 128-byte row)
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
                             const uint32_t* box) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                  const_cast<void*>(base),
-                  reinterpret_cast<const cuuint64_t*>(dims),
-                  reinterpret_cast<const cuuint64_t*>(strides),
-                  reinterpret_cast<const cuuint32_t*>(box), elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides, box);
+}
+
+// a 2-d map of 8-bit values (int8 or e4m3 weights, read as bytes) without
+// swizzle: the box lands row-major, box[0] bytes a row (a multiple of 16,
+// at most 256); out-of-bounds bytes are zero, which both types read as 0
+inline cudaError_t make_map_u8(CUtensorMap* map, const void* base,
+                               const uint64_t* dims, const uint64_t* strides,
+                               const uint32_t* box) {
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                CU_TENSOR_MAP_SWIZZLE_NONE, base, 2, dims, strides, box);
 }
 
 }  // namespace hopper

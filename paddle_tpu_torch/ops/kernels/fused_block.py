@@ -48,12 +48,25 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
            "ffn_reference", "decoder_reference", "decoder_segments",
            "fused_block_tier", "fused_decoder_eligible",
            "decoder_workspace_bytes", "FusedRMSNormQKV", "FusedMLP",
-           "FusedFFN", "FusedDecoderBlock", "SUPPORTED_ACTS"]
+           "FusedFFN", "FusedDecoderBlock", "SUPPORTED_ACTS", "GEMM_PATHS",
+           "gemm_path"]
 
 # the smallest row count at which the bf16 QKV kernel runs as a row pass
 # and a wgmma GEMM (csrc/fused_block.cu, kRowPassMinT); the forward
-# variant's normalised rows then go to a workspace
+# variant's normalised rows then go to a workspace.  The bf16 MLP and
+# fused_ffn take the wgmma GEMM from the same row count.
 ROW_PASS_MIN_T = 17
+# the designs a launch of QKV, the MLP or fused_ffn takes, counted in each
+# wrapper's `launches_by_path`
+GEMM_PATHS = ("wgmma", "tile")
+
+
+def gemm_path(T: int, dtype) -> str:
+    """``wgmma`` (the TMA / wgmma ring of ``csrc/hopper_gemm.cuh``) for
+    bf16 at ``ROW_PASS_MIN_T`` rows or more, else ``tile`` (the wmma or
+    fp32 tile of ``csrc/gemm_tile.cuh``)."""
+    return "wgmma" if dtype == torch.bfloat16 and T >= ROW_PASS_MIN_T \
+        else "tile"
 
 # fused_ffn's activations and their codes in csrc/fused_block.cu (enum Act)
 ACT_CODES = {"relu": 0, "gelu": 1, "silu": 2}
@@ -199,6 +212,7 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
             float(epsilon), _build.stream_of(x))
         _build.check(lib, err, what)
         fused_rmsnorm_qkv.launches += 1
+        fused_rmsnorm_qkv.launches_by_path[gemm_path(T, x.dtype)] += 1
     out = (q.reshape(*lead, dq), k.reshape(*lead, dkv),
            v.reshape(*lead, dkv))
     if residuals:
@@ -207,6 +221,7 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
 
 
 fused_rmsnorm_qkv.launches = 0
+fused_rmsnorm_qkv.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
 def fused_mlp(x, w_gate, w_up, w_down):
@@ -215,7 +230,9 @@ def fused_mlp(x, w_gate, w_up, w_down):
     x ``[..., d]``; w_gate/w_up ``[d, f]``; w_down ``[f, d]``.  On the
     card this is two launches: gate/up with the activation product
     written to a ``[T, f]`` workspace in x's dtype, then the down
-    product (``csrc/fused_block.cu`` says why)."""
+    product (``csrc/fused_block.cu`` says why); both on the wgmma / TMA
+    ring in bf16 at ``ROW_PASS_MIN_T`` rows or more, else on the wmma
+    (bf16) or fp32 tile."""
     if x.device.type == "cpu":
         return mlp_reference(x, w_gate, w_up, w_down)
     what = "fused_mlp"
@@ -245,10 +262,12 @@ def fused_mlp(x, w_gate, w_up, w_down):
                              y.data_ptr(), T, f, d, stream)
         _build.check(lib, err, what + " (down)")
         fused_mlp.launches += 1
+        fused_mlp.launches_by_path[gemm_path(T, x.dtype)] += 1
     return y.reshape(x.shape)
 
 
 fused_mlp.launches = 0
+fused_mlp.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
 def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
@@ -296,10 +315,12 @@ def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
                              b2.data_ptr(), y.data_ptr(), T, f, d, stream)
         _build.check(lib, err, what + " (down)")
         fused_ffn.launches += 1
+        fused_ffn.launches_by_path[gemm_path(T, x.dtype)] += 1
     return y.reshape(x.shape)
 
 
 fused_ffn.launches = 0
+fused_ffn.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
 # -- custom VJPs --------------------------------------------------------------

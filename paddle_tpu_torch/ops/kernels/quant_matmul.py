@@ -6,12 +6,21 @@ Counterpart of ``paddle_tpu/ops/pallas/quant_matmul.py``:
 ``quant_matmul_pallas``).  The weight is int8 or ``float8_e4m3fn`` in the
 ``[in, out]`` layout with one fp32 scale per output channel.  A tensor on
 the CPU takes the plain version; a CUDA tensor launches the kernel or
-raises.  The wrapper counts its launches in ``quant_matmul.launches`` and,
-per weight mode, in ``quant_matmul.launches_by_mode``.
+raises.  The wrapper counts its launches in ``quant_matmul.launches``,
+per weight mode in ``quant_matmul.launches_by_mode`` and per kernel
+design in ``quant_matmul.launches_by_path``: ``splitk`` (bf16, T <= 16),
+``wgmma`` (bf16, T > 16) and ``tile`` (fp32 io), the counterpart of the
+TPU package's ``record_path``.
 
-The TPU package's autotune axis, ``record_path`` counter and
-``verify_static`` check are TPU tooling and are not ported (ROADMAP.md,
-queue 1); the launch counts take the place of the path counter."""
+Split-K takes a workspace: ``splitk_splits`` fp32 partials of the output
+(``splits * T * N * 4`` bytes, 1.2 MB for q/o at T = 8, 16 MB for the
+lm_head at T = 16), allocated per call where there is more than one
+split, and one int32 ticket per 128-column tile, kept per device and
+zero between launches (the kernel's last block of a tile resets it), so
+two launches that share a device must not run at once on two streams.
+
+The TPU package's autotune axis and ``verify_static`` check are TPU
+tooling and are not ported (ROADMAP.md, queue 1)."""
 
 from __future__ import annotations
 
@@ -20,9 +29,53 @@ import torch
 from paddle_tpu_torch.ops.kernels import _build
 
 __all__ = ["quant_matmul", "quant_matmul_reference", "weight_dtype",
-           "QUANT_WEIGHT_DTYPES"]
+           "kernel_path", "splitk_splits",
+           "QUANT_WEIGHT_DTYPES", "QUANT_PATHS", "SPLITK_MAX_T"]
 
 QUANT_WEIGHT_DTYPES = ("int8", "fp8")
+QUANT_PATHS = ("splitk", "wgmma", "tile")
+
+# csrc/quant_matmul.cu's split-K constants: the largest T it takes
+# (kSplitKMaxT), the output columns of a block (kSkBN), and the split
+# rule's blocks per SM (kSplitFactor), least 64-deep slices a split
+# (kMinSlices) and deepest split (kMaxSplitDepth)
+SPLITK_MAX_T = 16
+SPLITK_BN = 128
+SPLIT_FACTOR = 2
+MIN_SLICES = 4
+MAX_SPLIT_DEPTH = 2048
+
+
+def kernel_path(T: int, dtype) -> str:
+    """The design a launch of T rows in io dtype `dtype` takes."""
+    if dtype != torch.bfloat16:
+        return "tile"
+    return "splitk" if T <= SPLITK_MAX_T else "wgmma"
+
+
+def splitk_splits(K: int, N: int, sms: int) -> int:
+    """The K splits of the split-K kernel (``splitk_splits`` in the
+    source): enough blocks for SPLIT_FACTOR a SM over the 128-column
+    tiles, at least MIN_SLICES 64-deep slices a split, none deeper than
+    MAX_SPLIT_DEPTH, never more splits than slices."""
+    tiles = -(-N // SPLITK_BN)
+    slices = K // 64
+    s = -(-(SPLIT_FACTOR * sms) // tiles)
+    s = min(s, max(1, slices // MIN_SLICES))
+    s = max(s, -(-K // MAX_SPLIT_DEPTH))
+    return min(s, slices)
+
+
+_TICKETS = {}
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    """The per-device split-K tickets, at least `n` of them, all zero."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return t
 
 
 def weight_dtype(mode: str) -> torch.dtype:
@@ -85,15 +138,26 @@ def quant_matmul(x, qw, scale, mode: str = "int8"):
     y = torch.empty((T, N), dtype=x.dtype, device=x.device)
     if T:
         lib = _build.library("quant_matmul")
+        code = _build.DTYPE_CODES[x.dtype]
+        ws = tickets = None
+        splits = lib.ptt_quant_splits(code, T, K, N)
+        if splits > 1:
+            ws = torch.empty(splits * T * N, dtype=torch.float32,
+                             device=x.device)
+            tickets = _tickets(x.device, -(-N // SPLITK_BN))
         err = lib.ptt_quant_matmul(
-            _build.DTYPE_CODES[x.dtype], _build.WEIGHT_CODES[wdt],
-            x2.data_ptr(), qw.data_ptr(), scale.data_ptr(), y.data_ptr(), T,
-            K, N, _build.stream_of(x))
+            code, _build.WEIGHT_CODES[wdt], x2.data_ptr(), qw.data_ptr(),
+            scale.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), T, K, N,
+            _build.stream_of(x))
         _build.check(lib, err, what)
         quant_matmul.launches += 1
         quant_matmul.launches_by_mode[mode] += 1
+        quant_matmul.launches_by_path[kernel_path(T, x.dtype)] += 1
     return y.reshape(*x.shape[:-1], N)
 
 
 quant_matmul.launches = 0
 quant_matmul.launches_by_mode = dict.fromkeys(QUANT_WEIGHT_DTYPES, 0)
+quant_matmul.launches_by_path = dict.fromkeys(QUANT_PATHS, 0)

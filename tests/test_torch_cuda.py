@@ -1331,3 +1331,146 @@ def test_flash_and_qkv_wrappers_raise_when_the_library_fails(
     with pytest.raises(RuntimeError, match=match):
         FB.fused_rmsnorm_qkv(x, w[0].contiguous(), w, w, w)
     assert n == [fn.launches for fn in wrappers]
+
+
+# -- the Hopper redesigns: quant matmul split-K / wgmma, MLP and FFN GEMMs -----
+
+# the quant matmul's bf16 limit (chip_smoke.py QUANT_MM_TOL): codes
+# up-convert exactly, so kernel and plain version differ by the fp32
+# summation order and one bf16 rounding
+QUANT_MM_TOL = (2e-3, 2 ** -7)
+
+
+@pytest.mark.parametrize("mode,n", [(3, 128), (3, 256), (4, 128), (4, 256)])
+def test_wgmma_converted_8bit_b_matches_matmul(dev, mode, n):
+    """The check's B tile converted by the threads from int8 (mode 3) or
+    e4m3 (mode 4) bytes into TMA's swizzled MN-major layout (the quant
+    matmul's prefill GEMM), behind the proxy fence, against torch.matmul
+    of the up-converted values: products exact, fp32 sums in another
+    order."""
+    rng = np.random.default_rng(mode * 11 + n)
+    a = _t(rng, (64, 64), torch.bfloat16, dev)
+    if mode == 3:
+        b = torch.as_tensor(rng.integers(-128, 128, (64, n)),
+                            dtype=torch.int8).to(dev)
+    else:
+        b = _t(rng, (64, n), torch.float32, dev, 40.0).to(
+            torch.float8_e4m3fn)
+        b[0, :8] = torch.tensor([0.0, -0.0, 2 ** -9, -2 ** -7, 448.0,
+                                 -448.0, 0.875 * 2 ** -6, 1.0])
+    c = torch.empty((64, n), dtype=torch.float32, device=dev)
+    lib = _build.library("fused_block")
+    _build.check(lib, lib.ptt_wgmma_check(mode, a.data_ptr(), b.data_ptr(),
+                                          c.data_ptr(), n,
+                                          _build.stream_of(a)),
+                 "ptt_wgmma_check")
+    torch.cuda.synchronize()
+    ref = a.float() @ b.float()
+    np.testing.assert_allclose(c.cpu().numpy(), ref.cpu().numpy(),
+                               atol=1e-4 * float(ref.abs().max()), rtol=1e-5)
+
+
+# (T, K, N): the split-K classes (T <= 8 and <= 16; one 64-deep slice;
+# splits capped by their slices; a partial 128-column tile; the decode
+# step's k/v and down shapes) and the wgmma classes (a one-row-past-16
+# chunk in the 64-row tile, one row past it in a 128-row tile, a partial
+# last row tile, a partial column tile, the 256 x 128 tile with both
+# partial, the 128 x 256 tile)
+QUANT_HOPPER_SHAPES = [(1, 64, 64), (8, 64, 320), (16, 256, 192),
+                       (8, 4096, 1024), (3, 14336, 4096), (12, 2048, 4160),
+                       (17, 128, 320), (65, 256, 320), (150, 4096, 1024),
+                       (256, 512, 192), (150, 256, 8640), (2048, 512, 8192)]
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("T,K,N", QUANT_HOPPER_SHAPES)
+def test_quant_matmul_hopper_matches_plain(dev, mode, T, K, N):
+    """bf16: split-K at T <= 16, wgmma past 16, against
+    quant_matmul_reference within QUANT_MM_TOL; the launch counted under
+    its path."""
+    rng = np.random.default_rng(T + K + 7 * N)
+    x = _t(rng, (T, K), torch.bfloat16, dev)
+    qw, scale = quantize_linear_weight(
+        _t(rng, (K, N), torch.float32, dev, K ** -0.5), mode)
+    path = QM.kernel_path(T, torch.bfloat16)
+    assert path == ("splitk" if T <= 16 else "wgmma")
+    n0 = dict(QM.quant_matmul.launches_by_path)
+    got = QM.quant_matmul(x, qw, scale, mode=mode)
+    n0[path] += 1
+    assert QM.quant_matmul.launches_by_path == n0
+    _close_tol(got, QM.quant_matmul_reference(x, qw, scale), QUANT_MM_TOL)
+
+
+def test_quant_matmul_splitk_is_deterministic(dev):
+    """The split partials are summed by the last block of each column
+    tile in split order: two calls on the same inputs are bitwise equal,
+    at several splits (q/o: 9, gate/up: 3, lm_head: 2)."""
+    rng = np.random.default_rng(5)
+    for K, N in ((4096, 4096), (4096, 14336), (4096, 128256)):
+        x = _t(rng, (8, K), torch.bfloat16, dev)
+        qw, scale = quantize_linear_weight(
+            _t(rng, (K, N), torch.float32, dev, K ** -0.5), "int8")
+        a = QM.quant_matmul(x, qw, scale)
+        b = QM.quant_matmul(x, qw, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def test_quant_splits_agree_with_the_model(dev):
+    """The C entry's split count is the wrapper's model of the rule
+    (splitk_splits at the card's SM count), and 0 where no workspace is
+    taken (fp32, T > 16)."""
+    lib = _build.library("quant_matmul")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for K, N in ((64, 64), (4096, 1024), (4096, 4096), (4096, 14336),
+                 (14336, 4096), (4096, 128256), (2048, 4160)):
+        assert lib.ptt_quant_splits(1, 8, K, N) == \
+            QM.splitk_splits(K, N, sms), (K, N)
+    assert lib.ptt_quant_splits(1, 17, 4096, 4096) == 0
+    assert lib.ptt_quant_splits(0, 8, 4096, 4096) == 0
+
+
+# (T, d, f): f = 320 and 1408 leave a partial last column tile in every
+# tile width; T = 150 a partial last row tile; 8192 x 2048 x 1408 takes
+# the 128 x 256 (gate/up 128 x 128 x 2) tiles in both launches
+MLP_HOPPER_SHAPES = [(17, 256, 320), (150, 128, 192), (256, 512, 1408),
+                     (8192, 2048, 1408)]
+
+
+@pytest.mark.parametrize("T,d,f", MLP_HOPPER_SHAPES)
+def test_mlp_hopper_matches_plain(dev, T, d, f):
+    """bf16 at T > 16: gate/up (two B operands a slot) and the down
+    product on the wgmma ring against mlp_reference; one launch counted
+    a call, under ``wgmma``."""
+    rng = np.random.default_rng(T + d + f)
+    x = _t(rng, (T, d), torch.bfloat16, dev)
+    wg = _t(rng, (d, f), torch.bfloat16, dev, d ** -0.5)
+    wu = _t(rng, (d, f), torch.bfloat16, dev, d ** -0.5)
+    wd = _t(rng, (f, d), torch.bfloat16, dev, f ** -0.5)
+    n0 = dict(FB.fused_mlp.launches_by_path)
+    got = FB.fused_mlp(x, wg, wu, wd)
+    n0["wgmma"] += 1
+    assert FB.fused_mlp.launches_by_path == n0
+    _close(got, FB.mlp_reference(x, wg, wu, wd), torch.bfloat16)
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu", "silu"])
+@pytest.mark.parametrize("T,d,f", MLP_HOPPER_SHAPES)
+def test_fused_ffn_hopper_matches_plain(dev, act, T, d, f):
+    """bf16 at T > 16: fused_ffn's up (bias and activation in the
+    epilogue) and down (its bias) on the wgmma ring against
+    ffn_reference; under ``wgmma``, and the tile below 17 rows."""
+    rng = np.random.default_rng(T + d + f + len(act))
+    x = _t(rng, (T, d), torch.bfloat16, dev)
+    w1 = _t(rng, (d, f), torch.bfloat16, dev, d ** -0.5)
+    w2 = _t(rng, (f, d), torch.bfloat16, dev, f ** -0.5)
+    b1 = _t(rng, (f,), torch.bfloat16, dev, 0.5)
+    b2 = _t(rng, (d,), torch.bfloat16, dev, 0.5)
+    n0 = dict(FB.fused_ffn.launches_by_path)
+    _close(FB.fused_ffn(x, w1, w2, b1, b2, act),
+           FB.ffn_reference(x, w1, b1, w2, b2, act), torch.bfloat16)
+    _close(FB.fused_ffn(x[:16], w1, w2, b1, b2, act),
+           FB.ffn_reference(x[:16], w1, b1, w2, b2, act), torch.bfloat16)
+    n0["wgmma"] += 1
+    n0["tile"] += 1
+    assert FB.fused_ffn.launches_by_path == n0
