@@ -83,8 +83,9 @@ train_moe two, one per engine or dispatch mode):
 8. moe     the MoE slice at ERNIE-4.5-21B-A3B width.  kernels_moe (with
             the kernel phases): the grouped expert FFN against its plain
             version at the step's shape (G = E = 64, C = 960, d = 2560,
-            h = 1536, bf16, counts of a real routing), with counts 0, C
-            and partial, in fp32 at C = 64 and with G = 2E, each timed
+            h = 1536, bf16 on the wgmma ring, counts of a real routing),
+            with counts 0, C and partial, in fp32 at C = 64 (the first
+            design) and with G = 2E, each on its path and timed
             beside its plain version, the baddbmm -> gelu -> baddbmm
             chain and its bound.  moe_parity: one full-width MoELayer,
             forward and backward, kernel path against plain path on the
@@ -93,8 +94,8 @@ train_moe two, one per engine or dispatch mode):
             train_moe: TrainStep(ErnieForCausalLM) with 4 of 28 layers
             (1 dense, 3 MoE), bf16, b=4, s=2048, AdamW(multi_precision),
             einsum dispatch 1 + 5 steps (then train_moe_profile), index
-            dispatch 1 + 3 steps on a fresh model; launch counts checked
-            per step.
+            dispatch 1 + 3 steps on a fresh model; launch counts and the
+            grouped FFN's wgmma path checked per step.
 9. gpt      the GPT slice at GPT-2-medium width.  kernels_ce (with the
             kernel phases): the fused softmax cross-entropy forward and
             backward against their plain versions at the step's shape (bf16
@@ -121,23 +122,26 @@ train_moe two, one per engine or dispatch mode):
             fp32 card-vs-CPU parity; then transformer_profile.
 11. decoder  the Llama decoder tier (PADDLE_TPU_FUSED_BLOCK=decoder).
             kernels_decoder (with the kernel phases): the whole-block
-            kernel against decoder_reference in fp32 at b=1, s=512 and in
-            bf16 at the train shape (b=4, s=2048, Llama-3-8B width), each
-            within DECODER_TOL of the largest |out| and timed beside the
-            plain version, its bound and the library chain in its dtype;
+            kernel against decoder_reference in fp32 at b=1, s=512 (the
+            first design) and in bf16 at the train shape (b=4, s=2048,
+            Llama-3-8B width; the wgmma / TMA design, three calls in a row,
+            bitwise equal), each within DECODER_TOL of the largest |out|
+            and timed beside the plain version, its bound and the library
+            chain in its dtype;
             the
             rmsnorm kernel against rmsnorm_reference at T=8192, d=4096
             (bf16 with and without a residual, fp32), beside x + r then
             F.rms_norm.  score_decoder (on the serve model, before it is
             freed): 32-layer cache-free scoring of b=4 x 2048 tokens at
-            the decoder tier (32 block launches a forward) and at the
-            default tier, logits within 5% of their largest.
+            the decoder tier (32 block launches a forward, on wgmma) and
+            at the default tier, logits within 5% of their largest.
             decoder_parity (after train): one fp32 full-width layer at the
             tier, loss and every gradient against the CPU.  train_decoder:
             the train step at the tier, 1 + 3 steps, launches exact per
-            step (block 4, rmsnorm, QKV, MLP and flash 4 each), the peak
-            beside train's; then train_decoder_profile.  norm_residual
-            (last): F.rms_norm_residual forward and backward at T=8192,
+            step (block 4 on wgmma, rmsnorm, QKV, MLP and flash 4 each),
+            the peak beside train's; then train_decoder_profile.
+            norm_residual (last): F.rms_norm_residual forward and
+            backward at T=8192,
             one launch a call.
 
 Then the kernels line, the card's name and power limit, and the last
@@ -192,11 +196,13 @@ CE_TOL = {"loss": (1e-4, 1e-5), "lse": (1e-4, 1e-5),
 
 # the kernels redesigned for Hopper (wgmma, TMA, mbarriers; the quant
 # matmul's split-K on mma.sync), whose -Xptxas -v the ptxas line reports
-# (none may spill), and their sources
-PTXAS_SOURCES = ("flash_attention", "fused_block", "quant_matmul")
+# (none may spill or serialise its wgmma), and their sources
+PTXAS_SOURCES = ("flash_attention", "fused_block", "quant_matmul",
+                 "fused_decoder", "grouped_matmul")
 PTXAS_KERNELS = ("flash_fwd_hopper", "flash_dq_hopper", "flash_dkv_hopper",
                  "qkv_gemm_kernel", "qkv_rows_kernel", "mlp_gemm_kernel",
-                 "quant_splitk_kernel", "quant_wgmma_kernel")
+                 "quant_splitk_kernel", "quant_wgmma_kernel",
+                 "decoder_hopper", "grouped_hopper")
 
 
 def emit(phase, **kw):
@@ -209,7 +215,9 @@ def gemm_paths(kernels):
     from paddle_tpu_torch.ops.kernels import quant_matmul as QM
     return {fn.__name__: dict(fn.launches_by_path)
             for fn in (kernels.fused_rmsnorm_qkv, kernels.fused_mlp,
-                       kernels.fused_ffn, QM.quant_matmul)}
+                       kernels.fused_ffn, QM.quant_matmul,
+                       kernels.fused_decoder_block,
+                       kernels.grouped_expert_ffn)}
 
 
 def require_paths(what, got, want):
@@ -1288,7 +1296,7 @@ def train(dev, kernels):
     return launches, peak
 
 
-TRAIN_FAMILIES = ("grouped_kernel", "gemm_kernel", "flash_fwd_hopper",
+TRAIN_FAMILIES = ("grouped_hopper", "mlp_gemm_kernel", "flash_fwd_hopper",
                   "qkv_rows_kernel", "qkv_gemm_kernel", "flash_dq_hopper",
                   "flash_dkv_hopper")
 
@@ -1362,7 +1370,13 @@ def grouped_case(GM, dev, timer, G, C, dtype, counts, g):
     w2 = rand(g, (ME, MH, MD), dtype, dev, MH ** -0.5)
     b2 = rand(g, (ME, MD), dtype, dev, 0.1)
     args = (x, w1, b1, w2, b2)
+    paths = dict(GM.grouped_expert_ffn.launches_by_path)
     got = GM.grouped_expert_ffn(*args, counts=counts)
+    path = "wgmma" if dtype == torch.bfloat16 else "tile"
+    paths[path] += 1
+    if GM.grouped_expert_ffn.launches_by_path != paths:
+        raise AssertionError(f"grouped_expert_ffn {dtype}: expected the "
+                             f"{path} path, {paths}")
     tol = GROUPED_TOL if dtype == torch.bfloat16 else TOL[dtype]
     what, used = f"grouped_expert_ffn G={G} C={C} {dtype}", {}
     err = check_close(what, got, GM.grouped_expert_ffn_reference(
@@ -1391,6 +1405,7 @@ def grouped_case(GM, dev, timer, G, C, dtype, counts, g):
     out["max_abs_err"] = err
     out["tolerance"] = dict(zip(("atol", "rtol"), tol))
     out["limit_used"] = used[what]
+    out["path"] = path
     out["routed_rows"] = n
     out["counts_min_max"] = [int(counts.min()), int(counts.max())]
     out["workspace_bytes"] = 2 * G * C * MH * isz
@@ -1582,6 +1597,7 @@ def train_moe(dev, kernels):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         launches = {fn.__name__: fn.launches for fn in kernels.TRAINING_MOE}
+        by_path = gemm_paths(kernels)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         moes = [layer.moe for layer in model.model.layers
                 if not layer.is_dense]
@@ -1610,6 +1626,9 @@ def train_moe(dev, kernels):
                 raise AssertionError(f"train_moe {mode}: {name} launched "
                                      f"{launches[name]} times in {n_steps} "
                                      f"steps, expected {per_step} a step")
+        require_paths(f"train_moe {mode}", by_path,
+                      {("grouped_expert_ffn", "wgmma"): n_moe * n_steps,
+                       ("grouped_expert_ffn", "tile"): 0})
         dt = float(np.median(times))
         tokens = MOE_B * MOE_S
         # bench.py:477-488: activated parameters (the idle experts' share
@@ -1627,6 +1646,7 @@ def train_moe(dev, kernels):
              mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S, peak_mem_gb=peak,
              losses=losses, dropped_frac=dropped,
              load_max_over_mean=imbalance, launches=launches,
+             launches_by_path=by_path,
              launches_per_step={k: v / n_steps for k, v in launches.items()})
         if mode == "einsum":
             train_profile(step, batch, phase="train_moe_profile", top_n=25)
@@ -1861,7 +1881,7 @@ def transformer_infer(dev, kernels):
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
          parity_fp32=transformer_parity(dev))
     profile_call(fwd, "transformer_profile",
-                 families=("gemm_kernel",), top_n=15)
+                 families=("mlp_gemm_kernel",), top_n=15)
     del model, out, ref
     return launches
 
@@ -1962,11 +1982,14 @@ def decoder_bound(b, s, dtype):
 
 
 def kernel_decoder(FB, dev, timer):
-    """The block kernel against decoder_reference: fp32 at b=1, s=512,
-    then bf16 at the train shape (b=4, s=2048), each timed beside the
-    plain version and the library chain in its dtype (F.rms_norm, one
-    QKV matmul, RoPE, SDPA, matmul + add, F.rms_norm, the gate/up
-    matmul, silu, the down matmul + add)."""
+    """The block kernel against decoder_reference: fp32 at b=1, s=512
+    (the first design, ``tile``), then bf16 at the train shape (b=4,
+    s=2048; the Hopper design, ``wgmma``) over three calls in a row, each
+    within the limit and all three equal bit for bit (a workspace read
+    by TMA before the writers' stores were visible would show as a
+    difference), each timed beside the plain version and the library
+    chain in its dtype (F.rms_norm, one QKV matmul, RoPE, SDPA, matmul +
+    add, F.rms_norm, the gate/up matmul, silu, the down matmul + add)."""
     from paddle_tpu_torch.ops.kernels import _build
     rows = {}
     for dtype, b, s in ((torch.float32, 1, 512),
@@ -1974,13 +1997,25 @@ def kernel_decoder(FB, dev, timer):
         g = torch.Generator(device=dev).manual_seed(13)
         args = decoder_args(g, dev, b, s, dtype)
         n0 = FB.fused_decoder_block.launches
-        got = FB.fused_decoder_block(*args)
-        if FB.fused_decoder_block.launches != n0 + 1:
-            raise AssertionError("kernels_decoder: the block did not launch")
+        paths = dict(FB.fused_decoder_block.launches_by_path)
+        calls = 3 if dtype == torch.bfloat16 else 1
+        outs = [FB.fused_decoder_block(*args) for _ in range(calls)]
+        path = "wgmma" if dtype == torch.bfloat16 else "tile"
+        paths[path] += calls
+        if FB.fused_decoder_block.launches != n0 + calls or \
+                FB.fused_decoder_block.launches_by_path != paths:
+            raise AssertionError(f"kernels_decoder: expected {calls} "
+                                 f"launches on the {path} path, "
+                                 f"{FB.fused_decoder_block.launches_by_path}")
         ref = FB.decoder_reference(*args)
-        err, share = check_share(f"fused_decoder_block {dtype}", got, ref,
-                                 DECODER_TOL[dtype])
-        del got, ref
+        errs = [check_share(f"fused_decoder_block {dtype} call {i}", got,
+                            ref, DECODER_TOL[dtype])
+                for i, got in enumerate(outs)]
+        err, share = max(errs)
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"kernels_decoder {dtype}: the {calls} "
+                                 f"calls differ")
+        del outs, ref
         torch.cuda.empty_cache()
         grid = (ctypes.c_int * 3)()
         lib = _build.library("fused_decoder")
@@ -1989,7 +2024,8 @@ def kernel_decoder(FB, dev, timer):
             "fused_decoder grid")
         nbytes, flops, rate = decoder_bound(b, s, dtype)
         row = {"max_abs_err": err, "err_share_of_max": share,
-               "tolerance_share": DECODER_TOL[dtype],
+               "tolerance_share": DECODER_TOL[dtype], "path": path,
+               "calls_checked": calls,
                "grid": {"blocks_per_sm": grid[0], "sms": grid[1],
                         "smem_bytes": grid[2]},
                "flops": flops, "shape": f"b={b} s={s} d={D} h={DEC_H} "
@@ -2158,6 +2194,7 @@ def train_decoder(dev, kernels, train_peak):
             times.append(time.perf_counter() - t0)
         launches = {fn.__name__: fn.launches
                     for fn in kernels.DECODER_TRAINING}
+        by_path = gemm_paths(kernels)
         routes = dict(FB.fused_decoder_block.routes)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if not all(np.isfinite(losses)):
@@ -2177,6 +2214,10 @@ def train_decoder(dev, kernels, train_peak):
             raise AssertionError(f"train_decoder: launches {launches}, "
                                  f"routes {routes}; expected "
                                  f"{TRAIN_LAYERS} a step each")
+        require_paths("train_decoder", by_path,
+                      {("fused_decoder_block", "wgmma"):
+                       TRAIN_LAYERS * DEC_STEPS,
+                       ("fused_decoder_block", "tile"): 0})
         dt = float(np.median(times))
         tokens = DEC_B * DEC_S
         flops_tok = 6 * n_params + 12 * TRAIN_LAYERS * DEC_S * cfg.hidden_size
@@ -2187,12 +2228,12 @@ def train_decoder(dev, kernels, train_peak):
              step_s_median=dt, tokens_per_s=tokens / dt,
              mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S, peak_mem_gb=peak,
              train_phase_peak_mem_gb=train_peak, losses=losses,
-             launches=launches, routes=routes,
+             launches=launches, launches_by_path=by_path, routes=routes,
              launches_per_step={k: v / DEC_STEPS
                                 for k, v in launches.items()})
         train_profile(step, batch, phase="train_decoder_profile", top_n=15,
-                      families=("decoder_kernel", "rmsnorm_kernel",
-                                "gemm_kernel", "qkv_rows_kernel",
+                      families=("decoder_hopper", "rmsnorm_kernel",
+                                "mlp_gemm_kernel", "qkv_rows_kernel",
                                 "qkv_gemm_kernel", "flash_fwd_hopper",
                                 "flash_dq_hopper", "flash_dkv_hopper"))
     del model, step
@@ -2249,6 +2290,10 @@ def score_decoder(model, kernels):
         raise AssertionError(f"score_decoder: launches {dec['launches']}, "
                              f"routes {dec['routes']}; expected "
                              f"{cfg.num_hidden_layers} blocks a forward")
+    # the decoder tier's blocks in bf16: the wgmma / TMA design, every layer
+    require_paths("score_decoder (decoder tier)", dec["launches_by_path"],
+                  {("fused_decoder_block", "wgmma"): n,
+                   ("fused_decoder_block", "tile"): 0})
     ref, seg = timed()
     if seg["launches"].get("fused_decoder_block"):
         raise AssertionError("score_decoder: the default tier launched the "
@@ -2366,11 +2411,13 @@ def main():
         report = ptxas.result()
         emit("ptxas", seconds=time.perf_counter() - t0, kernels=report)
         spills = {k: v for k, v in report.items()
-                  if v.get("spill_stores") or v.get("spill_loads")}
+                  if v.get("spill_stores") or v.get("spill_loads")
+                  or any("wgmma" in n for n in v.get("notes", ()))}
         if spills or {v["kernel"] for v in report.values()} != \
                 set(PTXAS_KERNELS):
-            raise AssertionError(f"ptxas: spills {spills}, or a kernel "
-                                 f"missing from {sorted(report)}")
+            raise AssertionError(f"ptxas: spills or serialised wgmma "
+                                 f"{spills}, or a kernel missing from "
+                                 f"{sorted(report)}")
 
     timer = Timer(dev)
     res = {"fused_rmsnorm_qkv": {T: kernel_qkv(FB, dev, timer, T)
@@ -2541,6 +2588,8 @@ def main():
                  "launches": moe_launches["einsum"]["grouped_expert_ffn"],
                  **{k: r[k] for k in keys}, "shape": r["shape"],
                  "path": "train_moe einsum dispatch",
+                 "kernel_path": r["path"],
+                 "fp32_kernel_path": moe_rows["fp32 C=64"]["path"],
                  "launches_index_dispatch":
                      moe_launches["index"]["grouped_expert_ffn"]})
     # the GPT training path: the step's shape; launches from train_gpt
@@ -2573,7 +2622,8 @@ def main():
                  "replaces": "paddle_tpu/ops/pallas/fused_block.py:830",
                  "launches": dec_launches["fused_decoder_block"],
                  **{k: r[k] for k in keys}, "shape": r["shape"],
-                 "path": "train_decoder",
+                 "path": "train_decoder", "kernel_path": r["path"],
+                 "fp32_kernel_path": dec_rows["float32"]["path"],
                  "launches_score_decoder": score_launches})
     r = norm_rows[f"T={NORM_T} d={D} bfloat16 residual"]
     line.append({"name": "fused_rmsnorm", "route": "cuda",

@@ -60,7 +60,8 @@ def reset_launch_counts():
     _qm.quant_matmul.launches_by_mode = dict.fromkeys(
         _qm.QUANT_WEIGHT_DTYPES, 0)
     _qm.quant_matmul.launches_by_path = dict.fromkeys(_qm.QUANT_PATHS, 0)
-    for fn in (fused_rmsnorm_qkv, fused_mlp, fused_ffn):
+    for fn in (fused_rmsnorm_qkv, fused_mlp, fused_ffn, fused_decoder_block,
+               grouped_expert_ffn):
         fn.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
     fused_decoder_block.routes = dict.fromkeys(("decoder", "segments"), 0)
 

@@ -84,14 +84,14 @@ _SIGNATURES = {
         "ptt_rmsnorm": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     },
     "fused_decoder": {
-        "ptt_fused_decoder": [_I] + [_P] * 20 + [_I] * 8 + [_F, _P],
+        "ptt_fused_decoder": [_I] + [_P] * 20 + [_I] * 8 + [_F, _P, _P],
         "ptt_fused_decoder_grid": [_I, _P],
     },
     "grouped_matmul": {
         "ptt_grouped_ffn_up": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _P],
+                               _P, _P],
         "ptt_grouped_ffn_down": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _P],
+                                 _P, _P],
     },
 }
 

@@ -20,6 +20,16 @@ enum DType {
   DT_FLOAT16 = 4
 };
 
+// the design a launch took, written by the C entries that report it
+// (ops/kernels/fused_block.py GEMM_PATHS, in this order)
+enum Design { DESIGN_WGMMA = 0, DESIGN_TILE = 1 };
+
+// err, and the design behind `out` (an int) where the launch went out
+inline int launched(int err, void* out, Design d) {
+  if (err == 0) *static_cast<int*>(out) = d;
+  return err;
+}
+
 // 16-byte global -> shared copy that bypasses the registers; with
 // pred == false the destination is zero-filled and nothing is read.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,

@@ -91,8 +91,8 @@
 // in fp32 (:277-288).  The bf16 kernels here round P and dS to bf16 for
 // the tensor-core products, as FlashAttention-2 does (accumulation stays
 // fp32); in fp32 nothing is rounded.
+#include "flash_hopper.cuh"
 #include "flash_tile.cuh"
-#include "hopper.cuh"
 
 namespace {
 
@@ -112,17 +112,22 @@ namespace hop {
 
 using bf16 = __nv_bfloat16;
 using namespace ptt::hopper;
-constexpr int BQ = 128;        // query rows a block (two consumer warpgroups)
-constexpr int BK = 64;         // key rows a key block
-constexpr int HD = 128;        // head_dim
-constexpr int ST = 4;          // K / V ring slots
+// the forward's constants and product helpers (flash_hopper.cuh)
+using ptt::fwd::BK;
+using ptt::fwd::BQ;
+using ptt::fwd::ex2;
+using ptt::fwd::HD;
+using ptt::fwd::issue_pv;
+using ptt::fwd::issue_qk;
+using ptt::fwd::KCHUNK;
+using ptt::fwd::KTILE;
+using ptt::fwd::QCHUNK;
+using ptt::fwd::QTILE;
+using ptt::fwd::ST;
+using ptt::fwd::to_frags;
 constexpr int THREADS = 384;
-constexpr uint32_t QTILE = BQ * HD * 2;   // 32 KB: two 64-column chunks
-constexpr uint32_t QCHUNK = QTILE / 2;
-constexpr uint32_t KTILE = BK * HD * 2;   // 16 KB: two 64-column chunks
-constexpr uint32_t KCHUNK = KTILE / 2;
 // dynamic shared memory: alignment slack, Q, and each slot's K and V
-constexpr size_t SMEM = 1024 + QTILE + 2 * ST * KTILE;
+constexpr size_t SMEM = 1024 + ptt::fwd::BYTES;
 
 struct Params {
   CUtensorMap q;         // 4-d {d, heads, s, b}, boxes {64, 1, 128, 1}
@@ -134,213 +139,32 @@ struct Params {
   int causal;
 };
 
-// 2^x on the special-function unit; subnormal results flush to 0 (a
-// probability below 2^-126 of the row's largest)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// S = A B^T for a consumer's 64 rows of a 128-row tile (A: Q, dO, K or V)
-// and a 64-row tile (B: K, V, Q or dO), reduced over d; zeroed, issued and
-// committed as one wgmma group
-__device__ __forceinline__ void issue_qk(float (&sc)[32],
-                                         const unsigned char* Qc,
-                                         const unsigned char* Kt) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-  fence_regs(sc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_ss_n64<0>(sc, desc_kmajor(Qc + (kk / 4) * QCHUNK + (kk % 4) * 32),
-                    desc_kmajor(Kt + (kk / 4) * KCHUNK + (kk % 4) * 32));
-  wgmma_commit();
-}
-
-// O += P V for a 64-row tile read MN-major (V; K for dQ, dO for dV, Q for
-// dK), P as wgmma's A fragments (P; dS, P^T, dS^T): one wgmma group
-__device__ __forceinline__ void issue_pv(float (&o)[64],
-                                         const uint32_t (&pa)[4][4],
-                                         const unsigned char* Vt) {
-  fence_regs(o);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs_n128<1>(o, pa[kk], desc_mnmajor(Vt + kk * 2048, KCHUNK));
-  wgmma_commit();
-}
-
-// The online softmax of one score tile in registers, in the exp2 domain:
-// scores times scale * log2 e (masked above the diagonal where `edge`),
-// the row max across the 4 threads of a row by shuffles, sc = 2^(s2 - m2)
-// in place, l rescaled and this thread's share of the row sums added;
-// corr = 2^(m2_old - m2_new) for O.  row: the first of the thread's two
-// rows (the other is row + 8).
-__device__ __forceinline__ void softmax(float (&sc)[32], float (&m)[2],
-                                        float (&l)[2], float (&corr)[2],
-                                        bool edge, int k0, int row, int cq,
-                                        float scale2) {
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float v = sc[4 * i + e] * scale2;
-      if (edge && k0 + 8 * i + cq + (e & 1) > row + 8 * (e >> 1))
-        v = -INFINITY;
-      sc[4 * i + e] = v;
-      mx[e >> 1] = fmaxf(mx[e >> 1], v);
-    }
-  float base[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    base[r] = mx[r] == -INFINITY ? 0.f : mx[r];   // a row masked so far
-    corr[r] = ex2(m[r] - base[r]);
-    m[r] = mx[r];
-    l[r] *= corr[r];
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float pe = ex2(sc[4 * i + e] - base[e >> 1]);
-      l[e >> 1] += pe;   // this thread's share; the row sums at the end
-      sc[4 * i + e] = pe;
-    }
-}
-
-// P in V's type as wgmma's A fragments: k16 step kk is the n8 blocks
-// 2 kk and 2 kk + 1 of S
-__device__ __forceinline__ void to_frags(const float (&sc)[32],
-                                         uint32_t (&pa)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_hopper(const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
-  __shared__ uint64_t qbar, kfull[ST], vfull[ST], empty[ST];
-  unsigned char* Qs = align1024(smem_raw);
-  auto Ks = [&](int s) { return Qs + QTILE + s * 2 * KTILE; };
-  auto Vs = [&](int s) { return Ks(s) + KTILE; };
-
-  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
-  const int qi = p.nq - 1 - blockIdx.y;   // heaviest q tile first
-  const int q0 = qi * BQ;
-  const int kh = h / (p.H / p.HK);
+  __shared__ uint64_t qfull, qempty, kfull[ST], vfull[ST], empty[ST];
+  const ptt::fwd::Ring r{align1024(smem_raw), &qfull, &qempty, kfull, vfull,
+                         empty};
+  ptt::fwd::Item w;
+  w.h = blockIdx.x % p.H;
+  w.b = blockIdx.x / p.H;
+  w.q0 = (p.nq - 1 - blockIdx.y) * BQ;   // heaviest q tile first
+  w.kh = w.h / (p.H / p.HK);
   // key blocks wholly above the diagonal are never loaded (s is a
   // multiple of 64, so no key block is ragged)
-  const int nk = p.causal ? min((q0 + BQ) / BK, p.S / BK) : p.S / BK;
-  if (threadIdx.x == 0) {
-    mbar_init(&qbar, 1);
-    for (int s = 0; s < ST; ++s) {
-      mbar_init(&kfull[s], 1);
-      mbar_init(&vfull[s], 1);
-      mbar_init(&empty[s], 8);   // one arrival per consumer warp
-    }
-    mbar_fence_init();
-  }
+  w.nk = p.causal ? min((w.q0 + BQ) / BK, p.S / BK) : p.S / BK;
+  if (threadIdx.x == 0) ptt::fwd::ring_init(r);
   __syncthreads();
 
+  int kv = 0;
   if (threadIdx.x < 128) {   // the producer warpgroup
     regs_dec<40>();
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(&qbar, QTILE);
-      tma_load_4d(Qs, &p.q, &qbar, 0, h, q0, b);
-      tma_load_4d(Qs + QCHUNK, &p.q, &qbar, 64, h, q0, b);
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % ST;
-        if (j >= ST) mbar_wait(&empty[s], (j / ST - 1) & 1);
-        mbar_expect_tx(&kfull[s], KTILE);
-        tma_load_4d(Ks(s), &p.k, &kfull[s], 0, kh, j * BK, b);
-        tma_load_4d(Ks(s) + KCHUNK, &p.k, &kfull[s], 64, kh, j * BK, b);
-        mbar_expect_tx(&vfull[s], KTILE);
-        tma_load_4d(Vs(s), &p.v, &vfull[s], 0, kh, j * BK, b);
-        tma_load_4d(Vs(s) + KCHUNK, &p.v, &vfull[s], 64, kh, j * BK, b);
-      }
-    }
+    if (threadIdx.x == 0) ptt::fwd::produce<false>(r, &p.q, &p.k, &p.v, w, 0, kv);
     return;
   }
   regs_inc<232>();
-
-  const int c = threadIdx.x / 128 - 1;           // consumer warpgroup
-  const int t = threadIdx.x % 128, lane = t % 32;
-  const int r0 = 64 * c + 16 * (t / 32) + lane / 4;   // rows r0, r0 + 8
-  const int cq = 2 * (lane % 4);                 // first column of a pair
-  const unsigned char* Qc = Qs + c * 64 * 128;   // this warpgroup's rows
-  float o[64], sc[32], corr[2];
-  uint32_t pa[4][4];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  // a key block past this warpgroup's first row: the diagonal's
-  auto edge = [&](int j) {
-    return p.causal && j * BK + BK - 1 > q0 + 64 * c;
-  };
-  mbar_wait(&qbar, 0);
-
-  // key block 0: S, then its softmax
-  mbar_wait(&kfull[0], 0);
-  issue_qk(sc, Qc, Ks(0));
-  wgmma_wait<0>();
-  fence_regs(sc);
-  softmax(sc, m, l, corr, edge(0), 0, q0 + r0, cq, p.scale2);
-  to_frags(sc, pa);
-  // key block j: S_j = Q K_j^T and O += P_{j-1} V_{j-1} in flight
-  // together; the softmax of S_j runs under the P V product
-  for (int j = 1; j < nk; ++j) {
-    const int s = j % ST, sp = (j - 1) % ST;
-    mbar_wait(&kfull[s], (j / ST) & 1);
-    issue_qk(sc, Qc, Ks(s));
-    mbar_wait(&vfull[sp], ((j - 1) / ST) & 1);
-    issue_pv(o, pa, Vs(sp));
-    wgmma_wait<1>();   // S_j
-    fence_regs(sc);
-    softmax(sc, m, l, corr, edge(j), j * BK, q0 + r0, cq, p.scale2);
-    wgmma_wait<0>();   // P_{j-1} V_{j-1}: its slot and pa are free
-    fence_regs(o);
-    if (lane == 0) mbar_arrive(&empty[sp]);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
-    to_frags(sc, pa);
-  }
-  const int sl = (nk - 1) % ST;
-  mbar_wait(&vfull[sl], ((nk - 1) / ST) & 1);
-  issue_pv(o, pa, Vs(sl));
-  wgmma_wait<0>();
-  fence_regs(o);
-
-  // out = O / l in bf16; lse in natural log
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + 8 * r;
-    if (row >= p.S) continue;
-    const float safe_l = l[r] > 0.f ? l[r] : 1.f;
-    uint32_t* og = reinterpret_cast<uint32_t*>(
-        p.o + (((size_t)b * p.S + row) * p.H + h) * HD);
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      og[(8 * i + cq) / 2] = pack_bf16(o[4 * i + 2 * r] / safe_l,
-                                       o[4 * i + 2 * r + 1] / safe_l);
-    if (lane % 4 == 0 && p.lse != nullptr)
-      p.lse[((size_t)b * p.H + h) * p.S + row] =
-          (m[r] + log2f(safe_l)) * 0.69314718055994531f;
-  }
+  ptt::fwd::consume<false>(r, w, 0, kv, threadIdx.x / 128 - 1, p.S, p.H, p.scale2,
+                    p.causal, p.o, p.lse);
 }
 
 // the tensor map of a [B, S, heads, 128] bf16 tensor, boxes of 64 d x 1

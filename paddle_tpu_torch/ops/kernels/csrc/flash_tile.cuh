@@ -1,20 +1,16 @@
-// The pieces of the flash-attention kernels (flash_attention.cu) that the
-// whole-block decoder kernel (fused_decoder.cu) shares: the shared-memory
-// tile GEMM, the row loads, the argument block and shared-memory plans, and
-// the forward's work for one (q block, head, batch) tile as a device
-// function.  flash_attention.cu says what the design is and what bounds it.
+// The pieces of the first flash-attention kernels, which fp32 runs
+// (flash_attention.cu's forward, dq and dk/dv, and the fp32 whole-block
+// decoder kernel of fused_decoder.cu): the shared-memory tile GEMM, the
+// row loads, the argument block and shared-memory plans, and the forward's
+// work for one (q block, head, batch) tile as a device function.
+// flash_attention.cu says what the design is and what bounds it; bf16
+// runs the wgmma kernels (flash_hopper.cuh and flash_attention.cu).
 #pragma once
-
-#include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
 namespace ptt {
 namespace flash {
-
-using namespace nvcuda;
 
 constexpr int NT = 128;             // threads per CTA
 constexpr int NWARP = NT / 32;
@@ -22,7 +18,7 @@ constexpr float NEG = -1e30f;       // the TPU kernel's masked score
 
 template <typename T>
 struct Blk {
-  static constexpr int Q = sizeof(T) == 2 ? 64 : 32;    // query rows
+  static constexpr int Q = 32;                          // query rows
   static constexpr int K = Q;                           // key rows
   static constexpr int PAD = 16 / sizeof(T);            // 16-byte row pad
 };
@@ -38,78 +34,39 @@ template <typename T, int M, int N, int K, bool A_ROW, bool B_ROW, bool ACC>
 __device__ __forceinline__ void gemm(const T* a, int lda, const T* b, int ldb,
                                      float* c, int ldc) {
   const int tid = threadIdx.x;
-  if constexpr (sizeof(T) == 2) {
-    using LA = std::conditional_t<A_ROW, wmma::row_major, wmma::col_major>;
-    using LB = std::conditional_t<B_ROW, wmma::row_major, wmma::col_major>;
-    constexpr int FN = N / 16;
-    const int warp = tid / 32;
-    // a warp owns 16-row strips and every column tile of them, so each A
-    // fragment is loaded once per k step
-    for (int i = warp; i < M / 16; i += NWARP) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FN];
+  // thread (ty, tx) of an 8 x 16 grid owns rows ty + 8 i and columns
+  // tx + 16 j; fp32 FMAs on the CUDA cores
+  constexpr int RM = M / 8, RN = N / 16;
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[RM][RN];
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        if constexpr (ACC)
-          wmma::load_matrix_sync(acc[j], c + i * 16 * ldc + j * 16, ldc,
-                                 wmma::mem_row_major);
-        else
-          wmma::fill_fragment(acc[j], 0.f);
-      }
-#pragma unroll 2
-      for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa;
-        const T* pa = A_ROW ? a + i * 16 * lda + k : a + k * lda + i * 16;
-        wmma::load_matrix_sync(fa, reinterpret_cast<const __nv_bfloat16*>(pa),
-                               lda);
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> fb;
-          const T* pb = B_ROW ? b + k * ldb + j * 16 : b + j * 16 * ldb + k;
-          wmma::load_matrix_sync(
-              fb, reinterpret_cast<const __nv_bfloat16*>(pb), ldb);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(c + i * 16 * ldc + j * 16, acc[j], ldc,
-                                wmma::mem_row_major);
-    }
-  } else {
-    // fp32: thread (ty, tx) of an 8 x 16 grid owns rows ty + 8 i and
-    // columns tx + 16 j
-    constexpr int RM = M / 8, RN = N / 16;
-    const int tx = tid % 16, ty = tid / 16;
-    float acc[RM][RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j)
-        acc[i][j] = ACC ? c[(ty + 8 * i) * ldc + tx + 16 * j] : 0.f;
+    for (int j = 0; j < RN; ++j)
+      acc[i][j] = ACC ? c[(ty + 8 * i) * ldc + tx + 16 * j] : 0.f;
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float av[RM], bv[RN];
+  for (int k = 0; k < K; ++k) {
+    float av[RM], bv[RN];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int m = ty + 8 * i;
-        av[i] = ptt::to_f(A_ROW ? a[m * lda + k] : a[k * lda + m]);
-      }
+    for (int i = 0; i < RM; ++i) {
+      const int m = ty + 8 * i;
+      av[i] = ptt::to_f(A_ROW ? a[m * lda + k] : a[k * lda + m]);
+    }
 #pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int n = tx + 16 * j;
-        bv[j] = ptt::to_f(B_ROW ? b[k * ldb + n] : b[n * ldb + k]);
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int j = 0; j < RN; ++j) {
+      const int n = tx + 16 * j;
+      bv[j] = ptt::to_f(B_ROW ? b[k * ldb + n] : b[n * ldb + k]);
     }
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < RN; ++j)
-        c[(ty + 8 * i) * ldc + tx + 16 * j] = acc[i][j];
+      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j)
+      c[(ty + 8 * i) * ldc + tx + 16 * j] = acc[i][j];
 }
 
 // ROWS rows of HD elements from global (row stride `stride` elements) into

@@ -44,7 +44,7 @@
 // every load.  Row tiles are 16 rows at decode (one wmma row) and 64 rows
 // past 16 (fp32 only: bf16 there is the wgmma GEMM below).  bf16 runs on the tensor cores through nvcuda::wmma
 // 16x16x16 with fp32 accumulators; fp32 runs on the CUDA cores with fp32
-// FMAs (no TF32).  The tile itself is gemm_tile.cuh's, which the
+// FMAs (no TF32).  The tile itself is gemm_tile.cuh's, which the fp32
 // whole-block decoder kernel (fused_decoder.cu) calls too.
 //
 // RMSNorm+QKV in bf16 at T > 16 (prefill chunks, training, scoring) is
@@ -175,13 +175,10 @@ qkv_gemm_kernel(const __grid_constant__ QkvParams p) {
   const auto ring = gemm_ring<NC, BN, kStages>(smem_raw);
   // block -> (row tile, column tile): column-major inside bands of kBand
   // row tiles
-  const int ncol = p.tiles[0] + p.tiles[1] + p.tiles[2];
-  const int band = kBand * ncol;
-  const int first = blockIdx.x / band * kBand;
-  const int rows_in = min(kBand, p.row_tiles - first);
-  const int in = blockIdx.x % band;
-  const int m0 = (first + in % rows_in) * P::BM;
-  int ct = in / rows_in, part = 0;
+  int rt, ct, part = 0;
+  band_tile(blockIdx.x, p.row_tiles, p.tiles[0] + p.tiles[1] + p.tiles[2],
+            kBand, rt, ct);
+  const int m0 = rt * P::BM;
   while (part < 2 && ct >= p.tiles[part]) ct -= p.tiles[part++];
   const int n0 = ct * BN;
   if (threadIdx.x < 128) {   // the producer warpgroup
@@ -212,16 +209,6 @@ qkv_gemm_kernel(const __grid_constant__ QkvParams p) {
             pack_bf16(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
     }
   }
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
 }
 
 template <int NC, int BN>
@@ -271,7 +258,8 @@ int qkv_hopper(const void* x, const void* wn, const void* const w[3],
   // blocks for short T)
   const int big =
       (T + 127) / 128 * ((dq + 255) / 256 + 2 * ((dkv + 255) / 256));
-  if (big >= 2 * sm_count()) return launch_qkv_gemm<2, 256>(p, xn, w, stream);
+  if (big >= 2 * ptt::hopper::sm_count())
+    return launch_qkv_gemm<2, 256>(p, xn, w, stream);
   return launch_qkv_gemm<1, 128>(p, xn, w, stream);
 }
 
@@ -302,13 +290,12 @@ mlp_gemm_kernel(const __grid_constant__ MlpParams p) {
   using P = GemmPlan<NC, BN, kStages, NB>;
   extern __shared__ unsigned char smem_raw[];
   const auto ring = gemm_ring<NC, BN, kStages, NB>(smem_raw);
-  const int tiles = p.row_tiles * p.col_tiles, band = kBand * p.col_tiles;
+  const int tiles = p.row_tiles * p.col_tiles;
   auto origin = [&](int t, int& m0, int& n0) {
-    const int first = t / band * kBand;
-    const int rows_in = min(kBand, p.row_tiles - first);
-    const int in = t % band;
-    m0 = (first + in % rows_in) * P::BM;
-    n0 = in / rows_in * BN;
+    int rt, ct;
+    band_tile(t, p.row_tiles, p.col_tiles, kBand, rt, ct);
+    m0 = rt * P::BM;
+    n0 = ct * BN;
   };
   int it = 0, m0, n0;
   if (threadIdx.x < 128) {   // the producer warpgroup
@@ -383,7 +370,8 @@ int launch_mlp_gemm(MlpParams& p, const void* a, const void* b0,
   // as many blocks as are resident at once (two a SM for the 64-row
   // single-weight tile, else one), each walking its share of the tiles
   const int per_sm = NC == 1 && NB == 1 ? 2 : 1;
-  const int grid = min(p.row_tiles * p.col_tiles, per_sm * sm_count());
+  const int grid =
+      min(p.row_tiles * p.col_tiles, per_sm * ptt::hopper::sm_count());
   kern<<<grid, P::THREADS, P::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -406,7 +394,7 @@ int mlp_hopper(const void* a, const void* b0, const void* b1,
   p.K = K;
   p.N = N;
   constexpr int WIDE = MODE == MODE_GATEUP ? 128 : 256;
-  const int rows = (T + 127) / 128, sms = sm_count();
+  const int rows = (T + 127) / 128, sms = ptt::hopper::sm_count();
   if (rows * ((N + WIDE - 1) / WIDE) >= 2 * sms)
     return launch_mlp_gemm<2, WIDE, MODE, ACT>(p, a, b0, b1, stream);
   if (rows * ((N + 127) / 128) >= sms)

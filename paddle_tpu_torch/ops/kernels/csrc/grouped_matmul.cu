@@ -17,37 +17,64 @@
 // The hidden makes one round trip through device memory (G * C * h *
 // itemsize bytes each way).
 //
-// Counts: every block reads its group's count from device memory, so the
-// host never waits for the routing.  A block whose rows all lie at or past
-// the count returns at once: MODE_UP writes nothing (MODE_DOWN never reads
-// those rows), MODE_DOWN first writes its rows' zeros.  Inside a partial
-// tile, rows past the count are zero-filled as they load and come back
-// zero; the last capacity tile may be partial (C = 960 is no multiple of
-// 64) and rows past C are neither read nor written.
+// Counts: the kernels read each group's count from device memory, so the
+// host never waits for the routing.  Rows at and past the count are
+// skipped: a row tile that starts at or past it is not computed (UP
+// writes nothing: DOWN never keeps those rows; DOWN writes the tile's
+// zeros), and inside a partial tile DOWN writes zero for the rows past it
+// (a NaN in an unrouted row of x reaches only that row, which DOWN
+// zeroes).  The last capacity tile may be partial (C = 960 is no multiple
+// of 128): rows past C are neither read nor written.
+//
+// bf16 (the MoE step's path) runs each launch as a persistent walk on the
+// wgmma / TMA ring of hopper_gemm.cuh: one block of three warpgroups a SM
+// (a producer thread issuing TMA loads, two consumer warpgroups of 64 rows
+// each), 128-row tiles of 256 columns where every SM gets two, else 128.
+// A is a 3-d tensor map {K, C, G} over x (UP) or the hidden (DOWN), boxes
+// {64, 128, 1}: TMA zero-fills rows past C, so a tile never reads the next
+// group; B a 3-d map {N, K, E} over w1 / w2 in their [E, in, out] layout,
+// read MN-major, group g taking expert g / rep.  The producer and the
+// consumers read the counts and walk the same live tiles (those with a
+// routed row), so the ring's running slice count agrees; block b takes
+// live tiles b, b + grid, ..., so the blocks get equal shares however the
+// counts fall (striding over all tiles and skipping the dead ones left
+// the shares to the counts).  The live tiles are walked group after
+// group, column-major inside a group's row tiles, so a group's weight
+// columns stay in L2 while its rows stream.  DOWN's consumers then store
+// the dead tiles' zeros, walked the same way.
+// The epilogue runs from the fp32 accumulators: UP adds b1 in fp32, takes
+// the exact-erf gelu and casts once; DOWN adds b2 in fp32 and casts once.
 //
 // What bounds it: at the MoE step's shapes (G = 64, C = 960, d = 2560,
-// h = 1536, ~768 routed rows a group) it is a GEMM of 4 * sum(counts) * d * h
-// operations, bound by the tensor cores.  The body is fused_block.cu's
-// tiled GEMM: 64 x 64 output tiles, 64-deep k steps through a 3-stage
-// cp.async ring, bf16 on the tensor cores through nvcuda::wmma 16x16x16
-// with fp32 accumulators, fp32 on the CUDA cores with fp32 FMAs (no TF32).
-// Bias, the exact-erf gelu and the casts run in fp32 in the epilogue.
-// wgmma, TMA and persistent tiles are later work.
-#include <mma.h>
-
+// h = 1536, ~768 routed rows a group) the products, 4 * sum(counts) * d * h
+// operations (773 GFLOP, 0.78 ms at 989 TFLOP/s).  Row tiles are whole
+// 128-row tiles, so a partial tile computes its rows past the count too.
+//
+// fp32 (a parity path on no main path) keeps the first design: 64 x 64
+// output tiles, 64-deep k steps through a 3-stage cp.async ring, fp32 FMAs
+// on the CUDA cores (no TF32), a grid of (column tile, row tile, group).
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "hopper_gemm.cuh"
 
 namespace {
 
 enum Mode { MODE_UP = 0, MODE_DOWN = 1 };
+
+// jax.nn.gelu(approximate=False): 0.5 x erfc(-x / sqrt 2), in fp32
+__device__ __forceinline__ float gelu_erf(float v) {
+  return 0.5f * v * erfcf(-v * 0.70710678118654752f);
+}
+
+// -- fp32: the first design ---------------------------------------------------
 
 constexpr int BM = 64;       // capacity rows per block
 constexpr int BN = 64;       // output columns per block
 constexpr int BK = 64;       // reduction depth per pipeline stage
 constexpr int NT = 128;      // threads per block (4 warps)
 constexpr int STAGES = 3;
+constexpr int LDA = BK + 4;  // fp32 tiles, rows kept 16-byte aligned
+constexpr int LDB = BN + 4;
+constexpr int VEC = 4;       // fp32 elements per cp.async
 
 struct Args {
   const void* a;       // UP: x [G, C, K]; DOWN: h [G, C, K]
@@ -58,67 +85,52 @@ struct Args {
   int C, K, N, rep;
 };
 
-template <typename T>
-struct Tile {
-  static constexpr int PAD = 16 / sizeof(T);   // keeps rows 16B-aligned
-  static constexpr int LDA = BK + PAD;
-  static constexpr int LDB = BN + PAD;
-  static constexpr int VEC = 16 / sizeof(T);   // elements per cp.async
-};
-
-template <typename T>
 constexpr size_t smem_bytes() {
-  size_t pipe = (size_t)STAGES * (BM * Tile<T>::LDA + BK * Tile<T>::LDB) *
-                sizeof(T);
-  size_t cst = (size_t)BM * (BN + 4) * sizeof(float);
+  constexpr size_t pipe =
+      (size_t)STAGES * (BM * LDA + BK * LDB) * sizeof(float);
+  constexpr size_t cst = (size_t)BM * (BN + 4) * sizeof(float);
   return pipe > cst ? pipe : cst;
 }
 
-// jax.nn.gelu(approximate=False): 0.5 x erfc(-x / sqrt 2), in fp32
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * erfcf(-v * 0.70710678118654752f);
-}
-
-template <typename T, int MODE>
+template <int MODE>
 __global__ void __launch_bounds__(NT)
 grouped_kernel(Args g) {
-  constexpr int LDA = Tile<T>::LDA, LDB = Tile<T>::LDB, VEC = Tile<T>::VEC;
   const int grp = blockIdx.z;
   const int m0 = blockIdx.y * BM;
   const int col = blockIdx.x * BN;
   const int tid = threadIdx.x;
   const int C = g.C, K = g.K, N = g.N;
   const int cnt = min(max(g.counts[grp], 0), C);
-  T* Cg = static_cast<T*>(g.c) + (size_t)grp * C * N;
+  float* Cg = static_cast<float*>(g.c) + (size_t)grp * C * N;
 
   if (m0 >= cnt) {
     // no routed row in this tile: skip the products
     if (MODE == MODE_DOWN) {
       const int rows = min(BM, C - m0);
       for (int e = tid; e < rows * BN; e += NT)
-        Cg[(size_t)(m0 + e / BN) * N + col + e % BN] = ptt::from_f<T>(0.f);
+        Cg[(size_t)(m0 + e / BN) * N + col + e % BN] = 0.f;
     }
     return;
   }
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);
-  T* Bs = As + STAGES * BM * LDA;
+  float* As = reinterpret_cast<float*>(smem_raw);
+  float* Bs = As + STAGES * BM * LDA;
   const int ex = grp / g.rep;
-  const T* A = static_cast<const T*>(g.a) + (size_t)grp * C * K;
-  const T* B = static_cast<const T*>(g.b) + (size_t)ex * K * N;
+  const float* A = static_cast<const float*>(g.a) + (size_t)grp * C * K;
+  const float* B = static_cast<const float*>(g.b) + (size_t)ex * K * N;
 
   const int KT = K / BK;
   auto load_tile = [&](int kt, int s) {
     const int k0 = kt * BK;
-    T* as = As + s * BM * LDA;
+    float* as = As + s * BM * LDA;
     for (int c = tid; c < BM * BK / VEC; c += NT) {
       int r = c / (BK / VEC), cc = (c % (BK / VEC)) * VEC;
       bool ok = m0 + r < cnt;          // rows past the count load as zero
-      const T* src = ok ? A + (size_t)(m0 + r) * K + k0 + cc : A;
+      const float* src = ok ? A + (size_t)(m0 + r) * K + k0 + cc : A;
       ptt::cp_async16(as + r * LDA + cc, src, ok);
     }
-    T* bs = Bs + s * BK * LDB;
+    float* bs = Bs + s * BK * LDB;
     for (int c = tid; c < BK * BN / VEC; c += NT) {
       int r = c / (BN / VEC), cc = (c % (BN / VEC)) * VEC;
       ptt::cp_async16(bs + r * LDB + cc, B + (size_t)(k0 + r) * N + col + cc,
@@ -132,29 +144,14 @@ grouped_kernel(Args g) {
     ptt::cp_async_commit();
   }
 
-  // 4 warps as 2 x 2, each a 32 x 32 quarter of the tile
-  constexpr int TM = BM / 2, TN = BN / 2;
-  constexpr int FM = TM / 16, FN = TN / 16;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  constexpr bool TC = sizeof(T) == 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TC ? FM : 1]
-                                                         [TC ? FN : 1];
-  // CUDA-core path (fp32): thread owns rows ty + 8 i, columns 4 tx .. 4 tx + 3
+  // thread owns rows ty + 8 i, columns 4 tx .. 4 tx + 3
   constexpr int RM = BM / 8;
-  float f[TC ? 1 : RM][4];
+  float f[RM][4];
   const int tx = tid % 16, ty = tid / 16;
-  if constexpr (TC) {
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f[i][j] = 0.f;
-  }
+    for (int j = 0; j < 4; ++j) f[i][j] = 0.f;
 
   for (int kt = 0; kt < KT; ++kt) {
     ptt::cp_async_wait<STAGES - 2>();
@@ -163,89 +160,53 @@ grouped_kernel(Args g) {
       load_tile(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
     ptt::cp_async_commit();
     const int s = kt % STAGES;
-    const T* as = As + s * BM * LDA;
-    const T* bs = Bs + s * BK * LDB;
-    if constexpr (TC) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af[FM];
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(
-              af[i],
-              reinterpret_cast<const __nv_bfloat16*>(as) +
-                  (wm * TM + i * 16) * LDA + kk,
-              LDA);
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> bf;
-          wmma::load_matrix_sync(
-              bf,
-              reinterpret_cast<const __nv_bfloat16*>(bs) + kk * LDB +
-                  wn * TN + j * 16,
-              LDB);
-#pragma unroll
-          for (int i = 0; i < FM; ++i)
-            wmma::mma_sync(acc[i][j], af[i], bf, acc[i][j]);
-        }
-      }
-    } else {
+    const float* as = As + s * BM * LDA;
+    const float* bs = Bs + s * BK * LDB;
 #pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float bv[4];
+    for (int kk = 0; kk < BK; ++kk) {
+      float bv[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = ptt::to_f(bs[kk * LDB + tx * 4 + j]);
+      for (int j = 0; j < 4; ++j) bv[j] = bs[kk * LDB + tx * 4 + j];
 #pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          float a = ptt::to_f(as[(ty + 8 * i) * LDA + kk]);
+      for (int i = 0; i < RM; ++i) {
+        float a = as[(ty + 8 * i) * LDA + kk];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) f[i][j] = fmaf(a, bv[j], f[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) f[i][j] = fmaf(a, bv[j], f[i][j]);
       }
     }
   }
   ptt::cp_async_wait<0>();
   __syncthreads();   // pipeline buffers are reused for the C tile
 
-  // epilogue: stage the fp32 tile in shared memory, then bias (+ gelu) and
-  // one cast per element
+  // epilogue: stage the fp32 tile in shared memory, then bias (+ gelu)
   constexpr int LDC = BN + 4;
   float* Cs = reinterpret_cast<float*>(smem_raw);
-  if constexpr (TC) {
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(Cs + (wm * TM + i * 16) * LDC + wn * TN + j * 16,
-                                acc[i][j], LDC, wmma::mem_row_major);
-  } else {
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[(ty + 8 * i) * LDC + tx * 4 + j] = f[i][j];
-  }
+    for (int j = 0; j < 4; ++j) Cs[(ty + 8 * i) * LDC + tx * 4 + j] = f[i][j];
   __syncthreads();
-  const T* bias = static_cast<const T*>(g.bias) + (size_t)ex * N + col;
+  const float* bias = static_cast<const float*>(g.bias) + (size_t)ex * N + col;
   const int rows = min(BM, C - m0);
   for (int e = tid; e < rows * BN; e += NT) {
     int r = e / BN, c = e % BN;
     float v = 0.f;
     if (m0 + r < cnt) {
-      v = Cs[r * LDC + c] + ptt::to_f(bias[c]);
+      v = Cs[r * LDC + c] + bias[c];
       if (MODE == MODE_UP) v = gelu_erf(v);
     } else if (MODE == MODE_UP) {
       continue;   // MODE_DOWN never reads hidden rows past the count
     }
-    Cg[(size_t)(m0 + r) * N + col + c] = ptt::from_f<T>(v);
+    Cg[(size_t)(m0 + r) * N + col + c] = v;
   }
 }
 
-template <typename T, int MODE>
-int launch_t(const Args& g, int G, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T>();
-  auto kern = grouped_kernel<T, MODE>;
+template <int MODE>
+int launch_fp32(const Args& g, int G, cudaStream_t stream) {
+  if (g.K % BK != 0 || g.N % BN != 0 || G > 65535)
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = smem_bytes();
+  auto kern = grouped_kernel<MODE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -254,15 +215,193 @@ int launch_t(const Args& g, int G, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// -- bf16: persistent walks on the wgmma / TMA ring ---------------------------
+
+namespace hop {
+
+using bf16 = __nv_bfloat16;
+constexpr int NC = 2;        // consumer warpgroups: 128-row tiles
+constexpr int TM = 64 * NC;
+constexpr int STAGES = 4;
+
+struct Params {
+  CUtensorMap a, b;      // 3-d: A {K, C, G}, B {N, K, E}
+  const bf16* bias;      // [E, N]
+  const int* counts;     // [G]
+  bf16* c;               // [G, C, N]
+  int G, C, K, N, rep, row_tiles, col_tiles;
+};
+
+// counts[g] clamped to [0, C]
+__device__ __forceinline__ int count_of(const Params& p, int g) {
+  return min(max(__ldg(p.counts + g), 0), p.C);
+}
+
+// The row tiles of group g that hold a routed row (LIVE), or the others
+template <bool LIVE>
+__device__ __forceinline__ int rows_of(const Params& p, int g) {
+  const int n = (count_of(p, g) + TM - 1) / TM;
+  return LIVE ? n : p.row_tiles - n;
+}
+
+// A walk over the live (or the dead) tiles of every group, in order:
+// groups one after another, column-major inside a group's live (dead)
+// row tiles.  Block b takes the tiles b, b + gridDim.x, ... of it, so
+// every block gets as many live tiles as any other, give or take one,
+// however the counts fall.  `base` is the first tile of group g, n its
+// row tiles.
+struct Walk {
+  int g = 0, base = 0, n = -1;
+};
+
+// Tile r of the walk (r grows call by call): group g, rows m0..,
+// columns n0..; false past the last tile.
+template <bool LIVE>
+__device__ __forceinline__ bool walk(const Params& p, Walk& w, int r, int bn,
+                                     int& g, int& m0, int& n0) {
+  if (w.n < 0) w.n = rows_of<LIVE>(p, 0);
+  while (r >= w.base + w.n * p.col_tiles) {
+    w.base += w.n * p.col_tiles;
+    if (++w.g == p.G) return false;
+    w.n = rows_of<LIVE>(p, w.g);
+  }
+  const int in = r - w.base;
+  g = w.g;
+  m0 = ((LIVE ? 0 : p.row_tiles - w.n) + in % w.n) * TM;
+  n0 = in / w.n * bn;
+  return true;
+}
+
+// Consumer warpgroup c's epilogue of the tile (g, m0, n0): the fp32 bias
+// (and gelu), one cast, bf16 pairs from the fragment; rows past C never
+// stored, rows past the count zero (DOWN) or left (UP); a dead tile's
+// rows all zero (acc unread)
+template <int BN, int MODE>
+__device__ __forceinline__ void store_tile(const Params& p,
+                                           const float (&acc)[BN / 2], int g,
+                                           int m0, int n0, int c, bool dead) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32 % 4;
+  const int cnt = count_of(p, g);
+  const bf16* bias = p.bias + (size_t)(g / p.rep) * p.N;
+  bf16* out = p.c + (size_t)g * p.C * p.N;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = m0 + 64 * c + 16 * w + lane / 4 + 8 * hh;
+    if (row >= p.C || (MODE == MODE_UP && row >= cnt)) continue;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(out + (size_t)row * p.N);
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * (lane % 4);
+      if (col >= p.N) continue;
+      float v[2] = {0.f, 0.f};
+      if (!dead && row < cnt) {
+        const float2 b2 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        v[0] = acc[4 * i + 2 * hh] + b2.x;
+        v[1] = acc[4 * i + 2 * hh + 1] + b2.y;
+        if (MODE == MODE_UP) {
+          v[0] = gelu_erf(v[0]);
+          v[1] = gelu_erf(v[1]);
+        }
+      }
+      orow[col / 2] = ptt::hopper::pack_bf16(v[0], v[1]);
+    }
+  }
+}
+
+template <int BN, int MODE>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+grouped_hopper(const __grid_constant__ Params p) {
+  using namespace ptt::hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const auto ring = gemm_ring<NC, BN, STAGES>(smem_raw);
+  int it = 0, g, m0, n0;
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      Walk live;
+      for (int r = blockIdx.x; walk<true>(p, live, r, BN, g, m0, n0);
+           r += gridDim.x)
+        gemm_produce<NC, BN, STAGES, 1, 3>(ring, &p.a, &p.b, m0, n0, p.K,
+                                           nullptr, it, g, g / p.rep);
+    }
+    return;
+  }
+  regs_inc<232>();
+  const int c = threadIdx.x / 128 - 1;
+  float acc[BN / 2], none[1];
+  Walk live;
+  for (int r = blockIdx.x; walk<true>(p, live, r, BN, g, m0, n0);
+       r += gridDim.x) {
+    gemm_consume(ring, p.K, c, acc, none, it);
+    store_tile<BN, MODE>(p, acc, g, m0, n0, c, false);
+  }
+  if constexpr (MODE == MODE_DOWN) {   // the zeros of the dead tiles
+    Walk dead;
+    for (int r = blockIdx.x; walk<false>(p, dead, r, BN, g, m0, n0);
+         r += gridDim.x)
+      store_tile<BN, MODE>(p, acc, g, m0, n0, c, true);
+  }
+}
+
+template <int BN, int MODE>
+int launch_bn(Params& p, const Args& g, int G, int E, cudaStream_t stream) {
+  using P = ptt::hopper::GemmPlan<NC, BN, STAGES>;
+  const uint64_t adims[3] = {(uint64_t)g.K, (uint64_t)g.C, (uint64_t)G};
+  const uint64_t astride[2] = {(uint64_t)g.K * 2, (uint64_t)g.C * g.K * 2};
+  const uint32_t abox[3] = {64, (uint32_t)TM, 1};
+  cudaError_t e = ptt::hopper::make_map(&p.a, g.a, 3, adims, astride, abox);
+  const uint64_t bdims[3] = {(uint64_t)g.N, (uint64_t)g.K, (uint64_t)E};
+  const uint64_t bstride[2] = {(uint64_t)g.N * 2, (uint64_t)g.K * g.N * 2};
+  const uint32_t bbox[3] = {64, 64, 1};
+  if (e == cudaSuccess)
+    e = ptt::hopper::make_map(&p.b, g.b, 3, bdims, bstride, bbox);
+  if (e != cudaSuccess) return (int)e;
+  p.col_tiles = (g.N + BN - 1) / BN;
+  auto kern = grouped_hopper<BN, MODE>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)P::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = min(G * p.row_tiles * p.col_tiles,
+                       ptt::hopper::sm_count());
+  kern<<<grid, P::THREADS, P::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// 128 x 256 tiles where every SM gets two, else 128 x 128 (the choice of
+// fused_block.cu's mlp_hopper for its two-consumer tiles)
 template <int MODE>
-int launch(int dtype, const Args& g, int G, void* stream) {
-  if (G <= 0 || g.C <= 0 || g.rep <= 0 || G % g.rep != 0 || g.K % BK != 0 ||
-      g.N % BN != 0 || G > 65535)
+int launch(const Args& g, int G, cudaStream_t stream) {
+  if (g.K % 64 != 0 || g.N % 64 != 0) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.bias = static_cast<const bf16*>(g.bias);
+  p.counts = g.counts;
+  p.c = static_cast<bf16*>(g.c);
+  p.G = G;
+  p.C = g.C;
+  p.K = g.K;
+  p.N = g.N;
+  p.rep = g.rep;
+  p.row_tiles = (g.C + TM - 1) / TM;
+  const int E = G / g.rep;
+  if (G * p.row_tiles * ((g.N + 255) / 256) >= 2 * ptt::hopper::sm_count())
+    return launch_bn<256, MODE>(p, g, G, E, stream);
+  return launch_bn<128, MODE>(p, g, G, E, stream);
+}
+
+}  // namespace hop
+
+template <int MODE>
+int launch(int dtype, const Args& g, int G, void* stream, void* design) {
+  if (G <= 0 || g.C <= 0 || g.rep <= 0 || G % g.rep != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::DT_BFLOAT16)
-    return launch_t<__nv_bfloat16, MODE>(g, G, s);
-  if (dtype == ptt::DT_FLOAT32) return launch_t<float, MODE>(g, G, s);
+    return ptt::launched(hop::launch<MODE>(g, G, s), design,
+                         ptt::DESIGN_WGMMA);
+  if (dtype == ptt::DT_FLOAT32)
+    return ptt::launched(launch_fp32<MODE>(g, G, s), design,
+                         ptt::DESIGN_TILE);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -271,21 +410,24 @@ int launch(int dtype, const Args& g, int G, void* stream) {
 extern "C" {
 
 // h[g] = gelu(x[g] @ w1[g / rep] + b1[g / rep]) for rows < counts[g];
-// x [G, C, d], w1 [E, d, h], b1 [E, h], counts [G] int32, h [G, C, h].
+// x [G, C, d], w1 [E, d, h], b1 [E, h], counts [G] int32, h [G, C, h];
+// design (an int) receives the design launched (enum Design).
 int ptt_grouped_ffn_up(int dtype, const void* x, const void* w1,
                        const void* b1, const void* counts, void* h, int G,
-                       int C, int d, int hid, int rep, void* stream) {
+                       int C, int d, int hid, int rep, void* stream,
+                       void* design) {
   Args g{x, w1, b1, static_cast<const int*>(counts), h, C, d, hid, rep};
-  return launch<MODE_UP>(dtype, g, G, stream);
+  return launch<MODE_UP>(dtype, g, G, stream, design);
 }
 
 // y[g] = h[g] @ w2[g / rep] + b2[g / rep] for rows < counts[g], zero for
 // the other rows; h [G, C, h], w2 [E, h, d], b2 [E, d], y [G, C, d].
 int ptt_grouped_ffn_down(int dtype, const void* h, const void* w2,
                          const void* b2, const void* counts, void* y, int G,
-                         int C, int hid, int d, int rep, void* stream) {
+                         int C, int hid, int d, int rep, void* stream,
+                         void* design) {
   Args g{h, w2, b2, static_cast<const int*>(counts), y, C, hid, d, rep};
-  return launch<MODE_DOWN>(dtype, g, G, stream);
+  return launch<MODE_DOWN>(dtype, g, G, stream, design);
 }
 
 }  // extern "C"

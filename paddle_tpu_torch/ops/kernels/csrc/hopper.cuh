@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the port's wgmma / TMA kernels, shared
-// by flash_attention.cu (the bf16 flash forward, dq and dk/dv),
-// quant_matmul.cu (the bf16 prefill GEMM over 8-bit weights) and, through
-// hopper_gemm.cuh, fused_block.cu (the QKV, MLP and fused_ffn GEMMs):
+// by flash_attention.cu (the bf16 flash forward, dq and dk/dv, the forward
+// through flash_hopper.cuh), quant_matmul.cu (the bf16 prefill GEMM over
+// 8-bit weights) and, through hopper_gemm.cuh, fused_block.cu (the QKV, MLP
+// and fused_ffn GEMMs), grouped_matmul.cu (the grouped expert FFN) and
+// fused_decoder.cu (the whole-block decoder, flash_hopper.cuh too):
 //   - mbarriers: init, expect-tx, arrive and a parity wait;
-//   - TMA: cp.async.bulk.tensor loads of 2-d and 4-d boxes into shared
+//   - TMA: cp.async.bulk.tensor loads of 2-d, 3-d and 4-d boxes into shared
 //     memory and 1-d bulk copies, completed on an mbarrier, and the
 //     host-side CUtensorMap encoder, fetched from libcuda through the
 //     runtime (cudaGetDriverEntryPoint*), so no library links -lcuda;
@@ -114,6 +116,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -369,6 +382,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Device memory that threads wrote with ordinary stores and TMA reads
+// later in the same launch (a persistent kernel's workspace, behind a
+// grid-wide barrier): the writers fence before the barrier, the thread
+// that issues the loads after it.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // 8-bit weights up-converted exactly.  Byte i (0..3) of the word w as an
 // fp32 value: int8 through the 2^23 magic number (w's bytes biased by
 // 128, placed under the exponent of 2^23, 2^23 + 128 subtracted), e4m3
@@ -462,6 +483,17 @@ inline EncodeTiled encoder() {
                : nullptr;
   }();
   return fn;
+}
+
+// the streaming multiprocessors of the current device, looked up once
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
 }
 
 inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type,

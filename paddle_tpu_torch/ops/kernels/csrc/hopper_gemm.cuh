@@ -3,14 +3,19 @@
 // output tile (csrc/hopper.cuh has the PTX pieces and the tile layouts).
 // fused_block.cu runs it for bf16 at T > 16: the RMSNorm+QKV projection,
 // the MLP's gate/up (two B operands a slot), fused_ffn's up and the down
-// product of both; the grouped FFN and the decoder block still run
-// gemm_tile.cuh's wmma tile.
+// product of both; grouped_matmul.cu for the grouped expert FFN's two
+// products in bf16 (3-d maps, a group and an expert a tile); fused_decoder.cu
+// for the four GEMM phases of the bf16 decoder block (one ring for all).
+// The wmma tile of gemm_tile.cuh is left to decode rows (T <= 16) and fp32.
 //
 //   A [M, K] bf16, K contiguous (x, xn, h): a 2-d tensor map {K, M} with
-//     boxes {64, BM}; K-major operand.
+//     boxes {64, BM}; K-major operand.  Grouped: [G, C, K], a 3-d map
+//     {K, C, G} with boxes {64, BM, 1} (rows past C zero-filled, so a tile
+//     never reads the next group).
 //   B [K, N] bf16, N contiguous (a weight in the [in, out] layout): a 2-d
 //     tensor map {N, K} with boxes {64, 64}; MN-major operand (wgmma's
-//     transpose bit), so no weight is transposed.
+//     transpose bit), so no weight is transposed.  Grouped: [E, K, N], a
+//     3-d map {N, K, E} with boxes {64, 64, 1}.
 // A block is NC + 1 warpgroups.  Warpgroup 0 is the producer: one thread
 // issues every TMA load.  Warpgroups 1..NC are the consumers; consumer c
 // owns rows 64 c .. 64 c + 63 of the BM = 64 NC-row tile and all BN
@@ -61,6 +66,31 @@ struct GemmRing {
   }
 };
 
+// The same ring memory and barriers read under another plan whose slots
+// have the same size (the decoder block's 128 x 256 single-weight tiles and
+// 128 x 128 gate/up tiles share one ring and its running slice count).
+template <int BN2, int NB2, int NC, int BN, int STAGES, int NB>
+__device__ __forceinline__ GemmRing<NC, BN2, STAGES, NB2> ring_as(
+    const GemmRing<NC, BN, STAGES, NB>& r) {
+  static_assert(GemmPlan<NC, BN2, STAGES, NB2>::STAGE_BYTES ==
+                    GemmPlan<NC, BN, STAGES, NB>::STAGE_BYTES,
+                "the two plans' slots must coincide");
+  return GemmRing<NC, BN2, STAGES, NB2>{r.base, r.full, r.empty};
+}
+
+// Output tile t of a row_tiles x col_tiles grid in a persistent walk:
+// column-major inside bands of `band` row tiles, so the tiles in flight on
+// the card share their A rows and weight columns in L2.
+__device__ __forceinline__ void band_tile(int t, int row_tiles, int col_tiles,
+                                          int band, int& rt, int& ct) {
+  const int per = band * col_tiles;
+  const int first = t / per * band;
+  const int rows_in = min(band, row_tiles - first);
+  const int in = t % per;
+  rt = first + in % rows_in;
+  ct = in / rows_in;
+}
+
 // The ring in dynamic shared memory, its barriers initialised; every
 // thread of the block calls it (it ends in __syncthreads).
 template <int NC, int BN, int STAGES, int NB = 1>
@@ -84,21 +114,34 @@ __device__ __forceinline__ GemmRing<NC, BN, STAGES, NB> gemm_ring(
 
 // The producer (one thread): the K slices of A's rows m0.. and B's
 // columns n0.. into the ring (b1: the second B operand where NB = 2).
-template <int NC, int BN, int STAGES, int NB>
+// RANK 3: the grouped 3-d maps, A's group ga and B's expert gb (one B
+// operand only).
+template <int NC, int BN, int STAGES, int NB, int RANK = 2>
 __device__ __forceinline__ void gemm_produce(
     const GemmRing<NC, BN, STAGES, NB>& r, const CUtensorMap* a,
     const CUtensorMap* b, int m0, int n0, int K, const CUtensorMap* b1,
-    int& it) {
+    int& it, int ga = 0, int gb = 0) {
+  static_assert(RANK == 2 || RANK == 3, "2-d or grouped 3-d maps");
+  static_assert(RANK == 2 || NB == 1,
+                "the second B operand is loaded through a 2-d map");
   using P = GemmPlan<NC, BN, STAGES, NB>;
   const int KT = K / P::BK;
   for (int kt = 0; kt < KT; ++kt, ++it) {
     const int s = it % STAGES;
     if (it >= STAGES) mbar_wait(&r.empty[s], ((it / STAGES) - 1) & 1);
     mbar_expect_tx(&r.full[s], P::STAGE_BYTES);
-    tma_load_2d(r.a(s), a, &r.full[s], kt * P::BK, m0);
+    if constexpr (RANK == 2)
+      tma_load_2d(r.a(s), a, &r.full[s], kt * P::BK, m0);
+    else
+      tma_load_3d(r.a(s), a, &r.full[s], kt * P::BK, m0, ga);
 #pragma unroll
     for (int j = 0; j < BN / 64; ++j) {
-      tma_load_2d(r.b(s) + j * 8192, b, &r.full[s], n0 + 64 * j, kt * P::BK);
+      if constexpr (RANK == 2)
+        tma_load_2d(r.b(s) + j * 8192, b, &r.full[s], n0 + 64 * j,
+                    kt * P::BK);
+      else
+        tma_load_3d(r.b(s) + j * 8192, b, &r.full[s], n0 + 64 * j,
+                    kt * P::BK, gb);
       if constexpr (NB == 2)
         tma_load_2d(r.b(s, 1) + j * 8192, b1, &r.full[s], n0 + 64 * j,
                     kt * P::BK);

@@ -206,16 +206,6 @@ int quant_fp32(const void* x, const void* qw, const float* scale, void* y,
   return launch_fp32<FP8, 64>(x, qw, scale, y, T_, K, N, s);
 }
 
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
-}
-
 // -- bf16 at T <= 16: split-K --------------------------------------------------
 
 // the largest T that takes split-K (ops/kernels/quant_matmul.py,
@@ -632,7 +622,7 @@ int launch_wgmma(WgmmaArgs& a, const void* x, const void* qw,
                            (int)P::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int grid = min(a.row_tiles * a.col_tiles, (NC == 1 ? 2 : 1) *
-                                                      sm_count());
+                                                      ptt::hopper::sm_count());
   kern<<<grid, P::THREADS, P::SMEM, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -651,7 +641,7 @@ int quant_bf16(const void* x, const void* qw, const float* scale, void* y,
     a.T = T_;
     a.K = K;
     a.N = N;
-    a.splits = splitk_splits(K, N, sm_count());
+    a.splits = splitk_splits(K, N, ptt::hopper::sm_count());
     if (a.splits > 1 && (ws == nullptr || tickets == nullptr))
       return (int)cudaErrorInvalidValue;
     return T_ <= 8 ? launch_splitk<FP8, 1>(a, qw, s)
@@ -668,7 +658,7 @@ int quant_bf16(const void* x, const void* qw, const float* scale, void* y,
   // 64 rows, 128 x 256 where they give every SM two, 256 x 128 (four
   // consumer warpgroups) past 128 rows where they give half the SMs one,
   // else 128 x 128
-  const int sms = sm_count();
+  const int sms = ptt::hopper::sm_count();
   if (T_ <= 64) return launch_wgmma<FP8, 1, 128>(a, x, qw, s);
   if ((T_ + 127) / 128 * ((N + 255) / 256) >= 2 * sms)
     return launch_wgmma<FP8, 2, 256>(a, x, qw, s);
@@ -687,7 +677,7 @@ extern "C" {
 int ptt_quant_splits(int dtype, int T, int K, int N) {
   if (dtype != ptt::DT_BFLOAT16 || T <= 0 || T > kSplitKMaxT || K < 64)
     return 0;
-  return splitk_splits(K, N, sm_count());
+  return splitk_splits(K, N, ptt::hopper::sm_count());
 }
 
 // y = (x @ float(qw)) * scale, one cast; x [T, K] and y [T, N] in `dtype`

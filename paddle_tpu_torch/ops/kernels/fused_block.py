@@ -35,6 +35,7 @@ its path."""
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -56,8 +57,8 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
 # variant's normalised rows then go to a workspace.  The bf16 MLP and
 # fused_ffn take the wgmma GEMM from the same row count.
 ROW_PASS_MIN_T = 17
-# the designs a launch of QKV, the MLP or fused_ffn takes, counted in each
-# wrapper's `launches_by_path`
+# the designs a launch of QKV, the MLP, fused_ffn, the decoder block or the
+# grouped expert FFN takes, counted in each wrapper's `launches_by_path`
 GEMM_PATHS = ("wgmma", "tile")
 
 
@@ -67,6 +68,7 @@ def gemm_path(T: int, dtype) -> str:
     fp32 tile of ``csrc/gemm_tile.cuh``)."""
     return "wgmma" if dtype == torch.bfloat16 and T >= ROW_PASS_MIN_T \
         else "tile"
+
 
 # fused_ffn's activations and their codes in csrc/fused_block.cu (enum Act)
 ACT_CODES = {"relu": 0, "gelu": 1, "silu": 2}
@@ -586,10 +588,12 @@ def fused_decoder_block(x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
     kernel where ``fused_decoder_eligible`` takes the shape and the
     tables have s rows, else the per-segment kernels
     (``decoder_segments``): the API is total, as JAX's is.  x and the
-    weights share one dtype, contiguous and 16-byte aligned.
-    ``fused_decoder_block.routes`` counts the Llama layers routed to the
-    block and to the segments (bumped by ``models/llama.py`` on every
-    device)."""
+    weights share one dtype, contiguous and 16-byte aligned.  bf16 runs
+    the Hopper design (the wgmma / TMA ring and flash forward), fp32 the
+    first one; ``fused_decoder_block.launches_by_path`` counts each
+    launch under the design that the C entry reports it took.  ``fused_decoder_block.routes`` counts the Llama
+    layers routed to the block and to the segments (bumped by
+    ``models/llama.py`` on every device)."""
     if x.ndim != 3:
         raise ValueError(f"fused_decoder_block expects [b, s, d], got shape "
                          f"{tuple(x.shape)}")
@@ -621,17 +625,21 @@ def fused_decoder_block(x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
     ws = [torch.empty((T, n), dtype=x.dtype, device=x.device)
           for n in _workspace_widths(d, dq, dkv, f)]
     lib = _build.library("fused_decoder")
+    design = ctypes.c_int(-1)
     err = lib.ptt_fused_decoder(
         _build.DTYPE_CODES[x.dtype],
         *(t.data_ptr() for t in (x, norm1_weight, wq, wk, wv, cos, sin, wo,
                                  norm2_weight, wg, wu, wd, y, *ws)),
-        b, s, d, dq, dkv, f, nh, nkvh, float(epsilon), _build.stream_of(x))
+        b, s, d, dq, dkv, f, nh, nkvh, float(epsilon), _build.stream_of(x),
+        ctypes.byref(design))
     _build.check(lib, err, what)
     fused_decoder_block.launches += 1
+    fused_decoder_block.launches_by_path[GEMM_PATHS[design.value]] += 1
     return y
 
 
 fused_decoder_block.launches = 0
+fused_decoder_block.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 fused_decoder_block.routes = {"decoder": 0, "segments": 0}
 
 

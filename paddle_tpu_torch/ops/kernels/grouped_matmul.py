@@ -15,15 +15,20 @@ tensor on the CPU.  There is no fallback between the two.  The kernel
 takes float32 and bfloat16, d and h multiples of 64, every operand
 contiguous and 16-byte aligned, and the exact-erf gelu only (what
 ``ExpertFFN`` passes by default).  Each launch counts in
-``grouped_expert_ffn.launches``."""
+``grouped_expert_ffn.launches``, and in ``launches_by_path`` under the
+design that the C entries report: ``wgmma`` (bf16: persistent walks on
+the wgmma / TMA ring) or ``tile`` (fp32: the first design)."""
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from paddle_tpu_torch.nn.functional.activation import gelu
 from paddle_tpu_torch.ops.kernels import _build
-from paddle_tpu_torch.ops.kernels.fused_block import (_check_cuda,
+from paddle_tpu_torch.ops.kernels.fused_block import (GEMM_PATHS,
+                                                      _check_cuda,
                                                       _check_width,
                                                       gelu_grad)
 
@@ -121,19 +126,24 @@ def grouped_expert_ffn(x, w1, b1, w2, b2, counts=None, act="gelu"):
         hbuf = torch.empty((G, C, h), dtype=x.dtype, device=x.device)
         lib = _build.library("grouped_matmul")
         code, stream = _build.DTYPE_CODES[x.dtype], _build.stream_of(x)
+        design = ctypes.c_int(-1)   # both launches report the same
         err = lib.ptt_grouped_ffn_up(code, x.data_ptr(), w1.data_ptr(),
                                      b1.data_ptr(), counts.data_ptr(),
-                                     hbuf.data_ptr(), G, C, d, h, rep, stream)
+                                     hbuf.data_ptr(), G, C, d, h, rep, stream,
+                                     ctypes.byref(design))
         _build.check(lib, err, what + " (up)")
         err = lib.ptt_grouped_ffn_down(code, hbuf.data_ptr(), w2.data_ptr(),
                                        b2.data_ptr(), counts.data_ptr(),
-                                       y.data_ptr(), G, C, h, d, rep, stream)
+                                       y.data_ptr(), G, C, h, d, rep, stream,
+                                       ctypes.byref(design))
         _build.check(lib, err, what + " (down)")
         grouped_expert_ffn.launches += 1
+        grouped_expert_ffn.launches_by_path[GEMM_PATHS[design.value]] += 1
     return y
 
 
 grouped_expert_ffn.launches = 0
+grouped_expert_ffn.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
 # -- custom VJP ---------------------------------------------------------------

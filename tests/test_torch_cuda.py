@@ -1474,3 +1474,77 @@ def test_fused_ffn_hopper_matches_plain(dev, act, T, d, f):
     n0["wgmma"] += 1
     n0["tile"] += 1
     assert FB.fused_ffn.launches_by_path == n0
+
+
+# -- the block and the grouped FFN on the wgmma / TMA ring (bf16) -------------
+
+# (b, s, d, heads, kv heads, f): DECODER_SHAPES, s = 64 (one q tile half
+# past s, T under a 128-row tile) and dkv = 128 at GQA rep 4 (a 256-column
+# tile half past k and v; f = 384 a partial 256-column down tile)
+DECODER_HOPPER_SHAPES = DECODER_SHAPES + [(1, 64, 256, 2, 1, 256),
+                                          (2, 128, 256, 4, 1, 384)]
+
+
+@pytest.mark.parametrize("b,s,d,nh,nkvh,f", DECODER_HOPPER_SHAPES)
+def test_decoder_block_hopper_matches_plain(dev, b, s, d, nh, nkvh, f):
+    """bf16: the block on the ring, RoPE in the QKV epilogue and the
+    wgmma flash forward, within DECODER_TOL of decoder_reference; three
+    calls in a row bitwise equal (a workspace row read by TMA before its
+    writer's stores were visible would differ now and then); each counted
+    under ``wgmma``."""
+    args = _decoder_args(np.random.default_rng(s + nh + f), b, s, d, nh,
+                         nkvh, f, torch.bfloat16, dev)
+    n0 = dict(FB.fused_decoder_block.launches_by_path)
+    outs = [FB.fused_decoder_block(*args) for _ in range(3)]
+    n0["wgmma"] += 3
+    assert FB.fused_decoder_block.launches_by_path == n0
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    assert _rel_err(outs[0], FB.decoder_reference(*args)) < \
+        DECODER_TOL[torch.bfloat16]
+
+
+def test_decoder_block_fp32_keeps_the_first_design(dev):
+    """fp32 launches the first design, counted under ``tile``."""
+    args = _decoder_args(np.random.default_rng(2), 1, 128, 256, 2, 1, 256,
+                         torch.float32, dev)
+    n0 = dict(FB.fused_decoder_block.launches_by_path)
+    got = FB.fused_decoder_block(*args)
+    n0["tile"] += 1
+    assert FB.fused_decoder_block.launches_by_path == n0
+    assert _rel_err(got, FB.decoder_reference(*args)) < \
+        DECODER_TOL[torch.float32]
+
+
+# (G, E, C, d, h): GROUPED_SHAPES and C = 960 (a partial last 128-row tile)
+# at rep 2
+GROUPED_HOPPER_SHAPES = GROUPED_SHAPES + [(4, 2, 960, 128, 192)]
+
+
+@pytest.mark.parametrize("G,E,C,d,h", GROUPED_HOPPER_SHAPES)
+def test_grouped_ffn_hopper_matches_plain(dev, G, E, C, d, h):
+    """bf16 on the ring, counts 0, C, partial and C - 1, a NaN in every
+    unrouted row of x: the routed rows within TOL of the plain version
+    on x without the NaN, rows past the counts exactly zero, every row
+    finite; one launch under ``wgmma``, and fp32 under ``tile``."""
+    rng = np.random.default_rng(G + C + d + h)
+    x, w1, b1, w2, b2 = _grouped_inputs(rng, G, E, C, d, h, torch.bfloat16,
+                                        dev)
+    counts = _grouped_counts(G, C).to(dev)
+    past = torch.arange(C, device=dev)[None, :] >= counts[:, None].long()
+    xn = x.clone()
+    xn[past] = float("nan")
+    n0 = dict(GM.grouped_expert_ffn.launches_by_path)
+    got = GM.grouped_expert_ffn(xn, w1, b1, w2, b2, counts=counts)
+    n0["wgmma"] += 1
+    assert GM.grouped_expert_ffn.launches_by_path == n0
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert not got[past].any()
+    _close(got, GM.grouped_expert_ffn_reference(x, w1, b1, w2, b2,
+                                                counts=counts),
+           torch.bfloat16)
+    GM.grouped_expert_ffn(*(t.float() for t in (x, w1, b1, w2, b2)),
+                          counts=counts)
+    n0["tile"] += 1
+    assert GM.grouped_expert_ffn.launches_by_path == n0
