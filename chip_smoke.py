@@ -19,12 +19,17 @@ train_moe two, one per engine or dispatch mode):
             registers, shared memory, spills (none allowed) and any wgmma
             serialisation (-Xptxas -v).
 3. kernels  every kernel of the serving path at the path's own shapes
-            (Llama-3-8B widths: fused RMSNorm+QKV and fused SwiGLU MLP at
-            T = 8 decode rows and T = 256 prefill rows; paged decode at
-            B = 8, 32/8 heads, head_dim 128, block 16, lengths 1..1024)
-            held against its plain PyTorch version in bf16 and fp32, and
-            timed with CUDA events beside the plain version, one PyTorch
-            library call computing the same function, and its bound.
+            (Llama-3-8B widths: fused RMSNorm+QKV at T = 1, 8 and 16
+            decode rows (bf16: the row pass and split-K, bitwise equal
+            over two calls) and T = 256 prefill rows, fused SwiGLU MLP at
+            T = 8 and 256; paged decode at B = 8, 32/8 heads, head_dim
+            128, block 16, lengths 1..1024, split across the sequence,
+            bitwise equal over two calls) held against its plain PyTorch
+            version in bf16 and fp32, and timed with CUDA events beside
+            the plain version, one PyTorch library call computing the
+            same function, and its bound (the card held busy ~0.5 ms
+            before each timed launch, so the host's enqueue time does not
+            land between the events).
             The training slice's kernels at its own shapes (b=4,
             s=2048, 32/8 heads, head_dim 128, causal): flash attention
             forward, dq and dk/dv in bf16 (fp32 at b=1), each bf16 row
@@ -55,17 +60,24 @@ train_moe two, one per engine or dispatch mode):
             w_scale buffers: int8 weights with int8 KV pools, then fp8
             weights with fp pools, each within the same tolerance.
 5. train_parity  a 1-layer model at full width (vocab cut to 32000),
-            fp32, b=1, s=256 (flash routes): loss and every parameter's
-            gradient on the card against the CPU's plain path.
+            fp32, b=1, s=256 (flash routes), FLAGS_default_matmul_precision
+            =float32 (as in every card-against-CPU parity phase): loss and
+            every parameter's gradient on the card against the CPU's
+            plain path.  train_parity_tf32: the card at the flag's
+            default (the chunked CE's products in TF32) against the card
+            at float32, within CE_TF32_TOL, and a control with bf16
+            products outside it.
 6. serve    the full 32-layer Llama-3-8B in bf16 (random weights from a
             seeded generator) behind the paged ContinuousBatchingEngine:
             8 requests, prompts of 64..700 tokens, 32 new tokens each.
             Every request must end "ok" with 32 tokens, and every serving
             kernel's launch count must have grown during this run (the
             MLP on both paths: wgmma for prefill chunks, the tile at
-            decode).  Then
-            a short window under torch.profiler: device time by kernel
-            and the device's busy share.  serve_quant: the same model, in
+            decode; QKV on wgmma and split-K, never the tile; paged
+            decode split).  Then
+            a short window under torch.profiler: device time by kernel,
+            the decode kernels' device ms per decode step and the
+            device's busy share.  serve_quant: the same model, in
             place, behind ContinuousBatchingEngine(quant_weights="int8",
             quant_kv="int8") and then (quant_weights="fp8"), the same 8
             requests: every request "ok" with 32 tokens, the quant
@@ -77,8 +89,12 @@ train_moe two, one per engine or dispatch mode):
             AdamW(learning_rate=1e-4, multi_precision=True) and the
             non-finite guard, b=4, s=2048, one fixed random batch: 1
             warm-up and 5 timed steps.  Every loss finite, the last below
-            the first, no step skipped, every training kernel launched.
-            Then one step under torch.profiler.
+            the first, no step skipped, every training kernel launched;
+            the chunked CE's device time alone at the step's shape, at
+            the flag's default (TF32, the training phases' setting) and
+            at float32, the default within CE_TF32_TOL of float32 and a
+            control with bf16 products reported beside it.  Then one
+            step under torch.profiler.
 
 8. moe     the MoE slice at ERNIE-4.5-21B-A3B width.  kernels_moe (with
             the kernel phases): the grouped expert FFN against its plain
@@ -198,11 +214,29 @@ CE_TOL = {"loss": (1e-4, 1e-5), "lse": (1e-4, 1e-5),
 # matmul's split-K on mma.sync), whose -Xptxas -v the ptxas line reports
 # (none may spill or serialise its wgmma), and their sources
 PTXAS_SOURCES = ("flash_attention", "fused_block", "quant_matmul",
-                 "fused_decoder", "grouped_matmul")
+                 "fused_decoder", "grouped_matmul", "paged_attention")
 PTXAS_KERNELS = ("flash_fwd_hopper", "flash_dq_hopper", "flash_dkv_hopper",
                  "qkv_gemm_kernel", "qkv_rows_kernel", "mlp_gemm_kernel",
                  "quant_splitk_kernel", "quant_wgmma_kernel",
-                 "decoder_hopper", "grouped_hopper")
+                 "decoder_hopper", "grouped_hopper", "qkv_splitk_kernel",
+                 "paged_split_kernel")
+# the chunked CE at FLAGS_default_matmul_precision="default" (TF32 chunk
+# products on the card) against "float32" (exact fp32): TF32 rounds each
+# operand to a 10-bit mantissa (2^-11 relative), so a logit moves by a few
+# 1e-4 of its terms' scale; the loss is a mean of logsumexps and moves far
+# less.  Limits: loss relative, each gradient's max abs difference over
+# its largest |g|, by the CE's io dtype, set from the largest errors
+# measured on the card (PERF.md, section 6).  bf16 h and W (ce_device at
+# the training shapes): products of bf16 operands are exact in TF32 as
+# in fp32, so the loss moves by the summation order alone (8.3e-7) and
+# dh, dW by one bf16 rounding of a few outputs (4.5e-3 of the largest):
+# about five and two times those.  Such a gate cannot tell TF32 from one
+# bf16 pass, which rounds nothing more there (ce_device reports that
+# control).  fp32 h and W (train_parity_tf32, a 1-layer model): TF32
+# rounds every operand (loss 6.4e-7, worst gradient 3.9e-4 of its
+# largest); the control with bf16 operands must break these limits.
+CE_TF32_TOL = {"bfloat16": {"loss_rel": 4e-6, "grad_of_max": 1e-2},
+               "float32": {"loss_rel": 4e-6, "grad_of_max": 1.5e-3}}
 
 
 def emit(phase, **kw):
@@ -211,13 +245,15 @@ def emit(phase, **kw):
 
 def gemm_paths(kernels):
     """Each GEMM wrapper's launches by design (``launches_by_path``:
-    splitk / wgmma / tile)."""
+    splitk / wgmma / tile), and the paged decode's (split / direct)."""
     from paddle_tpu_torch.ops.kernels import quant_matmul as QM
     return {fn.__name__: dict(fn.launches_by_path)
             for fn in (kernels.fused_rmsnorm_qkv, kernels.fused_mlp,
                        kernels.fused_ffn, QM.quant_matmul,
                        kernels.fused_decoder_block,
-                       kernels.grouped_expert_ffn)}
+                       kernels.grouped_expert_ffn,
+                       kernels.paged_decode_attention,
+                       kernels.paged_decode_attention_int8)}
 
 
 def require_paths(what, got, want):
@@ -242,7 +278,14 @@ class Timer:
     """Mean device time of `fn` over `iters` launches, CUDA events around
     each launch; a 256 MB write before each evicts the 50 MB L2, so the
     weights come from device memory as they do in the model, where every
-    layer reads its own."""
+    layer reads its own.  Then the card spins for BUSY_CYCLES (~0.5 ms),
+    so the host has enqueued `fn`'s launches before the first event is
+    reached: a wrapper's host time, which on the card's machine can
+    exceed the write's device time, would otherwise count as device
+    time.  With BUSY_CYCLES = 0 it is the timer without the spin, as
+    compare_decode.py uses it beside this one."""
+
+    BUSY_CYCLES = 1_000_000
 
     def __init__(self, dev):
         self.scrub = torch.empty(64 << 20, dtype=torch.float32, device=dev)
@@ -253,6 +296,8 @@ class Timer:
         pairs = []
         for _ in range(iters):
             self.scrub.zero_()
+            if self.BUSY_CYCLES:
+                torch.cuda._sleep(self.BUSY_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -299,9 +344,10 @@ def rand(g, shape, dtype, dev, scale=1.0):
 # -- phase 3: the kernels at the path's shapes -------------------------------
 
 def kernel_qkv(FB, dev, timer, T, plain_iters=10):
-    """The QKV kernel's forward variant at T rows: 8 and 256 serve (a
-    decode step, a prefill chunk), 8192 is the 32-layer scoring forward
-    at the default tier."""
+    """The QKV kernel's forward variant at T rows: 1, 8 and 16 decode
+    steps (bf16: split-K, whose output must be bitwise equal over two
+    calls), 256 a prefill chunk (the wgmma GEMM), 8192 the 32-layer
+    scoring forward at the default tier."""
     g = torch.Generator(device=dev).manual_seed(T)
     errs, out = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -311,11 +357,27 @@ def kernel_qkv(FB, dev, timer, T, plain_iters=10):
         wq = rand(g, (D, DQ), dtype, dev, s)
         wk = rand(g, (D, DKV), dtype, dev, s)
         wv = rand(g, (D, DKV), dtype, dev, s)
+        n0 = dict(FB.fused_rmsnorm_qkv.launches_by_path)
         got = FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, EPS)
+        path = FB.qkv_path(T, dtype)
+        n0[path] += 1
+        if FB.fused_rmsnorm_qkv.launches_by_path != n0:
+            raise AssertionError(f"fused_rmsnorm_qkv T={T} {dtype}: not on "
+                                 f"its {path} path")
         ref = FB.qkv_reference(x, wn, wq, wk, wv, EPS)
         errs[str(dtype)] = max(check_close(f"fused_rmsnorm_qkv T={T} {n}",
                                            a, b, dtype)
                                for n, a, b in zip("qkv", got, ref))
+        if path == "splitk":
+            again = FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, EPS)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"fused_rmsnorm_qkv T={T}: split-K "
+                                     "differs between two calls")
+            out["bitwise_equal_twice"] = True
+            out["splits"] = FB.qkv_splits(D, DQ, DKV, torch.cuda.
+                                          get_device_properties(dev).
+                                          multi_processor_count)
+        del got, ref
     F_ = torch.nn.functional
     out["ms"] = timer(lambda: FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, EPS))
     out["plain_ms"] = timer(lambda: FB.qkv_reference(x, wn, wq, wk, wv, EPS),
@@ -331,6 +393,7 @@ def kernel_qkv(FB, dev, timer, T, plain_iters=10):
     out["max_abs_err"] = errs[str(torch.bfloat16)]
     out["max_abs_err_fp32"] = errs[str(torch.float32)]
     out["shape"] = f"T={T} d={D} dq={DQ} dkv={DKV} bf16"
+    out["kernel_path"] = FB.qkv_path(T, torch.bfloat16)
     return out
 
 
@@ -377,7 +440,8 @@ def kernel_paged(PA, dev, timer):
         q = rand(g, (B, h, hd), dtype, dev)
         kp = rand(g, (nb, bs, kvh, hd), dtype, dev)
         vp = rand(g, (nb, bs, kvh, hd), dtype, dev)
-        got = PA.paged_decode_attention(q, kp, vp, bt, lengths)
+        got = paged_twice(PA, PA.paged_decode_attention, out, q, kp, vp, bt,
+                          lengths)
         errs[str(dtype)] = check_close(
             "paged_decode_attention", got,
             PA.paged_decode_reference(q, kp, vp, bt, lengths), dtype,
@@ -409,6 +473,29 @@ def kernel_paged(PA, dev, timer):
     out["shape"] = (f"B={B} h={h} kvh={kvh} hd={hd} bs={bs} "
                     f"lengths={lengths.tolist()}")
     return out
+
+
+def paged_twice(PA, fn, out, *args):
+    """Two calls of the paged wrapper `fn`: both on the split design
+    (the table is 64 blocks of 16, 8 splits), bitwise equal (the merge
+    sums the partials in split order whichever split arrives last);
+    records the path and the split count in `out`."""
+    n0 = dict(fn.launches_by_path)
+    got = fn(*args)
+    again = fn(*args)
+    n0["split"] += 2
+    if fn.launches_by_path != n0:
+        raise AssertionError(f"{fn.__name__}: not on the split design "
+                             f"{fn.launches_by_path}")
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{fn.__name__}: two calls differ")
+    from paddle_tpu_torch.ops.kernels import _build
+    lib = _build.library("paged_attention")
+    out.update(kernel_path="split", bitwise_equal_twice=True,
+               splits=lib.ptt_paged_splits(args[3].shape[1],
+                                           args[1].shape[1]))
+    return got
 
 
 def paged_limit(dtype, used):
@@ -647,7 +734,8 @@ def kernel_quant(QM, quantize, dev, timer, T, K, N, mode, dtype):
     out["shape"] = f"T={T} K={K} N={N} {mode} {str(dtype)[6:]}"
     out["path"] = path
     if path == "splitk":
-        splits = QM.splitk_splits(
+        from paddle_tpu_torch.ops.kernels import splitk as SK
+        splits = SK.splitk_splits(
             K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
         out["splits"] = splits
         out["workspace_bytes"] = 4 * splits * T * N if splits > 1 else 0
@@ -695,7 +783,8 @@ def kernel_paged_int8(PA, quantize_kv, dev, timer):
         q = rand(g, (B, h, hd), dtype, dev)
         kp, ks = quantize_kv(rand(g, (nb, bs, kvh, hd), dtype, dev))
         vp, vs = quantize_kv(rand(g, (nb, bs, kvh, hd), dtype, dev))
-        got = PA.paged_decode_attention_int8(q, kp, vp, bt, lengths, ks, vs)
+        got = paged_twice(PA, PA.paged_decode_attention_int8, out, q, kp, vp,
+                          bt, lengths, ks, vs)
         errs[str(dtype)] = check_close(
             "paged_decode_attention_int8", got,
             PA.paged_decode_reference(q, kp, vp, bt, lengths, k_scale=ks,
@@ -981,11 +1070,45 @@ def parity_quant(card, host, prompt, kernels):
 
 # -- phase 5: the training step at full width against the plain path --------
 
+@contextlib.contextmanager
+def matmul_precision(mode):
+    """FLAGS_default_matmul_precision set to `mode` inside the block."""
+    from paddle_tpu_torch import flags
+    saved = flags.get("default_matmul_precision")
+    flags.set_flags({"default_matmul_precision": mode})
+    try:
+        yield
+    finally:
+        flags.set_flags({"default_matmul_precision": saved})
+
+
+def matmul_mode():
+    """FLAGS_default_matmul_precision as the port reads it."""
+    from paddle_tpu_torch import flags
+    return flags.get("default_matmul_precision")
+
+
+def loss_and_grads(model, ids):
+    """`model`'s loss on ids[:, :-1] -> ids[:, 1:] and every parameter's
+    gradient (cleared first)."""
+    model.zero_grad(set_to_none=True)
+    x = torch.as_tensor(ids[:, :-1]).to(model.device)
+    y = torch.as_tensor(ids[:, 1:]).to(model.device)
+    loss = model.loss(x, y)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.named_parameters()}
+
+
 def train_parity(dev):
     """Loss and every gradient of a 1-layer full-width model (vocab cut
     to 32000), fp32 with TF32 off, b=1, s=256: the card (flash, QKV train
     variant, MLP kernels) against the same weights on the CPU (plain
-    versions)."""
+    versions), with FLAGS_default_matmul_precision=float32 (the chunked
+    CE's products exact fp32 on both sides).  Then train_parity_tf32: the
+    card at the flag's default (the CE's chunk products in TF32) against
+    the card at float32, within CE_TF32_TOL["float32"], and the control
+    (bf16_products) outside it."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.ops import kernels
@@ -1000,13 +1123,11 @@ def train_parity(dev):
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
     losses, grads = [], []
-    for model in (card, host):
-        x = torch.as_tensor(ids[:, :-1]).to(model.device)
-        y = torch.as_tensor(ids[:, 1:]).to(model.device)
-        loss = model.loss(x, y)
-        loss.backward()
-        losses.append(float(loss.detach()))
-        grads.append({n: p.grad for n, p in model.named_parameters()})
+    with matmul_precision("float32"):
+        for model in (card, host):
+            loss, grad = loss_and_grads(model, ids)
+            losses.append(loss)
+            grads.append(grad)
     launched = {fn.__name__: fn.launches for fn in kernels.TRAINING}
     if not all(launched.values()):
         raise AssertionError(f"train_parity: kernels not launched "
@@ -1029,10 +1150,45 @@ def train_parity(dev):
         worst[n] = err / scale if scale else 0.0
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
     emit("train_parity", layers=1, vocab=cfg.vocab_size, batch=1, seq=256,
-         dtype="float32", loss=losses[0], plain_loss=losses[1],
-         loss_rel_err=rel, grad_tolerance="1e-3 of each grad's max |g|",
+         dtype="float32", matmul_precision="float32", loss=losses[0],
+         plain_loss=losses[1], loss_rel_err=rel,
+         grad_tolerance="1e-3 of each grad's max |g|",
          worst_grad_rel_err=dict(top), launches=launched,
          seconds=time.perf_counter() - t0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    err = {}
+    for what, ctx in (("default", contextlib.nullcontext()),
+                      ("bf16_control", bf16_products())):
+        with matmul_precision("default" if what == "default" else
+                              "float32"), ctx:
+            loss, grad = loss_and_grads(card, ids)
+        now = torch.backends.cuda.matmul.allow_tf32
+        if now != tf32:
+            raise AssertionError(f"train_parity_tf32: the CE left TF32 {now}")
+        if not all(torch.isfinite(g).all() for g in grad.values()):
+            raise AssertionError(f"train_parity_tf32 {what}: a non-finite "
+                                 "gradient")
+        err[what] = {"loss_rel": abs(loss - losses[0]) / abs(losses[0])}
+        for n, ref in grads[0].items():
+            scale = float(ref.abs().max())
+            err[what][n + "_of_max"] = \
+                float((grad[n] - ref).abs().max()) / scale if scale else 0.0
+        del grad
+    breaks = {k: ce_breaches(v, "float32") for k, v in err.items()}
+    top = {k: dict(sorted(v.items(), key=lambda kv: -kv[1])[:4])
+           for k, v in err.items()}
+    emit("train_parity_tf32", layers=1, vocab=cfg.vocab_size, batch=1,
+         seq=256, dtype="float32", matmul_precision="default",
+         float32_loss=losses[0], tolerance=CE_TF32_TOL["float32"],
+         largest_errors=top, loss_rel_err={k: v["loss_rel"]
+                                           for k, v in err.items()},
+         breaks=breaks, tf32_global=tf32)
+    if breaks["default"]:
+        raise AssertionError(f"train_parity_tf32: TF32 against float32 "
+                             f"breaks {breaks['default']}: {top['default']}")
+    if not breaks["bf16_control"]:
+        raise AssertionError("train_parity_tf32: bf16 products pass the "
+                             f"TF32 gate: {top['bf16_control']}")
     del card, host, grads
 
 
@@ -1077,10 +1233,17 @@ def serve(dev, kernels):
         if n <= 0:
             raise AssertionError(f"serve: kernel {name} never launched")
     # prefill chunks (> 16 rows) on the wgmma ring, decode steps (8 rows)
-    # on the tile
+    # on the tile (the MLP) and on split-K (QKV); paged decode split
     by_path = gemm_paths(kernels)
     require_paths("serve", by_path, {("fused_mlp", "wgmma"): None,
-                                     ("fused_mlp", "tile"): None})
+                                     ("fused_mlp", "tile"): None,
+                                     ("fused_rmsnorm_qkv", "wgmma"): None,
+                                     ("fused_rmsnorm_qkv", "splitk"): None,
+                                     ("fused_rmsnorm_qkv", "tile"): 0,
+                                     ("paged_decode_attention", "split"):
+                                     None,
+                                     ("paged_decode_attention", "direct"):
+                                     0})
     ttft = np.array([eng.request_status(r).timings["ttft_s"] for r in rids])
     dec_tok = eng.stats["decode_tokens"] - stats0["decode_tokens"]
     dec_s = eng.stats["decode_seconds"] - stats0["decode_seconds"]
@@ -1098,6 +1261,7 @@ def serve(dev, kernels):
          launches=launches, launches_by_path=by_path,
          first_tokens=[out[r][1][:4] for r in rids])
     profile(eng, cfg, rng)
+    launches["launches_by_path"] = by_path
     return launches, model, prompts, [out[r][1] for r in rids]
 
 
@@ -1156,12 +1320,15 @@ def serve_quant(dev, kernels, model, prompts, bf16_tokens):
             raise AssertionError(f"serve_quant {wmode}: fused fp kernels "
                                  f"launched {launches}")
         # decode steps on split-K, prefill chunks on wgmma, none on the
-        # fp32 tile
+        # fp32 tile; paged decode split
         launches["quant_matmul_by_path"] = dict(qm.launches_by_path)
-        require_paths(f"serve_quant {wmode}", gemm_paths(kernels),
+        by_path = gemm_paths(kernels)
+        launches["paged_by_path"] = by_path[paged]
+        require_paths(f"serve_quant {wmode}", by_path,
                       {("quant_matmul", "splitk"): None,
                        ("quant_matmul", "wgmma"): None,
-                       ("quant_matmul", "tile"): 0})
+                       ("quant_matmul", "tile"): 0,
+                       (paged, "split"): None, (paged, "direct"): 0})
         ttft = np.array([eng.request_status(r).timings["ttft_s"]
                          for r in rids])
         dec_tok = eng.stats["decode_tokens"] - stats0["decode_tokens"]
@@ -1198,31 +1365,58 @@ def serve_quant(dev, kernels, model, prompts, bf16_tokens):
     return runs
 
 
+# the decode step's kernels (T <= 16 rows) whose device time the serving
+# profiles report per decode step: paged decode, QKV's row pass and
+# split-K, the quant matmul's split-K (every projection of the quantized
+# engines) and the MLP's wmma tile
+DECODE_FAMILIES = ("paged_split_kernel", "qkv_decode_rows_kernel",
+                   "qkv_splitk_kernel", "quant_splitk_kernel", "gemm_kernel")
+
+
 def profile(eng, cfg, rng, phase="profile"):
     """Where a serving window's time goes: 8 requests (64-token prompts,
-    16 new tokens) under torch.profiler; device time by kernel and the
-    device's busy share of the window's wall time.  Run after the
-    measured serve run, so profiling costs nothing there."""
+    16 new tokens) under torch.profiler; device time by kernel, the
+    decode kernels' device ms per decode step, and the device's busy
+    share of the window's wall time.  Run after the measured serve run,
+    so profiling costs nothing there."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     for _ in range(8):
         eng.add_request(rng.integers(0, cfg.vocab_size, 64),
                         max_new_tokens=16)
+    steps0 = eng.stats["decode_steps"]
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    steps = eng.stats["decode_steps"] - steps0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
+    fams = family_times(kernels, DECODE_FAMILIES)
     emit(phase, requests=8, prompt=64, new_tokens=16, wall_s=wall,
          device_busy_s=busy_us / 1e6 if kernels else None,
          device_busy_share=busy_us / 1e6 / wall if kernels else None,
+         decode_steps=steps, port_kernels=fams,
+         ms_per_decode_step={f: v["ms"] / steps for f, v in fams.items()
+                             if v["calls"]} if steps else None,
          top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3,
                "calls": e.count} for e in top])
+
+
+def family_times(kern, families):
+    """Device ms and calls of the port's kernels by family (the kernel
+    function's name) among the profiler's CUDA events `kern`."""
+    port = {}
+    for fam in families:
+        hits = [e for e in kern
+                if f"::{fam}<" in e.key or f"::{fam}(" in e.key]
+        port[fam] = {"ms": sum(e.device_time_total for e in hits) / 1e3,
+                     "calls": sum(e.count for e in hits)}
+    return port
 
 
 # -- phase 7: the training step ----------------------------------------------
@@ -1284,9 +1478,12 @@ def train(dev, kernels):
     tokens = TRAIN_B * TRAIN_S
     # bench.py's formula: 6N + 12 L s d FLOPs per token over the bf16 peak
     flops_tok = 6 * n_params + 12 * TRAIN_LAYERS * TRAIN_S * cfg.hidden_size
+    ce = ce_device_ms(dev, tokens, cfg.hidden_size, cfg.vocab_size)
     emit("train", layers=TRAIN_LAYERS, dtype=cfg.dtype, batch=TRAIN_B,
          seq=TRAIN_S, params=n_params, optimizer="AdamW(lr=1e-4, "
-         "multi_precision=True)", model_build_s=build_s, warmup_s=warm_s,
+         "multi_precision=True)", matmul_precision=matmul_mode(),
+         ce_device=ce, ce_share_of_step=ce["ms"] / 1e3 / dt,
+         model_build_s=build_s, warmup_s=warm_s,
          step_s=times, step_s_median=dt, tokens_per_s=tokens / dt,
          mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S,
          peak_mem_gb=peak, losses=losses,
@@ -1294,6 +1491,88 @@ def train(dev, kernels):
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()})
     train_profile(step, batch)
     return launches, peak
+
+
+@contextlib.contextmanager
+def bf16_products():
+    """The CE gate's control: inside the block the chunked CE's products
+    take bf16-rounded operands (one bf16 pass, exact products summed in
+    fp32, as a TPU's default precision gives), with everything else of
+    the CE as it is."""
+    from paddle_tpu_torch.nn.functional import loss as L
+    mm = L._mm
+    L._mm = lambda a, b, tf32: mm(a.bfloat16().float(), b.bfloat16().float(),
+                                  False)
+    try:
+        yield
+    finally:
+        L._mm = mm
+
+
+def ce_breaches(err, io):
+    """The CE_TF32_TOL[io] limits that `err` (loss_rel and gradients'
+    max abs error over their largest |g|, keyed *_of_max) breaks."""
+    tol = CE_TF32_TOL[io]
+    return [k for k, v in err.items()
+            if not v <= tol["loss_rel" if k == "loss_rel" else
+                            "grad_of_max"]]
+
+
+def ce_device_ms(dev, T, d, V):
+    """Device ms of one forward and backward of the chunked lm-head CE
+    (F.fused_linear_cross_entropy, chunks of 8192) at a training step's
+    shape, bf16 hidden rows and weight as the model hands them over, CUDA
+    events around a second call: at the flag's default (the chunk
+    products in TF32), the training phases' setting, and at float32
+    (exact fp32, as before).  The first call's loss and gradients at the
+    default are held against float32's within CE_TF32_TOL["bfloat16"];
+    the control (bf16_products) is reported beside them: with bf16 h and
+    W it rounds nothing that TF32 keeps, so it is not expected to break
+    them."""
+    from paddle_tpu_torch.nn import functional as F_
+    g = torch.Generator(device=dev).manual_seed(9)
+    h = rand(g, (T, d), torch.bfloat16, dev).requires_grad_(True)
+    w = rand(g, (d, V), torch.bfloat16, dev, 0.02).requires_grad_(True)
+    lbl = torch.randint(0, V, (T,), generator=g, device=dev)
+
+    def run():
+        h.grad = w.grad = None
+        loss = F_.fused_linear_cross_entropy(h, w, lbl)
+        loss.backward()
+        return float(loss)
+    ms, res = {}, {}
+    for mode in ("default", "float32"):
+        with matmul_precision(mode):
+            res[mode] = (run(), h.grad.float(), w.grad.float())
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            torch.cuda.synchronize()
+            ms[mode] = a.elapsed_time(b)
+    with matmul_precision("float32"), bf16_products():
+        res["bf16_control"] = (run(), h.grad.float(), w.grad.float())
+    l32, *g32 = res["float32"]
+    err = {}
+    for mode in ("default", "bf16_control"):
+        lm, *gm = res.pop(mode)
+        err[mode] = {"loss_rel": abs(lm - l32) / abs(l32)}
+        for name, a_, b_ in zip(("dh", "dw"), gm, g32):
+            err[mode][name + "_of_max"] = float((a_ - b_).abs().max() /
+                                                b_.abs().max())
+        del gm
+    if ce_breaches(err["default"], "bfloat16"):
+        raise AssertionError(f"ce_device T={T} d={d} V={V}: TF32 against "
+                             f"float32 {err['default']}, limits "
+                             f"{CE_TF32_TOL['bfloat16']}")
+    err["bf16_control"]["breaks"] = ce_breaches(err["bf16_control"],
+                                                "bfloat16")
+    del h, w, lbl, res, g32
+    torch.cuda.empty_cache()
+    return {"shape": f"T={T} d={d} V={V} bf16", "ms": ms["default"],
+            "float32_ms": ms["float32"], "tf32_vs_float32": err["default"],
+            "bf16_control_vs_float32": err["bf16_control"]}
 
 
 TRAIN_FAMILIES = ("grouped_hopper", "mlp_gemm_kernel", "flash_fwd_hopper",
@@ -1323,12 +1602,7 @@ def profile_call(fn, phase, families, top_n=15, **extra):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.device_time_total)[:top_n]
-    port = {}
-    for fam in families:
-        hits = [e for e in kern
-                if f"::{fam}<" in e.key or f"::{fam}(" in e.key]
-        port[fam] = {"ms": sum(e.device_time_total for e in hits) / 1e3,
-                     "calls": sum(e.count for e in hits)}
+    port = family_times(kern, families)
     emit(phase, **extra, wall_s=wall,
          device_busy_s=busy_us / 1e6 if kern else None,
          device_busy_share=busy_us / 1e6 / wall if kern else None,
@@ -1504,9 +1778,10 @@ def moe_layer_parity(GM, TM, dev, dtype):
 
 def moe_parity(GM, TM, dev):
     """The MoELayer check in fp32 and bf16, then a 2-layer full-width
-    ERNIE (one dense, one MoE layer) in fp32: the loss on the card (the
-    kernels) against the same weights on the CPU (plain versions),
-    with the token-expert choices of the two paths compared."""
+    ERNIE (one dense, one MoE layer) in fp32, FLAGS_default_matmul_
+    precision=float32: the loss on the card (the kernels) against the
+    same weights on the CPU (plain versions), with the token-expert
+    choices of the two paths compared."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import ErnieForCausalLM, ernie45_moe_config
     t0 = time.perf_counter()
@@ -1529,7 +1804,7 @@ def moe_parity(GM, TM, dev):
     losses = []
     TM.top_k_gating_indices = spy
     try:
-        with torch.no_grad():
+        with torch.no_grad(), matmul_precision("float32"):
             for model in (card, host):
                 x = torch.as_tensor(ids[:, :-1]).to(model.device)
                 y = torch.as_tensor(ids[:, 1:]).to(model.device)
@@ -1637,7 +1912,10 @@ def train_moe(dev, kernels):
                    / cfg.num_experts)
         flops_tok = 6 * (n_params - idle) + \
             12 * MOE_LAYERS * MOE_S * cfg.hidden_size
+        ce = ce_device_ms(dev, tokens, cfg.hidden_size, cfg.vocab_size)
         emit("train_moe", dispatch_mode=mode, layers=MOE_LAYERS,
+             matmul_precision=matmul_mode(), ce_device=ce,
+             ce_share_of_step=ce["ms"] / 1e3 / dt,
              moe_layers=n_moe, dtype=cfg.dtype, batch=MOE_B, seq=MOE_S,
              capacity=MOE_C, params=n_params, activated_params=n_params -
              idle, optimizer="AdamW(lr=1e-4, multi_precision=True)",
@@ -1663,17 +1941,16 @@ GPT_B, GPT_S, GPT_STEPS = 8, 1024, 5
 
 def grad_parity(what, card, host, ids):
     """Loss and every gradient of `card` and `host` (the same weights) on
-    one batch: the loss within 1e-4 relative, each gradient within 1e-3
+    one batch, FLAGS_default_matmul_precision=float32 (train_parity's
+    setting): the loss within 1e-4 relative, each gradient within 1e-3
     of its largest magnitude (train_parity's limits).  Returns the
     losses and the four worst gradients' relative errors."""
     losses, grads = [], []
-    for model in (card, host):
-        x = torch.as_tensor(ids[:, :-1]).to(model.device)
-        y = torch.as_tensor(ids[:, 1:]).to(model.device)
-        loss = model.loss(x, y)
-        loss.backward()
-        losses.append(float(loss.detach()))
-        grads.append({n: p.grad for n, p in model.named_parameters()})
+    with matmul_precision("float32"):
+        for model in (card, host):
+            loss, grad = loss_and_grads(model, ids)
+            losses.append(loss)
+            grads.append(grad)
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
     if not rel <= 1e-4:
         raise AssertionError(f"{what}: loss {losses[0]} vs plain "
@@ -2221,8 +2498,11 @@ def train_decoder(dev, kernels, train_peak):
         dt = float(np.median(times))
         tokens = DEC_B * DEC_S
         flops_tok = 6 * n_params + 12 * TRAIN_LAYERS * DEC_S * cfg.hidden_size
+        ce = ce_device_ms(dev, tokens, cfg.hidden_size, cfg.vocab_size)
         emit("train_decoder", layers=TRAIN_LAYERS, dtype=cfg.dtype,
              batch=DEC_B, seq=DEC_S, params=n_params,
+             matmul_precision=matmul_mode(), ce_device=ce,
+             ce_share_of_step=ce["ms"] / 1e3 / dt,
              optimizer="AdamW(lr=1e-4, multi_precision=True)",
              model_build_s=build_s, warmup_s=warm_s, step_s=times,
              step_s_median=dt, tokens_per_s=tokens / dt,
@@ -2421,7 +2701,7 @@ def main():
 
     timer = Timer(dev)
     res = {"fused_rmsnorm_qkv": {T: kernel_qkv(FB, dev, timer, T)
-                                 for T in (8, 256)},
+                                 for T in (1, 8, 16, 256)},
            "fused_mlp": {T: kernel_mlp(FB, dev, timer, T) for T in (8, 256)},
            "paged_decode_attention": {8: kernel_paged(PA, dev, timer)}}
     emit("kernels", results={k: {str(t): v for t, v in r.items()}
@@ -2506,7 +2786,13 @@ def main():
         if name == "fused_mlp":   # T = 8 on the tile, T = 256 on wgmma
             entry["path"] = decode["path"]
             entry["prefill_T256"]["path"] = by_t[256]["path"]
+        else:   # QKV split-K at T = 8, wgmma at 256; paged split
+            entry["kernel_path"] = decode["kernel_path"]
+            entry["launches_by_path"] = launches["launches_by_path"][name]
         if name == "fused_rmsnorm_qkv":   # the scoring forward's shape
+            entry["prefill_T256"]["kernel_path"] = by_t[256]["kernel_path"]
+            entry["decode_T1_T16"] = {T: {k: by_t[T][k] for k in keys}
+                                      for T in (1, 16)}
             entry["forward_T8192"] = {
                 k: train_rows["fused_rmsnorm_qkv_fwd_T8192"][k]
                 for k in keys}
@@ -2570,6 +2856,9 @@ def main():
         entry = {"name": name, "route": "cuda", "source": src + cu,
                  "replaces": rep, "launches": n, **{k: r[k] for k in keys},
                  "shape": r["shape"], "path": path}
+        if name.startswith("paged"):
+            entry["kernel_path"] = r["kernel_path"]
+            entry["launches_by_path"] = quant_launches["int8"]["paged_by_path"]
         if name in prefill:
             wmode = "int8" if name == "quant_matmul" else "fp8"
             entry["kernel_path"] = r["path"]

@@ -12,8 +12,9 @@ on the CPU every kernel wrapper takes its plain PyTorch version."""
 
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch.core.state import get_seed, resolve_device, seed
+from paddle_tpu_torch.flags import get_flags, set_flags
 
 __version__ = "0.1.0"
 
-__all__ = ["seed", "get_seed", "resolve_device", "optimizer",
-           "__version__"]
+__all__ = ["seed", "get_seed", "resolve_device", "optimizer", "get_flags",
+           "set_flags", "__version__"]

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch import flags
 from paddle_tpu_torch.ops.kernels.cross_entropy import (
     fused_softmax_cross_entropy)
 
@@ -121,17 +122,47 @@ def _chunk(w, ci, chunk_size):
     return wc, live
 
 
+def _tf32_products(device) -> bool:
+    """Whether the chunk products run TF32: on the card at
+    ``FLAGS_default_matmul_precision="default"``, the reference's fp32
+    dots at the accelerator's default precision (``loss.py:400``,
+    ``:407``); exact fp32 at ``float32``, ``highest`` and
+    ``bfloat16_3x`` (cuBLAS has no three-pass bf16; fp32 is at least as
+    precise), and on the CPU at every value."""
+    mode = flags.get("default_matmul_precision")
+    if mode not in flags.MATMUL_PRECISIONS:
+        raise ValueError(f"FLAGS_default_matmul_precision={mode!r}; "
+                         f"expected one of {flags.MATMUL_PRECISIONS}")
+    return device.type == "cuda" and mode == "default"
+
+
+def _mm(a, b, tf32):
+    """``a @ b`` in fp32, through TF32 where `tf32`: the process's TF32
+    setting is saved, set for this one product and restored, so nothing
+    outside the CE sees it change."""
+    if not tf32:
+        return a @ b
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 class _FusedCE(torch.autograd.Function):
     """``_fused_ce``'s custom VJP (``loss.py:376-462``): the forward
     scans vocab chunks with an fp32 online logsumexp and picks the gold
     logit; the backward recomputes each chunk's probabilities and
     accumulates dh and dW, so the ``[T, V]`` fp32 logits never exist
     whole.  Each chunk's dW is cast to W's dtype as it is written, which
-    rounds every element once, as the JAX package's final cast does."""
+    rounds every element once, as the JAX package's final cast does.  The
+    chunk products take the precision of ``_tf32_products``."""
 
     @staticmethod
     def forward(ctx, h, w, lbl, chunk_size):
         hf = h.float()
+        tf32 = _tf32_products(h.device)
         t, v = h.shape[0], w.shape[1]
         n = -(-v // chunk_size)
         cols = torch.arange(chunk_size, device=h.device)
@@ -140,7 +171,7 @@ class _FusedCE(torch.autograd.Function):
         gold = torch.zeros((t,), device=h.device)
         for ci in range(n):
             wc, _ = _chunk(w, ci, chunk_size)
-            logits = hf @ wc                                   # [T, c]
+            logits = _mm(hf, wc, tf32)                         # [T, c]
             base = ci * chunk_size
             valid = (cols + base < v)[None, :]
             logits = torch.where(valid, logits, -float("inf"))
@@ -160,6 +191,7 @@ class _FusedCE(torch.autograd.Function):
         h, w, lbl, lse = ctx.saved_tensors
         c = ctx.chunk_size
         hf = h.float()
+        tf32 = _tf32_products(h.device)
         gf = g.float()
         v = w.shape[1]
         cols = torch.arange(c, device=h.device)
@@ -167,14 +199,15 @@ class _FusedCE(torch.autograd.Function):
         dw = torch.empty_like(w)
         for ci in range(-(-v // c)):
             wc, live = _chunk(w, ci, c)
-            logits = hf @ wc
+            logits = _mm(hf, wc, tf32)
             base = ci * c
             valid = (cols + base < v)[None, :]
             p = torch.where(valid, torch.exp(logits - lse[:, None]), 0.0)
             onehot = (((lbl[:, None] - base) == cols[None, :]) & valid).float()
             delta = (p - onehot) * gf[:, None]                 # [T, c]
-            dh = dh + delta @ wc.t()
-            dw[:, base:base + live] = (hf.t() @ delta)[:, :live].to(w.dtype)
+            dh = dh + _mm(delta, wc.t(), tf32)
+            dw[:, base:base + live] = \
+                _mm(hf.t(), delta, tf32)[:, :live].to(w.dtype)
         return dh.to(h.dtype), dw, None, None
 
 

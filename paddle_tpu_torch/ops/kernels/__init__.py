@@ -15,7 +15,7 @@ from paddle_tpu_torch.ops.kernels.fused_block import (GEMM_PATHS,
                                                       fused_rmsnorm_qkv)
 from paddle_tpu_torch.ops.kernels.grouped_matmul import grouped_expert_ffn
 from paddle_tpu_torch.ops.kernels.paged_attention import (
-    paged_decode_attention, paged_decode_attention_int8)
+    PAGED_PATHS, paged_decode_attention, paged_decode_attention_int8)
 from paddle_tpu_torch.ops.kernels import quant_matmul as _qm
 from paddle_tpu_torch.ops.kernels.rmsnorm import fused_rmsnorm
 
@@ -63,6 +63,8 @@ def reset_launch_counts():
     for fn in (fused_rmsnorm_qkv, fused_mlp, fused_ffn, fused_decoder_block,
                grouped_expert_ffn):
         fn.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
+    for fn in (paged_decode_attention, paged_decode_attention_int8):
+        fn.launches_by_path = dict.fromkeys(PAGED_PATHS, 0)
     fused_decoder_block.routes = dict.fromkeys(("decoder", "segments"), 0)
 
 

@@ -27,8 +27,8 @@ from typing import Dict
 import torch
 
 __all__ = ["library", "build_all", "ptxas_report", "parse_ptxas", "check",
-           "stream_of", "DTYPE_CODES", "WEIGHT_CODES", "FLOAT16_CODE",
-           "BUILD_DIR"]
+           "stream_of", "tickets", "DTYPE_CODES", "WEIGHT_CODES",
+           "FLOAT16_CODE", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -50,18 +50,18 @@ _F = ctypes.c_float
 # argtypes of every exported function, by library
 _SIGNATURES = {
     "fused_block": {
-        "ptt_rmsnorm_qkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _F, _P],
+        "ptt_rmsnorm_qkv": [_I] + [_P] * 12 + [_I] * 4 + [_F, _P, _P],
+        "ptt_qkv_splits": [_I] * 6,
         "ptt_mlp_gate_up": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
         "ptt_matmul": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
         "ptt_ffn_up": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "ptt_wgmma_check": [_I, _P, _P, _P, _I, _P],
     },
     "paged_attention": {
-        "ptt_paged_decode": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _F, _P],
-        "ptt_paged_decode_quant": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                   _I, _I, _I, _I, _I, _F, _P],
+        "ptt_paged_decode": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P, _P],
+        "ptt_paged_decode_quant": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P,
+                                                                 _P],
+        "ptt_paged_splits": [_I, _I],
     },
     "flash_attention": {
         "ptt_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -97,6 +97,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_tickets: Dict[tuple, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -234,6 +235,21 @@ def check(lib: ctypes.CDLL, err: int, what: str):
     if err != 0:
         msg = lib.ptt_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def tickets(owner: str, device, n: int) -> torch.Tensor:
+    """At least `n` int32 tickets of `owner`'s split kernels on `device`,
+    all zero: a launch's last block of each tile (or row) resets its
+    ticket, so they stay zero between launches.  Each owner keeps its
+    own array, so two kernels' launches never share a ticket; two
+    launches of one owner on one device must not run at once on two
+    streams."""
+    key = (owner, device)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -21,11 +21,12 @@ enum DType {
 };
 
 // the design a launch took, written by the C entries that report it
-// (ops/kernels/fused_block.py GEMM_PATHS, in this order)
-enum Design { DESIGN_WGMMA = 0, DESIGN_TILE = 1 };
+// (ops/kernels/fused_block.py GEMM_PATHS, in this order; paged_attention.cu
+// has its own)
+enum Design { DESIGN_WGMMA = 0, DESIGN_TILE = 1, DESIGN_SPLITK = 2 };
 
 // err, and the design behind `out` (an int) where the launch went out
-inline int launched(int err, void* out, Design d) {
+inline int launched(int err, void* out, int d) {
   if (err == 0) *static_cast<int*>(out) = d;
   return err;
 }

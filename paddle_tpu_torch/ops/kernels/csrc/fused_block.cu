@@ -87,12 +87,35 @@
 // products, 2.9 TFLOP (2.9 ms at 989 TFLOP/s); a 256-row prefill chunk:
 // the weight bytes (352 MB, 0.105 ms) and the products (90 GFLOP, 0.091
 // ms) about equally.
-// T <= 16 (decode, bound by the weight bytes) and fp32 keep the wmma tile
+// RMSNorm+QKV in bf16 at T <= 16 (decode steps; the forward variant) is
+// split-K (splitk.cuh's design): every weight byte is read once for 2 T
+// operations, so the launch is bound by the weight bytes (50.3 MB at
+// Llama-3-8B width: 15 us at 3.35 TB/s), and the wmma tile's 96 blocks,
+// each walking all of K, left most of the card idle.  Two launches of one
+// C call, as at T > 16: the row pass (qkv_decode_rows_kernel, a block a
+// row) writes xn = ((x * inv) * wn) cast to bf16, _qkv_reference's cast
+// point, to a [T, d] workspace; then qkv_splitk_kernel.  (Recomputing the inverse RMS in
+// every block instead would make each of the ~500 blocks read all T rows
+// of x: 34 MB from L2 at T = 8, more than half the weight bytes.)  The
+// column tiles (128 wide) walk q | k | v, each inside one part (a part's
+// last tile may be partial: TMA zero-fills the columns past it and the
+// stores mask them); K is split by qkv_splits, which aims at four blocks
+// a SM (the blocks all resident in one wave, and every SM holding the
+// same number): 48 tiles x 11 splits at Llama-3-8B width on 132 SMs.
+// Each warp streams its [16 rows][128 columns] bf16 weight boxes by TMA
+// through a ring of its own (QkvPlan's STAGES slots, one mbarrier each); a
+// lane's A fragments for the 8 m-tiles of a k16 step are words of rows
+// 4q .. 4q + 3 at columns 16 g .. 16 g + 15, paired across rows by byte
+// permutes.  The splits' fp32 partials are summed in split order by the
+// last block of each column tile (its own tickets, not the quant
+// matmul's), so two calls give the same bits.
+// The training variant at T <= 16, and fp32, keep the wmma / fp32 tile
 // below, as one launch.
 //
 #include "gemm_tile.cuh"
 #include "hopper_gemm.cuh"
 #include "rmsnorm_row.cuh"
+#include "splitk.cuh"
 
 namespace {
 
@@ -261,6 +284,253 @@ int qkv_hopper(const void* x, const void* wn, const void* const w[3],
   if (big >= 2 * ptt::hopper::sm_count())
     return launch_qkv_gemm<2, 256>(p, xn, w, stream);
   return launch_qkv_gemm<1, 128>(p, xn, w, stream);
+}
+
+// -- RMSNorm+QKV at T <= 16 in bf16: split-K --------------------------------
+
+using namespace ptt::splitk;
+constexpr int kQkvSplitFactor = 4;   // blocks per SM the splits aim at
+
+// k16 steps (4 KB boxes) in flight per warp: three for up to 8 tokens,
+// two for 16, so that four blocks fit on a SM with their xn rows
+template <int NT8>
+struct QkvPlan {
+  static constexpr int STAGES = NT8 == 1 ? 3 : 2;
+  static constexpr int RING = STAGES * kSkWarps * 4096;   // 48 / 32 KB
+  static_assert(RING >= kSkWarps * 8 * NT8 * kSkBN * 4,
+                "the warps' sums reuse the ring");
+};
+
+// the row pass at decode rows: one block a row, every thread's loads in
+// flight at once (qkv_rows_kernel's warp a row walks it in dependent
+// steps); xn = ((x * inv) * wn) cast to bf16, inv in fp32
+constexpr int kRowThreads = 512;
+
+__global__ void __launch_bounds__(kRowThreads)
+qkv_decode_rows_kernel(const bf16* x, const bf16* wn, bf16* xn, int d,
+                       float eps) {
+  __shared__ float part[kRowThreads / 32];
+  __shared__ float inv_s;
+  const int tid = threadIdx.x;
+  const size_t off = (size_t)blockIdx.x * d;
+  float ss = 0.f;
+  for (int c = 8 * tid; c < d; c += 8 * kRowThreads) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(x + off + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float v = ptt::to_f(e[i]);
+      ss += v * v;
+    }
+  }
+  ss = ptt::warp_sum(ss);
+  if (tid % 32 == 0) part[tid / 32] = ss;
+  __syncthreads();
+  if (tid == 0) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRowThreads / 32; ++w) t += part[w];
+    inv_s = rsqrtf(t / (float)d + eps);
+  }
+  __syncthreads();
+  const float iv = inv_s;
+  for (int c = 8 * tid; c < d; c += 8 * kRowThreads) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(x + off + c);
+    const uint4 wv = *reinterpret_cast<const uint4*>(wn + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+    const bf16* we = reinterpret_cast<const bf16*>(&wv);
+    uint4 o;
+    bf16* oe = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      oe[i] = __float2bfloat16((ptt::to_f(e[i]) * iv) * ptt::to_f(we[i]));
+    *reinterpret_cast<uint4*>(xn + off + c) = o;
+  }
+}
+
+// the 128-column tiles of q | k | v, each inside one part
+inline int qkv_tiles(int dq, int dkv) {
+  return (dq + kSkBN - 1) / kSkBN + 2 * ((dkv + kSkBN - 1) / kSkBN);
+}
+
+inline int qkv_splits(int d, int dq, int dkv, int sms) {
+  return splitk_splits(d, qkv_tiles(dq, dkv) * kSkBN, sms, kQkvSplitFactor);
+}
+
+struct QkvSplitArgs {
+  CUtensorMap w[3];   // wq, wk, wv: boxes of 16 rows x 128 columns
+  const bf16* xn;     // [T, K], the row pass's
+  bf16* out[3];       // q, k, v
+  float* ws;          // [splits, T, tiles * 128] fp32 partials
+  int* tickets;       // one per column tile, 0 between launches
+  int n[3], tiles[3];
+  int T, K, splits;
+};
+
+// NT8 n8 tiles of tokens (1: T <= 8, 2: T <= 16); quant_matmul.cu's
+// quant_splitk_kernel gives the fragment map: m-tile j's rows g and g + 8
+// are columns 16 g + 2 j and 16 g + 2 j + 1, reduction indices 2 q + e
+// and 2 q + 8 + e are k = 4 q + e and 4 q + 2 + e.  A box row is 128
+// bf16 (256 bytes); word j of a lane's 32 bytes of row 4 q + i holds
+// columns 16 g + 2 j (low half) and 16 g + 2 j + 1 (high half).
+template <int NT8>
+__global__ void __launch_bounds__(kSkWarps * 32)
+qkv_splitk_kernel(const __grid_constant__ QkvSplitArgs p) {
+  using namespace ptt::hopper;
+  constexpr int NTOK = 8 * NT8;
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int STAGES = QkvPlan<NT8>::STAGES;
+  __shared__ uint64_t bars[kSkWarps][STAGES];
+  unsigned char* smem = align1024(smem_raw);   // TMA boxes: aligned
+  const int tile = blockIdx.x, split = blockIdx.y;
+  int part = 0, ct = tile;
+  while (part < 2 && ct >= p.tiles[part]) ct -= p.tiles[part++];
+  const int n0 = ct * kSkBN;   // the tile's first column in its part
+  const int slices = p.K / 64;
+  const int s0 = split * slices / p.splits;
+  const int steps = (split + 1) * slices / p.splits - s0;   // per warp
+  const int k0 = 64 * s0, depth = 64 * steps;
+  const int xstride = 2 * depth + 32;   // bytes; 32 spreads the rows' banks
+  unsigned char* xs = smem + QkvPlan<NT8>::RING;   // [NTOK][xstride] xn
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  unsigned char* ring = smem + warp * (STAGES * 4096);   // this warp's
+  uint64_t* bar = bars[warp];
+  if (lane == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&bar[s], 1);
+    mbar_fence_init();
+  }
+  __syncwarp();
+  // step j of this warp: rows k0 + 64 j + 16 warp .. + 15 of the tile's
+  // 128 columns (past the part's width: zeros from TMA)
+  auto load = [&](int j) {
+    const int s = j % STAGES;
+    mbar_expect_tx(&bar[s], 4096);
+    tma_load_2d(ring + s * 4096, &p.w[part], &bar[s], n0,
+                k0 + 64 * j + 16 * warp);
+  };
+  if (lane == 0)
+    for (int j = 0; j < STAGES && j < steps; ++j) load(j);
+  // the xn rows of this split (rows past T zero), 16 bytes a thread
+#pragma unroll
+  for (int r = 0; r < NTOK; ++r) {
+    const bool ok = r < p.T;
+    for (int kc = 8 * tid; kc < depth; kc += 8 * kSkWarps * 32)
+      ptt::cp_async16(xs + r * xstride + 2 * kc,
+                      ok ? p.xn + (size_t)r * p.K + k0 + kc : p.xn, ok);
+  }
+  ptt::cp_async_commit();
+  ptt::cp_async_wait<0>();
+  __syncthreads();
+
+  float d[8][NT8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[j][nt][e] = 0.f;
+
+  for (int j = 0; j < steps; ++j) {
+    const int s = j % STAGES;
+    mbar_wait(&bar[s], (j / STAGES) & 1);
+    const unsigned char* box = ring + s * 4096;
+    uint4 r[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        r[i][h] = *reinterpret_cast<const uint4*>(box + (4 * q + i) * 256 +
+                                                  32 * g + 16 * h);
+    // word m of row 4 q + i (m a constant once unrolled)
+    auto word = [&](int i, int m) -> uint32_t {
+      const uint4& v = r[i][m / 4];
+      return m % 4 == 0 ? v.x : m % 4 == 1 ? v.y : m % 4 == 2 ? v.z : v.w;
+    };
+    __syncwarp();   // every lane has read the slot: refill it
+    if (lane == 0 && j + STAGES < steps) {
+      fence_proxy_async();
+      load(j + STAGES);
+    }
+    const int kl = 64 * j + 16 * warp + 4 * q;
+    uint2 b[NT8];
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt)
+      b[nt] = *reinterpret_cast<const uint2*>(xs + (8 * nt + g) * xstride +
+                                              2 * kl);
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const uint32_t a0 = __byte_perm(word(0, m), word(1, m), 0x5410);
+      const uint32_t a1 = __byte_perm(word(0, m), word(1, m), 0x7632);
+      const uint32_t a2 = __byte_perm(word(2, m), word(3, m), 0x5410);
+      const uint32_t a3 = __byte_perm(word(2, m), word(3, m), 0x7632);
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+        mma_bf16_16816(d[m][nt], a0, a1, a2, a3, b[nt].x, b[nt].y);
+    }
+  }
+  __syncthreads();   // every warp is done with the ring: it holds the sums
+  const int n = n0 + tid;   // this thread's column in its part
+  const int ldo = p.n[part];
+  bf16* out = p.out[part];
+  splitk_finish<NT8>(d, smem, p.T, split, p.splits, p.ws,
+                     (p.tiles[0] + p.tiles[1] + p.tiles[2]) * kSkBN,
+                     tile * kSkBN + tid, n < ldo, &p.tickets[tile],
+                     [&](int t, float v) {
+                       out[(size_t)t * ldo + n] = __float2bfloat16(v);
+                     });
+}
+
+template <int NT8>
+int launch_qkv_splitk(const QkvSplitArgs& a, cudaStream_t stream) {
+  auto kern = qkv_splitk_kernel<NT8>;
+  const int slices = a.K / 64;
+  const int deepest = 64 * ((slices + a.splits - 1) / a.splits);
+  constexpr int RING = QkvPlan<NT8>::RING;
+  const int smem = 1024 + RING + 8 * NT8 * (2 * deepest + 32);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      1024 + RING + 8 * NT8 * (2 * kMaxSplitDepth + 32));
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(a.tiles[0] + a.tiles[1] + a.tiles[2], a.splits);
+  kern<<<grid, kSkWarps * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the row pass into xn, then split-K over it: two launches on `stream`
+int qkv_splitk(const void* x, const void* wn, const void* const w[3],
+               void* const out[3], void* xn, void* ws, void* tickets, int T,
+               int d, int dq, int dkv, float eps, cudaStream_t stream) {
+  if (xn == nullptr || d % 64 != 0) return (int)cudaErrorInvalidValue;
+  QkvSplitArgs a{};
+  a.xn = static_cast<const bf16*>(xn);
+  a.ws = static_cast<float*>(ws);
+  a.tickets = static_cast<int*>(tickets);
+  a.n[0] = dq;
+  a.n[1] = a.n[2] = dkv;
+  a.T = T;
+  a.K = d;
+  a.splits = qkv_splits(d, dq, dkv, ptt::hopper::sm_count());
+  if (a.splits > 1 && (ws == nullptr || tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 3; ++i) {
+    a.out[i] = static_cast<bf16*>(out[i]);
+    a.tiles[i] = (a.n[i] + kSkBN - 1) / kSkBN;
+    const uint64_t dims[2] = {(uint64_t)a.n[i], (uint64_t)d};
+    const uint64_t stride[1] = {(uint64_t)a.n[i] * 2};
+    const uint32_t box[2] = {kSkBN, 16};
+    cudaError_t e = ptt::hopper::encode(
+        &a.w[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_NONE,
+        w[i], 2, dims, stride, box);
+    if (e != cudaSuccess) return (int)e;
+  }
+  qkv_decode_rows_kernel<<<T, kRowThreads, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wn),
+      static_cast<bf16*>(xn), d, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return T <= 8 ? launch_qkv_splitk<1>(a, stream)
+                : launch_qkv_splitk<2>(a, stream);
 }
 
 // -- gate/up, fused_ffn's up and the down product at T > 16 in bf16 ---------
@@ -511,31 +781,58 @@ int launch_check(CheckParams& p, cudaStream_t stream) {
 
 extern "C" {
 
+// The split-K plan of a call: the number of K splits that bf16 at T <=
+// 16 in the forward variant (train 0) takes (its workspace is splits * T
+// * tiles * 128 fp32 where splits > 1, tiles = ceil(dq / 128) + 2 *
+// ceil(dkv / 128), and it needs `tiles` tickets; xn is a [T, d]
+// workspace), 0 where the call takes no split-K workspace.
+int ptt_qkv_splits(int dtype, int T, int d, int dq, int dkv, int train) {
+  if (dtype != ptt::DT_BFLOAT16 || train || T <= 0 || T > kSplitKMaxT ||
+      d < 64)
+    return 0;
+  return qkv_splits(d, dq, dkv, ptt::hopper::sm_count());
+}
+
 // q, k, v = (rmsnorm(x) * wn) @ (wq | wk | wv); x [T, d], wq [d, dq],
 // wk/wv [d, dkv]; outputs row-major [T, dq], [T, dkv], [T, dkv].  With
 // non-null xn [T, d] (x's type) and inv [T] (fp32) the training variant
 // also writes the normalised rows and the inverse RMS.  bf16 at T >= 17
 // needs xn in both variants (the forward variant's is a workspace) and
-// runs two launches on `stream`: the row pass, then the wgmma GEMM.
+// runs two launches on `stream`: the row pass, then the wgmma GEMM.  The
+// forward variant in bf16 at T <= 16 (xn its workspace, inv null) is the
+// row pass, then split-K: ws and tickets are its workspace
+// (ptt_qkv_splits), the tickets zero before the launch (and again after
+// it).  *design: the Design launched.
 int ptt_rmsnorm_qkv(int dtype, const void* x, const void* wn, const void* wq,
                     const void* wk, const void* wv, void* q, void* k, void* v,
-                    void* xn, void* inv, int T, int d, int dq, int dkv,
-                    float eps, void* stream) {
+                    void* xn, void* inv, void* ws, void* tickets, int T,
+                    int d, int dq, int dkv, float eps, void* stream,
+                    void* design) {
+  const void* w[3] = {wq, wk, wv};
+  void* const out[3] = {q, k, v};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT) {
     // the row pass, then the GEMM; xn is the training variant's output or
     // the forward variant's workspace, inv null in the forward variant
     if (dq % 64 != 0 || dkv % 64 != 0) return (int)cudaErrorInvalidValue;
-    const void* w[3] = {wq, wk, wv};
-    void* const out[3] = {q, k, v};
-    return qkv_hopper(x, wn, w, out, xn, inv, T, d, dq, dkv, eps,
-                      static_cast<cudaStream_t>(stream));
+    return ptt::launched(
+        qkv_hopper(x, wn, w, out, xn, inv, T, d, dq, dkv, eps, s), design,
+        ptt::DESIGN_WGMMA);
+  }
+  if (dtype == ptt::DT_BFLOAT16 && T > 0 && T <= kSplitKMaxT &&
+      xn != nullptr && inv == nullptr) {
+    if (dq % 64 != 0 || dkv % 64 != 0) return (int)cudaErrorInvalidValue;
+    return ptt::launched(
+        qkv_splitk(x, wn, w, out, xn, ws, tickets, T, d, dq, dkv, eps, s),
+        design, ptt::DESIGN_SPLITK);
   }
   if (dq % BN != 0 || dkv % BN != 0 || (xn == nullptr) != (inv == nullptr))
     return (int)cudaErrorInvalidValue;
   GemmArgs g{x, wq, wk, wv, wn, q, k, v, T, d, dq, dkv, eps};
   g.xn = xn;
   g.inv = static_cast<float*>(inv);
-  return launch<MODE_QKV>(dtype, g, dq + 2 * dkv, stream);
+  return ptt::launched(launch<MODE_QKV>(dtype, g, dq + 2 * dkv, stream),
+                       design, ptt::DESIGN_TILE);
 }
 
 // h = silu(x @ wg) * (x @ wu); x [T, d], wg/wu [d, f], h [T, f].

@@ -65,6 +65,7 @@
 // up-converted in shared memory, fp32 FMAs on the CUDA cores (no TF32).
 #include "common.cuh"
 #include "hopper.cuh"
+#include "splitk.cuh"
 
 namespace {
 
@@ -208,26 +209,9 @@ int quant_fp32(const void* x, const void* qw, const float* scale, void* y,
 
 // -- bf16 at T <= 16: split-K --------------------------------------------------
 
-// the largest T that takes split-K (ops/kernels/quant_matmul.py,
-// SPLITK_MAX_T); the split rule's constants (QM.splitk_splits mirrors
-// splitk_splits)
-constexpr int kSplitKMaxT = 16;
-constexpr int kSkBN = 128;            // output columns a block
-constexpr int kSkWarps = 4;           // warps a block: one k16 step each
+using namespace ptt::splitk;
 constexpr int kSkStages = 4;          // k16 steps in flight per warp
-constexpr int kSplitFactor = 2;       // blocks per SM the splits aim at
-constexpr int kMinSlices = 4;         // 64-deep slices a split keeps
-constexpr int kMaxSplitDepth = 2048;  // the deepest split (x in shared)
 constexpr int kSkRingBytes = kSkStages * kSkWarps * 2048;   // 32 KB
-
-int splitk_splits(int K, int N, int sms) {
-  const int tiles = (N + kSkBN - 1) / kSkBN;
-  const int slices = K / 64;
-  int s = (kSplitFactor * sms + tiles - 1) / tiles;
-  s = min(s, max(1, slices / kMinSlices));
-  s = max(s, (K + kMaxSplitDepth - 1) / kMaxSplitDepth);
-  return min(s, slices);
-}
 
 struct SplitArgs {
   CUtensorMap w;  // qw [K, N] as bytes: boxes of 16 rows x 128 columns
@@ -238,17 +222,6 @@ struct SplitArgs {
   int* tickets;   // one per column tile, 0 between launches
   int T, K, N, splits;
 };
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
-                                               uint32_t a1, uint32_t a2,
-                                               uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // NT8 n8 tiles of tokens (1: T <= 8, 2: T <= 16).  The product is D^T =
 // W^T x^T: M = the block's 128 output columns, N = the tokens, K = the
@@ -353,76 +326,13 @@ quant_splitk_kernel(const __grid_constant__ SplitArgs p) {
     }
   }
   __syncthreads();   // every warp is done with the ring: it holds the sums
-
-  // the 4 warps' sums, [warp][token][column], added in warp order
-  float* red = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int m = 0; m < 8; ++m)
-#pragma unroll
-    for (int nt = 0; nt < NT8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[(warp * NTOK + 8 * nt + 2 * q + e % 2) * kSkBN + 16 * g + 2 * m +
-            e / 2] = d[m][nt][e];
-  __syncthreads();
   const int n = n0 + tid;   // this thread's column in the epilogue
   const bool live = n < p.N;
   const float sc = live ? p.scale[n] : 0.f;
-  if (p.splits == 1) {
-    for (int t = 0; t < p.T; ++t) {
-      float v = red[t * kSkBN + tid];
-#pragma unroll
-      for (int w = 1; w < kSkWarps; ++w) v += red[(w * NTOK + t) * kSkBN + tid];
-      if (live) p.y[(size_t)t * p.N + n] = __float2bfloat16(v * sc);
-    }
-    return;
-  }
-  float* part = p.ws + (size_t)split * p.T * p.N;
-  for (int t = 0; t < p.T; ++t) {
-    float v = red[t * kSkBN + tid];
-#pragma unroll
-    for (int w = 1; w < kSkWarps; ++w) v += red[(w * NTOK + t) * kSkBN + tid];
-    if (live) part[(size_t)t * p.N + n] = v;
-  }
-  // the last block of this column tile to finish sums the splits in order
-  // (the barrier, then one thread's fence, publishes every thread's
-  // partial before the ticket: fences are cumulative)
-  __shared__ int last;
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(&p.tickets[blockIdx.x], 1) == p.splits - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (live) {
-    // every token's sum at once, four splits' loads issued before their
-    // adds: the loads of a round are independent, the adds in split order
-    float v[NTOK];
-#pragma unroll
-    for (int t = 0; t < NTOK; ++t) v[t] = 0.f;
-    for (int s0 = 0; s0 < p.splits; s0 += 4) {
-      float buf[4][NTOK];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float* src = p.ws + (size_t)(s0 + i) * p.T * p.N + n;
-#pragma unroll
-        for (int t = 0; t < NTOK; ++t)
-          buf[i][t] = s0 + i < p.splits && t < p.T
-                          ? __ldcg(src + (size_t)t * p.N) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < NTOK; ++t)
-          if (s0 + i < p.splits) v[t] += buf[i][t];
-    }
-#pragma unroll
-    for (int t = 0; t < NTOK; ++t)
-      if (t < p.T) p.y[(size_t)t * p.N + n] = __float2bfloat16(v[t] * sc);
-  }
-  if (tid == 0) p.tickets[blockIdx.x] = 0;
+  splitk_finish<NT8>(d, smem, p.T, split, p.splits, p.ws, p.N, n, live,
+                     &p.tickets[blockIdx.x], [&](int t, float v) {
+                       p.y[(size_t)t * p.N + n] = __float2bfloat16(v * sc);
+                     });
 }
 
 template <bool FP8, int NT8>

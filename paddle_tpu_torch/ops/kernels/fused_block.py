@@ -41,6 +41,8 @@ import os
 import torch
 
 from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels.splitk import (SPLITK_BN, SPLITK_MAX_T,
+                                                 splitk_splits)
 from paddle_tpu_torch.ops.kernels.flash_attention import (KERNEL_HEAD_DIM,
                                                           flash_fwd_reference)
 
@@ -50,24 +52,56 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
            "fused_block_tier", "fused_decoder_eligible",
            "decoder_workspace_bytes", "FusedRMSNormQKV", "FusedMLP",
            "FusedFFN", "FusedDecoderBlock", "SUPPORTED_ACTS", "GEMM_PATHS",
-           "gemm_path"]
+           "gemm_path", "qkv_path", "qkv_column_tiles", "qkv_splits"]
 
 # the smallest row count at which the bf16 QKV kernel runs as a row pass
 # and a wgmma GEMM (csrc/fused_block.cu, kRowPassMinT); the forward
 # variant's normalised rows then go to a workspace.  The bf16 MLP and
 # fused_ffn take the wgmma GEMM from the same row count.
 ROW_PASS_MIN_T = 17
+# the blocks per SM QKV's split rule aims at (csrc/fused_block.cu,
+# kQkvSplitFactor); its largest row count and tile width are splitk.py's
+# (SPLITK_MAX_T, SPLITK_BN: csrc/splitk.cuh), shared with the quant matmul
+QKV_SPLIT_FACTOR = 4
 # the designs a launch of QKV, the MLP, fused_ffn, the decoder block or the
 # grouped expert FFN takes, counted in each wrapper's `launches_by_path`
-GEMM_PATHS = ("wgmma", "tile")
+# (csrc/common.cuh, enum Design, in its order); only QKV takes ``splitk``
+GEMM_PATHS = ("wgmma", "tile", "splitk")
 
 
 def gemm_path(T: int, dtype) -> str:
-    """``wgmma`` (the TMA / wgmma ring of ``csrc/hopper_gemm.cuh``) for
-    bf16 at ``ROW_PASS_MIN_T`` rows or more, else ``tile`` (the wmma or
-    fp32 tile of ``csrc/gemm_tile.cuh``)."""
+    """The MLP's and fused_ffn's design: ``wgmma`` (the TMA / wgmma ring
+    of ``csrc/hopper_gemm.cuh``) for bf16 at ``ROW_PASS_MIN_T`` rows or
+    more, else ``tile`` (the wmma or fp32 tile of
+    ``csrc/gemm_tile.cuh``)."""
     return "wgmma" if dtype == torch.bfloat16 and T >= ROW_PASS_MIN_T \
         else "tile"
+
+
+def qkv_path(T: int, dtype, residuals: bool = False) -> str:
+    """QKV's design: ``gemm_path``'s, except the bf16 forward variant at
+    ``SPLITK_MAX_T`` rows or fewer, which is ``splitk``."""
+    if dtype == torch.bfloat16 and not residuals and T <= SPLITK_MAX_T:
+        return "splitk"
+    return gemm_path(T, dtype)
+
+
+def qkv_column_tiles(dq: int, dkv: int):
+    """QKV split-K's column tiles, in launch order: ``(part, first
+    column in the part, columns)`` for q (part 0), k and v, each tile
+    ``SPLITK_BN`` wide and inside its part (a part's last tile may be
+    narrower)."""
+    return [(part, c, min(SPLITK_BN, n - c))
+            for part, n in enumerate((dq, dkv, dkv))
+            for c in range(0, n, SPLITK_BN)]
+
+
+def qkv_splits(d: int, dq: int, dkv: int, sms: int) -> int:
+    """QKV split-K's K splits (``qkv_splits`` in the source): the quant
+    matmul's rule at QKV_SPLIT_FACTOR blocks a SM, over the column tiles
+    of q | k | v."""
+    return splitk_splits(d, len(qkv_column_tiles(dq, dkv)) * SPLITK_BN, sms,
+                         QKV_SPLIT_FACTOR)
 
 
 # fused_ffn's activations and their codes in csrc/fused_block.cu (enum Act)
@@ -175,8 +209,13 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     (``[..., 1]`` fp32) from the same call (the training variant).  On
     the card, bf16 at ``ROW_PASS_MIN_T`` rows or more is a row pass and
     a wgmma GEMM over its ``xn`` (a workspace in the forward variant),
-    two launches of one call; fewer rows and fp32 are one launch of the
-    wmma tile."""
+    two launches of one call; the bf16 forward variant at
+    ``SPLITK_MAX_T`` rows or fewer is the same row pass and a split-K
+    launch (its fp32 partials in a workspace of ``splits * T * tiles *
+    128 * 4`` bytes, 2.1 MB at Llama-3-8B width and T = 8); the training
+    variant at fewer rows, and fp32, are one launch of the wmma / fp32
+    tile.
+    ``launches_by_path`` counts the design the C entry reports."""
     if x.device.type == "cpu":
         return qkv_reference(x, norm_weight, wq, wk, wv, epsilon, residuals)
     what = "fused_rmsnorm_qkv"
@@ -200,21 +239,33 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     if residuals:
         xn = torch.empty((T, d), dtype=x.dtype, device=x.device)
         inv = torch.empty((T, 1), dtype=torch.float32, device=x.device)
-    elif x.dtype == torch.bfloat16 and T >= ROW_PASS_MIN_T:
-        # the row pass's output, read by the GEMM: a workspace here
+    elif x.dtype == torch.bfloat16:
+        # the row pass's output, read by the GEMM or split-K: a workspace
         xn = torch.empty((T, d), dtype=x.dtype, device=x.device)
     if T:
         lib = _build.library("fused_block")
+        code = _build.DTYPE_CODES[x.dtype]
+        ws = tickets = None
+        if qkv_path(T, x.dtype, residuals) == "splitk":
+            splits = lib.ptt_qkv_splits(code, T, d, dq, dkv, 0)
+            if splits > 1:
+                tiles = len(qkv_column_tiles(dq, dkv))
+                ws = torch.empty(splits * T * tiles * SPLITK_BN,
+                                 dtype=torch.float32, device=x.device)
+                tickets = _build.tickets("fused_rmsnorm_qkv", x.device,
+                                         tiles)
+        design = ctypes.c_int(-1)
         err = lib.ptt_rmsnorm_qkv(
-            _build.DTYPE_CODES[x.dtype], x2.data_ptr(),
-            norm_weight.data_ptr(), wq.data_ptr(), wk.data_ptr(),
-            wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if xn is None else xn.data_ptr(),
-            None if inv is None else inv.data_ptr(), T, d, dq, dkv,
-            float(epsilon), _build.stream_of(x))
+            code, x2.data_ptr(), norm_weight.data_ptr(), wq.data_ptr(),
+            wk.data_ptr(), wv.data_ptr(), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), None if xn is None else xn.data_ptr(),
+            None if inv is None else inv.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), T, d, dq, dkv,
+            float(epsilon), _build.stream_of(x), ctypes.byref(design))
         _build.check(lib, err, what)
         fused_rmsnorm_qkv.launches += 1
-        fused_rmsnorm_qkv.launches_by_path[gemm_path(T, x.dtype)] += 1
+        fused_rmsnorm_qkv.launches_by_path[GEMM_PATHS[design.value]] += 1
     out = (q.reshape(*lead, dq), k.reshape(*lead, dkv),
            v.reshape(*lead, dkv))
     if residuals:

@@ -1,4 +1,4 @@
-"""Paged decode attention — wrappers of the CUDA kernels in
+"""Paged decode attention — wrappers of the CUDA kernel in
 ``csrc/paged_attention.cu`` and their plain PyTorch version.
 
 Counterpart of ``paddle_tpu/ops/pallas/paged_attention.py``:
@@ -7,18 +7,51 @@ given ``k_scale``/``v_scale``, hands int8 pools to
 ``paged_decode_attention_int8``, which replaces ``_decode_kernel_quant``.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.  Each wrapper counts its launches in its own
-``launches`` attribute, so a run can show which of the two ran."""
+``launches`` attribute, so a run can show which of the two ran, and in
+``launches_by_path`` under the design the C entry reports: ``split``
+(rows split across the sequence, the partials merged by the last split
+of each row) or ``direct`` (the table fits one split, every row writes
+its output at once).
+
+The split count comes from the block table's width alone: the wrapper
+sizes the workspace with the C entry's own count (``ptt_paged_splits``),
+and :func:`paged_splits` is the tests' model of that rule; the lengths
+stay on the device.  Where there is
+more than one split a call takes a workspace, ``B * kv_heads * splits *
+heads / kv_heads * (head_dim + 2)`` fp32 (1.1 MB at B = 8, 32 / 8 heads,
+head_dim 128, 1024-token rows), allocated per call, and one int32 ticket
+per (row, kv head), kept per device and zero between launches (the
+kernel's merging block resets it), so two launches that share a device
+must not run at once on two streams."""
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from paddle_tpu_torch.ops.kernels import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_int8",
-           "paged_decode_reference"]
+           "paged_decode_reference", "paged_splits", "PAGED_PATHS",
+           "SPLIT_TOKENS"]
+
+# csrc/paged_attention.cu: the designs a launch takes (enum PagedDesign,
+# in its order) and the tokens a split covers (kSplitTokens)
+PAGED_PATHS = ("split", "direct")
+SPLIT_TOKENS = 128
 
 _NEG = -1e30
+
+
+def paged_splits(max_blocks: int, block_size: int) -> int:
+    """The tests' model of the splits of every row of a ``[B,
+    max_blocks]`` block table over blocks of ``block_size`` tokens
+    (``splits_of`` in the source, which the wrapper asks): a
+    split covers ``SPLIT_TOKENS`` tokens rounded down to whole blocks, at
+    least one block."""
+    per = 1 if block_size >= SPLIT_TOKENS else SPLIT_TOKENS // block_size
+    return -(-max_blocks // per)
 
 
 def paged_decode_reference(q, k_pool, v_pool, block_table, lengths,
@@ -84,6 +117,39 @@ def _check(what, q, k_pool, v_pool, block_table, lengths, tensors):
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
 
 
+def _launch(wrapper, what, entry, q, pools, block_table, lengths, scale):
+    """One launch of the C `entry` on checked operands: the pools (and
+    int8 scales) in `pools`, the merge's workspace and tickets where the
+    table takes more than one split; counts it on `wrapper` under the
+    design the entry reports."""
+    out = torch.empty_like(q)
+    B, h, hd = q.shape
+    if not B:
+        return out
+    _, bs, kvh, _ = pools[0].shape
+    mb = block_table.shape[1]
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+    lib = _build.library("paged_attention")
+    ws = tickets = None
+    splits = lib.ptt_paged_splits(mb, bs)
+    if splits > 1:
+        ws = torch.empty(B * h * splits * (hd + 2), dtype=torch.float32,
+                         device=q.device)
+        tickets = _build.tickets("paged_attention", q.device, B * kvh)
+    design = ctypes.c_int(-1)
+    err = getattr(lib, entry)(
+        _build.DTYPE_CODES[q.dtype], q.data_ptr(),
+        *(t.data_ptr() for t in pools), block_table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), B, h, kvh, hd, bs,
+        mb, float(scale), _build.stream_of(q), ctypes.byref(design))
+    _build.check(lib, err, what)
+    wrapper.launches += 1
+    wrapper.launches_by_path[PAGED_PATHS[design.value]] += 1
+    return out
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_table, lengths,
                            scale=None, k_scale=None, v_scale=None):
     """Single-token attention over paged pools.
@@ -109,22 +175,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths,
         "v_pool": (v_pool, q.dtype),
         "block_table": (block_table, torch.int32),
         "lengths": (lengths, torch.int32)})
-    out = torch.empty_like(q)
-    B, h, hd = q.shape
-    if B:
-        scale = scale if scale is not None else 1.0 / (hd ** 0.5)
-        lib = _build.library("paged_attention")
-        err = lib.ptt_paged_decode(
-            _build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), block_table.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, h, k_pool.shape[2], hd, k_pool.shape[1],
-            block_table.shape[1], float(scale), _build.stream_of(q))
-        _build.check(lib, err, what)
-        paged_decode_attention.launches += 1
-    return out
+    return _launch(paged_decode_attention, what, "ptt_paged_decode", q,
+                   (k_pool, v_pool), block_table, lengths, scale)
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_path = dict.fromkeys(PAGED_PATHS, 0)
 
 
 def paged_decode_attention_int8(q, k_pool, v_pool, block_table, lengths,
@@ -151,20 +207,11 @@ def paged_decode_attention_int8(q, k_pool, v_pool, block_table, lengths,
         "v_scale": (v_scale, torch.float32),
         "block_table": (block_table, torch.int32),
         "lengths": (lengths, torch.int32)})
-    out = torch.empty_like(q)
-    B, h, hd = q.shape
-    if B:
-        scale = scale if scale is not None else 1.0 / (hd ** 0.5)
-        lib = _build.library("paged_attention")
-        err = lib.ptt_paged_decode_quant(
-            _build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, h,
-            kvh, hd, bs, block_table.shape[1], float(scale),
-            _build.stream_of(q))
-        _build.check(lib, err, what)
-        paged_decode_attention_int8.launches += 1
-    return out
+    return _launch(paged_decode_attention_int8, what,
+                   "ptt_paged_decode_quant", q,
+                   (k_pool, v_pool, k_scale, v_scale), block_table, lengths,
+                   scale)
 
 
 paged_decode_attention_int8.launches = 0
+paged_decode_attention_int8.launches_by_path = dict.fromkeys(PAGED_PATHS, 0)

@@ -12,9 +12,9 @@ design in ``quant_matmul.launches_by_path``: ``splitk`` (bf16, T <= 16),
 ``wgmma`` (bf16, T > 16) and ``tile`` (fp32 io), the counterpart of the
 TPU package's ``record_path``.
 
-Split-K takes a workspace: ``splitk_splits`` fp32 partials of the output
-(``splits * T * N * 4`` bytes, 1.2 MB for q/o at T = 8, 16 MB for the
-lm_head at T = 16), allocated per call where there is more than one
+Split-K takes a workspace: fp32 partials of the output, one a split
+(the C entry's count, the rule of ``splitk.py``; ``splits * T * N * 4``
+bytes, 1.2 MB for q/o at T = 8, 16 MB for the lm_head at T = 16), allocated per call where there is more than one
 split, and one int32 ticket per 128-column tile, kept per device and
 zero between launches (the kernel's last block of a tile resets it), so
 two launches that share a device must not run at once on two streams.
@@ -27,55 +27,19 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels.splitk import SPLITK_BN, SPLITK_MAX_T
 
 __all__ = ["quant_matmul", "quant_matmul_reference", "weight_dtype",
-           "kernel_path", "splitk_splits",
-           "QUANT_WEIGHT_DTYPES", "QUANT_PATHS", "SPLITK_MAX_T"]
+           "kernel_path", "QUANT_WEIGHT_DTYPES", "QUANT_PATHS"]
 
 QUANT_WEIGHT_DTYPES = ("int8", "fp8")
 QUANT_PATHS = ("splitk", "wgmma", "tile")
-
-# csrc/quant_matmul.cu's split-K constants: the largest T it takes
-# (kSplitKMaxT), the output columns of a block (kSkBN), and the split
-# rule's blocks per SM (kSplitFactor), least 64-deep slices a split
-# (kMinSlices) and deepest split (kMaxSplitDepth)
-SPLITK_MAX_T = 16
-SPLITK_BN = 128
-SPLIT_FACTOR = 2
-MIN_SLICES = 4
-MAX_SPLIT_DEPTH = 2048
-
 
 def kernel_path(T: int, dtype) -> str:
     """The design a launch of T rows in io dtype `dtype` takes."""
     if dtype != torch.bfloat16:
         return "tile"
     return "splitk" if T <= SPLITK_MAX_T else "wgmma"
-
-
-def splitk_splits(K: int, N: int, sms: int) -> int:
-    """The K splits of the split-K kernel (``splitk_splits`` in the
-    source): enough blocks for SPLIT_FACTOR a SM over the 128-column
-    tiles, at least MIN_SLICES 64-deep slices a split, none deeper than
-    MAX_SPLIT_DEPTH, never more splits than slices."""
-    tiles = -(-N // SPLITK_BN)
-    slices = K // 64
-    s = -(-(SPLIT_FACTOR * sms) // tiles)
-    s = min(s, max(1, slices // MIN_SLICES))
-    s = max(s, -(-K // MAX_SPLIT_DEPTH))
-    return min(s, slices)
-
-
-_TICKETS = {}
-
-
-def _tickets(device, n: int) -> torch.Tensor:
-    """The per-device split-K tickets, at least `n` of them, all zero."""
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = _TICKETS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                           device=device)
-    return t
 
 
 def weight_dtype(mode: str) -> torch.dtype:
@@ -144,7 +108,8 @@ def quant_matmul(x, qw, scale, mode: str = "int8"):
         if splits > 1:
             ws = torch.empty(splits * T * N, dtype=torch.float32,
                              device=x.device)
-            tickets = _tickets(x.device, -(-N // SPLITK_BN))
+            tickets = _build.tickets("quant_matmul", x.device,
+                                     -(-N // SPLITK_BN))
         err = lib.ptt_quant_matmul(
             code, _build.WEIGHT_CODES[wdt], x2.data_ptr(), qw.data_ptr(),
             scale.data_ptr(), y.data_ptr(),

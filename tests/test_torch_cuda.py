@@ -10,6 +10,8 @@ are stated per dtype: the kernels sum in another order than cuBLAS
 (fp32) and round activations to bf16 at the same points as the plain
 versions (bf16)."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from paddle_tpu_torch.ops.kernels import grouped_matmul as GM
 from paddle_tpu_torch.ops.kernels import paged_attention as PA
 from paddle_tpu_torch.ops.kernels import quant_matmul as QM
 from paddle_tpu_torch.ops.kernels import rmsnorm as RN
+from paddle_tpu_torch.ops.kernels import splitk as SK
 from paddle_tpu_torch.quantization.serving import quantize_linear_weight
 
 pytestmark = pytest.mark.cuda
@@ -42,6 +45,19 @@ def dev():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.fixture
+def fp32_products():
+    """FLAGS_default_matmul_precision=float32 for the test: the chunked
+    CE's products exact fp32 on the card, as on the CPU side of a
+    card-against-CPU comparison (the TF32 default is held against
+    float32 by test_chunked_ce_default_precision_against_float32)."""
+    from paddle_tpu_torch import flags
+    saved = flags.get("default_matmul_precision")
+    flags.set_flags({"default_matmul_precision": "float32"})
+    yield
+    flags.set_flags({"default_matmul_precision": saved})
 
 
 def _t(rng, shape, dtype, dev, scale=1.0):
@@ -381,7 +397,7 @@ def test_rmsnorm_qkv_train_variant_matches_plain(dev, dtype, T, d, dq, dkv):
     _close(got[4], ref[4], torch.float32)
 
 
-def test_train_step_on_the_card_matches_the_cpu_port(dev):
+def test_train_step_on_the_card_matches_the_cpu_port(dev, fp32_products):
     """A tiny flash-eligible config (head_dim 128, seq 128) in fp32: the
     loss and every parameter's gradient through the card's kernels
     (flash fwd/bwd, QKV train variant, MLP) against the CPU port's plain
@@ -425,6 +441,48 @@ def test_train_step_on_the_card_matches_the_cpu_port(dev):
                          gpu.state_dict().values()):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-4,
                                    rtol=1e-4, err_msg=n)
+
+
+def test_train_step_at_the_default_precision_against_float32(dev):
+    """The small model of the test above (fp32), whole, on the card at
+    the flag's default (the chunked CE's products in TF32, every other
+    product as the process sets it): loss and every parameter's gradient
+    within CE_TF32_TOL of the same step at float32, the training kernels
+    launched, and the process's TF32 setting unchanged."""
+    from paddle_tpu_torch import flags, seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           max_position_embeddings=256)
+    seed(0)
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    ids = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 129)), device=dev)
+    saved = flags.get("default_matmul_precision")
+    kernels.reset_launch_counts()
+    out = {}
+    try:
+        for mode in ("float32", "default"):
+            flags.set_flags({"default_matmul_precision": mode})
+            loss = gpu.loss(ids[:, :-1], ids[:, 1:])
+            loss.backward()
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+            out[mode] = (float(loss.detach()),
+                         {n: p.grad.clone() for n, p in
+                          gpu.named_parameters()})
+            gpu.clear_gradients()
+    finally:
+        flags.set_flags({"default_matmul_precision": saved})
+    assert all(fn.launches > 0 for fn in kernels.TRAINING)
+    (l32, g32), (ltf, gtf) = out["float32"], out["default"]
+    tol = CE_TF32_TOL[torch.float32]
+    assert abs(ltf - l32) <= tol["loss_rel"] * abs(l32), (ltf, l32)
+    for n, ref in g32.items():
+        assert torch.isfinite(gtf[n]).all(), n
+        err, scale = float((gtf[n] - ref).abs().max()), float(
+            ref.abs().max())
+        assert err <= tol["grad_of_max"] * scale, (n, err, scale)
 
 
 # -- the MoE training slice: the grouped expert FFN ---------------------------
@@ -511,7 +569,8 @@ def test_grouped_ffn_refuses_what_the_kernel_does_not_take(dev):
         GM.grouped_expert_ffn(x, w1, b1, w2, b2, act="relu")
 
 
-def test_moe_train_step_on_the_card_matches_the_cpu_port(dev):
+def test_moe_train_step_on_the_card_matches_the_cpu_port(dev,
+                                                         fp32_products):
     """A tiny flash-eligible ERNIE-shaped config (head_dim 128, seq 128;
     one dense and one MoE layer) in fp32, einsum then index dispatch: two
     TrainStep updates on the card and on the CPU from the same weights;
@@ -932,8 +991,8 @@ def test_decoder_block_at_an_ineligible_shape_takes_the_segments(dev):
     assert _rel_err(got, FB.decoder_reference(*args)) < 1e-4
 
 
-def test_decoder_tier_train_step_on_the_card_matches_the_cpu_port(dev,
-                                                                  monkeypatch):
+def test_decoder_tier_train_step_on_the_card_matches_the_cpu_port(
+        dev, monkeypatch, fp32_products):
     """The tiny hd-128 config (2 layers, s=128) at the decoder tier, fp32:
     the loss and every gradient on the card (block kernel forward, remat
     through the per-segment kernels) against the CPU port's plain path,
@@ -1269,8 +1328,9 @@ def test_hopper_kernels_raise_on_a_refused_launch(dev):
     err = lib.ptt_rmsnorm_qkv(1, x.data_ptr(), w[0].data_ptr(),
                               w.data_ptr(), w.data_ptr(), w.data_ptr(),
                               x.data_ptr(), x.data_ptr(), x.data_ptr(), None,
-                              None, 32, 128, 128, 128, 1e-5,
-                              _build.stream_of(x))
+                              None, None, None, 32, 128, 128, 128, 1e-5,
+                              _build.stream_of(x),
+                              ctypes.byref(ctypes.c_int()))
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         _build.check(lib, err, "fused_rmsnorm_qkv")
     q = torch.zeros((1, 128, 2, 64), dtype=torch.bfloat16, device=dev)
@@ -1425,7 +1485,7 @@ def test_quant_splits_agree_with_the_model(dev):
     for K, N in ((64, 64), (4096, 1024), (4096, 4096), (4096, 14336),
                  (14336, 4096), (4096, 128256), (2048, 4160)):
         assert lib.ptt_quant_splits(1, 8, K, N) == \
-            QM.splitk_splits(K, N, sms), (K, N)
+            SK.splitk_splits(K, N, sms), (K, N)
     assert lib.ptt_quant_splits(1, 17, 4096, 4096) == 0
     assert lib.ptt_quant_splits(0, 8, 4096, 4096) == 0
 
@@ -1548,3 +1608,170 @@ def test_grouped_ffn_hopper_matches_plain(dev, G, E, C, d, h):
                           counts=counts)
     n0["tile"] += 1
     assert GM.grouped_expert_ffn.launches_by_path == n0
+
+
+# -- paged decode split across the sequence, QKV split-K, the CE in TF32 ------
+
+# chip_smoke.py PAGED_TOL: one bf16 step of the output, and an absolute
+# floor for the p that a split's running max rounds otherwise
+PAGED_TOL = (4e-3, 2 ** -7)
+# the serving shape: B = 8, 32 / 8 heads, head_dim 128, blocks of 16, a
+# table of 64 blocks (8 splits of 128 tokens); lengths 1, one block, a
+# split less one, a split, a split plus one, the whole table, an inactive
+# row (table row 0, length 1) and a row in between
+PAGED_LENGTHS = [1, 16, 127, 128, 129, 1024, 1, 700]
+
+
+def _serve_paged(rng, dtype, dev, quant):
+    B, h, kvh, hd, bs, mb = 8, 32, 8, 128, 16, 64
+    nb = 1 + B * mb
+    q = _t(rng, (B, h, hd), dtype, dev)
+    kp = _t(rng, (nb, bs, kvh, hd), dtype, dev)
+    vp = _t(rng, (nb, bs, kvh, hd), dtype, dev)
+    scales = ()
+    if quant:
+        kp, ks = _quantize_kv(kp)
+        vp, vs = _quantize_kv(vp)
+        scales = (ks, vs)
+    bt = torch.as_tensor(rng.permutation(nb - 1).reshape(B, mb) + 1,
+                         dtype=torch.int32, device=dev)
+    bt[6] = 0
+    lengths = torch.as_tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, lengths, scales
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_split_matches_plain(dev, dtype, quant):
+    """fp and int8 pools at the serving shape, over lengths on both sides
+    of a split: within TOL (fp32) or PAGED_TOL (bf16) of the plain
+    version; two calls bitwise equal; each launch under ``split``."""
+    q, kp, vp, bt, lengths, scales = _serve_paged(
+        np.random.default_rng(11 + quant), dtype, dev, quant)
+    fn = PA.paged_decode_attention_int8 if quant else \
+        PA.paged_decode_attention
+    n0 = dict(fn.launches_by_path)
+    a = fn(q, kp, vp, bt, lengths, *scales)
+    b = fn(q, kp, vp, bt, lengths, *scales)
+    n0["split"] += 2
+    assert fn.launches_by_path == n0
+    assert PA.paged_splits(bt.shape[1], kp.shape[1]) == 8
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    ref = PA.paged_decode_reference(q, kp, vp, bt, lengths,
+                                    k_scale=scales[0] if quant else None,
+                                    v_scale=scales[1] if quant else None)
+    if dtype == torch.bfloat16:
+        _close_tol(a, ref, PAGED_TOL)
+    else:
+        _close(a, ref, dtype)
+
+
+def test_paged_decode_splits_agree_with_the_model(dev):
+    """The C entry's split count, which sizes the wrapper's workspace, is
+    the tests' model of it (paged_splits), and a table that fits one
+    split takes the ``direct`` design."""
+    lib = _build.library("paged_attention")
+    for mb, bs in ((1, 16), (8, 16), (9, 16), (64, 16), (12, 256), (7, 12)):
+        assert lib.ptt_paged_splits(mb, bs) == PA.paged_splits(mb, bs)
+    rng = np.random.default_rng(2)
+    q = _t(rng, (2, 8, 64), torch.bfloat16, dev)
+    kp = _t(rng, (9, 16, 2, 64), torch.bfloat16, dev)
+    bt = torch.as_tensor([[1, 2], [3, 4]], dtype=torch.int32, device=dev)
+    n0 = dict(PA.paged_decode_attention.launches_by_path)
+    PA.paged_decode_attention(q, kp, kp, bt, torch.as_tensor(
+        [5, 32], dtype=torch.int32, device=dev))
+    n0["direct"] += 1
+    assert PA.paged_decode_attention.launches_by_path == n0
+
+
+# QKV split-K against qkv_reference: one bf16 step of the output (2^-7 of
+# its value) plus an absolute floor for outputs near 0
+QKV_SPLITK_TOL = (2e-3, 2 ** -7)
+
+
+@pytest.mark.parametrize("T", [1, 8, 16])
+def test_rmsnorm_qkv_splitk_matches_plain(dev, T):
+    """bf16 at Llama-3-8B width (d 4096, dq 4096, dkv 1024; 6 splits on
+    an H100): within QKV_SPLITK_TOL of qkv_reference, two calls bitwise
+    equal, each under ``splitk``; the training variant and fp32 at the
+    same T still launch the tile."""
+    rng = np.random.default_rng(T + 5)
+    d, dq, dkv = 4096, 4096, 1024
+    x = _t(rng, (T, d), torch.bfloat16, dev)
+    wn = _t(rng, (d,), torch.bfloat16, dev, 0.1) + 1.0
+    w = [_t(rng, (d, n), torch.bfloat16, dev, (2 / (d + dq)) ** 0.5)
+         for n in (dq, dkv, dkv)]
+    n0 = dict(FB.fused_rmsnorm_qkv.launches_by_path)
+    a = FB.fused_rmsnorm_qkv(x, wn, *w, 1e-5)
+    b = FB.fused_rmsnorm_qkv(x, wn, *w, 1e-5)
+    n0["splitk"] += 2
+    assert FB.fused_rmsnorm_qkv.launches_by_path == n0
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    for g, r in zip(a, FB.qkv_reference(x, wn, *w, 1e-5)):
+        _close_tol(g, r, QKV_SPLITK_TOL)
+    FB.fused_rmsnorm_qkv(x, wn, *w, 1e-5, residuals=True)
+    FB.fused_rmsnorm_qkv(x.float(), wn.float(), *(t.float() for t in w),
+                         1e-5)
+    n0["tile"] += 2
+    assert FB.fused_rmsnorm_qkv.launches_by_path == n0
+
+
+def test_qkv_splits_agree_with_the_model(dev):
+    """The C entry's split count is the wrapper's model (qkv_splits at
+    the card's SM count), and 0 where no workspace is taken (the
+    training variant, fp32, T > 16)."""
+    lib = _build.library("fused_block")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for d, dq, dkv in ((64, 64, 64), (256, 192, 64), (4096, 4096, 1024),
+                       (2560, 2560, 512)):
+        assert lib.ptt_qkv_splits(1, 8, d, dq, dkv, 0) == \
+            FB.qkv_splits(d, dq, dkv, sms), (d, dq, dkv)
+    assert lib.ptt_qkv_splits(1, 8, 4096, 4096, 1024, 1) == 0
+    assert lib.ptt_qkv_splits(0, 8, 4096, 4096, 1024, 0) == 0
+    assert lib.ptt_qkv_splits(1, 17, 4096, 4096, 1024, 0) == 0
+
+
+# the chunked CE at "default" (TF32 chunk products) against "float32":
+# chip_smoke.py CE_TF32_TOL, by the CE's io dtype
+CE_TF32_TOL = {torch.bfloat16: {"loss_rel": 4e-6, "grad_of_max": 1e-2},
+               torch.float32: {"loss_rel": 4e-6, "grad_of_max": 1.5e-3}}
+
+
+@pytest.mark.parametrize("tf32_outside", [False, True])
+def test_chunked_ce_default_precision_against_float32(dev, tf32_outside):
+    """Llama-3-8B's lm-head width (d 4096, V 128256, chunks of 8192, the
+    last one short), T = 512 bf16 rows: loss and gradients at the flag's
+    default within CE_TF32_TOL of float32; the process's TF32 setting is
+    the same before and after each call, whatever it was."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.nn import functional as TF
+    rng = np.random.default_rng(8)
+    T, d, V = 512, 4096, 128256
+    h = _t(rng, (T, d), torch.bfloat16, dev)
+    w = _t(rng, (d, V), torch.bfloat16, dev, 0.02)
+    lbl = torch.as_tensor(rng.integers(0, V, T), device=dev)
+    saved = flags.get("default_matmul_precision")
+    torch.backends.cuda.matmul.allow_tf32 = tf32_outside
+    out = {}
+    try:
+        for mode in ("float32", "default"):
+            flags.set_flags({"default_matmul_precision": mode})
+            hh = h.clone().requires_grad_(True)
+            ww = w.clone().requires_grad_(True)
+            loss = TF.fused_linear_cross_entropy(hh, ww, lbl)
+            loss.backward()
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32_outside
+            out[mode] = (float(loss.detach()), hh.grad.float(),
+                         ww.grad.float())
+    finally:
+        flags.set_flags({"default_matmul_precision": saved})
+        torch.backends.cuda.matmul.allow_tf32 = False
+    (l32, *g32), (ltf, *gtf) = out["float32"], out["default"]
+    tol = CE_TF32_TOL[torch.bfloat16]
+    assert abs(ltf - l32) <= tol["loss_rel"] * abs(l32), (ltf, l32)
+    for a, b in zip(gtf, g32):
+        assert torch.isfinite(a).all()
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        assert err <= tol["grad_of_max"] * scale, (err, scale)

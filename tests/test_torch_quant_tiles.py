@@ -34,6 +34,7 @@ from paddle_tpu.quantization import serving as JQS
 from paddle_tpu_torch.nn.layer import _from_numpy
 from paddle_tpu_torch.ops.kernels import fused_block as FB
 from paddle_tpu_torch.ops.kernels import quant_matmul as QM
+from paddle_tpu_torch.ops.kernels import splitk as SK
 
 CSRC = Path(QM.__file__).resolve().parent / "csrc"
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 2 ** -7)}
@@ -143,7 +144,7 @@ def test_splitk_rule_at_the_decode_shapes():
     shapes = {(4096, 1024): 16, (4096, 4096): 9, (4096, 14336): 3,
               (14336, 4096): 9, (4096, 128256): 2}
     for (K, N), want in shapes.items():
-        s = QM.splitk_splits(K, N, 132)
+        s = SK.splitk_splits(K, N, 132)
         assert s == want, (K, N, s)
         assert -(-N // 128) * s >= 128
         depth = max(hi - lo for lo, hi in splitk_ranges(K, s)) * 64
@@ -161,14 +162,17 @@ def test_splitk_rule_agrees_with_the_kernel_source():
     """The wrapper's constants are the source's, the kernel partitions K
     as ``splitk_ranges`` does, and the source's splitk_splits, evaluated
     line by line with C's integer division, gives the wrapper's split
-    count at every shape tried."""
+    count at every shape tried (the rule and its constants live in
+    splitk.cuh, which the kernel includes)."""
     src = (CSRC / "quant_matmul.cu").read_text()
+    assert '#include "splitk.cuh"' in src
+    src += (CSRC / "splitk.cuh").read_text()
     consts = {n: int(v) for n, v in
               re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert (consts["kSplitKMaxT"], consts["kSkBN"], consts["kSplitFactor"],
             consts["kMinSlices"], consts["kMaxSplitDepth"]) == (
-                QM.SPLITK_MAX_T, QM.SPLITK_BN, QM.SPLIT_FACTOR,
-                QM.MIN_SLICES, QM.MAX_SPLIT_DEPTH)
+                SK.SPLITK_MAX_T, SK.SPLITK_BN, SK.SPLIT_FACTOR,
+                SK.MIN_SLICES, SK.MAX_SPLIT_DEPTH)
     # the kernel's partition is splitk_ranges'
     assert "const int s0 = split * slices / p.splits;" in src
     assert "const int steps = (split + 1) * slices / p.splits - s0;" in src
@@ -181,9 +185,10 @@ def test_splitk_rule_agrees_with_the_kernel_source():
     for K in (64, 128, 192, 512, 4096, 14336, 28672):
         for N in (64, 192, 1024, 4096, 14336, 128256):
             for sms in (1, 16, 132):
-                env = dict(consts, K=K, N=N, sms=sms, min=min, max=max)
+                env = dict(consts, K=K, N=N, sms=sms, min=min, max=max,
+                           factor=consts["kSplitFactor"])
                 exec("\n".join(py), env)
-                assert env["__r"] == QM.splitk_splits(K, N, sms), (K, N, sms)
+                assert env["__r"] == SK.splitk_splits(K, N, sms), (K, N, sms)
 
 
 # -- the quant matmul: wgmma at T > 16 ----------------------------------------
