@@ -15,14 +15,18 @@ train_moe two, one per engine or dispatch mode):
             ops/kernels/csrc`` (or finds them built); beside it, ptxas
             reports the Hopper kernels (the bf16 flash forward, dq and
             dk/dv, the QKV row pass and wgmma GEMM, the MLP / fused_ffn
-            wgmma GEMM, the quant matmul's split-K and wgmma kernels):
+            wgmma GEMM and split-K, the quant matmul's split-K and wgmma
+            kernels, the rmsnorm's register design):
             registers, shared memory, spills (none allowed) and any wgmma
             serialisation (-Xptxas -v).
 3. kernels  every kernel of the serving path at the path's own shapes
             (Llama-3-8B widths: fused RMSNorm+QKV at T = 1, 8 and 16
             decode rows (bf16: the row pass and split-K, bitwise equal
             over two calls) and T = 256 prefill rows, fused SwiGLU MLP at
-            T = 8 and 256; paged decode at B = 8, 32/8 heads, head_dim
+            T = 1, 8 and 16 (bf16: split-K, bitwise equal over two calls,
+            each launch's split count and TB/s from the profiler, timed
+            also without the spin so the wrapper's host share shows) and
+            T = 256; paged decode at B = 8, 32/8 heads, head_dim
             128, block 16, lengths 1..1024, split across the sequence,
             bitwise equal over two calls) held against its plain PyTorch
             version in bf16 and fp32, and timed with CUDA events beside
@@ -72,9 +76,8 @@ train_moe two, one per engine or dispatch mode):
             8 requests, prompts of 64..700 tokens, 32 new tokens each.
             Every request must end "ok" with 32 tokens, and every serving
             kernel's launch count must have grown during this run (the
-            MLP on both paths: wgmma for prefill chunks, the tile at
-            decode; QKV on wgmma and split-K, never the tile; paged
-            decode split).  Then
+            MLP and QKV on both paths: wgmma for prefill chunks, split-K
+            at decode, never the tile; paged decode split).  Then
             a short window under torch.profiler: device time by kernel,
             the decode kernels' device ms per decode step and the
             device's busy share.  serve_quant: the same model, in
@@ -130,8 +133,9 @@ train_moe two, one per engine or dispatch mode):
             6 + 6 layers, FFN 2048, relu, post-LN).  kernels_ffn (with the
             kernel phases): fused_ffn against ffn_reference at T = 8192,
             d = 512, f = 2048, relu / gelu / silu in bf16 and relu in fp32,
-            timed beside the plain version, addmm -> act -> addmm and its
-            bound.  transformer_infer: the full model in bf16, eval, b=32,
+            and relu in bf16 at T = 8 (a decode step's rows: split-K,
+            bitwise equal over two calls), timed beside the plain version,
+            addmm -> act -> addmm and its bound.  transformer_infer: the full model in bf16, eval, b=32,
             source and target 256 with the causal target mask: the output
             against the plain FFN route on the card, forward seconds, tokens
             per second, fused_ffn launched 12 times a forward; a 2 + 2-layer
@@ -146,8 +150,8 @@ train_moe two, one per engine or dispatch mode):
             chain in its dtype;
             the
             rmsnorm kernel against rmsnorm_reference at T=8192, d=4096
-            (bf16 with and without a residual, fp32), beside x + r then
-            F.rms_norm.  score_decoder (on the serve model, before it is
+            (bf16 with and without a residual, fp32; without one h is x
+            itself), beside x + r then F.rms_norm.  score_decoder (on the serve model, before it is
             freed): 32-layer cache-free scoring of b=4 x 2048 tokens at
             the decoder tier (32 block launches a forward, on wgmma) and
             at the default tier, logits within 5% of their largest.
@@ -171,6 +175,7 @@ import contextlib
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -214,12 +219,14 @@ CE_TOL = {"loss": (1e-4, 1e-5), "lse": (1e-4, 1e-5),
 # matmul's split-K on mma.sync), whose -Xptxas -v the ptxas line reports
 # (none may spill or serialise its wgmma), and their sources
 PTXAS_SOURCES = ("flash_attention", "fused_block", "quant_matmul",
-                 "fused_decoder", "grouped_matmul", "paged_attention")
+                 "fused_decoder", "grouped_matmul", "paged_attention",
+                 "rmsnorm")
 PTXAS_KERNELS = ("flash_fwd_hopper", "flash_dq_hopper", "flash_dkv_hopper",
                  "qkv_gemm_kernel", "qkv_rows_kernel", "mlp_gemm_kernel",
                  "quant_splitk_kernel", "quant_wgmma_kernel",
                  "decoder_hopper", "grouped_hopper", "qkv_splitk_kernel",
-                 "paged_split_kernel")
+                 "paged_split_kernel", "mlp_splitk_kernel",
+                 "rmsnorm_regs_kernel")
 # the chunked CE at FLAGS_default_matmul_precision="default" (TF32 chunk
 # products on the card) against "float32" (exact fp32): TF32 rounds each
 # operand to a 10-bit mantissa (2^-11 relative), so a logit moves by a few
@@ -306,6 +313,60 @@ class Timer:
             pairs.append((a, b))
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def no_spin(timer, fn, **kw):
+    """`timer`'s mean device ms of `fn` without the spin before each
+    launch: a slow enqueue by the host then lands between the events, so
+    beside the spin's figure it shows the wrapper's host share."""
+    timer.BUSY_CYCLES = 0
+    try:
+        return timer(fn, **kw)
+    finally:
+        del timer.BUSY_CYCLES
+
+
+def launch_us(timer, fn, iters=5):
+    """Device microseconds of each kernel that `fn` launches, by kernel
+    name, the mean over `iters` calls under torch.profiler with the L2
+    scrub before each (the scrub's own fill kernel left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.scrub.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / iters for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "fill" not in e.key.lower()}
+
+
+def splitk_launches(timer, fn, ms, up, down, sms):
+    """The MLP / FFN split-K call's two launches: each one's split count,
+    device us and weight bytes over that time.  The first launch's us is
+    its profiled span; the down product is a dependent launch whose span
+    opens during the first one's, so its us is the rest of the call's
+    `ms` (the Timer's).  Where the profiler closes the first span under
+    the dependent launch varies from run to run, so the two shares do
+    too; their sum is the call's.  `up` and `down`: (K, N, weight
+    bytes)."""
+    from paddle_tpu_torch.ops.kernels import splitk as SK
+    spans = {}
+    for key, us in launch_us(timer, fn).items():
+        m = re.search(r"mlp_splitk_kernel<(\d+), \d+, \d+>", key)
+        if m is not None:
+            spans["down" if int(m.group(1)) == 2 else "up"] = us
+    if set(spans) != {"up", "down"}:
+        raise AssertionError(f"split-K launches not both profiled: {spans}")
+    out = {}
+    for name, (K, N, nbytes), us in (
+            ("up", up, spans["up"]), ("down", down, 1e3 * ms - spans["up"])):
+        out[name] = {"us": us, "splits": SK.mlp_splits(K, N, sms),
+                     "weight_bytes": nbytes, "tb_per_s": nbytes / us / 1e6}
+    out["down"]["profiled_span_us"] = spans["down"]
+    return out
 
 
 def bound_ms(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
@@ -398,8 +459,12 @@ def kernel_qkv(FB, dev, timer, T, plain_iters=10):
 
 
 def kernel_mlp(FB, dev, timer, T, plain_iters=10):
-    """The gated MLP kernel pair at T rows: 8 and 256 serve, and the
-    train step's T = b * s = 8192 runs the same pair in its forward."""
+    """The gated MLP kernel pair at T rows: 1, 8 and 16 decode steps (bf16:
+    split-K, bitwise equal over two calls, each launch's split count and
+    TB/s from the profiler), 256 a prefill chunk (the wgmma ring), and the
+    train step's T = b * s = 8192 runs the same pair in its forward; each
+    call on its path (``launches_by_path``), timed with the spin and
+    without it beside the library chain."""
     g = torch.Generator(device=dev).manual_seed(100 + T)
     errs, out = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -407,15 +472,34 @@ def kernel_mlp(FB, dev, timer, T, plain_iters=10):
         wg = rand(g, (D, F), dtype, dev, (2.0 / (D + F)) ** 0.5)
         wu = rand(g, (D, F), dtype, dev, (2.0 / (D + F)) ** 0.5)
         wd = rand(g, (F, D), dtype, dev, (2.0 / (D + F)) ** 0.5)
+        n0 = dict(FB.fused_mlp.launches_by_path)
         got = FB.fused_mlp(x, wg, wu, wd)
+        path = FB.gemm_path(T, dtype)
+        n0[path] += 1
+        if FB.fused_mlp.launches_by_path != n0:
+            raise AssertionError(f"fused_mlp T={T} {dtype}: not on its "
+                                 f"{path} path")
         errs[str(dtype)] = check_close(f"fused_mlp T={T}", got,
                                        FB.mlp_reference(x, wg, wu, wd), dtype)
+        if path == "splitk":
+            if not torch.equal(got, FB.fused_mlp(x, wg, wu, wd)):
+                raise AssertionError(f"fused_mlp T={T}: split-K differs "
+                                     "between two calls")
+            out["bitwise_equal_twice"] = True
         del got
     F_ = torch.nn.functional
-    out["ms"] = timer(lambda: FB.fused_mlp(x, wg, wu, wd))
+
+    def kernel():
+        return FB.fused_mlp(x, wg, wu, wd)
+
+    def library():
+        return (F_.silu(x @ wg) * (x @ wu)) @ wd
+    out["ms"] = timer(kernel)
+    out["ms_no_spin"] = no_spin(timer, kernel)
     out["plain_ms"] = timer(lambda: FB.mlp_reference(x, wg, wu, wd),
                             iters=plain_iters)
-    out["library_ms"] = timer(lambda: (F_.silu(x @ wg) * (x @ wu)) @ wd)
+    out["library_ms"] = timer(library)
+    out["library_ms_no_spin"] = no_spin(timer, library)
     out["bound_ms"], out["bound_by"] = bound_ms(
         2 * (2 * T * D + 3 * D * F), 6 * T * D * F)
     out["max_abs_err"] = errs[str(torch.bfloat16)]
@@ -424,6 +508,11 @@ def kernel_mlp(FB, dev, timer, T, plain_iters=10):
     out["workspace_bytes"] = 2 * T * F * 2
     out["shape"] = f"T={T} d={D} f={F} bf16"
     out["path"] = FB.gemm_path(T, torch.bfloat16)
+    if out["path"] == "splitk":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        out["launches"] = splitk_launches(timer, kernel, out["ms"],
+                                          (D, F, 4 * D * F),
+                                          (F, D, 2 * D * F), sms)
     return out
 
 
@@ -917,12 +1006,13 @@ def kernels_ce(CE, dev, timer):
 TB, TS, TD, TF_ = 32, 256, 512, 2048     # Transformer-base: b, s, d, FFN
 
 
-def kernel_ffn(FB, dev, timer, act, dtype):
+def kernel_ffn(FB, dev, timer, act, dtype, T=TB * TS):
     """fused_ffn against ffn_reference at the Transformer cell's FFN
-    shape (T = b * s rows), timed beside the plain version, addmm -> act
-    -> addmm (the F.linear chain on [in, out] weights) and its bound."""
+    shape (T = b * s rows; T = 8 a decode step's, bf16 split-K: bitwise
+    equal over two calls, each launch's split count and TB/s), on its
+    path, timed beside the plain version, addmm -> act -> addmm (the
+    F.linear chain on [in, out] weights) and its bound."""
     F_ = torch.nn.functional
-    T = TB * TS
     g = torch.Generator(device=dev).manual_seed(len(act) + T)
     x = rand(g, (T, TD), dtype, dev)
     w1 = rand(g, (TD, TF_), dtype, dev, TD ** -0.5)
@@ -930,16 +1020,29 @@ def kernel_ffn(FB, dev, timer, act, dtype):
     b1 = rand(g, (TF_,), dtype, dev, 0.1)
     b2 = rand(g, (TD,), dtype, dev, 0.1)
     used = {}
-    what = f"fused_ffn {act} {dtype}"
-    err = check_close(what, FB.fused_ffn(x, w1, w2, b1, b2, act),
-                      FB.ffn_reference(x, w1, b1, w2, b2, act), dtype,
-                      None, used)
+    what = f"fused_ffn {act} {dtype} T={T}"
+    path = FB.gemm_path(T, dtype)
+    n0 = dict(FB.fused_ffn.launches_by_path)
+    got = FB.fused_ffn(x, w1, w2, b1, b2, act)
+    n0[path] += 1
+    if FB.fused_ffn.launches_by_path != n0:
+        raise AssertionError(f"{what}: not on its {path} path")
+    err = check_close(what, got, FB.ffn_reference(x, w1, b1, w2, b2, act),
+                      dtype, None, used)
+    if path == "splitk" and not torch.equal(
+            got, FB.fused_ffn(x, w1, w2, b1, b2, act)):
+        raise AssertionError(f"{what}: split-K differs between two calls")
     fn = {"relu": F_.relu, "gelu": F_.gelu, "silu": F_.silu}[act]
-    out = {"ms": timer(lambda: FB.fused_ffn(x, w1, w2, b1, b2, act)),
+
+    def kernel():
+        return FB.fused_ffn(x, w1, w2, b1, b2, act)
+
+    def library():
+        return torch.addmm(b2, fn(torch.addmm(b1, x, w1)), w2)
+    out = {"ms": timer(kernel),
            "plain_ms": timer(lambda: FB.ffn_reference(x, w1, b1, w2, b2,
                                                       act)),
-           "library_ms": timer(lambda: torch.addmm(
-               b2, fn(torch.addmm(b1, x, w1)), w2))}
+           "library_ms": timer(library)}
     isz = x.element_size()
     out["bound_ms"], out["bound_by"] = bound_ms(
         (2 * T * TD + 2 * TD * TF_ + TF_ + TD) * isz, 4 * T * TD * TF_,
@@ -950,7 +1053,15 @@ def kernel_ffn(FB, dev, timer, act, dtype):
     out["workspace_bytes"] = 2 * T * TF_ * isz
     out["library"] = "addmm(b1, x, w1) -> act -> addmm(b2, h, w2)"
     out["shape"] = f"T={T} d={TD} f={TF_} {act} {str(dtype)[6:]}"
-    out["path"] = FB.gemm_path(T, dtype)
+    out["path"] = path
+    if path == "splitk":
+        out["bitwise_equal_twice"] = True
+        out["ms_no_spin"] = no_spin(timer, kernel)
+        out["library_ms_no_spin"] = no_spin(timer, library)
+        out["launches"] = splitk_launches(
+            timer, kernel, out["ms"], (TD, TF_, 2 * TD * TF_),
+            (TF_, TD, 2 * TD * TF_),
+            torch.cuda.get_device_properties(dev).multi_processor_count)
     return out
 
 
@@ -958,6 +1069,9 @@ def kernels_ffn(FB, dev, timer):
     rows = {f"{act} bf16": kernel_ffn(FB, dev, timer, act, torch.bfloat16)
             for act in ("relu", "gelu", "silu")}
     rows["relu fp32"] = kernel_ffn(FB, dev, timer, "relu", torch.float32)
+    # a decode step's rows at Transformer-base width: split-K
+    rows["relu bf16 T=8"] = kernel_ffn(FB, dev, timer, "relu",
+                                       torch.bfloat16, T=8)
     torch.cuda.empty_cache()
     return rows
 
@@ -1233,10 +1347,11 @@ def serve(dev, kernels):
         if n <= 0:
             raise AssertionError(f"serve: kernel {name} never launched")
     # prefill chunks (> 16 rows) on the wgmma ring, decode steps (8 rows)
-    # on the tile (the MLP) and on split-K (QKV); paged decode split
+    # on split-K (the MLP and QKV), never the tile; paged decode split
     by_path = gemm_paths(kernels)
     require_paths("serve", by_path, {("fused_mlp", "wgmma"): None,
-                                     ("fused_mlp", "tile"): None,
+                                     ("fused_mlp", "splitk"): None,
+                                     ("fused_mlp", "tile"): 0,
                                      ("fused_rmsnorm_qkv", "wgmma"): None,
                                      ("fused_rmsnorm_qkv", "splitk"): None,
                                      ("fused_rmsnorm_qkv", "tile"): 0,
@@ -1368,9 +1483,12 @@ def serve_quant(dev, kernels, model, prompts, bf16_tokens):
 # the decode step's kernels (T <= 16 rows) whose device time the serving
 # profiles report per decode step: paged decode, QKV's row pass and
 # split-K, the quant matmul's split-K (every projection of the quantized
-# engines) and the MLP's wmma tile
+# engines), the MLP's split-K, and the wmma tile that the MLP took at
+# decode before it (serve requires it to launch no time; a parent tree's
+# profile reports its MLP under it)
 DECODE_FAMILIES = ("paged_split_kernel", "qkv_decode_rows_kernel",
-                   "qkv_splitk_kernel", "quant_splitk_kernel", "gemm_kernel")
+                   "qkv_splitk_kernel", "quant_splitk_kernel",
+                   "mlp_splitk_kernel", "gemm_kernel")
 
 
 def profile(eng, cfg, rng, phase="profile"):
@@ -1394,9 +1512,10 @@ def profile(eng, cfg, rng, phase="profile"):
     steps = eng.stats["decode_steps"] - steps0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in kernels)
+    spans = kernel_spans(prof)
+    busy_us = union_us(spans)
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
-    fams = family_times(kernels, DECODE_FAMILIES)
+    fams = family_times(kernels, DECODE_FAMILIES, spans)
     emit(phase, requests=8, prompt=64, new_tokens=16, wall_s=wall,
          device_busy_s=busy_us / 1e6 if kernels else None,
          device_busy_share=busy_us / 1e6 / wall if kernels else None,
@@ -1407,15 +1526,41 @@ def profile(eng, cfg, rng, phase="profile"):
                "calls": e.count} for e in top])
 
 
-def family_times(kern, families):
+def kernel_spans(prof):
+    """(name, start us, end us) of every kernel the profiler saw."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def union_us(spans):
+    """Microseconds of the union of the spans' intervals: the time some
+    kernel of them ran.  The MLP's split-K down product is a dependent
+    launch that starts during its gate/up and waits, so the sum of the
+    kernels' own times would count that wait twice."""
+    total, end = 0.0, float("-inf")
+    for _, a, b in sorted(spans, key=lambda t: t[1]):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _in_family(name, fam):
+    return f"::{fam}<" in name or f"::{fam}(" in name
+
+
+def family_times(kern, families, spans=None):
     """Device ms and calls of the port's kernels by family (the kernel
-    function's name) among the profiler's CUDA events `kern`."""
+    function's name) among the profiler's CUDA events `kern`; with
+    `spans` (kernel_spans), a family's ms is the union of its kernels'
+    intervals."""
     port = {}
     for fam in families:
-        hits = [e for e in kern
-                if f"::{fam}<" in e.key or f"::{fam}(" in e.key]
-        port[fam] = {"ms": sum(e.device_time_total for e in hits) / 1e3,
-                     "calls": sum(e.count for e in hits)}
+        hits = [e for e in kern if _in_family(e.key, fam)]
+        us = sum(e.device_time_total for e in hits) if spans is None else \
+            union_us([t for t in spans if _in_family(t[0], fam)])
+        port[fam] = {"ms": us / 1e3, "calls": sum(e.count for e in hits)}
     return port
 
 
@@ -2370,11 +2515,15 @@ def kernel_rmsnorm(RN, dev, timer):
         torch.cuda.synchronize()
         if not torch.equal(h, rh):
             raise AssertionError(f"fused_rmsnorm {dtype}: h differs")
+        if not res and h.data_ptr() != x.data_ptr():
+            raise AssertionError(f"fused_rmsnorm {dtype}: without a "
+                                 "residual h is not x")
         check_close("fused_rmsnorm inv", inv, rinv, torch.float32, (0, 1e-5))
         err = check_close(f"fused_rmsnorm y {dtype}", y, ry, dtype,
                           NORM_TOL[dtype])
         item = x.element_size()
-        nbytes = item * (NORM_T * D * (3 + res) + D) + 4 * NORM_T
+        # x (and r) read, y (and h) written: without a residual h is x
+        nbytes = item * (NORM_T * D * (2 + 2 * res) + D) + 4 * NORM_T
         out = {"max_abs_err": err, "tolerance": dict(zip(
                    ("atol", "rtol"), NORM_TOL[dtype])),
                "ms": timer(lambda: RN.fused_rmsnorm(x, w, r, EPS)),
@@ -2383,6 +2532,7 @@ def kernel_rmsnorm(RN, dev, timer):
                    (lambda: F_.rms_norm(x + r, (D,), w, EPS)) if res else
                    (lambda: F_.rms_norm(x, (D,), w, EPS))),
                "library": "x + r, F.rms_norm" if res else "F.rms_norm",
+               "h_is_x": not res,
                "shape": f"T={NORM_T} d={D} {str(dtype).split('.')[1]}"
                         + (" residual" if res else "")}
         out["bound_ms"], out["bound_by"] = bound_ms(
@@ -2702,7 +2852,8 @@ def main():
     timer = Timer(dev)
     res = {"fused_rmsnorm_qkv": {T: kernel_qkv(FB, dev, timer, T)
                                  for T in (1, 8, 16, 256)},
-           "fused_mlp": {T: kernel_mlp(FB, dev, timer, T) for T in (8, 256)},
+           "fused_mlp": {T: kernel_mlp(FB, dev, timer, T)
+                         for T in (1, 8, 16, 256)},
            "paged_decode_attention": {8: kernel_paged(PA, dev, timer)}}
     emit("kernels", results={k: {str(t): v for t, v in r.items()}
                              for k, r in res.items()})
@@ -2783,14 +2934,17 @@ def main():
                  **{k: decode[k] for k in keys}, "shape": "decode"}
         if 256 in by_t:
             entry["prefill_T256"] = {k: by_t[256][k] for k in keys}
-        if name == "fused_mlp":   # T = 8 on the tile, T = 256 on wgmma
+        # QKV and the MLP split-K at T = 8, wgmma at 256; paged split
+        entry["launches_by_path"] = launches["launches_by_path"][name]
+        if name == "fused_mlp":
             entry["path"] = decode["path"]
             entry["prefill_T256"]["path"] = by_t[256]["path"]
-        else:   # QKV split-K at T = 8, wgmma at 256; paged split
+            entry["split_launches"] = decode["launches"]
+        else:
             entry["kernel_path"] = decode["kernel_path"]
-            entry["launches_by_path"] = launches["launches_by_path"][name]
         if name == "fused_rmsnorm_qkv":   # the scoring forward's shape
             entry["prefill_T256"]["kernel_path"] = by_t[256]["kernel_path"]
+        if name != "paged_decode_attention":
             entry["decode_T1_T16"] = {T: {k: by_t[T][k] for k in keys}
                                       for T in (1, 16)}
             entry["forward_T8192"] = {
@@ -2894,13 +3048,15 @@ def main():
                      "path": "train_gpt"})
     # the nn.Transformer path: relu bf16 at its FFN shape; launches from
     # transformer_infer
-    r = ffn_rows["relu bf16"]
+    r, r8 = ffn_rows["relu bf16"], ffn_rows["relu bf16 T=8"]
     line.append({"name": "fused_ffn", "route": "cuda",
                  "source": src + "fused_block.cu",
                  "replaces": "paddle_tpu/ops/pallas/fused_block.py:494",
                  "launches": ffn_launches["fused_ffn"],
                  **{k: r[k] for k in keys}, "shape": r["shape"],
-                 "path": "transformer_infer"})
+                 "path": "transformer_infer",
+                 "decode_T8": {**{k: r8[k] for k in keys},
+                               "kernel_path": r8["path"]}})
     # the decoder tier: the block at the train shape (bf16), launches from
     # train_decoder's forwards, score_decoder's beside them; the rmsnorm
     # kernel at T=8192 d=4096 bf16 with a residual, launches from
@@ -2915,13 +3071,15 @@ def main():
                  "fp32_kernel_path": dec_rows["float32"]["path"],
                  "launches_score_decoder": score_launches})
     r = norm_rows[f"T={NORM_T} d={D} bfloat16 residual"]
+    r0 = norm_rows[f"T={NORM_T} d={D} bfloat16"]
     line.append({"name": "fused_rmsnorm", "route": "cuda",
                  "source": src + "rmsnorm.cu",
                  "replaces": "paddle_tpu/ops/pallas/rmsnorm.py:39",
                  "launches": dec_launches["fused_rmsnorm"],
                  **{k: r[k] for k in keys}, "shape": r["shape"],
                  "path": "train_decoder (norm2 of the recompute)",
-                 "launches_norm_residual": norm_launches})
+                 "launches_norm_residual": norm_launches,
+                 "no_residual": {k: r0[k] for k in keys}})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

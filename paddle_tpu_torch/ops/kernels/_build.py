@@ -27,8 +27,8 @@ from typing import Dict
 import torch
 
 __all__ = ["library", "build_all", "ptxas_report", "parse_ptxas", "check",
-           "stream_of", "tickets", "DTYPE_CODES", "WEIGHT_CODES",
-           "FLOAT16_CODE", "BUILD_DIR"]
+           "stream_of", "tickets", "workspace", "sm_count", "DTYPE_CODES",
+           "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -47,14 +47,13 @@ FLOAT16_CODE = 4
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every exported function, by library
 _SIGNATURES = {
     "fused_block": {
         "ptt_rmsnorm_qkv": [_I] + [_P] * 12 + [_I] * 4 + [_F, _P, _P],
         "ptt_qkv_splits": [_I] * 6,
-        "ptt_mlp_gate_up": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-        "ptt_matmul": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-        "ptt_ffn_up": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ptt_mlp": [_I, _I] + [_P] * 9 + [_L, _P, _I, _I, _I, _P, _P],
         "ptt_wgmma_check": [_I, _P, _P, _P, _I, _P],
     },
     "paged_attention": {
@@ -98,6 +97,8 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _tickets: Dict[tuple, torch.Tensor] = {}
+_workspaces: Dict[tuple, torch.Tensor] = {}
+_sms: Dict[torch.device, int] = {}
 
 
 def _nvcc() -> str:
@@ -250,6 +251,31 @@ def tickets(owner: str, device, n: int) -> torch.Tensor:
         t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                         device=device)
     return t
+
+
+def workspace(owner: str, device, nbytes: int) -> int:
+    """The address of at least `nbytes` of scratch memory on `device`,
+    kept for `owner` and reused by its next call (grown when a call needs
+    more), so a launch allocates nothing: the split kernels' fp32
+    partials and the intermediates between two launches of one call.
+    Reuse is safe in stream order; as with :func:`tickets`, two launches
+    of one owner on one device must not run at once on two streams."""
+    key = (owner, device)
+    t = _workspaces.get(key)
+    if t is None or t.numel() < nbytes:
+        t = _workspaces[key] = torch.empty(max(nbytes, 1 << 16),
+                                           dtype=torch.uint8, device=device)
+    return t.data_ptr()
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of `device`, looked up once (the
+    split rules' input)."""
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -36,8 +36,9 @@
 // is two launches here and h makes one round trip through device memory
 // (T * f * itemsize bytes each way: 32 MB at T = 8192, f = 2048 in bf16).
 //
-// What bounds it: at decode (T = 8 rows) the weights are read once for very
-// few operations, so the launch is bound by device-memory bytes.  The design
+// The first design, kept for QKV's training variant at T <= 16 and for
+// fp32: at decode (T = 8 rows) the weights are read once for very few
+// operations, so the launch is bound by device-memory bytes.  The tile
 // keeps several 64-deep weight tiles in flight per block through a cp.async
 // ring (6 stages for 16-row tiles, 3 for 64-row tiles; rows past T are
 // zero-filled), so each block streams its weight columns without waiting on
@@ -112,6 +113,23 @@
 // The training variant at T <= 16, and fp32, keep the wmma / fp32 tile
 // below, as one launch.
 //
+// The MLP and fused_ffn in bf16 at T <= 16 (decode steps; Llama-3-8B's MLP
+// reads 352 MB of weights, 0.105 ms at 3.35 TB/s) are split-K too, two
+// launches of one C call (ptt_mlp) with h [T, f] between them, each on
+// splitk.cuh's strip stream (mlp_splitk_kernel): a block owns 256 output
+// columns, a 64-column strip a warp, and one K split; each warp streams
+// [64 k][64 n] boxes (gate/up: one of each weight a slot) with the tokens'
+// box of the same 64-deep slice, all with the 128-byte swizzle, through a
+// ring of its own (three or five slots, 45-54 KB), fragments relabelled so
+// that no shared-memory read conflicts.  mlp_splits aims at one wave of a block a
+// SM (gate/up: 56 tiles x 2 splits, down: 16 x 8 at Llama-3-8B width on
+// 132 SMs).  Every block writes an fp32 partial; the last block of a tile
+// (its own tickets, not QKV's or the quant matmul's) sums them in split
+// order and only then applies the epilogue, since silu and the FFN's
+// activations are not linear: h = silu(g) * u, or act(u + b1), cast once;
+// the down product adds its bias to the merged sum before the one cast.
+// Two calls give the same bits.
+//
 #include "gemm_tile.cuh"
 #include "hopper_gemm.cuh"
 #include "rmsnorm_row.cuh"
@@ -151,12 +169,16 @@ int launch_t(const GemmArgs& g, int ncols, cudaStream_t stream) {
     return launch_bm<T, 64, MODE>(g, ncols, stream);
 }
 
+// bf16 takes the tile in QKV's training variant only (at T <= 16; every
+// other bf16 launch is split-K or wgmma)
 template <int MODE>
 int launch(int dtype, const GemmArgs& g, int ncols, void* stream) {
   if (g.T <= 0 || g.K % BK != 0 || ncols % BN != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::DT_BFLOAT16) return launch_t<__nv_bfloat16, MODE>(g, ncols, s);
+  if constexpr (MODE == MODE_QKV)
+    if (dtype == ptt::DT_BFLOAT16)
+      return launch_t<__nv_bfloat16, MODE>(g, ncols, s);
   if (dtype == ptt::DT_FLOAT32) return launch_t<float, MODE>(g, ncols, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -533,6 +555,278 @@ int qkv_splitk(const void* x, const void* wn, const void* const w[3],
                 : launch_qkv_splitk<2>(a, stream);
 }
 
+// -- the MLP and fused_ffn at T <= 16 in bf16: split-K on the strip stream --
+
+constexpr int kMlpBN = 256;   // output columns a block: a strip a warp
+
+// A warp's ring: STAGES slots, each a [64][64] box of every weight (NB)
+// and the tokens' [8 NT8][64] box of the same slice
+template <int NB, int NT8>
+struct MlpPlan {
+  static constexpr int STAGES = NB == 2 ? 3 : 5;
+  static constexpr int X_BYTES = 8 * NT8 * 128;
+  static constexpr int SLOT = NB * 8192 + X_BYTES;
+  static constexpr int RING = STAGES * SLOT;           // a warp's
+  static constexpr int SMEM = 1024 + kSkWarps * RING;  // 1 KB: alignment
+  static_assert(SMEM <= 232448, "the block's rings fit shared memory");
+};
+
+// The K splits of one MLP launch: one wave of a block a SM where the
+// column tiles leave room (the rings take most of a SM's shared memory),
+// never more splits than 64-deep slices
+inline int mlp_splits(int K, int N, int sms) {
+  const int tiles = (N + kMlpBN - 1) / kMlpBN;
+  return min(max(1, sms / tiles), K / 64);
+}
+
+struct MlpSplitArgs {
+  CUtensorMap w[2];   // the weight (gate/up: the gate, then the up)
+  CUtensorMap x;      // [T, K]: boxes of 8 NT8 rows x 64
+  const bf16* bias;   // FFN_UP: b1 [N]; PLAIN: b [N] or null
+  bf16* out;          // [T, N]
+  float* ws;          // fp32 partials, [splits][NB][tiles][warp][f][lane][4]
+  int* tickets;       // one per column tile, 0 between launches
+  int T, K, N, splits;
+};
+
+// One product of the MLP (MODE_GATEUP: x @ Wg and x @ Wu, NB = 2),
+// fused_ffn's up (MODE_FFN_UP, ACT) or either's down (MODE_PLAIN) at NTOK
+// = 8 NT8 tokens: a block owns a 256-column tile and one K split; warp w
+// streams the tile's strip w (64 columns) through its own ring, a [64][64]
+// box of each weight and the slice's token box a slot, on one mbarrier
+// (splitk.cuh says how the fragments read them).  Every block writes its
+// fp32 partial in fragment order (lane l's accumulators of m-tile m and
+// n-tile nt, f = NT8 m + nt, as one float4 at [f][l]: each store and load
+// is 512 contiguous bytes a warp); the last of a tile's splits to arrive
+// has every thread sum its own fragments over the splits in split order
+// and only then apply the epilogue: silu(g) * u, act(u + b1) or + b, one
+// cast.  Launched as a dependent of the previous kernel (the down product
+// after gate/up), a block loads its first weight boxes before it waits for
+// that kernel: the token rows, the workspace and the tickets are its.
+template <int MODE, int ACT, int NT8>
+__global__ void __launch_bounds__(kSkWarps * 32)
+mlp_splitk_kernel(const __grid_constant__ MlpSplitArgs p) {
+  using namespace ptt::hopper;
+  constexpr int NB = MODE == MODE_GATEUP ? 2 : 1;
+  constexpr int NTOK = 8 * NT8;
+  using P = MlpPlan<NB, NT8>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bars[kSkWarps][P::STAGES];
+  unsigned char* smem = align1024(smem_raw);   // TMA boxes: aligned
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int slices = p.K / 64;
+  const int s0 = split * slices / p.splits;
+  const int k0 = 64 * s0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n0 = tile * kMlpBN + 64 * warp;   // this warp's strip
+  // N is a multiple of 64: a strip lies wholly inside the matrix or
+  // wholly past it (the last tile's), and one past it streams nothing
+  const int steps =
+      n0 < p.N ? (split + 1) * slices / p.splits - s0 : 0;
+  unsigned char* ring = smem + warp * P::RING;
+  uint64_t* bar = bars[warp];
+  if (lane == 0) {
+    for (int s = 0; s < P::STAGES; ++s) mbar_init(&bar[s], 1);
+    mbar_fence_init();
+  }
+  __syncwarp();
+  griddep_launch();
+  // slice j of the split: rows k0 + 64 j .. + 63 of the strip (columns
+  // past N and token rows past T: zeros from TMA); the slot's barrier
+  // expects the weight and token boxes both
+  auto load_w = [&](int j) {
+    const int s = j % P::STAGES;
+    mbar_expect_tx(&bar[s], P::SLOT);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      tma_load_2d(ring + s * P::SLOT + nb * 8192, &p.w[nb], &bar[s], n0,
+                  k0 + 64 * j);
+  };
+  auto load_x = [&](int j) {
+    const int s = j % P::STAGES;
+    tma_load_2d(ring + s * P::SLOT + NB * 8192, &p.x, &bar[s], k0 + 64 * j,
+                0);
+  };
+  if (lane == 0)
+    for (int j = 0; j < P::STAGES && j < steps; ++j) load_w(j);
+  griddep_wait();
+  if (lane == 0)
+    for (int j = 0; j < P::STAGES && j < steps; ++j) load_x(j);
+  int off[4];
+  strip_offsets(lane, off);
+  float d[NB][4][NT8][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[nb][m][nt][e] = 0.f;
+  for (int j = 0; j < steps; ++j) {
+    const int s = j % P::STAGES;
+    mbar_wait(&bar[s], (j / P::STAGES) & 1);
+    const unsigned char* slot = ring + s * P::SLOT;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      strip_box<NT8>(d[nb], slot + nb * 8192, slot + NB * 8192, off, lane);
+    __syncwarp();   // every lane has read the slot: refill it
+    if (lane == 0 && j + P::STAGES < steps) {
+      fence_proxy_async();
+      load_w(j + P::STAGES);
+      load_x(j + P::STAGES);
+    }
+  }
+  // the block's partial, in fragment order
+  constexpr int FR = 4 * NT8;   // float4 fragments a lane, per weight
+  const int tiles = gridDim.x;
+  auto part = [&](int s, int nb) {
+    return reinterpret_cast<float4*>(p.ws) +
+           ((size_t)((s * NB + nb) * tiles + tile) * kSkWarps + warp) * FR *
+               32 +
+           lane;
+  };
+  if (steps > 0)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int nt = 0; nt < NT8; ++nt)
+          part(split, nb)[(NT8 * m + nt) * 32] =
+              make_float4(d[nb][m][nt][0], d[nb][m][nt][1], d[nb][m][nt][2],
+                          d[nb][m][nt][3]);
+  if (!splitk_arrive(&p.tickets[tile], p.splits) || steps == 0) return;
+  // the last block: each thread its own fragments, the splits' partials in
+  // split order (ROUND splits' loads in flight at once, 16 float4)
+  constexpr int ROUND = 4 / (NB * NT8);
+  float4 acc[NB][FR];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int f = 0; f < FR; ++f) acc[nb][f] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < p.splits; s += ROUND) {
+    float4 v[ROUND][NB][FR];
+#pragma unroll
+    for (int i = 0; i < ROUND; ++i)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int f = 0; f < FR; ++f)
+          v[i][nb][f] = s + i < p.splits ? __ldcg(part(s + i, nb) + f * 32)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < ROUND; ++i)
+      if (s + i < p.splits)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int f = 0; f < FR; ++f) {
+            acc[nb][f].x += v[i][nb][f].x;
+            acc[nb][f].y += v[i][nb][f].y;
+            acc[nb][f].z += v[i][nb][f].z;
+            acc[nb][f].w += v[i][nb][f].w;
+          }
+  }
+  // fragment (m, nt): (x, y) are column 8 sv + 2 m, tokens 8 nt + 2 q and
+  // + 1; (z, w) the next column, the same tokens
+  const int q = lane % 4;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int col = n0 + 8 * strip_unit(lane) + 2 * m;
+    float b[2] = {0.f, 0.f};
+    if (MODE != MODE_GATEUP && p.bias != nullptr) {
+      b[0] = __bfloat162float(p.bias[col]);
+      b[1] = __bfloat162float(p.bias[col + 1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = 8 * nt + 2 * q + e;
+        if (t >= p.T) continue;
+        const float4& a = acc[0][NT8 * m + nt];
+        float o[2] = {e == 0 ? a.x : a.y, e == 0 ? a.z : a.w};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (MODE == MODE_GATEUP) {
+            const float4& u = acc[NB - 1][NT8 * m + nt];
+            const float sg = 1.f / (1.f + expf(-o[h]));
+            o[h] = (o[h] * sg) * (h == 0 ? (e == 0 ? u.x : u.y)
+                                         : (e == 0 ? u.z : u.w));
+          } else {
+            if (p.bias != nullptr) o[h] += b[h];
+            if constexpr (MODE == MODE_FFN_UP) o[h] = activate(o[h], ACT);
+          }
+        }
+        *reinterpret_cast<uint32_t*>(p.out + (size_t)t * p.N + col) =
+            ptt::hopper::pack_bf16(o[0], o[1]);
+      }
+  }
+}
+
+template <int MODE, int ACT, int NT8>
+int launch_mlp_splitk(MlpSplitArgs& a, const void* x, bool dependent,
+                      cudaStream_t stream) {
+  using P = MlpPlan<MODE == MODE_GATEUP ? 2 : 1, NT8>;
+  const uint64_t dims[2] = {(uint64_t)a.K, (uint64_t)a.T};
+  const uint64_t stride[1] = {(uint64_t)a.K * 2};
+  const uint32_t box[2] = {64, 8 * NT8};
+  cudaError_t e = ptt::hopper::make_map(&a.x, x, 2, dims, stride, box);
+  if (e != cudaSuccess) return (int)e;
+  auto kern = mlp_splitk_kernel<MODE, ACT, NT8>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           P::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + kMlpBN - 1) / kMlpBN, a.splits);
+  cfg.blockDim = dim3(kSkWarps * 32);
+  cfg.dynamicSmemBytes = P::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kern, a);
+}
+
+// out [T, N] = epilogue(x [T, K] . w0 (and . w1)): one split-K launch,
+// dependent (a programmatic dependent launch) on the kernel before it in
+// `stream` where `dependent`; ws holds ws_floats fp32 values, at least
+// splits * NB * tiles * 256 * NTOK (NTOK = 8 at T <= 8, else 16)
+template <int MODE, int ACT>
+int mlp_splitk(const void* x, const void* w0, const void* w1,
+               const void* bias, void* out, void* ws, long long ws_floats,
+               void* tickets, int T, int K, int N, bool dependent,
+               cudaStream_t stream) {
+  constexpr int NB = MODE == MODE_GATEUP ? 2 : 1;
+  MlpSplitArgs a{};
+  a.bias = static_cast<const bf16*>(bias);
+  a.out = static_cast<bf16*>(out);
+  a.ws = static_cast<float*>(ws);
+  a.tickets = static_cast<int*>(tickets);
+  a.T = T;
+  a.K = K;
+  a.N = N;
+  a.splits = mlp_splits(K, N, ptt::hopper::sm_count());
+  const long long tiles = (N + kMlpBN - 1) / kMlpBN;
+  const int ntok = T <= 8 ? 8 : 16;
+  if (ws == nullptr || tickets == nullptr ||
+      (long long)a.splits * NB * tiles * kMlpBN * ntok > ws_floats)
+    return (int)cudaErrorInvalidValue;
+  const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K};
+  const uint64_t stride[1] = {(uint64_t)N * 2};
+  const uint32_t box[2] = {64, 64};
+  const void* w[2] = {w0, w1};
+  for (int i = 0; i < NB; ++i) {
+    cudaError_t e = ptt::hopper::make_map(&a.w[i], w[i], 2, dims, stride, box);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return T <= 8 ? launch_mlp_splitk<MODE, ACT, 1>(a, x, dependent, stream)
+                : launch_mlp_splitk<MODE, ACT, 2>(a, x, dependent, stream);
+}
+
 // -- gate/up, fused_ffn's up and the down product at T > 16 in bf16 ---------
 
 struct MlpParams {
@@ -835,51 +1129,80 @@ int ptt_rmsnorm_qkv(int dtype, const void* x, const void* wn, const void* wq,
                        design, ptt::DESIGN_TILE);
 }
 
-// h = silu(x @ wg) * (x @ wu); x [T, d], wg/wu [d, f], h [T, f].
-int ptt_mlp_gate_up(int dtype, const void* x, const void* wg, const void* wu,
-                    void* h, int T, int d, int f, void* stream) {
-  if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT)
-    return mlp_hopper<MODE_GATEUP, 0>(x, wg, wu, nullptr, h, T, d, f,
-                                      static_cast<cudaStream_t>(stream));
-  GemmArgs g{x, wg, wu, nullptr, nullptr, h, nullptr, nullptr, T, d, f, 0,
-             0.f};
-  return launch<MODE_GATEUP>(dtype, g, f, stream);
-}
-
-// y = a @ w (+ b); a [T, K], w [K, N], b [N] or null, y [T, N].
-int ptt_matmul(int dtype, const void* a, const void* w, const void* b,
-               void* y, int T, int K, int N, void* stream) {
-  if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT)
-    return mlp_hopper<MODE_PLAIN, 0>(a, w, nullptr, b, y, T, K, N,
-                                     static_cast<cudaStream_t>(stream));
-  GemmArgs g{a, w, nullptr, nullptr, nullptr, y, nullptr, nullptr, T, K, N, 0,
-             0.f};
-  g.bias = b;
-  return launch<MODE_PLAIN>(dtype, g, N, stream);
-}
-
-// h = act(x @ w1 + b1); x [T, d], w1 [d, f], b1 [f], h [T, f]; act 0 relu,
-// 1 exact-erf gelu, 2 silu.
-int ptt_ffn_up(int dtype, const void* x, const void* w1, const void* b1,
-               void* h, int T, int d, int f, int act, void* stream) {
-  if (act < ACT_RELU || act > ACT_SILU || b1 == nullptr)
+// y = (silu(x @ w1) * (x @ wu)) @ w2 (gated: wu non-null, no biases), or
+// y = act(x @ w1 + b1) @ w2 (+ b2) (fused_ffn: act 0 relu, 1 exact-erf
+// gelu, 2 silu; b1 [f] required, b2 [d] or null); x [T, d], w1 and wu
+// [d, f], w2 [f, d], y [T, d].  Two launches on `stream` with h [T, f]
+// between them: the epilogue of the first (the gate's activation times
+// the up, or the bias and activation) applied to fp32 sums, cast once to
+// the io type.  bf16 at T >= kRowPassMinT runs the wgmma ring, bf16 at T
+// <= kSplitKMaxT split-K (ws: ws_floats fp32 values, at least the larger
+// launch's splits * NB * ceil(N / 256) * 256 * NTOK by mlp_splits, NB = 2
+// for the gated gate/up, NTOK = 8 at T <= 8, else 16, refused if fewer;
+// tickets: as many as the wider product's 256-column tiles, zero before
+// the call and again after it), fp32 the tile.  d and f multiples of 64.
+// *design: the Design launched.
+int ptt_mlp(int dtype, int act, const void* x, const void* w1,
+            const void* wu, const void* w2, const void* b1, const void* b2,
+            void* h, void* y, void* ws, long long ws_floats, void* tickets,
+            int T, int d, int f, void* stream, void* design) {
+  const bool gated = wu != nullptr;
+  if (T <= 0 || d % 64 != 0 || f % 64 != 0 ||
+      (gated ? b1 != nullptr || b2 != nullptr
+             : b1 == nullptr || act < ACT_RELU || act > ACT_SILU))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int e, used;
   if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (act == ACT_RELU)
-      return mlp_hopper<MODE_FFN_UP, ACT_RELU>(x, w1, nullptr, b1, h, T, d,
-                                               f, s);
-    if (act == ACT_GELU)
-      return mlp_hopper<MODE_FFN_UP, ACT_GELU>(x, w1, nullptr, b1, h, T, d,
-                                               f, s);
-    return mlp_hopper<MODE_FFN_UP, ACT_SILU>(x, w1, nullptr, b1, h, T, d, f,
-                                             s);
+    e = gated ? mlp_hopper<MODE_GATEUP, 0>(x, w1, wu, nullptr, h, T, d, f, s)
+        : act == ACT_RELU
+            ? mlp_hopper<MODE_FFN_UP, ACT_RELU>(x, w1, nullptr, b1, h, T, d,
+                                                f, s)
+        : act == ACT_GELU
+            ? mlp_hopper<MODE_FFN_UP, ACT_GELU>(x, w1, nullptr, b1, h, T, d,
+                                                f, s)
+            : mlp_hopper<MODE_FFN_UP, ACT_SILU>(x, w1, nullptr, b1, h, T, d,
+                                                f, s);
+    if (e == 0)
+      e = mlp_hopper<MODE_PLAIN, 0>(h, w2, nullptr, b2, y, T, f, d, s);
+    used = ptt::DESIGN_WGMMA;
+  } else if (dtype == ptt::DT_BFLOAT16 && T <= kSplitKMaxT) {
+    // the down product a dependent of the first: it streams its weight
+    // while the first finishes
+    e = gated ? mlp_splitk<MODE_GATEUP, 0>(x, w1, wu, nullptr, h, ws,
+                                           ws_floats, tickets, T, d, f,
+                                           false, s)
+        : act == ACT_RELU
+            ? mlp_splitk<MODE_FFN_UP, ACT_RELU>(x, w1, nullptr, b1, h, ws,
+                                                ws_floats, tickets, T, d, f,
+                                                false, s)
+        : act == ACT_GELU
+            ? mlp_splitk<MODE_FFN_UP, ACT_GELU>(x, w1, nullptr, b1, h, ws,
+                                                ws_floats, tickets, T, d, f,
+                                                false, s)
+            : mlp_splitk<MODE_FFN_UP, ACT_SILU>(x, w1, nullptr, b1, h, ws,
+                                                ws_floats, tickets, T, d, f,
+                                                false, s);
+    if (e == 0)
+      e = mlp_splitk<MODE_PLAIN, 0>(h, w2, nullptr, b2, y, ws, ws_floats,
+                                    tickets, T, f, d, true, s);
+    used = ptt::DESIGN_SPLITK;
+  } else {
+    GemmArgs up{x, w1, wu, nullptr, nullptr, h, nullptr, nullptr, T, d, f, 0,
+                0.f};
+    up.bias = b1;
+    up.act = act;
+    e = gated ? launch<MODE_GATEUP>(dtype, up, f, stream)
+              : launch<MODE_FFN_UP>(dtype, up, f, stream);
+    if (e == 0) {
+      GemmArgs down{h, w2, nullptr, nullptr, nullptr, y, nullptr, nullptr, T,
+                    f, d, 0, 0.f};
+      down.bias = b2;
+      e = launch<MODE_PLAIN>(dtype, down, d, stream);
+    }
+    used = ptt::DESIGN_TILE;
   }
-  GemmArgs g{x, w1, nullptr, nullptr, nullptr, h, nullptr, nullptr, T, d, f, 0,
-             0.f};
-  g.bias = b1;
-  g.act = act;
-  return launch<MODE_FFN_UP>(dtype, g, f, stream);
+  return ptt::launched(e, design, used);
 }
 
 // hopper.cuh's descriptor check: c [64, n] fp32 = a [64, 64] . b (bf16);

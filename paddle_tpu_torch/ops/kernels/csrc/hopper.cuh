@@ -41,6 +41,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
+#include <map>
+#include <mutex>
+
 namespace ptt {
 namespace hopper {
 
@@ -373,6 +377,21 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "n"(TB));
 }
 
+// -- programmatic dependent launch -------------------------------------------
+
+// A kernel launched with cudaLaunchAttributeProgrammaticStreamSerialization
+// may start before the previous kernel of its stream has ended, once every
+// block of that kernel has called griddep_launch or exited.  griddep_wait
+// blocks the calling thread until the previous kernel has completed and its
+// writes are visible; in a kernel launched without the attribute both are
+// no-ops.
+__device__ __forceinline__ void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // -- threads writing operand tiles ------------------------------------------
 
 // after threads write shared memory that wgmma or TMA (the async proxy)
@@ -496,10 +515,36 @@ inline int sm_count() {
   return n;
 }
 
+// A tensor map of `rank` (<= 4) dimensions.  The same arguments give the
+// same map, so the maps encoded are kept, keyed by all of them (the base
+// pointer, dims, strides and box among them), and a call that repeats one
+// (the weights and workspaces of a decode step, every step) copies it
+// instead of encoding it again.
 inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type,
                           CUtensorMapSwizzle swizzle, const void* base,
                           int rank, const uint64_t* dims,
                           const uint64_t* strides, const uint32_t* box) {
+  if (rank < 1 || rank > 4) return cudaErrorInvalidValue;
+  std::array<uint64_t, 13> key{};
+  key[0] = (uint64_t)type;
+  key[1] = (uint64_t)swizzle;
+  key[2] = reinterpret_cast<uint64_t>(base);
+  key[3] = (uint64_t)rank;
+  for (int i = 0; i < rank; ++i) {
+    key[4 + i] = dims[i];
+    if (i > 0) key[7 + i] = strides[i - 1];
+    key[11 + i / 2] |= (uint64_t)box[i] << (32 * (i % 2));
+  }
+  static std::mutex mu;
+  static std::map<std::array<uint64_t, 13>, CUtensorMap> kept;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto hit = kept.find(key);
+    if (hit != kept.end()) {
+      *map = hit->second;
+      return cudaSuccess;
+    }
+  }
   EncodeTiled fn = encoder();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
@@ -510,7 +555,11 @@ inline cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> lock(mu);
+  if (kept.size() >= 4096) kept.clear();   // bounded: freed buffers' maps
+  kept.emplace(key, *map);
+  return cudaSuccess;
 }
 
 // a bf16 tensor map with 128-byte swizzle and zero fill out of bounds:

@@ -1,8 +1,9 @@
 // One row of the fused residual add + RMSNorm (rmsnorm.cu says what it
-// replaces, what bounds it and why the design reads the row twice), as a
-// device function run by one warp, so that rmsnorm.cu's kernel and the
-// row pass of fused_block.cu's RMSNorm+QKV (x -> xn, inv) compile the
-// same code:
+// replaces and what bounds it), as a device function run by one warp in
+// two passes over the row (the second re-reads it, mostly from L1): the
+// row pass of fused_block.cu's RMSNorm+QKV at T > 16 (x -> xn, inv), and
+// rmsnorm.cu's rows that its register design does not take (off the
+// 16-byte grid, or too long):
 //   h = x (+ res) in fp32, inv = rsqrt(mean(h^2) + eps),
 //   y = (h * inv) * w in fp32, cast to T.
 // h is written in T where `h` is non-null, inv in fp32 where `inv` is.

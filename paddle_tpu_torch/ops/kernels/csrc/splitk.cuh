@@ -1,6 +1,8 @@
 // Split-K at decode rows (T <= 16), shared by quant_matmul.cu
 // (quant_splitk_kernel: 8-bit weights) and fused_block.cu
-// (qkv_splitk_kernel: bf16 weights, after the RMSNorm row pass).
+// (qkv_splitk_kernel: bf16 weights, after the RMSNorm row pass;
+// mlp_splitk_kernel: the MLP's and fused_ffn's two products, on the strip
+// stream at the end of this file).
 //
 // Every weight byte is read once for 2 T operations, so these launches are
 // bound by the weight bytes, and a serial walk over K in a few column
@@ -21,8 +23,12 @@
 //     order; with one split they are the output, else the block writes an
 //     fp32 partial [split, T, columns] to a workspace the wrapper
 //     allocates, and the last block of the column tile to arrive (an
-//     atomic ticket, reset by that block) sums the splits in order
-//     0..splits-1.  Two calls on the same inputs give the same bits.
+//     atomic ticket, splitk_arrive, reset by that block) sums the splits
+//     in order 0..splits-1.  Two calls on the same inputs give the same
+//     bits;
+//   - the strip stream (the end of this file), the MLP's: a warp a
+//     64-column strip, 128-byte-swizzled boxes and fragments that read
+//     shared memory without a bank conflict.
 #pragma once
 
 #include "common.cuh"
@@ -57,6 +63,28 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// After every thread of the block has written its partial of a column
+// tile to the workspace: whether this block is the last of the tile's
+// `splits` to arrive, and so sums them (true at once with one split).
+// The barrier, then one thread's fence, publishes every thread's partial
+// before the ticket (fences are cumulative); the last block resets the
+// ticket, which every other block has taken, and fences before it reads
+// their partials.
+__device__ __forceinline__ bool splitk_arrive(int* ticket, int splits) {
+  __shared__ int last;
+  __syncthreads();
+  if (splits == 1) return true;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1) == splits - 1;
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  return true;
 }
 
 // The end of a split-K block of kSkWarps * 32 threads, after a barrier
@@ -102,18 +130,7 @@ __device__ __forceinline__ void splitk_finish(const float (&d)[8][NT8][4],
   float* part = ws + (size_t)split * T * ldw + wcol;
   if (live)
     for (int t = 0; t < T; ++t) part[(size_t)t * ldw] = warp_total(t);
-  // the last block of this column tile to finish sums the splits in order
-  // (the barrier, then one thread's fence, publishes every thread's
-  // partial before the ticket: fences are cumulative)
-  __shared__ int last;
-  __syncthreads();
-  if (tid == 0) {
-    __threadfence();
-    last = atomicAdd(ticket, 1) == splits - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  if (!splitk_arrive(ticket, splits)) return;
   if (live) {
     // every token's sum at once, four splits' loads issued before their
     // adds: the loads of a round are independent, the adds in split order
@@ -140,7 +157,98 @@ __device__ __forceinline__ void splitk_finish(const float (&d)[8][NT8][4],
     for (int t = 0; t < NTOK; ++t)
       if (t < T) store(t, v[t]);
   }
-  if (tid == 0) *ticket = 0;
+}
+
+// -- the strip stream (fused_block.cu mlp_splitk_kernel) ---------------------
+//
+// A warp owns one 64-column strip of a bf16 weight W [K, N] (N contiguous)
+// over its split's K range and streams it in [64 k][64 n] boxes, each with
+// the tokens' [ntok][64 k] box of the same slice, both written by TMA with
+// the 128-byte swizzle (hopper.cuh): row r of a box at r * 128 bytes, its
+// 16-byte unit v at unit v ^ (r % 8).  One box is four k16 steps of
+// mma.sync m16n8k16 with the weight as A: the strip's 64 columns are 4
+// m-tiles, the <= 16 tokens one or two n8 tiles.  The fragments are
+// relabelled (the sums are the same under any one-to-one relabelling of
+// the m rows and of the reduction indices, one for A and B alike) so that
+// shared memory serves every read without a bank conflict:
+//   - reduction indices 2 q, 2 q + 1, 2 q + 8 and 2 q + 9 (lane = 4 g +
+//     q) are rows q, q + 4, q + 8 and q + 12 of the k16 step;
+//   - lane g owns the 16-byte unit sv(g) = g / 2 + 4 (g % 2) of every row,
+//     columns 8 sv .. 8 sv + 7: m-tile m's rows g and g + 8 are its
+//     columns 8 sv + 2 m and 8 sv + 2 m + 1, the low and high halves of
+//     word m of the lane's vector;
+//   - so a lane's A fragments of a k16 step are its units of four rows,
+//     four 16-byte loads, paired across rows by byte permutes.  The eight
+//     lanes of a quarter warp (g = 2 p, 2 p + 1 and q = 0..3) read units
+//     sv ^ (q + 4 (i % 2)): four values for each g, and the two g in the
+//     two halves of the row, so eight distinct units (the [16][128] boxes
+//     of the quant and QKV rings, unswizzled, put the four q of a g on one
+//     unit: a 4-way conflict);
+//   - a lane's B fragment is elements q, q + 4 and q + 8, q + 12 of the
+//     step in token row 8 nt + g: four 2-byte reads, whose swizzled units
+//     (k / 8) ^ g differ across the eight g, two q sharing each word.
+// The accumulators d[m][nt][2 h + e] are column 8 sv + 2 m + h of the
+// strip, token 8 nt + 2 q + e.
+
+// the unit of every row that lane (g, q) reads: sv(g) above
+__device__ __forceinline__ int strip_unit(int lane) {
+  const int g = lane / 4;
+  return g / 2 + 4 * (g % 2);
+}
+
+// byte offsets in a box of this lane's rows q + 4 i (i = 0..3) of k16 step
+// 0 (step kk adds kk * 2048: 16 rows, and a multiple of 8 leaves the
+// swizzle as it is)
+__device__ __forceinline__ void strip_offsets(int lane, int (&off)[4]) {
+  const int q = lane % 4, sv = strip_unit(lane);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    off[i] = (q + 4 * i) * 128 + 16 * (sv ^ (q + 4 * (i % 2)));
+}
+
+// One [64][64] weight box of the strip and its [8 NT8][64] token box into
+// d: four k16 steps.
+template <int NT8>
+__device__ __forceinline__ void strip_box(float (&d)[4][NT8][4],
+                                          const unsigned char* box,
+                                          const unsigned char* xbox,
+                                          const int (&off)[4], int lane) {
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t b[NT8][2];
+#pragma unroll
+    for (int nt = 0; nt < NT8; ++nt) {
+      // element k of token row 8 nt + g (row % 8 = g)
+      const unsigned char* row = xbox + (8 * nt + g) * 128;
+      auto at = [&](int i) -> uint32_t {
+        const int k = 16 * kk + q + 4 * i;
+        return *reinterpret_cast<const unsigned short*>(
+            row + 16 * ((k / 8) ^ g) + 2 * (k % 8));
+      };
+      b[nt][0] = at(0) | at(1) << 16;
+      b[nt][1] = at(2) | at(3) << 16;
+    }
+    uint4 r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = *reinterpret_cast<const uint4*>(box + kk * 2048 + off[i]);
+    // word m of row i (m a constant once unrolled)
+    auto word = [&](int i, int m) -> uint32_t {
+      const uint4& v = r[i];
+      return m == 0 ? v.x : m == 1 ? v.y : m == 2 ? v.z : v.w;
+    };
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const uint32_t a0 = __byte_perm(word(0, m), word(1, m), 0x5410);
+      const uint32_t a1 = __byte_perm(word(0, m), word(1, m), 0x7632);
+      const uint32_t a2 = __byte_perm(word(2, m), word(3, m), 0x5410);
+      const uint32_t a3 = __byte_perm(word(2, m), word(3, m), 0x7632);
+#pragma unroll
+      for (int nt = 0; nt < NT8; ++nt)
+        mma_bf16_16816(d[m][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
+    }
+  }
 }
 
 }  // namespace splitk

@@ -36,13 +36,14 @@ its path."""
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
 
 from paddle_tpu_torch.ops.kernels import _build
-from paddle_tpu_torch.ops.kernels.splitk import (SPLITK_BN, SPLITK_MAX_T,
-                                                 splitk_splits)
+from paddle_tpu_torch.ops.kernels.splitk import (MLP_BN, SPLITK_BN,
+                                                 mlp_splits, splitk_splits)
 from paddle_tpu_torch.ops.kernels.flash_attention import (KERNEL_HEAD_DIM,
                                                           flash_fwd_reference)
 
@@ -52,12 +53,14 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
            "fused_block_tier", "fused_decoder_eligible",
            "decoder_workspace_bytes", "FusedRMSNormQKV", "FusedMLP",
            "FusedFFN", "FusedDecoderBlock", "SUPPORTED_ACTS", "GEMM_PATHS",
-           "gemm_path", "qkv_path", "qkv_column_tiles", "qkv_splits"]
+           "gemm_path", "qkv_path", "qkv_column_tiles", "qkv_splits",
+           "mlp_workspace"]
 
 # the smallest row count at which the bf16 QKV kernel runs as a row pass
 # and a wgmma GEMM (csrc/fused_block.cu, kRowPassMinT); the forward
 # variant's normalised rows then go to a workspace.  The bf16 MLP and
-# fused_ffn take the wgmma GEMM from the same row count.
+# fused_ffn take the wgmma GEMM from the same row count, and split-K below
+# it (SPLITK_MAX_T = ROW_PASS_MIN_T - 1).
 ROW_PASS_MIN_T = 17
 # the blocks per SM QKV's split rule aims at (csrc/fused_block.cu,
 # kQkvSplitFactor); its largest row count and tile width are splitk.py's
@@ -65,25 +68,26 @@ ROW_PASS_MIN_T = 17
 QKV_SPLIT_FACTOR = 4
 # the designs a launch of QKV, the MLP, fused_ffn, the decoder block or the
 # grouped expert FFN takes, counted in each wrapper's `launches_by_path`
-# (csrc/common.cuh, enum Design, in its order); only QKV takes ``splitk``
+# (csrc/common.cuh, enum Design, in its order); QKV, the MLP and fused_ffn
+# take ``splitk`` at decode rows
 GEMM_PATHS = ("wgmma", "tile", "splitk")
 
 
 def gemm_path(T: int, dtype) -> str:
-    """The MLP's and fused_ffn's design: ``wgmma`` (the TMA / wgmma ring
-    of ``csrc/hopper_gemm.cuh``) for bf16 at ``ROW_PASS_MIN_T`` rows or
-    more, else ``tile`` (the wmma or fp32 tile of
-    ``csrc/gemm_tile.cuh``)."""
-    return "wgmma" if dtype == torch.bfloat16 and T >= ROW_PASS_MIN_T \
-        else "tile"
+    """The MLP's and fused_ffn's design: in bf16 ``wgmma`` (the TMA /
+    wgmma ring of ``csrc/hopper_gemm.cuh``) at ``ROW_PASS_MIN_T`` rows or
+    more and ``splitk`` (splitk.cuh's strip stream) below; in fp32
+    ``tile`` (the fp32 tile of ``csrc/gemm_tile.cuh``)."""
+    if dtype != torch.bfloat16:
+        return "tile"
+    return "wgmma" if T >= ROW_PASS_MIN_T else "splitk"
 
 
 def qkv_path(T: int, dtype, residuals: bool = False) -> str:
-    """QKV's design: ``gemm_path``'s, except the bf16 forward variant at
-    ``SPLITK_MAX_T`` rows or fewer, which is ``splitk``."""
-    if dtype == torch.bfloat16 and not residuals and T <= SPLITK_MAX_T:
-        return "splitk"
-    return gemm_path(T, dtype)
+    """QKV's design: ``gemm_path``'s, except the training variant at
+    ``SPLITK_MAX_T`` rows or fewer, which keeps the wmma ``tile``."""
+    path = gemm_path(T, dtype)
+    return "tile" if residuals and path == "splitk" else path
 
 
 def qkv_column_tiles(dq: int, dkv: int):
@@ -102,6 +106,32 @@ def qkv_splits(d: int, dq: int, dkv: int, sms: int) -> int:
     of q | k | v."""
     return splitk_splits(d, len(qkv_column_tiles(dq, dkv)) * SPLITK_BN, sms,
                          QKV_SPLIT_FACTOR)
+
+
+@functools.lru_cache(maxsize=256)
+def _qkv_workspace(lib, T, d, dq, dkv):
+    """(fp32 values of the partials, tickets) of QKV split-K at T rows:
+    `lib`'s split count (on its device) over the column tiles, (0, 0)
+    with one split."""
+    splits = lib.ptt_qkv_splits(_build.DTYPE_CODES[torch.bfloat16], T, d,
+                                dq, dkv, 0)
+    tiles = len(qkv_column_tiles(dq, dkv))
+    return (splits * T * tiles * SPLITK_BN, tiles) if splits > 1 else (0, 0)
+
+
+@functools.lru_cache(maxsize=256)
+def mlp_workspace(T: int, d: int, f: int, gated: bool, sms: int):
+    """(fp32 values of the partials, tickets) of the MLP's split-K at T
+    rows on `sms` SMs: the larger of its two launches' ``splits * NB *
+    tiles * MLP_BN * ntok`` (NB = 2 for the gated gate/up; ntok, the
+    tokens a fragment holds, 8 at T <= 8, else 16), and the wider
+    product's MLP_BN-column tiles.  The C entry checks the size against
+    its own split counts and refuses a smaller workspace."""
+    up, down = -(-f // MLP_BN), -(-d // MLP_BN)
+    ntok = 8 if T <= 8 else 16
+    return (max(mlp_splits(d, f, sms) * (1 + gated) * up,
+                mlp_splits(f, d, sms) * down) * MLP_BN * ntok,
+            max(up, down))
 
 
 # fused_ffn's activations and their codes in csrc/fused_block.cu (enum Act)
@@ -214,7 +244,8 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     launch (its fp32 partials in a workspace of ``splits * T * tiles *
     128 * 4`` bytes, 2.1 MB at Llama-3-8B width and T = 8); the training
     variant at fewer rows, and fp32, are one launch of the wmma / fp32
-    tile.
+    tile.  At decode rows the forward variant's workspaces are kept per
+    device (``_build.workspace``) and reused by the next call.
     ``launches_by_path`` counts the design the C entry reports."""
     if x.device.type == "cpu":
         return qkv_reference(x, norm_weight, wq, wk, wv, epsilon, residuals)
@@ -232,37 +263,39 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     _check_width(what, d=d, dq=dq, dkv=dkv)
     x2 = x.reshape(-1, d)
     T = x2.shape[0]
-    q = torch.empty((T, dq), dtype=x.dtype, device=x.device)
-    k = torch.empty((T, dkv), dtype=x.dtype, device=x.device)
-    v = torch.empty((T, dkv), dtype=x.dtype, device=x.device)
+    dev = x.device
+    q = torch.empty((T, dq), dtype=x.dtype, device=dev)
+    k = torch.empty((T, dkv), dtype=x.dtype, device=dev)
+    v = torch.empty((T, dkv), dtype=x.dtype, device=dev)
     xn = inv = None
     if residuals:
-        xn = torch.empty((T, d), dtype=x.dtype, device=x.device)
-        inv = torch.empty((T, 1), dtype=torch.float32, device=x.device)
-    elif x.dtype == torch.bfloat16:
-        # the row pass's output, read by the GEMM or split-K: a workspace
-        xn = torch.empty((T, d), dtype=x.dtype, device=x.device)
+        xn = torch.empty((T, d), dtype=x.dtype, device=dev)
+        inv = torch.empty((T, 1), dtype=torch.float32, device=dev)
+    elif x.dtype == torch.bfloat16 and qkv_path(T, x.dtype) == "wgmma":
+        # the row pass's output, read by the GEMM: a workspace
+        xn = torch.empty((T, d), dtype=x.dtype, device=dev)
     if T:
         lib = _build.library("fused_block")
         code = _build.DTYPE_CODES[x.dtype]
+        xn_ptr = None if xn is None else xn.data_ptr()
         ws = tickets = None
         if qkv_path(T, x.dtype, residuals) == "splitk":
-            splits = lib.ptt_qkv_splits(code, T, d, dq, dkv, 0)
-            if splits > 1:
-                tiles = len(qkv_column_tiles(dq, dkv))
-                ws = torch.empty(splits * T * tiles * SPLITK_BN,
-                                 dtype=torch.float32, device=x.device)
-                tickets = _build.tickets("fused_rmsnorm_qkv", x.device,
-                                         tiles)
+            # decode rows: the row pass's output and the partials in
+            # workspaces kept for the next call
+            xn_ptr = _build.workspace("fused_rmsnorm_qkv.xn", dev, 2 * T * d)
+            floats, tiles = _qkv_workspace(lib, T, d, dq, dkv)
+            if floats:
+                ws = _build.workspace("fused_rmsnorm_qkv.ws", dev,
+                                      4 * floats)
+                tickets = _build.tickets("fused_rmsnorm_qkv", dev,
+                                         tiles).data_ptr()
         design = ctypes.c_int(-1)
         err = lib.ptt_rmsnorm_qkv(
             code, x2.data_ptr(), norm_weight.data_ptr(), wq.data_ptr(),
             wk.data_ptr(), wv.data_ptr(), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), None if xn is None else xn.data_ptr(),
-            None if inv is None else inv.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), T, d, dq, dkv,
-            float(epsilon), _build.stream_of(x), ctypes.byref(design))
+            v.data_ptr(), xn_ptr, None if inv is None else inv.data_ptr(),
+            ws, tickets, T, d, dq, dkv, float(epsilon), _build.stream_of(x),
+            ctypes.byref(design))
         _build.check(lib, err, what)
         fused_rmsnorm_qkv.launches += 1
         fused_rmsnorm_qkv.launches_by_path[GEMM_PATHS[design.value]] += 1
@@ -277,15 +310,53 @@ fused_rmsnorm_qkv.launches = 0
 fused_rmsnorm_qkv.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
+def _mlp_launch(fn, x, w1, wu, w2, b1, b2, act):
+    """One ``ptt_mlp`` call (its two launches) over x's rows, counted on
+    `fn`: the gated form with `wu`, else fused_ffn's; at decode rows
+    (split-K) h and the partials in workspaces kept per device."""
+    what = fn.__name__
+    d, f = x.shape[-1], w1.shape[1]
+    x2 = x.reshape(-1, d)
+    T = x2.shape[0]
+    dev = x.device
+    y = torch.empty((T, d), dtype=x.dtype, device=dev)
+    if T:
+        lib = _build.library("fused_block")
+        ws = tickets = None
+        floats = 0
+        if gemm_path(T, x.dtype) == "splitk":
+            h = _build.workspace(what + ".h", dev, 2 * T * f)
+            floats, tiles = mlp_workspace(T, d, f, wu is not None,
+                                          _build.sm_count(dev))
+            ws = _build.workspace(what + ".ws", dev, 4 * floats)
+            tickets = _build.tickets(what, dev, tiles).data_ptr()
+        else:
+            hbuf = torch.empty((T, f), dtype=x.dtype, device=dev)
+            h = hbuf.data_ptr()
+        design = ctypes.c_int(-1)
+        err = lib.ptt_mlp(
+            _build.DTYPE_CODES[x.dtype], act, x2.data_ptr(), w1.data_ptr(),
+            None if wu is None else wu.data_ptr(), w2.data_ptr(),
+            None if b1 is None else b1.data_ptr(),
+            None if b2 is None else b2.data_ptr(), h, y.data_ptr(), ws,
+            floats, tickets, T, d, f, _build.stream_of(x),
+            ctypes.byref(design))
+        _build.check(lib, err, what)
+        fn.launches += 1
+        fn.launches_by_path[GEMM_PATHS[design.value]] += 1
+    return y.reshape(x.shape)
+
+
 def fused_mlp(x, w_gate, w_up, w_down):
     """``y = (silu(x @ w_gate) * (x @ w_up)) @ w_down`` (SwiGLU).
 
     x ``[..., d]``; w_gate/w_up ``[d, f]``; w_down ``[f, d]``.  On the
-    card this is two launches: gate/up with the activation product
-    written to a ``[T, f]`` workspace in x's dtype, then the down
-    product (``csrc/fused_block.cu`` says why); both on the wgmma / TMA
-    ring in bf16 at ``ROW_PASS_MIN_T`` rows or more, else on the wmma
-    (bf16) or fp32 tile."""
+    card this is two launches of one call: gate/up with the activation
+    product written to a ``[T, f]`` workspace in x's dtype, then the down
+    product (``csrc/fused_block.cu`` says why); in bf16 on the wgmma /
+    TMA ring at ``ROW_PASS_MIN_T`` rows or more and split-K below
+    (``gemm_path``), in fp32 on the fp32 tile.  ``launches_by_path``
+    counts the design the C entry reports."""
     if x.device.type == "cpu":
         return mlp_reference(x, w_gate, w_up, w_down)
     what = "fused_mlp"
@@ -300,23 +371,7 @@ def fused_mlp(x, w_gate, w_up, w_down):
     _check_cuda(what, dict(x=x, w_gate=w_gate, w_up=w_up, w_down=w_down),
                 x.dtype)
     _check_width(what, d=d, f=f)
-    x2 = x.reshape(-1, d)
-    T = x2.shape[0]
-    y = torch.empty((T, d), dtype=x.dtype, device=x.device)
-    if T:
-        h = torch.empty((T, f), dtype=x.dtype, device=x.device)
-        lib = _build.library("fused_block")
-        code, stream = _build.DTYPE_CODES[x.dtype], _build.stream_of(x)
-        err = lib.ptt_mlp_gate_up(code, x2.data_ptr(), w_gate.data_ptr(),
-                                  w_up.data_ptr(), h.data_ptr(), T, d, f,
-                                  stream)
-        _build.check(lib, err, what + " (gate/up)")
-        err = lib.ptt_matmul(code, h.data_ptr(), w_down.data_ptr(), None,
-                             y.data_ptr(), T, f, d, stream)
-        _build.check(lib, err, what + " (down)")
-        fused_mlp.launches += 1
-        fused_mlp.launches_by_path[gemm_path(T, x.dtype)] += 1
-    return y.reshape(x.shape)
+    return _mlp_launch(fused_mlp, x, w_gate, w_up, w_down, None, None, 0)
 
 
 fused_mlp.launches = 0
@@ -330,9 +385,9 @@ def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
     x ``[..., d]``; w1 ``[d, f]``; w2 ``[f, d]``; b1 ``[f]`` and b2
     ``[d]`` may be None (zeros, as the JAX wrapper makes them);
     ``activation`` one of relu, gelu (exact erf) and silu.  On the card
-    this is two launches, as ``fused_mlp``: x @ w1 + b1 and the
-    activation into a ``[T, f]`` workspace in x's dtype, then the down
-    product plus b2."""
+    this is two launches of one call, on ``fused_mlp``'s designs: x @ w1
+    + b1 and the activation into a ``[T, f]`` workspace in x's dtype,
+    then the down product plus b2."""
     if activation not in ACT_CODES:
         raise ValueError(f"unsupported activation {activation!r}; "
                          f"expected one of {SUPPORTED_ACTS}")
@@ -353,23 +408,8 @@ def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
             f"{tuple(b2.shape)} do not agree")
     _check_cuda(what, dict(x=x, w1=w1, w2=w2, b1=b1, b2=b2), x.dtype)
     _check_width(what, d=d, f=f)
-    x2 = x.reshape(-1, d)
-    T = x2.shape[0]
-    y = torch.empty((T, d), dtype=x.dtype, device=x.device)
-    if T:
-        h = torch.empty((T, f), dtype=x.dtype, device=x.device)
-        lib = _build.library("fused_block")
-        code, stream = _build.DTYPE_CODES[x.dtype], _build.stream_of(x)
-        err = lib.ptt_ffn_up(code, x2.data_ptr(), w1.data_ptr(),
-                             b1.data_ptr(), h.data_ptr(), T, d, f,
-                             ACT_CODES[activation], stream)
-        _build.check(lib, err, what + " (up)")
-        err = lib.ptt_matmul(code, h.data_ptr(), w2.data_ptr(),
-                             b2.data_ptr(), y.data_ptr(), T, f, d, stream)
-        _build.check(lib, err, what + " (down)")
-        fused_ffn.launches += 1
-        fused_ffn.launches_by_path[gemm_path(T, x.dtype)] += 1
-    return y.reshape(x.shape)
+    return _mlp_launch(fused_ffn, x, w1, None, w2, b1, b2,
+                       ACT_CODES[activation])
 
 
 fused_ffn.launches = 0

@@ -7,9 +7,11 @@ with fp32 statistics; ``y`` and ``h`` in x's dtype, ``inv`` in fp32),
 and ``FusedRMSNorm`` is ``_core``'s custom VJP, whose backward is plain
 products as JAX's ``_bwd`` is jnp code.  A tensor on the CPU takes the
 plain version; a CUDA tensor launches the kernel or raises.  The kernel
-takes any row count and any d (16-byte vectors where every row is
-aligned, elements otherwise); x, residual and the weight share one dtype
-(float32 or bfloat16).  The wrapper counts its launches
+takes any row count and any d (16-byte vectors held in registers where
+every row is aligned, elements otherwise); x, residual and the weight
+share one dtype (float32 or bfloat16).  Without a residual h is x itself
+(x to fp32 and back is exact): both versions return x as h, and the
+kernel writes none of it.  The wrapper counts its launches
 (``fused_rmsnorm.launches``)."""
 
 from __future__ import annotations
@@ -24,20 +26,22 @@ __all__ = ["fused_rmsnorm", "rmsnorm_reference", "FusedRMSNorm"]
 def rmsnorm_reference(x, weight, residual=None, epsilon=1e-5):
     """``_ref_fwd`` (``rmsnorm.py:101-107``): ``(y, h, inv)`` with h =
     x (+ residual) summed in fp32, inv ``[..., 1]`` fp32, y = (h * inv)
-    * w in fp32; y and h cast to x's dtype."""
+    * w in fp32; y and h cast to x's dtype.  Without a residual that h
+    is x's own values, and x itself is returned."""
     h = x.float()
     if residual is not None:
         h = h + residual.float()
     inv = torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + epsilon)
     y = (h * inv) * weight.float()
-    return y.to(x.dtype), h.to(x.dtype), inv
+    return y.to(x.dtype), x if residual is None else h.to(x.dtype), inv
 
 
 def fused_rmsnorm(x, weight, residual=None, epsilon=1e-5):
     """``(y, h, inv)``: h = x (+ residual), y = rmsnorm(h) * weight.
 
     x ``[..., d]``; weight ``[d]``; residual x's shape or None.  y and h
-    have x's shape and dtype, inv ``[..., 1]`` fp32."""
+    have x's shape and dtype (h is x itself without a residual), inv
+    ``[..., 1]`` fp32."""
     if x.device.type == "cpu":
         return rmsnorm_reference(x, weight, residual, epsilon)
     what = "fused_rmsnorm"
@@ -68,14 +72,15 @@ def fused_rmsnorm(x, weight, residual=None, epsilon=1e-5):
     x2 = x.reshape(-1, d)
     rows = x2.shape[0]
     y = torch.empty_like(x2)
-    h = torch.empty_like(x2)
+    h = x2 if residual is None else torch.empty_like(x2)
     inv = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     if rows and d:
         lib = _build.library("rmsnorm")
         err = lib.ptt_rmsnorm(
             _build.DTYPE_CODES[x.dtype], x2.data_ptr(),
             None if residual is None else residual.data_ptr(),
-            weight.data_ptr(), y.data_ptr(), h.data_ptr(), inv.data_ptr(),
+            weight.data_ptr(), y.data_ptr(),
+            None if residual is None else h.data_ptr(), inv.data_ptr(),
             rows, d, float(epsilon), _build.stream_of(x))
         _build.check(lib, err, what)
         fused_rmsnorm.launches += 1

@@ -1,15 +1,19 @@
-"""The split-K rule that the quant matmul and QKV's decode rows share —
-the Python side of ``csrc/splitk.cuh``.
+"""The split-K rules of the decode-row kernels — the Python side of
+``csrc/splitk.cuh`` (the quant matmul's and QKV's rule) and of the MLP's
+(``mlp_splits`` in ``csrc/fused_block.cu``, on splitk.cuh's strip
+stream).
 
-The C entries size their own launches (``ptt_quant_splits``,
-``ptt_qkv_splits``) and the wrappers ask them; this module is the rule's
-model for the tests and for reports, and names the constants the
-wrappers size a launch's tickets with."""
+The C entries size their own launches; the quant matmul's and QKV's
+wrappers ask them for the split count (``ptt_quant_splits``,
+``ptt_qkv_splits``), while the MLP's wrapper sizes its workspace by
+``mlp_splits`` here and the C entry refuses one smaller than its own
+count needs.  This module names the constants the wrappers size a
+launch's tickets with, and is the rules' model for the tests."""
 
 from __future__ import annotations
 
-__all__ = ["splitk_splits", "SPLITK_MAX_T", "SPLITK_BN", "SPLIT_FACTOR",
-           "MIN_SLICES", "MAX_SPLIT_DEPTH"]
+__all__ = ["splitk_splits", "mlp_splits", "SPLITK_MAX_T", "SPLITK_BN",
+           "SPLIT_FACTOR", "MIN_SLICES", "MAX_SPLIT_DEPTH", "MLP_BN"]
 
 # csrc/splitk.cuh's constants: the largest T split-K takes (kSplitKMaxT),
 # the output columns of a block (kSkBN), and the split rule's default
@@ -20,6 +24,9 @@ SPLITK_BN = 128
 SPLIT_FACTOR = 2
 MIN_SLICES = 4
 MAX_SPLIT_DEPTH = 2048
+# the MLP's output columns a block (csrc/fused_block.cu, kMlpBN): four
+# warps, a 64-column strip each
+MLP_BN = 256
 
 
 def splitk_splits(K: int, N: int, sms: int,
@@ -34,3 +41,11 @@ def splitk_splits(K: int, N: int, sms: int,
     s = min(s, max(1, slices // MIN_SLICES))
     s = max(s, -(-K // MAX_SPLIT_DEPTH))
     return min(s, slices)
+
+
+def mlp_splits(K: int, N: int, sms: int) -> int:
+    """The K splits of one MLP split-K launch (``mlp_splits`` in
+    ``csrc/fused_block.cu``): one wave of a block a SM over the
+    MLP_BN-column tiles where they leave room, never more splits than
+    64-deep slices."""
+    return min(max(1, sms // -(-N // MLP_BN)), K // 64)

@@ -1519,7 +1519,7 @@ def test_mlp_hopper_matches_plain(dev, T, d, f):
 def test_fused_ffn_hopper_matches_plain(dev, act, T, d, f):
     """bf16 at T > 16: fused_ffn's up (bias and activation in the
     epilogue) and down (its bias) on the wgmma ring against
-    ffn_reference; under ``wgmma``, and the tile below 17 rows."""
+    ffn_reference; under ``wgmma``, and split-K below 17 rows."""
     rng = np.random.default_rng(T + d + f + len(act))
     x = _t(rng, (T, d), torch.bfloat16, dev)
     w1 = _t(rng, (d, f), torch.bfloat16, dev, d ** -0.5)
@@ -1532,7 +1532,7 @@ def test_fused_ffn_hopper_matches_plain(dev, act, T, d, f):
     _close(FB.fused_ffn(x[:16], w1, w2, b1, b2, act),
            FB.ffn_reference(x[:16], w1, b1, w2, b2, act), torch.bfloat16)
     n0["wgmma"] += 1
-    n0["tile"] += 1
+    n0["splitk"] += 1
     assert FB.fused_ffn.launches_by_path == n0
 
 
@@ -1775,3 +1775,154 @@ def test_chunked_ce_default_precision_against_float32(dev, tf32_outside):
         assert torch.isfinite(a).all()
         err, scale = float((a - b).abs().max()), float(b.abs().max())
         assert err <= tol["grad_of_max"] * scale, (err, scale)
+
+
+# -- the MLP and fused_ffn at decode rows: split-K (bf16) ----------------------
+
+# one bf16 step of the output (2^-7 of its value) plus an absolute floor
+# for outputs near 0: both sides round the same fp32 sums once, h included
+MLP_SPLITK_TOL = (2e-3, 2 ** -7)
+# (d, f): f = 320 leaves a partial 256-column tile in gate/up (a strip
+# past f streams nothing) and d = 320 one in the down product; Llama-3-8B
+# width (56 x 2 and 16 x 8 blocks on an H100)
+MLP_SPLITK_SHAPES = [(256, 320), (320, 192), (4096, 14336)]
+
+
+@pytest.mark.parametrize("T", [1, 8, 16])
+@pytest.mark.parametrize("d,f", MLP_SPLITK_SHAPES)
+def test_mlp_splitk_matches_plain(dev, T, d, f):
+    """bf16 at T <= 16: gate/up and the down product split-K, within
+    MLP_SPLITK_TOL of mlp_reference, two calls bitwise equal, each call
+    one launch under ``splitk``; fp32 at the same T keeps the tile."""
+    rng = np.random.default_rng(T + d + f)
+    s = (2 / (d + f)) ** 0.5
+    x = _t(rng, (T, d), torch.bfloat16, dev)
+    wg, wu = (_t(rng, (d, f), torch.bfloat16, dev, s) for _ in range(2))
+    wd = _t(rng, (f, d), torch.bfloat16, dev, s)
+    n0 = dict(FB.fused_mlp.launches_by_path)
+    a = FB.fused_mlp(x, wg, wu, wd)
+    b = FB.fused_mlp(x, wg, wu, wd)
+    n0["splitk"] += 2
+    assert FB.fused_mlp.launches_by_path == n0
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close_tol(a, FB.mlp_reference(x, wg, wu, wd), MLP_SPLITK_TOL)
+    if d <= 320:
+        xf, gf, uf, df = (t.float() for t in (x, wg, wu, wd))
+        _close(FB.fused_mlp(xf, gf, uf, df), FB.mlp_reference(xf, gf, uf, df),
+               torch.float32)
+        n0["tile"] += 1
+        assert FB.fused_mlp.launches_by_path == n0
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu", "silu"])
+@pytest.mark.parametrize("T", [1, 8, 16])
+@pytest.mark.parametrize("d,f", [(320, 192), (512, 2048)])
+def test_fused_ffn_splitk_matches_plain(dev, act, T, d, f):
+    """bf16 at T <= 16 with both biases: the activation on the merged
+    sums of the up product, b2 on the down product's, within
+    MLP_SPLITK_TOL of ffn_reference, two calls bitwise equal, under
+    ``splitk``; without biases the same against zeros."""
+    rng = np.random.default_rng(T + d + len(act))
+    x = _t(rng, (T, d), torch.bfloat16, dev)
+    w1 = _t(rng, (d, f), torch.bfloat16, dev, d ** -0.5)
+    w2 = _t(rng, (f, d), torch.bfloat16, dev, f ** -0.5)
+    b1 = _t(rng, (f,), torch.bfloat16, dev, 0.5)
+    b2 = _t(rng, (d,), torch.bfloat16, dev, 0.5)
+    n0 = dict(FB.fused_ffn.launches_by_path)
+    a = FB.fused_ffn(x, w1, w2, b1, b2, act)
+    b = FB.fused_ffn(x, w1, w2, b1, b2, act)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close_tol(a, FB.ffn_reference(x, w1, b1, w2, b2, act), MLP_SPLITK_TOL)
+    zero1 = torch.zeros_like(b1)
+    zero2 = torch.zeros_like(b2)
+    _close_tol(FB.fused_ffn(x, w1, w2, activation=act),
+               FB.ffn_reference(x, w1, zero1, w2, zero2, act),
+               MLP_SPLITK_TOL)
+    n0["splitk"] += 3
+    assert FB.fused_ffn.launches_by_path == n0
+
+
+@pytest.mark.parametrize("T,d,f", [(8, 256, 320), (16, 4096, 14336)])
+def test_mlp_splits_agree_with_the_model(dev, T, d, f):
+    """The C entry refuses a workspace one value smaller than
+    ``mlp_workspace`` (splitk.py's mlp_splits at the card's SM count) with
+    CUDA error 1 and no launch, and takes one of its size: its own split
+    counts need exactly the model's workspace."""
+    lib = _build.library("fused_block")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(4)
+    x = _t(rng, (T, d), torch.bfloat16, dev)
+    wg, wu = (_t(rng, (d, f), torch.bfloat16, dev, d ** -0.5)
+              for _ in range(2))
+    wd = _t(rng, (f, d), torch.bfloat16, dev, f ** -0.5)
+    floats, tiles = FB.mlp_workspace(T, d, f, True, sms)
+    h = torch.empty((T, f), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(floats, dtype=torch.float32, device=dev)
+    tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    for n, want in ((floats - 1, 1), (floats, 0)):
+        y = torch.zeros((T, d), dtype=torch.bfloat16, device=dev)
+        design = ctypes.c_int(-1)
+        err = lib.ptt_mlp(1, 0, x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                          wd.data_ptr(), None, None, h.data_ptr(),
+                          y.data_ptr(), ws.data_ptr(), n, tickets.data_ptr(),
+                          T, d, f, _build.stream_of(x), ctypes.byref(design))
+        assert err == want
+        if want == 0:
+            assert FB.GEMM_PATHS[design.value] == "splitk"
+            _close_tol(y, FB.mlp_reference(x, wg, wu, wd), MLP_SPLITK_TOL)
+            assert not tickets.any()
+
+
+# rmsnorm's register design: a row of eight warps (d = 4096 bf16, two
+# vectors a thread; fp32 four), four vectors a thread (d = 8192 bf16), one
+# warp (d = 512), and past the registers (d = 16384) the two-pass design
+NORM_REG_SHAPES = [(8192, 4096), (7, 8192), (9, 512), (3, 16384), (1, 64)]
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", NORM_REG_SHAPES)
+def test_rmsnorm_register_design(dev, dtype, residual, rows, d):
+    """y within one bf16 step (1e-5 in fp32) and inv within 1e-5 of
+    rmsnorm_reference; with a residual h equals the plain sum, without
+    one h is x itself (its storage; nothing writes it)."""
+    rng = np.random.default_rng(rows + d)
+    x = _t(rng, (rows, d), dtype, dev)
+    r = _t(rng, (rows, d), dtype, dev) if residual else None
+    w = _t(rng, (d,), dtype, dev, 0.1) + 1.0
+    keep = x.clone()
+    y, h, inv = RN.fused_rmsnorm(x, w, r, 1e-5)
+    ry, rh, rinv = RN.rmsnorm_reference(x, w, r, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(h, rh) and torch.equal(x, keep)
+    assert (h.data_ptr() == x.data_ptr()) == (not residual)
+    np.testing.assert_allclose(inv.cpu().numpy(), rinv.cpu().numpy(),
+                               rtol=1e-5)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               ry.float().cpu().numpy(), rtol=tol, atol=1e-6)
+
+
+def test_rms_norm_residual_without_a_residual_on_the_card(dev):
+    """F.rms_norm_residual with no residual (h is x) forward and backward
+    on the card against the CPU port, fp32, 1e-5: the gradient of x gets
+    the cotangents of both y and h once."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(23)
+    host = [torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+            for s in ((4, 33, 512), (512,))]
+    gy, gh = (torch.as_tensor(rng.standard_normal((4, 33, 512)),
+                              dtype=torch.float32) for _ in range(2))
+    out = []
+    for where in ("cpu", dev):
+        leaves = [t.clone().to(where).requires_grad_(True) for t in host]
+        y, h = F.rms_norm_residual(leaves[0], leaves[1], None, 1e-5)
+        assert h.data_ptr() == leaves[0].data_ptr()
+        torch.autograd.backward((y, h), (gy.to(where), gh.to(where)))
+        out.append([y.detach().cpu(), h.detach().cpu()] +
+                   [t.grad.cpu() for t in leaves])
+    for got, ref in zip(out[1], out[0]):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-5)

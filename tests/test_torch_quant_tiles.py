@@ -322,16 +322,16 @@ def test_ffn_ring_model_matches_pallas(act, T):
 
 
 def test_gemm_paths_agree_with_the_kernel_source():
-    """Each of the three MLP / FFN entries routes bf16 at kRowPassMinT
-    rows or more to the wgmma ring, the wrapper's ``gemm_path`` by the
-    same threshold."""
+    """The MLP / FFN entry (``ptt_mlp``, both products of a call) routes
+    bf16 at kRowPassMinT rows or more to the wgmma ring and below it to
+    split-K, fp32 to the tile; the wrapper's ``gemm_path`` by the same
+    threshold."""
     src = (CSRC / "fused_block.cu").read_text()
-    for entry in ("ptt_mlp_gate_up", "ptt_matmul", "ptt_ffn_up"):
-        body = src[src.index(f"int {entry}("):]
-        body = body[:body.index("\n}\n")]
-        assert "if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT)" in body
-        assert "mlp_hopper<" in body
+    body = src[src.index("int ptt_mlp(int dtype,"):]
+    body = body[:body.index("\n}\n")]
+    assert "if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT) {" in body
+    assert "mlp_hopper<" in body and "mlp_splitk<" in body
     t = FB.ROW_PASS_MIN_T
     assert [FB.gemm_path(n, torch.bfloat16) for n in (t - 1, t)] == \
-        ["tile", "wgmma"]
+        ["splitk", "wgmma"]
     assert FB.gemm_path(8192, torch.float32) == "tile"
