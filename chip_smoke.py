@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (build and ptxas one each; kernels
-seven: the serving, the training, the quantized serving, the MoE, the
-cross-entropy, the feed-forward and the decoder-tier rows; serve,
+eight: the serving, the training, the quantized serving, the MoE, the
+cross-entropy, the feed-forward, the decoder-tier and the multi-tensor
+rows; train_graph and train_gpt_graph two more each, a profiled eager and
+graphed step; serve,
 serve_quant, train, train_moe, train_gpt, train_decoder and
 transformer_infer one more each, for a profiled window; serve_quant and
 train_moe two, one per engine or dispatch mode):
@@ -163,6 +165,31 @@ train_moe two, one per engine or dispatch mode):
             norm_residual (last): F.rms_norm_residual forward and
             backward at T=8192,
             one launch a call.
+12. optimizer step  kernels_multi_tensor (with the kernel phases): the
+            multi-tensor gradient norm and AdamW update on the Train
+            model's parameter set (1.92 B bf16 parameters, fp32 masters and
+            moments) against their plain versions (MT_TOL; bitwise equality
+            reported), timed beside the plain version, a PyTorch yardstick
+            (torch._foreach_norm; torch._fused_adamw_) and the bound; each
+            training phase checks both launched once a step.
+            train_graph (after train): the Train cell with
+            AdamW(LinearWarmup(CosineAnnealingDecay), multi_precision=True,
+            grad_clip=ClipGradByGlobalNorm(1.0)): eager steps, then from the
+            same saved state (state_dict -> set_state_dict) the step
+            captured by TrainStep.compile as one CUDA graph and replayed;
+            losses and parameters within GRAPH_TOL (bitwise equality
+            reported), the graph holding an eager step's launches, the
+            counters still under replay, step seconds and the profiled busy
+            share of each, and a replay with a NaN weight leaving every
+            parameter, optimizer state tensor and the count bitwise
+            unchanged.  train_state: the Train model cut to one layer:
+            accum_steps=2 and remat (policies "dots" and "nothing") against
+            the plain step (STATE_TOL, peak memory of each); 3 steps, a
+            saved state restored into a fresh step, 2 steps, bitwise equal
+            to 5 uninterrupted steps.  train_gpt_graph (after train_gpt):
+            train_graph's comparison at Train-GPT's shape.
+            train_moe_graph (each dispatch mode) and train_decoder_graph:
+            those cells' steps captured too, replayed three times.
 
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -1619,6 +1646,7 @@ def train(dev, kernels):
     require_paths("train", by_path,
                   {("fused_mlp", "wgmma"): TRAIN_LAYERS * TRAIN_STEPS,
                    ("fused_mlp", "tile"): 0})
+    launches.update(require_mt("train", kernels, TRAIN_STEPS))
     dt = float(np.median(times))
     tokens = TRAIN_B * TRAIN_S
     # bench.py's formula: 6N + 12 L s d FLOPs per token over the bf16 peak
@@ -1728,13 +1756,25 @@ TRAIN_FAMILIES = ("grouped_hopper", "mlp_gemm_kernel", "flash_fwd_hopper",
 def train_profile(step, batch, phase="train_profile", top_n=15,
                   families=TRAIN_FAMILIES):
     """One more step under torch.profiler (profile_call)."""
-    profile_call(lambda: step(batch), phase, families, top_n, steps=1)
+    return profile_call(lambda: step(batch), phase, families, top_n,
+                        steps=1)
+
+
+def require_mt(what, kernels, n_steps):
+    """Raise unless each multi-tensor kernel (the gradient norm, the
+    AdamW update) launched once a step; returns their counts."""
+    got = {fn.__name__: fn.launches for fn in kernels.MULTI_TENSOR}
+    if got != dict.fromkeys(got, n_steps):
+        raise AssertionError(f"{what}: multi-tensor launches {got} in "
+                             f"{n_steps} steps, expected one a step each")
+    return got
 
 
 def profile_call(fn, phase, families, top_n=15, **extra):
     """One call of `fn` under torch.profiler: the device's busy share of
-    its wall time, the top kernels by device time, and the device time of
-    the port's own kernels by family."""
+    its wall time, the kernels launched, the top kernels by device time,
+    and the device time of the port's own kernels by family (emitted and
+    returned)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     with torch_profile(activities=[ProfilerActivity.CPU,
@@ -1748,12 +1788,14 @@ def profile_call(fn, phase, families, top_n=15, **extra):
     busy_us = sum(e.device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.device_time_total)[:top_n]
     port = family_times(kern, families)
-    emit(phase, **extra, wall_s=wall,
-         device_busy_s=busy_us / 1e6 if kern else None,
-         device_busy_share=busy_us / 1e6 / wall if kern else None,
-         port_kernels=port,
-         top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3,
-               "calls": e.count} for e in top])
+    out = dict(**extra, wall_s=wall,
+               device_busy_s=busy_us / 1e6 if kern else None,
+               device_busy_share=busy_us / 1e6 / wall if kern else None,
+               kernel_launches=sum(e.count for e in kern), port_kernels=port,
+               top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3,
+                     "calls": e.count} for e in top])
+    emit(phase, **out)
+    return out
 
 
 # -- the MoE slice: ERNIE-4.5-21B-A3B width ----------------------------------
@@ -2049,6 +2091,7 @@ def train_moe(dev, kernels):
         require_paths(f"train_moe {mode}", by_path,
                       {("grouped_expert_ffn", "wgmma"): n_moe * n_steps,
                        ("grouped_expert_ffn", "tile"): 0})
+        launches.update(require_mt(f"train_moe {mode}", kernels, n_steps))
         dt = float(np.median(times))
         tokens = MOE_B * MOE_S
         # bench.py:477-488: activated parameters (the idle experts' share
@@ -2073,6 +2116,8 @@ def train_moe(dev, kernels):
              launches_per_step={k: v / n_steps for k, v in launches.items()})
         if mode == "einsum":
             train_profile(step, batch, phase="train_moe_profile", top_n=25)
+        emit("train_moe_graph", dispatch_mode=mode, eager_step_s_median=dt,
+             **graph_check(f"train_moe {mode}", step, batch, kernels))
         runs[mode] = launches
         del model, opt, step, named, batch, moes, loads
         torch.cuda.empty_cache()
@@ -2199,6 +2244,7 @@ def train_gpt(dev, kernels):
             raise AssertionError(f"train_gpt: {name} launched "
                                  f"{launches[name]} times in {GPT_STEPS} "
                                  f"steps, expected {per_step} a step")
+    launches.update(require_mt("train_gpt", kernels, GPT_STEPS))
     dt = float(np.median(times))
     tokens = GPT_B * GPT_S
     # bench.py:1141-1144: 6N + 12 L s d FLOPs a token over the bf16 peak
@@ -2641,6 +2687,7 @@ def train_decoder(dev, kernels, train_peak):
             raise AssertionError(f"train_decoder: launches {launches}, "
                                  f"routes {routes}; expected "
                                  f"{TRAIN_LAYERS} a step each")
+        launches.update(require_mt("train_decoder", kernels, DEC_STEPS))
         require_paths("train_decoder", by_path,
                       {("fused_decoder_block", "wgmma"):
                        TRAIN_LAYERS * DEC_STEPS,
@@ -2666,6 +2713,8 @@ def train_decoder(dev, kernels, train_peak):
                                 "mlp_gemm_kernel", "qkv_rows_kernel",
                                 "qkv_gemm_kernel", "flash_fwd_hopper",
                                 "flash_dq_hopper", "flash_dkv_hopper"))
+        emit("train_decoder_graph", eager_step_s_median=dt,
+             **graph_check("train_decoder", step, batch, kernels))
     del model, step
     return launches
 
@@ -2802,6 +2851,462 @@ def norm_residual(dev, kernels):
     return launches["fused_rmsnorm"]
 
 
+# -- the optimizer step: multi-tensor kernels, CUDA graphs, training state ---
+
+# the AdamW arguments of the multi_tensor rows: one update of the Train
+# model's parameters at update count 3, lr 1e-4, the clip scale 0.5
+MT_ARGS = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, decoupled=True,
+               multi_precision=True)
+MT_LR, MT_STEP, MT_WD = 1e-4, 3, 0.01
+# fp32 operations a parameter: the clip's multiply, the two moments (6),
+# both bias corrections (2), sqrt, eps, the quotient, the decay (2), the
+# step (2)
+MT_OPS = 17
+
+
+def train_model(dev, layers=TRAIN_LAYERS, seed_=0):
+    """The Train cell's model: LlamaConfig.llama3_8b() (bf16) cut to
+    `layers` layers, random weights from `seed_`."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = layers
+    seed(seed_)
+    return cfg, LlamaForCausalLM(cfg, device=dev)
+
+
+def kernel_multi_tensor(MT, dev, timer):
+    """Both multi-tensor kernels on the Train model's parameter set (1.92
+    B bf16 parameters with fp32 masters and moments, bf16 gradients),
+    each against its plain version on the same inputs: the max error and
+    whether every output is bitwise equal (the plain version runs a
+    tensor at a time on copies, its results kept on the host, before the
+    kernel's one launch updates the originals); then each timed beside
+    its plain version, a PyTorch yardstick (the norm: torch._foreach_norm
+    in fp32, then the norm of those; the update: torch._fused_adamw_ on
+    the fp32 masters with fp32 gradients, whose op order differs: a
+    timing only) and its bound (bytes: every gradient read once; param,
+    grad, moments and master read once, param, moments and master
+    written once)."""
+    cfg, model = train_model(dev)
+    params = [p.detach() for p in model.parameters()]
+    n = sum(p.numel() for p in params)
+    g = torch.Generator(device=dev).manual_seed(13)
+    grads = [rand(g, p.shape, torch.bfloat16, dev, 0.01) for p in params]
+    kw = dict(lr=torch.tensor(MT_LR, device=dev),
+              step=torch.tensor(MT_STEP, dtype=torch.int32, device=dev),
+              scale=torch.tensor(0.5, device=dev),
+              keep=torch.tensor(True, device=dev), **MT_ARGS)
+    masters = [p.float() for p in params]
+    m = [rand(g, p.shape, torch.float32, dev, 1e-3) for p in params]
+    v = [rand(g, p.shape, torch.float32, dev, 1e-3).square_() for p in params]
+    state = (params, m, v, masters)
+
+    def plain_update(ps, gs, ms_, vs, mast):
+        for p, gg, mm, vv, ma in zip(ps, gs, ms_, vs, mast):
+            MT.adam_reference(p, gg, mm, vv, ma, weight_decay=MT_WD, **kw)
+
+    plain = []
+    for i in range(len(params)):
+        one = [t[i].clone() for t in state]
+        plain_update([one[0]], [grads[i]], [one[1]], [one[2]], [one[3]])
+        plain.append([t.cpu() for t in one])
+        del one
+    n0 = MT.multi_tensor_adam.launches
+    MT.multi_tensor_adam(params, grads, m, v, masters,
+                         weight_decays=[MT_WD] * len(params), **kw)
+    if MT.multi_tensor_adam.launches != n0 + 1:
+        raise AssertionError("multi_tensor_adam: not one launch a call")
+    names = ("params", "moment1", "moment2", "master")
+    err, bitwise = dict.fromkeys(names, 0.0), dict.fromkeys(names, True)
+    for i, ref in enumerate(plain):
+        for name, t, r in zip(names, (x[i] for x in state), ref):
+            got = t.cpu()
+            err[name] = max(err[name],
+                            float((got.float() - r.float()).abs().max()))
+            bitwise[name] = bitwise[name] and torch.equal(got, r)
+    del plain
+    for name in names:
+        if not err[name] <= MT_TOL[name]:
+            raise AssertionError(f"multi_tensor_adam: {name} max abs err "
+                                 f"{err[name]} over {MT_TOL[name]}")
+    adam_bytes = 30 * n
+    ms = timer(lambda: MT.multi_tensor_adam(
+        params, grads, m, v, masters, weight_decays=[MT_WD] * len(params),
+        **kw))
+    plain_ms = timer(lambda: plain_update(params, grads, m, v, masters),
+                     iters=3, warmup=1)
+    grads32 = [gg.float() for gg in grads]
+    steps = [torch.tensor(float(MT_STEP), device=dev) for _ in params]
+    lib_ms = timer(lambda: torch._fused_adamw_(
+        masters, grads32, m, v, [], steps, lr=MT_LR, beta1=0.9, beta2=0.999,
+        weight_decay=MT_WD, eps=1e-8, amsgrad=False, maximize=False))
+    del grads32, steps
+    b, by = bound_ms(adam_bytes, MT_OPS * n, FP32_FLOP_PER_S)
+    rows = {"multi_tensor_adam": {
+        "shape": f"{len(params)} tensors, {n} params: bf16 with fp32 "
+                 "master and moments, bf16 grads",
+        "max_abs_err": err["params"], "errors": err, "bitwise": bitwise,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "library": "torch._fused_adamw_ (fp32 masters, fp32 grads; other "
+                   "op order)", "bound_ms": b, "bound_by": by,
+        "tb_per_s": adam_bytes / ms / 1e9}}
+    norm = MT.multi_tensor_norm(grads)
+    again = MT.multi_tensor_norm(grads)
+    ref = MT.norm_reference(grads)
+    rel = float((norm - ref).abs() / ref)
+    if not rel <= MT_TOL["norm_rel"]:
+        raise AssertionError(f"multi_tensor_norm: {float(norm)} against "
+                             f"{float(ref)} (rel {rel})")
+    norm_bytes = 2 * n
+    b, by = bound_ms(norm_bytes, 2 * n, FP32_FLOP_PER_S)
+    row = rows["multi_tensor_norm"] = {
+        "shape": f"{len(params)} bf16 grads, {n} elements",
+        "max_abs_err": float((norm - ref).abs()), "rel_err": rel,
+        "bitwise": bool(torch.equal(norm, ref)),
+        "two_launches_bitwise": bool(torch.equal(norm, again)),
+        "ms": timer(lambda: MT.multi_tensor_norm(grads)),
+        "plain_ms": timer(lambda: MT.norm_reference(grads), iters=3,
+                          warmup=1),
+        "library_ms": timer(lambda: torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads, 2, dtype=torch.float32)))),
+        "library": "torch._foreach_norm (fp32) then the norm of those",
+        "bound_ms": b, "bound_by": by}
+    row["tb_per_s"] = norm_bytes / row["ms"] / 1e9
+    del model, params, grads, masters, m, v, state
+    torch.cuda.empty_cache()
+    return rows
+
+
+# the multi-tensor kernels against their plain versions: the same fp32
+# operations in the same order on the same card, so they are expected to
+# be bitwise equal; the limits allow one fp32 rounding of the largest
+# value (moments ~1e-3, masters and params ~4, in bf16 one bf16 step)
+# should the two sides' powf disagree in its last bit.  The norm: fp32
+# sums of 1.9e9 squares in another order
+MT_TOL = {"params": 2 ** -6, "moment1": 1e-9, "moment2": 1e-12,
+          "master": 1e-6, "norm_rel": 1e-5}
+
+# a graphed step against the eager step from one state: the same kernels
+# in the same order, but cuBLAS may take other algorithms inside a
+# capture, so the gate allows what fp32 sums in another order move over
+# three steps: the loss 1e-3 relative, a bf16 parameter one bf16 step
+# (2^-7 of its value) plus 1e-6
+GRAPH_TOL = {"loss_rel": 1e-3, "param": (1e-6, 2 ** -7)}
+GRAPH_STEPS, GRAPH_TIMED = 3, 5
+
+
+def graph_optimizer():
+    """AdamW(LinearWarmup(CosineAnnealingDecay), multi_precision=True,
+    grad_clip=ClipGradByGlobalNorm(1.0))."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=100),
+                            warmup_steps=3, start_lr=1e-5, end_lr=1e-4)
+    return AdamW(learning_rate=sched, multi_precision=True,
+                 grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def timed_steps(step, batch, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def graph_check(what, step, batch, kernels, n=3):
+    """The step captured as one CUDA graph (after its eager steps): n
+    replays, each loss finite, the counters still, the replays' median
+    seconds (each synchronized) and the launches the graph holds."""
+    torch.cuda.empty_cache()
+    info = step.compile(batch)
+    if not info.graph:
+        raise AssertionError(f"{what}: compile() captured no graph")
+    kernels.reset_launch_counts()
+    before = step.replays
+    t, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    moved = {fn.__name__: fn.launches for fn in kernels.KERNELS
+             if fn.launches}
+    if moved or step.replays != before + n or not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: replays {step.replays - before}, "
+                             f"counters moved {moved}, losses {losses}")
+    return {"compile_s": info.seconds, "graph_step_s": t,
+            "graph_step_s_median": float(np.median(t)),
+            "graph_losses": losses, "graph_launches": info.launches}
+
+
+def state_tensors(step):
+    """Every parameter and optimizer state tensor of `step`, and its
+    device count."""
+    opt = step.optimizer
+    return [t for _, p in step._named
+            for t in [p.detach()] + list(opt._accumulators[id(p)].values())
+            ] + [step._count]
+
+
+def same_bits(tensors, host):
+    """Whether each tensor's bytes equal its host copy's (one tensor on
+    the host at a time)."""
+    return all(torch.equal(t.cpu().reshape(-1).view(torch.uint8),
+                           h.reshape(-1).view(torch.uint8))
+               for t, h in zip(tensors, host))
+
+
+def graph_phase(phase, model, batch, families, kernels, tokens, flops_tok):
+    """The step captured as one CUDA graph against the eager step, from
+    one saved state (state_dict -> set_state_dict): GRAPH_STEPS steps of
+    each, losses and parameters within GRAPH_TOL (bitwise equality
+    reported); then GRAPH_TIMED timed steps of each (median seconds, each
+    step synchronized), one profiled step of each (busy share, kernels
+    launched); the kernels the graph holds (its capture's launches) and
+    the wrappers' counters under replay (they must not move); then one
+    replay with a NaN in a weight: the skip counted, every parameter,
+    optimizer state tensor and the count bitwise unchanged."""
+    from paddle_tpu_torch.jit import TrainStep
+    step = TrainStep(model, graph_optimizer(), guard_nonfinite=True)
+    t0 = time.perf_counter()
+    saved = step.state_dict()
+    save_s = time.perf_counter() - t0
+    eager_losses = [float(step(batch)) for _ in range(GRAPH_STEPS)]
+    eager_params = [p.detach().clone() for _, p in step._named]
+    kernels.reset_launch_counts()
+    eager_s = timed_steps(step, batch, GRAPH_TIMED)
+    eager_launches = {fn.__name__: fn.launches / GRAPH_TIMED
+                      for fn in kernels.KERNELS if fn.launches}
+    eager_prof = train_profile(step, batch, f"{phase}_eager_profile",
+                               families=families)
+    t0 = time.perf_counter()
+    step.set_state_dict(saved)
+    load_s = time.perf_counter() - t0
+    del saved
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    info = step.compile(batch)
+    if not info.graph:
+        raise AssertionError(f"{phase}: compile() captured no graph")
+    if info.launches != {k: round(v) for k, v in eager_launches.items()}:
+        raise AssertionError(f"{phase}: the graph holds {info.launches}, "
+                             f"an eager step launches {eager_launches}")
+    kernels.reset_launch_counts()
+    graph_losses = [float(step(batch)) for _ in range(GRAPH_STEPS)]
+    moved = {fn.__name__: fn.launches for fn in kernels.KERNELS
+             if fn.launches}
+    if moved or step.replays != GRAPH_STEPS:
+        raise AssertionError(f"{phase}: counters moved under replay "
+                             f"{moved}, replays {step.replays}")
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(graph_losses, eager_losses))
+    atol, rtol = GRAPH_TOL["param"]
+    param_err, bitwise = 0.0, True
+    for (n, p), ref in zip(step._named, eager_params):
+        d = (p.detach().float() - ref.float()).abs()
+        param_err = max(param_err, float(d.max()))
+        bitwise = bitwise and torch.equal(p, ref)
+        if bool((d > atol + rtol * ref.float().abs()).any()):
+            raise AssertionError(f"{phase}: {n} graphed against eager: max "
+                                 f"abs err {float(d.max())}")
+    del eager_params
+    if not loss_rel <= GRAPH_TOL["loss_rel"]:
+        raise AssertionError(f"{phase}: graphed losses {graph_losses}, "
+                             f"eager {eager_losses}")
+    graph_s = timed_steps(step, batch, GRAPH_TIMED)
+    graph_prof = train_profile(step, batch, f"{phase}_graph_profile",
+                               families=families)
+    # a NaN in the second weight (a norm weight or the position table:
+    # every row reads it) inside the graph
+    skips = dict(step.skipped)
+    poisoned = step._named[1][1]
+    with torch.no_grad():
+        keep = poisoned.view(-1)[0].clone()
+        poisoned.view(-1)[0] = float("nan")
+    before = [t.cpu() for t in state_tensors(step)]
+    nan_loss = float(step(batch))
+    unchanged = same_bits(state_tensors(step), before)
+    del before
+    with torch.no_grad():
+        poisoned.view(-1)[0] = keep
+    if np.isfinite(nan_loss) or not unchanged or \
+            step.skipped["nonfinite_loss"] != skips["nonfinite_loss"] + 1:
+        raise AssertionError(f"{phase}: the NaN step: loss {nan_loss}, "
+                             f"state unchanged {unchanged}, skips "
+                             f"{step.skipped}")
+    e, gph = float(np.median(eager_s)), float(np.median(graph_s))
+    emit(phase, tokens=tokens, optimizer="AdamW(LinearWarmup(Cosine"
+         "AnnealingDecay), multi_precision=True, grad_clip="
+         "ClipGradByGlobalNorm(1.0))", state_dict_s=save_s,
+         set_state_dict_s=load_s, compile_s=info.seconds,
+         eager_losses=eager_losses, graph_losses=graph_losses,
+         loss_rel_err=loss_rel, param_max_abs_err=param_err,
+         params_bitwise=bitwise,
+         losses_bitwise=graph_losses == eager_losses,
+         eager_step_s=eager_s, graph_step_s=graph_s,
+         eager_step_s_median=e, graph_step_s_median=gph,
+         speedup=e / gph, graph_tokens_per_s=tokens / gph,
+         graph_mfu=flops_tok * tokens / gph / BF16_FLOP_PER_S,
+         eager_busy_share=eager_prof["device_busy_share"],
+         graph_busy_share=graph_prof["device_busy_share"],
+         eager_kernels_per_step=eager_prof["kernel_launches"],
+         graph_kernels_per_step=graph_prof["kernel_launches"],
+         graph_launches=info.launches, eager_launches_per_step=eager_launches,
+         replays=step.replays, nan_step_skipped=True,
+         nan_step_state_unchanged=unchanged, skipped=step.skipped)
+    return info.launches
+
+
+def train_graph(dev, kernels):
+    """graph_phase at the Train cell: Llama-3-8B width, 4 layers, bf16,
+    b=4, s=2048."""
+    cfg, model = train_model(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (TRAIN_B, TRAIN_S + 1))
+    batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+             "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+    flops_tok = 6 * n_params + 12 * TRAIN_LAYERS * TRAIN_S * cfg.hidden_size
+    return graph_phase("train_graph", model, batch, TRAIN_FAMILIES, kernels,
+                       TRAIN_B * TRAIN_S, flops_tok)
+
+
+def train_gpt_graph(dev, kernels):
+    """graph_phase at Train-GPT: GPT-2 medium, 24 layers, bf16, b=8,
+    s=1024 (the host-bound cell)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(dtype="bfloat16", hidden_dropout_prob=0.0,
+                    attention_dropout_prob=0.0)
+    seed(0)
+    model = GPTForCausalLM(cfg, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (GPT_B, GPT_S + 1))
+    batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+             "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+    L = cfg.num_hidden_layers
+    flops_tok = 6 * n_params + 12 * L * GPT_S * cfg.hidden_size
+    return graph_phase("train_gpt_graph", model, batch,
+                       ("ce_fwd_kernel", "ce_bwd_kernel", "flash_fwd_hopper",
+                        "flash_dq_hopper", "flash_dkv_hopper"), kernels,
+                       GPT_B * GPT_S, flops_tok)
+
+
+# train_state: the Train model cut to one layer (the vocabulary's 1.05 B
+# embedding and head parameters stay), b=4, s=2048.  Accumulation and
+# remat against the plain step: the slices' and the whole batch's loss are
+# fp32 means of the same bf16 logits in another grouping, and remat
+# recomputes the same kernels: loss 1e-3 relative, each gradient 1e-2 of
+# its largest (one bf16 rounding of sums in another order)
+STATE_LAYERS = 1
+STATE_TOL = {"loss_rel": 1e-3, "grad_of_max": 1e-2}
+
+
+def train_state(dev):
+    """At STATE_LAYERS layers: accum_steps=2 against 1 on the same batch
+    (loss, peak memory), remat_policy "dots" (and "nothing") against no
+    remat (loss, every gradient, peak memory), with lr 0 so the weights
+    stay where they were; then 3 steps, state_dict(), a fresh step of
+    other weights loaded with it, 2 more steps: bitwise equal to 5
+    uninterrupted steps."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg, model = train_model(dev, STATE_LAYERS)
+    ids = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                            (TRAIN_B, TRAIN_S + 1))
+    batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+             "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+    opt = AdamW(learning_rate=0.0, multi_precision=True)
+    params = [p for p in model.parameters()]
+    out = {}
+
+    def run(what, **kw):
+        step = TrainStep(model, opt, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = step._loss(batch)
+        grads = step._grads(loss, params)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        float(step(batch))          # and one whole step through __call__
+        out[what] = {"loss": float(loss.detach()), "peak_mem_gb": peak}
+        return float(loss.detach()), grads
+
+    base_loss, base_grads = run("plain")
+    step = TrainStep(model, opt, accum_steps=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acc_loss = float(step(batch))
+    out["accum_steps=2"] = {"loss": acc_loss, "peak_mem_gb":
+                            torch.cuda.max_memory_allocated() / 2 ** 30}
+    out["accum_steps=2"]["loss_rel_err"] = \
+        abs(acc_loss - base_loss) / abs(base_loss)
+    for policy in ("dots", "nothing"):
+        loss, grads = run(f"remat {policy}", remat=True, remat_policy=policy)
+        worst = max(float((a.float() - b.float()).abs().max() /
+                          b.float().abs().max().clamp_min(1e-30))
+                    for a, b in zip(grads, base_grads))
+        out[f"remat {policy}"].update(
+            loss_rel_err=abs(loss - base_loss) / abs(base_loss),
+            grad_err_of_max=worst)
+        del grads
+    del base_grads
+    bad = {k: v for k, v in out.items()
+           if v.get("loss_rel_err", 0) > STATE_TOL["loss_rel"]
+           or v.get("grad_err_of_max", 0) > STATE_TOL["grad_of_max"]}
+    if bad:
+        raise AssertionError(f"train_state: outside {STATE_TOL}: {bad}")
+    del model, opt, params, step
+    torch.cuda.empty_cache()
+
+    batches = []
+    for i in range(5):
+        ids = np.random.default_rng(10 + i).integers(
+            0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+        batches.append({"input_ids": ids[:, :-1], "labels": ids[:, 1:]})
+
+    def fresh(seed_):
+        _, m = train_model(dev, STATE_LAYERS, seed_)
+        return m, TrainStep(m, graph_optimizer())
+
+    m, step = fresh(0)
+    ref = [float(step(b)) for b in batches]
+    ref_params = [p.detach().cpu() for _, p in step._named]
+    del m, step
+    torch.cuda.empty_cache()
+    m, step = fresh(0)
+    got = [float(step(b)) for b in batches[:3]]
+    t0 = time.perf_counter()
+    saved = step.state_dict()
+    save_s = time.perf_counter() - t0
+    del m, step
+    torch.cuda.empty_cache()
+    m, step = fresh(1)
+    t0 = time.perf_counter()
+    step.set_state_dict(saved)
+    load_s = time.perf_counter() - t0
+    del saved
+    got += [float(step(b)) for b in batches[3:]]
+    same = got == ref and all(
+        torch.equal(p.detach().cpu(), r)
+        for (_, p), r in zip(step._named, ref_params))
+    if not same:
+        raise AssertionError(f"train_state: restored run {got} against "
+                             f"uninterrupted {ref}, parameters equal "
+                             f"{same}")
+    emit("train_state", layers=STATE_LAYERS, batch=TRAIN_B, seq=TRAIN_S,
+         runs=out, tol=STATE_TOL, restore_losses=got,
+         uninterrupted_losses=ref, restore_bitwise=same,
+         state_dict_s=save_s, set_state_dict_s=load_s)
+    del m, step, ref_params
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2813,6 +3318,7 @@ def main():
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
     from paddle_tpu_torch.ops.kernels import fused_block as FB
     from paddle_tpu_torch.ops.kernels import grouped_matmul as GM
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
     from paddle_tpu_torch.distributed import moe as TM
     from paddle_tpu_torch.ops.kernels import quant_matmul as QM
@@ -2879,6 +3385,8 @@ def main():
     norm_rows = kernel_rmsnorm(RN, dev, timer)
     emit("kernels_decoder", results={"fused_decoder_block": dec_rows,
                                      "fused_rmsnorm": norm_rows})
+    mt_rows = kernel_multi_tensor(MT, dev, timer)
+    emit("kernels_multi_tensor", results=mt_rows)
     del timer
     torch.cuda.empty_cache()
 
@@ -2897,6 +3405,10 @@ def main():
     torch.cuda.empty_cache()
     train_launches, train_peak = train(dev, kernels)
     torch.cuda.empty_cache()
+    graph_launches = train_graph(dev, kernels)
+    torch.cuda.empty_cache()
+    train_state(dev)
+    torch.cuda.empty_cache()
     decoder_parity(dev, kernels)
     torch.cuda.empty_cache()
     dec_launches = train_decoder(dev, kernels, train_peak)
@@ -2908,6 +3420,8 @@ def main():
     gpt_parity(dev, kernels)
     torch.cuda.empty_cache()
     gpt_launches = train_gpt(dev, kernels)
+    torch.cuda.empty_cache()
+    gpt_graph_launches = train_gpt_graph(dev, kernels)
     torch.cuda.empty_cache()
     ffn_launches = transformer_infer(dev, kernels)
     torch.cuda.empty_cache()
@@ -3080,6 +3594,25 @@ def main():
                  "path": "train_decoder (norm2 of the recompute)",
                  "launches_norm_residual": norm_launches,
                  "no_residual": {k: r0[k] for k in keys}})
+    # the optimizer step's two port-side kernels (no pallas_call stands
+    # behind them: XLA fuses the reference's per-leaf norm and update);
+    # launches from train's eager steps, train_gpt's beside them, and the
+    # launches each captured graph holds (once a replay)
+    for name, rep_ in (("multi_tensor_norm",
+                        "paddle_tpu/jit/train_step.py:538"),
+                       ("multi_tensor_adam",
+                        "paddle_tpu/optimizer/optimizers.py:144")):
+        r = mt_rows[name]
+        line.append({"name": name, "route": "cuda",
+                     "source": src + "multi_tensor.cu", "replaces": rep_,
+                     "launches": train_launches[name],
+                     **{k: r[k] for k in keys}, "shape": r["shape"],
+                     "path": "train (eager), train_graph (one graph)",
+                     "bitwise": r["bitwise"],
+                     "launches_train_gpt": gpt_launches[name],
+                     "graph_launches_a_replay": {
+                         "train_graph": graph_launches[name],
+                         "train_gpt_graph": gpt_graph_launches[name]}})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

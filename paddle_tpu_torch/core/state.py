@@ -61,3 +61,17 @@ def generator(device) -> torch.Generator:
             g.manual_seed(_seed)
             _generators[key] = g
     return g
+
+
+def renew_generator(device, state: torch.Tensor) -> torch.Generator:
+    """Replace `device`'s generator by a new one at `state` (a CUDA graph
+    capture that fails leaves a generator registered with it in capture
+    mode, where it refuses draws outside a capture)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.set_state(state)
+    with _lock:
+        _generators[str(dev)] = g
+    return g

@@ -223,6 +223,14 @@ class MoEForCausalLM(Layer):
                                           self.lm_head.weight,
                                           labels.reshape(-1))
         aux = self.model.aux_loss()
-        if aux is not None:
-            return ce + self.config.aux_loss_alpha * aux
-        return ce
+        if aux is None:
+            return ce
+        loss = ce + self.config.aux_loss_alpha * aux
+        # the layers keep their aux losses' values, not their graphs: a
+        # graph that outlives its step holds the parameters' gradient
+        # accumulators, bound to the stream they were made on, which a
+        # later CUDA graph capture (on its own stream) cannot wait on
+        for layer in self.model.layers:
+            if not layer.is_dense and layer.moe.aux_loss is not None:
+                layer.moe.aux_loss = layer.moe.aux_loss.detach()
+        return loss

@@ -1,6 +1,8 @@
-"""Layers of the port (``paddle_tpu.nn``)."""
+"""Layers of the port (``paddle_tpu.nn``) and gradient clipping."""
 
 from paddle_tpu_torch.nn import functional
+from paddle_tpu_torch.nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
+                                      ClipGradByValue)
 from paddle_tpu_torch.nn.common_layers import (Dropout, Embedding, LayerList,
                                                Linear)
 from paddle_tpu_torch.nn.layer import Layer
@@ -16,4 +18,5 @@ __all__ = ["Layer", "Linear", "Embedding", "Dropout", "LayerList",
            "LayerNorm", "RMSNorm", "CrossEntropyLoss", "MultiHeadAttention",
            "TransformerEncoderLayer", "TransformerEncoder",
            "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
+           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
            "functional"]

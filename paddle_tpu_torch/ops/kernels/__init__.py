@@ -14,6 +14,8 @@ from paddle_tpu_torch.ops.kernels.fused_block import (GEMM_PATHS,
                                                       fused_ffn, fused_mlp,
                                                       fused_rmsnorm_qkv)
 from paddle_tpu_torch.ops.kernels.grouped_matmul import grouped_expert_ffn
+from paddle_tpu_torch.ops.kernels.multi_tensor import (multi_tensor_adam,
+                                                       multi_tensor_norm)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     PAGED_PATHS, paged_decode_attention, paged_decode_attention_int8)
 from paddle_tpu_torch.ops.kernels import quant_matmul as _qm
@@ -30,14 +32,18 @@ from paddle_tpu_torch.ops.kernels.rmsnorm import fused_rmsnorm
 # block kernel in its forward and, in the backward's recompute, the QKV
 # training variant, flash, the rmsnorm kernel (norm2) and the MLP; a
 # cache-free scoring forward runs the block kernel alone; and
-# F.rms_norm_residual (the residual rmsnorm)
+# F.rms_norm_residual (the residual rmsnorm); and every training step's
+# optimizer with Adam or AdamW: the two multi-tensor kernels (the gradient
+# norm and the update), once a step each
 KERNELS = (fused_rmsnorm_qkv, fused_mlp, paged_decode_attention,
            paged_decode_attention_int8, _qm.quant_matmul,
            flash_attention_fwd, flash_attention_bwd_dq,
            flash_attention_bwd_dkv, grouped_expert_ffn, cross_entropy_fwd,
-           cross_entropy_bwd, fused_ffn, fused_rmsnorm, fused_decoder_block)
+           cross_entropy_bwd, fused_ffn, fused_rmsnorm, fused_decoder_block,
+           multi_tensor_norm, multi_tensor_adam)
 SERVING = (fused_rmsnorm_qkv, fused_mlp, paged_decode_attention)
 SERVING_QUANT = (_qm.quant_matmul, paged_decode_attention_int8)
+MULTI_TENSOR = (multi_tensor_norm, multi_tensor_adam)
 TRAINING = (fused_rmsnorm_qkv, fused_mlp, flash_attention_fwd,
             flash_attention_bwd_dq, flash_attention_bwd_dkv)
 TRAINING_MOE = (fused_mlp, flash_attention_fwd, flash_attention_bwd_dq,
@@ -72,7 +78,8 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "paged_decode_attention",
            "paged_decode_attention_int8", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "grouped_expert_ffn", "cross_entropy_fwd", "cross_entropy_bwd",
-           "fused_ffn", "fused_rmsnorm", "fused_decoder_block", "KERNELS",
-           "SERVING", "SERVING_QUANT", "TRAINING", "TRAINING_MOE",
+           "fused_ffn", "fused_rmsnorm", "fused_decoder_block",
+           "multi_tensor_norm", "multi_tensor_adam", "KERNELS", "SERVING",
+           "SERVING_QUANT", "MULTI_TENSOR", "TRAINING", "TRAINING_MOE",
            "TRAINING_GPT", "TRANSFORMER", "DECODER_TRAINING",
            "DECODER_SCORING", "NORM", "reset_launch_counts"]

@@ -13,6 +13,7 @@ returns the CUDA error of its launch, which :func:`check` raises on."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,14 +28,15 @@ from typing import Dict
 import torch
 
 __all__ = ["library", "build_all", "ptxas_report", "parse_ptxas", "check",
-           "stream_of", "tickets", "workspace", "sm_count", "DTYPE_CODES",
+           "stream_of", "tickets", "workspace", "frozen", "sm_count",
+           "DTYPE_CODES",
            "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_block", "paged_attention", "flash_attention",
            "quant_matmul", "grouped_matmul", "cross_entropy", "rmsnorm",
-           "fused_decoder")
+           "fused_decoder", "multi_tensor")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of the C interface (csrc/common.cuh, enum DType): the io
@@ -86,6 +88,12 @@ _SIGNATURES = {
         "ptt_fused_decoder": [_I] + [_P] * 20 + [_I] * 8 + [_F, _P, _P],
         "ptt_fused_decoder_grid": [_I, _P],
     },
+    "multi_tensor": {
+        "ptt_mt_chunk": [],
+        "ptt_mt_norm": [_P, _I, _L, _P, _P, _P, _P],
+        "ptt_mt_adam": [_P, _I, _L, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P,
+                        _P, _P],
+    },
     "grouped_matmul": {
         "ptt_grouped_ffn_up": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _P, _P],
@@ -99,6 +107,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _tickets: Dict[tuple, torch.Tensor] = {}
 _workspaces: Dict[tuple, torch.Tensor] = {}
 _sms: Dict[torch.device, int] = {}
+_frozen = []        # non-empty while no ticket or workspace may be allocated
 
 
 def _nvcc() -> str:
@@ -248,6 +257,7 @@ def tickets(owner: str, device, n: int) -> torch.Tensor:
     key = (owner, device)
     t = _tickets.get(key)
     if t is None or t.numel() < n:
+        _refuse_growth("tickets", owner, n)
         t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                         device=device)
     return t
@@ -263,9 +273,30 @@ def workspace(owner: str, device, nbytes: int) -> int:
     key = (owner, device)
     t = _workspaces.get(key)
     if t is None or t.numel() < nbytes:
+        _refuse_growth("workspace", owner, nbytes)
         t = _workspaces[key] = torch.empty(max(nbytes, 1 << 16),
                                            dtype=torch.uint8, device=device)
     return t.data_ptr()
+
+
+def _refuse_growth(kind, owner, n):
+    if _frozen:
+        raise RuntimeError(
+            f"{owner} needs a {kind} of {n} that does not exist yet, inside "
+            f"{_frozen[-1]}: a buffer allocated there would land in the CUDA "
+            "graph's private pool (run the same call once before it)")
+
+
+@contextlib.contextmanager
+def frozen(what: str):
+    """Inside the block, :func:`tickets` and :func:`workspace` raise
+    rather than allocate or grow a buffer (a CUDA graph's capture: every
+    kept buffer must exist before it)."""
+    _frozen.append(what)
+    try:
+        yield
+    finally:
+        _frozen.pop()
 
 
 def sm_count(device) -> int:

@@ -237,6 +237,16 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
 flash_attention_bwd_dkv.launches = 0
 
 
+@torch.library.custom_op("ptt::flash_attention_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: float | None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as a dispatcher op, which the custom VJP
+    calls, so a selective remat policy sees it (fused_block.py says
+    why)."""
+    return flash_attention_fwd(q, k, v, causal, scale)
+
+
 class FlashAttention(torch.autograd.Function):
     """``_flash_core``'s custom VJP: the forward kernel saves
     ``(q, k, v, out, lse)``; the backward is the dq and dk/dv kernels
@@ -244,7 +254,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        out, lse = flash_fwd_op(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out

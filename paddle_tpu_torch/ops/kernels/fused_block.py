@@ -416,6 +416,35 @@ fused_ffn.launches = 0
 fused_ffn.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
+# -- the wrappers as dispatcher ops -------------------------------------------
+# The custom VJPs' forwards call these, so a selective remat policy (the
+# "dots" policies of jit/train_step.py) sees the products the kernels
+# compute inside their C calls and can keep their results.
+
+T_ = torch.Tensor
+
+
+@torch.library.custom_op("ptt::fused_rmsnorm_qkv", mutates_args=())
+def qkv_train_op(x: T_, norm_weight: T_, wq: T_, wk: T_, wv: T_,
+                 epsilon: float) -> tuple[T_, T_, T_, T_, T_]:
+    """``fused_rmsnorm_qkv(..., residuals=True)``: q, k, v, xn, inv."""
+    return fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon,
+                             residuals=True)
+
+
+@torch.library.custom_op("ptt::fused_mlp", mutates_args=())
+def mlp_op(x: T_, w_gate: T_, w_up: T_, w_down: T_) -> T_:
+    """``fused_mlp``."""
+    return fused_mlp(x, w_gate, w_up, w_down)
+
+
+@torch.library.custom_op("ptt::fused_ffn", mutates_args=())
+def ffn_op(x: T_, w1: T_, b1: T_ | None, w2: T_, b2: T_ | None,
+           activation: str) -> T_:
+    """``fused_ffn``."""
+    return fused_ffn(x, w1, w2, b1, b2, activation)
+
+
 # -- custom VJPs --------------------------------------------------------------
 
 class FusedRMSNormQKV(torch.autograd.Function):
@@ -428,8 +457,8 @@ class FusedRMSNormQKV(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, norm_weight, wq, wk, wv, epsilon):
-        q, k, v, xn, inv = fused_rmsnorm_qkv(x2d, norm_weight, wq, wk, wv,
-                                             epsilon, residuals=True)
+        q, k, v, xn, inv = qkv_train_op(x2d, norm_weight, wq, wk, wv,
+                                        epsilon)
         ctx.save_for_backward(x2d, norm_weight, wq, wk, wv, xn, inv)
         return q, k, v
 
@@ -463,7 +492,7 @@ class FusedMLP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, w_gate, w_up, w_down):
         ctx.save_for_backward(x2d, w_gate, w_up, w_down)
-        return fused_mlp(x2d, w_gate, w_up, w_down)
+        return mlp_op(x2d, w_gate, w_up, w_down)
 
     @staticmethod
     def backward(ctx, dy):
@@ -499,7 +528,7 @@ class FusedFFN(torch.autograd.Function):
     def forward(ctx, x2d, w1, b1, w2, b2, activation):
         ctx.save_for_backward(x2d, w1, b1, w2, b2)
         ctx.activation = activation
-        return fused_ffn(x2d, w1, w2, b1, b2, activation)
+        return ffn_op(x2d, w1, b1, w2, b2, activation)
 
     @staticmethod
     def backward(ctx, dy):
@@ -734,6 +763,16 @@ fused_decoder_block.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 fused_decoder_block.routes = {"decoder": 0, "segments": 0}
 
 
+@torch.library.custom_op("ptt::fused_decoder_block", mutates_args=())
+def decoder_op(x: T_, wn1: T_, wq: T_, wk: T_, wv: T_, rope_cos: T_,
+               rope_sin: T_, wo: T_, wn2: T_, wg: T_, wu: T_, wd: T_,
+               num_heads: int, num_kv_heads: int, epsilon: float) -> T_:
+    """``fused_decoder_block``."""
+    return fused_decoder_block(x, wn1, wq, wk, wv, rope_cos, rope_sin, wo,
+                               wn2, wg, wu, wd, num_heads, num_kv_heads,
+                               epsilon)
+
+
 class FusedDecoderBlock(torch.autograd.Function):
     """``_decoder_fwd`` / ``_decoder_bwd`` (``fused_block.py:1086-1107``):
     block-boundary remat.  The forward is ``fused_decoder_block`` (one
@@ -749,9 +788,8 @@ class FusedDecoderBlock(torch.autograd.Function):
         ctx.save_for_backward(x, wn1, wq, wk, wv, rope_cos, rope_sin, wo,
                               wn2, wg, wu, wd)
         ctx.config = (num_heads, num_kv_heads, epsilon)
-        return fused_decoder_block(x, wn1, wq, wk, wv, rope_cos, rope_sin,
-                                   wo, wn2, wg, wu, wd, num_heads,
-                                   num_kv_heads, epsilon)
+        return decoder_op(x, wn1, wq, wk, wv, rope_cos, rope_sin, wo, wn2,
+                          wg, wu, wd, num_heads, num_kv_heads, epsilon)
 
     @staticmethod
     def backward(ctx, dy):

@@ -158,6 +158,16 @@ def _bmm_f32(a, b):
     return torch.bmm(a, b, out_dtype=torch.float32)
 
 
+@torch.library.custom_op("ptt::grouped_expert_ffn", mutates_args=())
+def grouped_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: torch.Tensor, b2: torch.Tensor, counts: torch.Tensor,
+               act: str) -> torch.Tensor:
+    """``grouped_expert_ffn`` as a dispatcher op, which the custom VJP
+    calls, so a selective remat policy sees it (fused_block.py says
+    why)."""
+    return grouped_expert_ffn(x, w1, b1, w2, b2, counts, act)
+
+
 class GroupedExpertFFN(torch.autograd.Function):
     """``_grouped_core``'s custom VJP: the forward is the wrapper (the
     kernel pair on the card); the backward is ``_grouped_bwd``
@@ -172,7 +182,8 @@ class GroupedExpertFFN(torch.autograd.Function):
         if counts is None:
             counts = torch.full((G,), C, dtype=torch.int32, device=x.device)
         ctx.save_for_backward(x, w1, b1, w2, b2, counts)
-        return grouped_expert_ffn(x, w1, b1, w2, b2, counts, act)
+        _check_act(act)     # every activation taken is the exact gelu
+        return grouped_op(x, w1, b1, w2, b2, counts, "gelu")
 
     @staticmethod
     def backward(ctx, dy):

@@ -1926,3 +1926,278 @@ def test_rms_norm_residual_without_a_residual_on_the_card(dev):
     for got, ref in zip(out[1], out[0]):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
                                    atol=1e-5)
+
+
+# -- the optimizer step: the multi-tensor kernels and the CUDA graph ----------
+
+def _mixed_set(rng, dev):
+    """A parameter set of every kind the update takes: fp32; bf16 with an
+    fp32 master; bf16 without (its gradient bf16, or fp32 as accumulation
+    gives it); one tensor spanning several 2^16-element chunks; an empty
+    one.  ``(params, grads, masters)``."""
+    specs = [((300, 257), torch.float32, torch.float32, False),
+             (((1 << 18) + 77,), torch.bfloat16, torch.bfloat16, True),
+             ((33, 65), torch.bfloat16, torch.bfloat16, False),
+             ((513,), torch.bfloat16, torch.float32, False),
+             ((0,), torch.float32, torch.float32, False)]
+    params, grads, masters = [], [], []
+    for shape, pdt, gdt, master in specs:
+        p = _t(rng, shape, pdt, dev)
+        params.append(p)
+        grads.append(_t(rng, shape, gdt, dev, 0.1))
+        masters.append(p.float() + 1e-3 if master else None)
+    return params, grads, masters
+
+
+def test_multi_tensor_chunk_matches_the_library(dev):
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    assert _build.library("multi_tensor").ptt_mt_chunk() == MT.CHUNK
+
+
+def test_multi_tensor_norm_matches_plain(dev):
+    """The global norm over the mixed set against its plain version (fp32
+    sums in another order: 1e-6 relative), one launch a call, and two
+    launches bitwise equal (partials summed in a fixed order)."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    _, grads, _ = _mixed_set(np.random.default_rng(31), dev)
+    n0 = MT.multi_tensor_norm.launches
+    got = MT.multi_tensor_norm(grads)
+    again = MT.multi_tensor_norm(grads)
+    assert MT.multi_tensor_norm.launches == n0 + 2
+    ref = MT.norm_reference(grads)
+    torch.cuda.synchronize()
+    assert got.shape == () and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
+    assert float(MT.multi_tensor_norm(grads[-1:])) == 0.0
+    nan = [g.clone() for g in grads]
+    nan[2].view(-1)[5] = float("nan")
+    assert not torch.isfinite(MT.multi_tensor_norm(nan))
+
+
+@pytest.mark.parametrize("decoupled", [False, True])
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("keep", [None, True, False])
+def test_multi_tensor_adam_matches_plain(dev, decoupled, clip, keep):
+    """One launch of the Adam / AdamW update over the mixed set, two
+    updates, against its plain version on the same card (the same
+    operations in the same order, fp32, the bias corrections from the
+    same powf): every parameter, moment and master bitwise equal; with
+    keep False nothing is written."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    params, grads, masters = _mixed_set(np.random.default_rng(32), dev)
+    sets = []
+    for _ in range(2):
+        sets.append(([p.clone() for p in params],
+                     [torch.rand(p.shape, device=dev) * 0.01
+                      for p in params],
+                     [torch.rand(p.shape, device=dev) * 1e-4
+                      for p in params],
+                     [None if m is None else m.clone() for m in masters]))
+    for a, b in zip(sets[0][1] + sets[0][2], sets[1][1] + sets[1][2]):
+        b.copy_(a)
+    first = [t.clone() for t in sets[0][0] + sets[0][1] + sets[0][2]]
+    scale = torch.tensor(0.6, device=dev) if clip else None
+    keep_t = None if keep is None else torch.tensor(keep, device=dev)
+    n0 = MT.multi_tensor_adam.launches
+    for step in (1, 2):
+        for i, (ps, ms, vs, mast) in enumerate(sets):
+            fn = MT.multi_tensor_adam if i == 0 else _plain_adam
+            fn(ps, grads, ms, vs, mast, lr=torch.tensor(1e-2, device=dev),
+               step=torch.tensor(step, dtype=torch.int32, device=dev),
+               beta1=0.9, beta2=0.95, epsilon=1e-8,
+               weight_decays=[0.1, 0.0, 0.05, 0.1, 0.1], decoupled=decoupled,
+               multi_precision=True, scale=scale, keep=keep_t)
+    assert MT.multi_tensor_adam.launches == n0 + 2
+    torch.cuda.synchronize()
+    kernel, plain = sets
+    for a, b in zip(kernel[0] + kernel[1] + kernel[2],
+                    plain[0] + plain[1] + plain[2]):
+        assert torch.equal(a, b)
+    for a, b in zip(kernel[3], plain[3]):
+        assert (a is None and b is None) or torch.equal(a, b)
+    changed = [not torch.equal(a, b) for a, b in zip(
+        kernel[0] + kernel[1] + kernel[2], first) if a.numel()]
+    assert not any(changed) if keep is False else all(changed)
+
+
+def _plain_adam(params, grads, m, v, masters, **kw):
+    """multi_tensor_adam's plain version on CUDA tensors."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    wds = kw.pop("weight_decays")
+    for p, g, mm, vv, ms, wd in zip(params, grads, m, v, masters, wds):
+        MT.adam_reference(p, g, mm, vv, ms, weight_decay=wd, **kw)
+
+
+def test_multi_tensor_kernels_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    half = torch.zeros(8, dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        MT.multi_tensor_norm([half])
+    strided = torch.zeros(8, 8, device=dev).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        MT.multi_tensor_norm([strided])
+    p = torch.zeros(8, device=dev)
+    with pytest.raises(TypeError, match="masters"):
+        MT.multi_tensor_adam([p], [p.clone()], [p.clone()], [p.clone()],
+                             [p.clone()], lr=1e-3, step=1)
+
+
+def _graph_model(dev, dtype="float32", seed_=0):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           max_position_embeddings=256, dtype=dtype)
+    seed(seed_)
+    return cfg, LlamaForCausalLM(cfg, device=dev)
+
+
+def _graph_step(model):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, T_max=10),
+                            warmup_steps=2, start_lr=1e-4, end_lr=1e-3)
+    return TrainStep(model, AdamW(learning_rate=sched, multi_precision=True,
+                                  grad_clip=ClipGradByGlobalNorm(1.0)))
+
+
+def _ids(cfg, seed_, b=2, s=128):
+    ids = np.random.default_rng(seed_).integers(0, cfg.vocab_size,
+                                                (b, s + 1))
+    return {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_graph_replays_the_eager_step(dev, dtype):
+    """A small model's step captured as one CUDA graph and replayed three
+    times against three eager steps of a copy from the same weights
+    (schedule, clip, masters): the same kernels in the same order, so
+    losses and parameters within fp32 rounding of each other (1e-6
+    relative; in practice equal); the graph holds every kernel once a
+    step, the wrappers' counters do not move under replay, and the
+    skip-code read is the only host wait."""
+    from paddle_tpu_torch.ops import kernels
+    cfg, model = _graph_model(dev, dtype)
+    _, ref_model = _graph_model(dev, dtype)
+    step, ref = _graph_step(model), _graph_step(ref_model)
+    info = step.compile(_ids(cfg, 0))
+    assert info.graph
+    want = {fn.__name__ for fn in kernels.TRAINING + kernels.MULTI_TENSOR}
+    assert want <= set(info.launches)
+    assert info.launches["multi_tensor_adam"] == 1
+    assert info.launches["multi_tensor_norm"] == 1
+    for i in range(3):
+        batch = _ids(cfg, 10 + i)
+        kernels.reset_launch_counts()
+        got = step(batch)
+        assert all(fn.launches == 0 for fn in kernels.KERNELS)
+        exp = ref(batch)
+        np.testing.assert_allclose(float(got), float(exp), rtol=1e-6)
+    assert step.replays == 3 and step.step_count == ref.step_count == 3
+    for n, p in ref.params.items():
+        np.testing.assert_allclose(step.params[n].float().cpu().numpy(),
+                                   p.float().cpu().numpy(), rtol=1e-6,
+                                   atol=1e-7, err_msg=n)
+
+
+def test_train_step_graph_skips_a_nonfinite_step(dev):
+    """A NaN in a weight inside the captured graph: skip code 1, the
+    skip counted, parameters, moments, masters and the device count
+    bitwise as they were."""
+    cfg, model = _graph_model(dev, "bfloat16")
+    step = _graph_step(model)
+    batch = _ids(cfg, 1)
+    step.compile(batch)
+    step(batch)
+    with torch.no_grad():
+        model.model.norm.weight[7] = float("nan")
+    opt = step.optimizer
+    before = [t.clone() for _, p in step._named for t in
+              [p.detach()] + list(opt._accumulators[id(p)].values())]
+    count = step._count.clone()
+    loss = step(batch)
+    assert not torch.isfinite(loss) and step.replays == 2
+    assert step.skipped["nonfinite_loss"] == 1 and step.step_count == 1
+    after = [t for _, p in step._named for t in
+             [p.detach()] + list(opt._accumulators[id(p)].values())]
+    for a, b in zip(after, before):
+        assert torch.equal(a.view(torch.uint8) if a.dtype != torch.bfloat16
+                           else a.view(torch.int16),
+                           b.view(torch.uint8) if b.dtype != torch.bfloat16
+                           else b.view(torch.int16))
+    assert torch.equal(step._count, count)
+
+
+def test_compile_raises_when_the_capture_fails(dev):
+    """A loss that reads a value on the host cannot be captured: compile
+    raises, and nothing runs the body eagerly in its place."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg, model = _graph_model(dev)
+
+    def host_read(logits, labels):
+        scale = float(logits.detach().abs().max() > 0)   # waits for the card
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1)) * scale
+    step = TrainStep(model, AdamW(learning_rate=1e-3), loss_fn=host_read)
+    b = _ids(cfg, 2)
+    with pytest.raises(RuntimeError):
+        step.compile((b["input_ids"], b["labels"]))
+    assert step._graph is None and step.step_count == 0
+
+
+def test_device_prefetch_on_the_card(dev):
+    """Batches land on the card in order, through pinned memory and a side
+    stream that the consumer's stream waits on."""
+    from paddle_tpu_torch.io import device_prefetch
+    src = [{"ids": np.full((4, 1024), i, dtype=np.int64)} for i in range(6)]
+    with device_prefetch(src, depth=2, device=dev) as it:
+        out = [b["ids"].sum() for b in it]
+    assert [int(x) for x in out] == [4096 * i for i in range(6)]
+
+
+def _moe_model(dev, mode):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import ErnieForCausalLM, ernie45_moe_config
+    cfg = ernie45_moe_config(
+        vocab_size=256, hidden_size=256, intermediate_size=256,
+        moe_intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=2, num_key_value_heads=1, num_experts=4,
+        num_experts_per_tok=2, num_shared_experts=1,
+        max_position_embeddings=256, dtype="bfloat16", dispatch_mode=mode)
+    seed(0)
+    return cfg, ErnieForCausalLM(cfg, device=dev)
+
+
+@pytest.mark.parametrize("kind", ["moe_einsum", "moe_index", "decoder"])
+def test_train_step_graph_captures_moe_and_the_decoder_tier(dev, kind,
+                                                             monkeypatch):
+    """The MoE step (both dispatch modes: the capacity comes from shapes
+    alone) and the decoder tier's step (the block's cooperative launch)
+    captured as one graph each: two replays against two eager steps of a
+    copy from the same weights, bf16, losses within 1e-6 relative (the
+    same kernels in the same order)."""
+    if kind == "decoder":
+        monkeypatch.setenv("PADDLE_TPU_FUSED_BLOCK", "decoder")
+        make = lambda: _graph_model(dev, "bfloat16")
+    else:
+        make = lambda: _moe_model(dev, kind.split("_")[1])
+    cfg, model = make()
+    _, ref_model = make()
+    step, ref = _graph_step(model), _graph_step(ref_model)
+    info = step.compile(_ids(cfg, 0))
+    assert info.graph and info.launches
+    if kind == "decoder":
+        assert info.launches["fused_decoder_block"] == 2
+    else:
+        assert info.launches["grouped_expert_ffn"] == 1
+    for i in range(2):
+        batch = _ids(cfg, 20 + i)
+        got, exp = step(batch), ref(batch)
+        assert torch.isfinite(got)
+        np.testing.assert_allclose(float(got), float(exp), rtol=1e-6)
+    assert step.replays == 2

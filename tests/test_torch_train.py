@@ -140,10 +140,11 @@ def test_engine_forward_builds_no_graph():
 
 def test_adamw_multi_precision_matches_jax():
     """bf16 parameters with an fp32 master, weight decay 0.01, three
-    updates from fixed bf16 grads, against ``AdamW.apply_gradients``.
-    Master and moments agree to fp32 rounding (the bias corrections are
-    taken in double here, fp32 there: 1e-6); the bf16 parameters are the
-    masters' rounding, and within one bf16 step of JAX's."""
+    updates from fixed bf16 grads, against ``AdamW.apply_gradients`` at
+    an int32 device count, as the JAX ``TrainStep`` calls it (the bias
+    corrections in fp32 on both sides).  Master and moments agree to
+    fp32 rounding (1e-6); the bf16 parameters are the masters' rounding,
+    and within one bf16 step of JAX's."""
     import ml_dtypes
     rng = np.random.default_rng(2)
     shapes = {"w": (8, 16), "b": (16,)}
@@ -157,7 +158,8 @@ def test_adamw_multi_precision_matches_jax():
     js = jopt.init_state_pytree(jp)
     for i, g in enumerate(grads):
         jp, js = jopt.apply_gradients(jp, {n: jnp.asarray(a)
-                                           for n, a in g.items()}, js, i + 1)
+                                           for n, a in g.items()}, js,
+                                      jnp.asarray(i + 1, jnp.int32))
     tp = [torch.from_numpy(p0[n].view(np.int16)).view(torch.bfloat16)
           .clone().requires_grad_(True) for n in shapes]
     opt = AdamW(learning_rate=1e-2, weight_decay=0.01, parameters=tp,
@@ -191,7 +193,8 @@ def test_adam_l2_decay_folds_into_the_gradient():
     jp, _ = jopt.apply_gradients({"p": jnp.asarray(p0)},
                                  {"p": jnp.asarray(g)},
                                  jopt.init_state_pytree(
-                                     {"p": jnp.asarray(p0)}), 1)
+                                     {"p": jnp.asarray(p0)}),
+                                 jnp.asarray(1, jnp.int32))
     t = torch.from_numpy(p0.copy()).requires_grad_(True)
     opt = Adam(learning_rate=1e-2, weight_decay=0.1, parameters=[t])
     t.grad = torch.from_numpy(g)
@@ -201,21 +204,23 @@ def test_adam_l2_decay_folds_into_the_gradient():
 
 
 def test_unported_options_name_the_roadmap():
+    """What stays unported raises, naming its queue 1 item: meshes,
+    ``param_specs`` and ``shardings`` (item 8), and a row-sparse
+    gradient, in the optimizer (``lazy_mode`` itself is ported: dense
+    gradients take the same update) and in the global clip (item 7)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        AdamW(grad_clip=object())
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        AdamW(lazy_mode=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        AdamW(lr_ratio=lambda p: 1.0)
     opt = AdamW()
-    for kw in (dict(accum_steps=2), dict(remat=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    for kw in (dict(mesh=object()), dict(param_specs={}),
+               dict(shardings={})):
+        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
             TrainStep(tm, opt, **kw)
-    step = TrainStep(tm, opt)
-    for call in (lambda: step.compile({}), step.state_dict):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            call()
+    p = torch.zeros(4, 3, requires_grad=True)
+    p.grad = torch.sparse_coo_tensor([[0, 2]], torch.ones(2, 3), (4, 3))
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        Adam(parameters=[p], lazy_mode=True).step()
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        ClipGradByGlobalNorm(1.0)([(p, p.grad)])
 
 
 # -- the training step --------------------------------------------------------
