@@ -395,7 +395,7 @@ class TrainStep:
         # update, each table rounded up to 64 bytes, and room to spare
         nbytes = 256 * len(self._named) + (1 << 16)
         try:
-            with _build.frozen("TrainStep.compile's capture"), \
+            with _build.frozen("TrainStep.compile's capture") as held, \
                     torch.cuda.graph(graph), \
                     _mt.capture_tables(dev, nbytes) as arena:
                 out = self._body(self._static_batch)
@@ -408,7 +408,8 @@ class TrainStep:
         after = _launch_counts()
         torch.cuda.synchronize(dev)
         self._graph, self._static_out = graph, out
-        self._graph_tables = [arena] + tables
+        # every buffer whose address the graph holds lives as long as it
+        self._graph_tables = [arena] + tables + held
         return {k: after[k] - before[k] for k in after
                 if after[k] != before[k]}
 

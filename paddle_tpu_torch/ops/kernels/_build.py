@@ -23,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -108,6 +108,7 @@ _tickets: Dict[tuple, torch.Tensor] = {}
 _workspaces: Dict[tuple, torch.Tensor] = {}
 _sms: Dict[torch.device, int] = {}
 _frozen = []        # non-empty while no ticket or workspace may be allocated
+_held: List[list] = []  # the buffers handed out inside each frozen block
 
 
 def _nvcc() -> str:
@@ -260,6 +261,7 @@ def tickets(owner: str, device, n: int) -> torch.Tensor:
         _refuse_growth("tickets", owner, n)
         t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
                                         device=device)
+    _hold(t)
     return t
 
 
@@ -276,7 +278,13 @@ def workspace(owner: str, device, nbytes: int) -> int:
         _refuse_growth("workspace", owner, nbytes)
         t = _workspaces[key] = torch.empty(max(nbytes, 1 << 16),
                                            dtype=torch.uint8, device=device)
+    _hold(t)
     return t.data_ptr()
+
+
+def _hold(t):
+    if _held and not any(h is t for h in _held[-1]):
+        _held[-1].append(t)
 
 
 def _refuse_growth(kind, owner, n):
@@ -291,12 +299,17 @@ def _refuse_growth(kind, owner, n):
 def frozen(what: str):
     """Inside the block, :func:`tickets` and :func:`workspace` raise
     rather than allocate or grow a buffer (a CUDA graph's capture: every
-    kept buffer must exist before it)."""
+    kept buffer must exist before it).  Yields the list of the buffers
+    they hand out inside it: a captured graph keeps its addresses, so
+    its owner keeps these alive (a later call that grows a buffer
+    replaces it in the cache, and the graph's would be freed)."""
     _frozen.append(what)
+    _held.append([])
     try:
-        yield
+        yield _held[-1]
     finally:
         _frozen.pop()
+        _held.pop()
 
 
 def sm_count(device) -> int:

@@ -12,8 +12,9 @@
 //
 // What bounds them: bytes.  The norm reads every gradient once (Train's
 // 1.92 B bf16 gradients: 3.8 GB, 1.15 ms at 3.35 TB/s); the update reads
-// param, grad, both moments and the master and writes param, moments and
-// master (30 bytes a bf16 parameter with a master: 57.6 GB, 17.2 ms).
+// grad, both moments and the master (or the param, where it has none)
+// and writes param, moments and master (28 bytes a bf16 parameter with a
+// master: 53.8 GB, 16.1 ms).
 //
 // Design (first, simple): the tensors are cut into chunks of 2^16
 // elements; the table gives each tensor its pointers, element count,

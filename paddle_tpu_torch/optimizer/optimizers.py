@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.ops.kernels.multi_tensor import (adam_rule,
-                                                       bias_correction,
+from paddle_tpu_torch.ops.kernels.multi_tensor import (bias_correction,
                                                        multi_tensor_adam)
 from paddle_tpu_torch.optimizer.optimizer import Optimizer
 
@@ -69,14 +68,6 @@ class Adam(Optimizer):
         """The decoupled decay coefficient of parameter `name`; None for
         Adam, whose weight decay is L2 folded into the gradient."""
         return None
-
-    def _update(self, p, g, s, lr, step):
-        bc1 = bias_correction(self._beta1, step, p.device)
-        bc2 = bias_correction(self._beta2, step, p.device)
-        w, m, v = adam_rule(p.float(), g.float(), s["moment1"], s["moment2"],
-                            lr, bc1, bc2, self._beta1, self._beta2, self._eps,
-                            self._decoupled_wd(self._current_param_name))
-        return w, {"moment1": m, "moment2": v}
 
     def _update_all(self, names, params, grads, lr, step, scale, keep):
         """Every parameter in one ``multi_tensor_adam`` call."""

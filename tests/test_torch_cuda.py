@@ -2131,6 +2131,39 @@ def test_train_step_graph_skips_a_nonfinite_step(dev):
     assert torch.equal(step._count, count)
 
 
+def test_train_step_graph_keeps_its_workspaces(dev):
+    """After compile(), an eager norm over more tensors than the step's
+    grows the norm's cached workspace: the graph keeps the buffer it
+    captured, so its replays write into no tensor allocated since and
+    stay equal to the eager step."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    cfg, model = _graph_model(dev)
+    _, ref_model = _graph_model(dev)
+    step, ref = _graph_step(model), _graph_step(ref_model)
+    step.compile(_ids(cfg, 0))
+    key = next(k for k in _build._workspaces if k[0] == "multi_tensor_norm")
+    captured = _build._workspaces[key]
+    assert any(t is captured for t in step._graph_tables)
+    # a chunk and a tensor partial each: 8 bytes a tensor
+    ones = torch.ones(captured.numel() // 8 + 1, device=dev)
+    many = [ones[i:i + 1] for i in range(ones.numel())]
+    assert float(MT.multi_tensor_norm(many)) == \
+        pytest.approx(ones.numel() ** 0.5)
+    assert _build._workspaces[key] is not captured
+    # blocks of the captured buffer's size, where a freed one would land
+    fill = [torch.full((captured.numel() // 4,), 7.0, device=dev)
+            for _ in range(16)]
+    for i in range(3):
+        batch = _ids(cfg, 10 + i)
+        got, exp = step(batch), ref(batch)
+        np.testing.assert_allclose(float(got), float(exp), rtol=1e-6)
+    assert all(bool((f == 7.0).all()) for f in fill)
+    for n, p in ref.params.items():
+        np.testing.assert_allclose(step.params[n].float().cpu().numpy(),
+                                   p.float().cpu().numpy(), rtol=1e-6,
+                                   atol=1e-7, err_msg=n)
+
+
 def test_compile_raises_when_the_capture_fails(dev):
     """A loss that reads a value on the host cannot be captured: compile
     raises, and nothing runs the body eagerly in its place."""

@@ -290,11 +290,23 @@ def _mixed(seed):
 def test_multi_tensor_adam_plain_version_matches_the_per_parameter_rule(
         decoupled, keep):
     """``multi_tensor_adam`` on CPU tensors (the plain version, what the
-    kernel is held against) against the optimizer's per-parameter path
-    (clip, fp32 cast, L2 decay, master, rule, in place) on the same mixed
-    set, over two updates with a clip scale, per-parameter decay and the
-    keep flag: bitwise equal; with keep False nothing changes."""
-    cls = topt.AdamW if decoupled else topt.Adam
+    kernel is held against) against the optimizers' per-parameter path
+    (clip, fp32 cast, L2 decay, master, rule, in place; the one the
+    other rules take) with Adam's rule as its ``_update``, on the same
+    mixed set, over two updates with a clip scale, per-parameter decay
+    and the keep flag: bitwise equal; with keep False nothing changes."""
+    base = topt.AdamW if decoupled else topt.Adam
+
+    class cls(base):
+        def _update(self, p, g, s, lr, step):
+            bc1 = MT.bias_correction(self._beta1, step, p.device)
+            bc2 = MT.bias_correction(self._beta2, step, p.device)
+            w, m, v = MT.adam_rule(
+                p.float(), g.float(), s["moment1"], s["moment2"], lr, bc1,
+                bc2, self._beta1, self._beta2, self._eps,
+                self._decoupled_wd(self._current_param_name))
+            return w, {"moment1": m, "moment2": v}
+
     pa, ga, ma = _mixed(7)
     pb = [p.clone() for p in pa]
     opt = cls(learning_rate=0.01, weight_decay=0.05, multi_precision=False)

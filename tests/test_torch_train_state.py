@@ -227,6 +227,31 @@ def test_compiled_body_skips_a_nonfinite_step_bitwise():
     assert opt.get_lr() != lr
 
 
+def test_frozen_hands_the_capture_its_buffers():
+    """Inside ``_build.frozen`` (a CUDA graph's capture) a workspace or
+    ticket array is handed out only if it exists, and the block yields
+    every one it handed out: the graph's owner keeps them, so a later
+    call that grows the cached buffer leaves the captured one alive."""
+    from paddle_tpu_torch.ops.kernels import _build
+    dev = torch.device("cpu")
+    owner = "test_frozen"
+    _build.workspace(owner, dev, 100)
+    _build.tickets(owner, dev, 4)
+    with _build.frozen("a capture") as held:
+        ptr = _build.workspace(owner, dev, 100)
+        _build.workspace(owner, dev, 50)
+        tickets = _build.tickets(owner, dev, 4)
+        with pytest.raises(RuntimeError, match="inside a capture"):
+            _build.workspace(owner, dev, 1 << 20)
+    assert [t.data_ptr() for t in held] == [ptr, tickets.data_ptr()]
+    assert _build.workspace(owner, dev, 1 << 20) != ptr
+    assert held[0].data_ptr() == ptr and held[0].numel() == 1 << 16
+    with _build.frozen("another") as none:
+        pass
+    assert none == []
+    del _build._workspaces[(owner, dev)], _build._tickets[(owner, dev)]
+
+
 def test_jax_state_dict_continues_in_the_port():
     """Two JAX updates (schedule, clip, fp32 masters), its
     ``state_dict()`` loaded into a fresh port step (params, moments,
