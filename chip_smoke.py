@@ -191,6 +191,32 @@ train_moe two, one per engine or dispatch mode):
             train_graph's comparison at Train-GPT's shape.
             train_moe_graph (each dispatch mode) and train_decoder_graph:
             those cells' steps captured too, replayed three times.
+13. graphs  the serving engine's programs and generate() as CUDA
+            graphs (the serve model, after serve_quant).  static_parity
+            (after parity_quant): the 2-layer models through the
+            static-cache path, logits within 5% of their largest.
+            serve_quant_graph (in serve_quant): each quantized engine
+            again after aot_warmup, its tokens equal to the eager run's.
+            serve_graph: Serve's engine after aot_warmup (the decode
+            replayed as one CUDA graph a step), tokens equal to the
+            eager Serve run's, then profile_graph; again at
+            steps_per_sync=4 and sampled (top_k=50, seed 7), each against
+            an eager engine of the same settings; eager beside graphed:
+            decode and output tokens/s, TTFT, busy share, the decode
+            kernels' device ms a step, the replays' CUDA-event ms,
+            capture seconds, launches a replay.  serve_spec:
+            spec_decode=4, graphed, prompts holding a 64-token span
+            twice: every request "ok" with 32 tokens; drafts proposed and
+            accepted, tokens a verify, agreement with a graphed non-spec
+            run (reported).  serve_static: paged_kv=False, buckets
+            128..768, eager and graphed (decode, a prefill a bucket, the
+            insert): tokens equal; QKV and MLP launched, paged decode
+            not.  generate: LlamaForCausalLM.generate at batch 4, prompt
+            512, 64 new (greedy), then GPT-2 medium (24 layers, bf16) at
+            batch 8, prompt 256, 64 new: the tokens of a first and a
+            timed call equal a step-by-step loop over the same
+            static-cache forward, exactly; tokens/s and ms a step of
+            each; the EOS / pad rule on a forced EOS id.
 
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -1337,6 +1363,10 @@ def train_parity(dev):
 # -- phase 6: serve the full model -------------------------------------------
 
 SERVE_LENGTHS = [64, 150, 256, 333, 420, 512, 600, 700]
+# the Serve cell's engine: the paged engine, passed explicitly (the
+# engine's default follows PADDLE_TPU_PAGED_KV, off as in JAX)
+SERVE_ENGINE = dict(slots=8, max_len=1024, kv_block_size=16,
+                    prefill_chunk=256, paged_kv=True)
 
 def serve(dev, kernels):
     from paddle_tpu_torch import seed
@@ -1348,8 +1378,7 @@ def serve(dev, kernels):
     model = LlamaForCausalLM(cfg, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    eng = ContinuousBatchingEngine(model, slots=8, max_len=1024,
-                                   kv_block_size=16, prefill_chunk=256)
+    eng = ContinuousBatchingEngine(model, **SERVE_ENGINE)
     rng = np.random.default_rng(0)
     # one short request first: CUDA library handles and allocator pools
     # are set up outside the measured run
@@ -1387,25 +1416,35 @@ def serve(dev, kernels):
                                      None,
                                      ("paged_decode_attention", "direct"):
                                      0})
-    ttft = np.array([eng.request_status(r).timings["ttft_s"] for r in rids])
-    dec_tok = eng.stats["decode_tokens"] - stats0["decode_tokens"]
-    dec_s = eng.stats["decode_seconds"] - stats0["decode_seconds"]
+    metrics = run_metrics(eng, rids, out, stats0, run_s)
     emit("serve", layers=cfg.num_hidden_layers, dtype=cfg.dtype,
          requests=len(rids), prompt_lengths=SERVE_LENGTHS, max_new_tokens=32,
-         model_build_s=build_s, run_s=run_s,
-         ttft_p50_s=float(np.percentile(ttft, 50)),
-         ttft_p99_s=float(np.percentile(ttft, 99)),
-         decode_steps=eng.stats["decode_steps"] - stats0["decode_steps"],
-         decode_tokens=dec_tok, decode_tok_s=dec_tok / dec_s,
-         prefill_chunks=eng.stats["prefill_chunks"]
-         - stats0["prefill_chunks"],
-         output_tok_s=sum(len(out[r][1]) for r in rids) / run_s,
+         model_build_s=build_s, **metrics,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
          launches=launches, launches_by_path=by_path,
          first_tokens=[out[r][1][:4] for r in rids])
-    profile(eng, cfg, rng)
+    metrics["profile"] = profile(eng, cfg, rng)
     launches["launches_by_path"] = by_path
-    return launches, model, prompts, [out[r][1] for r in rids]
+    eng.close()
+    return launches, model, prompts, [out[r][1] for r in rids], metrics
+
+
+def run_metrics(eng, rids, out, stats0, run_s):
+    """A measured engine run's end-to-end numbers: run seconds, TTFT p50
+    and p99 (host clock), decode steps and tokens, decode tokens/s over
+    the decode steps' wall time, prefill chunks and output tokens/s."""
+    ttft = np.array([eng.request_status(r).timings["ttft_s"] for r in rids])
+    dec_tok = eng.stats["decode_tokens"] - stats0["decode_tokens"]
+    dec_s = eng.stats["decode_seconds"] - stats0["decode_seconds"]
+    return {"run_s": run_s,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "decode_steps": eng.stats["decode_steps"]
+            - stats0["decode_steps"],
+            "decode_tokens": dec_tok, "decode_tok_s": dec_tok / dec_s,
+            "prefill_chunks": eng.stats["prefill_chunks"]
+            - stats0["prefill_chunks"],
+            "output_tok_s": sum(len(out[r][1]) for r in rids) / run_s}
 
 
 def serve_quant(dev, kernels, model, prompts, bf16_tokens):
@@ -1420,8 +1459,7 @@ def serve_quant(dev, kernels, model, prompts, bf16_tokens):
     runs = {}
     for wmode, kvq in (("int8", "int8"), ("fp8", None)):
         t0 = time.perf_counter()
-        eng = ContinuousBatchingEngine(model, slots=8, max_len=1024,
-                                       kv_block_size=16, prefill_chunk=256,
+        eng = ContinuousBatchingEngine(model, **SERVE_ENGINE,
                                        quant_weights=wmode, quant_kv=kvq)
         torch.cuda.synchronize()
         convert_s = time.perf_counter() - t0
@@ -1497,6 +1535,23 @@ def serve_quant(dev, kernels, model, prompts, bf16_tokens):
              launches=launches, first_tokens=[out[r][1][:4] for r in rids])
         if kvq:
             profile(eng, cfg, rng, phase="profile_quant")
+        # the same engine after aot_warmup, sharing the conversion
+        # while the eager one is open; closed first (its graphs dropped
+        # before the reference goes)
+        geng, gtoks, gm, _ = serve_run(model, prompts, warm=True,
+                                       quant_weights=wmode, quant_kv=kvq)
+        graph = geng._graphs["serving.decode"]
+        same = gtoks == [out[r][1] for r in rids]
+        emit("serve_quant_graph", weights=wmode, kv=kvq or "bf16",
+             tokens_equal_eager=same, eager_decode_tok_s=dec_tok / dec_s,
+             graphed=gm, capture_s=graph.seconds,
+             launches_a_replay=graph.launches, replays=graph.replays)
+        if not same:
+            raise AssertionError(f"serve_quant_graph {wmode}/{kvq}: graphed "
+                                 "tokens differ from the eager run's")
+        launches["graph_launches_a_replay"] = dict(graph.launches)
+        geng.close()
+        del geng, graph
         eng.close()
         if not hasattr(model.lm_head, "weight") or \
                 getattr(model, "_serving_quant_refs", 0) != 0:
@@ -1506,6 +1561,366 @@ def serve_quant(dev, kernels, model, prompts, bf16_tokens):
         del eng, out
         torch.cuda.empty_cache()
     return runs
+
+
+# -- phase 6b: the serving engine's programs as CUDA graphs -------------------
+
+class TimedReplays:
+    """Stands in for a StaticGraph's CUDA graph: CUDA events around each
+    replay, so a replay's device time is read without the profiler."""
+
+    def __init__(self, graph):
+        self.inner = graph
+        self.events = []
+
+    def replay(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.inner.replay()
+        end.record()
+        self.events.append((start, end))
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def serve_run(model, prompts, warm=False, n_new=32, **kw):
+    """One engine (SERVE_ENGINE with `kw`) over `prompts`, eager or after
+    aot_warmup, after a short warm-up request; every request must end
+    "ok" with `n_new` tokens.  Returns (engine, tokens, metrics,
+    aot_warmup's stats); the metrics carry the replays' device ms from
+    CUDA events."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    cfg = model.config
+    eng = ContinuousBatchingEngine(model, **dict(SERVE_ENGINE, **kw))
+    stats = eng.aot_warmup() if warm else None
+    rng = np.random.default_rng(0)
+    eng.add_request(rng.integers(0, cfg.vocab_size, 16), max_new_tokens=2)
+    eng.run()
+    timed = {t: TimedReplays(g.graph) for t, g in eng._graphs.items()}
+    for t, g in eng._graphs.items():
+        g.graph = timed[t]
+    rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+    stats0 = dict(eng.stats)
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    for t, g in eng._graphs.items():
+        g.graph = timed[t].inner
+    for rid in rids:
+        st, toks = eng.request_status(rid), out[rid][1]
+        if st != "ok" or len(toks) != n_new or \
+                not all(0 <= x < cfg.vocab_size for x in toks):
+            raise AssertionError(f"serve_run {kw}: request {rid} status "
+                                 f"{st!r}, {len(toks)} tokens")
+    m = run_metrics(eng, rids, out, stats0, run_s)
+    for t, tr in timed.items():
+        ms = tr.ms()
+        m[t + ".replay_ms"] = {"n": len(ms), "mean": float(np.mean(ms)),
+                               "total": float(np.sum(ms))} if ms else None
+    return eng, [out[r][1] for r in rids], m, stats
+
+
+def serve_graph(dev, kernels, model, prompts, eager_tokens, eager):
+    """The Serve cell after aot_warmup: the decode replayed as one CUDA
+    graph a step.  Gates: the tokens of every request equal the eager
+    Serve run's (the same kernels in the same order), at
+    steps_per_sync 1 and 4 and sampled (against an eager engine of the
+    same seed); every serving kernel launched (at the warm-up, the
+    capture and the eager prefill chunks: a replay moves no counter).
+    Reports eager beside graphed: decode and output tokens/s, TTFT, the
+    profiled busy share and the decode kernels' device ms a step, the
+    replays' event-timed device ms, capture seconds and launches a
+    replay.  Returns the launches one decode replay makes."""
+    cfg = model.config
+    kernels.reset_launch_counts()
+    eng, toks, m, ws = serve_run(model, prompts, warm=True)
+    launches = {fn.__name__: fn.launches for fn in kernels.SERVING}
+    graph = eng._graphs["serving.decode"]
+    if toks != eager_tokens:
+        raise AssertionError("serve_graph: graphed tokens differ from the "
+                             "eager Serve run's")
+    if not all(launches.values()) or not graph.launches:
+        raise AssertionError(f"serve_graph: launches {launches}, a replay "
+                             f"{graph.launches}")
+    prof = profile(eng, cfg, np.random.default_rng(0), phase="profile_graph")
+    emit("serve_graph", variant="bf16, steps_per_sync=1", requests=len(toks),
+         tokens_equal_eager=True, eager={k: eager[k] for k in (
+             "decode_tok_s", "output_tok_s", "ttft_p50_s", "ttft_p99_s",
+             "run_s")}, graphed=m,
+         eager_busy_share=eager["profile"]["device_busy_share"],
+         graphed_busy_share=prof["device_busy_share"],
+         eager_decode_kernels_ms_per_step=eager["profile"][
+             "decode_kernels_ms_per_step"],
+         graphed_decode_kernels_ms_per_step=prof[
+             "decode_kernels_ms_per_step"],
+         profiler_saw_replays=bool(prof["decode_kernels_ms_per_step"]),
+         capture_s=ws["serving.decode"]["seconds"],
+         launches_a_replay=graph.launches, replays=graph.replays,
+         launches=launches)
+    a_replay = dict(graph.launches)
+    eng.close()
+    del eng, graph
+    torch.cuda.empty_cache()
+    for variant, kw in (("bf16, steps_per_sync=4", dict(steps_per_sync=4)),
+                        ("bf16, do_sample (top_k=50, seed=7)",
+                         dict(do_sample=True, top_k=50, seed=7))):
+        e_eng, e_toks, e_m, _ = serve_run(model, prompts, **kw)
+        e_eng.close()
+        g_eng, g_toks, g_m, g_ws = serve_run(model, prompts, warm=True, **kw)
+        g = g_eng._graphs["serving.decode"]
+        emit("serve_graph", variant=variant, tokens_equal_eager=g_toks
+             == e_toks, eager=e_m, graphed=g_m,
+             capture_s=g_ws["serving.decode"]["seconds"],
+             launches_a_replay=g.launches, replays=g.replays)
+        if g_toks != e_toks:
+            raise AssertionError(f"serve_graph {variant}: graphed tokens "
+                                 "differ from the eager engine's")
+        g_eng.close()
+        del e_eng, g_eng, g
+        torch.cuda.empty_cache()
+    return a_replay
+
+
+SPEC_K = 4
+
+
+def serve_spec(kernels, model):
+    """Serve's engine with spec_decode=4 after aot_warmup, over prompts
+    that hold a repeated 64-token span (each Serve length of random
+    tokens, then the span twice), so the n-gram proposer finds drafts.
+    Gate: every request "ok" with its 32 tokens.  Reported, not gated:
+    proposed and accepted drafts, tokens a row a verify (at most 5), and
+    agreement with a graphed non-spec run (bf16 near-ties may flip: a
+    verify's 8 x 5 rows take other GEMM paths than 8-row decode)."""
+    cfg = model.config
+    rng = np.random.default_rng(3)
+    span = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [np.concatenate([rng.integers(0, cfg.vocab_size, n), span,
+                               span]) for n in SERVE_LENGTHS]
+    ref_eng, ref, ref_m, _ = serve_run(model, prompts, warm=True)
+    ref_eng.close()
+    kernels.reset_launch_counts()
+    eng, toks, m, ws = serve_run(model, prompts, warm=True,
+                                 spec_decode=SPEC_K)
+    launches = {fn.__name__: fn.launches for fn in kernels.SERVING}
+    g = eng._graphs["serving.spec_verify"]
+    st = eng.stats
+    agree = sum(a == b for t, r in zip(toks, ref) for a, b in zip(t, r))
+    emit("serve_spec", spec_decode=SPEC_K, requests=len(prompts),
+         prompt_lengths=[len(p) for p in prompts], graphed=m,
+         non_spec_graphed=ref_m, spec_verifies=st["spec_verifies"],
+         spec_proposed=st["spec_proposed"],
+         spec_accepted=st["spec_accepted"],
+         acceptance=st["spec_accepted"] / max(1, st["spec_proposed"]),
+         spec_rows=st["spec_rows"],
+         tokens_per_row_verify=st["decode_tokens"] / max(1,
+                                                         st["spec_rows"]),
+         tokens_agree_with_non_spec=f"{agree}/{32 * len(prompts)}",
+         capture_s={t: v["seconds"] for t, v in ws.items()},
+         verify_launches_a_replay=g.launches, verify_replays=g.replays,
+         launches=launches)
+    if not all(launches.values()):
+        raise AssertionError(f"serve_spec: launches {launches}")
+    eng.close()
+    del eng, g
+    torch.cuda.empty_cache()
+
+
+STATIC_BUCKETS = (128, 256, 512, 768)
+
+
+def serve_static(kernels, model, prompts, paged_tokens):
+    """The slot-contiguous engine (paged_kv=False, buckets 128..768,
+    max_len 1024) over Serve's prompts, eager and after aot_warmup (the
+    decode, one prefill a bucket and the insert as CUDA graphs).  Gates:
+    the graphed tokens equal the eager ones; QKV and the MLP launched,
+    paged decode not (static-cache attention is masked SDPA, as in JAX).
+    Reported: decode tokens/s, TTFT, agreement with the paged engine."""
+    kw = dict(paged_kv=False, prefill_buckets=STATIC_BUCKETS)
+    e_eng, e_toks, e_m, _ = serve_run(model, prompts, **kw)
+    e_eng.close()
+    del e_eng
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    eng, toks, m, ws = serve_run(model, prompts, warm=True, **kw)
+    launches = {fn.__name__: fn.launches for fn in kernels.SERVING}
+    g = eng._graphs["serving.decode"]
+    agree = sum(a == b for t, r in zip(toks, paged_tokens)
+                for a, b in zip(t, r))
+    emit("serve_static", buckets=list(STATIC_BUCKETS), requests=len(toks),
+         tokens_equal_eager=toks == e_toks, eager=e_m, graphed=m,
+         tokens_agree_with_paged=f"{agree}/{32 * len(toks)}",
+         capture_s={t: v["seconds"] for t, v in ws.items()},
+         launches_a_replay={t: v["launches"] for t, v in ws.items()},
+         decode_replays=g.replays, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if toks != e_toks:
+        raise AssertionError("serve_static: graphed tokens differ from the "
+                             "eager engine's")
+    if not launches["fused_rmsnorm_qkv"] or not launches["fused_mlp"] or \
+            launches["paged_decode_attention"]:
+        raise AssertionError(f"serve_static: launches {launches}")
+    a_replay = dict(g.launches)
+    eng.close()
+    del eng, g
+    torch.cuda.empty_cache()
+    return a_replay
+
+
+def drive_static(model, prompt, n_new):
+    """The prompt through the static-cache forward in one pass, then
+    greedy steps at int offsets; returns (the prompt's fp32 logits,
+    greedy tokens)."""
+    from paddle_tpu_torch.generation import _empty_caches
+    dev = model.device
+    dtype = model.parameters()[0].dtype
+    caches = _empty_caches(model, 1, len(prompt) + n_new, dtype)
+    with torch.inference_mode():
+        ids = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+        logits, _ = model(ids, None, caches, 0)
+        last = logits[0].float()
+        toks = [int(last[-1].argmax())]
+        for i in range(n_new - 1):
+            ids = torch.tensor([[toks[-1]]], dtype=torch.long, device=dev)
+            logits, _ = model(ids, None, caches, len(prompt) + i)
+            toks.append(int(logits[0, -1].float().argmax()))
+    return last.cpu(), toks
+
+
+def static_parity(card, host, prompt):
+    """The parity phase's 2-layer full-width models through the
+    static-cache path (the slot engine's and generate's): the prompt's
+    logits on the card (bf16, kernels) within 5% of their largest of
+    the host's (fp32, plain path), and 8 greedy tokens."""
+    t0 = time.perf_counter()
+    got, toks = drive_static(card, prompt, 8)
+    ref, ref_toks = drive_static(host, prompt, 8)
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    tol = 0.05 * scale
+    if not torch.isfinite(got).all() or err > tol:
+        raise AssertionError(f"static_parity: logits max abs err {err} > "
+                             f"{tol}")
+    agree = sum(a == b for a, b in zip(toks, ref_toks))
+    emit("static_parity", layers=2, prompt=len(prompt),
+         logits_shape=list(got.shape), max_abs_err=err, ref_max_abs=scale,
+         tolerance=tol, greedy_tokens=toks, plain_tokens=ref_toks,
+         tokens_agree=f"{agree}/{len(toks)}",
+         seconds=time.perf_counter() - t0)
+
+
+def eager_generate(model, ids, n):
+    """generate()'s greedy decode as a plain loop over the same
+    static-cache forward (the prompt in one pass, then a step a token at
+    a 0-d device position); returns (tokens [B, L + n], each step's
+    event-timed ms)."""
+    from paddle_tpu_torch.generation import _empty_caches
+    B, L = ids.shape
+    dtype = model.parameters()[0].dtype
+    ms = []
+    with torch.inference_mode():
+        caches = _empty_caches(model, B, L + n, dtype)
+        logits, _ = model(ids, None, caches, 0)
+        toks = [logits[:, -1].float().argmax(-1)]
+        for i in range(n - 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            pos = torch.tensor(L + i, device=ids.device)
+            logits, _ = model(toks[-1][:, None], None, caches, pos)
+            toks.append(logits[:, -1].float().argmax(-1))
+            end.record()
+            ms.append((start, end))
+        out = torch.cat([ids, torch.stack(toks, 1)], 1).to(torch.int32)
+        out = out.cpu().numpy()
+    return out, [a.elapsed_time(b) for a, b in ms]
+
+
+def generate_phase(kernels, model, arch, B, L, n, wrappers):
+    """`model.generate` at batch B, prompt L, n new greedy tokens: a
+    first call (it captures the step), then a timed call, both against
+    eager_generate's loop, exactly; then the EOS / pad rule on a forced
+    EOS id (each row's tokens up to its first EOS, pads after it).
+    `wrappers`: the kernels the path must launch (counts reset first).
+    Reports tokens/s and ms a step, eager and graphed, capture seconds
+    and launches a replay."""
+    from paddle_tpu_torch import generation as G
+    cfg = model.config
+    dev = model.device
+    ids = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (B, L)), device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = model.generate(ids, max_new_tokens=n)
+    first_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    run = next(reversed(G._RUN_CACHE[model].values()))
+    timed = TimedReplays(run.step.graph)
+    run.step.graph = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = model.generate(ids, max_new_tokens=n)
+    graphed_s = time.perf_counter() - t0
+    run.step.graph = timed.inner
+    step_ms = timed.ms()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, eager_ms = eager_generate(model, ids, n)
+    eager_s = time.perf_counter() - t0
+    info = G.run_cache_info(model)[-1]
+    same = bool(np.array_equal(got, ref) and np.array_equal(first, ref))
+    # the EOS / pad rule: each row's third new token forced as EOS
+    eos = int(ref[0, L + 2])
+    forced = model.generate(ids, max_new_tokens=n, eos_token_id=eos,
+                            pad_token_id=0)
+    want = ref.copy()
+    for b in range(B):
+        hits = np.flatnonzero(ref[b, L:] == eos)
+        if len(hits):
+            want[b, L + hits[0] + 1:] = 0
+    eos_ok = bool(np.array_equal(forced, want))
+    emit("generate", arch=arch, layers=cfg.num_hidden_layers,
+         dtype=cfg.dtype, batch=B, prompt=L, new_tokens=n,
+         tokens_equal_eager_loop=same, first_call_s=first_s,
+         graphed_call_s=graphed_s, eager_loop_s=eager_s,
+         graphed_tok_s=B * n / graphed_s, eager_tok_s=B * n / eager_s,
+         graphed_step_ms=float(np.mean(step_ms)),
+         eager_step_ms=float(np.mean(eager_ms)),
+         capture_s=info["capture_s"], launches_a_replay=info["launches"],
+         replays=info["replays"], launches=launches,
+         eos_id=eos, eos_rows=int(sum((ref[:, L:] == eos).any(1))),
+         eos_pad_rule=eos_ok, first_tokens=ref[:, L:L + 4].tolist())
+    if not same:
+        raise AssertionError(f"generate {arch}: the graphed tokens differ "
+                             "from the eager loop's")
+    if not eos_ok:
+        raise AssertionError(f"generate {arch}: the EOS / pad rule broke")
+    if not info["graph"] or info["replays"] != 2 * (n - 1):
+        raise AssertionError(f"generate {arch}: {info}")
+    if not all(launches.values()):
+        raise AssertionError(f"generate {arch}: launches {launches}")
+    a_replay = dict(info["launches"])
+    G._RUN_CACHE.pop(model, None)
+    torch.cuda.empty_cache()
+    return a_replay
+
+
+def generate_gpt(dev, kernels):
+    """GPT-2 medium (GPTConfig(), 24 layers, bf16, random weights)
+    through generate: batch 8, prompt 256, 64 new tokens.  Its path
+    launches none of the port's kernels (cuBLAS Linears, LayerNorm, GELU
+    and masked SDPA, as in JAX)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    seed(4)
+    model = GPTForCausalLM(GPTConfig(dtype="bfloat16"), device=dev).eval()
+    generate_phase(kernels, model, "gpt2_medium", 8, 256, 64, ())
+    del model
+    torch.cuda.empty_cache()
 
 
 # the decode step's kernels (T <= 16 rows) whose device time the serving
@@ -1544,14 +1959,20 @@ def profile(eng, cfg, rng, phase="profile"):
     busy_us = union_us(spans)
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
     fams = family_times(kernels, DECODE_FAMILIES, spans)
-    emit(phase, requests=8, prompt=64, new_tokens=16, wall_s=wall,
-         device_busy_s=busy_us / 1e6 if kernels else None,
-         device_busy_share=busy_us / 1e6 / wall if kernels else None,
-         decode_steps=steps, port_kernels=fams,
-         ms_per_decode_step={f: v["ms"] / steps for f, v in fams.items()
-                             if v["calls"]} if steps else None,
-         top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3,
-               "calls": e.count} for e in top])
+    res = dict(requests=8, prompt=64, new_tokens=16, wall_s=wall,
+               device_busy_s=busy_us / 1e6 if kernels else None,
+               device_busy_share=busy_us / 1e6 / wall if kernels else None,
+               decode_steps=steps, port_kernels=fams,
+               ms_per_decode_step={f: v["ms"] / steps
+                                   for f, v in fams.items()
+                                   if v["calls"]} if steps else None,
+               decode_kernels_ms_per_step=sum(
+                   v["ms"] for v in fams.values()) / steps if steps
+               else None,
+               top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3,
+                     "calls": e.count} for e in top])
+    emit(phase, **res)
+    return res
 
 
 def kernel_spans(prof):
@@ -3394,17 +3815,27 @@ def main():
 
     card, host, prompt = parity(dev)
     parity_quant(card, host, prompt, kernels)
+    static_parity(card, host, prompt)
     del card, host
     torch.cuda.empty_cache()
     train_parity(dev)
     torch.cuda.empty_cache()
-    launches, model, prompts, bf16_tokens = serve(dev, kernels)
+    launches, model, prompts, bf16_tokens, eager = serve(dev, kernels)
     torch.cuda.empty_cache()
     quant_launches = serve_quant(dev, kernels, model, prompts, bf16_tokens)
     torch.cuda.empty_cache()
+    graphed = {"serve_graph": serve_graph(dev, kernels, model, prompts,
+                                          bf16_tokens, eager)}
+    serve_spec(kernels, model)
+    graphed["serve_static"] = serve_static(kernels, model, prompts,
+                                           bf16_tokens)
+    graphed["generate"] = generate_phase(
+        kernels, model, "llama3_8b", 4, 512, 64,
+        (kernels.SERVING[0], kernels.SERVING[1]))
     score_launches = score_decoder(model, kernels)
     del model
     torch.cuda.empty_cache()
+    generate_gpt(dev, kernels)
     train_launches, train_peak = train(dev, kernels)
     torch.cuda.empty_cache()
     graph_launches = train_graph(dev, kernels)
@@ -3452,6 +3883,9 @@ def main():
             entry["prefill_T256"] = {k: by_t[256][k] for k in keys}
         # QKV and the MLP split-K at T = 8, wgmma at 256; paged split
         entry["launches_by_path"] = launches["launches_by_path"][name]
+        # the launches one replay of each captured decode program makes
+        entry["graph_launches_a_replay"] = {
+            k: v.get(name, 0) for k, v in graphed.items()}
         if name == "fused_mlp":
             entry["path"] = decode["path"]
             entry["prefill_T256"]["path"] = by_t[256]["path"]
@@ -3523,14 +3957,17 @@ def main():
         r = quant_rows[row]
         cu = "paged_attention.cu" if name.startswith("paged") else \
             "quant_matmul.cu"
+        wmode = "fp8" if name == "quant_matmul_fp8" else "int8"
         entry = {"name": name, "route": "cuda", "source": src + cu,
                  "replaces": rep, "launches": n, **{k: r[k] for k in keys},
-                 "shape": r["shape"], "path": path}
+                 "shape": r["shape"], "path": path,
+                 "graph_launches_a_replay": quant_launches[wmode][
+                     "graph_launches_a_replay"].get(
+                         name.removesuffix("_fp8"), 0)}
         if name.startswith("paged"):
             entry["kernel_path"] = r["kernel_path"]
             entry["launches_by_path"] = quant_launches["int8"]["paged_by_path"]
         if name in prefill:
-            wmode = "int8" if name == "quant_matmul" else "fp8"
             entry["kernel_path"] = r["path"]
             entry["launches_by_path"] = \
                 quant_launches[wmode]["quant_matmul_by_path"]

@@ -1,5 +1,6 @@
 """Serving of the port (``paddle_tpu.inference``): the paged KV cache and
-the continuous-batching engine."""
+the continuous-batching engine (slot-contiguous or paged, speculative
+decoding, ``aot_warmup``'s CUDA graphs)."""
 
 from paddle_tpu_torch.inference.kv_cache import (BlockAllocator, PagedCache,
                                                  PagedKVPool, PrefixCache,

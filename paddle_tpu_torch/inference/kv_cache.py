@@ -38,7 +38,16 @@ from paddle_tpu_torch.ops.kernels.paged_attention import \
 
 __all__ = ["BlockAllocator", "SequenceBlocks", "PrefixCache",
            "PagedKVPool", "PagedCache", "paged_cache_attention",
-           "quant_kv_mode"]
+           "quant_kv_mode", "paged_kv_enabled"]
+
+
+def paged_kv_enabled(default: bool = False) -> bool:
+    """The ``PADDLE_TPU_PAGED_KV`` knob.  Unset -> `default` (off: the
+    slot-contiguous engine, as in the JAX package)."""
+    raw = os.environ.get("PADDLE_TPU_PAGED_KV")
+    if raw is None:
+        return default
+    return raw.strip().lower() in ("1", "true", "yes", "on")
 
 
 def quant_kv_mode(explicit: Optional[str] = None) -> Optional[str]:
@@ -377,17 +386,20 @@ def paged_cache_attention(q, k, v, cache: PagedCache, position_offset,
     attend under the causal bound.
 
     q/k/v: ``[b, s, heads, head_dim]`` current-step projections, RoPE
-    applied.  ``position_offset``: int, or ``[B]`` integer tensor of
-    per-row offsets (continuous batching, chunked prefill).  Returns
+    applied.  ``position_offset``: int, a 0-d integer tensor, or a
+    ``[B]`` integer tensor of per-row offsets (continuous batching,
+    chunked prefill, speculative verify); a tensor on the pools' device
+    is used there as it is, never read on the host.  Returns
     ``(out, cache)``; the cache's pools now hold the step's k/v."""
     B, S = q.shape[0], q.shape[1]
     kp, vp, bt = cache.k, cache.v, cache.block_table
     dev = kp.device
     bs, mb = kp.shape[1], bt.shape[1]
     steps = torch.arange(S, device=dev)
-    if torch.is_tensor(position_offset) and position_offset.ndim == 1:
-        qpos = position_offset.to(device=dev, dtype=torch.long)[:, None] \
-            + steps[None]                                        # [B, S]
+    if torch.is_tensor(position_offset):
+        # [B] or 0-d; on the pools' device the offsets are read there
+        off = position_offset.to(device=dev, dtype=torch.long)
+        qpos = (off.reshape(-1, 1) + steps[None]).expand(B, S)  # [B, S]
     else:
         qpos = (int(position_offset) + steps)[None].expand(B, S)
     # logical position -> (physical block, slot).  Positions past the

@@ -1,7 +1,9 @@
-"""Training step of the port (``paddle_tpu.jit``): ``TrainStep``.
-``to_static``, ``save``/``load`` and the compiled-step machinery wait
-(ROADMAP.md, queue 1)."""
+"""Training step of the port (``paddle_tpu.jit``): ``TrainStep``, and
+``StaticGraph``, a body bound to static buffers (one CUDA graph on the
+card), which the serving engine's ``aot_warmup`` and ``generate`` use.
+``to_static`` and ``save``/``load`` wait (ROADMAP.md, queue 1)."""
 
+from paddle_tpu_torch.jit.static_graph import StaticGraph
 from paddle_tpu_torch.jit.train_step import TrainStep
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "StaticGraph"]

@@ -53,6 +53,7 @@ import torch
 
 from paddle_tpu_torch.core import state as _state
 from paddle_tpu_torch.io.device_prefetch import as_tensor
+from paddle_tpu_torch.jit.static_graph import launch_counts
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import multi_tensor as _mt
 from paddle_tpu_torch.optimizer.optimizer import copy_into, to_numpy
@@ -153,11 +154,6 @@ class CompileInfo:
     seconds: float
     graph: bool
     launches: Dict[str, int] = field(default_factory=dict)
-
-
-def _launch_counts():
-    from paddle_tpu_torch.ops import kernels
-    return {fn.__name__: fn.launches for fn in kernels.KERNELS}
 
 
 class TrainStep:
@@ -390,7 +386,7 @@ class TrainStep:
         graph = torch.cuda.CUDAGraph()
         if drew:
             graph.register_generator_state(gen)
-        before = _launch_counts()
+        before = launch_counts()
         # the multi-tensor tables: 96 bytes a tensor for the norm and the
         # update, each table rounded up to 64 bytes, and room to spare
         nbytes = 256 * len(self._named) + (1 << 16)
@@ -405,7 +401,7 @@ class TrainStep:
             raise
         finally:
             tables = _mt.finish_capture()
-        after = _launch_counts()
+        after = launch_counts()
         torch.cuda.synchronize(dev)
         self._graph, self._static_out = graph, out
         # every buffer whose address the graph holds lives as long as it

@@ -11,8 +11,11 @@ head_dim pad, as the JAX package gates it (``attention.py:77-95``).
 the fused softmax cross-entropy kernels on the card.  The tied logits
 ``h @ E^T`` are one ``torch.matmul``, as JAX leaves them to XLA.
 
-``generate`` (the slot-contiguous static cache) and ``partition_specs``
-wait in ``ROADMAP.md``, queue 1."""
+With caches (a ``StaticCache`` a layer, as ``generate`` passes them)
+attention is ``static_cache_attention`` and the learned positions are
+read at ``position_offset + arange(s)`` (an int, a 0-d tensor, or a
+``[B]`` tensor of per-row offsets).  ``partition_specs`` waits in
+``ROADMAP.md``, queue 1, item 8."""
 
 from __future__ import annotations
 
@@ -93,12 +96,17 @@ class GPTAttention(Layer):
         self.dropout_p = c.attention_dropout_prob
 
     def forward(self, x, cache=None, position_offset=0, attn_mask=None):
-        if cache is not None:
-            raise _queue1(1, "GPT's static-cache decoding")
         b, s = x.shape[0], x.shape[1]
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(dim=2)
+        if cache is not None:
+            # the static-buffer decode path shared with LlamaAttention
+            from paddle_tpu_torch.generation import static_cache_attention
+            out, new_cache = static_cache_attention(q, k, v, cache,
+                                                    position_offset,
+                                                    attn_mask)
+            return self.out_proj(out.reshape(b, s, -1)), new_cache
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None,
             dropout_p=self.dropout_p, training=self.training)
@@ -130,7 +138,10 @@ class GPTDecoderLayer(Layer):
 
     def forward(self, x, cache=None, position_offset=0, attn_mask=None):
         if cache is not None:
-            raise _queue1(1, "GPT's static-cache decoding")
+            a, new_cache = self.attn(self.ln_1(x), cache, position_offset,
+                                     attn_mask)
+            x = x + self.dropout(a)
+            return x + self.dropout(self.mlp(self.ln_2(x))), new_cache
         x = x + self.dropout(self.attn(self.ln_1(x), None, 0, attn_mask))
         return x + self.dropout(self.mlp(self.ln_2(x)))
 
@@ -155,18 +166,31 @@ class GPTModel(Layer):
 
     def forward(self, input_ids, attn_mask=None, caches=None,
                 position_offset=0):
-        if caches is not None:
-            raise _queue1(1, "GPT's static-cache decoding")
         if attn_mask is not None and attn_mask.ndim == 0:
             raise ValueError("attn_mask must be an array broadcastable to "
                              "[batch, heads, seq, seq], not a scalar")
         s = input_ids.shape[1]
-        pos = position_offset + torch.arange(s, device=input_ids.device)
+        steps = torch.arange(s, device=input_ids.device)
+        if torch.is_tensor(position_offset):
+            off = position_offset.to(device=steps.device, dtype=torch.long)
+            # [B] offsets give [B, s] positions, a 0-d one [s]
+            pos = off[:, None] + steps[None] if off.ndim == 1 \
+                else off + steps
+        else:
+            pos = position_offset + steps
         x = self.embed_tokens(input_ids) + self.embed_positions(pos)
         x = self.dropout(x)
-        for layer in self.layers:
-            x = layer(x, None, 0, attn_mask)
-        return self.ln_f(x)
+        new_caches = [] if caches is not None else None
+        for i, layer in enumerate(self.layers):
+            if caches is not None:
+                x, c = layer(x, caches[i], position_offset, attn_mask)
+                new_caches.append(c)
+            else:
+                x = layer(x, None, 0, attn_mask)
+        x = self.ln_f(x)
+        if caches is not None:
+            return x, new_caches
+        return x
 
 
 class GPTForCausalLM(Layer):
@@ -194,13 +218,22 @@ class GPTForCausalLM(Layer):
     def forward(self, input_ids, attn_mask=None, caches=None,
                 position_offset=0):
         h = self.model(input_ids, attn_mask, caches, position_offset)
+        new_caches = None
+        if caches is not None:
+            h, new_caches = h
         if self.lm_head is None:
-            return torch.matmul(h, self.model.embed_tokens.weight.t())
-        return self.lm_head(h)
+            logits = torch.matmul(h, self.model.embed_tokens.weight.t())
+        else:
+            logits = self.lm_head(h)
+        if caches is not None:
+            return logits, new_caches
+        return logits
 
     def generate(self, input_ids, generation_config=None, **kwargs):
-        raise _queue1(1, "GPTForCausalLM.generate (the static-cache "
-                         "decoding of generation/__init__.py)")
+        """KV-cache decoding over static caches
+        (:func:`paddle_tpu_torch.generation.generate`)."""
+        from paddle_tpu_torch.generation import generate as _gen
+        return _gen(self, input_ids, generation_config, **kwargs)
 
     def loss(self, input_ids, labels):
         """Next-token cross-entropy of the ``[T, V]`` logits through

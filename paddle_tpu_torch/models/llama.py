@@ -30,8 +30,10 @@ training the block-boundary remat, whose backward recomputes the layer
 through the per-segment kernels.  ``fused_decoder_block.routes`` counts
 the layers each way.  The paged engine always carries a cache, so it
 never reaches the tier.
-``generate`` and ``partition_specs`` come with later slices of the
-port."""
+With a ``StaticCache`` (``generate`` and the slot-contiguous engine)
+attention is ``static_cache_attention``; with a ``PagedCache``
+``paged_cache_attention``.  ``partition_specs`` comes with a later slice
+of the port."""
 
 from __future__ import annotations
 
@@ -126,16 +128,22 @@ class LlamaAttention(Layer):
         q = F.apply_rotary_emb(q, rope_cos, rope_sin, position_offset)
         k = F.apply_rotary_emb(k, rope_cos, rope_sin, position_offset)
         if cache is not None:
+            from paddle_tpu_torch.generation import (StaticCache,
+                                                     static_cache_attention)
             from paddle_tpu_torch.inference.kv_cache import (
                 PagedCache, paged_cache_attention)
-            if not isinstance(cache, PagedCache):
+            if isinstance(cache, StaticCache):
+                # generate() and the slot-contiguous engine: fixed
+                # buffers written in place at the offset
+                attend = static_cache_attention
+            elif isinstance(cache, PagedCache):
+                attend = paged_cache_attention
+            else:
                 raise NotImplementedError(
-                    "only the paged KV cache is ported; StaticCache and "
-                    "concatenated caches wait for the slot-contiguous "
-                    "engine (ROADMAP.md, queue 1)")
-            out, new_cache = paged_cache_attention(q, k, v, cache,
-                                                   position_offset,
-                                                   attn_mask)
+                    "the concatenated (k, v) cache is not ported; pass a "
+                    "StaticCache or a PagedCache")
+            out, new_cache = attend(q, k, v, cache, position_offset,
+                                    attn_mask)
             return self.o_proj(out.reshape(b, s, -1)), new_cache
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
                                              is_causal=attn_mask is None)
@@ -318,10 +326,10 @@ class LlamaForCausalLM(Layer):
         return logits
 
     def generate(self, input_ids, generation_config=None, **kwargs):
-        raise NotImplementedError(
-            "LlamaForCausalLM.generate (the static-cache decoding of "
-            "generation/__init__.py) is not ported yet "
-            "(ROADMAP.md, queue 1, items 1 and 3)")
+        """KV-cache decoding over static caches
+        (:func:`paddle_tpu_torch.generation.generate`)."""
+        from paddle_tpu_torch.generation import generate as _gen
+        return _gen(self, input_ids, generation_config, **kwargs)
 
     def loss(self, input_ids, labels):
         """Next-token cross-entropy through the fused chunked lm-head +

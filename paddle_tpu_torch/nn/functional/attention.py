@@ -114,24 +114,38 @@ def apply_rotary_emb(x, cos, sin, position_offset=0):
     cast back.
 
     x: ``[batch, seq, heads, head_dim]``; cos/sin: tables from
-    :func:`rotary_freqs`.  ``position_offset`` is an int, or a ``[B]``
-    integer tensor of per-row offsets (continuous batching).  A position
-    outside the table raises for both forms: the JAX package clamps
-    per-row offsets silently (``attention.py:246``).  Per-row offsets
-    are checked where they lie; a host tensor costs no device sync."""
+    :func:`rotary_freqs`.  ``position_offset`` is an int, a 0-d integer
+    tensor (one offset for every row) or a ``[B]`` integer tensor of
+    per-row offsets (continuous batching).  An int, or a tensor on the
+    host, is checked against the table and raises outside it (the JAX
+    package clamps tensor offsets silently, ``attention.py:246``).  A
+    tensor on the card is taken as it is: reading it would sync the
+    host and break a CUDA graph's capture, so the callers check the
+    bound on the host (the serving engine before each decode,
+    ``generate`` once a call)."""
     seq = x.shape[1]
     table = cos.shape[0]
-    if torch.is_tensor(position_offset) and position_offset.ndim == 1:
-        lo = int(position_offset.min())
-        hi = int(position_offset.max()) + seq
-        if lo < 0 or hi > table:
-            raise ValueError(
-                f"RoPE table overflow: per-row positions [{lo}, {hi}) "
-                f"exceed table length {table} (max_position_embeddings)")
+    if torch.is_tensor(position_offset):
+        if position_offset.ndim not in (0, 1):
+            raise ValueError(f"position_offset must be an int, a 0-d or "
+                             f"a [B] tensor, got {position_offset.ndim}-d")
+        if position_offset.device.type == "cpu":
+            lo = int(position_offset.min())
+            hi = int(position_offset.max()) + seq
+            if lo < 0 or hi > table:
+                raise ValueError(
+                    f"RoPE table overflow: positions [{lo}, {hi}) exceed "
+                    f"table length {table} (max_position_embeddings)")
         off = position_offset.to(device=cos.device, dtype=torch.long)
-        pos = off[:, None] + torch.arange(seq, device=cos.device)[None]
-        c = cos[pos][:, :, None, :]                         # [B, s, 1, h]
-        s = sin[pos][:, :, None, :]
+        steps = torch.arange(seq, device=cos.device)
+        if off.ndim == 1:
+            pos = off[:, None] + steps[None]                # [B, s]
+            c = cos[pos][:, :, None, :]                     # [B, s, 1, h]
+            s = sin[pos][:, :, None, :]
+        else:
+            pos = off + steps                               # [s]
+            c = cos[pos][None, :, None, :]
+            s = sin[pos][None, :, None, :]
     else:
         off = int(position_offset)
         if off < 0 or off + seq > table:

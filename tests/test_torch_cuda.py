@@ -228,7 +228,7 @@ def test_quant_engine_on_the_card_matches_the_cpu_engine(dev):
     gpu.set_state_dict(cpu.state_dict())
     kw = dict(slots=2, max_len=64, prefill_buckets=(16, 32),
               kv_block_size=4, prefill_chunk=8, quant_weights="int8",
-              quant_kv="int8")
+              quant_kv="int8", paged_kv=True)
     prompts = [np.random.default_rng(i).integers(0, 256, n)
                for i, n in enumerate((5, 17, 11))]
     outs = []
@@ -275,7 +275,7 @@ def test_engine_on_the_card_matches_the_cpu_engine(dev):
     gpu = LlamaForCausalLM(cfg, device=dev)
     gpu.set_state_dict({k: v.numpy() for k, v in cpu.state_dict().items()})
     kw = dict(slots=2, max_len=64, prefill_buckets=(16, 32),
-              kv_block_size=4, prefill_chunk=8)
+              kv_block_size=4, prefill_chunk=8, paged_kv=True)
     prompts = [np.random.default_rng(i).integers(0, 256, n)
                for i, n in enumerate((5, 17, 11))]
     outs = []
@@ -2234,3 +2234,213 @@ def test_train_step_graph_captures_moe_and_the_decoder_tier(dev, kind,
         assert torch.isfinite(got)
         np.testing.assert_allclose(float(got), float(exp), rtol=1e-6)
     assert step.replays == 2
+
+
+# -- the serving engine's programs as CUDA graphs ------------------------------
+
+GRAPH_ENGINE = dict(slots=4, max_len=256, prefill_buckets=(32, 64, 128),
+                    kv_block_size=16, prefill_chunk=64)
+GRAPH_PROMPTS = (5, 40, 100, 17, 70)
+
+
+def _serve_graph(model, warm, prompts=GRAPH_PROMPTS, max_new=12, **kw):
+    """Serve `prompts` (lengths) on a fresh engine, warmed or eager;
+    returns (engine, tokens of each request)."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, **dict(GRAPH_ENGINE, **kw))
+    if warm:
+        eng.warm_stats = eng.aot_warmup()
+    rng = np.random.default_rng(7)
+    rids = [eng.add_request(rng.integers(0, 256, n), max_new_tokens=max_new)
+            for n in prompts]
+    out = eng.run()
+    assert all(eng.request_status(r) == "ok" for r in rids)
+    return eng, [out[r][1] for r in rids]
+
+
+def _caches_of(eng):
+    if eng.paged:
+        return eng._pool.kpools + eng._pool.vpools + eng._pool.kscales + \
+            eng._pool.vscales
+    return [t for c in eng._caches for t in c]
+
+
+@pytest.mark.parametrize("engine,K,quant", [
+    ("paged", 1, {}), ("paged", 4, {}),
+    ("paged", 1, {"quant_weights": "int8", "quant_kv": "int8"}),
+    ("paged", 1, {"quant_weights": "fp8"}), ("slot", 1, {}),
+    ("slot", 3, {})])
+def test_graphed_decode_equals_eager_bitwise(dev, engine, K, quant):
+    """The same bf16 weights and prompts served eagerly and after
+    aot_warmup (decode replayed as a CUDA graph): the same kernels in the
+    same order, so the tokens and every cache are bitwise equal; one
+    replay launches each decode kernel once a layer a step, and the
+    wrappers' counters do not move under replay."""
+    from paddle_tpu_torch.ops import kernels
+    cfg, model = _graph_model(dev, "bfloat16")
+    kw = dict(quant, steps_per_sync=K, paged_kv=engine == "paged")
+    eager, ref = _serve_graph(model, False, **kw)
+    ref_caches = [t.clone() for t in _caches_of(eager)]
+    eager.close()
+    kernels.reset_launch_counts()
+    warm, got = _serve_graph(model, True, **kw)
+    assert got == ref
+    for a, b in zip(_caches_of(warm), ref_caches):
+        assert torch.equal(a, b)
+    stats = warm.warm_stats["serving.decode"]
+    assert stats["graph"] and warm._graphs["serving.decode"].replays > 0
+    L = cfg.num_hidden_layers
+    if engine == "paged":
+        paged = "paged_decode_attention_int8" if quant.get("quant_kv") \
+            else "paged_decode_attention"
+        assert stats["launches"][paged] == L * K
+        if not quant:
+            assert stats["launches"]["fused_mlp"] == L * K
+    # counted: the warm-up, the capture and the eager prefills only
+    if not quant and engine == "paged":
+        assert PA.paged_decode_attention.launches == 2 * L * K
+        assert PA.paged_decode_attention.launches_by_path["direct"] == 0
+    warm.close()
+    assert not warm._graphs
+
+
+def test_graphed_decode_survives_a_workspace_grown_by_a_prefill(dev):
+    """A one-layer model at Llama-3-8B's hidden width, captured at 8
+    decode rows (the QKV row pass's workspace is then its 64 KiB
+    minimum); a 16-token prompt's eager prefill chunk (split-K at 16
+    rows) grows it: the graph keeps the buffer it captured, so its
+    replays write into no tensor allocated since, and the tokens equal
+    the eager engine's."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(hidden_size=4096, intermediate_size=1024,
+                           num_attention_heads=32, num_key_value_heads=8,
+                           num_hidden_layers=1, max_position_embeddings=256,
+                           dtype="bfloat16")
+    seed(0)
+    model = LlamaForCausalLM(cfg, device=dev)
+    prompts, kw = (5, 16, 9), dict(slots=8, paged_kv=True)
+    _, ref = _serve_graph(model, False, prompts=prompts, **kw)
+    for k in [k for k in _build._workspaces
+              if k[0].startswith(("fused_rmsnorm_qkv", "fused_mlp"))]:
+        del _build._workspaces[k]          # fresh, at the capture's size
+    eng = ContinuousBatchingEngine(model, **dict(GRAPH_ENGINE, **kw))
+    eng.aot_warmup()
+    key = next(k for k in _build._workspaces
+               if k[0] == "fused_rmsnorm_qkv.xn")
+    captured = _build._workspaces[key]
+    assert any(t is captured for t in eng._graphs["serving.decode"].held)
+    rng = np.random.default_rng(7)
+    rids = [eng.add_request(rng.integers(0, 256, n), max_new_tokens=12)
+            for n in prompts]
+    out = eng.run()
+    assert _build._workspaces[key] is not captured       # it grew
+    assert [out[r][1] for r in rids] == ref
+
+
+def test_recovered_graphed_engine_matches_eager(dev, monkeypatch):
+    """A warmed paged engine whose decode fails on the host after the
+    graph wrote the pools: the batch retires "error", the pools are
+    zeroed in place, and the same graph then serves the eager engine's
+    tokens."""
+    cfg, model = _graph_model(dev, "bfloat16")
+    _, ref = _serve_graph(model, False, paged_kv=True)
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, **dict(GRAPH_ENGINE,
+                                                 paged_kv=True))
+    eng.aot_warmup()
+    real, calls = eng._account_decode, []
+
+    def fail_once(*args):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("injected")
+        return real(*args)
+    monkeypatch.setattr(eng, "_account_decode", fail_once)
+    rng = np.random.default_rng(3)
+    bad = [eng.add_request(rng.integers(0, 256, n), max_new_tokens=4)
+           for n in (30, 8)]
+    eng.run()
+    assert all(eng.request_status(r) == "error" for r in bad)
+    rng = np.random.default_rng(7)
+    rids = [eng.add_request(rng.integers(0, 256, n), max_new_tokens=12)
+            for n in GRAPH_PROMPTS]
+    out = eng.run()
+    assert [out[r][1] for r in rids] == ref
+
+
+def test_close_drops_the_graphs_before_restoring_the_linears(dev,
+                                                             monkeypatch):
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.quantization import QuantedLinear
+    cfg, model = _graph_model(dev, "bfloat16")
+    eng, _ = _serve_graph(model, True, quant_weights="int8", paged_kv=True)
+    assert isinstance(model.lm_head, QuantedLinear)
+    real, seen = serving.restore_from_serving, []
+
+    def restore(m):
+        seen.append(dict(eng._graphs))
+        return real(m)
+    monkeypatch.setattr(serving, "restore_from_serving", restore)
+    eng.close()
+    assert seen == [{}] and not isinstance(model.lm_head, QuantedLinear)
+
+
+@pytest.mark.parametrize("engine", ["paged", "slot"])
+def test_graphed_sampled_decode_equals_eager_of_one_seed(dev, engine):
+    """do_sample draws from the engine's generator, registered with the
+    graph: a warmed and an eager engine from one seed draw the same
+    tokens."""
+    cfg, model = _graph_model(dev, "bfloat16")
+    kw = dict(do_sample=True, temperature=1.3, top_k=50, seed=9,
+              paged_kv=engine == "paged")
+    _, ref = _serve_graph(model, False, **kw)
+    _, got = _serve_graph(model, True, **kw)
+    assert got == ref
+
+
+def test_graphed_spec_verify_equals_eager(dev):
+    cfg, model = _graph_model(dev, "bfloat16")
+    kw = dict(spec_decode=3, paged_kv=True)
+    eager, ref = _serve_graph(model, False, **kw)
+    warm, got = _serve_graph(model, True, **kw)
+    assert got == ref
+    assert warm.stats["spec_accepted"] == eager.stats["spec_accepted"]
+    assert warm.warm_stats["serving.spec_verify"]["graph"]
+
+
+@pytest.mark.parametrize("arch", ["llama", "gpt"])
+def test_generate_graph_equals_an_eager_loop(dev, arch):
+    """generate()'s per-token step replayed as a CUDA graph against a
+    step-by-step loop over the same static-cache forward: the tokens are
+    equal, the run holds a graph replayed max_new - 1 times."""
+    from paddle_tpu_torch import generation as G
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    if arch == "llama":
+        cfg, model = _graph_model(dev, "bfloat16")
+    else:
+        cfg = GPTConfig.tiny(hidden_size=256, num_attention_heads=4,
+                             max_position_embeddings=256, dtype="bfloat16")
+        seed(0)
+        model = GPTForCausalLM(cfg, device=dev).eval()
+    ids = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 40)), device=dev)
+    n = 10
+    got = model.generate(ids, max_new_tokens=n)
+    with torch.inference_mode():
+        caches = G._empty_caches(model, 3, 40 + n, torch.bfloat16)
+        logits, _ = model(ids, None, caches, 0)
+        toks = [logits[:, -1].float().argmax(-1)]
+        for i in range(n - 1):
+            pos = torch.tensor(40 + i, device=dev)
+            logits, _ = model(toks[-1][:, None], None, caches, pos)
+            toks.append(logits[:, -1].float().argmax(-1))
+    ref = torch.cat([ids, torch.stack(toks, 1)], 1).cpu().numpy()
+    np.testing.assert_array_equal(got, ref)
+    info = G.run_cache_info(model)[-1]
+    assert info["graph"] and info["replays"] == n - 1
+    # GPT's path has none of the port's kernels (cuBLAS Linears and
+    # masked SDPA); Llama's QKV and MLP run in the graph
+    assert bool(info["launches"]) == (arch == "llama")

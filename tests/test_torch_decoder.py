@@ -5,8 +5,9 @@ block-boundary-remat gradients against ``jax.grad``, the residual
 rmsnorm's plain version and custom VJP against ``_fwd_pallas`` and
 ``_core``, ``F.rms_norm_residual``, the tiny hd-128 Llama at
 ``PADDLE_TPU_FUSED_BLOCK=decoder`` (logits, three ``TrainStep`` losses,
-the route counts), and two repairs: ``F.rms_norm``'s ``axis`` and
-``LlamaForCausalLM.generate``.  Inputs come from
+the route counts), and a repair: ``F.rms_norm``'s ``axis``
+(``LlamaForCausalLM.generate`` is held in ``test_torch_generate.py``).
+Inputs come from
 ``numpy.random.default_rng``; weights are copied across as numpy arrays.
 Each test states its tolerance.  The kernels themselves run on the card
 (``test_torch_cuda.py``)."""
@@ -413,9 +414,3 @@ def test_rms_norm_axis_matches_jax(axis):
     got = TF.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6,
                       axis=axis)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
-
-
-def test_llama_generate_names_the_roadmap():
-    tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, items 1 and 3"):
-        tm.generate(torch.zeros((1, 4), dtype=torch.long))

@@ -24,7 +24,7 @@ TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
             num_hidden_layers=2, num_attention_heads=4,
             num_key_value_heads=2, max_position_embeddings=128)
 ENGINE = dict(slots=2, max_len=64, prefill_buckets=(16, 32),
-              kv_block_size=4, prefill_chunk=8)
+              kv_block_size=4, prefill_chunk=8, paged_kv=True)
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +69,7 @@ def test_greedy_tokens_match_jax_engine(pair, scenario):
     jm, tm = pair
     over, phases = SCENARIOS[scenario]
     kw = dict(ENGINE, **over)
-    je = JEngine(jm, paged_kv=True, **kw)
+    je = JEngine(jm, **kw)
     te = ContinuousBatchingEngine(tm, **kw)
     reused = 0
     for prompts, max_new in phases:
@@ -106,7 +106,7 @@ def test_quantized_greedy_tokens_match_jax_engine(pair, scenario):
     jm, tm = pair
     over, phases = QUANT_SCENARIOS[scenario]
     kw = dict(ENGINE, **over)
-    je = JEngine(jm, paged_kv=True, **kw)
+    je = JEngine(jm, **kw)
     te = ContinuousBatchingEngine(tm, **kw)
     try:
         assert te._num_blocks == je._num_blocks
@@ -149,7 +149,7 @@ def test_int8_pool_holds_itemsize_times_the_blocks(pair, dtype, ratio):
                    for p in e._pool.kpools + e._pool.vpools)
     assert payload(quant) == payload(base)
     if dtype == "float32":
-        je = JEngine(pair[0], paged_kv=True, quant_kv="int8", **ENGINE)
+        je = JEngine(pair[0], quant_kv="int8", **ENGINE)
         assert je._num_blocks == quant._num_blocks
 
 
@@ -224,9 +224,8 @@ def test_deadline_retires_with_timeout(pair):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"paged_kv": False}, {"spec_decode": 2}, {"int8_weights": True},
-    {"kv_tier": object()}, {"auto_park_s": 1.0}, {"analyze": "warn"},
-    {"role": "prefill"},
+    {"int8_weights": True}, {"kv_tier": object()}, {"auto_park_s": 1.0},
+    {"analyze": "warn"}, {"role": "prefill"},
 ])
 def test_unported_engine_options_raise(pair, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -242,7 +241,7 @@ def test_unported_request_hooks_raise(pair, kwargs):
         te.add_request([1, 2, 3], max_new_tokens=2, **kwargs)
 
 
-@pytest.mark.parametrize("method", ["aot_warmup", "analyze", "park",
+@pytest.mark.parametrize("method", ["analyze", "park",
                                     "resume", "export_handoff",
                                     "discard_handoff",
                                     "checkpoint_sessions"])
@@ -343,7 +342,7 @@ def test_sampling_is_seeded_and_follows_the_distribution():
 def test_sampled_engine_with_top_k_1_matches_jax_greedy(pair):
     jm, tm = pair
     prompts = _prompts(8, [9, 14])
-    je = JEngine(jm, paged_kv=True, **ENGINE)
+    je = JEngine(jm, **ENGINE)
     te = ContinuousBatchingEngine(tm, do_sample=True, top_k=1, seed=3,
                                   **ENGINE)
     jr = [je.add_request(p, max_new_tokens=5) for p in prompts]

@@ -129,7 +129,7 @@ def test_engine_forward_builds_no_graph():
     assert all(p.requires_grad for p in tm.parameters())
     eng = ContinuousBatchingEngine(tm, slots=1, max_len=32,
                                    prefill_buckets=(8, 16), kv_block_size=4,
-                                   prefill_chunk=8)
+                                   prefill_chunk=8, paged_kv=True)
     bt = np.zeros((1, eng._max_blocks), np.int32)
     logits = eng._forward(np.zeros((1, 3), np.int64), bt,
                           np.zeros(1, np.int32))
