@@ -198,13 +198,14 @@ train_moe two, one per engine or dispatch mode):
             serve_quant_graph (in serve_quant): each quantized engine
             again after aot_warmup, its tokens equal to the eager run's.
             serve_graph: Serve's engine after aot_warmup (the decode
-            replayed as one CUDA graph a step), tokens equal to the
-            eager Serve run's, then profile_graph; again at
-            steps_per_sync=4 and sampled (top_k=50, seed 7), each against
-            an eager engine of the same settings; eager beside graphed:
-            decode and output tokens/s, TTFT, busy share, the decode
-            kernels' device ms a step, the replays' CUDA-event ms,
-            capture seconds, launches a replay.  serve_spec:
+            replayed as one CUDA graph a step, every prefill chunk as
+            one graph), tokens equal to the eager Serve run's, then
+            profile_graph; again at steps_per_sync=4 and sampled
+            (top_k=50, seed 7), each against an eager engine of the same
+            settings; eager beside graphed: decode and output tokens/s,
+            TTFT, busy share, the decode kernels' device ms a step, the
+            replays' and the chunks' CUDA-event ms, capture seconds,
+            launches a replay.  serve_spec:
             spec_decode=4, graphed, prompts holding a 64-token span
             twice: every request "ok" with 32 tokens; drafts proposed and
             accepted, tokens a verify, agreement with a graphed non-spec
@@ -217,6 +218,17 @@ train_moe two, one per engine or dispatch mode):
             timed call equal a step-by-step loop over the same
             static-cache forward, exactly; tokens/s and ms a step of
             each; the EOS / pad rule on a forced EOS id.
+            serve_fleet: the Serve model behind ServingRouter fleets
+            (warmed replicas sharing it): 2 mixed replicas; 1 prefill +
+            1 decode at steps_per_sync=4; that with int8 KV on the
+            decode tier, and on both tiers; one engine with a host KV
+            tier parking half the requests mid-decode and resuming
+            them.  Every request "ok" with 32 tokens; the mixed, the
+            disaggregated and the parking run's tokens equal Serve's;
+            handoff bytes > 0, the int8 wire about half the bf16 one;
+            TTFT, tokens/s, handoff bytes and export / serialize /
+            import ms a request (CUDA events), affinity counters,
+            imported against skipped blocks.
 
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -1387,11 +1399,15 @@ def serve(dev, kernels):
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENGTHS]
     rids = [eng.add_request(p, max_new_tokens=32) for p in prompts]
     stats0 = dict(eng.stats)
+    # each eager chunk's span on the device, between CUDA events
+    chunks, body = TimedReplays(None), eng._prefill_chunk_body
+    eng._prefill_chunk_body = lambda **kw: chunks.timed(body, **kw)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    del eng._prefill_chunk_body
     launches = {fn.__name__: fn.launches for fn in kernels.SERVING}
     for rid in rids:
         st = eng.request_status(rid)
@@ -1417,6 +1433,9 @@ def serve(dev, kernels):
                                      ("paged_decode_attention", "direct"):
                                      0})
     metrics = run_metrics(eng, rids, out, stats0, run_s)
+    ms = chunks.ms()
+    metrics["serving.prefill_chunk.eager.replay_ms"] = {
+        "n": len(ms), "mean": float(np.mean(ms)), "total": float(np.sum(ms))}
     emit("serve", layers=cfg.num_hidden_layers, dtype=cfg.dtype,
          requests=len(rids), prompt_lengths=SERVE_LENGTHS, max_new_tokens=32,
          model_build_s=build_s, **metrics,
@@ -1541,17 +1560,25 @@ def serve_quant(dev, kernels, model, prompts, bf16_tokens):
         geng, gtoks, gm, _ = serve_run(model, prompts, warm=True,
                                        quant_weights=wmode, quant_kv=kvq)
         graph = geng._graphs["serving.decode"]
+        chunk = geng._graphs["serving.prefill_chunk"]
         same = gtoks == [out[r][1] for r in rids]
         emit("serve_quant_graph", weights=wmode, kv=kvq or "bf16",
              tokens_equal_eager=same, eager_decode_tok_s=dec_tok / dec_s,
              graphed=gm, capture_s=graph.seconds,
-             launches_a_replay=graph.launches, replays=graph.replays)
+             launches_a_replay=graph.launches, replays=graph.replays,
+             chunk_capture_s=chunk.seconds,
+             chunk_launches_a_replay=chunk.launches,
+             chunk_replays=chunk.replays)
+        if chunk.graph is None or not chunk.replays:
+            raise AssertionError(f"serve_quant_graph {wmode}/{kvq}: the "
+                                 "prefill chunk was not replayed")
         if not same:
             raise AssertionError(f"serve_quant_graph {wmode}/{kvq}: graphed "
                                  "tokens differ from the eager run's")
         launches["graph_launches_a_replay"] = dict(graph.launches)
+        launches["chunk_launches_a_replay"] = dict(chunk.launches)
         geng.close()
-        del geng, graph
+        del geng, graph, chunk
         eng.close()
         if not hasattr(model.lm_head, "weight") or \
                 getattr(model, "_serving_quant_refs", 0) != 0:
@@ -1567,19 +1594,24 @@ def serve_quant(dev, kernels, model, prompts, bf16_tokens):
 
 class TimedReplays:
     """Stands in for a StaticGraph's CUDA graph: CUDA events around each
-    replay, so a replay's device time is read without the profiler."""
+    replay (or each call of :meth:`timed`), so a replay's device time is
+    read without the profiler."""
 
     def __init__(self, graph):
         self.inner = graph
         self.events = []
 
     def replay(self):
+        self.timed(self.inner.replay)
+
+    def timed(self, fn, *args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        self.inner.replay()
+        out = fn(*args, **kw)
         end.record()
         self.events.append((start, end))
+        return out
 
     def ms(self):
         torch.cuda.synchronize()
@@ -1602,6 +1634,11 @@ def serve_run(model, prompts, warm=False, n_new=32, **kw):
     timed = {t: TimedReplays(g.graph) for t, g in eng._graphs.items()}
     for t, g in eng._graphs.items():
         g.graph = timed[t]
+    chunks = None
+    if not warm and eng.paged:
+        # an eager chunk's span on the device, between CUDA events
+        chunks, body = TimedReplays(None), eng._prefill_chunk_body
+        eng._prefill_chunk_body = lambda **kw: chunks.timed(body, **kw)
     rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
     stats0 = dict(eng.stats)
     t0 = time.perf_counter()
@@ -1610,6 +1647,9 @@ def serve_run(model, prompts, warm=False, n_new=32, **kw):
     run_s = time.perf_counter() - t0
     for t, g in eng._graphs.items():
         g.graph = timed[t].inner
+    if chunks is not None:
+        del eng._prefill_chunk_body
+        timed["serving.prefill_chunk.eager"] = chunks
     for rid in rids:
         st, toks = eng.request_status(rid), out[rid][1]
         if st != "ok" or len(toks) != n_new or \
@@ -1633,19 +1673,25 @@ def serve_graph(dev, kernels, model, prompts, eager_tokens, eager):
     capture and the eager prefill chunks: a replay moves no counter).
     Reports eager beside graphed: decode and output tokens/s, TTFT, the
     profiled busy share and the decode kernels' device ms a step, the
-    replays' event-timed device ms, capture seconds and launches a
-    replay.  Returns the launches one decode replay makes."""
+    replays' and chunks' event-timed device ms, capture seconds and
+    launches a replay.  Returns the launches one decode replay and one
+    prefill chunk replay make."""
     cfg = model.config
     kernels.reset_launch_counts()
     eng, toks, m, ws = serve_run(model, prompts, warm=True)
     launches = {fn.__name__: fn.launches for fn in kernels.SERVING}
     graph = eng._graphs["serving.decode"]
+    chunk = eng._graphs["serving.prefill_chunk"]
     if toks != eager_tokens:
         raise AssertionError("serve_graph: graphed tokens differ from the "
                              "eager Serve run's")
-    if not all(launches.values()) or not graph.launches:
+    L = cfg.num_hidden_layers
+    if not all(launches.values()) or not graph.launches or \
+            chunk.graph is None or not chunk.replays or \
+            chunk.launches.get("fused_mlp") != L or \
+            chunk.launches.get("fused_rmsnorm_qkv") != L:
         raise AssertionError(f"serve_graph: launches {launches}, a replay "
-                             f"{graph.launches}")
+                             f"{graph.launches}, a chunk {chunk.launches}")
     prof = profile(eng, cfg, np.random.default_rng(0), phase="profile_graph")
     emit("serve_graph", variant="bf16, steps_per_sync=1", requests=len(toks),
          tokens_equal_eager=True, eager={k: eager[k] for k in (
@@ -1660,10 +1706,15 @@ def serve_graph(dev, kernels, model, prompts, eager_tokens, eager):
          profiler_saw_replays=bool(prof["decode_kernels_ms_per_step"]),
          capture_s=ws["serving.decode"]["seconds"],
          launches_a_replay=graph.launches, replays=graph.replays,
+         chunk_capture_s=ws["serving.prefill_chunk"]["seconds"],
+         chunk_launches_a_replay=chunk.launches, chunk_replays=chunk.replays,
+         eager_chunk_ms=eager["serving.prefill_chunk.eager.replay_ms"],
+         graphed_chunk_ms=m["serving.prefill_chunk.replay_ms"],
          launches=launches)
     a_replay = dict(graph.launches)
+    chunk_replay = dict(chunk.launches)
     eng.close()
-    del eng, graph
+    del eng, graph, chunk
     torch.cuda.empty_cache()
     for variant, kw in (("bf16, steps_per_sync=4", dict(steps_per_sync=4)),
                         ("bf16, do_sample (top_k=50, seed=7)",
@@ -1675,14 +1726,17 @@ def serve_graph(dev, kernels, model, prompts, eager_tokens, eager):
         emit("serve_graph", variant=variant, tokens_equal_eager=g_toks
              == e_toks, eager=e_m, graphed=g_m,
              capture_s=g_ws["serving.decode"]["seconds"],
-             launches_a_replay=g.launches, replays=g.replays)
+             launches_a_replay=g.launches, replays=g.replays,
+             chunk_launches_a_replay=g_ws["serving.prefill_chunk"][
+                 "launches"],
+             chunk_replays=g_eng._graphs["serving.prefill_chunk"].replays)
         if g_toks != e_toks:
             raise AssertionError(f"serve_graph {variant}: graphed tokens "
                                  "differ from the eager engine's")
         g_eng.close()
         del e_eng, g_eng, g
         torch.cuda.empty_cache()
-    return a_replay
+    return a_replay, chunk_replay
 
 
 SPEC_K = 4
@@ -1728,6 +1782,311 @@ def serve_spec(kernels, model):
     eng.close()
     del eng, g
     torch.cuda.empty_cache()
+
+
+# -- phase 6c: the serving fleet ------------------------------------------------
+
+class TransferTimes:
+    """CUDA events around every block export and import and every
+    serialize / deserialize of a handoff (patched on the classes and the
+    module the router and the engine call), and the blocks each moved."""
+
+    def __init__(self):
+        from paddle_tpu_torch.inference import kv_cache as KV
+        self.KV = KV
+        self.saved = {}
+        self.calls = {k: TimedReplays(None) for k in
+                      ("export", "serialize", "deserialize", "import")}
+        self.blocks = {"export": 0, "import": 0}
+
+    def __enter__(self):
+        KV, calls = self.KV, self.calls
+        pool = KV.PagedKVPool
+        self.saved = {"export": pool.export_blocks,
+                      "import": pool.import_blocks,
+                      "serialize": KV.serialize_handoff,
+                      "deserialize": KV.deserialize_handoff}
+        ex, im = self.saved["export"], self.saved["import"]
+
+        # a block counts once its call has returned
+        def export(p, bids):
+            out = calls["export"].timed(ex, p, bids)
+            self.blocks["export"] += len(bids)
+            return out
+
+        def import_(p, payload, dst, src_start=0):
+            out = calls["import"].timed(im, p, payload, dst, src_start)
+            self.blocks["import"] += len(dst)
+            return out
+        pool.export_blocks, pool.import_blocks = export, import_
+        KV.serialize_handoff = lambda payload: calls["serialize"].timed(
+            self.saved["serialize"], payload)
+        KV.deserialize_handoff = lambda data: calls["deserialize"].timed(
+            self.saved["deserialize"], data)
+        return self
+
+    def __exit__(self, *exc):
+        KV = self.KV
+        KV.PagedKVPool.export_blocks = self.saved["export"]
+        KV.PagedKVPool.import_blocks = self.saved["import"]
+        KV.serialize_handoff = self.saved["serialize"]
+        KV.deserialize_handoff = self.saved["deserialize"]
+
+    def report(self, requests):
+        out = {}
+        for k, t in self.calls.items():
+            ms = t.ms()
+            out[k] = {"calls": len(ms), "total_ms": float(np.sum(ms)),
+                      "ms_per_request": float(np.sum(ms)) / requests}
+        out["blocks"] = dict(self.blocks)
+        return out
+
+
+FLEETS = {
+    "mixed": dict(replicas=2),
+    "disaggregated": dict(replicas=2, prefill_replicas=1,
+                          decode_kwargs=dict(steps_per_sync=4)),
+    "disaggregated_int8_decode": dict(
+        replicas=2, prefill_replicas=1,
+        decode_kwargs=dict(steps_per_sync=4, quant_kv="int8")),
+    "disaggregated_int8_both": dict(
+        replicas=2, prefill_replicas=1, quant_kv="int8",
+        decode_kwargs=dict(steps_per_sync=4)),
+}
+# Serve's prompts behind one system prefix of a whole prefill chunk (16
+# blocks): the router's affinity and both tries' reuse fire on it, and a
+# chunk never straddles the prefix, so reuse leaves the tokens bitwise
+SHARED_PREFIX = 256
+
+
+def _series(name):
+    from paddle_tpu_torch.observability import default_registry
+    m = default_registry().get(name)
+    return {"/".join(k) or "all": c.value() for k, c in m.series()} \
+        if m is not None else {}
+
+
+def _delta(after, before):
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if v != before.get(k, 0.0)}
+
+
+def fleet_run(model, prompts, name, topo):
+    """One warmed fleet over `prompts` (32 new tokens each) after a
+    short warm-up request; returns (tokens, metrics)."""
+    from paddle_tpu_torch.inference import ServingRouter
+    cfg = model.config
+    kw = dict(topo)
+    engine_kwargs = dict(SERVE_ENGINE, quant_kv=kw.pop("quant_kv", None))
+    t0 = time.perf_counter()
+    router = ServingRouter(model, engine_kwargs=engine_kwargs,
+                           warm_on_spawn=True, **kw)
+    spawn_s = time.perf_counter() - t0
+    if not all(rep.engine._warmed for rep in router._replicas.values()):
+        raise AssertionError(f"serve_fleet {name}: a replica is not warmed")
+    rng = np.random.default_rng(0)
+    router.add_request(rng.integers(0, cfg.vocab_size, 16), max_new_tokens=2)
+    router.run()
+    names = ("paddle_tpu_router_affinity_total",
+             "paddle_tpu_router_handoff_bytes_total",
+             "paddle_tpu_router_handoffs_total",
+             "paddle_tpu_router_requeues_total",
+             "paddle_tpu_router_replica_deaths_total")
+    before = {n: _series(n) for n in names}
+    torch.cuda.reset_peak_memory_stats()
+    with TransferTimes() as xfer:
+        t0 = time.perf_counter()
+        rids = [router.add_request(p, max_new_tokens=32) for p in prompts]
+        out = router.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    toks = [out[r][1] for r in rids]
+    for rid, t in zip(rids, toks):
+        st = router.request_status(rid)
+        if st != "ok" or len(t) != 32 or \
+                not all(0 <= x < cfg.vocab_size for x in t):
+            raise AssertionError(f"serve_fleet {name}: request {rid} status "
+                                 f"{st!r}, {len(t)} tokens")
+    timings = [router.request_status(r).timings for r in rids]
+    ttft = np.array([t["ttft_s"] for t in timings])
+    counters = {n.removeprefix("paddle_tpu_router_"): _delta(_series(n),
+                                                             before[n])
+                for n in names}
+    m = {"replicas": router.replicas(), "spawn_s": spawn_s,
+         "run_s": run_s, "ttft_p50_s": float(np.percentile(ttft, 50)),
+         "ttft_p99_s": float(np.percentile(ttft, 99)),
+         "output_tok_s": sum(len(t) for t in toks) / run_s,
+         "handoff_s_p50": float(np.percentile(
+             [t["handoff_s"] for t in timings], 50)),
+         "prefix_tokens_reused": sum(t["prefix_tokens_reused"]
+                                     for t in timings),
+         # a routed request's timings are its last engine's: on the
+         # decode tier, the blocks its trie spared the import
+         "skipped_blocks": int(sum(t["prefix_tokens_reused"]
+                                   for t in timings)
+                               // SERVE_ENGINE["kv_block_size"]),
+         "attempts": sum(t["attempts"] for t in timings),
+         "transfer": xfer.report(len(rids)), **counters,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    m["handoff_bytes"] = m.pop("handoff_bytes_total").get("all", 0.0)
+    router.close()
+    fleet_gates(name, m, len(rids), disaggregated="prefill_replicas" in topo)
+    return toks, m
+
+
+def fleet_gates(name, m, n, disaggregated):
+    """A fleet run took the path it was built for: no request was
+    requeued, no replica died, and in a disaggregated fleet every request
+    crossed by one handoff (none fell back to a fresh prefill) whose
+    blocks the decode tier imported, less those its own trie held."""
+    x = m["transfer"]
+    bad = []
+    if m["requeues_total"] or m["replica_deaths_total"] or m["attempts"]:
+        bad.append("requeues / deaths / retries")
+    if disaggregated:
+        if m["handoffs_total"] != {"ok": float(n)}:
+            bad.append("handoffs")
+        if x["export"]["calls"] != n or x["import"]["calls"] != n:
+            bad.append("export / import calls")
+        b = x["blocks"]
+        if not 0 < b["import"] == b["export"] - m["skipped_blocks"]:
+            bad.append("imported blocks")
+    elif m["handoffs_total"] or x["blocks"]["export"]:
+        bad.append("a handoff in a mixed fleet")
+    if bad:
+        raise AssertionError(f"serve_fleet {name}: {', '.join(bad)}: "
+                             f"handoffs {m['handoffs_total']}, requeues "
+                             f"{m['requeues_total']}, deaths "
+                             f"{m['replica_deaths_total']}, attempts "
+                             f"{m['attempts']}, transfer {x}, skipped "
+                             f"{m['skipped_blocks']}")
+
+
+def park_run(model, prompts):
+    """One warmed engine with a host KV tier: every other request is
+    parked once it has 8 tokens and resumed when the others are done."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            KVTierManager)
+    cfg = model.config
+    tier = KVTierManager()
+    eng = ContinuousBatchingEngine(model, **SERVE_ENGINE, kv_tier=tier)
+    eng.aot_warmup()
+    rng = np.random.default_rng(0)
+    eng.add_request(rng.integers(0, cfg.vocab_size, 16), max_new_tokens=2)
+    eng.run()
+    before = _series("paddle_tpu_serving_session_resumes_total")
+    with TransferTimes() as xfer:
+        t0 = time.perf_counter()
+        rids = [eng.add_request(p, max_new_tokens=32) for p in prompts]
+        chosen, parked, tier_bytes = set(rids[::2]), [], 0
+        while eng.pending or parked:
+            eng.step()
+            for slot, r in enumerate(eng._active):
+                if r is not None and r.rid in chosen and \
+                        slot not in eng._prefilling and len(r.out) >= 8:
+                    chosen.discard(r.rid)
+                    parked.append(r.rid)
+                    eng.park(r.rid)
+            if parked and not eng.pending:
+                tier_bytes = max(tier_bytes, tier.stats()["host_bytes"])
+                for rid in parked:
+                    eng.resume(rid)
+                parked = []
+        out = {rid: t for rid, _p, t in eng.finished()}
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    toks = [out[r] for r in rids]
+    timings = [eng.request_status(r).timings for r in rids]
+    if chosen or any(eng.request_status(r) != "ok" or len(t) != 32
+                     for r, t in zip(rids, toks)):
+        raise AssertionError(f"serve_fleet park: unparked {chosen}, "
+                             f"statuses {[str(eng.request_status(r)) for r in rids]}")
+    resumes = _delta(_series("paddle_tpu_serving_session_resumes_total"),
+                     before)
+    ttft = np.array([t["ttft_s"] for t in timings])
+    m = {"parked": len(rids[::2]), "resumes": resumes,
+         "tier_host_bytes": tier_bytes,
+         "parked_s": [round(t["parked_s"], 4) for t in timings],
+         "run_s": run_s, "ttft_p50_s": float(np.percentile(ttft, 50)),
+         "ttft_p99_s": float(np.percentile(ttft, 99)),
+         "output_tok_s": sum(len(t) for t in toks) / run_s,
+         "transfer": xfer.report(len(rids[::2]))}
+    if resumes.get("promote", 0) != len(rids[::2]):
+        raise AssertionError(f"serve_fleet park: resumes {resumes}")
+    eng.close()
+    return toks, m
+
+
+def serve_fleet(kernels, model, prompts, paged_tokens):
+    """The Serve model (32 layers, bf16, one shared model object) behind
+    fleets of warmed replicas over Serve's prompts, 32 new tokens each:
+    FLEETS, the disaggregated fleet again on the prompts behind a shared
+    SHARED_PREFIX, then one engine with a host KV tier parking half of
+    the requests mid-decode (park_run).  Gates: every request "ok" with
+    32 tokens; each fleet on its path (fleet_gates: no requeue, no
+    death, every handoff "ok" and imported); the mixed, the
+    disaggregated and the parking run's tokens equal the Serve run's,
+    the shared-prefix fleet's a single warmed engine's on its prompts,
+    with affine routes and blocks the decode tier's trie spared; handoff
+    bytes > 0 in the disaggregated fleets, the int8 wire (both tiers
+    int8) within 0.45-0.6 of the bf16 one;
+    every serving kernel launched (at the captures: replays move no
+    counter), the int8 paged decode in the int8 fleets.  Reported, not
+    gated: the int8 fleets' agreement with Serve.  Returns the launch
+    counts."""
+    kernels.reset_launch_counts()
+    res = {}
+    for name, topo in FLEETS.items():
+        toks, m = fleet_run(model, prompts, name, topo)
+        agree = sum(a == b for t, r in zip(toks, paged_tokens)
+                    for a, b in zip(t, r))
+        m["tokens_agree_with_serve"] = f"{agree}/{32 * len(toks)}"
+        emit("serve_fleet", topology=name, requests=len(toks),
+             prompt_lengths=SERVE_LENGTHS, **m)
+        if "int8" not in name and toks != paged_tokens:
+            raise AssertionError(f"serve_fleet {name}: tokens differ from "
+                                 "the Serve run's")
+        res[name] = m
+        torch.cuda.empty_cache()
+    prefix = np.random.default_rng(1).integers(0, model.config.vocab_size,
+                                               SHARED_PREFIX)
+    shared = [np.concatenate([prefix, p]) for p in prompts]
+    eng, single, _, _ = serve_run(model, shared, warm=True)
+    eng.close()
+    name = "disaggregated_shared_prefix"
+    toks, m = fleet_run(model, shared, name, FLEETS["disaggregated"])
+    m["tokens_equal_single_engine"] = toks == single
+    emit("serve_fleet", topology=name, requests=len(toks),
+         shared_prefix=SHARED_PREFIX, prompt_lengths=SERVE_LENGTHS, **m)
+    if toks != single or not m["affinity_total"].get("affine") or \
+            not m["skipped_blocks"]:
+        raise AssertionError(f"serve_fleet {name}: tokens equal "
+                             f"{toks == single}, affinity "
+                             f"{m['affinity_total']}, skipped blocks "
+                             f"{m['skipped_blocks']}")
+    torch.cuda.empty_cache()
+    toks, m = park_run(model, prompts)
+    m["tokens_equal_serve"] = toks == paged_tokens
+    emit("serve_fleet", topology="park_resume", requests=len(toks), **m)
+    if toks != paged_tokens:
+        raise AssertionError("serve_fleet park_resume: tokens differ from "
+                             "the Serve run's")
+    torch.cuda.empty_cache()
+    launches = {fn.__name__: fn.launches
+                for fn in kernels.SERVING + kernels.SERVING_QUANT}
+    bf16 = res["disaggregated"]["handoff_bytes"]
+    int8 = res["disaggregated_int8_both"]["handoff_bytes"]
+    ratio = int8 / bf16 if bf16 else None
+    emit("serve_fleet", summary=True, int8_to_bf16_wire=ratio,
+         launches=launches)
+    if not bf16 or not res["disaggregated_int8_decode"]["handoff_bytes"] \
+            or not 0.45 <= ratio <= 0.6:
+        raise AssertionError(f"serve_fleet: handoff bytes bf16 {bf16}, "
+                             f"int8 {int8}")
+    if not all(launches[fn.__name__] for fn in kernels.SERVING) or \
+            not launches["paged_decode_attention_int8"]:
+        raise AssertionError(f"serve_fleet: launches {launches}")
+    return launches
 
 
 STATIC_BUCKETS = (128, 256, 512, 768)
@@ -3824,11 +4183,13 @@ def main():
     torch.cuda.empty_cache()
     quant_launches = serve_quant(dev, kernels, model, prompts, bf16_tokens)
     torch.cuda.empty_cache()
-    graphed = {"serve_graph": serve_graph(dev, kernels, model, prompts,
-                                          bf16_tokens, eager)}
+    graphed = {}
+    graphed["serve_graph"], chunk_launches = serve_graph(
+        dev, kernels, model, prompts, bf16_tokens, eager)
     serve_spec(kernels, model)
     graphed["serve_static"] = serve_static(kernels, model, prompts,
                                            bf16_tokens)
+    fleet_launches = serve_fleet(kernels, model, prompts, bf16_tokens)
     graphed["generate"] = generate_phase(
         kernels, model, "llama3_8b", 4, 512, 64,
         (kernels.SERVING[0], kernels.SERVING[1]))
@@ -3883,9 +4244,13 @@ def main():
             entry["prefill_T256"] = {k: by_t[256][k] for k in keys}
         # QKV and the MLP split-K at T = 8, wgmma at 256; paged split
         entry["launches_by_path"] = launches["launches_by_path"][name]
-        # the launches one replay of each captured decode program makes
+        # the launches one replay of each captured decode program makes,
+        # and one replay of Serve's prefill chunk
         entry["graph_launches_a_replay"] = {
             k: v.get(name, 0) for k, v in graphed.items()}
+        entry["graph_launches_a_replay"]["serve_graph.prefill_chunk"] = \
+            chunk_launches.get(name, 0)
+        entry["launches_serve_fleet"] = fleet_launches[name]
         if name == "fused_mlp":
             entry["path"] = decode["path"]
             entry["prefill_T256"]["path"] = by_t[256]["path"]
@@ -3963,7 +4328,12 @@ def main():
                  "shape": r["shape"], "path": path,
                  "graph_launches_a_replay": quant_launches[wmode][
                      "graph_launches_a_replay"].get(
+                         name.removesuffix("_fp8"), 0),
+                 "chunk_launches_a_replay": quant_launches[wmode][
+                     "chunk_launches_a_replay"].get(
                          name.removesuffix("_fp8"), 0)}
+        if name == "paged_decode_attention_int8":
+            entry["launches_serve_fleet"] = fleet_launches[name]
         if name.startswith("paged"):
             entry["kernel_path"] = r["kernel_path"]
             entry["launches_by_path"] = quant_launches["int8"]["paged_by_path"]

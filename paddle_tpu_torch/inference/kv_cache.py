@@ -15,6 +15,19 @@
   token, no mask) through the CUDA paged-decode kernel (its int8 variant
   over int8 pools), chunked prefill over the gathered (and, for int8
   pools, dequantized) table with the plain reference attention.
+* The cross-replica KV transfer: :meth:`PagedKVPool.export_blocks` /
+  :meth:`~PagedKVPool.import_blocks` (every layer's k/v pools and scales
+  gathered with ``index_select`` and scattered with ``index_copy_``,
+  converting at the boundary between fp and int8 pools), and the
+  handoff wire format, :func:`serialize_handoff` /
+  :func:`deserialize_handoff`, byte-compatible with the JAX package's:
+  a JSON head and raw little-endian buffers under its dtype names
+  (bfloat16 moves as its 16-bit pattern; no ``ml_dtypes``, no pickle),
+  so JAX and torch replicas exchange handoffs.  The JAX package pads
+  each transfer to a power-of-two block count and compiles the gather
+  and scatter for every such count up front (``warm_transfer``), to keep
+  XLA compiles out of a handoff; here nothing compiles, so a transfer
+  runs eagerly at its exact block count and needs no warm-up.
 
 Torch tensors are mutable, so the pools are updated **in place**
 (``index_put_``) where the JAX package returns new pools that its jitted
@@ -22,7 +35,9 @@ steps donate (``serving.py:1751-1757``)."""
 
 from __future__ import annotations
 
+import json
 import os
+import warnings
 from collections import OrderedDict, deque
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, \
     Tuple
@@ -38,7 +53,8 @@ from paddle_tpu_torch.ops.kernels.paged_attention import \
 
 __all__ = ["BlockAllocator", "SequenceBlocks", "PrefixCache",
            "PagedKVPool", "PagedCache", "paged_cache_attention",
-           "quant_kv_mode", "paged_kv_enabled"]
+           "quant_kv_mode", "paged_kv_enabled", "serialize_handoff",
+           "deserialize_handoff", "publish_handoff", "fetch_handoff"]
 
 
 def paged_kv_enabled(default: bool = False) -> bool:
@@ -220,9 +236,11 @@ class PrefixCache:
     requests share a physical block iff their prompts agree on every
     token up to and including that block.  The cache owns one reference
     per registered block; :meth:`evict` releases LRU leaves that only
-    the cache still holds."""
+    the cache still holds.  ``on_evict(node)``, when set, runs just
+    before a victim's block is freed (the KV tier demotes it)."""
 
-    def __init__(self, block_size: int, allocator: BlockAllocator):
+    def __init__(self, block_size: int, allocator: BlockAllocator,
+                 on_evict=None):
         self.block_size = block_size
         self._alloc = allocator
         self._root = _TrieNode((), -1, None)
@@ -231,12 +249,26 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.on_evict = on_evict
 
     def __len__(self):
         return len(self._lru)
 
     def _touch(self, node: _TrieNode):
         self._lru.move_to_end(id(node))
+
+    @staticmethod
+    def node_tokens(node: _TrieNode) -> List[int]:
+        """The full token chain (root -> node) of a trie node: the key a
+        demoted block is filed under in a lower tier."""
+        chunks = []
+        while node is not None and node.key:
+            chunks.append(node.key)
+            node = node.parent
+        out: List[int] = []
+        for key in reversed(chunks):
+            out.extend(int(t) for t in key)
+        return out
 
     def match(self, tokens: np.ndarray) -> List[int]:
         """Physical block ids covering the longest cached full-block
@@ -294,6 +326,12 @@ class PrefixCache:
                     break
             if victim is None:
                 break
+            if self.on_evict is not None:
+                try:
+                    self.on_evict(victim)
+                except Exception:  # noqa: BLE001 — demotion is
+                    # best-effort; eviction must free memory regardless
+                    pass
             self._alloc.free(victim.bid)
             victim.parent.children.pop(victim.key, None)
             del self._lru[id(victim)]
@@ -365,6 +403,236 @@ class PagedKVPool:
         for p in self._all():
             p.zero_()
 
+    # -- cross-replica block transfer (prefill/decode disaggregation) --------
+    def export_blocks(self, bids: Sequence[int]) -> dict:
+        """Read physical blocks `bids` out of every layer's k/v pool (and
+        scales): the payload of a KV handoff or a session park.  Layout
+        ``{"block_size", "dtype", "k": [L x [n, bs, kvh, hd]], "v": ...}``
+        plus ``"k_scale"`` / ``"v_scale"`` (``[n, bs, kvh]`` fp32 per
+        layer) from int8 pools, in the order of `bids`; the tensors stay
+        on the pools' device (:func:`serialize_handoff` brings them to
+        the host).  A pure read."""
+        idx = torch.as_tensor(list(bids), dtype=torch.long).to(
+            self.kpools[0].device)
+        payload = {"block_size": int(self.block_size),
+                   "dtype": _DTYPE_NAMES[self.kpools[0].dtype],
+                   "k": [p.index_select(0, idx) for p in self.kpools],
+                   "v": [p.index_select(0, idx) for p in self.vpools]}
+        if self.quant:
+            payload["k_scale"] = [p.index_select(0, idx)
+                                  for p in self.kscales]
+            payload["v_scale"] = [p.index_select(0, idx)
+                                  for p in self.vscales]
+        return payload
+
+    def import_blocks(self, payload: dict, dst_bids: Sequence[int],
+                      src_start: int = 0):
+        """Write exported blocks into this pool at physical ids
+        `dst_bids`, starting at the payload's logical block `src_start`
+        (a receiver whose prefix cache holds the leading blocks imports
+        the tail only).  Raises on a geometry mismatch (block size, kv
+        heads, head dim and layer count must agree across the fleet).
+
+        Between precisions the boundary converts, as in the JAX package
+        (``kv_cache.py:508-601``): an fp payload into int8 pools is
+        quantized row by row (:func:`_quantize_kv`, the write path's
+        rule), an int8 payload into fp pools is dequantized with its
+        shipped scales; an int8 payload without scales is refused."""
+        dst_bids = list(dst_bids)
+        if not dst_bids:
+            return
+        L = len(self.kpools)
+        if len(payload["k"]) != L or len(payload["v"]) != L:
+            raise ValueError(
+                f"handoff payload has {len(payload['k'])}/"
+                f"{len(payload['v'])} k/v layers, pool has {L}")
+        want = tuple(self.kpools[0].shape[1:])
+        got = tuple(payload["k"][0].shape[1:])
+        if got != want:
+            raise ValueError(
+                f"handoff block geometry {got} != pool {want} "
+                "(block_size / kv_heads / head_dim must match)")
+        if src_start + len(dst_bids) > payload["k"][0].shape[0]:
+            raise ValueError(
+                f"import of {len(dst_bids)} blocks from offset "
+                f"{src_start} exceeds payload of "
+                f"{payload['k'][0].shape[0]} blocks")
+        src_quant = _tensor(payload["k"][0]).dtype == torch.int8
+        if src_quant and ("k_scale" not in payload
+                          or "v_scale" not in payload):
+            raise ValueError(
+                "quantized handoff payload carries no k_scale/v_scale "
+                "— refusing to import scaleless int8 KV")
+        dev = self.kpools[0].device
+        sel = slice(src_start, src_start + len(dst_bids))
+        idx = torch.as_tensor(dst_bids, dtype=torch.long).to(dev)
+
+        def part(arrays):
+            return [_tensor(a)[sel].to(dev) for a in arrays]
+
+        kdata, vdata = part(payload["k"]), part(payload["v"])
+        kscale = vscale = None
+        if src_quant:
+            kscale, vscale = part(payload["k_scale"]), \
+                part(payload["v_scale"])
+            if not self.quant:
+                # dequantize at the boundary: fp pools receive fp values
+                kdata = [d.float() * s.float()[..., None]
+                         for d, s in zip(kdata, kscale)]
+                vdata = [d.float() * s.float()[..., None]
+                         for d, s in zip(vdata, vscale)]
+        elif self.quant:
+            # quantize at the boundary: the write path's rowwise rule
+            kdata, kscale = zip(*(_quantize_kv(d.float()) for d in kdata))
+            vdata, vscale = zip(*(_quantize_kv(d.float()) for d in vdata))
+        pairs = list(zip(self.kpools + self.vpools,
+                         list(kdata) + list(vdata)))
+        if self.quant:
+            sw = tuple(self.kscales[0].shape[1:])
+            sg = tuple(kscale[0].shape[1:])
+            if sg != sw:
+                raise ValueError(
+                    f"handoff scale geometry {sg} != pool {sw}")
+            pairs += list(zip(self.kscales + self.vscales,
+                              list(kscale) + list(vscale)))
+        for pool, vals in pairs:
+            pool.index_copy_(0, idx, vals.to(pool.dtype))
+
+
+# -- handoff wire format -----------------------------------------------------
+
+# the JAX package's dtype names on the wire (numpy's, and ml_dtypes'
+# bfloat16 / float8_e4m3fn), for the tensors a payload may carry
+_WIRE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                "bfloat16": torch.bfloat16, "float64": torch.float64,
+                "int8": torch.int8, "uint8": torch.uint8,
+                "int16": torch.int16, "int32": torch.int32,
+                "int64": torch.int64, "bool": torch.bool,
+                "float8_e4m3fn": torch.float8_e4m3fn}
+_DTYPE_NAMES = {v: k for k, v in _WIRE_DTYPES.items()}
+
+
+def _tensor(a) -> torch.Tensor:
+    """A payload array as a tensor (numpy arrays wrap without a copy)."""
+    return a if torch.is_tensor(a) else torch.from_numpy(np.asarray(a))
+
+
+def _wire(a):
+    """(dtype name, shape, little-endian bytes) of a payload array."""
+    if torch.is_tensor(a):
+        t = a.detach().to("cpu").contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        return _DTYPE_NAMES[t.dtype], list(t.shape), raw
+    a = np.ascontiguousarray(a)
+    return str(a.dtype), list(a.shape), a.tobytes()
+
+
+def serialize_handoff(payload: dict) -> bytes:
+    """Flatten a handoff payload (scalars, numpy arrays, tensors and the
+    nested ``kv`` block export) into one length-prefixed blob, byte for
+    byte the JAX package's wire format v2 (``kv_cache.py:625-666``): an
+    8-byte big-endian head length, the JSON head (scalars, then each
+    array's name, dtype name and shape; ``kv_layers``), then the raw
+    buffers.  Int8 exports carry their ``kv.ks<i>`` / ``kv.vs<i>``
+    scales and a ``kv_dtype`` scalar."""
+    meta: dict = {"version": 2, "scalars": {}, "arrays": []}
+    chunks: List[bytes] = []
+
+    def add_array(name, a):
+        dtype, shape, raw = _wire(a)
+        meta["arrays"].append({"name": name, "dtype": dtype,
+                               "shape": shape})
+        chunks.append(raw)
+
+    for key, val in payload.items():
+        if key == "kv":
+            meta["scalars"]["kv_block_size"] = int(val["block_size"])
+            meta["kv_layers"] = len(val["k"])
+            if "dtype" in val:
+                meta["scalars"]["kv_dtype"] = str(val["dtype"])
+            for i, a in enumerate(val["k"]):
+                add_array(f"kv.k{i}", a)
+            for i, a in enumerate(val["v"]):
+                add_array(f"kv.v{i}", a)
+            for i, a in enumerate(val.get("k_scale") or ()):
+                add_array(f"kv.ks{i}", a)
+            for i, a in enumerate(val.get("v_scale") or ()):
+                add_array(f"kv.vs{i}", a)
+        elif isinstance(val, np.ndarray) or torch.is_tensor(val):
+            add_array(key, val)
+        else:
+            meta["scalars"][key] = val
+    head = json.dumps(meta).encode()
+    return len(head).to_bytes(8, "big") + head + b"".join(chunks)
+
+
+def _read_array(mv, off: int, dtype: str, shape, as_tensor: bool):
+    """One array of the blob: a tensor viewing the buffer (the KV
+    blocks) or, for the other fields, a numpy array where numpy has the
+    dtype."""
+    dt = _WIRE_DTYPES[dtype]
+    n = int(np.prod(shape, dtype=np.int64))
+    nbytes = n * dt.itemsize
+    if not as_tensor and dtype not in ("bfloat16", "float8_e4m3fn"):
+        return np.frombuffer(mv[off:off + nbytes],
+                             dtype=np.dtype(dtype)).reshape(shape), nbytes
+    if n == 0:
+        return torch.empty(shape, dtype=dt), nbytes
+    with warnings.catch_warnings():
+        # the blob is immutable bytes: the view is only ever read
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.frombuffer(mv, dtype=dt, count=n, offset=off)
+    return t.reshape(shape), nbytes
+
+
+def deserialize_handoff(data) -> dict:
+    """Inverse of :func:`serialize_handoff`, also for the JAX package's
+    blobs (v1 and v2).  Accepts any bytes-like object; the KV arrays come
+    back as CPU tensors viewing the buffer, the other arrays as numpy
+    arrays (tensors for the dtypes numpy lacks)."""
+    mv = memoryview(data)
+    hlen = int.from_bytes(mv[:8], "big")
+    meta = json.loads(bytes(mv[8:8 + hlen]).decode())
+    off = 8 + hlen
+    arrays: Dict[str, object] = {}
+    for ent in meta["arrays"]:
+        arrays[ent["name"]], n = _read_array(
+            mv, off, ent["dtype"], ent["shape"],
+            ent["name"].startswith("kv."))
+        off += n
+    out: dict = {k: v for k, v in meta["scalars"].items()
+                 if k not in ("kv_block_size", "kv_dtype")}
+    for name, a in arrays.items():
+        if not name.startswith("kv."):
+            out[name] = a
+    L = meta.get("kv_layers", 0)
+    if L:
+        out["kv"] = {
+            "block_size": int(meta["scalars"]["kv_block_size"]),
+            "k": [arrays[f"kv.k{i}"] for i in range(L)],
+            "v": [arrays[f"kv.v{i}"] for i in range(L)],
+        }
+        if "kv_dtype" in meta["scalars"]:
+            out["kv"]["dtype"] = meta["scalars"]["kv_dtype"]
+        if "kv.ks0" in arrays:
+            out["kv"]["k_scale"] = [arrays[f"kv.ks{i}"] for i in range(L)]
+            out["kv"]["v_scale"] = [arrays[f"kv.vs{i}"] for i in range(L)]
+    return out
+
+
+def publish_handoff(store, key: str, payload: dict):
+    """Ship a serialized handoff through a store of the TCPStore
+    contract (the multi-process fleet's transport)."""
+    store.set(key, serialize_handoff(payload))
+
+
+def fetch_handoff(store, key: str) -> Optional[dict]:
+    """A handoff published by :func:`publish_handoff`; None when the key
+    is absent."""
+    if not store.check(key):
+        return None
+    return deserialize_handoff(store.get(key, wait=False))
+
 
 # -- the paged attention path ------------------------------------------------
 
@@ -386,17 +654,20 @@ def paged_cache_attention(q, k, v, cache: PagedCache, position_offset,
     attend under the causal bound.
 
     q/k/v: ``[b, s, heads, head_dim]`` current-step projections, RoPE
-    applied.  ``position_offset``: int, a 0-d integer tensor, or a
-    ``[B]`` integer tensor of per-row offsets (continuous batching,
-    chunked prefill, speculative verify); a tensor on the pools' device
-    is used there as it is, never read on the host.  Returns
+    applied.  ``position_offset``: int, a 0-d integer tensor, a ``[B]``
+    integer tensor of per-row offsets (continuous batching, speculative
+    verify), or a ``[B, s]`` integer tensor of every token's position
+    (the fixed-width prefill chunk); a tensor on the pools' device is
+    used there as it is, never read on the host.  Returns
     ``(out, cache)``; the cache's pools now hold the step's k/v."""
     B, S = q.shape[0], q.shape[1]
     kp, vp, bt = cache.k, cache.v, cache.block_table
     dev = kp.device
     bs, mb = kp.shape[1], bt.shape[1]
     steps = torch.arange(S, device=dev)
-    if torch.is_tensor(position_offset):
+    if torch.is_tensor(position_offset) and position_offset.ndim == 2:
+        qpos = position_offset.to(device=dev, dtype=torch.long)  # [B, S]
+    elif torch.is_tensor(position_offset):
         # [B] or 0-d; on the pools' device the offsets are read there
         off = position_offset.to(device=dev, dtype=torch.long)
         qpos = (off.reshape(-1, 1) + steps[None]).expand(B, S)  # [B, S]

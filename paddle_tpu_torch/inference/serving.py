@@ -2,7 +2,8 @@
 serving.py``): the slot-contiguous engine (``paged_kv=False``, the
 default unless ``PADDLE_TPU_PAGED_KV`` is set, as in the JAX package)
 and the paged KV engine (``paged_kv=True``), with n-gram speculative
-decoding on the paged one.
+decoding, fleet roles, the prefill/decode handoff and the KV tier on the
+paged one.
 
 ``add_request`` enqueues; ``step`` admits a queued request into a free
 slot or decodes ``steps_per_sync`` tokens for every decoding slot.  The
@@ -11,20 +12,26 @@ at offset 0 into a ``[1, max_len]`` static cache that is then inserted
 into the slot's rows.  The paged engine reserves blocks (prefix-cache
 hits shared), then advances one prefilling slot by one chunk a step,
 alternating with decode so a long prompt cannot stall in-flight
-requests.  Greedy by default; ``do_sample`` draws from a
+requests.  Every chunk is one program of fixed width ``prefill_chunk``,
+as in the JAX package (``serving.py:722-737``): ids ``[1, C]`` (the
+final chunk padded), the slot's block-table row, a ``[1]`` start and the
+index of the last real token as a 0-d tensor; the token sampled there is
+the request's first.  The pad tokens' K/V land past the prompt, in the
+slot's own blocks or the scratch block, never in a block the prefix
+trie shares (it holds full prompt blocks only); their RoPE positions
+are clamped into the table on the device, and the real positions are
+checked on the host.  Greedy by default; ``do_sample`` draws from a
 ``torch.Generator`` seeded with ``seed``.
 
 The engine follows its model's device.  The JAX package compiles its
 programs and donates the caches to them; here the caches are updated in
 place, and the model runs eagerly until :meth:`aot_warmup`, which binds
-each decode program (the paged decode of ``steps_per_sync`` steps, the
-speculative verify, the slot engine's decode, its prefill for every
-bucket and its insert) to static buffers: on CUDA one captured CUDA
-graph each, replayed, on the CPU the same body on the same buffers.
-Positions stay on the device inside a decode (the engine checks the
-RoPE bound on the host before it).  Paged prefill chunks run eagerly
-and are not padded to a fixed width, so no position past the prompt is
-ever written or rotated during prefill.
+each program (the paged decode of ``steps_per_sync`` steps, the prefill
+chunk, the speculative verify, the slot engine's decode, its prefill for
+every bucket and its insert) to static buffers: on CUDA one captured
+CUDA graph each, replayed, on the CPU the same body on the same buffers.
+From then on a program that was not captured raises.  Positions stay on
+the device inside a program.
 
 Quantized serving: ``quant_weights="int8"|"fp8"`` (or the
 ``PADDLE_TPU_QUANT_WEIGHTS`` knob) converts the model's large Linears to
@@ -34,19 +41,32 @@ weight-only ``QuantedLinear`` in place at construction (refcounted;
 as int8 with fp32 scales, with ``itemsize`` times the blocks by default
 (2x in bf16, 4x in fp32).
 
+The fleet (the JAX engine's, ``serving.py:61-157, 1157-1643``):
+``role=`` marks a replica's tier; ``add_request(prefill_only=True)``
+retires a request after its first token with the prompt's KV parked for
+:meth:`export_handoff`, and ``add_request(handoff=payload)`` admits one
+by importing those blocks (skipping those its own prefix trie holds) and
+decoding from ``pos = Lp``; ``kv_tier=`` (a :class:`~paddle_tpu_torch.
+inference.kv_tier.KVTierManager`) lets :meth:`park` spill a decoding
+session and :meth:`resume` promote it back (or recompute it after a tier
+miss), demotes evicted prefix blocks and promotes them at admission;
+``auto_park_s`` parks the most patient session when the queue is
+slot-starved.  Every step writes the serving metrics, the SLO verdicts,
+trace spans and the forensics decisions, and hosts the fault points
+``serving.engine_step`` and ``serving.kv_alloc``.
+
 Not ported yet — each raises ``NotImplementedError``: ``int8_weights``
 (the parameter-dict path, which dequantizes every weight each step and
-has no kernel), the KV tier (park/resume/handoff, session checkpoints),
-fleet roles, program analysis, the router and tracing hooks of
-``add_request``, and the persistent compile cache behind
-``aot_warmup(cache_only=True)`` (ROADMAP.md, queue 1)."""
+has no kernel), program analysis (ROADMAP.md, queue 1, items 1 and 10)
+and the persistent compile cache behind ``aot_warmup(cache_only=True)``
+(item 9)."""
 
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,24 +79,119 @@ from paddle_tpu_torch.inference.kv_cache import (BlockAllocator,
                                                  paged_kv_enabled,
                                                  quant_kv_mode)
 from paddle_tpu_torch.jit.static_graph import StaticGraph
+from paddle_tpu_torch.observability import (DEFAULT_BUCKETS,
+                                            default_registry,
+                                            flight_recorder)
+from paddle_tpu_torch.observability.forensics import (emit_decision,
+                                                      observe_retirement)
+from paddle_tpu_torch.observability.goodput import slo_targets
+from paddle_tpu_torch.observability.tracing import tracer
 from paddle_tpu_torch.quantization.serving import (quant_weights_mode,
                                                    quantize_for_serving,
                                                    restore_from_serving)
+from paddle_tpu_torch.robustness.faults import (QueueFullError,
+                                                fault_fires, fault_point)
 
 __all__ = ["ContinuousBatchingEngine", "RequestStatus", "QueueFullError"]
 
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1, item 1: the rest of the " \
-    "serving engine)"
+# decode-token latency lives in the sub-ms..s decade; TTFT keeps the
+# wide default upper range
+_TOKEN_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                  0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5)
 
 
-def _unported(name: str):
-    """An engine method outside this slice: raises, never falls back."""
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{name}: {_ROADMAP}")
-    method.__name__ = name
-    method.__doc__ = f"``{name}`` is not ported yet; raises " \
-        "NotImplementedError."
-    return method
+def _serving_metrics():
+    """Process-wide serving instruments (``serving.py:61-113``)."""
+    reg = default_registry()
+    return {
+        "requests": reg.counter("paddle_tpu_serving_requests_total",
+                                "requests enqueued"),
+        "admissions": reg.counter("paddle_tpu_serving_admissions_total",
+                                  "requests admitted into a slot"),
+        "retirements": reg.counter(
+            "paddle_tpu_serving_retirements_total",
+            "requests retired (eos or budget exhausted)"),
+        "tokens": reg.counter("paddle_tpu_serving_tokens_total",
+                              "tokens generated (prefill first token + "
+                              "decode)"),
+        "bucket": reg.counter(
+            "paddle_tpu_serving_prefill_bucket_total",
+            "prefill admissions per bucket; fit=exact means the prompt "
+            "needed no padding", labelnames=("bucket", "fit")),
+        "pad_tokens": reg.counter(
+            "paddle_tpu_serving_prefill_pad_tokens_total",
+            "prompt positions wasted on bucket padding"),
+        "ttft": reg.histogram(
+            "paddle_tpu_serving_ttft_seconds",
+            "time from enqueue to first generated token",
+            buckets=DEFAULT_BUCKETS),
+        "decode": reg.histogram(
+            "paddle_tpu_serving_decode_token_seconds",
+            "per-token decode latency (chunk wall time / tokens in "
+            "chunk)", buckets=_TOKEN_BUCKETS),
+        "steps": reg.counter("paddle_tpu_serving_decode_steps_total",
+                             "compiled decode dispatches"),
+        "timeouts": reg.counter(
+            "paddle_tpu_serving_timeouts_total",
+            "requests retired with status=timeout (deadline expired "
+            "while queued or decoding)"),
+        "rejections": reg.counter(
+            "paddle_tpu_serving_rejections_total",
+            "requests rejected at admission", labelnames=("reason",)),
+        "engine_errors": reg.counter(
+            "paddle_tpu_serving_engine_errors_total",
+            "engine-step exceptions recovered by failing the in-flight "
+            "batch (the engine itself survives)"),
+        # one hit/miss verdict per retirement against the TTFT/TPOT
+        # targets; observability.goodput folds these into the
+        # paddle_tpu_slo_attainment{kind} gauge
+        "slo": reg.counter(
+            "paddle_tpu_serving_slo_total",
+            "retired requests judged against the serving latency "
+            "targets", labelnames=("kind", "result")),
+    }
+
+
+def _paged_metrics():
+    """Paged-KV instruments (``serving.py:116-156``), registered only by
+    the paged engine."""
+    reg = default_registry()
+    return {
+        "prefix_lookups": reg.counter(
+            "paddle_tpu_serving_prefix_cache_total",
+            "prefix-cache lookups at admission",
+            labelnames=("result",)),
+        "prefix_tokens": reg.counter(
+            "paddle_tpu_serving_prefix_tokens_reused_total",
+            "prompt tokens whose prefill was skipped because their "
+            "blocks were already in the prefix cache"),
+        "evictions": reg.counter(
+            "paddle_tpu_serving_kv_evictions_total",
+            "prefix-cache blocks evicted under allocator pressure"),
+        "cow": reg.counter(
+            "paddle_tpu_serving_kv_cow_copies_total",
+            "copy-on-write block copies (a shared block was written)"),
+        "alloc_failures": reg.counter(
+            "paddle_tpu_serving_kv_alloc_failures_total",
+            "admissions deferred because the block pool was exhausted "
+            "(load shed back into the bounded queue)"),
+        "chunks": reg.counter(
+            "paddle_tpu_serving_prefill_chunks_total",
+            "chunked-prefill dispatches"),
+        "spec": reg.counter(
+            "paddle_tpu_serving_spec_tokens_total",
+            "speculative-decoding draft tokens",
+            labelnames=("kind",)),
+        "parks": reg.counter(
+            "paddle_tpu_serving_session_parks_total",
+            "sessions demoted out of HBM (slot freed, KV spilled to "
+            "the tier manager)", labelnames=("kind",)),
+        "resumes": reg.counter(
+            "paddle_tpu_serving_session_resumes_total",
+            "parked-session resumes by path: 'promote' re-imported the "
+            "tier payload, 'recompute' re-prefilled after a tier miss",
+            labelnames=("path",)),
+    }
 
 
 def _ngram_propose(history: np.ndarray, k: int, max_n: int = 3):
@@ -96,11 +211,6 @@ def _ngram_propose(history: np.ndarray, k: int, max_n: int = 3):
     return None
 
 
-class QueueFullError(RuntimeError):
-    """Serving admission queue is at capacity; the request was rejected
-    instead of growing the queue without bound."""
-
-
 @dataclass
 class _Request:
     rid: int
@@ -109,23 +219,43 @@ class _Request:
     out: List[int] = field(default_factory=list)
     enqueued_at: float = 0.0        # perf_counter at add_request
     deadline: Optional[float] = None
+    span: Any = None                # root trace span (admission->retire)
     admitted_at: float = 0.0
     first_token_at: float = 0.0
     retired_at: float = 0.0
     prefix_reused: int = 0          # prompt tokens served from the cache
     spec_proposed: int = 0          # speculative drafts proposed
     spec_accepted: int = 0          # speculative drafts accepted
+    # fleet routing: "full" is a normal request; "prefill_only" retires
+    # after its first token with the prompt KV parked for export;
+    # "resume" skips prefill, importing that KV
+    mode: str = "full"
+    handoff: Optional[dict] = None  # resume payload (blocks + first tok)
+    router_t0: Optional[float] = None  # router enqueue (end-to-end TTFT)
+    route_s: float = 0.0            # router queue -> slot admission
+    handoff_s: float = 0.0          # prefill->decode block transfer
+    # session survivability (KV tier): park/resume stamps
+    parked_at: float = 0.0          # perf_counter at park (0 = not parked)
+    parked_s: float = 0.0           # cumulative wall time spent parked
+    resume_at: float = 0.0          # perf_counter at resume() call
+    resume_s: float = 0.0           # cumulative resume->decoding latency
+    auto_parked: bool = False       # parked by the scheduler, not caller
+    # recompute fallback: the client-visible prompt and token budget
+    # before the prompt was extended with generated tokens
+    orig_prompt: Optional[np.ndarray] = None
+    orig_max_new: int = 0
 
 
 class RequestStatus(str):
     """Terminal status that IS the plain status string (``"ok"`` /
-    ``"timeout"`` / ``"error"``) and carries the request's lifecycle
-    timings (:data:`TIMING_KEYS`)."""
+    ``"timeout"`` / ``"error"`` / ``"prefilled"``) and carries the
+    request's lifecycle timings (:data:`TIMING_KEYS`) and trace id."""
 
     def __new__(cls, status: str, timings: Optional[Dict[str, float]]
-                = None):
+                = None, trace_id: Optional[str] = None):
         obj = super().__new__(cls, status)
         obj.timings = dict(timings or {})
+        obj.trace_id = trace_id
         return obj
 
 
@@ -135,21 +265,35 @@ TIMING_KEYS = (
     "enqueued", "admitted", "first_token", "retired",
     "queue_s", "ttft_s", "prefill_s", "decode_s", "total_s",
     "generated", "prefix_tokens_reused", "speculative_accept_rate",
+    "route_s", "handoff_s", "parked_s", "resume_s",
     "spec_proposed", "spec_accepted",
 )
 
+#: Re-emit a starving request's "defer" decision every this many
+#: deferred admission attempts (``serving.py:276-281``).
+DEFER_EMIT_EVERY = 256
+
 
 def _request_timings(req: _Request) -> Dict[str, float]:
+    """Lifecycle stamps plus the derived durations
+    (``serving.py:284-331``)."""
     t = {"enqueued": req.enqueued_at, "admitted": req.admitted_at,
          "first_token": req.first_token_at, "retired": req.retired_at}
     if req.admitted_at and req.enqueued_at:
         t["queue_s"] = req.admitted_at - req.enqueued_at
-    if req.first_token_at and req.enqueued_at:
-        t["ttft_s"] = req.first_token_at - req.enqueued_at
-    if req.first_token_at and req.admitted_at:
+    # routed requests measure TTFT from the router's enqueue stamp
+    origin = req.router_t0 or req.enqueued_at
+    if req.first_token_at and origin and req.first_token_at >= origin:
+        t["ttft_s"] = req.first_token_at - origin
+    if req.first_token_at and req.admitted_at \
+            and req.first_token_at >= req.admitted_at:
+        # absent for "resume" requests: their first token was sampled
+        # on the prefill replica
         t["prefill_s"] = req.first_token_at - req.admitted_at
     if req.retired_at and req.first_token_at:
-        t["decode_s"] = req.retired_at - req.first_token_at
+        # parked wall time is not decode time
+        t["decode_s"] = max(
+            0.0, req.retired_at - req.first_token_at - req.parked_s)
     if req.retired_at and req.enqueued_at:
         t["total_s"] = req.retired_at - req.enqueued_at
     t["generated"] = float(len(req.out))
@@ -157,6 +301,10 @@ def _request_timings(req: _Request) -> Dict[str, float]:
     t["speculative_accept_rate"] = (
         req.spec_accepted / req.spec_proposed if req.spec_proposed
         else 0.0)
+    t["route_s"] = float(req.route_s)
+    t["handoff_s"] = float(req.handoff_s)
+    t["parked_s"] = float(req.parked_s)
+    t["resume_s"] = float(req.resume_s)
     t["spec_proposed"] = float(req.spec_proposed)
     t["spec_accepted"] = float(req.spec_accepted)
     for key in TIMING_KEYS:
@@ -166,10 +314,9 @@ def _request_timings(req: _Request) -> Dict[str, float]:
 
 class ContinuousBatchingEngine:
     """Decode over ``slots`` concurrent sequences with slot reuse.  The
-    arguments are the JAX engine's; those of features outside the port
-    so far raise ``NotImplementedError`` when set to anything but their
-    default.  ``paged_kv=None`` reads ``PADDLE_TPU_PAGED_KV`` (unset:
-    the slot-contiguous engine)."""
+    arguments are the JAX engine's; ``int8_weights`` and ``analyze``
+    raise ``NotImplementedError`` when set.  ``paged_kv=None`` reads
+    ``PADDLE_TPU_PAGED_KV`` (unset: the slot-contiguous engine)."""
 
     def __init__(self, model, slots: int = 8, max_len: int = 1024,
                  prefill_buckets: Sequence[int] = (32, 64, 128, 256),
@@ -194,8 +341,8 @@ class ContinuousBatchingEngine:
                  quant_kv: Optional[str] = None,
                  kv_tier=None,
                  auto_park_s: Optional[float] = None):
-        # the JAX engine's checks of the knobs (serving.py:386-444),
-        # before anything else
+        # the JAX engine's checks of the knobs (serving.py:386-444,
+        # 509-520, 594-596), before anything else
         self.paged = paged_kv_enabled() if paged_kv is None \
             else bool(paged_kv)
         kv_quant = quant_kv_mode(quant_kv)
@@ -220,21 +367,30 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "int8_weights (the legacy param-dict path) and "
                 "quant_weights= are mutually exclusive")
-        unported = {
-            "int8_weights": bool(int8_weights),
-            "kv_tier / auto_park_s": kv_tier is not None
-            or auto_park_s is not None,
-            "analyze": analyze is not None,
-            f"role={role!r} (fleet roles)": role != "mixed",
-        }
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"{what}: {_ROADMAP}")
+        if (kv_tier is not None or auto_park_s is not None) \
+                and not self.paged:
+            raise ValueError(
+                "kv_tier / auto_park_s require the paged KV engine "
+                "(paged_kv=True or PADDLE_TPU_PAGED_KV=1)")
+        if auto_park_s is not None and kv_tier is None:
+            raise ValueError("auto_park_s requires kv_tier=")
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"role must be mixed|prefill|decode, got "
+                             f"{role!r}")
+        if int8_weights:
+            raise NotImplementedError(
+                "int8_weights: not ported yet (ROADMAP.md, queue 1, item "
+                "1: the parameter-dict quantization path)")
+        if analyze is not None:
+            raise NotImplementedError(
+                "analyze: not ported yet (ROADMAP.md, queue 1, item 10: "
+                "program analysis)")
         self.model = model
         self.slots = slots
         self.max_len = max_len
         self.buckets = sorted(prefill_buckets)
         self.eos = eos_token_id
+        self.role = role
         # decode steps per host interaction; sequences finishing
         # mid-chunk over-generate < K tokens, truncated on the host
         self.steps_per_sync = max(1, int(steps_per_sync))
@@ -260,6 +416,14 @@ class ContinuousBatchingEngine:
                 f"max_len {max_len}")
 
         cfgm = model.config
+        self._kv_tier = kv_tier
+        self._auto_park_s = auto_park_s
+        # rid -> (request, tier key): sessions this engine parked and
+        # still owns the resume of
+        self._parked: Dict[int, tuple] = {}
+        # rid -> (request, SequenceBlocks, first token): prefill-only
+        # requests' prompt blocks, until export_handoff / discard_handoff
+        self._handoff_ready: Dict[int, tuple] = {}
         if not self.paged:
             # [slots, max_len] caches, and the [1, max_len] one a prefill
             # writes before the insert copies it into its slot
@@ -283,6 +447,10 @@ class ContinuousBatchingEngine:
             self._allocator = BlockAllocator(self._num_blocks)
             self._prefix = PrefixCache(self._block_size, self._allocator) \
                 if prefix_cache else None
+            if self._kv_tier is not None and self._prefix is not None:
+                # demote-before-free: cold prefix blocks spill to the
+                # tier; admission promotes them back
+                self._prefix.on_evict = self._demote_prefix_node
             self._pool = PagedKVPool(
                 cfgm.num_hidden_layers, self._num_blocks, self._block_size,
                 cfgm.num_key_value_heads, cfgm.head_dim, self._dtype,
@@ -297,10 +465,11 @@ class ContinuousBatchingEngine:
                 raise ValueError(f"prefill_chunk must be in [1, max_len), "
                                  f"got {prefill_chunk}")
             self._interleave_decode = False
-        # plain counters (the JAX engine keeps these in its metrics
-        # registry): decode_seconds is host wall time of the decode
-        # steps, each ending in a device sync, so it also absorbs device
-        # work still queued from a preceding prefill
+            self._blocks_used_peak = 0
+        # plain counters beside the registry's: decode_seconds is host
+        # wall time of the decode steps, each ending in a device sync,
+        # so it also absorbs device work still queued from a preceding
+        # prefill chunk
         self.stats = {"prefill_chunks": 0, "decode_steps": 0,
                       "decode_tokens": 0, "decode_seconds": 0.0,
                       "spec_verifies": 0, "spec_rows": 0,
@@ -325,6 +494,53 @@ class ContinuousBatchingEngine:
         self._error_streak = 0
         self._max_consecutive_errors = max(1, int(max_consecutive_errors))
 
+        # telemetry: counters and histograms are process-wide; the
+        # occupancy gauges are read at scrape time
+        self._metrics = _serving_metrics()
+        if self.paged:
+            self._metrics.update(_paged_metrics())
+        self._slo_targets = slo_targets()
+        self._recorder = flight_recorder()
+        self._tracer = tracer()
+        self._emit_decision = emit_decision
+        # rid -> deferred admission attempts in this wait
+        self._defer_attempts: Dict[int, int] = {}
+        reg = default_registry()
+        reg.gauge("paddle_tpu_serving_queue_depth",
+                  "requests waiting for a slot").set_function(
+            lambda q=self._queue: len(q))
+        reg.gauge("paddle_tpu_serving_active_slots",
+                  "slots currently decoding").set_function(
+            lambda a=self._active: sum(r is not None for r in a))
+        reg.gauge("paddle_tpu_serving_slots",
+                  "slot pool size").set(slots)
+        reg.gauge("paddle_tpu_serving_replica_role",
+                  "serving role this engine plays in a disaggregated "
+                  "fleet (value 1 marks the active role)",
+                  labelnames=("role",)).labels(role=role).set(1.0)
+        if self.paged:
+            # read through the engine: _recover rebuilds the allocator
+            reg.gauge("paddle_tpu_serving_kv_blocks_free",
+                      "paged KV blocks on the free list").set_function(
+                lambda e=self: e._allocator.free_blocks)
+            reg.gauge("paddle_tpu_serving_kv_blocks_used",
+                      "paged KV blocks held by sequences or the prefix "
+                      "cache").set_function(
+                lambda e=self: e._allocator.used_blocks)
+            reg.gauge("paddle_tpu_serving_prefix_cache_blocks",
+                      "blocks registered in the prefix trie"
+                      ).set_function(
+                lambda e=self: len(e._prefix)
+                if e._prefix is not None else 0)
+            reg.gauge("paddle_tpu_serving_kv_pool_bytes",
+                      "device bytes held by the paged KV pools "
+                      "(K/V payload + quant scale arrays)"
+                      ).set_function(lambda e=self: e._pool.nbytes)
+            reg.gauge("paddle_tpu_serving_sessions_parked",
+                      "sessions demoted to the KV tier and awaiting "
+                      "resume on this engine").set_function(
+                lambda e=self: len(e._parked))
+
         # weight-only quantized serving, once every argument has passed:
         # the model's large Linears become QuantedLinear in place
         # (refcounted; close() restores them)
@@ -338,22 +554,19 @@ class ContinuousBatchingEngine:
             model.eval()
 
     # -- the model programs ----------------------------------------------------
-    def _forward(self, ids, bt: np.ndarray, pos: np.ndarray):
-        """One eager forward over the pools (a paged prefill chunk): `ids`
-        ``[B, S]``, block-table rows `bt` ``[B, max_blocks]`` and per-row
-        start positions `pos` ``[B]`` (host arrays, uploaded once).
-        Returns fp32 logits ``[B, S, vocab]``; the pools hold the
-        chunk's K/V afterwards."""
-        dev = self._device
-        with torch.inference_mode():
-            ids_t = torch.as_tensor(ids).to(dev, torch.long)
-            bt_t = torch.from_numpy(np.ascontiguousarray(bt, np.int32)) \
-                .to(dev)
-            pos_t = torch.from_numpy(np.ascontiguousarray(pos, np.int32)) \
-                .to(dev)
-            logits, _ = self.model(ids_t, None, self._pool.caches(bt_t),
-                                   pos_t)
-            return logits.float()
+    def _prefill_chunk_body(self, ids, bt, start, last_idx):
+        """One fixed-width paged prefill chunk (``serving.py:728-737``):
+        ids ``[1, C]`` at positions ``start .. start + C - 1`` through
+        block-table row `bt` ``[1, max_blocks]``; the token sampled at
+        `last_idx` (0-d).  Every position is the chunk's own (a
+        ``[1, C]`` tensor): RoPE clamps those past its table, the pools
+        take the pad rows at their real positions (past the block
+        table: the scratch block).  Returns ``[1]``."""
+        pos = start.long()[:, None] + torch.arange(ids.shape[1],
+                                                   device=ids.device)
+        logits, _ = self.model(ids, None, self._pool.caches(bt), pos)
+        last = logits[0].index_select(0, last_idx.reshape(1))
+        return _sample(last.float(), self._gen_cfg, self._gen)
 
     def _decode_steps(self, caches, toks, pos, active):
         """``steps_per_sync`` decode steps on the device, as
@@ -417,26 +630,30 @@ class ContinuousBatchingEngine:
         """The RoPE bound of a decode whose positions stay on the device:
         every decoding row writes `span` positions from its head."""
         if self._table is not None and rows:
-            hi = int(self._pos[rows].max()) + span
-            if hi > self._table:
-                raise ValueError(
-                    f"RoPE table overflow: position {hi - 1} past the "
-                    f"table of {self._table} (max_position_embeddings)")
+            self._check_position(int(self._pos[rows].max()) + span)
+
+    def _check_position(self, hi: int):
+        """Real positions below `hi` must lie in the RoPE table."""
+        if self._table is not None and hi > self._table:
+            raise ValueError(
+                f"RoPE table overflow: position {hi - 1} past the "
+                f"table of {self._table} (max_position_embeddings)")
 
     def aot_warmup(self, buckets: Optional[Sequence[int]] = None,
                    cache_only: bool = False):
-        """Bind the decode programs to static buffers up front, under the
-        JAX engine's targets: ``serving.decode`` (both engines; the
-        paged one at ``B = slots``, ``steps_per_sync`` steps),
-        ``serving.spec_verify`` (with ``spec_decode``), and for the slot
-        engine ``serving.insert`` and ``serving.prefill[b]`` for every
-        bucket b (or those in `buckets`).  On CUDA each is one captured
-        CUDA graph; a capture that fails raises.  From then on the engine
-        copies each step's host state into the buffers and replays the
-        program; a program that was not captured raises.  Paged prefill
-        chunks stay eager.  Returns ``{target: {"seconds", "graph",
-        "launches"}}``: the warm-up and capture's seconds, whether a
-        graph was captured and the kernel launches one replay makes."""
+        """Bind the engine's programs to static buffers up front, under
+        the JAX engine's targets: ``serving.decode`` (both engines; the
+        paged one at ``B = slots``, ``steps_per_sync`` steps), for the
+        paged engine ``serving.prefill_chunk`` (every chunk of every
+        prompt) and ``serving.spec_verify`` (with ``spec_decode``), and
+        for the slot engine ``serving.insert`` and ``serving.prefill[b]``
+        for every bucket b (or those in `buckets`).  On CUDA each is one
+        captured CUDA graph; a capture that fails raises.  From then on
+        the engine copies each step's host state into the buffers and
+        replays the program; a program that was not captured raises.
+        Returns ``{target: {"seconds", "graph", "launches"}}``: the
+        warm-up and capture's seconds, whether a graph was captured and
+        the kernel launches one replay makes."""
         if cache_only:
             raise NotImplementedError(
                 "aot_warmup(cache_only=True): the persistent compile "
@@ -462,14 +679,20 @@ class ContinuousBatchingEngine:
             with torch.inference_mode():
                 i64, i32 = torch.long, torch.int32
                 if self.paged:
-                    # the warm-up's rows are all inactive: every write
-                    # lands in the scratch block
+                    # the warm-ups' rows are all inactive or over a
+                    # zeroed table row: every write lands in the scratch
+                    # block
                     mb = self._max_blocks
                     warm("serving.decode", self._decode_paged_body,
                          {"bt": zeros((B, mb), i32),
                           "toks": zeros((B,), i64),
                           "pos": zeros((B,), i32),
                           "active": zeros((B,), torch.bool)})
+                    warm("serving.prefill_chunk", self._prefill_chunk_body,
+                         {"ids": zeros((1, self._chunk), i64),
+                          "bt": zeros((1, mb), i32),
+                          "start": zeros((1,), i32),
+                          "last_idx": zeros((), i64)})
                     if self.spec_tokens:
                         S = self.spec_tokens + 1
                         warm("serving.spec_verify", self._verify_body,
@@ -519,13 +742,15 @@ class ContinuousBatchingEngine:
         a request still queued or decoding past it retires with status
         "timeout".  Raises :class:`QueueFullError` when the bounded queue
         is full, ``ValueError`` on an empty prompt or one the engine
-        could never hold."""
-        if prefill_only or handoff is not None:
-            raise NotImplementedError(
-                f"prefill/decode handoff: {_ROADMAP}")
-        if router_enqueued_at is not None or span_parent is not None:
-            raise NotImplementedError(f"router and tracing hooks: "
-                                      f"{_ROADMAP}")
+        could never hold.
+
+        Fleet hooks (the paged engine): ``prefill_only=True`` retires the
+        request after its first token with status ``"prefilled"`` and
+        parks the prompt's KV for :meth:`export_handoff`;
+        ``handoff=payload`` admits a request by importing those blocks,
+        skipping prefill.  ``router_enqueued_at`` anchors TTFT at the
+        router's clock and ``span_parent`` nests the request's span under
+        the router's."""
         p = np.asarray(prompt_ids, np.int32).reshape(-1)
         if len(p) == 0:
             # the JAX engine accepts an empty prompt and then samples
@@ -536,16 +761,39 @@ class ContinuousBatchingEngine:
             raise ValueError(f"max_new_tokens must be >= 1 (the prefill "
                              f"already emits one token); got "
                              f"{max_new_tokens}")
+        if prefill_only and handoff is not None:
+            raise ValueError("prefill_only and handoff are the two ends "
+                             "of one transfer; a request can't be both")
+        if (prefill_only or handoff is not None) and not self.paged:
+            raise ValueError(
+                "prefill/decode disaggregation needs the paged KV "
+                "engine (paged_kv=True or PADDLE_TPU_PAGED_KV=1)")
+        if handoff is not None and \
+                int(handoff.get("block_size", self._block_size)) \
+                != self._block_size:
+            raise ValueError(
+                f"handoff block_size {handoff.get('block_size')} != "
+                f"engine kv_block_size {self._block_size}")
         if self._max_queue is not None and \
                 len(self._queue) >= self._max_queue:
+            self._metrics["rejections"].labels(reason="queue_full").inc()
+            self._recorder.record("serving.reject", reason="queue_full",
+                                  queue_depth=len(self._queue))
             raise QueueFullError(
                 f"admission queue at capacity ({self._max_queue}); "
                 "retry with backoff or scale out")
         # row max_len-1 stays unreachable; decode over-writes up to the
         # next steps_per_sync boundary, so budget in whole chunks; a
         # verify writes up to spec_decode draft rows past the head
-        span = self._span(max_new_tokens)
-        if self.spec_tokens:
+        span = 0 if prefill_only else self._span(max_new_tokens)
+        if prefill_only:
+            # prefill writes rows 0..Lp-1 only; the decode replica
+            # writes the first token
+            if len(p) > self.max_len - 1:
+                raise ValueError(
+                    f"prompt {len(p)} exceeds max_len-1 = "
+                    f"{self.max_len - 1} (last row is reserved)")
+        elif self.spec_tokens:
             if len(p) + span > self.max_len - 1:
                 raise ValueError(
                     f"prompt {len(p)} + max_new {max_new_tokens} + "
@@ -575,9 +823,31 @@ class ContinuousBatchingEngine:
         timeout = timeout_s if timeout_s is not None \
             else self._default_timeout
         now = time.perf_counter()
-        self._queue.append(_Request(
+        req = _Request(
             rid, p, max_new_tokens, enqueued_at=now,
-            deadline=(now + timeout) if timeout is not None else None))
+            deadline=(now + timeout) if timeout is not None else None,
+            mode=("prefill_only" if prefill_only
+                  else "resume" if handoff is not None else "full"),
+            handoff=handoff, router_t0=router_enqueued_at)
+        # the request's root span, open until retirement; a routed
+        # request parents under the router's span
+        if span_parent is not None:
+            req.span = self._tracer.start_span(
+                "serving.request", parent=span_parent, rid=rid,
+                prompt_len=len(p), max_new_tokens=max_new_tokens,
+                mode=req.mode)
+        else:
+            req.span = self._tracer.start_span(
+                "serving.request", rid=rid, prompt_len=len(p),
+                max_new_tokens=max_new_tokens)
+        self._queue.append(req)
+        self._metrics["requests"].inc()
+        ev = dict(rid=rid, prompt_len=len(p),
+                  max_new_tokens=max_new_tokens,
+                  queue_depth=len(self._queue))
+        if req.span.trace_id is not None:
+            ev["trace_id"] = req.span.trace_id
+        self._recorder.record("serving.enqueue", **ev)
         return rid
 
     def _span(self, max_new_tokens: int) -> int:
@@ -594,11 +864,17 @@ class ContinuousBatchingEngine:
 
     @property
     def pending(self) -> int:
-        return len(self._queue) + sum(r is not None for r in self._active)
+        # auto-parked sessions count (the scheduler owes them a resume);
+        # caller-parked ones wait for the caller's resume()
+        return len(self._queue) + sum(r is not None for r in self._active) \
+            + sum(1 for req, _k in self._parked.values()
+                  if req.auto_parked)
 
     def request_status(self, rid: int) -> Optional[RequestStatus]:
         """Terminal status of a finished request ("ok", "timeout",
-        "error"), None while queued or running."""
+        "error", "prefilled"), None while queued or running; its
+        ``.timings`` carry the lifecycle stamps and ``.trace_id`` joins
+        it to the exported trace."""
         return self._status.get(rid)
 
     # -- the slot-contiguous engine ------------------------------------------
@@ -617,17 +893,34 @@ class ContinuousBatchingEngine:
         Lp = len(req.prompt)
         Lb = self._bucket(Lp)
         req.admitted_at = time.perf_counter()
+        if req.router_t0 is not None and not req.parked_s:
+            req.route_s = req.admitted_at - req.router_t0
         self._active[slot] = req
         ids = np.zeros((1, Lb), np.int64)
         ids[0, :Lp] = req.prompt
-        first = self._run(f"serving.prefill[{Lb}]", self._prefill_slot_body,
-                          ids=ids, true_len=np.array(Lp, np.int64))
-        self._run("serving.insert", self._insert_body,
-                  slot=np.array([slot], np.int64))
-        first = int(first[0])
+        with self._tracer.span("serving.prefill", parent=req.span,
+                               rid=req.rid, bucket=Lb, prompt_len=Lp):
+            first = self._run(f"serving.prefill[{Lb}]",
+                              self._prefill_slot_body, ids=ids,
+                              true_len=np.array(Lp, np.int64))
+            self._run("serving.insert", self._insert_body,
+                      slot=np.array([slot], np.int64))
+            first = int(first[0])
         self.stats["prefill_chunks"] += 1
         req.first_token_at = time.perf_counter()
         req.out.append(first)
+        m = self._metrics
+        m["admissions"].inc()
+        m["tokens"].inc()                       # the prefill's first token
+        m["bucket"].labels(bucket=str(Lb),
+                           fit="exact" if Lp == Lb else "padded").inc()
+        if Lb > Lp:
+            m["pad_tokens"].inc(Lb - Lp)
+        origin = req.router_t0 or req.enqueued_at
+        if origin:
+            m["ttft"].observe(time.perf_counter() - origin)
+        self._recorder.record("serving.admit", rid=req.rid, slot=slot,
+                              prompt_len=Lp, bucket=Lb)
         self._pos[slot] = Lp
         self._budget[slot] = req.max_new_tokens - 1
         self._last_tok[slot] = first
@@ -636,6 +929,9 @@ class ContinuousBatchingEngine:
             self._retire(slot)
 
     def _step_inner(self) -> bool:
+        fault_point("serving.engine_step",
+                    active=sum(r is not None for r in self._active),
+                    queued=len(self._queue))
         free = [i for i, r in enumerate(self._active) if r is None]
         if free and self._queue:
             self._admit(free[0], self._queue.popleft())
@@ -650,23 +946,31 @@ class ContinuousBatchingEngine:
         # no active sequence can reach row max_len-1
         pos = np.where(active, self._pos, self.max_len - 1).astype(np.int32)
         self._check_rope(rows, self.steps_per_sync)
-        toks = self._run("serving.decode", self._decode_slot_body,
-                         toks=self._last_tok.astype(np.int64), pos=pos,
-                         active=active).cpu().numpy()            # [B, K]
+        with self._recorder.instrumented("serving.decode"):
+            toks = self._run("serving.decode", self._decode_slot_body,
+                             toks=self._last_tok.astype(np.int64), pos=pos,
+                             active=active).cpu().numpy()        # [B, K]
         self._account_decode(t0, rows, toks)
         return True
 
     def _account_decode(self, t0: float, rows: List[int], toks):
-        """Hand each decoding row its K tokens, up to EOS or its budget."""
+        """Hand each decoding row its K tokens, up to EOS or its budget,
+        with the decode step's span on each request and its metrics."""
         K = toks.shape[1]
+        dt = time.perf_counter() - t0
         self.stats["decode_steps"] += K
-        self.stats["decode_seconds"] += time.perf_counter() - t0
+        self.stats["decode_seconds"] += dt
+        for i in rows:
+            self._tracer.add_span("serving.decode_step", t0, t0 + dt,
+                                  parent=self._active[i].span,
+                                  rid=self._active[i].rid, tokens=K)
+        emitted = 0
         for i in rows:
             req = self._active[i]
             for j in range(K):
                 t = int(toks[i, j])
                 req.out.append(t)
-                self.stats["decode_tokens"] += 1
+                emitted += 1
                 self._pos[i] += 1
                 self._budget[i] -= 1
                 self._last_tok[i] = t
@@ -676,28 +980,75 @@ class ContinuousBatchingEngine:
                     # unreachable for any successor
                     self._retire(i)
                     break
+        self.stats["decode_tokens"] += emitted
+        m = self._metrics
+        m["steps"].inc()
+        if emitted:
+            m["tokens"].inc(emitted)
+            m["decode"].observe(dt / K)
 
-    # -- the paged engine ----------------------------------------------------
+    # -- the paged engine: admission -------------------------------------------
+    def _defer(self, req: _Request, need: int, exhausted: bool,
+               **fields) -> bool:
+        """Allocator dry (or the ``serving.kv_alloc`` fault fired): the
+        request stays queued; the defer decision is re-emitted every
+        :data:`DEFER_EMIT_EVERY` attempts."""
+        self._metrics["alloc_failures"].inc()
+        self._recorder.record(
+            "serving.kv_alloc_exhausted", rid=req.rid, need=need,
+            free=self._allocator.free_blocks, injected=bool(exhausted))
+        n = self._defer_attempts.get(req.rid, 0) + 1
+        self._defer_attempts[req.rid] = n
+        if n % DEFER_EMIT_EVERY == 1:
+            self._emit_decision(
+                "admit", rid=req.rid, chosen="defer",
+                reason="kv_alloc_exhausted", **fields, need=need,
+                free=self._allocator.free_blocks,
+                injected=bool(exhausted), attempts=n)
+        return False
+
+    def _reserve(self, slot: int, req: _Request, need: int):
+        """Evict cached prefix blocks under pressure.  Returns (whether
+        `need` blocks are free and no fault fired, whether the
+        ``serving.kv_alloc`` fault fired)."""
+        exhausted = fault_fires("serving.kv_alloc", slot=slot,
+                                rid=req.rid, need=need)
+        if not exhausted and self._allocator.free_blocks < need and \
+                self._prefix is not None:
+            self._metrics["evictions"].inc(
+                self._prefix.evict(need - self._allocator.free_blocks))
+        return not exhausted and self._allocator.free_blocks >= need, \
+            exhausted
+
     def _admit_paged(self, slot: int, req: _Request) -> bool:
         """Reserve blocks for `slot` (prefix-cache hits arrive as shared
-        references — those tokens never prefill again) and mark it
+        references — those tokens never prefill again; with a KV tier,
+        demoted blocks of the chain are promoted first) and mark it
         prefilling.  False on allocator exhaustion: the request stays
         queued."""
+        if req.handoff is not None:
+            return self._admit_resume(slot, req)
         bs = self._block_size
         Lp = len(req.prompt)
-        total = Lp + self._span(req.max_new_tokens)
+        gen_span = 0 if req.mode == "prefill_only" \
+            else self._span(req.max_new_tokens)
+        total = Lp + gen_span
         reuse_bids: List[int] = []
+        m = self._metrics
         if self._prefix is not None:
             matched = self._prefix.match(req.prompt)
+            if self._kv_tier is not None:
+                matched = self._promote_prefix_tail(req.prompt, matched)
             # only full blocks strictly before the last prompt token are
             # adopted: the last token always runs (its logits give the
             # first generated token) and lands in a private block
             reuse_bids = matched[:(Lp - 1) // bs]
+            m["prefix_lookups"].labels(
+                result="hit" if reuse_bids else "miss").inc()
         need = -(-total // bs) - len(reuse_bids)
-        if self._allocator.free_blocks < need and self._prefix is not None:
-            self._prefix.evict(need - self._allocator.free_blocks)
-        if self._allocator.free_blocks < need:
-            return False
+        ok, exhausted = self._reserve(slot, req, need)
+        if not ok:
+            return self._defer(req, need, exhausted)
         seq = SequenceBlocks(self._allocator, bs)
         seq.adopt_shared(reuse_bids)
         seq.ensure_capacity(total)
@@ -706,37 +1057,436 @@ class ContinuousBatchingEngine:
         self._bt[slot, :len(seq.bids)] = seq.bids
         reused = len(reuse_bids) * bs
         req.prefix_reused = reused
-        req.admitted_at = time.perf_counter()
+        # a recompute-resumed session keeps its first admission stamp
+        req.admitted_at = req.admitted_at or time.perf_counter()
+        if req.router_t0 is not None and not req.parked_s:
+            req.route_s = req.admitted_at - req.router_t0
+        if reused:
+            m["prefix_tokens"].inc(reused)
+        m["admissions"].inc()
         self._active[slot] = req
         self._prefilling[slot] = reused
+        self._blocks_used_peak = max(self._blocks_used_peak,
+                                     self._allocator.used_blocks)
+        self._recorder.record("serving.admit", rid=req.rid, slot=slot,
+                              prompt_len=Lp, prefix_reused=reused,
+                              blocks=len(seq.bids))
+        self._defer_attempts.pop(req.rid, None)
+        self._emit_decision("admit", rid=req.rid, chosen="slot",
+                            slot=slot, prefix_reused=reused,
+                            blocks=len(seq.bids))
         return True
 
+    def _admit_resume(self, slot: int, req: _Request) -> bool:
+        """Admit a handed-off request or session (``serving.py:1248-
+        1373``): blocks for the whole span, the payload's KV imported
+        past the leading blocks this engine's prefix trie holds, decode
+        entered at ``pos = Lp`` (or the session's position).  False on
+        allocator exhaustion, as :meth:`_admit_paged`."""
+        h = req.handoff
+        bs = self._block_size
+        Lp = len(req.prompt)
+        # session payloads (park/resume, migration) carry the whole
+        # decode state; the remaining budget is what they haven't emitted
+        session = bool(h.get("session"))
+        if session:
+            out_prev = [int(t) for t in
+                        np.asarray(h["tokens_out"]).reshape(-1)]
+            covered = int(h["pos"])
+            remaining = req.max_new_tokens - len(out_prev)
+        else:
+            out_prev = [int(h["first_token"])]
+            covered = Lp
+            remaining = req.max_new_tokens - 1
+        # the span of a fresh admission with the emitted prefix paid
+        if self.spec_tokens:
+            gen_span = max(0, remaining) + 1 + self.spec_tokens
+        else:
+            K = self.steps_per_sync
+            gen_span = -(-max(1, remaining + 1) // K) * K
+        total = covered + gen_span
+        m = self._metrics
+        reuse_bids: List[int] = []
+        if self._prefix is not None:
+            matched = self._prefix.match(req.prompt)
+            reuse_bids = matched[:(Lp - 1) // bs]
+            m["prefix_lookups"].labels(
+                result="hit" if reuse_bids else "miss").inc()
+        need = -(-total // bs) - len(reuse_bids)
+        ok, exhausted = self._reserve(slot, req, need)
+        if not ok:
+            return self._defer(req, need, exhausted, resume=True)
+        seq = SequenceBlocks(self._allocator, bs)
+        seq.adopt_shared(reuse_bids)
+        seq.ensure_capacity(total)
+        nprompt = -(-covered // bs)  # blocks the payload covers
+        t0 = time.perf_counter()
+        if nprompt > len(reuse_bids):
+            with torch.inference_mode():
+                self._pool.import_blocks(
+                    h["kv"], seq.bids[len(reuse_bids):nprompt],
+                    src_start=len(reuse_bids))
+        req.handoff_s = float(h.get("transfer_s", 0.0)) \
+            + (time.perf_counter() - t0)
+        req.route_s = req.route_s or float(h.get("route_s", 0.0))
+        self._seq[slot] = seq
+        self._bt[slot, :] = 0
+        self._bt[slot, :len(seq.bids)] = seq.bids
+        reused = len(reuse_bids) * bs
+        req.prefix_reused = reused
+        if reused:
+            m["prefix_tokens"].inc(reused)
+        if self._prefix is not None:
+            # imported prompt blocks are as shareable as prefilled ones
+            self._prefix.register(req.prompt, seq.bids, limit_tokens=Lp)
+        now = time.perf_counter()
+        req.admitted_at = req.admitted_at or now
+        m["admissions"].inc()
+        # the first token was sampled and counted on the originating
+        # replica or session: only its stamp carries over
+        if not req.first_token_at:
+            req.first_token_at = float(h.get("first_token_at") or now)
+        req.out = list(out_prev)
+        if req.resume_at:
+            req.resume_s += now - req.resume_at
+            req.resume_at = 0.0
+        if session:
+            m["resumes"].labels(path="promote").inc()
+            last = int(h["last_token"])
+        else:
+            last = out_prev[-1]
+        self._active[slot] = req
+        self._pos[slot] = covered
+        self._budget[slot] = remaining
+        self._last_tok[slot] = last
+        self._blocks_used_peak = max(self._blocks_used_peak,
+                                     self._allocator.used_blocks)
+        self._recorder.record("serving.admit", rid=req.rid, slot=slot,
+                              prompt_len=Lp, resume=True,
+                              session=session, pos=covered,
+                              prefix_reused=reused,
+                              handoff_s=round(req.handoff_s, 6),
+                              blocks=len(seq.bids))
+        self._defer_attempts.pop(req.rid, None)
+        self._emit_decision("admit", rid=req.rid, chosen="slot",
+                            slot=slot, resume=True, session=session,
+                            pos=covered,
+                            handoff_s=round(req.handoff_s, 6))
+        if (self.eos is not None and last == self.eos) \
+                or self._budget[slot] <= 0:
+            self._retire(slot)
+        return True
+
+    def export_handoff(self, rid: int) -> Dict:
+        """Package a ``"prefilled"`` request's prompt KV for transfer:
+        the exported blocks (tensors on the pools' device), the sampled
+        first token and the stamps the decode replica's timings need.
+        Releases the parked blocks (the prefix trie keeps its own
+        references on the prompt's full blocks).  The payload feeds
+        ``add_request(handoff=...)`` directly, or
+        :func:`~paddle_tpu_torch.inference.kv_cache.serialize_handoff`
+        for a byte transport."""
+        req, seq, first = self._handoff_ready.pop(rid)
+        bs = self._block_size
+        Lp = len(req.prompt)
+        with torch.inference_mode():
+            kv = self._pool.export_blocks(seq.bids[:-(-Lp // bs)])
+        payload = {
+            "prompt": np.asarray(req.prompt, np.int32),
+            "tokens": int(Lp),
+            "first_token": int(first),
+            "block_size": int(bs),
+            "first_token_at": float(req.first_token_at),
+            "route_s": float(req.route_s),
+            "kv": kv,
+        }
+        seq.release()
+        return payload
+
+    def discard_handoff(self, rid: int):
+        """Drop a parked handoff (transfer failed, replica drained);
+        tolerates an already-exported or unknown rid."""
+        ent = self._handoff_ready.pop(rid, None)
+        if ent is not None:
+            ent[1].release()
+
+    # -- session tiering -------------------------------------------------------
+    def _session_payload(self, slot: int, req: _Request) -> Dict:
+        """A decoding slot as a resumable session: KV rows 0..pos-1 plus
+        the host-side decode state.  A pure read."""
+        bs = self._block_size
+        pos = int(self._pos[slot])
+        with torch.inference_mode():
+            kv = self._pool.export_blocks(self._seq[slot].bids[:-(-pos
+                                                                  // bs)])
+        return {
+            "session": True,
+            "prompt": np.asarray(req.prompt, np.int32),
+            "tokens_out": np.asarray(req.out, np.int32),
+            "pos": int(pos),
+            "last_token": int(self._last_tok[slot]),
+            "block_size": int(bs),
+            "first_token_at": float(req.first_token_at),
+            "route_s": float(req.route_s),
+            "kv": kv,
+        }
+
+    def park(self, rid: int, key: Optional[str] = None,
+             detach: bool = False, _auto: bool = False) -> Optional[str]:
+        """Demote a decoding session out of the card's memory: its KV
+        spills to the tier manager, its slot and blocks free, and
+        :meth:`resume` later promotes it back; the greedy chain continues
+        from the parked position.  Returns the tier key, or None when
+        the rid is not parkable (unknown, queued or mid-prefill).
+        ``detach=True`` hands the resume to the caller (the router)."""
+        if not self.paged or self._kv_tier is None:
+            raise ValueError("park() requires the paged engine with a "
+                             "kv_tier= manager attached")
+        slot = next((i for i, r in enumerate(self._active)
+                     if r is not None and r.rid == rid), None)
+        if slot is None or slot in self._prefilling:
+            return None
+        req = self._active[slot]
+        key = key or f"rid{rid}"
+        # spill before the free: an injected kv_tier.spill fault drops
+        # the payload and resume falls back to recompute
+        self._kv_tier.spill(key, self._session_payload(slot, req),
+                            kind="session")
+        seq = self._seq[slot]
+        self._active[slot] = None
+        self._seq[slot] = None
+        self._bt[slot, :] = 0
+        seq.release()
+        req.parked_at = time.perf_counter()
+        req.auto_parked = _auto
+        self._metrics["parks"].labels(
+            kind="auto" if _auto else "manual").inc()
+        self._recorder.record("serving.park", rid=rid, slot=slot,
+                              key=key, auto=_auto,
+                              tokens_out=len(req.out))
+        if not _auto:
+            # _maybe_auto_park emits the auto-park decision itself
+            self._emit_decision("park", rid=rid, chosen="park",
+                                auto=False, key=key,
+                                tokens_out=len(req.out))
+        if not detach:
+            self._parked[rid] = (req, key)
+        return key
+
+    def resume(self, rid: int) -> int:
+        """Re-enqueue a parked session.  A tier hit rides the resume
+        admission's import (a promotion, like a handoff); a tier miss
+        falls back to recompute: the prompt is extended with the tokens
+        already emitted and prefilled again, and greedy decoding
+        regenerates the same chain."""
+        ent = self._parked.pop(rid, None)
+        if ent is None:
+            raise KeyError(f"rid {rid} is not parked on this engine")
+        req, key = ent
+        now = time.perf_counter()
+        if req.parked_at:
+            req.parked_s += now - req.parked_at
+            req.parked_at = 0.0
+        req.resume_at = now
+        payload = self._kv_tier.fetch(key) \
+            if self._kv_tier is not None else None
+        self._kv_tier.discard(key)
+        if payload is not None and payload.get("kv") is not None:
+            req.handoff = payload
+            req.mode = "resume"
+        else:
+            self._prepare_recompute(req)
+        self._queue.append(req)
+        path = "promote" if req.handoff is not None else "recompute"
+        self._recorder.record("serving.resume", rid=rid, key=key,
+                              path=path)
+        self._emit_decision("resume", rid=rid, chosen=path, path=path,
+                            key=key, parked_s=round(req.parked_s, 6))
+        return rid
+
+    def _prepare_recompute(self, req: _Request):
+        """Tier-miss fallback: fold the emitted tokens but the last into
+        the prompt; the prefill's sampled token is then that last token
+        again, and the output stream is unchanged."""
+        base = req.orig_prompt if req.orig_prompt is not None \
+            else req.prompt
+        if not req.orig_max_new:
+            req.orig_max_new = req.max_new_tokens
+        req.orig_prompt = base
+        g = len(req.out)   # >= 1: parked sessions are post-first-token
+        req.prompt = np.concatenate(
+            [base, np.asarray(req.out[:-1], np.int32)]).astype(np.int32)
+        req.out = req.out[:g - 1]
+        req.max_new_tokens = req.orig_max_new - (g - 1)
+        req.handoff = None
+        req.mode = "full"
+        self._metrics["resumes"].labels(path="recompute").inc()
+
+    def checkpoint_sessions(self, key_of=None) -> int:
+        """Spill every decoding session's KV and state to the tier
+        without disturbing it (the router fetches these for survivors of
+        a replica death).  ``key_of(rid)`` maps engine rids to
+        fleet-wide keys; None skips a session.  Returns sessions
+        shipped."""
+        if not self.paged or self._kv_tier is None:
+            return 0
+        shipped = 0
+        for slot, req in enumerate(self._active):
+            if req is None or slot in self._prefilling or not req.out:
+                continue
+            key = key_of(req.rid) if key_of is not None else \
+                f"rid{req.rid}"
+            if key is None:
+                continue
+            if self._kv_tier.spill(key, self._session_payload(slot, req),
+                                   kind="session"):
+                shipped += 1
+        return shipped
+
+    def parked_rids(self):
+        """Rids of sessions this engine parked and still owns."""
+        return list(self._parked.keys())
+
+    def _maybe_auto_park(self):
+        """Deadline-aware auto-park (``serving.py:1556-1593``): with every
+        slot busy and work queued, the decoding session with the most
+        deadline headroom (>= auto_park_s; no deadline is infinitely
+        patient) yields its slot; with slots free and the queue empty,
+        the oldest auto-parked session comes back."""
+        free = any(r is None for r in self._active)
+        if free and not self._queue and self._parked:
+            for rid, (req, _key) in list(self._parked.items()):
+                if req.auto_parked:
+                    self.resume(rid)
+                    return
+            return
+        if not self._queue or free:
+            return
+        now = time.perf_counter()
+        best, best_h = None, float(self._auto_park_s)
+        cands = []
+        for i, r in enumerate(self._active):
+            if r is None or i in self._prefilling or not r.out:
+                continue
+            h = (r.deadline - now) if r.deadline is not None \
+                else float("inf")
+            cands.append({"rid": r.rid,
+                          "headroom_s": round(h, 4)
+                          if h != float("inf") else None})
+            if h >= best_h:
+                best, best_h = r.rid, h
+        if best is not None:
+            self._emit_decision(
+                "park", rid=best, auto=True,
+                chosen={"rid": best,
+                        "headroom_s": round(best_h, 4)
+                        if best_h != float("inf") else None},
+                alternatives=[c for c in cands if c["rid"] != best],
+                queue_depth=len(self._queue))
+            self.park(best, _auto=True)
+
+    def _demote_prefix_node(self, node):
+        """``PrefixCache.on_evict``: spill the victim block to the tier
+        under its chain key before the allocator frees it."""
+        from paddle_tpu_torch.inference.kv_tier import prefix_block_key
+        with torch.inference_mode():
+            kv = self._pool.export_blocks([node.bid])
+        payload = {"prefix": True, "block_size": int(self._block_size),
+                   "kv": kv}
+        self._kv_tier.spill(prefix_block_key(self._prefix.node_tokens(node)),
+                            payload, kind="prefix")
+
+    def _promote_prefix_tail(self, prompt, matched: List[int]
+                             ) -> List[int]:
+        """Extend a prefix-cache match with blocks promoted from the
+        tier, block by block past the in-memory match: each hit is
+        imported into a fresh block and handed to the trie."""
+        from paddle_tpu_torch.inference.kv_tier import prefix_block_key
+        bs = self._block_size
+        nfull = (len(prompt) - 1) // bs  # blocks usable for reuse
+        bids = list(matched)
+        while len(bids) < nfull:
+            upto = (len(bids) + 1) * bs
+            payload = self._kv_tier.fetch(prefix_block_key(prompt[:upto]))
+            if payload is None or payload.get("kv") is None:
+                break
+            bid = self._allocator.alloc()
+            if bid is None:
+                break
+            try:
+                with torch.inference_mode():
+                    self._pool.import_blocks(payload["kv"], [bid])
+            except Exception:  # noqa: BLE001 — geometry/dtype mismatch
+                self._allocator.free(bid)
+                break
+            new = self._prefix.register(
+                np.asarray(prompt[:upto], np.int32), bids + [bid],
+                limit_tokens=upto)
+            # the trie holds its own reference on a new block; drop ours
+            self._allocator.free(bid)
+            if not new:
+                break
+            bids.append(bid)
+        return bids
+
+    # -- the paged engine: prefill and decode ------------------------------------
     def _prefill_chunk_step(self, slot: int):
-        """Advance `slot`'s prefill by one chunk of up to ``prefill_chunk``
-        prompt tokens.  The final chunk gives the request's first token
-        and registers the prompt's full blocks in the prefix trie."""
+        """Advance `slot`'s prefill by one fixed-width chunk.  The final
+        chunk gives the request's first token and registers the
+        prompt's full blocks in the prefix trie; a prefill-only request
+        then parks its blocks for :meth:`export_handoff`."""
         req = self._active[slot]
         start = self._prefilling[slot]
         Lp = len(req.prompt)
-        n = min(self._chunk, Lp - start)
+        C = self._chunk
+        n = min(C, Lp - start)
+        ids = np.zeros((1, C), np.int64)
+        ids[0, :n] = req.prompt[start:start + n]
         final = start + n == Lp
-        logits = self._forward(req.prompt[None, start:start + n],
-                               self._bt[slot:slot + 1],
-                               np.array([start], np.int32))
+        self._check_position(start + n)
+        with self._tracer.span("serving.prefill", parent=req.span,
+                               rid=req.rid, chunk_start=start, tokens=n):
+            first = self._run(
+                "serving.prefill_chunk", self._prefill_chunk_body, ids=ids,
+                bt=self._bt[slot:slot + 1],
+                start=np.array([start], np.int32),
+                last_idx=np.array(Lp - 1 - start if final else 0,
+                                  np.int64))
+            if final:
+                first = int(first[0])
         self._prefilling[slot] = start + n
         self.stats["prefill_chunks"] += 1
+        m = self._metrics
+        m["chunks"].inc()
+        if C > n:
+            m["pad_tokens"].inc(C - n)
         if not final:
             return
-        with torch.inference_mode():
-            first = int(_sample(logits[:, -1], self._gen_cfg,
-                                self._gen)[0])
         del self._prefilling[slot]
         if self._prefix is not None:
             # generated tokens are per-request: register the prompt only
             self._prefix.register(req.prompt, self._seq[slot].bids,
                                   limit_tokens=Lp)
-        req.first_token_at = time.perf_counter()
+        now = time.perf_counter()
+        if not req.first_token_at:
+            # a recompute-resumed session keeps its first stamp
+            req.first_token_at = now
+            origin = req.router_t0 or req.enqueued_at
+            if origin:
+                m["ttft"].observe(now - origin)
+        if req.resume_at:
+            req.resume_s += now - req.resume_at
+            req.resume_at = 0.0
         req.out.append(first)
+        m["tokens"].inc()
+        if req.mode == "prefill_only":
+            # the slot frees now; the blocks stay referenced until
+            # export_handoff / discard_handoff
+            seq = self._seq[slot]
+            self._seq[slot] = None
+            self._handoff_ready[req.rid] = (req, seq, first)
+            self._retire(slot, status="prefilled")
+            return
         self._pos[slot] = Lp
         self._budget[slot] = req.max_new_tokens - 1
         self._last_tok[slot] = first
@@ -758,6 +1508,7 @@ class ContinuousBatchingEngine:
             for idx in range(first, last + 1):
                 if seq.ensure_writable(idx,
                                        self._pool.copy_block) is not None:
+                    self._metrics["cow"].inc()
                     self._bt[i, idx] = seq.bids[idx]
 
     def _paged_rows(self, decoding: List[int], span: int):
@@ -778,9 +1529,10 @@ class ContinuousBatchingEngine:
         program; tokens come back in one host read."""
         t0 = time.perf_counter()
         active, pos, bt = self._paged_rows(decoding, self.steps_per_sync)
-        toks = self._run("serving.decode", self._decode_paged_body, bt=bt,
-                         toks=self._last_tok.astype(np.int64), pos=pos,
-                         active=active).cpu().numpy()            # [B, K]
+        with self._recorder.instrumented("serving.decode"):
+            toks = self._run("serving.decode", self._decode_paged_body,
+                             bt=bt, toks=self._last_tok.astype(np.int64),
+                             pos=pos, active=active).cpu().numpy()  # [B, K]
         self._account_decode(t0, decoding, toks)
 
     def _spec_decode_step(self, decoding: List[int]):
@@ -806,12 +1558,17 @@ class ContinuousBatchingEngine:
                 toks[i, 1 + n:] = draft[-1]   # static-shape pad; unused
                 proposed[i] = n
         _, pos, bt = self._paged_rows(decoding, S)
-        greedy = self._run("serving.spec_verify", self._verify_body, bt=bt,
-                           toks=toks, pos=pos).cpu().numpy()     # [B, S]
+        with self._recorder.instrumented("serving.decode"):
+            greedy = self._run("serving.spec_verify", self._verify_body,
+                               bt=bt, toks=toks,
+                               pos=pos).cpu().numpy()            # [B, S]
+        dt = time.perf_counter() - t0
         self.stats["decode_steps"] += 1
         self.stats["spec_verifies"] += 1
         self.stats["spec_rows"] += len(decoding)
-        self.stats["decode_seconds"] += time.perf_counter() - t0
+        self.stats["decode_seconds"] += dt
+        m = self._metrics
+        emitted_total = 0
         for i in decoding:
             req = self._active[i]
             n = int(proposed[i])
@@ -827,8 +1584,17 @@ class ContinuousBatchingEngine:
             req.spec_accepted += a
             self.stats["spec_proposed"] += n
             self.stats["spec_accepted"] += a
+            if n:
+                m["spec"].labels(kind="proposed").inc(n)
+                if a:
+                    m["spec"].labels(kind="accepted").inc(a)
+            self._tracer.add_span("serving.decode_step", t0, t0 + dt,
+                                  parent=req.span, rid=req.rid,
+                                  tokens=len(emitted), drafts=n,
+                                  accepted=a)
             for t in emitted:
                 req.out.append(t)
+                emitted_total += 1
                 self.stats["decode_tokens"] += 1
                 self._pos[i] += 1
                 self._budget[i] -= 1
@@ -837,8 +1603,17 @@ class ContinuousBatchingEngine:
                         or self._budget[i] <= 0:
                     self._retire(i)
                     break
+        m["steps"].inc()
+        if emitted_total:
+            m["tokens"].inc(emitted_total)
+            m["decode"].observe(dt * len(decoding) / emitted_total)
 
     def _step_inner_paged(self) -> bool:
+        fault_point("serving.engine_step",
+                    active=sum(r is not None for r in self._active),
+                    queued=len(self._queue))
+        if self._auto_park_s is not None:
+            self._maybe_auto_park()
         free = [i for i, r in enumerate(self._active) if r is None]
         if free and self._queue:
             if self._admit_paged(free[0], self._queue[0]):
@@ -877,40 +1652,121 @@ class ContinuousBatchingEngine:
                 seq.release()   # shared prefix blocks stay in the trie
             self._seq[slot] = None
             self._bt[slot, :] = 0
-        self._finish(req, status)
+        self._finish(req, slot=slot, status=status)
 
-    def _finish(self, req: _Request, status: str = "ok"):
+    def _finish(self, req: _Request, slot: Optional[int] = None,
+                status: str = "ok"):
         req.retired_at = time.perf_counter()
-        self._status[req.rid] = RequestStatus(
-            status, timings=_request_timings(req))
+        trace_id = req.span.trace_id if req.span is not None else None
+        timings = _request_timings(req)
+        self._status[req.rid] = RequestStatus(status, timings=timings,
+                                              trace_id=trace_id)
         while len(self._status) > 8192:   # bounded
             self._status.pop(next(iter(self._status)))
-        self._done.append((req.rid, req.prompt, list(req.out)))
+        # a recompute-resumed session's client-visible prompt is the
+        # original one
+        prompt = req.orig_prompt if req.orig_prompt is not None \
+            else req.prompt
+        self._done.append((req.rid, prompt, list(req.out)))
+        self._metrics["retirements"].inc()
+        self._count_slo(req)
+        ev = dict(rid=req.rid, slot=slot, generated=len(req.out),
+                  status=status)
+        if trace_id is not None:
+            ev["trace_id"] = trace_id
+        self._recorder.record("serving.retire", **ev)
+        # the retirement decision carries the canonical timings; a routed
+        # request's fleet-level retirement is the router's
+        self._emit_decision(
+            "retire", rid=req.rid, chosen=status, status=status,
+            source="engine", routed=req.router_t0 is not None,
+            generated=len(req.out), timings=timings)
+        if req.router_t0 is None:
+            observe_retirement(timings, targets=self._slo_targets)
+        if req.span is not None:
+            req.span.set_attribute("status", status)
+            req.span.set_attribute("generated", len(req.out))
+            req.span.end(end_time=req.retired_at)
+
+    def _count_slo(self, req: _Request):
+        """SLO verdicts from the request's own stamps
+        (``serving.py:1957-1980``): TTFT for every retirement (one that
+        never produced a token missed), TPOT from two output tokens."""
+        ttft_target = self._slo_targets.get("ttft", 0.0)
+        # a handed-off request's TTFT was judged on the prefill replica
+        if ttft_target > 0 and req.mode != "resume":
+            origin = req.router_t0 or req.enqueued_at
+            ttft = (req.first_token_at - origin
+                    if req.first_token_at and origin else None)
+            hit = ttft is not None and ttft <= ttft_target
+            self._metrics["slo"].labels(
+                kind="ttft", result="hit" if hit else "miss").inc()
+        tpot_target = self._slo_targets.get("tpot", 0.0)
+        if tpot_target > 0 and len(req.out) > 1 and \
+                req.first_token_at and req.retired_at:
+            tpot = (req.retired_at - req.first_token_at) \
+                / (len(req.out) - 1)
+            self._metrics["slo"].labels(
+                kind="tpot",
+                result="hit" if tpot <= tpot_target else "miss").inc()
 
     def _expire(self):
-        """Retire every request whose deadline has passed, queued or
-        running."""
+        """Retire every request whose deadline has passed: queued,
+        running or parked (a parked one's payload is dropped)."""
         now = time.perf_counter()
         for slot, req in enumerate(self._active):
             if req is not None and req.deadline is not None \
                     and now > req.deadline:
+                self._metrics["timeouts"].inc()
+                self._recorder.record("serving.timeout", rid=req.rid,
+                                      slot=slot, generated=len(req.out))
+                self._emit_decision("expire", rid=req.rid,
+                                    chosen="timeout", where="slot")
                 self._retire(slot, status="timeout")
         if self._queue:
             keep = deque()
             for req in self._queue:
                 if req.deadline is not None and now > req.deadline:
+                    self._metrics["timeouts"].inc()
+                    self._recorder.record("serving.timeout", rid=req.rid,
+                                          slot=None, generated=0)
+                    self._emit_decision("expire", rid=req.rid,
+                                        chosen="timeout", where="queue")
                     self._finish(req, status="timeout")
                 else:
                     keep.append(req)
-            self._queue = keep
+            # the same deque: the queue-depth gauge reads it
+            self._queue.clear()
+            self._queue.extend(keep)
+        for rid, (req, key) in list(self._parked.items()):
+            if req.deadline is not None and now > req.deadline:
+                del self._parked[rid]
+                if req.parked_at:
+                    req.parked_s += now - req.parked_at
+                    req.parked_at = 0.0
+                if self._kv_tier is not None:
+                    self._kv_tier.discard(key)
+                self._metrics["timeouts"].inc()
+                self._recorder.record("serving.timeout", rid=rid,
+                                      slot=None, parked=True,
+                                      generated=len(req.out))
+                self._emit_decision("expire", rid=rid,
+                                    chosen="timeout", where="parked")
+                self._finish(req, status="timeout")
 
     def _recover(self, exc: Exception):
         """Engine-step failure: every in-flight request retires with
         status "error", the caches and block bookkeeping start over (the
-        caches zeroed in place, so captured programs stay valid), the
-        queue is kept.  ``max_consecutive_errors`` failures in a row
-        re-raise (the fault is persistent)."""
+        caches zeroed in place, so captured programs stay valid), parked
+        handoffs are dropped with the pool they referenced, the queue is
+        kept.  ``max_consecutive_errors`` failures in a row re-raise
+        (the fault is persistent)."""
         self._error_streak += 1
+        self._metrics["engine_errors"].inc()
+        self._recorder.record("serving.engine_error",
+                              error=type(exc).__name__,
+                              message=str(exc)[:200],
+                              streak=self._error_streak)
         for slot, req in enumerate(self._active):
             if req is not None:
                 self._retire(slot, status="error")
@@ -920,10 +1776,13 @@ class ContinuousBatchingEngine:
                 if self._prefix is not None:
                     self._prefix = PrefixCache(self._block_size,
                                                self._allocator)
+                    if self._kv_tier is not None:
+                        self._prefix.on_evict = self._demote_prefix_node
                 self._pool.reset()
                 self._bt[:] = 0
                 self._seq = [None] * self.slots
                 self._prefilling.clear()
+                self._handoff_ready.clear()
             else:
                 for c in self._caches + self._caches1:
                     c.k.zero_()
@@ -968,13 +1827,11 @@ class ContinuousBatchingEngine:
             self.model.train()
             self._was_training = False
 
-    # outside the port so far (ROADMAP.md queue 1, item 1)
-    analyze = _unported("analyze")
-    park = _unported("park")
-    resume = _unported("resume")
-    export_handoff = _unported("export_handoff")
-    discard_handoff = _unported("discard_handoff")
-    checkpoint_sessions = _unported("checkpoint_sessions")
+    def analyze(self, strict: bool = False, passes=None, options=None):
+        """Program analysis: not ported yet; raises."""
+        raise NotImplementedError(
+            "analyze: not ported yet (ROADMAP.md, queue 1, item 10: "
+            "program analysis)")
 
     def __enter__(self):
         return self

@@ -122,13 +122,25 @@ def apply_rotary_emb(x, cos, sin, position_offset=0):
     tensor on the card is taken as it is: reading it would sync the
     host and break a CUDA graph's capture, so the callers check the
     bound on the host (the serving engine before each decode,
-    ``generate`` once a call)."""
+    ``generate`` once a call).
+
+    A ``[B, seq]`` integer tensor gives every token's position (the
+    serving engine's fixed-width prefill chunk, whose pad tokens may
+    run past the table); those are clamped into the table on any
+    device, as the JAX package's gather clamps them, and the caller
+    checks the real positions on the host."""
     seq = x.shape[1]
     table = cos.shape[0]
-    if torch.is_tensor(position_offset):
+    if torch.is_tensor(position_offset) and position_offset.ndim == 2:
+        pos = position_offset.to(device=cos.device, dtype=torch.long) \
+            .clamp(0, table - 1)
+        c = cos[pos][:, :, None, :]                         # [B, s, 1, h]
+        s = sin[pos][:, :, None, :]
+    elif torch.is_tensor(position_offset):
         if position_offset.ndim not in (0, 1):
-            raise ValueError(f"position_offset must be an int, a 0-d or "
-                             f"a [B] tensor, got {position_offset.ndim}-d")
+            raise ValueError(f"position_offset must be an int, a 0-d, a "
+                             f"[B] or a [B, s] tensor, got "
+                             f"{position_offset.ndim}-d")
         if position_offset.device.type == "cpu":
             lo = int(position_offset.min())
             hi = int(position_offset.max()) + seq

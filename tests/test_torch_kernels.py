@@ -196,6 +196,19 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.ops.kernels.rmsnorm\n"
         "import paddle_tpu_torch.nn.functional.norm\n"
         "import paddle_tpu_torch.nn.functional.fused\n"
+        "import paddle_tpu_torch.inference.kv_tier\n"
+        "import paddle_tpu_torch.inference.router\n"
+        "import paddle_tpu_torch.robustness\n"
+        "import paddle_tpu_torch.robustness.faults\n"
+        "import paddle_tpu_torch.observability\n"
+        "import paddle_tpu_torch.observability.metrics\n"
+        "import paddle_tpu_torch.observability.recorder\n"
+        "import paddle_tpu_torch.observability.exposition\n"
+        "import paddle_tpu_torch.observability.tracing\n"
+        "import paddle_tpu_torch.observability.forensics\n"
+        "import paddle_tpu_torch.observability.goodput\n"
+        "import paddle_tpu_torch.observability.watchdog\n"
+        "import paddle_tpu_torch.observability.fleet\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"

@@ -223,28 +223,14 @@ def test_deadline_retires_with_timeout(pair):
     assert t["ttft_s"] > 0 and t["generated"] == 2
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"int8_weights": True}, {"kv_tier": object()}, {"auto_park_s": 1.0},
-    {"analyze": "warn"}, {"role": "prefill"},
-])
+@pytest.mark.parametrize("kwargs", [{"int8_weights": True},
+                                    {"analyze": "warn"}])
 def test_unported_engine_options_raise(pair, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatchingEngine(pair[1], **dict(ENGINE, **kwargs))
 
 
-@pytest.mark.parametrize("kwargs", [{"prefill_only": True},
-                                    {"handoff": {}},
-                                    {"router_enqueued_at": 1.0}])
-def test_unported_request_hooks_raise(pair, kwargs):
-    te = ContinuousBatchingEngine(pair[1], **ENGINE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.add_request([1, 2, 3], max_new_tokens=2, **kwargs)
-
-
-@pytest.mark.parametrize("method", ["analyze", "park",
-                                    "resume", "export_handoff",
-                                    "discard_handoff",
-                                    "checkpoint_sessions"])
+@pytest.mark.parametrize("method", ["analyze"])
 def test_unported_engine_methods_raise(pair, method):
     te = ContinuousBatchingEngine(pair[1], **ENGINE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

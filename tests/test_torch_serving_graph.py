@@ -159,6 +159,7 @@ def test_spec_decode_tokens_and_acceptance_match_jax(pair, seed, k, warm):
     te = ContinuousBatchingEngine(tm, **kw)
     if warm == "aot_warmup":
         assert set(te.aot_warmup()) == {"serving.decode",
+                                        "serving.prefill_chunk",
                                         "serving.spec_verify"}
     rids, toks = _serve(te, prompts, 12)
     assert toks == ref
@@ -222,7 +223,8 @@ def test_paged_aot_warmup_matches_eager_and_jax(pair, scenario):
     for warm in (False, True):
         with ContinuousBatchingEngine(tm, **kw) as te:
             if warm:
-                assert set(te.aot_warmup()) == {"serving.decode"}
+                assert set(te.aot_warmup()) == {"serving.decode",
+                                                "serving.prefill_chunk"}
             toks[warm] = _serve(te, prompts, max_new)[1]
         assert not te._graphs                 # close() dropped them
     assert toks[True] == toks[False] == ref

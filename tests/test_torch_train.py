@@ -131,9 +131,12 @@ def test_engine_forward_builds_no_graph():
                                    prefill_buckets=(8, 16), kv_block_size=4,
                                    prefill_chunk=8, paged_kv=True)
     bt = np.zeros((1, eng._max_blocks), np.int32)
-    logits = eng._forward(np.zeros((1, 3), np.int64), bt,
-                          np.zeros(1, np.int32))
-    assert not logits.requires_grad and logits.grad_fn is None
+    first = eng._run("serving.prefill_chunk", eng._prefill_chunk_body,
+                     ids=np.zeros((1, 8), np.int64), bt=bt,
+                     start=np.zeros(1, np.int32),
+                     last_idx=np.array(2, np.int64))
+    assert first.is_inference() and first.grad_fn is None
+    assert not any(p.requires_grad for p in eng._pool.kpools)
 
 
 # -- the optimizer ------------------------------------------------------------
