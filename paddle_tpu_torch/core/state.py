@@ -75,3 +75,27 @@ def renew_generator(device, state: torch.Tensor) -> torch.Generator:
     with _lock:
         _generators[str(dev)] = g
     return g
+
+
+def get_rng_state(device=None):
+    """The generators' states (``core/state.py:72-77``): with `device`,
+    that device's generator state (a CPU uint8 tensor); without, a dict
+    ``{device: state}`` over every generator made so far (the CPU's
+    always).  Torch's Philox / MT states, never JAX's threefry key."""
+    if device is not None:
+        return generator(device).get_state()
+    generator("cpu")
+    with _lock:
+        gens = dict(_generators)
+    return {key: g.get_state() for key, g in gens.items()}
+
+
+def set_rng_state(data, device=None):
+    """Restore what :func:`get_rng_state` returned: a dict of device
+    states, or one state for `device` (the CPU's when not given); later
+    draws repeat those that followed the saved state."""
+    if not isinstance(data, dict):
+        data = {str(torch.device("cpu" if device is None else device)):
+                data}
+    for key, state in data.items():
+        generator(key).set_state(state)

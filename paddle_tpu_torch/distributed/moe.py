@@ -26,28 +26,105 @@ on the device, so routing costs no host sync.
 Waiting (``ROADMAP.md``, queue 1): the ``"ragged"``, ``"all_to_all"`` and
 ``"all_to_all_index"`` dispatch modes and ``dropless=True`` (item 8)
 and the ``moe.expert_imbalance`` fault point (item 9) raise
-``NotImplementedError`` naming their item; the router metrics (item 9)
-are not recorded."""
+``NotImplementedError`` naming their item.
+
+After an eager routed forward the router metrics are recorded as in the
+JAX package (``moe.py:263-323``): the dropped-token and capacity-overflow
+counters, the aux-loss gauge and, in the einsum mode, the per-expert
+load and imbalance gauges.  They read the device values on the host, so
+they are skipped inside ``TrainStep`` (:func:`router_metrics_paused`) and
+while a CUDA graph captures, as JAX skips them under a trace; the
+grouped kernel counts in ``paddle_tpu_grouped_moe_path_total`` where it
+launches."""
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 from typing import Callable, Optional
 
 import torch
 
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Layer
-from paddle_tpu_torch.ops.kernels.grouped_matmul import GroupedExpertFFN
+from paddle_tpu_torch.ops.kernels.grouped_matmul import (GroupedExpertFFN,
+                                                         record_path)
 
 __all__ = ["top_k_gating", "top_k_gating_indices", "moe_forward_index",
-           "NaiveGate", "SwitchGate", "GShardGate", "ExpertFFN", "MoELayer"]
+           "NaiveGate", "SwitchGate", "GShardGate", "ExpertFFN", "MoELayer",
+           "router_metrics_paused"]
 
 _QUEUE1 = "ROADMAP.md, queue 1, item 8"
 
 
 def _unported(what: str, where: str = _QUEUE1) -> NotImplementedError:
     return NotImplementedError(f"MoE {what} is not ported yet ({where})")
+
+
+_PAUSE = threading.local()
+
+
+@contextlib.contextmanager
+def router_metrics_paused():
+    """No router metrics inside: the training step's bodies (eager or
+    captured) must not read the device on the host each step."""
+    depth = getattr(_PAUSE, "depth", 0)
+    _PAUSE.depth = depth + 1
+    try:
+        yield
+    finally:
+        _PAUSE.depth = depth
+
+
+def _router_metrics():
+    """The routing instruments on the process-wide registry
+    (``moe.py:263-289``)."""
+    from paddle_tpu_torch.observability import default_registry
+    reg = default_registry()
+    return {
+        "dropped": reg.counter(
+            "paddle_tpu_moe_dropped_tokens_total",
+            "token-choice assignments dropped by the capacity bound"),
+        "overflow": reg.counter(
+            "paddle_tpu_moe_capacity_overflow_total",
+            "routed forwards in which at least one assignment was "
+            "dropped (capacity pressure events)"),
+        "aux": reg.gauge(
+            "paddle_tpu_moe_aux_loss",
+            "GShard load-balance auxiliary loss of the last routed "
+            "forward"),
+        "load": reg.gauge(
+            "paddle_tpu_moe_expert_load",
+            "kept token-choice assignments per expert in the last "
+            "routed forward", labelnames=("expert",)),
+        "imbalance": reg.gauge(
+            "paddle_tpu_moe_expert_imbalance",
+            "max/mean per-expert load of the last routed forward "
+            "(1.0 = perfectly balanced)"),
+    }
+
+
+def _record_router_metrics(aux, dropped_frac, total_assignments,
+                           load=None):
+    """The counters and gauges of one routed forward (``moe.py:292-
+    323``); skipped while paused or while a CUDA graph captures."""
+    if getattr(_PAUSE, "depth", 0) or (
+            torch.cuda.is_available() and
+            torch.cuda.is_current_stream_capturing()):
+        return
+    m = _router_metrics()
+    m["aux"].set(float(aux.detach()))
+    df = float(dropped_frac.detach())
+    if df > 0:
+        m["dropped"].inc(df * total_assignments)
+        m["overflow"].inc()
+    if load is not None:
+        arr = load.detach().double().cpu().numpy()
+        for e, val in enumerate(arr):
+            m["load"].labels(expert=e).set(float(val))
+        mean = arr.mean()
+        m["imbalance"].set(float(arr.max() / mean) if mean > 0 else 1.0)
 
 
 def _gshard_aux(probs, topi, E: int, k: int):
@@ -219,6 +296,8 @@ class ExpertFFN(Layer):
 def _expert_ffn(x, w1, b1, w2, b2, act, counts=None):
     """[G, C, d] -> [G, C, d] through the grouped expert FFN
     (``moe.py:326-343``), differentiable in x and the weights."""
+    if x.device.type == "cuda":
+        record_path("grouped")
     return GroupedExpertFFN.apply(x, w1, b1, w2, b2, counts, act)
 
 
@@ -296,6 +375,7 @@ class MoELayer(Layer):
                 x2d, logits, experts_fn, E=E, top_k=k, capacity=capacity)
             self.aux_loss = aux
             self.router_stats = {"dropped_frac": dropped, "load": load[0]}
+            _record_router_metrics(aux, dropped, T * k)
             return out.reshape(B, S, d)
         topi, slot, w, keep, aux = top_k_gating_indices(logits, k, capacity)
         combine, dispatch = _dense_masks(topi, slot, w, keep, E, capacity)
@@ -304,6 +384,8 @@ class MoELayer(Layer):
         self.router_stats = {
             "dropped_frac": 1.0 - keep.float().sum() / (T * k),
             "load": counts}
+        _record_router_metrics(aux, self.router_stats["dropped_frac"],
+                               T * k, load=counts)
         # dispatch [T, E, C] x [T, d] -> [E, C, d]; combine back to [T, d]
         expert_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x2d)
         expert_out = self.experts(expert_in, counts=counts) if stacked \

@@ -48,8 +48,8 @@ import torch
 from paddle_tpu_torch.generation import reject_scalar_mask
 from paddle_tpu_torch.nn.functional.attention import \
     scaled_dot_product_attention
-from paddle_tpu_torch.ops.kernels.paged_attention import \
-    paged_decode_attention
+from paddle_tpu_torch.ops.kernels.paged_attention import (
+    paged_decode_attention, record_path)
 
 __all__ = ["BlockAllocator", "SequenceBlocks", "PrefixCache",
            "PagedKVPool", "PagedCache", "paged_cache_attention",
@@ -695,11 +695,14 @@ def paged_cache_attention(q, k, v, cache: PagedCache, position_offset,
         vp.index_put_((bids, slot), v.to(vp.dtype))
 
     if attn_mask is None and S == 1:
+        # JAX's counter (kv_cache.py:806, :816): the CUDA kernel or not
+        record_path("pallas" if q.device.type == "cuda" else "fallback")
         lengths = (qpos[:, 0] + 1).to(torch.int32)
         out = paged_decode_attention(q[:, 0], kp, vp, bt, lengths,
                                      k_scale=ksc, v_scale=vsc)
         return out[:, None], cache
 
+    record_path("fallback")
     # gather the block table back into logical order: [B, mb*bs, kvh, hd]
     idx = bt.long()
     kb, vb = kp[idx], vp[idx]

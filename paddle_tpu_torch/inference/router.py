@@ -33,8 +33,9 @@ batch-independent, so neither placement nor handoff changes a request's
 tokens.
 
 Replicas built from one ``model`` share its parameters, and the port
-converts a model's Linears in place for weight-only quantization, so
-tiers that ask for different ``quant_weights`` are refused (the JAX
+converts a model's Linears in place for weight quantization, so tiers
+that ask for different ``quant_weights`` or ``int8_weights`` are refused
+(the JAX
 engines keep parameter dicts of their own); mixed ``quant_kv`` lives in
 each engine's own pools and is supported.  The multi-process worker
 (:class:`ReplicaWorker` and the client calls) runs over any store of the
@@ -287,21 +288,25 @@ class ServingRouter:
             self._spawn(role, warm=self._warm_on_spawn)
 
     def _check_shared_weights(self):
-        """Replicas share `model`, whose Linears weight-only quantization
+        """Replicas share `model`, whose Linears weight quantization
         converts in place: every tier must ask for the same
-        ``quant_weights`` (each engine's own KV pools may differ)."""
+        ``quant_weights`` and ``int8_weights`` (each engine's own KV pools
+        may differ)."""
         from paddle_tpu_torch.quantization.serving import \
             quant_weights_mode
-        modes = {role: quant_weights_mode(
-            dict(self._engine_kwargs, **extra).get("quant_weights"))
-            for role, extra in (("prefill", self._prefill_kwargs),
-                                ("decode", self._decode_kwargs),
-                                ("mixed", {}))}
+        modes = {}
+        for role, extra in (("prefill", self._prefill_kwargs),
+                            ("decode", self._decode_kwargs),
+                            ("mixed", {})):
+            kw = dict(self._engine_kwargs, **extra)
+            modes[role] = (quant_weights_mode(kw.get("quant_weights")),
+                           bool(kw.get("int8_weights", False)))
         if len(set(modes.values())) > 1:
             raise ValueError(
-                f"tiers ask for different quant_weights {modes} over one "
-                "shared model, whose Linears are converted in place; "
-                "give every tier the same quant_weights")
+                f"tiers ask for different (quant_weights, int8_weights) "
+                f"{modes} over one shared model, whose Linears are "
+                "converted in place; give every tier the same weight "
+                "quantization")
 
     # -- replica lifecycle ---------------------------------------------------
     def _build_engine(self, role: str):

@@ -55,11 +55,19 @@ slot-starved.  Every step writes the serving metrics, the SLO verdicts,
 trace spans and the forensics decisions, and hosts the fault points
 ``serving.engine_step`` and ``serving.kv_alloc``.
 
-Not ported yet — each raises ``NotImplementedError``: ``int8_weights``
-(the parameter-dict path, which dequantizes every weight each step and
-has no kernel), program analysis (ROADMAP.md, queue 1, items 1 and 10)
-and the persistent compile cache behind ``aot_warmup(cache_only=True)``
-(item 9)."""
+``int8_weights=True`` (``serving.py:178-203``) gives every Linear and
+Embedding with at least ``1 << 16`` weight elements the JAX engine's
+int8 codes and ``[1, out]`` fp32 scales, bit for bit, in place and
+refcounted like ``quant_weights`` (the two exclude each other): the
+projections and the lm_head run the quant-matmul kernel (split-K at up
+to 16 rows, wgmma past), so decode reads the int8 bytes, and the fused
+QKV / MLP kernels are bypassed; the embedding gathers int8 rows.  JAX
+rounds the dequantized weight to the model dtype before its product;
+the kernel takes the scale on the fp32 sum (ROADMAP.md, queue 3).
+
+Not ported yet — each raises ``NotImplementedError``: program analysis
+(ROADMAP.md, queue 1, item 10) and the persistent compile cache behind
+``aot_warmup(cache_only=True)`` (item 9)."""
 
 from __future__ import annotations
 
@@ -88,6 +96,7 @@ from paddle_tpu_torch.observability.goodput import slo_targets
 from paddle_tpu_torch.observability.tracing import tracer
 from paddle_tpu_torch.quantization.serving import (quant_weights_mode,
                                                    quantize_for_serving,
+                                                   quantize_int8_weights,
                                                    restore_from_serving)
 from paddle_tpu_torch.robustness.faults import (QueueFullError,
                                                 fault_fires, fault_point)
@@ -314,8 +323,8 @@ def _request_timings(req: _Request) -> Dict[str, float]:
 
 class ContinuousBatchingEngine:
     """Decode over ``slots`` concurrent sequences with slot reuse.  The
-    arguments are the JAX engine's; ``int8_weights`` and ``analyze``
-    raise ``NotImplementedError`` when set.  ``paged_kv=None`` reads
+    arguments are the JAX engine's; ``analyze`` raises
+    ``NotImplementedError`` when set.  ``paged_kv=None`` reads
     ``PADDLE_TPU_PAGED_KV`` (unset: the slot-contiguous engine)."""
 
     def __init__(self, model, slots: int = 8, max_len: int = 1024,
@@ -377,10 +386,6 @@ class ContinuousBatchingEngine:
         if role not in ("mixed", "prefill", "decode"):
             raise ValueError(f"role must be mixed|prefill|decode, got "
                              f"{role!r}")
-        if int8_weights:
-            raise NotImplementedError(
-                "int8_weights: not ported yet (ROADMAP.md, queue 1, item "
-                "1: the parameter-dict quantization path)")
         if analyze is not None:
             raise NotImplementedError(
                 "analyze: not ported yet (ROADMAP.md, queue 1, item 10: "
@@ -398,6 +403,7 @@ class ContinuousBatchingEngine:
                                          temperature=temperature,
                                          top_k=top_k, top_p=top_p)
         self.quant_mode = quant_mode
+        self.int8 = bool(int8_weights)
         self.kv_quant = kv_quant
         params = list(model.parameters())
         self._device = params[0].device
@@ -542,11 +548,14 @@ class ContinuousBatchingEngine:
                 lambda e=self: len(e._parked))
 
         # weight-only quantized serving, once every argument has passed:
-        # the model's large Linears become QuantedLinear in place
-        # (refcounted; close() restores them)
+        # the model's large Linears (with int8_weights its embeddings
+        # too) are converted in place (refcounted; close() restores them)
         self._quant_converted = False
         if quant_mode:
             quantize_for_serving(model, quant_mode)
+            self._quant_converted = True
+        elif self.int8:
+            quantize_int8_weights(model)
             self._quant_converted = True
         # serving runs the model in eval mode; close() hands it back
         self._was_training = getattr(model, "training", False)

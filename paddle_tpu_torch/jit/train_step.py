@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core import state as _state
+from paddle_tpu_torch.distributed.moe import router_metrics_paused
 from paddle_tpu_torch.io.device_prefetch import as_tensor
 from paddle_tpu_torch.jit.static_graph import launch_counts
 from paddle_tpu_torch.ops.kernels import _build
@@ -265,7 +266,13 @@ class TrainStep:
     def _body(self, batch, apply: bool = True):
         """The step on placed (or static) batch tensors: ``(loss, grad
         norm, skip code)``, all 0-d device tensors.  With ``apply``
-        False the update keeps nothing (the capture's warm-up)."""
+        False the update keeps nothing (the capture's warm-up).  The MoE
+        router metrics, which read the device on the host, record
+        nothing in it (JAX skips them under its trace)."""
+        with router_metrics_paused():
+            return self._step(batch, apply)
+
+    def _step(self, batch, apply):
         names = [n for n, _ in self._named]
         params = [p for _, p in self._named]
         n = self._accum_steps

@@ -10,8 +10,9 @@ decoder layer runs
 where the two fused functions launch their CUDA kernels for CUDA tensors
 at every row count (the TPU package routes them only where Mosaic can
 tile the shape) and take their plain versions on the CPU.  Projections
-converted to weight-only ``QuantedLinear`` (``quantize_for_serving``) have
-no fp weight for the fused kernels, so, as in the JAX package
+converted to ``QuantedLinear`` (``quantize_for_serving``, the engine's
+``int8_weights``, PTQ) or wrapped for calibration or QAT have no fp
+weight for the fused kernels, so, as in the JAX package
 (``models/llama.py:173-185, 245-256``), a layer with any quantized q/k/v
 projection takes RMSNorm then the projections one by one, and an MLP
 with any quantized projection takes ``down(silu(gate(x)) * up(x))``;
@@ -32,8 +33,11 @@ the layers each way.  The paged engine always carries a cache, so it
 never reaches the tier.
 With a ``StaticCache`` (``generate`` and the slot-contiguous engine)
 attention is ``static_cache_attention``; with a ``PagedCache``
-``paged_cache_attention``.  ``partition_specs`` comes with a later slice
-of the port."""
+``paged_cache_attention``; with a ``(k, v)`` pair (``[b, s_past,
+kv_heads, head_dim]`` each, s_past may be 0) the step's k/v are
+concatenated after the past and the layer returns the grown pair, as in
+the JAX package.  ``partition_specs`` comes with a later slice of the
+port (ROADMAP.md, queue 1, item 8)."""
 
 from __future__ import annotations
 
@@ -132,32 +136,43 @@ class LlamaAttention(Layer):
                                                      static_cache_attention)
             from paddle_tpu_torch.inference.kv_cache import (
                 PagedCache, paged_cache_attention)
-            if isinstance(cache, StaticCache):
+            if isinstance(cache, (StaticCache, PagedCache)):
                 # generate() and the slot-contiguous engine: fixed
-                # buffers written in place at the offset
-                attend = static_cache_attention
-            elif isinstance(cache, PagedCache):
-                attend = paged_cache_attention
-            else:
-                raise NotImplementedError(
-                    "the concatenated (k, v) cache is not ported; pass a "
-                    "StaticCache or a PagedCache")
-            out, new_cache = attend(q, k, v, cache, position_offset,
-                                    attn_mask)
-            return self.o_proj(out.reshape(b, s, -1)), new_cache
+                # buffers written in place at the offset; the paged
+                # engine: block pools through a block table
+                attend = static_cache_attention \
+                    if isinstance(cache, StaticCache) \
+                    else paged_cache_attention
+                out, new_cache = attend(q, k, v, cache, position_offset,
+                                        attn_mask)
+                return self.o_proj(out.reshape(b, s, -1)), new_cache
+            # the concatenated cache (models/llama.py:137-147): the past
+            # k/v before the step's; is_causal stays on, the tril offset
+            # by sk - sq, and sq != sk never takes flash
+            pk, pv = cache
+            k = torch.cat([pk, k], dim=1)
+            v = torch.cat([pv, v], dim=1)
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, is_causal=attn_mask is None)
+            return self.o_proj(out.reshape(b, s, -1)), (k, v)
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
                                              is_causal=attn_mask is None)
         return self.o_proj(out.reshape(b, s, -1))
 
 
-def _quantized(*layers) -> bool:
-    """Whether any of `layers` is a weight-only ``QuantedLinear``."""
-    return any(getattr(p, "quantized", False) for p in layers)
+def _unfused(*layers) -> bool:
+    """Whether any of `layers` is not a plain ``Linear`` with an fp
+    weight for the fused kernels: a ``QuantedLinear`` (serving or PTQ),
+    a QAT ``FakeQuantLinear`` or a PTQ calibration wrapper.  Such a layer
+    runs projection by projection, as the JAX package's reference path
+    does off the TPU."""
+    return any(type(p) is not Linear for p in layers)
 
 
 class LlamaMLP(Layer):
     """SwiGLU ``down(silu(gate(x)) * up(x))`` through ``F.fused_mlp``, or
-    projection by projection when any of them is quantized."""
+    projection by projection when any of them is quantized or wrapped
+    (:func:`_unfused`)."""
 
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__(dtype=config.dtype, device=device)
@@ -168,7 +183,9 @@ class LlamaMLP(Layer):
         self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
 
     def forward(self, x):
-        if _quantized(self.gate_proj, self.up_proj, self.down_proj):
+        quanted = _unfused(self.gate_proj, self.up_proj, self.down_proj)
+        _FB.record_path("mlp", not quanted and x.device.type == "cuda")
+        if quanted:
             return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
         return F.fused_mlp(x, self.gate_proj.weight, self.up_proj.weight,
                            self.down_proj.weight)
@@ -188,13 +205,14 @@ def _fused_decoder(layer, x, rope_cos, rope_sin):
     b, s, d = x.shape
     dq = attn.num_heads * attn.head_dim
     dkv = attn.num_kv_heads * attn.head_dim
-    fused = not _quantized(attn.q_proj, attn.k_proj, attn.v_proj,
+    fused = not _unfused(attn.q_proj, attn.k_proj, attn.v_proj,
                            attn.o_proj, mlp.gate_proj, mlp.up_proj,
                            mlp.down_proj) and \
         rope_cos.shape[0] >= s and _FB.fused_decoder_eligible(
             b, s, d, dq, dkv, attn.head_dim, mlp.gate_proj.weight.shape[-1],
             x.dtype)
     _FB.fused_decoder_block.routes["decoder" if fused else "segments"] += 1
+    _FB.record_path("decoder_block", fused and x.device.type == "cuda")
     if not fused:
         return None
     return F.fused_decoder_block(
@@ -225,7 +243,9 @@ class LlamaDecoderLayer(Layer):
             if y is not None:
                 return y
         attn = self.self_attn
-        if _quantized(attn.q_proj, attn.k_proj, attn.v_proj):
+        quanted = _unfused(attn.q_proj, attn.k_proj, attn.v_proj)
+        _FB.record_path("rmsnorm_qkv", not quanted and x.device.type == "cuda")
+        if quanted:
             h = attn(self.input_layernorm(x), rope_cos, rope_sin, attn_mask,
                      cache, position_offset)
         else:

@@ -3,8 +3,8 @@
 from paddle_tpu_torch.nn import functional
 from paddle_tpu_torch.nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
                                       ClipGradByValue)
-from paddle_tpu_torch.nn.common_layers import (Dropout, Embedding, LayerList,
-                                               Linear)
+from paddle_tpu_torch.nn import common_layers as _common
+from paddle_tpu_torch.nn.common_layers import *  # noqa: F401,F403
 from paddle_tpu_torch.nn.layer import Layer
 from paddle_tpu_torch.nn.loss_layers import CrossEntropyLoss
 from paddle_tpu_torch.nn.norm_layers import LayerNorm, RMSNorm
@@ -14,9 +14,9 @@ from paddle_tpu_torch.nn.transformer import (MultiHeadAttention, Transformer,
                                              TransformerEncoder,
                                              TransformerEncoderLayer)
 
-__all__ = ["Layer", "Linear", "Embedding", "Dropout", "LayerList",
-           "LayerNorm", "RMSNorm", "CrossEntropyLoss", "MultiHeadAttention",
-           "TransformerEncoderLayer", "TransformerEncoder",
-           "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
-           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "functional"]
+__all__ = list(_common.__all__) + [
+    "Layer", "LayerNorm", "RMSNorm", "CrossEntropyLoss",
+    "MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder",
+    "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
+    "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+    "functional"]

@@ -11,6 +11,11 @@ bf16 gradient rounds to bf16 before ``multi_precision`` lifts it to
 fp32.  Under ``ClipGradByGlobalNorm`` the Adam family hands the scale to
 the multi-tensor update, which multiplies and rounds at that same point.
 
+A parameter whose ``need_clip`` is False keeps its gradient when the
+clip is called on pairs, as an optimizer's eager ``step`` calls it;
+``TrainStep`` clips every gradient, as the JAX ``TrainStep``'s
+``apply_pytree`` does.
+
 Row-sparse gradients (the reference's ``_call_with_sparse``) wait with
 sparse gradients themselves (ROADMAP.md, queue 1, item 7)."""
 

@@ -1,4 +1,7 @@
-"""Common functionals (``paddle_tpu/nn/functional/common.py``): dropout."""
+"""Common functionals (``paddle_tpu/nn/functional/common.py``): linear,
+embedding, the dropouts, cosine similarity and the bilinear form.  Pad,
+interpolation, fold / unfold and the pixel / channel shuffles come with
+conv (ROADMAP.md, queue 1, item 7.3)."""
 
 from __future__ import annotations
 
@@ -6,7 +9,32 @@ import torch
 
 from paddle_tpu_torch.core import state as _state
 
-__all__ = ["dropout"]
+__all__ = ["linear", "embedding", "dropout", "dropout2d", "dropout3d",
+           "alpha_dropout", "cosine_similarity", "bilinear"]
+
+
+def linear(x, weight, bias=None):
+    """``x @ weight + bias`` with the ``[in, out]`` weight."""
+    out = torch.matmul(x, weight)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def embedding(x, weight, padding_idx=None, sparse=False):
+    """Rows of `weight` at the ids; rows of ``padding_idx`` come back
+    zero.  ``sparse=True`` (row-sparse gradients) raises: ROADMAP.md,
+    queue 1, item 7.2."""
+    if sparse:
+        raise NotImplementedError(
+            "embedding(sparse=True): row-sparse gradients are not ported "
+            "yet (ROADMAP.md, queue 1, item 7.2)")
+    out = weight[x]
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx)[..., None],
+                          torch.zeros((), dtype=out.dtype,
+                                      device=out.device), out)
+    return out
 
 
 def dropout(x: torch.Tensor, p: float = 0.5, axis=None, training: bool = True,
@@ -35,3 +63,45 @@ def dropout(x: torch.Tensor, p: float = 0.5, axis=None, training: bool = True,
     kept = x / (1.0 - p) if mode == "upscale_in_train" else x
     return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device)).to(x.dtype)
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
+    """Whole channels dropped: one mask over batch and channel."""
+    axis = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW"):
+    axis = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p=p, axis=axis, training=training)
+
+
+def alpha_dropout(x, p=0.5, training=True):
+    """SELU-preserving dropout (``common.py:67-81``): dropped elements
+    take ``-alpha * scale``, then ``a * x + b`` keeps the mean and the
+    variance."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -1.6732632423543772 * 1.0507009873554805
+    keep = torch.rand(x.shape, device=x.device,
+                      generator=_state.generator(x.device)) < (1.0 - p)
+    a = (1.0 / ((1 - p) * (1 + p * alpha_p ** 2)) ** 0.5)
+    b = -a * alpha_p * p
+    dropped = torch.where(keep, x, torch.tensor(alpha_p, dtype=x.dtype,
+                                                device=x.device))
+    return (a * dropped + b).to(x.dtype)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    dot = torch.sum(x1 * x2, dim=axis)
+    n1 = torch.linalg.vector_norm(x1, dim=axis)
+    n2 = torch.linalg.vector_norm(x2, dim=axis)
+    return dot / torch.clamp_min(n1 * n2, eps)
+
+
+def bilinear(x1, x2, weight, bias=None):
+    """``x1 W x2`` per output with weight ``[out, in1, in2]``."""
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    if bias is not None:
+        out = out + bias
+    return out

@@ -81,16 +81,40 @@ class Layer(nn.Module):
         super().register_buffer(name, tensor, persistent=keep)
         return tensor
 
-    def create_parameter(self, shape, dtype=None, is_bias=False,
-                         default_initializer=None) -> nn.Parameter:
-        """Explicit initializer, else Xavier-normal for weights and zeros
-        for biases (the JAX package's resolution order)."""
+    def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
+                         default_initializer=None):
+        """A :class:`~paddle_tpu_torch.core.tensor.Parameter` of `shape`
+        on the layer's device, resolved as in the JAX package
+        (``nn/layer.py:120-139``): the explicit initializer, else
+        ``attr.initializer``, else Xavier-normal for weights and zeros for
+        biases.  `attr` is read duck-typed (any object with
+        ``initializer``, ``learning_rate`` or ``trainable``; there is no
+        ``ParamAttr`` class): ``learning_rate`` goes into
+        ``optimize_attr``, ``trainable=False`` sets ``stop_gradient``."""
+        from paddle_tpu_torch.core.tensor import Parameter
         from paddle_tpu_torch.nn import initializer as I
         init = default_initializer
+        if init is None and attr is not None:
+            init = getattr(attr, "initializer", None)
         if init is None:
             init = I.Constant(0.0) if is_bias else I.XavierNormal()
-        data = init(shape, dtype or self._dtype, self._device)
-        return nn.Parameter(data, requires_grad=True)
+        p = Parameter(init(shape, dtype or self._dtype, self._device))
+        if attr is not None and \
+                getattr(attr, "learning_rate", None) is not None:
+            p.optimize_attr["learning_rate"] = attr.learning_rate
+        if attr is not None and getattr(attr, "trainable", True) is False:
+            p.stop_gradient = True
+            p.trainable = False
+        return p
+
+    def add_parameter(self, name: str, parameter):
+        """Register `parameter` (a tensor is wrapped) under `name`."""
+        from paddle_tpu_torch.core.tensor import Parameter
+        if parameter is not None and \
+                not isinstance(parameter, torch.nn.Parameter):
+            parameter = Parameter(parameter)
+        self.register_parameter(name, parameter)
+        return parameter
 
     # -- parameters ----------------------------------------------------------
     def parameters(self, recurse: bool = True):

@@ -12,25 +12,22 @@ __all__ = ["LayerNorm", "RMSNorm"]
 class LayerNorm(Layer):
     """``F.layer_norm`` over the trailing ``normalized_shape`` axes with
     a weight of ones and a bias of zeros (``:24-46``); ``weight_attr`` /
-    ``bias_attr`` False drop them."""
+    ``bias_attr`` False drop them, any other attr is read by
+    ``create_parameter``."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
-                 bias_attr=None, dtype="float32", device=None):
+                 bias_attr=None, name=None, dtype="float32", device=None):
         super().__init__(dtype=dtype, device=device)
-        for attr in (weight_attr, bias_attr):
-            if attr not in (None, False):
-                raise NotImplementedError(
-                    "LayerNorm takes weight_attr / bias_attr None or False "
-                    "(ParamAttr initializers: ROADMAP.md, queue 1, item 2)")
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
         self.weight = None if weight_attr is False else \
-            self.create_parameter(self._normalized_shape,
+            self.create_parameter(self._normalized_shape, attr=weight_attr,
                                   default_initializer=I.Constant(1.0))
         self.bias = None if bias_attr is False else \
-            self.create_parameter(self._normalized_shape, is_bias=True)
+            self.create_parameter(self._normalized_shape, attr=bias_attr,
+                                  is_bias=True)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
@@ -38,12 +35,13 @@ class LayerNorm(Layer):
 
 
 class RMSNorm(Layer):
-    def __init__(self, hidden_size, epsilon=1e-6, dtype="float32",
-                 device=None):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, dtype="float32", device=None):
         super().__init__(dtype=dtype, device=device)
         self._epsilon = epsilon
         self.weight = self.create_parameter(
-            [hidden_size], default_initializer=I.Constant(1.0))
+            [hidden_size], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)

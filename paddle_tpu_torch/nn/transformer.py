@@ -27,18 +27,12 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.common_layers import Dropout, LayerList, Linear
 from paddle_tpu_torch.nn.layer import Layer
 from paddle_tpu_torch.nn.norm_layers import LayerNorm
-from paddle_tpu_torch.ops.kernels.fused_block import SUPPORTED_ACTS
+from paddle_tpu_torch.ops.kernels.fused_block import (SUPPORTED_ACTS,
+                                                      record_path)
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
            "TransformerDecoder", "Transformer"]
-
-
-def _no_weight_attr(weight_attr):
-    if weight_attr is not None:
-        raise NotImplementedError(
-            "weight_attr (ParamAttr initializers) is not ported yet "
-            "(ROADMAP.md, queue 1, item 2)")
 
 
 def _ffn_forward(layer, x, act_name, dropout_layer):
@@ -48,9 +42,11 @@ def _ffn_forward(layer, x, act_name, dropout_layer):
     (``transformer.py:25-47``); the reference chain otherwise."""
     d = x.shape[-1]
     f = layer.linear1.weight.shape[-1]
-    if act_name in SUPPORTED_ACTS and \
-            (not layer.training or dropout_layer.p == 0) and \
-            d % 64 == 0 and f % 64 == 0:
+    fused = act_name in SUPPORTED_ACTS and \
+        (not layer.training or dropout_layer.p == 0) and \
+        d % 64 == 0 and f % 64 == 0
+    record_path("ffn", fused and x.device.type == "cuda")
+    if fused:
         return F.fused_ffn(x, layer.linear1.weight, layer.linear2.weight,
                            layer.linear1.bias, layer.linear2.bias,
                            activation=act_name)
@@ -63,7 +59,6 @@ class MultiHeadAttention(Layer):
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
                  bias_attr=None, dtype="float32", device=None):
-        _no_weight_attr(weight_attr)
         device = resolve_device(device)
         super().__init__(dtype=dtype, device=device)
         self.embed_dim = embed_dim
@@ -73,7 +68,8 @@ class MultiHeadAttention(Layer):
         self.need_weights = need_weights
         kdim = kdim or embed_dim
         vdim = vdim or embed_dim
-        kw = dict(bias_attr=bias_attr, dtype=dtype, device=device)
+        kw = dict(weight_attr=weight_attr, bias_attr=bias_attr, dtype=dtype,
+                  device=device)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(kdim, embed_dim, **kw)
         self.v_proj = Linear(vdim, embed_dim, **kw)
@@ -119,16 +115,18 @@ class TransformerEncoderLayer(Layer):
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
                  dtype="float32", device=None):
-        _no_weight_attr(weight_attr)
         device = resolve_device(device)
         super().__init__(dtype=dtype, device=device)
         kw = dict(dtype=dtype, device=device)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead, attn_dropout if attn_dropout is not None
-            else dropout, bias_attr=bias_attr, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, bias_attr, **kw)
-        self.linear2 = Linear(dim_feedforward, d_model, bias_attr, **kw)
+            else dropout, weight_attr=weight_attr, bias_attr=bias_attr,
+            **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **kw)
         self.norm1 = LayerNorm(d_model, **kw)
         self.norm2 = LayerNorm(d_model, **kw)
         self.dropout = Dropout(dropout)
@@ -185,18 +183,21 @@ class TransformerDecoderLayer(Layer):
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
                  dtype="float32", device=None):
-        _no_weight_attr(weight_attr)
         device = resolve_device(device)
         super().__init__(dtype=dtype, device=device)
         kw = dict(dtype=dtype, device=device)
         self.normalize_before = normalize_before
         ad = attn_dropout if attn_dropout is not None else dropout
         self.self_attn = MultiHeadAttention(d_model, nhead, ad,
+                                            weight_attr=weight_attr,
                                             bias_attr=bias_attr, **kw)
         self.cross_attn = MultiHeadAttention(d_model, nhead, ad,
+                                             weight_attr=weight_attr,
                                              bias_attr=bias_attr, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, bias_attr, **kw)
-        self.linear2 = Linear(dim_feedforward, d_model, bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **kw)
         self.norm1 = LayerNorm(d_model, **kw)
         self.norm2 = LayerNorm(d_model, **kw)
         self.norm3 = LayerNorm(d_model, **kw)

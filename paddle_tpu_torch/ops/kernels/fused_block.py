@@ -54,7 +54,7 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
            "decoder_workspace_bytes", "FusedRMSNormQKV", "FusedMLP",
            "FusedFFN", "FusedDecoderBlock", "SUPPORTED_ACTS", "GEMM_PATHS",
            "gemm_path", "qkv_path", "qkv_column_tiles", "qkv_splits",
-           "mlp_workspace"]
+           "mlp_workspace", "record_path"]
 
 # the smallest row count at which the bf16 QKV kernel runs as a row pass
 # and a wgmma GEMM (csrc/fused_block.cu, kRowPassMinT); the forward
@@ -552,6 +552,19 @@ class FusedFFN(torch.autograd.Function):
 
 
 # -- the whole-block decoder kernel (csrc/fused_decoder.cu) ----------------
+
+def record_path(kernel: str, fused: bool):
+    """One routing choice in ``paddle_tpu_fused_block_path_total{kernel,
+    path}`` (the JAX package's series, ``fused_block.py:208-221``):
+    ``path="fused"`` where the CUDA kernel launches, ``"reference"``
+    where the plain path runs (a quantized layer, or the CPU)."""
+    from paddle_tpu_torch.observability import default_registry
+    default_registry().counter(
+        "paddle_tpu_fused_block_path_total",
+        "fused-block kernel routing chosen at trace time",
+        labelnames=("kernel", "path")).labels(
+        kernel=kernel, path="fused" if fused else "reference").inc()
+
 
 def fused_block_tier() -> str:
     """The ``PADDLE_TPU_FUSED_BLOCK`` knob, read at call time

@@ -33,7 +33,7 @@ from paddle_tpu_torch.ops.kernels.fused_block import (GEMM_PATHS,
                                                       gelu_grad)
 
 __all__ = ["grouped_expert_ffn", "grouped_expert_ffn_reference",
-           "GroupedExpertFFN"]
+           "GroupedExpertFFN", "record_path"]
 
 
 def _check_act(act):
@@ -93,6 +93,19 @@ def grouped_expert_ffn_reference(x, w1, b1, w2, b2, counts=None, act=None):
 
 
 # -- wrapper ------------------------------------------------------------------
+
+def record_path(path: str):
+    """One grouped expert-FFN call in
+    ``paddle_tpu_grouped_moe_path_total{path}`` (the JAX package's
+    series, ``grouped_matmul.py:81-90``): ``"grouped"`` where the CUDA
+    kernel launched; the plain version is not counted, as JAX counts
+    nothing on its einsum path."""
+    from paddle_tpu_torch.observability import default_registry
+    default_registry().counter(
+        "paddle_tpu_grouped_moe_path_total",
+        "grouped expert-FFN implementation chosen at trace time",
+        labelnames=("path",)).labels(path=path).inc()
+
 
 def grouped_expert_ffn(x, w1, b1, w2, b2, counts=None, act="gelu"):
     """``y[g] = gelu(x[g] @ w1[e] + b1[e]) @ w2[e] + b2[e]``,

@@ -34,7 +34,7 @@ from paddle_tpu_torch.ops.kernels import _build
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_int8",
            "paged_decode_reference", "paged_splits", "PAGED_PATHS",
-           "SPLIT_TOKENS"]
+           "SPLIT_TOKENS", "record_path"]
 
 # csrc/paged_attention.cu: the designs a launch takes (enum PagedDesign,
 # in its order) and the tokens a split covers (kSplitTokens)
@@ -148,6 +148,18 @@ def _launch(wrapper, what, entry, q, pools, block_table, lengths, scale):
     wrapper.launches += 1
     wrapper.launches_by_path[PAGED_PATHS[design.value]] += 1
     return out
+
+
+def record_path(path: str):
+    """One paged attention call in
+    ``paddle_tpu_paged_attention_path_total{path}`` (the JAX package's
+    series, ``paged_attention.py:73-82``): ``"pallas"`` where the CUDA
+    decode kernel launched, ``"fallback"`` for the plain paths."""
+    from paddle_tpu_torch.observability import default_registry
+    default_registry().counter(
+        "paddle_tpu_paged_attention_path_total",
+        "paged-attention implementation chosen at trace time",
+        labelnames=("path",)).labels(path=path).inc()
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, lengths,

@@ -9,8 +9,11 @@ the CPU takes the plain version; a CUDA tensor launches the kernel or
 raises.  The wrapper counts its launches in ``quant_matmul.launches``,
 per weight mode in ``quant_matmul.launches_by_mode`` and per kernel
 design in ``quant_matmul.launches_by_path``: ``splitk`` (bf16, T <= 16),
-``wgmma`` (bf16, T > 16) and ``tile`` (fp32 io), the counterpart of the
-TPU package's ``record_path``.
+``wgmma`` (bf16, T > 16) and ``tile`` (fp32 io).  Every call also counts
+in the JAX package's series ``paddle_tpu_quant_kernel_path_total{kernel=
+"matmul_<mode>", path}`` (:func:`record_path`, ``quant_matmul.py:91-101``):
+``path="pallas"`` where the CUDA kernel launched, ``"fallback"`` where the
+plain version ran.
 
 Split-K takes a workspace: fp32 partials of the output, one a split
 (the C entry's count, the rule of ``splitk.py``; ``splits * T * N * 4``
@@ -30,10 +33,23 @@ from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels.splitk import SPLITK_BN, SPLITK_MAX_T
 
 __all__ = ["quant_matmul", "quant_matmul_reference", "weight_dtype",
-           "kernel_path", "QUANT_WEIGHT_DTYPES", "QUANT_PATHS"]
+           "kernel_path", "record_path", "QUANT_WEIGHT_DTYPES",
+           "QUANT_PATHS"]
 
 QUANT_WEIGHT_DTYPES = ("int8", "fp8")
 QUANT_PATHS = ("splitk", "wgmma", "tile")
+
+def record_path(kernel: str, path: str):
+    """One call in ``paddle_tpu_quant_kernel_path_total{kernel, path}``:
+    ``"pallas"`` names the launched CUDA kernel, ``"fallback"`` the plain
+    version (the JAX package's labels)."""
+    from paddle_tpu_torch.observability import default_registry
+    default_registry().counter(
+        "paddle_tpu_quant_kernel_path_total",
+        "quantized-kernel implementation chosen at trace time",
+        labelnames=("kernel", "path")).labels(kernel=kernel,
+                                              path=path).inc()
+
 
 def kernel_path(T: int, dtype) -> str:
     """The design a launch of T rows in io dtype `dtype` takes."""
@@ -72,6 +88,7 @@ def quant_matmul(x, qw, scale, mode: str = "int8"):
         raise TypeError(f"quant_matmul: mode {mode!r} stores {wdt}, the "
                         f"weight is {qw.dtype}")
     if x.device.type == "cpu":
+        record_path(f"matmul_{mode}", "fallback")
         return quant_matmul_reference(x, qw, scale)
     what = "quant_matmul"
     K = x.shape[-1]
@@ -120,6 +137,7 @@ def quant_matmul(x, qw, scale, mode: str = "int8"):
         quant_matmul.launches += 1
         quant_matmul.launches_by_mode[mode] += 1
         quant_matmul.launches_by_path[kernel_path(T, x.dtype)] += 1
+    record_path(f"matmul_{mode}", "pallas")
     return y.reshape(*x.shape[:-1], N)
 
 

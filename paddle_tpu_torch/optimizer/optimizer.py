@@ -20,8 +20,11 @@ takes them.  A 0-d bool ``keep`` (the step guard's verdict) selects on
 the device between the new values and the old: with keep False nothing
 changes.  ``learning_rate`` may be an ``LRScheduler``; the eager
 ``step()`` reads it on the host, ``TrainStep`` writes it into its device
-scalar before each call.  A row-sparse gradient raises (ROADMAP.md,
-queue 1, item 7)."""
+scalar before each call.  The eager ``step`` skips a parameter whose
+``stop_gradient`` is set (``requires_grad`` False) and, when one of its
+parameters has ``need_clip`` False, clips through the clip's own call,
+which leaves that gradient alone.  A row-sparse gradient raises
+(ROADMAP.md, queue 1, item 7)."""
 
 from __future__ import annotations
 
@@ -121,17 +124,20 @@ class Optimizer:
     # -- the update ----------------------------------------------------------
     @torch.no_grad()
     def _apply_gradients(self, names: List[str], params, grads, step, lr,
-                         keep=None, norm=None):
+                         keep=None, norm=None, clip=True):
         """One update of `params` from `grads` at update count `step`
-        (1 for the first), clip first.  `norm`: the gradients' global
-        norm where the caller has it (the global clip reads it)."""
+        (1 for the first), clip first unless `clip` is False.  `norm`:
+        the gradients' global norm where the caller has it (the global
+        clip reads it)."""
         for g in grads:
             if g.layout != torch.strided:
                 raise NotImplementedError(
                     "a row-sparse gradient is not ported yet (ROADMAP.md, "
                     "queue 1, item 7)")
         scale = None
-        if isinstance(self._grad_clip, ClipGradByGlobalNorm):
+        if not clip:
+            pass
+        elif isinstance(self._grad_clip, ClipGradByGlobalNorm):
             scale = self._grad_clip.scale(grads, norm)
         elif self._grad_clip is not None:
             grads = self._grad_clip.clip(grads)
@@ -171,10 +177,19 @@ class Optimizer:
         named = [(getattr(p, "name", None) or f"param_{i}", p)
                  for i, p in enumerate(self._parameters)
                  if p.requires_grad and p.grad is not None]
+        grads = [p.grad for _, p in named]
+        clip = True
+        if self._grad_clip is not None and \
+                not all(getattr(p, "need_clip", True) for _, p in named):
+            # the clip's own call skips need_clip=False, as the JAX
+            # package's eager step does (nn/clip.py:48-146)
+            grads = [g for _, g in self._grad_clip(
+                [(p, g) for (_, p), g in zip(named, grads)])]
+            clip = False
         self._global_step += 1
         self._apply_gradients([n for n, _ in named], [p for _, p in named],
-                              [p.grad for _, p in named], self._global_step,
-                              self.get_lr())
+                              grads, self._global_step, self.get_lr(),
+                              clip=clip)
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):

@@ -8,13 +8,22 @@ report (``paddle_tpu/quantization/serving.py``).
   kernel (``ops/kernels/quant_matmul.py``).  Conversion is refcounted:
   several engines can adopt one model, and the last
   :func:`restore_from_serving` puts the original Linears back.
+* :func:`quantize_int8_weights` is the engine's ``int8_weights=True``
+  (``paddle_tpu/inference/serving.py:178-203``): every Linear and
+  Embedding whose 2-D weight has at least ``1 << 16`` elements gets the
+  JAX package's int8 codes and ``[1, out]`` fp32 scales bit for bit
+  (:func:`quantize_weights_int8`); the Linears run the quant-matmul
+  kernel, the embedding gathers int8 rows and scales them.  It shares
+  the refcount of :func:`quantize_for_serving` (the mode
+  ``"int8_weights"``), so one model holds one conversion at a time.
 * :func:`parity_report` — one forward of the same ids through the
   original and the converted model, with the largest absolute and
   relative logit error.
 
 ``ContinuousBatchingEngine(quant_weights=...)`` (or the
-``PADDLE_TPU_QUANT_WEIGHTS`` environment knob) converts at construction
-and restores at ``close()``."""
+``PADDLE_TPU_QUANT_WEIGHTS`` environment knob) and
+``ContinuousBatchingEngine(int8_weights=True)`` convert at construction
+and restore at ``close()``."""
 
 from __future__ import annotations
 
@@ -26,9 +35,15 @@ import torch
 
 __all__ = ["quant_weights_mode", "quantize_linear_weight",
            "quantize_for_serving", "restore_from_serving", "parity_report",
-           "QUANT_MODES"]
+           "quantize_weights_int8", "quantize_int8_weights", "QUANT_MODES",
+           "INT8_WEIGHTS", "INT8_WEIGHTS_MIN_SIZE"]
 
 QUANT_MODES = ("int8", "fp8")
+
+# the engine's int8_weights conversion: its refcount mode and the
+# smallest weight it converts (serving.py:178)
+INT8_WEIGHTS = "int8_weights"
+INT8_WEIGHTS_MIN_SIZE = 1 << 16
 
 # fp8 e4m3fn: largest finite magnitude (no inf encoding); symmetric
 # absmax scaling maps each channel's max onto it
@@ -73,9 +88,62 @@ def quantize_linear_weight(w: torch.Tensor, mode: str):
     return q, scale
 
 
+def quantize_weights_int8(w: torch.Tensor):
+    """The JAX engine's rule for one floating 2-D weight
+    (``serving.py:188-192``): ``scale = max|w| / 127`` over axis 0 as a
+    ``[1, out]`` fp32 row (not floored), codes ``round(w / max(scale,
+    1e-12))`` half to even, clipped to ±127, as int8.  The same fp32
+    steps, so codes and scales equal JAX's bit for bit."""
+    wf = w.detach().float()
+    # a tensor divisor: true division on the card too
+    scale = wf.abs().amax(dim=0, keepdim=True) / torch.tensor(
+        127.0, device=wf.device)
+    q = torch.clamp(torch.round(wf / torch.clamp_min(scale, 1e-12)),
+                    -127, 127).to(torch.int8)
+    return q, scale
+
+
 def _eligible(linear, min_size: int) -> bool:
     w = getattr(linear, "weight", None)
     return w is not None and w.ndim == 2 and w.numel() >= min_size
+
+
+def _hold(model, mode: str):
+    """Take one more reference on an existing conversion of `model`;
+    None when it holds none."""
+    refs = getattr(model, "_serving_quant_refs", 0)
+    if refs == 0:
+        return None
+    if model._serving_quant_mode != mode:
+        raise ValueError(
+            f"model already quantized for serving as "
+            f"{model._serving_quant_mode!r}; cannot re-quantize as "
+            f"{mode!r} while {refs} engine(s) hold it")
+    model._serving_quant_refs = refs + 1
+    return {"layers": model._serving_quant_layers, "refs": refs + 1}
+
+
+def _convert(model, mode: str, convert) -> Dict[str, int]:
+    """Replace, depth first, every child for which ``convert(child)``
+    returns a layer, and open the refcount at 1."""
+    converted = 0
+
+    def walk(root):
+        nonlocal converted
+        for name, child in list(root.named_children()):
+            new = convert(child)
+            if new is not None:
+                new._orig = child
+                setattr(root, name, new)
+                converted += 1
+            else:
+                walk(child)
+
+    walk(model)
+    model._serving_quant_refs = 1
+    model._serving_quant_mode = mode
+    model._serving_quant_layers = converted
+    return {"layers": converted, "refs": 1}
 
 
 def quantize_for_serving(model, mode: Optional[str] = None,
@@ -94,43 +162,58 @@ def quantize_for_serving(model, mode: Optional[str] = None,
     if mode is None:
         raise ValueError("quantize_for_serving needs mode=int8|fp8 "
                          "(or PADDLE_TPU_QUANT_WEIGHTS set)")
-    refs = getattr(model, "_serving_quant_refs", 0)
-    if refs > 0:
-        if model._serving_quant_mode != mode:
-            raise ValueError(
-                f"model already quantized for serving as "
-                f"{model._serving_quant_mode!r}; cannot re-quantize as "
-                f"{mode!r} while {refs} engine(s) hold it")
-        model._serving_quant_refs = refs + 1
-        return {"layers": model._serving_quant_layers, "refs": refs + 1}
+    held = _hold(model, mode)
+    if held is not None:
+        return held
 
     from paddle_tpu_torch.nn.common_layers import Linear
     from paddle_tpu_torch.quantization import QuantedLinear
 
-    converted = 0
+    def convert(child):
+        if isinstance(child, Linear) and _eligible(child, min_size):
+            return QuantedLinear(child, act_scale=None, mode=mode)
+        return None
 
-    def walk(root):
-        nonlocal converted
-        for name, child in list(root.named_children()):
-            if isinstance(child, Linear) and _eligible(child, min_size):
-                q = QuantedLinear(child, act_scale=None, mode=mode)
-                q._orig = child
-                setattr(root, name, q)
-                converted += 1
-            else:
-                walk(child)
+    return _convert(model, mode, convert)
 
-    walk(model)
-    model._serving_quant_refs = 1
-    model._serving_quant_mode = mode
-    model._serving_quant_layers = converted
-    return {"layers": converted, "refs": 1}
+
+def quantize_int8_weights(model, min_size: int = INT8_WEIGHTS_MIN_SIZE
+                          ) -> Dict[str, int]:
+    """The engine's ``int8_weights=True``, in place and refcounted like
+    :func:`quantize_for_serving` (mode ``"int8_weights"``): every
+    ``Linear`` and ``Embedding`` whose floating 2-D weight has at least
+    `min_size` elements (the JAX engine's ``1 << 16``) gets
+    :func:`quantize_weights_int8`'s codes and scales.  A Linear becomes a
+    :class:`QuantedLinear` over the quant-matmul kernel (the scale taken
+    on the fp32 sum, where JAX rounds the dequantized weight to the model
+    dtype before its product); an Embedding an :class:`Int8Embedding`,
+    bitwise equal to JAX's dequantize-then-gather.  Every source layer
+    stays as the sublayer ``_orig`` and comes back at the last
+    :func:`restore_from_serving`."""
+    held = _hold(model, INT8_WEIGHTS)
+    if held is not None:
+        return held
+
+    from paddle_tpu_torch.nn.common_layers import Embedding, Linear
+    from paddle_tpu_torch.quantization import Int8Embedding, QuantedLinear
+
+    def convert(child):
+        if not isinstance(child, (Linear, Embedding)) or \
+                not _eligible(child, min_size) or \
+                not child.weight.is_floating_point():
+            return None
+        q, scale = quantize_weights_int8(child.weight)
+        if isinstance(child, Embedding):
+            return Int8Embedding(child, q, scale)
+        return QuantedLinear.from_codes(child, q, scale.reshape(-1), "int8")
+
+    return _convert(model, INT8_WEIGHTS, convert)
 
 
 def restore_from_serving(model) -> bool:
     """Drop one conversion reference; with the last, swap every
-    QuantedLinear back to its original Linear.  True when the model is in
-    its original form."""
+    QuantedLinear and Int8Embedding back to its original layer.  True
+    when the model is in its original form."""
     refs = getattr(model, "_serving_quant_refs", 0)
     if refs == 0:
         return True
@@ -138,11 +221,11 @@ def restore_from_serving(model) -> bool:
         model._serving_quant_refs = refs - 1
         return False
 
-    from paddle_tpu_torch.quantization import QuantedLinear
+    from paddle_tpu_torch.quantization import Int8Embedding, QuantedLinear
 
     def walk(root):
         for name, child in list(root.named_children()):
-            if isinstance(child, QuantedLinear) and \
+            if isinstance(child, (QuantedLinear, Int8Embedding)) and \
                     getattr(child, "_orig", None) is not None:
                 setattr(root, name, child._orig)
             else:

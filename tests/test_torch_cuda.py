@@ -2569,3 +2569,101 @@ def test_small_fleet_on_the_card_equals_one_engine(dev):
         assert [out[r][1] for r in rids] == ref
         router.close()
 
+
+
+# -- int8_weights, W8A8 and the path counters ---------------------------------
+
+@pytest.mark.parametrize("engine", ["paged", "slot"])
+def test_int8_weights_graphed_equals_eager(dev, engine):
+    """int8_weights on the card: warmed and eager engines give the same
+    tokens bitwise; the projections run the quant matmul, the fused QKV /
+    MLP never; close() hands back the model's own layers."""
+    from paddle_tpu_torch.nn.common_layers import Embedding
+    from paddle_tpu_torch.ops import kernels
+    cfg, model = _graph_model(dev, "bfloat16")
+    kw = dict(int8_weights=True, paged_kv=engine == "paged")
+    kernels.reset_launch_counts()
+    eager, ref = _serve_graph(model, False, **kw)
+    warm, got = _serve_graph(model, True, **kw)
+    assert got == ref
+    assert QM.quant_matmul.launches > 0
+    assert FB.fused_rmsnorm_qkv.launches == 0 and FB.fused_mlp.launches == 0
+    warm.close()
+    eager.close()
+    assert isinstance(model.model.embed_tokens, Embedding)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_accumulators_on_the_card_equal_the_cpu(dev, dtype):
+    """The W8A8 product's int32 accumulators (codes at a Python scale in
+    x's dtype, then ``torch._int_mm``) bitwise equal to the CPU's exact
+    product, at a row count below _int_mm's 17 (padded) and above."""
+    from paddle_tpu_torch.quantization import int8_linear_accumulate
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.integers(-128, 128, (512, 384)).astype(np.int8))
+    for rows in (5, 40):
+        x = torch.from_numpy(rng.standard_normal((rows, 512)).astype(
+            np.float32)).to(dtype)
+        got = int8_linear_accumulate(x.to(dev), 0.0173, w.to(dev))
+        want = int8_linear_accumulate(x, 0.0173, w)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want)
+
+
+def test_int8_embedding_on_the_card_equals_the_cpu(dev):
+    from paddle_tpu_torch.nn.common_layers import Embedding
+    from paddle_tpu_torch.quantization import Int8Embedding
+    from paddle_tpu_torch.quantization.serving import quantize_weights_int8
+    out = []
+    for d in ("cpu", dev):
+        emb = Embedding(300, 256, dtype="bfloat16", device=d)
+        emb.set_state_dict({"weight": np.random.default_rng(4)
+                            .standard_normal((300, 256)).astype(np.float32)})
+        q, s = quantize_weights_int8(emb.weight)
+        layer = Int8Embedding(emb, q, s)
+        layer._orig = emb
+        ids = torch.as_tensor([[1, 299, 7], [0, 5, 5]], device=d)
+        out.append((q.cpu(), s.cpu(), layer(ids).cpu()))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_path_counters_name_the_card_kernels(dev):
+    """On the card the fused-block series counts ``fused`` where the CUDA
+    kernels launch, the quant series ``pallas``, the paged series
+    ``pallas`` for a decode step."""
+    from paddle_tpu_torch.observability import default_registry
+    from paddle_tpu_torch.quantization.serving import (quantize_for_serving,
+                                                       restore_from_serving)
+
+    def series():
+        out = {}
+        for name in ("paddle_tpu_fused_block_path_total",
+                     "paddle_tpu_quant_kernel_path_total"):
+            m = default_registry().get(name)
+            if m is not None:
+                out.update({(name,) + k: c.value() for k, c in m.series()})
+        return out
+
+    cfg, model = _graph_model(dev, "bfloat16")
+    ids = torch.as_tensor(np.random.default_rng(5).integers(0, 256, (2, 24)),
+                          device=dev)
+    before = series()
+    with torch.inference_mode():
+        model(ids)
+        quantize_for_serving(model, "int8")
+        try:
+            model(ids)
+        finally:
+            restore_from_serving(model)
+    after = series()
+    moved = {k: v - before.get(k, 0.0) for k, v in after.items()
+             if v != before.get(k, 0.0)}
+    fb, qk = ("paddle_tpu_fused_block_path_total",
+              "paddle_tpu_quant_kernel_path_total")
+    L = cfg.num_hidden_layers
+    assert moved[(fb, "rmsnorm_qkv", "fused")] == L
+    assert moved[(fb, "mlp", "fused")] == L
+    assert moved[(fb, "rmsnorm_qkv", "reference")] == L
+    assert moved[(qk, "matmul_int8", "pallas")] > 0
+    assert not any(k[0] == qk and k[2] == "fallback" for k in moved)

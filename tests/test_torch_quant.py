@@ -313,12 +313,23 @@ def test_astype_keeps_the_quantized_buffers(pair):
 
 
 def test_quantized_linear_calibration_side_raises(pair):
+    """The calibration side is ported: ``QuantedLinear(act_scale=...)``
+    over the serving codes equals JAX's (1e-6 of the largest output, its
+    int32 product exact) and the calibration classes construct.  What
+    still raises is a serving conversion without a mode."""
+    from paddle_tpu.quantization import QuantedLinear as JQuantedLinear
     from paddle_tpu_torch import quantization as Q
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QuantedLinear(pair[1].lm_head, act_scale=0.1, mode="int8")
-    for cls in (Q.PTQ, Q.QAT, Q.AbsMaxObserver, Q.FakeQuantLinear):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cls()
+    jm, tm = pair
+    jq = JQuantedLinear(jm.lm_head, act_scale=0.1, mode="int8")
+    tq = QuantedLinear(tm.lm_head, act_scale=0.1, mode="int8")
+    x = np.random.default_rng(5).standard_normal((3, 64)).astype(np.float32)
+    want = jq(pp.to_tensor(x)).numpy()
+    got = tq(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+    assert isinstance(Q.PTQ(), Q.PTQ) and isinstance(Q.QAT(), Q.QAT)
+    assert Q.AbsMaxObserver().scale() == pytest.approx(1e-8 / 127)
+    assert isinstance(Q.FakeQuantLinear(tm.lm_head), Q.FakeQuantLinear)
     with pytest.raises(ValueError, match="mode=int8|fp8"):
         QS.quantize_for_serving(pair[1], None)
 

@@ -223,8 +223,7 @@ def test_deadline_retires_with_timeout(pair):
     assert t["ttft_s"] > 0 and t["generated"] == 2
 
 
-@pytest.mark.parametrize("kwargs", [{"int8_weights": True},
-                                    {"analyze": "warn"}])
+@pytest.mark.parametrize("kwargs", [{"analyze": "warn"}])
 def test_unported_engine_options_raise(pair, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatchingEngine(pair[1], **dict(ENGINE, **kwargs))
