@@ -454,6 +454,84 @@ def bound_ms(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
     return max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
+# the bounds' inputs, (bytes, flops) of each kernel's function at a shape:
+# each input read once, each output written once (item: the io dtype's
+# bytes).  The wrappers charge the cost model the same numbers
+# (ops/kernels/costs.py; tests/test_torch_cost_model.py holds the two
+# equal).
+
+def qkv_io(T, item=2, train=False, d=D, dq=DQ, dkv=DKV):
+    """RMSNorm + QKV (the training variant also writes xn and inv)."""
+    n = dq + 2 * dkv
+    nbytes = item * (T * d + d + d * n + T * n)
+    if train:
+        nbytes += item * T * d + 4 * T
+    return nbytes, 2 * T * d * n
+
+
+def mlp_io(T, item=2, d=D, f=F):
+    """The SwiGLU MLP: x and three weights read, y written."""
+    return item * (2 * T * d + 3 * d * f), 6 * T * d * f
+
+
+def paged_io(B, h, kvh, hd, mb, tokens, int8=False):
+    """Paged decode (bf16 q) over the live tokens: each token's K and V
+    read once (int8 rows plus one fp32 scale each: 264 bytes per token
+    and kv head at head_dim 128; bf16 pools: 512), the table and the
+    lengths read."""
+    per_token = kvh * 2 * ((hd + 4) if int8 else 2 * hd)
+    return (2 * (2 * B * h * hd) + tokens * per_token + 4 * (B * mb + B),
+            4 * tokens * h * hd)
+
+
+def quant_io(T, K, N, isz):
+    """x read, the one-byte weight and its fp32 scales read, y written."""
+    return T * K * isz + K * N + 4 * N + T * N * isz, 2 * T * K * N
+
+
+def ce_io(T, V, isz):
+    """(forward, backward): the logits read once, the int64 labels read,
+    loss and lse written (forward); lse and the cotangent read and dx
+    written (backward); 4 fp32 operations an element."""
+    nbytes = T * V * isz + 8 * T
+    return ((nbytes + 8 * T, 4 * T * V),
+            (nbytes + 8 * T + T * V * isz, 4 * T * V))
+
+
+def ffn_io(T, isz, d, f):
+    """act(x @ w1 + b1) @ w2 + b2: x, both weights and biases read."""
+    return (2 * T * d + 2 * d * f + f + d) * isz, 4 * T * d * f
+
+
+def grouped_io(n, G, C, isz, E, d, h):
+    """The n routed rows read, every expert's weights read, y written
+    whole (zeros past the counts), the counts read."""
+    return (n * d * isz + E * (2 * d * h + h + d) * isz + G * C * d * isz
+            + 4 * G, 4 * n * d * h)
+
+
+def rmsnorm_io(T, d, item, res):
+    """x (and r) read, y (and h) written, the weight read and inv written:
+    without a residual h is x."""
+    return item * (T * d * (2 + 2 * res) + d) + 4 * T, 5 * T * d
+
+
+def adam_io(params, grads, masters):
+    """The multi-tensor update: grad, moments and master read once,
+    param, moments and master written once (with a master the kernel never
+    reads the bf16 param, without one it does)."""
+    n = sum(p.numel() for p in params)
+    return sum(p.numel() * (gg.element_size() + 16 + p.element_size()
+                            + (8 if ma is not None else p.element_size()))
+               for p, gg, ma in zip(params, grads, masters)), MT_OPS * n
+
+
+def norm_io(tensors):
+    """The global norm: every tensor read once, two operations each."""
+    return (sum(t.numel() * t.element_size() for t in tensors),
+            2 * sum(t.numel() for t in tensors))
+
+
 def check_close(what, got, ref, dtype, tol=None, used=None):
     """Max abs error of `got` against `ref`, raising where an element is
     outside atol + rtol |ref| (`tol`, else TOL[dtype]); with a dict
@@ -527,9 +605,7 @@ def kernel_qkv(FB, dev, timer, T, plain_iters=10):
         xn = F_.rms_norm(x, (D,), wn, EPS)
         return xn @ wq, xn @ wk, xn @ wv
     out["library_ms"] = timer(library)
-    n = DQ + 2 * DKV
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        2 * (T * D + D + D * n + T * n), 2 * T * D * n)
+    out["bound_ms"], out["bound_by"] = bound_ms(*qkv_io(T))
     out["max_abs_err"] = errs[str(torch.bfloat16)]
     out["max_abs_err_fp32"] = errs[str(torch.float32)]
     out["shape"] = f"T={T} d={D} dq={DQ} dkv={DKV} bf16"
@@ -579,8 +655,7 @@ def kernel_mlp(FB, dev, timer, T, plain_iters=10):
                             iters=plain_iters)
     out["library_ms"] = timer(library)
     out["library_ms_no_spin"] = no_spin(timer, library)
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        2 * (2 * T * D + 3 * D * F), 6 * T * D * F)
+    out["bound_ms"], out["bound_by"] = bound_ms(*mlp_io(T))
     out["max_abs_err"] = errs[str(torch.bfloat16)]
     out["max_abs_err_fp32"] = errs[str(torch.float32)]
     # the two-launch design's extra traffic: h written, then read back
@@ -630,10 +705,8 @@ def kernel_paged(PA, dev, timer):
                                                attn_mask=live,
                                                enable_gqa=True)
     out["library_ms"] = timer(library)
-    tokens = int(lengths.sum())
     out["bound_ms"], out["bound_by"] = bound_ms(
-        2 * (2 * B * h * hd + 2 * tokens * kvh * hd) + 4 * (B * mb + B),
-        4 * tokens * h * hd)
+        *paged_io(B, h, kvh, hd, mb, int(lengths.sum())))
     out["max_abs_err"] = errs[str(torch.bfloat16)]
     out["max_abs_err_fp32"] = errs[str(torch.float32)]
     out["tolerance_bf16"] = dict(zip(("atol", "rtol"), PAGED_TOL))
@@ -849,9 +922,7 @@ def kernel_qkv_train(FB, dev, timer, T=8192):
         xn = F_.rms_norm(x, (D,), wn, EPS)
         return xn @ wq, xn @ wk, xn @ wv
     out["library_ms"] = timer(library)
-    n = DQ + 2 * DKV
-    out["bound_ms"], out["bound_by"] = bound_ms(
-        2 * (T * D + D + D * n + T * n + T * D) + 4 * T, 2 * T * D * n)
+    out["bound_ms"], out["bound_by"] = bound_ms(*qkv_io(T, train=True))
     out["max_abs_err"] = errs[torch.bfloat16]
     out["max_abs_err_fp32"] = errs[torch.float32]
     out["shape"] = f"T={T} d={D} dq={DQ} dkv={DKV} bf16"
@@ -893,7 +964,7 @@ def kernel_quant(QM, quantize, dev, timer, T, K, N, mode, dtype):
            "library_ms": timer(lambda: x @ w)}
     isz = x.element_size()
     out["bound_ms"], out["bound_by"] = bound_ms(
-        T * K * isz + K * N + 4 * N + T * N * isz, 2 * T * K * N,
+        *quant_io(T, K, N, isz),
         BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
     out["max_abs_err"] = err
     out["tolerance"] = dict(zip(("atol", "rtol"), tol))
@@ -976,12 +1047,8 @@ def kernel_paged_int8(PA, quantize_kv, dev, timer):
                                                attn_mask=live,
                                                enable_gqa=True)
     out["library_ms"] = timer(library)
-    tokens = int(lengths.sum())
-    # int8 K and V rows plus one fp32 scale each: 264 bytes per token and
-    # kv head at head_dim 128 (bf16 pools: 512)
     out["bound_ms"], out["bound_by"] = bound_ms(
-        2 * (2 * B * h * hd) + tokens * kvh * 2 * (hd + 4)
-        + 4 * (B * mb + B), 4 * tokens * h * hd)
+        *paged_io(B, h, kvh, hd, mb, int(lengths.sum()), int8=True))
     out["max_abs_err"] = errs[str(torch.bfloat16)]
     out["max_abs_err_fp32"] = errs[str(torch.float32)]
     out["tolerance_bf16"] = dict(zip(("atol", "rtol"), PAGED_TOL))
@@ -1031,22 +1098,21 @@ def kernel_ce(CE, dev, timer, T, V, dtype, ignored=0):
     def lib_bwd():
         torch.autograd.grad(lib_loss, xf, cot, retain_graph=True)
 
-    isz = x.element_size()
-    nbytes = T * V * isz + 8 * T
+    fwd_io, bwd_io = ce_io(T, V, x.element_size())
     rows = {}
-    for name, kern, plain, lib, nb in (
+    for name, kern, plain, lib, (nb, ops) in (
             ("cross_entropy_fwd", lambda: CE.cross_entropy_fwd(x, lbl),
              lambda: CE.ce_fwd_reference(x, lbl),
              lambda: F_.cross_entropy(xf.detach(), safe, reduction="none"),
-             nbytes + 8 * T),
+             fwd_io),
             ("cross_entropy_bwd",
              lambda: CE.cross_entropy_bwd(x, lbl, lse, cot),
              lambda: CE.ce_bwd_reference(x, lbl, lse, cot), lib_bwd,
-             nbytes + 8 * T + T * V * isz)):
+             bwd_io)):
         out = {"ms": timer(kern), "plain_ms": timer(plain, iters=3,
                                                     warmup=1),
                "library_ms": timer(lib, iters=5)}
-        out["bound_ms"], out["bound_by"] = bound_ms(nb, 4 * T * V,
+        out["bound_ms"], out["bound_by"] = bound_ms(nb, ops,
                                                     FP32_FLOP_PER_S)
         out["bytes"] = nb
         rows[name] = out
@@ -1124,7 +1190,7 @@ def kernel_ffn(FB, dev, timer, act, dtype, T=TB * TS):
            "library_ms": timer(library)}
     isz = x.element_size()
     out["bound_ms"], out["bound_by"] = bound_ms(
-        (2 * T * TD + 2 * TD * TF_ + TF_ + TD) * isz, 4 * T * TD * TF_,
+        *ffn_io(T, isz, TD, TF_),
         BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
     out["max_abs_err"] = err
     out["tolerance"] = dict(zip(("atol", "rtol"), TOL[dtype]))
@@ -3025,8 +3091,7 @@ def grouped_case(GM, dev, timer, G, C, dtype, counts, g):
            "library_ms": timer(library)}
     # rows read: the routed ones; y written whole (zeros past the counts)
     out["bound_ms"], out["bound_by"] = bound_ms(
-        n * MD * isz + ME * (2 * MD * MH + MH + MD) * isz
-        + G * C * MD * isz + 4 * G, 4 * n * MD * MH,
+        *grouped_io(n, G, C, isz, ME, MD, MH),
         BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
     out["max_abs_err"] = err
     out["tolerance"] = dict(zip(("atol", "rtol"), tol))
@@ -3733,8 +3798,7 @@ def kernel_rmsnorm(RN, dev, timer):
         err = check_close(f"fused_rmsnorm y {dtype}", y, ry, dtype,
                           NORM_TOL[dtype])
         item = x.element_size()
-        # x (and r) read, y (and h) written: without a residual h is x
-        nbytes = item * (NORM_T * D * (2 + 2 * res) + D) + 4 * NORM_T
+        nbytes, ops = rmsnorm_io(NORM_T, D, item, res)
         out = {"max_abs_err": err, "tolerance": dict(zip(
                    ("atol", "rtol"), NORM_TOL[dtype])),
                "ms": timer(lambda: RN.fused_rmsnorm(x, w, r, EPS)),
@@ -3747,7 +3811,7 @@ def kernel_rmsnorm(RN, dev, timer):
                "shape": f"T={NORM_T} d={D} {str(dtype).split('.')[1]}"
                         + (" residual" if res else "")}
         out["bound_ms"], out["bound_by"] = bound_ms(
-            nbytes, 5 * NORM_T * D,
+            nbytes, ops,
             BF16_FLOP_PER_S if item == 2 else FP32_FLOP_PER_S)
         rows[out["shape"]] = out
         del x, r, y, h, ry, rh
@@ -4097,10 +4161,7 @@ def kernel_multi_tensor(MT, dev, timer):
             raise AssertionError(f"multi_tensor_adam: {name} differs from "
                                  f"its plain version (max abs err "
                                  f"{err[name]})")
-    adam_bytes = sum(
-        p.numel() * (gg.element_size() + 16 + p.element_size()
-                     + (8 if ma is not None else p.element_size()))
-        for p, gg, ma in zip(params, grads, masters))
+    adam_bytes, adam_ops = adam_io(params, grads, masters)
     ms = timer(lambda: MT.multi_tensor_adam(
         params, grads, m, v, masters, weight_decays=[MT_WD] * len(params),
         **kw))
@@ -4112,7 +4173,7 @@ def kernel_multi_tensor(MT, dev, timer):
         masters, grads32, m, v, [], steps, lr=MT_LR, beta1=0.9, beta2=0.999,
         weight_decay=MT_WD, eps=1e-8, amsgrad=False, maximize=False))
     del grads32, steps
-    b, by = bound_ms(adam_bytes, MT_OPS * n, FP32_FLOP_PER_S)
+    b, by = bound_ms(adam_bytes, adam_ops, FP32_FLOP_PER_S)
     rows = {"multi_tensor_adam": {
         "shape": f"{len(params)} tensors, {n} params: bf16 with fp32 "
                  "master and moments, bf16 grads",
@@ -4128,8 +4189,8 @@ def kernel_multi_tensor(MT, dev, timer):
     if not rel <= MT_TOL["norm_rel"]:
         raise AssertionError(f"multi_tensor_norm: {float(norm)} against "
                              f"{float(ref)} (rel {rel})")
-    norm_bytes = 2 * n
-    b, by = bound_ms(norm_bytes, 2 * n, FP32_FLOP_PER_S)
+    norm_bytes, norm_ops = norm_io(grads)
+    b, by = bound_ms(norm_bytes, norm_ops, FP32_FLOP_PER_S)
     row = rows["multi_tensor_norm"] = {
         "shape": f"{len(params)} bf16 grads, {n} elements",
         "max_abs_err": float((norm - ref).abs()), "rel_err": rel,
@@ -4228,7 +4289,8 @@ def same_bits(tensors, host):
                for t, h in zip(tensors, host))
 
 
-def graph_phase(phase, model, batch, families, kernels, tokens, flops_tok):
+def graph_phase(phase, model, batch, families, kernels, tokens, flops_tok,
+                telemetry=False):
     """The step captured as one CUDA graph against the eager step, from
     one saved state (state_dict -> set_state_dict): GRAPH_STEPS steps of
     each, the losses and every parameter, master, moment and the count
@@ -4287,6 +4349,10 @@ def graph_phase(phase, model, batch, families, kernels, tokens, flops_tok):
     graph_s = timed_steps(step, batch, GRAPH_TIMED)
     graph_prof = train_profile(step, batch, f"{phase}_graph_profile",
                                families=families)
+    if telemetry:
+        train_telemetry(step, batch, info, tokens, flops_tok,
+                        float(np.median(graph_s)))
+        profiler_trace(step, batch)
     # a NaN in the second weight (a norm weight or the position table:
     # every row reads it) inside the graph
     skips = dict(step.skipped)
@@ -4338,7 +4404,319 @@ def train_graph(dev, kernels):
              "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
     flops_tok = 6 * n_params + 12 * TRAIN_LAYERS * TRAIN_S * cfg.hidden_size
     return graph_phase("train_graph", model, batch, TRAIN_FAMILIES, kernels,
-                       TRAIN_B * TRAIN_S, flops_tok)
+                       TRAIN_B * TRAIN_S, flops_tok, telemetry=True)
+
+
+# -- the measurement slice: TrainStep's telemetry, the device profiler, the
+# measured tier, the profiler's trace, the demo ------------------------------
+
+class _Null:
+    """An instrument that records nothing: the telemetry-off control."""
+
+    def labels(self, **kw):
+        return self
+
+    def inc(self, *a):
+        pass
+
+    def set(self, *a):
+        pass
+
+    def observe(self, *a):
+        pass
+
+
+def sync_warnings(step, batch, n=2):
+    """The warnings torch.cuda.set_sync_debug_mode("warn") gives over n
+    graphed steps, one a synchronizing call (its one-time notice that
+    the mode is a prototype left out)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n):
+                step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def train_telemetry(step, batch, info, tokens, flops_tok, graph_s):
+    """train_graph's TrainStep telemetry on the card: the MFU gauge after
+    compile() beside the phase's analytic MFU (bench.py's FLOPs a token:
+    6 N + 12 L s d), the watermark of a fresh monitor against
+    torch.cuda.max_memory_allocated over the same steps, the steps and
+    tokens counters exact, and the sync-debug warnings of graphed steps
+    with telemetry equal to those with the watermark and the metrics off
+    (the guard's read of the skip code is the one sync either way)."""
+    from paddle_tpu_torch.observability import default_registry
+    from paddle_tpu_torch.observability.device_profiler import \
+        DeviceMemoryMonitor
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+    reg = default_registry()
+    names = ("paddle_tpu_train_steps_total", "paddle_tpu_train_tokens_total")
+    c0 = {n: reg.get(n).value() for n in names}
+    step._memmon = DeviceMemoryMonitor(registry=MetricsRegistry(),
+                                       device=step._device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 3
+    for _ in range(n):
+        step(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    moved = {n_: reg.get(n_).value() - c0[n_] for n_ in names}
+    if moved != {names[0]: n, names[1]: n * tokens}:
+        raise AssertionError(f"train_telemetry: counters moved {moved} over "
+                             f"{n} steps of {tokens} tokens")
+    watermark = step._memmon.watermark
+    if not 0 < watermark <= peak:
+        raise AssertionError(f"train_telemetry: watermark {watermark} "
+                             f"against max_memory_allocated {peak}")
+    gauge = reg.get("paddle_tpu_train_mfu").value()
+    step_s = reg.get("paddle_tpu_train_step_ema_seconds").value()
+    analytic = flops_tok * tokens / graph_s / BF16_FLOP_PER_S
+    if not 0 < gauge < 1:
+        raise AssertionError(f"train_telemetry: MFU gauge {gauge}")
+    with_tel = sync_warnings(step, batch)
+    keep = step._metrics, step._memmon
+    step._metrics = {k: _Null() for k in keep[0]}
+    step._memmon = None
+    try:
+        without = sync_warnings(step, batch)
+    finally:
+        step._metrics, step._memmon = keep
+    if len(with_tel) != len(without):
+        raise AssertionError(f"train_telemetry: {len(with_tel)} sync "
+                             f"warnings with telemetry, {len(without)} "
+                             f"without: {with_tel} / {without}")
+    emit("train_telemetry", card=torch.cuda.get_device_name(0),
+         power_limit=nvidia_smi(), steps=n, counters_moved=moved,
+         mfu_gauge=gauge, analytic_mfu=analytic, ratio=gauge / analytic,
+         counted_flops_per_step=step._step_flops,
+         analytic_flops_per_step=flops_tok * tokens,
+         flops_ratio=step._step_flops / (flops_tok * tokens),
+         step_ema_s=step_s, graph_step_s_median=graph_s,
+         ratio_note="gauge / analytic = (counted / analytic FLOPs) x "
+                    "(median graphed step s / the gauge's step s): the "
+                    "count charges causal attention at half the dense "
+                    "products (the analytic 12 L s d is dense) and adds the "
+                    "norms, RoPE, CE, clip and update",
+         watermark_bytes=watermark, max_memory_allocated=peak,
+         sync_warnings_with_telemetry=len(with_tel),
+         sync_warnings_without=len(without),
+         sync_warning_first=with_tel[:1],
+         compile_record={"target": info.target, "lower_s": info.lower_s,
+                         "compile_s": info.compile_s,
+                         "flops": info.stats.flops,
+                         "bytes": info.stats.bytes_accessed,
+                         "peak_bytes": info.stats.peak_bytes})
+
+
+def profiler_trace(step, batch):
+    """paddle_tpu_torch.profiler.Profiler over two graphed steps, each
+    inside a RecordEvent: the exported chrome trace holds the card's
+    kernel events and both ranges, and load_profiler_result reads it."""
+    import tempfile
+    from paddle_tpu_torch import profiler
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = profiler.Profiler(log_dir=os.path.join(tmp, "log"))
+        with prof:
+            for i in range(2):
+                with profiler.RecordEvent(f"graphed_step_{i}"):
+                    step(batch)
+                prof.step()
+        path = os.path.join(tmp, "trace.json")
+        prof.export(path)
+        events = profiler.load_profiler_result(path)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    ranges = {e["name"] for e in events
+              if str(e.get("name", "")).startswith("graphed_step_")}
+    if not kern or ranges != {"graphed_step_0", "graphed_step_1"}:
+        raise AssertionError(f"profiler_trace: {len(kern)} kernel events, "
+                             f"ranges {sorted(ranges)}")
+    emit("profiler_trace", events=len(events), kernel_events=len(kern),
+         ranges=sorted(ranges), kernel_us=sum(e.get("dur", 0) for e in kern),
+         seconds=time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def calibration_into(path):
+    """PADDLE_TPU_CALIBRATION=1 with the ledger in `path` inside the
+    block (the process-wide ledger reloaded on entry and exit)."""
+    from paddle_tpu_torch.observability import calibration
+    from paddle_tpu_torch.ops.kernels import fused_block as FB
+    old = {k: os.environ.get(k) for k in ("PADDLE_TPU_CALIBRATION",
+                                          "PADDLE_TPU_CALIBRATION_DIR")}
+    os.environ.update(PADDLE_TPU_CALIBRATION="1",
+                      PADDLE_TPU_CALIBRATION_DIR=str(path))
+    calibration.reset()
+    FB.clear_measured_tiers()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        calibration.reset()
+        FB.clear_measured_tiers()
+
+
+# segments the profiler must time at their roofline: a compute-bound
+# segment below this gap beats the card's peak, which nothing does
+COMPUTE_GAP_MIN = 0.95
+PROFILE_REPS = 5
+PROFILE_KERNELS = ("fused_rmsnorm_qkv", "fused_mlp", "flash_attention_fwd",
+                   "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                   "fused_decoder_block")
+
+
+def device_profile(dev, kernels, ledger):
+    """DeviceProfiler over llama_step_segments of the Train cell's model
+    (Llama-3-8B width, 4 layers, bf16, b=4, s=2048): each segment
+    captured as a CUDA graph, PROFILE_REPS replays timed with CUDA
+    events (the minimum), against the cost model's roofline;
+    decoder_block_fused at the decoder tier (one block launch), the rest
+    at the default tier, every row fed to the ledger in `ledger`.  Fails
+    on a skipped segment, on a compute-bound gap below COMPUTE_GAP_MIN,
+    or where a kernel of PROFILE_KERNELS never launched; a memory-bound
+    gap below 1 is reported with the operator the unfused count charged
+    the most bytes."""
+    from paddle_tpu_torch.observability import device_profiler as DP
+    t0 = time.perf_counter()
+    cfg, model = train_model(dev)
+    ids = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                            (TRAIN_B, TRAIN_S + 1))
+    segs = DP.llama_step_segments(model, {"input_ids": ids[:, :-1],
+                                          "labels": ids[:, 1:]})
+    kernels.reset_launch_counts()
+    reports, tables = {}, []
+    with calibration_into(ledger):
+        for seg in segs:
+            tier = decoder_tier() if seg.name == "decoder_block_fused" \
+                else contextlib.nullcontext()
+            with tier:
+                res = DP.DeviceProfiler(device=dev).add(seg).profile(
+                    reps=PROFILE_REPS)
+            if res.skipped:
+                raise AssertionError(f"device_profile: skipped {res.skipped}")
+            reports[seg.name] = res.segments[0]
+            tables.append(res.table().splitlines()[2])
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS
+                if fn.launches}
+    missing = [k for k in PROFILE_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"device_profile: never launched {missing} "
+                             f"({launches})")
+    rows, low = {}, {}
+    for name, r in reports.items():
+        rows[name] = {"device_ms": r.device_s * 1e3,
+                      "roofline_ms": r.predicted_s * 1e3, "gap": r.gap,
+                      "bound": r.bound, "count": r.count, "group": r.group,
+                      "gflops": r.flops / 1e9, "gbytes": r.bytes_accessed / 1e9,
+                      "heaviest": r.heaviest,
+                      "capture_pool_gb": r.peak_bytes / 2 ** 30}
+        if r.bound == "compute" and r.gap < COMPUTE_GAP_MIN:
+            raise AssertionError(f"device_profile: {name} at gap {r.gap} "
+                                 "beats the card's peak")
+        if r.bound == "memory" and r.gap < 1.0:
+            low[name] = {"gap": r.gap, "over_charged_by": r.heaviest}
+    del model, segs
+    torch.cuda.empty_cache()
+    emit("device_profile", card=torch.cuda.get_device_name(0),
+         power_limit=nvidia_smi(), shape=f"b={TRAIN_B} s={TRAIN_S} "
+         f"d={cfg.hidden_size} bf16, {TRAIN_LAYERS} layers", reps=PROFILE_REPS,
+         segments=rows, memory_bound_below_1=low, launches=launches,
+         table=tables, seconds=time.perf_counter() - t0)
+    return reports
+
+
+def measured_tier(model, kernels, ledger, reports):
+    """PADDLE_TPU_FUSED_BLOCK=measured over the ledger device_profile
+    filled: measured_tier_for((4, 2048, 4096), bf16) names the tier of
+    the lower recorded time (decoder_block at segments against
+    decoder_block_fused at decoder), and the Score-decoder forward (the
+    32-layer serve model, b=4, s=2048) launches the block kernel once a
+    layer if and only if that tier is decoder."""
+    from paddle_tpu_torch.observability import calibration
+    from paddle_tpu_torch.ops.kernels import fused_block as FB
+    t0 = time.perf_counter()
+    shape = (DEC_B, DEC_S, model.config.hidden_size)
+    with calibration_into(ledger):
+        cm = calibration.CalibratedCostModel()
+        t_seg = cm.measured_for("decoder_block", shape, "bfloat16",
+                                layout="tier=segments")
+        t_dec = cm.measured_for("decoder_block_fused", shape, "bfloat16",
+                                layout="tier=decoder")
+        tier = FB.measured_tier_for(shape, torch.bfloat16)
+        want = "decoder" if t_dec < t_seg else "segments"
+        if t_seg != reports["decoder_block"].device_s or \
+                t_dec != reports["decoder_block_fused"].device_s or \
+                tier != want:
+            raise AssertionError(f"measured_tier: ledger {t_seg} / {t_dec}, "
+                                 f"profiled {reports['decoder_block']} / "
+                                 f"{reports['decoder_block_fused']}, tier "
+                                 f"{tier}")
+        ids = torch.as_tensor(np.random.default_rng(7).integers(
+            0, model.config.vocab_size, (DEC_B, DEC_S))).to(model.device)
+        old = os.environ.get("PADDLE_TPU_FUSED_BLOCK")
+        os.environ["PADDLE_TPU_FUSED_BLOCK"] = "measured"
+        try:
+            kernels.reset_launch_counts()
+            with torch.inference_mode():
+                out = model(ids)
+            torch.cuda.synchronize()
+        finally:
+            if old is None:
+                os.environ.pop("PADDLE_TPU_FUSED_BLOCK")
+            else:
+                os.environ["PADDLE_TPU_FUSED_BLOCK"] = old
+        detail = calibration.bench_detail()
+    L = model.config.num_hidden_layers
+    blocks = FB.fused_decoder_block.launches
+    routes = dict(FB.fused_decoder_block.routes)
+    if blocks != (L if tier == "decoder" else 0) or routes[tier] != L or \
+            not torch.isfinite(out).all():
+        raise AssertionError(f"measured_tier: tier {tier}, {blocks} block "
+                             f"launches, routes {routes}")
+    del out
+    torch.cuda.empty_cache()
+    emit("measured_tier", card=torch.cuda.get_device_name(0),
+         power_limit=nvidia_smi(), shape=list(shape), dtype="bfloat16",
+         decoder_block_segments_ms=t_seg * 1e3,
+         decoder_block_fused_decoder_ms=t_dec * 1e3, tier=tier,
+         block_launches=blocks, routes=routes, layers=L,
+         calibration=detail, seconds=time.perf_counter() - t0)
+    return tier
+
+
+def demo_phase():
+    """python -m paddle_tpu_torch.observability.demo --device cuda
+    --fleet --forensics, in a process of its own: exit code 0."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.observability.demo",
+             "--device", "cuda", "--fleet", "--forensics",
+             "--trace-out", os.path.join(tmp, "trace.json"),
+             "--fleet-trace-out", os.path.join(tmp, "fleet.json")],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    tail = [ln for ln in r.stderr.splitlines() if ln.startswith("[demo]")]
+    if r.returncode != 0:
+        raise AssertionError(f"demo: exit {r.returncode}\n"
+                             + r.stderr[-4000:])
+    emit("demo", rc=r.returncode, lines=tail,
+         metrics_lines=len(r.stdout.splitlines()),
+         seconds=time.perf_counter() - t0)
 
 
 def train_gpt_graph(dev, kernels):
@@ -4583,6 +4961,11 @@ def main():
         kernels, model, "llama3_8b", 4, 512, 64,
         (kernels.SERVING[0], kernels.SERVING[1]))
     score_launches = score_decoder(model, kernels)
+    torch.cuda.empty_cache()
+    import tempfile
+    with tempfile.TemporaryDirectory() as ledger:
+        reports = device_profile(dev, kernels, ledger)
+        measured_tier(model, kernels, ledger, reports)
     del model
     torch.cuda.empty_cache()
     generate_gpt(dev, kernels)
@@ -4609,6 +4992,8 @@ def main():
     ffn_launches = transformer_infer(dev, kernels)
     torch.cuda.empty_cache()
     norm_launches = norm_residual(dev, kernels)
+    torch.cuda.empty_cache()
+    demo_phase()
 
     where = {
         "fused_rmsnorm_qkv": ("paddle_tpu_torch/ops/kernels/csrc/"

@@ -1,5 +1,5 @@
 """Process state: the global seed, one ``torch.Generator`` per device,
-and the default device.
+the default device, and the backend fingerprint.
 
 The JAX package keeps one splitting key (``paddle_tpu/core/state.py``);
 here each device gets its own generator, all seeded from the same
@@ -31,6 +31,28 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def backend_fingerprint(device=None) -> str:
+    """``platform:device_kind:nN`` of the hardware a measurement or a
+    compiled program belongs to (``paddle_tpu/compile_cache.py:100``):
+    ``cuda:<card name, spaces as _>:n<cards>``, or ``cpu:cpu:n1``.
+    Without `device`, the process's backend: the CUDA cards where there
+    are any.  Keys that carry it never mix two backends' records."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return f"{dev.type}:{dev.type}:n1"
+    tag = _fingerprints.get(dev)
+    if tag is None:
+        kind = torch.cuda.get_device_name(dev).replace(" ", "_")
+        tag = _fingerprints[dev] = \
+            f"cuda:{kind}:n{torch.cuda.device_count()}"
+    return tag
+
+
+_fingerprints: Dict[torch.device, str] = {}
 
 
 def seed(s: int) -> int:

@@ -230,7 +230,7 @@ def run_cache_info(model):
         g = r.step
         out.append({"batch": r.B, "prompt": r.L,
                     "graph": g is not None and g.graph is not None,
-                    "capture_s": g.seconds if g else 0.0,
+                    "capture_s": r.info.total_s if g else 0.0,
                     "launches": dict(g.launches) if g else {},
                     "replays": g.replays if g else 0, "calls": r.calls})
     return out
@@ -241,7 +241,8 @@ class _Run:
 
     def __init__(self, model, cfg: GenerationConfig, B: int, L: int,
                  dtype, dev):
-        from paddle_tpu_torch.jit.static_graph import StaticGraph
+        from paddle_tpu_torch.observability.device_profiler import \
+            compile_static
         # weak: the cache is keyed weakly on the model, and the run must
         # not keep it alive
         self._model = weakref.ref(model)
@@ -257,10 +258,10 @@ class _Run:
                  "pos": torch.full((), L, dtype=torch.long, device=dev),
                  "done": torch.zeros((B,), dtype=torch.bool, device=dev)}
         self.state = state
-        self.step = StaticGraph(
-            self._step, state, "generate's step",
-            generator=self.gen if cfg.do_sample else None) if n > 1 \
-            else None
+        self.step, self.info = compile_static(
+            self._step, state, "generate.step",
+            generator=self.gen if cfg.do_sample else None,
+            what="generate's step") if n > 1 else (None, None)
 
     def _step(self, tok, pos, done):
         """One token for every row, in place: tok and done take the new

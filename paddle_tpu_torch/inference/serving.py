@@ -67,7 +67,7 @@ the kernel takes the scale on the fp32 sum (ROADMAP.md, queue 3).
 
 Not ported yet — each raises ``NotImplementedError``: program analysis
 (ROADMAP.md, queue 1, item 10) and the persistent compile cache behind
-``aot_warmup(cache_only=True)`` (item 9)."""
+``aot_warmup(cache_only=True)`` (the rest of item 9)."""
 
 from __future__ import annotations
 
@@ -87,6 +87,7 @@ from paddle_tpu_torch.inference.kv_cache import (BlockAllocator,
                                                  paged_kv_enabled,
                                                  quant_kv_mode)
 from paddle_tpu_torch.jit.static_graph import StaticGraph
+from paddle_tpu_torch.observability.device_profiler import compile_static
 from paddle_tpu_torch.observability import (DEFAULT_BUCKETS,
                                             default_registry,
                                             flight_recorder)
@@ -662,11 +663,18 @@ class ContinuousBatchingEngine:
         replays the program; a program that was not captured raises.
         Returns ``{target: {"seconds", "graph", "launches"}}``: the
         warm-up and capture's seconds, whether a graph was captured and
-        the kernel launches one replay makes."""
+        the kernel launches one replay makes.  Each program is captured
+        under the JAX package's compile spans and records its
+        ``CompileInfo`` under its target, moving
+        ``paddle_tpu_compile_total{target}`` and the FLOPs / bytes /
+        peak gauges (``device_profiler.compile_static``: the first
+        warm-up counted by the cost model; ``serving.insert``, which has
+        no warm-up, is not counted)."""
         if cache_only:
             raise NotImplementedError(
                 "aot_warmup(cache_only=True): the persistent compile "
-                "cache is not ported yet (ROADMAP.md, queue 1, item 9)")
+                "cache is not ported yet (ROADMAP.md, queue 1, the rest "
+                "of item 9)")
         self._drop_graphs()
         B, dev = self.slots, self._device
         gen = self._gen if self._gen_cfg.do_sample else None
@@ -677,10 +685,11 @@ class ContinuousBatchingEngine:
             return torch.full(shape, fill, dtype=dtype, device=dev)
 
         def warm(target, body, inputs, warmup=1):
-            g = StaticGraph(body, inputs, f"aot_warmup {target}",
-                            generator=gen, warmup=warmup)
+            g, info = compile_static(body, inputs, target, generator=gen,
+                                     warmup=warmup,
+                                     what=f"aot_warmup {target}")
             self._graphs[target] = g
-            stats[target] = {"seconds": g.seconds,
+            stats[target] = {"seconds": info.total_s,
                              "graph": g.graph is not None,
                              "launches": dict(g.launches)}
 

@@ -36,16 +36,42 @@ QKV, the MLP, the FFN).
 arrays), and take a JAX step's state: its ``rng_key`` is a threefry key,
 which no torch generator can continue, so only a torch generator state
 is restored.  Values are copied into the step's own tensors, which keeps
-a captured graph valid.  Meshes, ``param_specs`` and ``shardings`` wait
-(ROADMAP.md, queue 1, item 8); the reference's compile spans, gauges and
-persistent compile cache wait for item 9."""
+a captured graph valid.
+
+Telemetry, under the JAX package's names (``train_step.py:79-134``,
+``:525-663``): the 13 ``paddle_tpu_train_*`` instruments (step seconds,
+steps, tokens, tokens/s, loss and grad-norm gauges holding the device
+scalar until a scrape reads it, recompiles, the accumulation histogram,
+skipped updates by reason, MFU, productive and skipped seconds, the step
+EMA); the spans ``train.step`` > ``train.h2d``, ``train.dispatch`` (>
+``train.accum_microbatches``), ``train.guard``, and ``train.compile``;
+the flight recorder's ``train.step`` crash coverage, ``train.recompile``
+and ``train.step_skipped``; the fault points ``train.nonfinite_batch``
+(NaN in the batch's float leaves) and ``train.straggler_delay``
+(``PADDLE_TPU_STRAGGLER_DELAY_S``, default 0.05 s, inside the timed
+region); and the memory watermark sampled every
+``PADDLE_TPU_WATERMARK_INTERVAL`` steps: on the card by default
+(``PADDLE_TPU_DEVICE_WATERMARK=0`` turns it off), on the CPU, where a
+sample walks the heap, only with ``PADDLE_TPU_DEVICE_WATERMARK=1``.  A
+step's seconds run from its dispatch to the guard's read of the skip
+code, the one sync a step makes; telemetry adds none.  Without the
+guard there is no sync, and the seconds are the host's.  The MFU gauge
+is set once :meth:`TrainStep.compile` has counted the step: the cost
+model's FLOPs of one eager run of the body (every kernel's charge
+included) over the step's seconds times the device's peak
+(``device_profiler.detect_roofline``, read in ``compile()``; a card it
+does not know leaves the gauge unset, with one
+``train.mfu_unavailable`` recorder event).
+
+Meshes, ``param_specs`` and ``shardings`` wait (ROADMAP.md, queue 1,
+item 8); the persistent compile cache waits for the next part of item
+9."""
 
 from __future__ import annotations
 
 import inspect
 import os
 import time
-from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -54,11 +80,15 @@ import torch
 from paddle_tpu_torch.core import state as _state
 from paddle_tpu_torch.distributed.moe import router_metrics_paused
 from paddle_tpu_torch.io.device_prefetch import as_tensor
-from paddle_tpu_torch.jit.static_graph import launch_counts
+from paddle_tpu_torch.jit.static_graph import launch_counts, pool_bytes
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import multi_tensor as _mt
 from paddle_tpu_torch.optimizer.optimizer import copy_into, to_numpy
-from paddle_tpu_torch.robustness.faults import NonFiniteStepError
+from paddle_tpu_torch.observability.device_profiler import (
+    CompileInfo, ExecutableStats, detect_roofline, device_memory_monitor,
+    observe_compile, signature_of)
+from paddle_tpu_torch.robustness.faults import (NonFiniteStepError,
+                                                fault_fires)
 
 __all__ = ["TrainStep", "CompileInfo", "REMAT_POLICIES"]
 
@@ -145,16 +175,65 @@ def _remat_context(policy: str):
     return partial(create_selective_checkpoint_contexts, choose)
 
 
-@dataclass
-class CompileInfo:
-    """What :meth:`TrainStep.compile` did: the batch signature it fixed,
-    its seconds (the warm-up and the capture), whether a CUDA graph was
-    captured, and the kernel launches the graph holds, by wrapper (each
-    replay runs them again; the wrappers' counters do not move)."""
-    signature: tuple
-    seconds: float
-    graph: bool
-    launches: Dict[str, int] = field(default_factory=dict)
+def _train_metrics():
+    """The instruments on the default registry, shared by every
+    ``TrainStep`` in the process (``train_step.py:79-134``)."""
+    from paddle_tpu_torch.observability import default_registry
+    reg = default_registry()
+    return {
+        "step": reg.histogram(
+            "paddle_tpu_train_step_seconds",
+            "wall time of one compiled train step (fwd+bwd+update)"),
+        "steps": reg.counter("paddle_tpu_train_steps_total",
+                             "train steps executed"),
+        "tokens": reg.counter("paddle_tpu_train_tokens_total",
+                              "tokens consumed by train steps"),
+        "tps": reg.gauge("paddle_tpu_train_tokens_per_second",
+                         "tokens/s of the most recent train step"),
+        "loss": reg.gauge("paddle_tpu_train_loss",
+                          "loss of the most recent train step"),
+        "gnorm": reg.gauge("paddle_tpu_train_grad_norm",
+                           "global gradient norm of the most recent "
+                           "train step"),
+        "recompiles": reg.counter(
+            "paddle_tpu_train_recompiles_total",
+            "novel call signatures after the first — each one is a "
+            "silent retrace + XLA compile"),
+        "accum": reg.histogram(
+            "paddle_tpu_train_accum_microbatches",
+            "microbatches accumulated per optimizer update",
+            buckets=(1, 2, 4, 8, 16, 32, 64)),
+        "skipped": reg.counter(
+            "paddle_tpu_train_step_skipped_total",
+            "optimizer updates skipped by the non-finite step-guard "
+            "(params and optimizer state left unchanged)",
+            labelnames=("reason",)),
+        "mfu": reg.gauge(
+            "paddle_tpu_train_mfu",
+            "measured model-FLOPs utilisation of the most recent step "
+            "(XLA executable FLOPs / step time / device peak; set once "
+            "TrainStep.compile() has introspected the executable)"),
+        "productive": reg.counter(
+            "paddle_tpu_train_productive_seconds_total",
+            "step wall seconds whose optimizer update was applied "
+            "(the goodput numerator)"),
+        "skipped_s": reg.counter(
+            "paddle_tpu_train_skipped_seconds_total",
+            "step wall seconds whose update the non-finite step-guard "
+            "discarded (lost time, debited from goodput)"),
+        "ema": reg.gauge(
+            "paddle_tpu_train_step_ema_seconds",
+            "EMA of step wall time — host-labeled after fleet "
+            "federation, the series the straggler SLO rule compares "
+            "against the fleet median"),
+    }
+
+
+def _poison(a):
+    """`a` times NaN where it is floating point (the fault
+    ``train.nonfinite_batch``), else `a`."""
+    t = as_tensor(a)
+    return t * float("nan") if t.is_floating_point() else a
 
 
 class TrainStep:
@@ -222,6 +301,29 @@ class TrainStep:
         self._sig = None
         self._graph_tables = []
         optimizer._init_states(self._named)
+        # telemetry (the JAX package's): metric writes are dict lookups
+        # and float adds; the loss and grad-norm gauges keep the device
+        # scalar, which a scrape reads
+        from paddle_tpu_torch.analysis.recompile import SignatureMonitor
+        from paddle_tpu_torch.observability import flight_recorder
+        from paddle_tpu_torch.observability.tracing import tracer
+        self._metrics = _train_metrics()
+        self._recorder = flight_recorder()
+        self._tracer = tracer()
+        self._signature_monitor = SignatureMonitor(
+            name=f"TrainStep({type(model).__name__})")
+        self._host_steps = 0
+        self._step_ema: Optional[float] = None
+        self._step_flops: Optional[float] = None
+        self._peak_flops: Optional[float] = None
+        self._memmon = None
+        self._watermark_every = max(1, int(os.environ.get(
+            "PADDLE_TPU_WATERMARK_INTERVAL", "1")))
+        # the card's sample is an allocator read; the CPU's walks the
+        # heap, so there it is taken only when asked for
+        default = "1" if self._device.type == "cuda" else "0"
+        if os.environ.get("PADDLE_TPU_DEVICE_WATERMARK", default) != "0":
+            self._memmon = device_memory_monitor()
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -315,27 +417,109 @@ class TrainStep:
 
     # -- the call ----------------------------------------------------------------
     def __call__(self, batch):
+        # the step span: its children cover the batch's placement, the
+        # dispatch (the accumulated microbatches a level below) and the
+        # guard's read of the skip code
+        with self._tracer.span("train.step", step=self._host_steps,
+                               accum=self._accum_steps):
+            return self._call_traced(batch)
+
+    def _call_traced(self, batch):
+        if fault_fires("train.nonfinite_batch", step=self._host_steps):
+            batch = _map(_poison, batch)
         self._lr.fill_(self.optimizer.get_lr())
-        if self._sig is not None and _signature(batch) == self._sig:
-            for dst, src in zip(_leaves(self._static_batch), _leaves(batch)):
-                dst.copy_(as_tensor(src))
-            if self._graph is not None:
-                self._graph.replay()
-                self.replays += 1
-                loss, gnorm, code = (t.clone() for t in self._static_out)
+        replay = self._sig is not None and _signature(batch) == self._sig
+        with self._tracer.span("train.h2d"):
+            if replay:
+                for dst, src in zip(_leaves(self._static_batch),
+                                    _leaves(batch)):
+                    dst.copy_(as_tensor(src))
+                placed = self._static_batch
             else:
-                loss, gnorm, code = self._body(self._static_batch)
-        else:
-            loss, gnorm, code = self._body(self._place_batch(batch))
+                placed = self._place_batch(batch)
+        # a novel signature after the first call: a compiled step would
+        # recompile here, and this one runs off its captured graph
+        novel = self._signature_monitor.record((placed,))
+        if novel and self._signature_monitor.calls > 1:
+            self._metrics["recompiles"].inc()
+            self._recorder.record(
+                "train.recompile", target=self._signature_monitor.name,
+                distinct_signatures=len(self._signature_monitor.records))
+        t0 = time.perf_counter()
+        if fault_fires("train.straggler_delay", step=self._host_steps):
+            time.sleep(float(os.environ.get("PADDLE_TPU_STRAGGLER_DELAY_S",
+                                            "0.05")))
+        with self._recorder.instrumented("train.step",
+                                         step=self._host_steps), \
+                self._tracer.span("train.dispatch",
+                                  microbatches=self._accum_steps):
+            if self._accum_steps > 1:
+                with self._tracer.span("train.accum_microbatches",
+                                       n=self._accum_steps):
+                    loss, gnorm, code = self._run(placed, replay)
+            else:
+                loss, gnorm, code = self._run(placed, replay)
         sched = self.optimizer._lr_scheduler
         if sched is not None:
             sched.step()
         self.last_grad_norm = gnorm
-        c = int(code) if self._guard_nonfinite else 0
+        self._host_steps += 1
+        m = self._metrics
+        m["steps"].inc()
+        m["accum"].observe(self._accum_steps)
+        m["loss"].set(loss)          # the device scalar, read at scrape
+        m["gnorm"].set(gnorm)
+        if self._guard_nonfinite:
+            # the guard's read of the skip code is the step's one sync;
+            # the step's seconds end there
+            with self._tracer.span("train.guard"):
+                c = int(code)
+                dt = time.perf_counter() - t0
+                # the goodput split before _account_skip may raise
+                m["productive" if c == 0 else "skipped_s"].inc(dt)
+        else:
+            c = 0
+            dt = time.perf_counter() - t0
+            m["productive"].inc(dt)
+        m["step"].observe(dt)
+        self._step_ema = dt if self._step_ema is None \
+            else 0.8 * self._step_ema + 0.2 * dt
+        m["ema"].set(self._step_ema)
+        tokens = self._batch_tokens(placed)
+        if tokens:
+            m["tokens"].inc(tokens)
+            if dt > 0:
+                m["tps"].set(tokens / dt)
+        if self._step_flops and self._peak_flops and dt > 0:
+            m["mfu"].set(self._step_flops / dt / self._peak_flops)
+        if self._memmon is not None and \
+                self._host_steps % self._watermark_every == 0:
+            self._memmon.sample(step=self._host_steps, device=self._device)
         if c == 0:
             self.step_count += 1
         self._account_skip(c)
         return loss
+
+    def _run(self, placed, replay):
+        """``(loss, grad norm, skip code)`` of one step on placed (or
+        static) batch tensors: a replay of the captured graph where there
+        is one, else the body."""
+        if replay and self._graph is not None:
+            self._graph.replay()
+            self.replays += 1
+            return tuple(t.clone() for t in self._static_out)
+        return self._body(placed)
+
+    @staticmethod
+    def _batch_tokens(batch) -> int:
+        """Token count for throughput metrics: LM batches count
+        input_ids elements, (x, y) batches count examples."""
+        if isinstance(batch, dict) and "input_ids" in batch:
+            return int(batch["input_ids"].numel())
+        leaves = _leaves(batch)
+        if leaves and leaves[0].ndim:
+            return int(leaves[0].shape[0])
+        return 0
 
     def _account_skip(self, code: int):
         if code == 0:
@@ -344,7 +528,14 @@ class TrainStep:
         reason = "nonfinite_loss" if code == 1 else "nonfinite_grad"
         self.skipped[reason] += 1
         self._skip_streak += 1
+        self._metrics["skipped"].labels(reason=reason).inc()
+        self._recorder.record("train.step_skipped", reason=reason,
+                              step=self._host_steps - 1,
+                              streak=self._skip_streak)
         if self._skip_streak >= self._max_skips:
+            self._recorder.dump(
+                reason=f"step-guard: {self._skip_streak} consecutive "
+                       f"non-finite steps ({reason})")
             raise NonFiniteStepError(
                 f"{self._skip_streak} consecutive optimizer updates "
                 f"skipped (last reason: {reason}) — persistent "
@@ -359,35 +550,99 @@ class TrainStep:
         a warm-up on a side stream that keeps no update) and each such
         call replays it; a capture that fails raises.  On the CPU there
         is no graph: the calls run the same body over the same static
-        buffers.  Returns a :class:`CompileInfo`."""
-        t0 = time.perf_counter()
+        buffers.
+
+        Under ``train.compile`` > ``compile``: ``compile.lower`` counts
+        one run of the body that keeps no update with the cost model (the
+        first warm-up on the card; its FLOPs arm the MFU gauge) and warms
+        up, ``compile.xla`` captures.  Returns the
+        :class:`~paddle_tpu_torch.observability.device_profiler.
+        CompileInfo`, recorded under the target ``TrainStep(<model
+        class>)`` with the compile counter and gauges moved."""
+        target = f"TrainStep({type(self.model).__name__})"
         placed = self._place_batch(batch)
         self._graph = self._static_out = self._sig = None
         self._graph_tables = []
         self._static_batch = _map(lambda t: t.clone(), placed)
         sig = _signature(placed)
         self._lr.fill_(self.optimizer.get_lr())
-        launches = {}
-        if self._device.type == "cuda":
-            launches = self._capture()
+        tr = self._tracer
+        with tr.span("train.compile", target=target), \
+                tr.span("compile", target=target):
+            if self._device.type == "cuda":
+                launches, run, times, peak = self._capture(target)
+            else:
+                t0 = time.perf_counter()
+                with tr.span("compile.lower", target=target):
+                    run = self.count_cost(self._static_batch)
+                with tr.span("compile.xla", target=target):
+                    pass
+                launches, peak = {}, 0
+                times = (time.perf_counter() - t0, 0.0)
         self._sig = sig
-        return CompileInfo(signature=sig,
-                           seconds=time.perf_counter() - t0,
-                           graph=self._graph is not None, launches=launches)
+        self._step_flops = float(run.total_flops) or None
+        self._peak_flops = self._resolve_peak(target)
+        info = CompileInfo(
+            target=target, signature=signature_of(placed),
+            lower_s=times[0], compile_s=times[1],
+            stats=ExecutableStats(flops=float(run.total_flops),
+                                  bytes_accessed=float(run.total_bytes),
+                                  peak_allocated=peak),
+            graph=self._graph is not None, launches=launches,
+            cost=run.summary())
+        observe_compile(info)
+        return info
 
-    def _capture(self):
+    def _resolve_peak(self, target) -> Optional[float]:
+        """The MFU gauge's denominator: the device's peak FLOP/s, or None
+        (one ``train.mfu_unavailable`` recorder event; the gauge stays
+        unset) on a card :func:`detect_roofline` does not know."""
+        try:
+            return detect_roofline(self._device)[0]
+        except RuntimeError as e:
+            self._recorder.record("train.mfu_unavailable", target=target,
+                                  reason=str(e))
+            return None
+
+    def count_cost(self, batch):
+        """One run of the step body that keeps no update, counted by the
+        cost model (``analysis.check(step, batch)`` calls this); the
+        generator's state is put back after it.  Returns the
+        ``CostCounter``."""
+        from paddle_tpu_torch.analysis.passes.cost_model import count_cost
+        gen = _state.generator(self._device)
+        rng = gen.get_state()
+        placed = batch if batch is self._static_batch else \
+            self._place_batch(batch)
+        try:
+            _, run = count_cost(self._body, placed, apply=False)
+        finally:
+            gen.set_state(rng)
+        return run
+
+    def _capture(self, target):
+        """Count, warm up and capture the body on the card: ``(launches a
+        replay makes, the count, (lower seconds, capture seconds), the
+        bytes the capture's memory pool reserved)``."""
         dev = self._device
+        tr = self._tracer
         gen = _state.generator(dev)
         rng = gen.get_state()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(_WARMUP):
-                self._body(self._static_batch, apply=False)
-        torch.cuda.current_stream(dev).wait_stream(side)
+        t0 = time.perf_counter()
+        with tr.span("compile.lower", target=target):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                run = self.count_cost(self._static_batch)
+                for _ in range(_WARMUP - 1):
+                    self._body(self._static_batch, apply=False)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
         # the graph takes the port's generator only where the body draws
-        # from it (dropout): a registered generator is left in capture
-        # mode by a capture that fails
+        # from it (dropout; the counted run puts its draws back, the
+        # second warm-up's tell): a registered generator is left in
+        # capture mode by a capture that fails
         drew = not torch.equal(gen.get_state(), rng)
         gen.set_state(rng)
         graph = torch.cuda.CUDAGraph()
@@ -397,24 +652,27 @@ class TrainStep:
         # the multi-tensor tables: 96 bytes a tensor for the norm and the
         # update, each table rounded up to 64 bytes, and room to spare
         nbytes = 256 * len(self._named) + (1 << 16)
-        try:
-            with _build.frozen("TrainStep.compile's capture") as held, \
-                    torch.cuda.graph(graph), \
-                    _mt.capture_tables(dev, nbytes) as arena:
-                out = self._body(self._static_batch)
-        except BaseException:
-            if drew:
-                _state.renew_generator(dev, rng)
-            raise
-        finally:
-            tables = _mt.finish_capture()
+        with tr.span("compile.xla", target=target):
+            base = pool_bytes(dev)
+            try:
+                with _build.frozen("TrainStep.compile's capture") as held, \
+                        torch.cuda.graph(graph), \
+                        _mt.capture_tables(dev, nbytes) as arena:
+                    out = self._body(self._static_batch)
+            except BaseException:
+                if drew:
+                    _state.renew_generator(dev, rng)
+                raise
+            finally:
+                tables = _mt.finish_capture()
+            pool = pool_bytes(dev, base)
         after = launch_counts()
-        torch.cuda.synchronize(dev)
         self._graph, self._static_out = graph, out
         # every buffer whose address the graph holds lives as long as it
         self._graph_tables = [arena] + tables + held
-        return {k: after[k] - before[k] for k in after
-                if after[k] != before[k]}
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        return launches, run, (t1 - t0, time.perf_counter() - t1), pool
 
     # -- state ---------------------------------------------------------------------
     def state_dict(self):

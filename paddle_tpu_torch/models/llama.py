@@ -22,8 +22,9 @@ eligible shapes.  Under autograd the fused functions and flash attention
 run their custom VJPs, so ``loss`` trains through the same kernels.  The
 RoPE tables stay fp32 in a bf16 model.
 
-At ``PADDLE_TPU_FUSED_BLOCK=decoder`` a cache-free, mask-free, offset-0
-call (``.loss()``, scoring, a full prompt without a cache) runs each
+At ``PADDLE_TPU_FUSED_BLOCK=decoder`` (or ``measured``, where the
+ledger measured the block faster at the layer's shape) a cache-free,
+mask-free, offset-0 call (``.loss()``, scoring, a full prompt without a cache) runs each
 layer whose shape the gate takes as ``F.fused_decoder_block``
 (``paddle_tpu/models/llama.py:188-225, 268-278``): one launch of the
 whole-block kernel on the card, the plain block on the CPU, and in
@@ -196,13 +197,21 @@ def _fused_decoder(layer, x, rope_cos, rope_sin):
     ``PADDLE_TPU_FUSED_BLOCK=decoder`` tier where the layer has no
     quantized projection, the RoPE tables cover s rows and
     ``fused_decoder_eligible`` takes the shape; None sends the caller to
-    the per-segment path.  Counts the choice in
-    ``fused_decoder_block.routes`` (JAX's ``record_path("decoder_block",
-    ...)``, ``paddle_tpu/models/llama.py:215``)."""
-    if _FB.fused_block_tier() != "decoder":
+    the per-segment path.  At the ``measured`` tier the layer goes to the
+    block only where the ledger measured it faster for this ``(b, s, d)``
+    (``measured_tier_for``; ``paddle_tpu/models/llama.py:188-225``).
+    Counts the choice in ``fused_decoder_block.routes`` (JAX's
+    ``record_path("decoder_block", ...)``,
+    ``paddle_tpu/models/llama.py:215``)."""
+    tier = _FB.fused_block_tier()
+    if tier not in ("decoder", "measured"):
         return None
     attn, mlp = layer.self_attn, layer.mlp
     b, s, d = x.shape
+    if tier == "measured" and \
+            _FB.measured_tier_for((b, s, d), x.dtype) != "decoder":
+        _FB.fused_decoder_block.routes["segments"] += 1
+        return None
     dq = attn.num_heads * attn.head_dim
     dkv = attn.num_kv_heads * attn.head_dim
     fused = not _unfused(attn.q_proj, attn.k_proj, attn.v_proj,

@@ -20,9 +20,13 @@ JAX in them.
   contract (the TCPStore is not ported yet: ROADMAP.md, queue 1, item
   8).
 * **goodput** — goodput and SLO attainment.
-
-Not ported yet (ROADMAP.md, queue 1, item 9): the device profiler and
-the measurement ledger (``device_profiler.py``, ``calibration.py``)."""
+* **device profiler** — compile records and the compile series, segment
+  timing on the card with roofline-gap attribution against the cost
+  model, and the live-memory watermark, census and leak detector
+  (``device_profiler.py``).
+* **calibration** — the measurement ledger (the JAX package's file
+  format) and the cost model it calibrates; it answers the ``measured``
+  fusion tier (``calibration.py``)."""
 
 from __future__ import annotations
 
@@ -69,6 +73,16 @@ from paddle_tpu_torch.observability.goodput import (GoodputMonitor,
                                                     slo_attainment,
                                                     slo_targets)
 
+from paddle_tpu_torch.observability.device_profiler import (
+    AttributionResult, CompileInfo, DeviceMemoryMonitor, DeviceProfiler,
+    ExecutableStats, Segment, SegmentReport, aot_compile,
+    compile_records, compiled_stats, detect_roofline,
+    device_memory_monitor, llama_step_segments, segment_records,
+    signature_of)
+from paddle_tpu_torch.observability.calibration import (CalibratedCostModel,
+                                                        MeasurementLedger)
+from paddle_tpu_torch.observability import calibration
+
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "DEFAULT_BUCKETS", "default_registry",
@@ -86,4 +100,10 @@ __all__ = [
     "fleet_host_id", "merge_snapshots",
     "GoodputMonitor", "compute_goodput", "goodput_monitor",
     "slo_attainment", "slo_targets",
+    "AttributionResult", "CompileInfo", "DeviceMemoryMonitor",
+    "DeviceProfiler", "ExecutableStats", "Segment", "SegmentReport",
+    "aot_compile", "compile_records", "compiled_stats",
+    "detect_roofline", "device_memory_monitor", "llama_step_segments",
+    "segment_records", "signature_of",
+    "CalibratedCostModel", "MeasurementLedger", "calibration",
 ]

@@ -29,6 +29,7 @@ import torch
 
 __all__ = ["library", "build_all", "ptxas_report", "parse_ptxas", "check",
            "stream_of", "tickets", "workspace", "frozen", "sm_count",
+           "charge", "plain",
            "DTYPE_CODES",
            "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR"]
 
@@ -325,3 +326,34 @@ def sm_count(device) -> int:
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on `t`'s device, as an integer handle."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# The cost model's counter while one counts (analysis/passes/
+# cost_model.py), else None.  A wrapper charges the operations and bytes
+# of its kernel (each input read once, each output written once: the
+# bound of PERF.md and chip_smoke.py) where it launches it, and where a
+# CPU tensor sends it to the plain version; with no counter either costs
+# one None check.
+COUNTER = None
+
+
+def charge(what: str, cost, *args):
+    """Charge kernel `what` the ``(flops, bytes, products)`` that
+    ``cost(*args)`` gives (`products`: whether the FLOPs are those of
+    matrix products)."""
+    c = COUNTER
+    if c is not None:
+        with c.paused():
+            c.kernel(what, *cost(*args))
+
+
+def plain(what: str, cost, ref, *args):
+    """``ref(*args)``, the plain version of kernel `what`, charged as the
+    kernel (``cost()`` gives what :func:`charge` takes) and with the
+    operations inside it not counted again."""
+    c = COUNTER
+    if c is None:
+        return ref(*args)
+    with c.paused():
+        c.kernel(what, *cost())
+        return ref(*args)

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import _build, costs
 
 __all__ = ["cross_entropy_fwd", "cross_entropy_bwd", "ce_fwd_reference",
            "ce_bwd_reference", "FusedSoftmaxCE",
@@ -87,7 +87,9 @@ def cross_entropy_fwd(logits, labels):
     """(loss, lse), each fp32 ``[T]``, from logits ``[T, V]`` and integer
     labels ``[T]``."""
     if logits.device.type == "cpu":
-        return ce_fwd_reference(logits, labels)
+        return _build.plain("cross_entropy_fwd",
+                            lambda: costs.ce_fwd(logits), ce_fwd_reference,
+                            logits, labels)
     what = "cross_entropy_fwd"
     labels = labels.to(torch.long)
     _check(what, logits, labels)
@@ -100,6 +102,7 @@ def cross_entropy_fwd(logits, labels):
                              labels.data_ptr(), loss.data_ptr(),
                              lse.data_ptr(), T, V, _build.stream_of(logits))
         _build.check(lib, err, what)
+        _build.charge(what, costs.ce_fwd, logits)
         cross_entropy_fwd.launches += 1
     return loss, lse
 
@@ -111,7 +114,9 @@ def cross_entropy_bwd(logits, labels, lse, g):
     """``dx`` ``[T, V]`` in the logits' dtype from the saved ``lse`` and
     the per-row fp32 cotangent ``g`` ``[T]``."""
     if logits.device.type == "cpu":
-        return ce_bwd_reference(logits, labels, lse, g)
+        return _build.plain("cross_entropy_bwd",
+                            lambda: costs.ce_bwd(logits), ce_bwd_reference,
+                            logits, labels, lse, g)
     what = "cross_entropy_bwd"
     labels = labels.to(torch.long)
     g = g.to(torch.float32)
@@ -129,6 +134,7 @@ def cross_entropy_bwd(logits, labels, lse, g):
                              g.data_ptr(), dx.data_ptr(), T, V,
                              _build.stream_of(logits))
         _build.check(lib, err, what)
+        _build.charge(what, costs.ce_bwd, logits)
         cross_entropy_bwd.launches += 1
     return dx
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import _build, costs
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_fwd_reference",
@@ -154,7 +154,8 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     what = "flash_attention_fwd"
     _check(what, q, k, v)
     if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, causal, scale)
+        return _build.plain(what, lambda: costs.flash_fwd(q, k, v, causal),
+                            flash_fwd_reference, q, k, v, causal, scale)
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -165,6 +166,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
                             _scale(q, scale), int(bool(causal)),
                             _build.stream_of(q))
     _build.check(lib, err, what)
+    _build.charge(what, costs.flash_fwd, q, k, v, causal)
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -193,8 +195,9 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
     _check_stats(what, q, lse, delta)
     _check(what, q, k, v, _bwd_extra(q, dout, lse, delta))
     if q.device.type == "cpu":
-        return flash_bwd_reference(q, k, v, dout, lse, delta, causal,
-                                   scale)[0]
+        return _build.plain(what, lambda: costs.flash_dq(q, k, v, causal),
+                            flash_bwd_reference, q, k, v, dout, lse, delta,
+                            causal, scale)[0]
     b, s, h, d = q.shape
     dq = torch.empty_like(q)
     lib = _build.library("flash_attention")
@@ -204,6 +207,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
         dq.data_ptr(), b, s, h, k.shape[2], d, _scale(q, scale),
         int(bool(causal)), _build.stream_of(q))
     _build.check(lib, err, what)
+    _build.charge(what, costs.flash_dq, q, k, v, causal)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -219,8 +223,9 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
     _check_stats(what, q, lse, delta)
     _check(what, q, k, v, _bwd_extra(q, dout, lse, delta))
     if q.device.type == "cpu":
-        return flash_bwd_reference(q, k, v, dout, lse, delta, causal,
-                                   scale)[1:]
+        return _build.plain(what, lambda: costs.flash_dkv(q, k, v, causal),
+                            flash_bwd_reference, q, k, v, dout, lse, delta,
+                            causal, scale)[1:]
     b, s, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.library("flash_attention")
@@ -230,6 +235,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
         dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], d,
         _scale(q, scale), int(bool(causal)), _build.stream_of(q))
     _build.check(lib, err, what)
+    _build.charge(what, costs.flash_dkv, q, k, v, causal)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -27,7 +27,8 @@ one dtype (float32 or bfloat16), contiguous and 16-byte aligned.
 The decoder tier (``PADDLE_TPU_FUSED_BLOCK=decoder``) routes a Llama
 layer to the block kernel where ``fused_decoder_eligible`` takes its
 shape: JAX's shape conditions, with the Hopper kernel's own needs in
-place of the TPU's VMEM budget.
+place of the TPU's VMEM budget.  The ``measured`` tier makes that choice
+per shape from the measurement ledger (``measured_tier_for``).
 
 Each wrapper counts its launches in a plain integer attribute
 (``fused_rmsnorm_qkv.launches``), so a run can show the kernels were on
@@ -41,7 +42,7 @@ import os
 
 import torch
 
-from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import _build, costs
 from paddle_tpu_torch.ops.kernels.splitk import (MLP_BN, SPLITK_BN,
                                                  mlp_splits, splitk_splits)
 from paddle_tpu_torch.ops.kernels.flash_attention import (KERNEL_HEAD_DIM,
@@ -50,7 +51,8 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (KERNEL_HEAD_DIM,
 __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
            "fused_decoder_block", "qkv_reference", "mlp_reference",
            "ffn_reference", "decoder_reference", "decoder_segments",
-           "fused_block_tier", "fused_decoder_eligible",
+           "fused_block_tier", "measured_tier_for",
+           "clear_measured_tiers", "fused_decoder_eligible",
            "decoder_workspace_bytes", "FusedRMSNormQKV", "FusedMLP",
            "FusedFFN", "FusedDecoderBlock", "SUPPORTED_ACTS", "GEMM_PATHS",
            "gemm_path", "qkv_path", "qkv_column_tiles", "qkv_splits",
@@ -248,7 +250,10 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     device (``_build.workspace``) and reused by the next call.
     ``launches_by_path`` counts the design the C entry reports."""
     if x.device.type == "cpu":
-        return qkv_reference(x, norm_weight, wq, wk, wv, epsilon, residuals)
+        return _build.plain(
+            "fused_rmsnorm_qkv",
+            lambda: costs.qkv(x, norm_weight, wq, wk, wv, residuals),
+            qkv_reference, x, norm_weight, wq, wk, wv, epsilon, residuals)
     what = "fused_rmsnorm_qkv"
     lead, d = x.shape[:-1], x.shape[-1]
     dq, dkv = wq.shape[1], wk.shape[1]
@@ -297,6 +302,8 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
             ws, tickets, T, d, dq, dkv, float(epsilon), _build.stream_of(x),
             ctypes.byref(design))
         _build.check(lib, err, what)
+        _build.charge(what, costs.qkv, x, norm_weight, wq, wk, wv,
+                      residuals)
         fused_rmsnorm_qkv.launches += 1
         fused_rmsnorm_qkv.launches_by_path[GEMM_PATHS[design.value]] += 1
     out = (q.reshape(*lead, dq), k.reshape(*lead, dkv),
@@ -342,6 +349,10 @@ def _mlp_launch(fn, x, w1, wu, w2, b1, b2, act):
             floats, tickets, T, d, f, _build.stream_of(x),
             ctypes.byref(design))
         _build.check(lib, err, what)
+        if wu is None:
+            _build.charge(what, costs.ffn, x, w1, w2, b1, b2)
+        else:
+            _build.charge(what, costs.mlp, x, w1, wu, w2)
         fn.launches += 1
         fn.launches_by_path[GEMM_PATHS[design.value]] += 1
     return y.reshape(x.shape)
@@ -358,7 +369,9 @@ def fused_mlp(x, w_gate, w_up, w_down):
     (``gemm_path``), in fp32 on the fp32 tile.  ``launches_by_path``
     counts the design the C entry reports."""
     if x.device.type == "cpu":
-        return mlp_reference(x, w_gate, w_up, w_down)
+        return _build.plain(
+            "fused_mlp", lambda: costs.mlp(x, w_gate, w_up, w_down),
+            mlp_reference, x, w_gate, w_up, w_down)
     what = "fused_mlp"
     d = x.shape[-1]
     f = w_gate.shape[1]
@@ -398,7 +411,9 @@ def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
     if b2 is None:
         b2 = torch.zeros((w2.shape[-1],), dtype=x.dtype, device=x.device)
     if x.device.type == "cpu":
-        return ffn_reference(x, w1, b1, w2, b2, activation)
+        return _build.plain(
+            "fused_ffn", lambda: costs.ffn(x, w1, w2, b1, b2),
+            ffn_reference, x, w1, b1, w2, b2, activation)
     what = "fused_ffn"
     if w1.shape != (d, f) or w2.shape != (f, d) or b1.shape != (f,) or \
             b2.shape != (d,):
@@ -569,22 +584,55 @@ def record_path(kernel: str, fused: bool):
 def fused_block_tier() -> str:
     """The ``PADDLE_TPU_FUSED_BLOCK`` knob, read at call time
     (``fused_block.py:109-131``): ``"decoder"`` routes eligible Llama
-    layers through the whole-block kernel; ``measured`` (the JAX
-    package's choice per shape from its calibration ledger) raises
-    ``NotImplementedError``; every other value, unset included, is
+    layers through the whole-block kernel; ``"measured"`` makes that
+    choice per shape from the measurement ledger
+    (:func:`measured_tier_for`); every other value, unset included, is
     ``"segments"``: the per-segment kernels (fused RMSNorm+QKV, flash,
     fused MLP), which the port runs on every device and every knob value,
     as ``nn/transformer.py`` says of its feed-forward, so JAX's ``off``
     and auto tiers have no counterpart here."""
     env = os.environ.get("PADDLE_TPU_FUSED_BLOCK", "").strip().lower()
-    if env == "decoder":
-        return "decoder"
-    if env == "measured":
-        raise NotImplementedError(
-            "PADDLE_TPU_FUSED_BLOCK=measured (the tier chosen per shape "
-            "from the calibration ledger) is not ported yet (ROADMAP.md, "
-            "queue 1, item 9)")
+    if env in ("decoder", "measured"):
+        return env
     return "segments"
+
+
+# measured_tier_for's answers, by (shape, dtype, backend, ledger file): a
+# layer's route never reads the disk after its shape's first call
+_MEASURED: dict = {}
+
+
+def measured_tier_for(shape, dtype) -> str:
+    """The ``measured`` tier's route for a decoder activation shape ``(b,
+    s, d)`` (``fused_block.py:146-184``): ``"decoder"`` or
+    ``"segments"``, whichever the ledger recorded as faster on this
+    backend, ``decoder_block_fused`` at ``tier=decoder`` against
+    ``decoder_block`` at ``tier=segments`` (the device profiler tags each
+    row with the tier it ran at).  A tier without a record does not
+    compete; with none the answer is ``"segments"``, the port's
+    counterpart of JAX's ``"fused"`` default.  The answer is read once
+    per shape and kept (:func:`clear_measured_tiers` forgets them)."""
+    from paddle_tpu_torch.observability import calibration
+    dtype = str(dtype).replace("torch.", "")
+    key = (tuple(int(d) for d in shape), dtype, calibration.backend_tag(),
+           calibration.ledger().path)
+    tier = _MEASURED.get(key)
+    if tier is None:
+        model = calibration.CalibratedCostModel()
+        times = {}
+        for name, op in (("decoder", "decoder_block_fused"),
+                         ("segments", "decoder_block")):
+            t = model.measured_for(op, shape, dtype, layout=f"tier={name}")
+            if t is not None:
+                times[name] = t
+        tier = min(times, key=times.get) if times else "segments"
+        _MEASURED[key] = tier
+    return tier
+
+
+def clear_measured_tiers():
+    """Forget :func:`measured_tier_for`'s answers (after new records)."""
+    _MEASURED.clear()
 
 
 # the most scratch one launch may ask for: 5% of an H100's 80 GB
@@ -733,7 +781,10 @@ def fused_decoder_block(x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
     args = (x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
             norm2_weight, wg, wu, wd, num_heads, num_kv_heads, epsilon)
     if x.device.type == "cpu":
-        return decoder_reference(*args)
+        return _build.plain(
+            "fused_decoder_block",
+            lambda: costs.decoder(x, wq, wk, wg, num_heads),
+            decoder_reference, *args)
     what = "fused_decoder_block"
     b, s, d = x.shape
     dq, dkv, f = wq.shape[1], wk.shape[1], wg.shape[1]
@@ -766,6 +817,7 @@ def fused_decoder_block(x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
         b, s, d, dq, dkv, f, nh, nkvh, float(epsilon), _build.stream_of(x),
         ctypes.byref(design))
     _build.check(lib, err, what)
+    _build.charge(what, costs.decoder, x, wq, wk, wg, nh)
     fused_decoder_block.launches += 1
     fused_decoder_block.launches_by_path[GEMM_PATHS[design.value]] += 1
     return y

@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from paddle_tpu_torch.nn.functional.activation import gelu
-from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import _build, costs
 from paddle_tpu_torch.ops.kernels.fused_block import (GEMM_PATHS,
                                                       _check_cuda,
                                                       _check_width,
@@ -126,7 +126,10 @@ def grouped_expert_ffn(x, w1, b1, w2, b2, counts=None, act="gelu"):
         raise ValueError(f"grouped_expert_ffn: counts {tuple(counts.shape)} "
                          f"must be [{G}]")
     if x.device.type == "cpu":
-        return grouped_expert_ffn_reference(x, w1, b1, w2, b2, counts, act)
+        return _build.plain(
+            "grouped_expert_ffn",
+            lambda: costs.grouped(x, w1, b1, w2, b2, counts),
+            grouped_expert_ffn_reference, x, w1, b1, w2, b2, counts, act)
     what = "grouped_expert_ffn"
     _check_cuda(what, dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2), x.dtype)
     _check_width(what, d=d, h=h)
@@ -150,6 +153,7 @@ def grouped_expert_ffn(x, w1, b1, w2, b2, counts=None, act="gelu"):
                                        y.data_ptr(), G, C, h, d, rep, stream,
                                        ctypes.byref(design))
         _build.check(lib, err, what + " (down)")
+        _build.charge(what, costs.grouped, x, w1, b1, w2, b2, counts)
         grouped_expert_ffn.launches += 1
         grouped_expert_ffn.launches_by_path[GEMM_PATHS[design.value]] += 1
     return y

@@ -39,7 +39,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import _build, costs
 
 __all__ = ["multi_tensor_norm", "multi_tensor_adam", "norm_reference",
            "adam_reference", "adam_rule", "bias_correction",
@@ -205,7 +205,9 @@ def multi_tensor_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     a 0-d fp32 tensor on their device."""
     tensors = list(tensors)
     if not tensors or tensors[0].device.type == "cpu":
-        return norm_reference(tensors)
+        return _build.plain("multi_tensor_norm",
+                            lambda: costs.mt_norm(tensors), norm_reference,
+                            tensors)
     what = "multi_tensor_norm"
     dev = tensors[0].device
     _check(what, [(f"tensors[{i}]", t) for i, t in enumerate(tensors)], dev)
@@ -226,6 +228,7 @@ def multi_tensor_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
                           ticket.data_ptr(), out.data_ptr(),
                           _build.stream_of(out))
     _build.check(lib, err, what)
+    _build.charge(what, costs.mt_norm, tensors)
     multi_tensor_norm.launches += 1
     return out
 
@@ -266,10 +269,14 @@ def multi_tensor_adam(params, grads, moment1, moment2, masters, *, lr, step,
     hyper = dict(beta1=beta1, beta2=beta2, epsilon=epsilon,
                  decoupled=decoupled, multi_precision=multi_precision)
     if params[0].device.type == "cpu":
-        for p, g, m, v, ms, wd in zip(params, grads, moment1, moment2,
-                                      masters, weight_decays):
-            adam_reference(p, g, m, v, ms, lr=lr, step=step,
-                           weight_decay=wd, scale=scale, keep=keep, **hyper)
+        def update():
+            for p, g, m, v, ms, wd in zip(params, grads, moment1, moment2,
+                                          masters, weight_decays):
+                adam_reference(p, g, m, v, ms, lr=lr, step=step,
+                               weight_decay=wd, scale=scale, keep=keep,
+                               **hyper)
+        _build.plain("multi_tensor_adam",
+                     lambda: costs.mt_adam(params, grads, masters), update)
         return
     what = "multi_tensor_adam"
     dev = params[0].device
@@ -318,6 +325,7 @@ def multi_tensor_adam(params, grads, moment1, moment2, masters, *, lr, step,
         None if scale is None else scale.data_ptr(),
         None if keep is None else keep.data_ptr(), _build.stream_of(lr_t))
     _build.check(lib, err, what)
+    _build.charge(what, costs.mt_adam, params, grads, masters)
     multi_tensor_adam.launches += 1
 
 

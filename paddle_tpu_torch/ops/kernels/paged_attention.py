@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import _build, costs
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_int8",
            "paged_decode_reference", "paged_splits", "PAGED_PATHS",
@@ -145,6 +145,8 @@ def _launch(wrapper, what, entry, q, pools, block_table, lengths, scale):
         None if tickets is None else tickets.data_ptr(), B, h, kvh, hd, bs,
         mb, float(scale), _build.stream_of(q), ctypes.byref(design))
     _build.check(lib, err, what)
+    _build.charge(what, costs.paged, q, pools[0], block_table, lengths,
+                  pools[2] if len(pools) > 2 else None)
     wrapper.launches += 1
     wrapper.launches_by_path[PAGED_PATHS[design.value]] += 1
     return out
@@ -179,8 +181,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths,
         return paged_decode_attention_int8(q, k_pool, v_pool, block_table,
                                            lengths, k_scale, v_scale, scale)
     if q.device.type == "cpu":
-        return paged_decode_reference(q, k_pool, v_pool, block_table,
-                                      lengths, scale)
+        return _build.plain(
+            "paged_decode_attention",
+            lambda: costs.paged(q, k_pool, block_table, lengths),
+            paged_decode_reference, q, k_pool, v_pool, block_table, lengths,
+            scale)
     what = "paged_decode_attention"
     _check(what, q, k_pool, v_pool, block_table, lengths, {
         "q": (q, q.dtype), "k_pool": (k_pool, q.dtype),
@@ -204,8 +209,11 @@ def paged_decode_attention_int8(q, k_pool, v_pool, block_table, lengths,
         raise ValueError("paged_decode_attention_int8: int8 pools need "
                          "both k_scale and v_scale")
     if q.device.type == "cpu":
-        return paged_decode_reference(q, k_pool, v_pool, block_table,
-                                      lengths, scale, k_scale, v_scale)
+        return _build.plain(
+            "paged_decode_attention_int8",
+            lambda: costs.paged(q, k_pool, block_table, lengths, k_scale),
+            paged_decode_reference, q, k_pool, v_pool, block_table, lengths,
+            scale, k_scale, v_scale)
     what = "paged_decode_attention_int8"
     nb, bs, kvh, _ = k_pool.shape
     if k_scale.shape != (nb, bs, kvh) or v_scale.shape != (nb, bs, kvh):

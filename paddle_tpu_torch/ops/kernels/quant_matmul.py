@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import _build, costs
 from paddle_tpu_torch.ops.kernels.splitk import SPLITK_BN, SPLITK_MAX_T
 
 __all__ = ["quant_matmul", "quant_matmul_reference", "weight_dtype",
@@ -89,7 +89,9 @@ def quant_matmul(x, qw, scale, mode: str = "int8"):
                         f"weight is {qw.dtype}")
     if x.device.type == "cpu":
         record_path(f"matmul_{mode}", "fallback")
-        return quant_matmul_reference(x, qw, scale)
+        return _build.plain(
+            "quant_matmul", lambda: costs.quant_matmul(x, qw, scale),
+            quant_matmul_reference, x, qw, scale)
     what = "quant_matmul"
     K = x.shape[-1]
     N = qw.shape[1] if qw.ndim == 2 else -1
@@ -134,6 +136,7 @@ def quant_matmul(x, qw, scale, mode: str = "int8"):
             None if tickets is None else tickets.data_ptr(), T, K, N,
             _build.stream_of(x))
         _build.check(lib, err, what)
+        _build.charge(what, costs.quant_matmul, x, qw, scale)
         quant_matmul.launches += 1
         quant_matmul.launches_by_mode[mode] += 1
         quant_matmul.launches_by_path[kernel_path(T, x.dtype)] += 1

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.ops.kernels import _build, costs
 
 __all__ = ["fused_rmsnorm", "rmsnorm_reference", "FusedRMSNorm"]
 
@@ -43,7 +43,9 @@ def fused_rmsnorm(x, weight, residual=None, epsilon=1e-5):
     have x's shape and dtype (h is x itself without a residual), inv
     ``[..., 1]`` fp32."""
     if x.device.type == "cpu":
-        return rmsnorm_reference(x, weight, residual, epsilon)
+        return _build.plain(
+            "fused_rmsnorm", lambda: costs.rmsnorm(x, weight, residual),
+            rmsnorm_reference, x, weight, residual, epsilon)
     what = "fused_rmsnorm"
     lead, d = x.shape[:-1], x.shape[-1]
     if tuple(weight.shape) != (d,) or \
@@ -83,6 +85,7 @@ def fused_rmsnorm(x, weight, residual=None, epsilon=1e-5):
             None if residual is None else h.data_ptr(), inv.data_ptr(),
             rows, d, float(epsilon), _build.stream_of(x))
         _build.check(lib, err, what)
+        _build.charge(what, costs.rmsnorm, x, weight, residual)
         fused_rmsnorm.launches += 1
     return y.reshape(x.shape), h.reshape(x.shape), inv.reshape(*lead, 1)
 

@@ -38,6 +38,17 @@ point                                 site
                                       survivor)
 ``obs.fleet.publish``                 fails a fleet metrics-snapshot
                                       publish
+``train.nonfinite_batch``             poisons a train batch's float leaves
+                                      with NaN (bool-style: the bad
+                                      microbatch the step-guard must
+                                      absorb; an integer LM batch has no
+                                      float leaf to poison)
+``train.straggler_delay``             sleeps inside the timed train-step
+                                      region (bool-style;
+                                      ``PADDLE_TPU_STRAGGLER_DELAY_S``,
+                                      default 0.05 s): the injected
+                                      straggler the fleet ``straggler``
+                                      rule must catch
 ====================================  =====================================
 
 Env syntax (comma-separated specs, colon-separated options)::

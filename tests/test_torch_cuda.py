@@ -2667,3 +2667,116 @@ def test_path_counters_name_the_card_kernels(dev):
     assert moved[(fb, "rmsnorm_qkv", "reference")] == L
     assert moved[(qk, "matmul_int8", "pallas")] > 0
     assert not any(k[0] == qk and k[2] == "fallback" for k in moved)
+
+
+# -- the measurement slice: device profiler, cost model, telemetry ------------
+
+def test_device_profiler_times_captured_segments(dev):
+    """Every segment of a small bf16 Llama captured as a CUDA graph and
+    timed by CUDA events: none skipped, each report names the card, the
+    fused segments' graphs hold their kernels, and a segment's time is
+    within the span of a host-timed replay loop of the same program."""
+    import time
+    from paddle_tpu_torch.observability import device_profiler as DP
+    cfg, model = _graph_model(dev, "bfloat16")
+    segs = DP.llama_step_segments(model, _ids(cfg, 3))
+    prof = DP.DeviceProfiler(device=dev)
+    for s in segs:
+        prof.add(s)
+    res = prof.profile(reps=5)
+    assert not res.skipped, res.skipped
+    name = torch.cuda.get_device_name(dev)
+    assert res.device == name and {r.device for r in res.segments} == {name}
+    assert DP.compile_records("mlp")[-1].launches["fused_mlp"] == 1
+    assert DP.compile_records("mlp")[-1].graph
+    assert DP.compile_records("rmsnorm_qkv")[-1].launches[
+        "fused_rmsnorm_qkv"] == 1
+    mlp = next(r for r in res.segments if r.name == "mlp")
+    compiled, _ = DP.aot_compile(segs[4].fn, *segs[4].args, target="mlp2")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        compiled()
+    torch.cuda.synchronize(dev)
+    host = (time.perf_counter() - t0) / 20
+    compiled.close()
+    assert 0 < mlp.device_s <= 2 * host + 1e-4
+
+
+def test_cost_count_on_the_card_charges_kernels_and_backward(dev):
+    """On the card the wrappers charge at launch, the ptt ops once, and
+    the backward's operators (on autograd's device thread) are counted
+    too."""
+    from paddle_tpu_torch.analysis import CostCounter
+    from paddle_tpu_torch.ops.kernels import costs
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((256, 256), generator=g, device=dev).bfloat16()
+    ws = [(torch.randn(s, generator=g, device=dev) * 0.05).bfloat16()
+          .requires_grad_(True) for s in ((256, 512), (256, 512), (512, 256))]
+    run = CostCounter()
+    with run:
+        y = FB.FusedMLP.apply(x, *ws)
+        torch.autograd.grad(y.float().sum(), ws)
+    assert tuple(run.by_prim["fused_mlp"][:2]) == \
+        costs.mlp(x, *ws)[:2]
+    assert run.by_prim["fused_mlp"][2] == 1
+    assert run.by_prim["aten.mm"][2] >= 4        # the backward's products
+
+
+def test_memory_monitor_reads_the_allocator(dev):
+    from paddle_tpu_torch.observability import device_profiler as DP
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+    mon = DP.DeviceMemoryMonitor(registry=MetricsRegistry(), device=dev)
+    before, _ = mon.measure()
+    keep = torch.empty((64 << 20,), dtype=torch.uint8, device=dev)
+    after, blocks = mon.measure()
+    assert after == torch.cuda.memory_allocated(dev)
+    assert after - before >= 64 << 20 and blocks > 0
+    assert any(r["shape"] == [64 << 20] for r in mon.census(top=50))
+    assert mon.sample() == torch.cuda.memory_allocated(dev)
+    del keep
+
+
+def test_roofline_of_the_card(dev, monkeypatch):
+    from paddle_tpu_torch.observability import device_profiler as DP
+    monkeypatch.delenv("PADDLE_TPU_PEAK_FLOPS", raising=False)
+    monkeypatch.delenv("PADDLE_TPU_HBM_BW", raising=False)
+    if "h100" in torch.cuda.get_device_name(dev).lower():
+        assert DP.detect_roofline(dev) == (989e12, 3.35e12)
+    else:
+        with pytest.raises(RuntimeError, match="no roofline"):
+            DP.detect_roofline(dev)
+
+
+def test_capture_leaves_the_allocator_peak(dev):
+    """A capture (``aot_compile``) measures its own pool and leaves the
+    allocator's process-wide peak as a caller's window set it."""
+    from paddle_tpu_torch.observability import device_profiler as DP
+    big = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    del big
+    peak = torch.cuda.max_memory_allocated(dev)
+    x = torch.randn(512, 512, device=dev)
+    compiled, info = DP.aot_compile(lambda a: (a @ a).relu(), x,
+                                    target="peak_kept")
+    torch.testing.assert_close(compiled(), (x @ x).relu())
+    assert info.stats.peak_bytes > 0
+    assert torch.cuda.max_memory_allocated(dev) >= peak
+    compiled.close()
+
+
+def test_train_step_compile_counts_and_arms_mfu(dev):
+    """``compile()`` on the card: the count (the first warm-up) holds the
+    kernels' charges, the record the graph and the bytes its capture's
+    pool reserved; the MFU gauge is set from a replayed step."""
+    from paddle_tpu_torch.observability import default_registry
+    cfg, model = _graph_model(dev, "bfloat16")
+    step = _graph_step(model)
+    info = step.compile(_ids(cfg, 0))
+    assert info.graph and info.stats.flops > 0
+    assert info.stats.peak_bytes > 0
+    for k in ("fused_mlp", "fused_rmsnorm_qkv", "flash_attention_fwd",
+              "multi_tensor_adam", "multi_tensor_norm"):
+        assert k in info.cost.by_prim, k
+    step(_ids(cfg, 1))
+    mfu = default_registry().get("paddle_tpu_train_mfu").value()
+    assert 0 < mfu < 1

@@ -182,10 +182,18 @@ def test_gate_takes_llama3_8b_width_where_jax_does_not():
                                          14336, "bfloat16")
 
 
-def test_measured_tier_raises(monkeypatch):
+def test_measured_tier_raises(monkeypatch, tmp_path):
+    """``measured`` no longer raises: it is a tier of its own, which
+    routes per shape from the measurement ledger (an empty one gives the
+    per-segment path; ``test_torch_measurement_ledger.py`` holds the
+    routing against JAX's); the other knob values are as before."""
     monkeypatch.setenv("PADDLE_TPU_FUSED_BLOCK", "measured")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        FB.fused_block_tier()
+    monkeypatch.setenv("PADDLE_TPU_CALIBRATION_DIR", str(tmp_path))
+    from paddle_tpu_torch.observability import calibration
+    calibration.reset()
+    assert FB.fused_block_tier() == "measured"
+    FB.clear_measured_tiers()
+    assert FB.measured_tier_for((2, 64, 256), "float32") == "segments"
     for knob in ("", "0", "1", "off", "on"):
         monkeypatch.setenv("PADDLE_TPU_FUSED_BLOCK", knob)
         assert FB.fused_block_tier() == "segments"

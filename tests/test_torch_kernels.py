@@ -209,6 +209,18 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.observability.goodput\n"
         "import paddle_tpu_torch.observability.watchdog\n"
         "import paddle_tpu_torch.observability.fleet\n"
+        "import paddle_tpu_torch.observability.device_profiler\n"
+        "import paddle_tpu_torch.observability.calibration\n"
+        "import paddle_tpu_torch.observability.demo\n"
+        "import paddle_tpu_torch.analysis\n"
+        "import paddle_tpu_torch.analysis.diagnostics\n"
+        "import paddle_tpu_torch.analysis.recompile\n"
+        "import paddle_tpu_torch.analysis.passes\n"
+        "import paddle_tpu_torch.analysis.passes.cost_model\n"
+        "import paddle_tpu_torch.profiler\n"
+        "import paddle_tpu_torch.ops.kernels.costs\n"
+        "import paddle_tpu_torch.jit.train_step\n"
+        "import paddle_tpu_torch.generation\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"
