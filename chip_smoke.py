@@ -230,6 +230,37 @@ train_moe two, one per engine or dispatch mode):
             import ms a request (CUDA events), affinity counters,
             imported against skipped blocks.
 
+14. recovery  recovery_drill (after train_gpt_graph): the JAX
+            package's MTTR drill (bench.py --recovery-drill) at GPT-2
+            medium's full size (24 layers, bf16, b=8, s=1024, AdamW with
+            fp32 masters, the step captured by TrainStep.compile): a
+            TCPStore on a free port, ranks 0 and 1 in this process (rank
+            1 mirrors rank 0's snapshot), an AutoCheckpoint in a temp dir;
+            8 steps, a peer snapshot, a checkpoint and an SDC check every
+            3, recovery.rank_kill at step 7; then a fresh captured step
+            restored from the peer snapshot and, with recovery.peer_fetch
+            armed, from disk, each resumed to step 8: losses bitwise equal
+            to the uninterrupted run's on both paths.  A train.sdc_flip on
+            one of three sentinels detected, blamed and quarantined; with
+            two, the replay breaks the tie.  multi_tensor_digest on the
+            parameters bitwise equal to its plain version and to the
+            JAX package's formula in numpy, timed beside its bound.
+            Snapshot bytes, ship and restore seconds, MTTR, checkpoint
+            write and read GB/s.
+15. cold start  cold_start (after recovery_drill): two fresh processes
+            at Llama-3-8B width, 4 of 32 layers, bf16, Serve's paged
+            engine.  A (the repo, an empty cache) runs aot_warmup, serves
+            4 prompts with 32 greedy tokens, compiles the Train-shape
+            TrainStep, bundles the weights, entries and kernel libraries,
+            and takes one step.  B (a copy of paddle_tpu_torch without
+            build/, another empty cache) loads the bundle, warms up,
+            serves, compiles and steps: 0 nvcc runs, 0 counted warm-ups,
+            0 misses, hits = A's stores, weights, tokens and the loss
+            bitwise equal to A's; then aot_warmup(cache_only=True) on a
+            third empty cache captures nothing and serves equal tokens
+            eagerly.  Seconds from process start to the first token,
+            split into build, load, capture and first step.
+
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so it does where CUDA is
@@ -239,11 +270,14 @@ missing or the package is not beside it.  Imports nothing of JAX or of
 import concurrent.futures
 import contextlib
 import ctypes
+import importlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -530,6 +564,13 @@ def norm_io(tensors):
     """The global norm: every tensor read once, two operations each."""
     return (sum(t.numel() * t.element_size() for t in tensors),
             2 * sum(t.numel() for t in tensors))
+
+
+def digest_io(tensors):
+    """The digest: every tensor read once, the per-tensor sums and the
+    digest written (4 bytes each); one integer add an element."""
+    return (sum(t.numel() * t.element_size() for t in tensors)
+            + 4 * (len(tensors) + 1), sum(t.numel() for t in tensors))
 
 
 def check_close(what, got, ref, dtype, tol=None, used=None):
@@ -4204,9 +4245,55 @@ def kernel_multi_tensor(MT, dev, timer):
         "library": "torch._foreach_norm (fp32) then the norm of those",
         "bound_ms": b, "bound_by": by}
     row["tb_per_s"] = norm_bytes / row["ms"] / 1e9
+    rows["multi_tensor_digest_train"] = kernel_digest(
+        MT, timer, params, "the Train model's 1.92 B bf16 parameters")
     del model, params, grads, masters, m, v, state
     torch.cuda.empty_cache()
     return rows
+
+
+def digest_formula(tensors):
+    """The JAX package's params_digest (recovery.py:503-520) in numpy on
+    host copies: each leaf's element bits zero-extended and summed mod
+    2^32, folded from 2166136261 by acc * 16777619 + sum."""
+    acc = 2166136261
+    for t in tensors:
+        size = t.element_size()
+        raw = t.detach().contiguous().view(
+            {1: torch.uint8, 2: torch.int16, 4: torch.int32}[size]).cpu()
+        bits = raw.numpy().view({1: np.uint8, 2: np.uint16,
+                                 4: np.uint32}[size])
+        s_ = int(bits.sum(dtype=np.uint64)) & 0xFFFFFFFF
+        acc = (acc * 16777619 + s_) & 0xFFFFFFFF
+    return acc
+
+
+def kernel_digest(MT, timer, tensors, what):
+    """multi_tensor_digest against its plain version (bitwise: integer
+    sums) and the numpy formula, timed beside the plain version and the
+    bound (bytes: every leaf read once; one integer add an element at
+    the fp32 rate).  No single PyTorch call computes it: library_ms is
+    null."""
+    got = MT.multi_tensor_digest(tensors)
+    again = MT.multi_tensor_digest(tensors)
+    ref = MT.digest_reference(tensors)
+    formula = digest_formula(tensors)
+    digest = int(got[-1]) & 0xFFFFFFFF
+    if not (torch.equal(got, ref) and torch.equal(got, again)
+            and digest == formula):
+        raise AssertionError(f"multi_tensor_digest ({what}): {digest} "
+                             f"against plain {int(ref[-1]) & 0xFFFFFFFF} "
+                             f"and the formula {formula}")
+    nbytes, n = digest_io(tensors)
+    b, by = bound_ms(nbytes, n, FP32_FLOP_PER_S)
+    row = {"shape": f"{len(tensors)} tensors, {n} elements ({what})",
+           "max_abs_err": 0.0, "bitwise": True, "digest": digest,
+           "ms": timer(lambda: MT.multi_tensor_digest(tensors)),
+           "plain_ms": timer(lambda: MT.digest_reference(tensors), iters=3,
+                             warmup=1),
+           "library_ms": None, "bound_ms": b, "bound_by": by}
+    row["tb_per_s"] = nbytes / row["ms"] / 1e9
+    return row
 
 
 # the multi-tensor update against its plain version is the same fp32
@@ -4851,6 +4938,548 @@ def train_state(dev):
     torch.cuda.empty_cache()
 
 
+# the recovery drill: JAX's bench.py --recovery-drill at GPT-2 medium's
+# full size; a snapshot, a checkpoint and an SDC check every DRILL_EVERY
+# steps, the rank killed at DRILL_KILL
+DRILL_STEPS, DRILL_KILL, DRILL_EVERY = 8, 7, 3
+
+
+def _counter_sum(name, **labels):
+    from paddle_tpu_torch.observability import default_registry
+    m = default_registry().get(name)
+    if m is None:
+        return 0.0
+    return sum(child.value() for values, child in m.series()
+               if all(dict(zip(m.labelnames, values)).get(k) == v
+                      for k, v in labels.items()))
+
+
+def _gauge(name):
+    from paddle_tpu_torch.observability import default_registry
+    return next(c.value() for _, c in default_registry().get(name).series())
+
+
+def _hist_sum(name):
+    """(sum, count) of a histogram's observations."""
+    from paddle_tpu_torch.observability import default_registry
+    m = default_registry().get(name)
+    if m is None:
+        return 0.0, 0
+    kids = [c for _, c in m.series()]
+    return sum(c._sum for c in kids), sum(c._count for c in kids)
+
+
+def recovery_drill(dev, kernels):
+    """The MTTR drill on the card (module docstring, 14).  Returns the
+    launches of the drill's path and the digest's kernel row."""
+    from paddle_tpu_torch import robustness as rob
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.distributed import checkpoint as CK
+    from paddle_tpu_torch.distributed.elastic import free_port
+    from paddle_tpu_torch.distributed.tcp_store import TCPStore
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.robustness import recovery as rec
+    cfg = GPTConfig(dtype="bfloat16", hidden_dropout_prob=0.0,
+                    attention_dropout_prob=0.0)
+
+    def batch_for(i):
+        ids = np.random.default_rng(1000 + i).integers(
+            0, cfg.vocab_size, (GPT_B, GPT_S + 1))
+        return {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+                "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+
+    def build(**kw):
+        seed(0)
+        model = GPTForCausalLM(cfg, device=dev)
+        return TrainStep(model, AdamW(learning_rate=1e-4,
+                                      multi_precision=True), **kw)
+
+    def bits(loss):
+        return loss.detach().float().cpu().numpy().tobytes()
+
+    tmp = tempfile.mkdtemp(prefix="ptt_drill_")
+    store = TCPStore("127.0.0.1", free_port(), is_master=True, world_size=2,
+                     timeout=120.0)
+    t_phase = time.perf_counter()
+    try:
+        snap = rec.PeerSnapshotter(store, rank=0, world_size=2,
+                                   interval_steps=DRILL_EVERY)
+        mirror = rec.PeerSnapshotter(store, rank=1, world_size=2,
+                                     interval_steps=DRILL_EVERY)
+        ckpt = CK.AutoCheckpoint(tmp, keep=3,
+                                 save_interval_steps=DRILL_EVERY)
+        sentinel = rec.SDCSentinel(store, rank=0, dp_peers=[0],
+                                   host="drill-h0",
+                                   interval_steps=DRILL_EVERY, timeout=5.0)
+        save0 = _hist_sum("paddle_tpu_checkpoint_save_seconds")
+        rob.inject("recovery.rank_kill", nth=DRILL_KILL, times=1)
+        kernels.reset_launch_counts()
+        victim = build(sdc_sentinel=sentinel)
+        n_params = sum(p.numel() for p in victim.params.values())
+        victim.compile(batch_for(1))
+        ref, killed_at, ship, state_s = {}, None, [], []
+        verdicts, pending = [], None
+        for i in range(1, DRILL_STEPS + 1):
+            ref[i] = bits(victim(batch_for(i)))
+            if victim.last_sdc_verdict is not None:
+                verdicts.append(victim.last_sdc_verdict["ok"])
+                victim.last_sdc_verdict = None
+            if killed_at is None and i % DRILL_EVERY == 0:
+                t0 = time.perf_counter()
+                sd = victim.state_dict()
+                state_s.append(time.perf_counter() - t0)
+                snap0 = _hist_sum("paddle_tpu_recovery_snapshot_seconds")
+                if not snap.maybe_snapshot(i, sd):
+                    raise AssertionError(f"recovery_drill: step {i}'s "
+                                         "snapshot was not shipped")
+                snap1 = _hist_sum("paddle_tpu_recovery_snapshot_seconds")
+                t0 = time.perf_counter()
+                if mirror.fetch_buddy() != i:
+                    raise AssertionError("recovery_drill: rank 1 did not "
+                                         f"mirror step {i}")
+                ship.append({"step": i, "bytes": _gauge(
+                    "paddle_tpu_recovery_snapshot_bytes"),
+                             "snapshot_s": snap1[0] - snap0[0],
+                             "mirror_s": time.perf_counter() - t0})
+                pending = ckpt.maybe_save(
+                    i, rec.flatten_for_checkpoint(sd)) or pending
+                del sd
+            if killed_at is None and rob.fault_fires("recovery.rank_kill",
+                                                     step=i):
+                killed_at = i
+        if killed_at != DRILL_KILL:
+            raise AssertionError(f"recovery_drill: the kill fired at "
+                                 f"{killed_at}, not {DRILL_KILL}")
+        t0 = time.perf_counter()
+        pending.wait(timeout=600)
+        ckpt_wait_s = time.perf_counter() - t0
+        save1 = _hist_sum("paddle_tpu_checkpoint_save_seconds")
+        write_s = (save1[0] - save0[0]) / max(1, save1[1] - save0[1])
+        del victim
+        torch.cuda.empty_cache()
+
+        # the replacement rank: built and captured before the restores
+        template = build()
+        t0 = time.perf_counter()
+        info = template.compile(batch_for(DRILL_KILL))
+        capture_s = time.perf_counter() - t0
+        paths = {}
+        for path in ("peer", "disk"):
+            if path == "disk":
+                rob.inject("recovery.peer_fetch", times=1)
+            t0 = time.perf_counter()
+            step, state, got = rec.resume_train_state(
+                store, rank=0, auto_ckpt=ckpt, device=dev)
+            restore_s = time.perf_counter() - t0
+            if got != path or step != DRILL_EVERY * (DRILL_KILL //
+                                                     DRILL_EVERY):
+                raise AssertionError(f"recovery_drill: {path} restore "
+                                     f"came from {got} at step {step}")
+            template.set_state_dict(state)
+            torch.cuda.synchronize(dev)
+            mttr = time.perf_counter() - t0
+            del state
+            t0 = time.perf_counter()
+            resumed = {}
+            for i in range(step + 1, DRILL_STEPS + 1):
+                resumed[i] = bits(template(batch_for(i)))
+                if i == step + 1:
+                    first_step_s = time.perf_counter() - t0
+            equal = all(resumed[i] == ref[i] for i in resumed)
+            if not equal:
+                raise AssertionError(
+                    f"recovery_drill: {path} resume's losses differ from the "
+                    "uninterrupted run's: " + str(
+                        {i: (np.frombuffer(resumed[i], np.float32)[0],
+                             np.frombuffer(ref[i], np.float32)[0])
+                         for i in resumed}))
+            paths[path] = {"step": step, "restore_s": restore_s,
+                           "mttr_s": mttr, "first_resumed_step_s":
+                           first_step_s, "losses_bitwise": equal,
+                           "replays": template.replays}
+        step_dir = ckpt._step_dir(paths["disk"]["step"])
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        t0 = time.perf_counter()
+        CK.load_state_dict(step_dir, device=dev)
+        torch.cuda.synchronize(dev)
+        read_s = time.perf_counter() - t0
+
+        # SDC: three sentinels, one silently corrupt; then two and a
+        # replay to break the tie
+        params = template.params
+        # (with a host leaf beside the card's parameters, as an `extra`
+        # is: still one launch each on the card)
+        trio = [rec.SDCSentinel(store, rank=r, dp_peers=[0, 1, 2],
+                                host=f"drill-h{r}", timeout=5.0)
+                for r in range(3)]
+        n0 = MT.multi_tensor_digest.launches
+        trio[0].publish(100, params, extra=100)
+        rob.inject("train.sdc_flip", times=1)
+        trio[1].publish(100, params, extra=100)
+        rob.clear_faults("train.sdc_flip")
+        trio[2].publish(100, params, extra=100)
+        trio_launches = MT.multi_tensor_digest.launches - n0
+        v3 = trio[0].verify(100)
+        duo = [rec.SDCSentinel(store, rank=r, dp_peers=[0, 1],
+                               host=f"drill-d{r}", prefix="sdc2",
+                               timeout=5.0) for r in range(2)]
+        duo[0].publish(101, params)
+        rob.inject("train.sdc_flip", times=1)
+        duo[1].publish(101, params)
+        rob.clear_faults("train.sdc_flip")
+        tie = duo[0].verify(101)
+        v2 = duo[0].verify(101, replay=lambda: rec.deterministic_replay(
+            None, lambda _: params))
+        sdc = {"detected": not v3["ok"], "blamed": v3["blamed"],
+               "quarantined": v3["quarantined"],
+               "roster": sorted(rec.quarantined_hosts(store)),
+               "tie_unattributed": tie["blamed"] == [],
+               "replay_blamed": v2["blamed"], "replayed": v2["replayed"],
+               "hook_checks": len(verdicts), "hook_ok": all(verdicts),
+               "trio_launches": trio_launches}
+        if not (sdc["detected"] and v3["blamed"] == [1]
+                and trio_launches == 3
+                and v3["quarantined"] == ["drill-h1"]
+                and rec.is_quarantined(store, "drill-h1")
+                and sdc["tie_unattributed"] and v2["blamed"] == [1]
+                and sdc["hook_checks"] == DRILL_STEPS // DRILL_EVERY
+                and sdc["hook_ok"]):
+            raise AssertionError(f"recovery_drill: SDC {sdc}")
+        launches = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+        for name in ("multi_tensor_digest", "multi_tensor_norm",
+                     "multi_tensor_adam", "cross_entropy_fwd",
+                     "cross_entropy_bwd", "flash_attention_fwd",
+                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            if launches[name] <= 0:
+                raise AssertionError(f"recovery_drill: {name} never "
+                                     "launched")
+        rob.clear_faults()
+
+        # the digest kernel at the drill's shape (these launches do not
+        # count: the counts were read above)
+        timer = Timer(dev)
+        leaves = rec.digest_leaves(params)
+        row = kernel_digest(MT, timer, leaves,
+                            "GPT-2 medium's bf16 parameters")
+        row["params_digest_equals_formula"] = \
+            rec.params_digest(params) == digest_formula(leaves)
+        del timer
+        snap_bytes = ship[-1]["bytes"]
+        emit("recovery_drill", model="gpt2_medium", params=n_params,
+             batch=[GPT_B, GPT_S], steps=DRILL_STEPS, killed_at=killed_at,
+             every=DRILL_EVERY, snapshots=ship,
+             snapshot_gb=snap_bytes / 1e9,
+             ship_gb_per_s=snap_bytes / ship[-1]["snapshot_s"] / 1e9,
+             state_dict_s=state_s, checkpoint_bytes=ckpt_bytes,
+             checkpoint_write_s=write_s,
+             checkpoint_write_gb_per_s=ckpt_bytes / write_s / 1e9,
+             checkpoint_wait_s=ckpt_wait_s,
+             checkpoint_read_s=read_s,
+             checkpoint_read_gb_per_s=ckpt_bytes / read_s / 1e9,
+             checkpoint_read_cache="warm (this process wrote the files)",
+             template_capture_s=capture_s, template_cached=info.cached,
+             peer=paths["peer"], disk=paths["disk"], sdc=sdc,
+             digest=row, launches=launches,
+             phase_s=time.perf_counter() - t_phase)
+        del template, params, leaves
+        torch.cuda.empty_cache()
+        return launches, row
+    finally:
+        rob.clear_faults()
+        store.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# cold start: Llama-3-8B width cut to COLD_LAYERS, Serve's engine, the
+# first four Serve prompts, 32 greedy tokens
+COLD_LAYERS = 4
+COLD_PROMPTS = SERVE_LENGTHS[:4]
+COLD_TIMEOUT = 600
+# the kernels each cold-start process must launch: the engine's (QKV and
+# the MLP at decode and prefill, paged decode), the training step's (flash,
+# the optimizer's two) and the weights' digest
+COLD_KERNELS = ("fused_rmsnorm_qkv", "fused_mlp", "paged_decode_attention",
+                "flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv", "multi_tensor_norm",
+                "multi_tensor_adam", "multi_tensor_digest")
+
+
+def _cache_counts():
+    return {r: _counter_sum("paddle_tpu_compile_cache_total", result=r)
+            for r in ("hit", "miss", "store", "deserialize_error")}
+
+
+def _cold_prompts(vocab):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, n) for n in COLD_PROMPTS]
+
+
+def _serve_cold(eng, prompts):
+    """Serve `prompts` (32 greedy tokens each); ``(tokens, seconds of the
+    first engine step, which samples the first token)``."""
+    rids = [eng.add_request(p, max_new_tokens=32) for p in prompts]
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    out = eng.run()
+    toks = []
+    for rid in rids:
+        if eng.request_status(rid) != "ok" or len(out[rid][1]) != 32:
+            raise AssertionError(f"cold_start: request {rid} "
+                                 f"{eng.request_status(rid)}")
+        toks.append([int(t) for t in out[rid][1]])
+    return toks, first
+
+
+def cold_child(role, bundle_dir, out_path, dev=None):
+    """One cold-start process (A or B) on `dev` (the card); writes its
+    results to `out_path` as JSON."""
+    spawn = float(os.environ["PTT_COLD_SPAWN"])
+    res = {"role": role, "import_s": time.time() - spawn}
+    from paddle_tpu_torch import compile_cache as CC
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.analysis.passes import cost_model
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.robustness.recovery import params_digest
+    counted = []
+    orig = cost_model.count_cost
+
+    def counting(*a, **kw):        # the counted warm-ups (cost model runs)
+        counted.append(1)
+        return orig(*a, **kw)
+    cost_model.count_cost = counting
+    dev = dev or torch.device("cuda", 0)
+    res["package"] = os.path.dirname(kernels.__file__)
+    t_load = time.perf_counter()
+    got = None
+    if role == "B":              # the bundle first: it holds the libraries
+        got = CC.load_bundle(bundle_dir, device=dev)
+        res["installed"] = sorted(got["installed"])
+        res["bundle_skipped"] = got["skipped"]
+        res["bundle_kernels"] = len(got["kernels"])
+    t0 = time.perf_counter()
+    res["nvcc_s"] = _build.build_all()
+    res["build_s"] = time.perf_counter() - t0
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = COLD_LAYERS
+    seed(0)
+    model = LlamaForCausalLM(cfg, device=dev)
+    if got is not None:
+        model.set_state_dict(got["state_dict"])
+        del got
+    torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t_load - res["build_s"]
+    kernels.reset_launch_counts()
+    eng = ContinuousBatchingEngine(model, **SERVE_ENGINE)
+    t0 = time.perf_counter()
+    warm = eng.aot_warmup()
+    torch.cuda.synchronize()
+    res["capture_s"] = time.perf_counter() - t0
+    res["warm_cached"] = {k: v["cached"] for k, v in warm.items()}
+    prompts = _cold_prompts(cfg.vocab_size)
+    res["tokens"], res["first_step_s"] = _serve_cold(eng, prompts)
+    res["to_first_token_s"] = time.time() - spawn   # ~ the first step's end
+    eng.close()
+    del eng
+    only = {}
+    if role == "B":
+        # a third, empty cache: cache_only captures nothing and the
+        # engine serves eagerly (before the training step moves the
+        # weights); its lookups are kept out of B's counts
+        before = _cache_counts()
+        own = os.environ["PADDLE_TPU_COMPILE_CACHE_DIR"]
+        os.environ["PADDLE_TPU_COMPILE_CACHE_DIR"] = os.environ[
+            "PTT_COLD_EMPTY_CACHE"]
+        CC.reset_memory()
+        eng = ContinuousBatchingEngine(model, **SERVE_ENGINE)
+        warm = eng.aot_warmup(cache_only=True)
+        res["cache_only"] = {k: {"eager": v.get("eager", False),
+                                 "graph": v["graph"]}
+                             for k, v in warm.items()}
+        res["cache_only_tokens"], _ = _serve_cold(eng, prompts)
+        eng.close()
+        del eng
+        only = {k: v - before[k] for k, v in _cache_counts().items()}
+        os.environ["PADDLE_TPU_COMPILE_CACHE_DIR"] = own
+        CC.reset_memory()
+    res["weights_digest"] = params_digest(
+        {n: p.detach() for n, p in model.named_parameters()})
+    step = TrainStep(model, AdamW(learning_rate=1e-4, multi_precision=True))
+    ids = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                            (TRAIN_B, TRAIN_S + 1))
+    batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+             "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+    # torch's own one-off: the first call of a torch.library custom op
+    # (the training kernels' ptt:: ops; serving's hits call none) imports
+    # torch._dynamo (torch/_compile.py), which A's counted serving
+    # warm-up has paid already; timed apart, so that the train compile
+    # compares a hit with a miss
+    t0 = time.perf_counter()
+    importlib.import_module("torch._dynamo")
+    res["dynamo_import_s"] = time.perf_counter() - t0
+    res["train_compile_s"], info, res["train_parts"] = timed_compile(
+        step, batch, CC)
+    res["train_cached"] = info.cached
+    if role == "A":
+        t0 = time.perf_counter()
+        man = CC.bundle(bundle_dir, state_dict=model.state_dict(),
+                        device=dev)
+        res["bundle_s"] = time.perf_counter() - t0
+        res["bundle_entries"] = len(man["executables"])
+        res["bundle_kernels"] = len(man["kernels"])
+    res["loss"] = step(batch).detach().float().cpu().numpy().tobytes().hex()
+    torch.cuda.synchronize()
+    res["launches"] = {fn.__name__: fn.launches for fn in kernels.KERNELS}
+    res["nvcc_runs"] = _build.nvcc_runs()
+    res["counted_warmups"] = len(counted)
+    res["compile_total"] = _counter_sum("paddle_tpu_compile_total")
+    res["cache"] = {k: v - only.get(k, 0)
+                    for k, v in _cache_counts().items()}
+    res["cache_only_counts"] = only
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def timed_compile(step, batch, CC):
+    """``step.compile(batch)``: its wall seconds, its CompileInfo, and
+    its parts: the cache lookup, the warm-ups (A: the counted one and
+    one more; B, a hit: two uncounted), each body run outside the
+    capture (synchronized), and the capture."""
+    parts = {"lookup_s": 0.0, "bodies_s": []}
+    lookup, capture, body = CC.lookup, step._capture, step._body
+
+    def timed_lookup(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return lookup(*a, **kw)
+        finally:
+            parts["lookup_s"] += time.perf_counter() - t
+
+    def timed_capture(*a, **kw):
+        out = capture(*a, **kw)
+        parts["warmup_s"], parts["capture_s"] = out[2]
+        return out
+
+    def timed_body(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return body(*a, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = body(*a, **kw)
+        torch.cuda.synchronize()
+        parts["bodies_s"].append(time.perf_counter() - t)
+        return out
+
+    CC.lookup, step._capture, step._body = \
+        timed_lookup, timed_capture, timed_body
+    try:
+        t0 = time.perf_counter()
+        info = step.compile(batch)
+        return time.perf_counter() - t0, info, parts
+    finally:
+        CC.lookup = lookup
+        del step._capture, step._body
+
+
+def _run_cold(role, script, cwd, bundle_dir, tmp, env_extra):
+    out_path = os.path.join(tmp, f"{role}.json")
+    env = dict(os.environ, PTT_COLD_SPAWN=repr(time.time()),
+               PADDLE_TPU_COMPILE_CACHE="1", **env_extra)
+    env.pop("PYTHONPATH", None)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, script, "--cold-start-child", role,
+                        bundle_dir, out_path], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=COLD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"cold_start: process {role} exited "
+                             f"{p.returncode}:\n{p.stderr[-4000:]}")
+    with open(out_path) as f:
+        res = json.load(f)
+    res["process_wall_s"] = wall
+    return res
+
+
+def cold_start():
+    """The cold start from a bundle (module docstring, 15): runs the two
+    processes, checks the gates, emits the phase; returns both
+    processes' launches."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ptt_cold_")
+    try:
+        bundle_dir = os.path.join(tmp, "bundle")
+        a = _run_cold("A", os.path.join(repo, "chip_smoke.py"), repo,
+                      bundle_dir, tmp, {"PADDLE_TPU_COMPILE_CACHE_DIR":
+                                        os.path.join(tmp, "cache_a")})
+        root = os.path.join(tmp, "copy")
+        shutil.copytree(os.path.join(repo, "paddle_tpu_torch"),
+                        os.path.join(root, "paddle_tpu_torch"),
+                        ignore=shutil.ignore_patterns("build",
+                                                      "__pycache__"))
+        shutil.copy(os.path.join(repo, "chip_smoke.py"), root)
+        b = _run_cold("B", os.path.join(root, "chip_smoke.py"), root,
+                      bundle_dir, tmp, {
+                          "PADDLE_TPU_COMPILE_CACHE_DIR":
+                              os.path.join(tmp, "cache_b"),
+                          "PTT_COLD_EMPTY_CACHE":
+                              os.path.join(tmp, "cache_c")})
+        gates = {
+            "b_from_the_copy": b["package"].startswith(root),
+            "b_nvcc_runs": b["nvcc_runs"] == 0,
+            "b_counted_warmups": b["counted_warmups"] == 0,
+            "b_compile_total": b["compile_total"] == 0,
+            "b_misses": b["cache"]["miss"] == 0
+            and b["cache"]["deserialize_error"] == 0,
+            "b_hits_equal_a_stores": b["cache"]["hit"] == a["cache"]["store"]
+            and a["cache"]["store"] > 0,
+            "b_all_cached": all(b["warm_cached"].values())
+            and b["train_cached"],
+            # the hit skips the counted warm-up: never much slower than
+            # A's miss (a hit path gone wrong would be)
+            "b_train_hit_not_slower": b["train_compile_s"]
+            <= 2 * a["train_compile_s"],
+            "weights": a["weights_digest"] == b["weights_digest"],
+            "tokens": a["tokens"] == b["tokens"],
+            "loss": a["loss"] == b["loss"],
+            "cache_only_eager": all(v["eager"] and not v["graph"]
+                                    for v in b["cache_only"].values()),
+            "cache_only_tokens": b["cache_only_tokens"] == a["tokens"],
+        }
+        for role, r in (("A", a), ("B", b)):
+            for name in COLD_KERNELS:
+                gates[f"{role}_{name}_launched"] = r["launches"][name] > 0
+        for r in (a, b):
+            r.pop("cache_only_tokens", None)
+            r["first_tokens"] = [t[:4] for t in r.pop("tokens")]
+        emit("cold_start", model="llama3_8b", layers=COLD_LAYERS,
+             prompts=COLD_PROMPTS, engine=SERVE_ENGINE,
+             train_batch=[TRAIN_B, TRAIN_S],
+             train_compile_s={"A": a["train_compile_s"],
+                              "B": b["train_compile_s"]},
+             dynamo_import_s={"A": a["dynamo_import_s"],
+                              "B": b["dynamo_import_s"]},
+             train_parts={"A": a["train_parts"], "B": b["train_parts"]},
+             A=a, B=b, gates=gates)
+        bad = [k for k, ok in gates.items() if not ok]
+        if bad:
+            raise AssertionError(f"cold_start: gates failed {bad}")
+        return {"A": a["launches"], "B": b["launches"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4989,6 +5618,9 @@ def main():
     torch.cuda.empty_cache()
     gpt_graph_launches = train_gpt_graph(dev, kernels)
     torch.cuda.empty_cache()
+    drill_launches, digest_row = recovery_drill(dev, kernels)
+    torch.cuda.empty_cache()
+    cold_launches = cold_start()
     ffn_launches = transformer_infer(dev, kernels)
     torch.cuda.empty_cache()
     norm_launches = norm_residual(dev, kernels)
@@ -5203,6 +5835,30 @@ def main():
                      "graph_launches_a_replay": {
                          "train_graph": graph_launches[name],
                          "train_gpt_graph": gpt_graph_launches[name]}})
+    # the recovery drill's digest (the SDC sentinels' check): the drill's
+    # shape, the Train model's beside it; launches from the drill and
+    # from both cold-start processes (the weights' digest)
+    r = digest_row
+    line.append({"name": "multi_tensor_digest", "route": "cuda",
+                 "source": src + "multi_tensor.cu",
+                 "replaces": "paddle_tpu/robustness/recovery.py:503",
+                 "launches": drill_launches["multi_tensor_digest"],
+                 **{k: r[k] for k in keys}, "shape": r["shape"],
+                 "path": "recovery_drill (TrainStep's SDC hook and the "
+                         "sentinels)", "bitwise": r["bitwise"],
+                 "train_shape": {
+                     **{k: mt_rows["multi_tensor_digest_train"][k]
+                        for k in keys},
+                     "shape": mt_rows["multi_tensor_digest_train"][
+                         "shape"]}})
+    # every kernel the two new paths launched, on its row
+    for entry in line:
+        w = entry["name"].removesuffix("_train").removesuffix("_fp8")
+        if drill_launches.get(w):
+            entry["launches_recovery_drill"] = drill_launches[w]
+        if cold_launches["A"].get(w) or cold_launches["B"].get(w):
+            entry["launches_cold_start"] = {
+                k: v.get(w, 0) for k, v in cold_launches.items()}
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -5212,4 +5868,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cold-start-child"]:
+        if not torch.cuda.is_available():
+            sys.exit(2)
+        cold_child(*sys.argv[2:5])
+        sys.exit(0)
     sys.exit(main())

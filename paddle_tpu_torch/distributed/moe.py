@@ -24,9 +24,9 @@ einsums, without a ``[T, k, E, C]`` intermediate.  Per-expert counts stay
 on the device, so routing costs no host sync.
 
 Waiting (``ROADMAP.md``, queue 1): the ``"ragged"``, ``"all_to_all"`` and
-``"all_to_all_index"`` dispatch modes and ``dropless=True`` (item 8)
-and the ``moe.expert_imbalance`` fault point (item 9) raise
-``NotImplementedError`` naming their item.
+``"all_to_all_index"`` dispatch modes and ``dropless=True`` (item 8) raise ``NotImplementedError`` naming their
+item.  The ``moe.expert_imbalance`` fault point biases every token's
+logits towards expert 0, as in the JAX package.
 
 After an eager routed forward the router metrics are recorded as in the
 JAX package (``moe.py:263-323``): the dropped-token and capacity-overflow
@@ -40,13 +40,13 @@ launches."""
 from __future__ import annotations
 
 import contextlib
-import os
 import threading
 from typing import Callable, Optional
 
 import torch
 
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.robustness.faults import fault_fires
 from paddle_tpu_torch.nn.layer import Layer
 from paddle_tpu_torch.ops.kernels.grouped_matmul import (GroupedExpertFFN,
                                                          record_path)
@@ -350,9 +350,6 @@ class MoELayer(Layer):
         self.router_stats = None
 
     def forward(self, x):
-        if "moe.expert_imbalance" in os.environ.get("PADDLE_TPU_FAULTS", ""):
-            raise _unported("fault point 'moe.expert_imbalance'",
-                            "ROADMAP.md, queue 1, item 9")
         B, S, d = x.shape
         T = B * S
         E = self.num_experts
@@ -360,6 +357,12 @@ class MoELayer(Layer):
         x2d = x.reshape(T, d)
         capacity = max(1, int(self.capacity_factor * k * T / E))
         logits = self.gate.logits(x2d)
+        if fault_fires("moe.expert_imbalance", experts=E):
+            # the hot-expert drill (moe.py:627-633): every token prefers
+            # expert 0; the imbalance gauge and the aux loss show the skew
+            hot = torch.zeros(E, dtype=logits.dtype, device=logits.device)
+            hot[0] = 10.0
+            logits = logits + hot
         stacked = isinstance(self.experts, ExpertFFN)
         if self.dispatch_mode == "index":
             if not stacked:

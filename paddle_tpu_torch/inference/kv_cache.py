@@ -518,11 +518,13 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _wire(a):
-    """(dtype name, shape, little-endian bytes) of a payload array."""
+    """(dtype name, shape, little-endian bytes) of a payload array; a
+    0-d array goes as shape [1], as numpy's ``ascontiguousarray`` sends
+    it in the JAX package."""
     if torch.is_tensor(a):
         t = a.detach().to("cpu").contiguous()
         raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
-        return _DTYPE_NAMES[t.dtype], list(t.shape), raw
+        return _DTYPE_NAMES[t.dtype], list(t.shape) or [1], raw
     a = np.ascontiguousarray(a)
     return str(a.dtype), list(a.shape), a.tobytes()
 

@@ -38,9 +38,10 @@ that ask for different ``quant_weights`` or ``int8_weights`` are refused
 (the JAX
 engines keep parameter dicts of their own); mixed ``quant_kv`` lives in
 each engine's own pools and is supported.  The multi-process worker
-(:class:`ReplicaWorker` and the client calls) runs over any store of the
-TCPStore contract; the TCPStore itself and :func:`main` wait (ROADMAP.md,
-queue 1, item 8).
+(:class:`ReplicaWorker` and the client calls) runs over the ported
+``distributed.tcp_store.TCPStore`` or any store of its contract; the
+worker process's launch, :func:`main`, waits (ROADMAP.md, queue 1,
+item 8).
 """
 
 from __future__ import annotations
@@ -220,10 +221,10 @@ class ServingRouter:
         self._serialize = bool(serialize_handoffs)
         self._prefill_steps = max(1, int(prefill_steps_per_poll))
         if warm_on_spawn is None:
-            # the JAX package's default: warm when its persistent compile
-            # cache is on (PADDLE_TPU_COMPILE_CACHE=1)
-            warm_on_spawn = os.environ.get("PADDLE_TPU_COMPILE_CACHE",
-                                           "0") == "1"
+            # warm when the persistent compile cache is on (router.py:
+            # 254-255): a spawned replica's programs come from it
+            from paddle_tpu_torch import compile_cache
+            warm_on_spawn = compile_cache.enabled()
         self._warm_on_spawn = bool(warm_on_spawn)
         self._autoscaler = autoscaler
         if autoscaler is not None:
@@ -1300,11 +1301,12 @@ def fetch_result(store, worker_id: str, seq: int) -> Optional[dict]:
 
 def main(argv=None) -> int:
     """``python -m paddle_tpu_torch.inference.router --store host:port
-    --role decode|prefill``: one replica worker bound to a TCPStore,
-    which is not ported yet, so it raises."""
+    --role decode|prefill``: one replica worker process bound to a
+    TCPStore.  The store is ported (``distributed/tcp_store.py``); the
+    worker process's launch is not yet, so it raises."""
     raise NotImplementedError(
-        "the replica worker over a TCPStore: the TCPStore is not ported "
-        "yet (ROADMAP.md, queue 1, item 8); drive ReplicaWorker over a "
+        "the replica worker process is not ported yet (ROADMAP.md, queue "
+        "1, item 8); drive ReplicaWorker in-process over a TCPStore or a "
         "LocalStore-contract store instead")
 
 

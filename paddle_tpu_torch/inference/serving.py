@@ -65,9 +65,16 @@ QKV / MLP kernels are bypassed; the embedding gathers int8 rows.  JAX
 rounds the dequantized weight to the model dtype before its product;
 the kernel takes the scale on the fp32 sum (ROADMAP.md, queue 3).
 
-Not ported yet — each raises ``NotImplementedError``: program analysis
-(ROADMAP.md, queue 1, item 10) and the persistent compile cache behind
-``aot_warmup(cache_only=True)`` (the rest of item 9)."""
+The persistent compile cache (``compile_cache.py``): with
+``PADDLE_TPU_COMPILE_CACHE=1`` every program of :meth:`aot_warmup` goes
+through ``compile_static_cached`` (a hit captures without the counted
+warm-up); ``aot_warmup(cache_only=True)`` captures the hits only, and a
+program that misses keeps running eagerly (JAX leaves it to ``jit``).
+``_recover`` re-warms that way when the cache is on, and never fails the
+recovery for it.
+
+Not ported yet — raises ``NotImplementedError``: program analysis
+(ROADMAP.md, queue 1, item 10)."""
 
 from __future__ import annotations
 
@@ -87,7 +94,6 @@ from paddle_tpu_torch.inference.kv_cache import (BlockAllocator,
                                                  paged_kv_enabled,
                                                  quant_kv_mode)
 from paddle_tpu_torch.jit.static_graph import StaticGraph
-from paddle_tpu_torch.observability.device_profiler import compile_static
 from paddle_tpu_torch.observability import (DEFAULT_BUCKETS,
                                             default_registry,
                                             flight_recorder)
@@ -484,6 +490,7 @@ class ContinuousBatchingEngine:
         # aot_warmup's programs by JAX target name; once warmed, a
         # program that was not captured raises instead of running eagerly
         self._graphs: Dict[str, StaticGraph] = {}
+        self._eager: set = set()     # cache_only misses: run eagerly
         self._warmed = False
 
         self._pos = np.zeros((slots,), np.int32)       # next write row
@@ -629,7 +636,7 @@ class ContinuousBatchingEngine:
             g = self._graphs.get(target)
             if g is not None:
                 return g(**arrays)
-            if self._warmed:
+            if self._warmed and target not in self._eager:
                 raise RuntimeError(
                     f"{target} was not captured by aot_warmup (captured: "
                     f"{sorted(self._graphs)})")
@@ -669,12 +676,16 @@ class ContinuousBatchingEngine:
         ``paddle_tpu_compile_total{target}`` and the FLOPs / bytes /
         peak gauges (``device_profiler.compile_static``: the first
         warm-up counted by the cost model; ``serving.insert``, which has
-        no warm-up, is not counted)."""
-        if cache_only:
-            raise NotImplementedError(
-                "aot_warmup(cache_only=True): the persistent compile "
-                "cache is not ported yet (ROADMAP.md, queue 1, the rest "
-                "of item 9)")
+        no warm-up, is not counted).
+
+        With the persistent compile cache on, each program is looked up
+        first (``compile_cache.compile_static_cached``): a hit captures
+        without the counted warm-up and without moving the compile
+        counter (``"cached": True`` in its stats), a miss compiles and
+        stores its recipe.  ``cache_only=True`` captures the hits only: a
+        program that misses is marked eager (``"eager": True``) and runs
+        eagerly from then on; with the cache off every program is."""
+        from paddle_tpu_torch.compile_cache import compile_static_cached
         self._drop_graphs()
         B, dev = self.slots, self._device
         gen = self._gen if self._gen_cfg.do_sample else None
@@ -684,14 +695,24 @@ class ContinuousBatchingEngine:
         def zeros(shape, dtype, fill=0):
             return torch.full(shape, fill, dtype=dtype, device=dev)
 
+        extra = self._cache_extra()
+
         def warm(target, body, inputs, warmup=1):
-            g, info = compile_static(body, inputs, target, generator=gen,
-                                     warmup=warmup,
-                                     what=f"aot_warmup {target}")
+            t0 = time.perf_counter()
+            g, info, hit = compile_static_cached(
+                body, inputs, target, generator=gen, warmup=warmup,
+                extra=extra, cache_only=cache_only,
+                what=f"aot_warmup {target}")
+            if g is None:           # a cache_only miss: runs eagerly
+                self._eager.add(target)
+                stats[target] = {"seconds": time.perf_counter() - t0,
+                                 "graph": False, "launches": {},
+                                 "cached": False, "eager": True}
+                return
             self._graphs[target] = g
             stats[target] = {"seconds": info.total_s,
                              "graph": g.graph is not None,
-                             "launches": dict(g.launches)}
+                             "launches": dict(g.launches), "cached": hit}
 
         try:
             with torch.inference_mode():
@@ -746,7 +767,22 @@ class ContinuousBatchingEngine:
         for g in self._graphs.values():
             g.close()
         self._graphs = {}
+        self._eager = set()
         self._warmed = False
+
+    def _cache_extra(self) -> str:
+        """Compile-cache key discriminators the inputs' signature cannot
+        see (``serving.py:804-817``): sampling config, steps a sync, the
+        engine's modes and the model config."""
+        from paddle_tpu_torch import compile_cache
+        gc = self._gen_cfg
+        return (f"model={compile_cache.model_config_tag(self.model)}"
+                f"|gc={gc.do_sample}:{gc.temperature}:{gc.top_k}"
+                f":{gc.top_p}|K={self.steps_per_sync}"
+                f"|int8={int(self.int8)}|paged={int(self.paged)}"
+                f"|spec={self.spec_tokens}"
+                f"|qw={self.quant_mode or '-'}"
+                f"|qkv={self.kv_quant or '-'}")
 
     # -- public API ----------------------------------------------------------
     def add_request(self, prompt_ids, max_new_tokens: int = 64,
@@ -1808,6 +1844,16 @@ class ContinuousBatchingEngine:
         self._pos[:] = 0
         self._budget[:] = 0
         self._last_tok[:] = 0
+        # the restart-after-fault cold start (serving.py:2086-2100): with
+        # the persistent cache on, programs come back from it (cache_only:
+        # a miss stays eager, nothing is compiled here); never allowed to
+        # fail the recovery
+        try:
+            from paddle_tpu_torch import compile_cache
+            if compile_cache.enabled():
+                self.aot_warmup(cache_only=True)
+        except Exception:
+            pass
         if self._error_streak >= self._max_consecutive_errors:
             raise exc
 

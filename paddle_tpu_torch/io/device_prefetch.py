@@ -13,8 +13,13 @@ still reads it.  On the CPU a batch is converted to tensors.
     for batch in device_prefetch(loader, depth=2):
         loss = step(batch)
 
+Telemetry (``io/device_prefetch.py:17-60``): ``paddle_tpu_prefetch_depth``
+(a pull gauge: the batches buffered now) and
+``paddle_tpu_prefetch_batches_total``; each placement runs under a
+``prefetch.place`` span on the constructing thread's trace.
+
 ``sharding=`` / ``mesh=`` (sharded placement) wait for meshes
-(ROADMAP.md, queue 1, item 8); the prefetch metrics wait for item 9."""
+(ROADMAP.md, queue 1, item 8)."""
 
 from __future__ import annotations
 
@@ -28,6 +33,20 @@ import torch
 from paddle_tpu_torch.core.state import resolve_device
 
 __all__ = ["DevicePrefetchIterator", "device_prefetch", "as_tensor"]
+
+
+def _prefetch_metrics():
+    from paddle_tpu_torch.observability import default_registry
+    reg = default_registry()
+    return {
+        "depth": reg.gauge(
+            "paddle_tpu_prefetch_depth",
+            "device-resident batches currently buffered ahead of the "
+            "training loop"),
+        "batches": reg.counter(
+            "paddle_tpu_prefetch_batches_total",
+            "batches moved host→device by the prefetch thread"),
+    }
 
 
 def _map(fn, batch):
@@ -76,6 +95,13 @@ class DevicePrefetchIterator:
         self._stop = threading.Event()
         self._exc: Optional[BaseException] = None
         self._done = False
+        self._metrics = _prefetch_metrics()
+        self._metrics["depth"].set_function(self._q.qsize)
+        # the constructing thread's span context, so the placements
+        # traced on the background thread stay in the caller's trace
+        from paddle_tpu_torch.observability.tracing import tracer
+        self._tracer = tracer()
+        self._ctx = self._tracer.current_context()
         self._thread = threading.Thread(target=self._worker, args=(src,),
                                         daemon=True,
                                         name="paddle_tpu_torch-prefetch")
@@ -95,18 +121,8 @@ class DevicePrefetchIterator:
     def _worker(self, src):
         it = iter(src)
         try:
-            for item in it:
-                if self._stop.is_set():
-                    break
-                placed = self._place(item)
-                while not self._stop.is_set():
-                    try:
-                        self._q.put(placed, timeout=0.05)
-                        break
-                    except queue.Full:
-                        continue
-                else:
-                    break
+            with self._tracer.attach(self._ctx):
+                self._worker_loop(it)
         except BaseException as e:     # handed to the consumer
             self._exc = e
         finally:
@@ -122,6 +138,22 @@ class DevicePrefetchIterator:
                 except queue.Full:
                     if self._stop.is_set():
                         break
+
+    def _worker_loop(self, it):
+        for item in it:
+            if self._stop.is_set():
+                break
+            with self._tracer.span("prefetch.place", root_eligible=False):
+                placed = self._place(item)
+            self._metrics["batches"].inc()
+            while not self._stop.is_set():
+                try:
+                    self._q.put(placed, timeout=0.05)
+                    break
+                except queue.Full:
+                    continue
+            else:
+                break
 
     def __iter__(self) -> Iterator:
         return self

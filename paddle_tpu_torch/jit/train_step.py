@@ -63,9 +63,27 @@ included) over the step's seconds times the device's peak
 does not know leaves the gauge unset, with one
 ``train.mfu_unavailable`` recorder event).
 
+The persistent compile cache (``compile_cache.py``,
+``PADDLE_TPU_COMPILE_CACHE=1``): :meth:`TrainStep.compile` looks the
+step up under its batch signature and :meth:`_cache_extra` (the JAX
+package's string) first; a hit captures the step without the counted
+warm-up and returns ``CompileInfo(cached=True)`` with the entry's stats,
+a miss compiles and stores the recipe.  The first plain call of a step
+never compiled probes the cache the same way (``cache_only``): a hit
+captures, a miss leaves the call eager.
+
+``sdc_sentinel=`` (``robustness.recovery.SDCSentinel``) publishes and
+verifies the parameters' digest every ``sdc_check_interval`` calls
+(default: the sentinel's interval), reading the parameters in place on
+the card (one ``multi_tensor_digest`` launch); the verdict is
+``last_sdc_verdict``.
+
+Restoring a state (:meth:`set_state_dict`) copies into the step's own
+tensors and the device generator, so a captured graph stays valid and a
+restored step continues bit for bit.
+
 Meshes, ``param_specs`` and ``shardings`` wait (ROADMAP.md, queue 1,
-item 8); the persistent compile cache waits for the next part of item
-9."""
+item 8)."""
 
 from __future__ import annotations
 
@@ -254,7 +272,8 @@ class TrainStep:
                  max_consecutive_skips: Optional[int] = None,
                  accum_steps: int = 1, remat: bool = False,
                  remat_policy: Optional[str] = None, mesh=None,
-                 param_specs=None, shardings=None):
+                 param_specs=None, shardings=None, sdc_sentinel=None,
+                 sdc_check_interval: Optional[int] = None):
         if mesh is not None or param_specs is not None or \
                 shardings is not None:
             raise NotImplementedError(
@@ -274,12 +293,24 @@ class TrainStep:
         if max_consecutive_skips < 1:
             raise ValueError("max_consecutive_skips must be >= 1, got "
                              f"{max_consecutive_skips}")
+        # the SDC sentinel hook (train_step.py:414-426)
+        if sdc_check_interval is None:
+            sdc_check_interval = getattr(sdc_sentinel, "interval", 1) \
+                if sdc_sentinel is not None else 0
+        if sdc_sentinel is not None and int(sdc_check_interval) < 1:
+            raise ValueError("sdc_check_interval must be >= 1, got "
+                             f"{sdc_check_interval}")
+        self._sdc_sentinel = sdc_sentinel
+        self._sdc_interval = int(sdc_check_interval or 0)
+        self.last_sdc_verdict = None
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self._accum_steps = int(accum_steps)
         self._remat = bool(remat)
         self._remat_policy = remat_policy or "nothing"
+        self._remat_policy_name = remat_policy
+        self._cache_probed = False
         self._guard_nonfinite = bool(guard_nonfinite)
         self._max_skips = int(max_consecutive_skips)
         self._skip_streak = 0
@@ -427,6 +458,8 @@ class TrainStep:
     def _call_traced(self, batch):
         if fault_fires("train.nonfinite_batch", step=self._host_steps):
             batch = _map(_poison, batch)
+        if self._sig is None and not self._cache_probed:
+            self._probe_compile_cache(batch)
         self._lr.fill_(self.optimizer.get_lr())
         replay = self._sig is not None and _signature(batch) == self._sig
         with self._tracer.span("train.h2d"):
@@ -497,6 +530,13 @@ class TrainStep:
             self._memmon.sample(step=self._host_steps, device=self._device)
         if c == 0:
             self.step_count += 1
+        # the SDC sentinel's cadence: publish this rank's digest and
+        # judge it against the peers' (a bounded wait)
+        if self._sdc_sentinel is not None and \
+                self._host_steps % self._sdc_interval == 0:
+            self._sdc_sentinel.publish(self._host_steps, self.params)
+            self.last_sdc_verdict = self._sdc_sentinel.verify(
+                self._host_steps)
         self._account_skip(c)
         return loss
 
@@ -543,6 +583,20 @@ class TrainStep:
                 "unchanged since the last finite step")
 
     # -- compile -------------------------------------------------------------------
+    def _cache_extra(self) -> str:
+        """Compile-cache key discriminators the batch signature cannot
+        see (``train_step.py:583-595``): the step's config and the model
+        config."""
+        from paddle_tpu_torch import compile_cache
+        lf = getattr(self.loss_fn, "__name__", repr(self.loss_fn)) \
+            if self.loss_fn is not None else ""
+        return (f"model={compile_cache.model_config_tag(self.model)}"
+                f"|opt={type(self.optimizer).__name__}"
+                f"|loss={lf}|accum={self._accum_steps}"
+                f"|remat={int(self._remat)}:{self._remat_policy_name}"
+                f"|guard={int(self._guard_nonfinite)}"
+                f"|ovl=0")
+
     def compile(self, batch) -> CompileInfo:
         """Fix this batch signature: later calls whose batch matches it
         copy the batch into static buffers and run the step on them.  On
@@ -558,32 +612,59 @@ class TrainStep:
         up, ``compile.xla`` captures.  Returns the
         :class:`~paddle_tpu_torch.observability.device_profiler.
         CompileInfo`, recorded under the target ``TrainStep(<model
-        class>)`` with the compile counter and gauges moved."""
+        class>)`` with the compile counter and gauges moved.  With the
+        persistent compile cache on, a hit skips the count (its stats
+        come from the entry; ``cached=True``, the compile counter
+        unmoved) and a miss stores the recipe."""
+        return self._compile(batch)
+
+    def _compile(self, batch, cache_only: bool = False
+                 ) -> Optional[CompileInfo]:
+        from paddle_tpu_torch import compile_cache
         target = f"TrainStep({type(self.model).__name__})"
         placed = self._place_batch(batch)
+        signature = signature_of(placed)
+        key = entry = None
+        t_hit = time.perf_counter()
+        if compile_cache.enabled():
+            key = compile_cache.cache_key(target, signature,
+                                          extra=self._cache_extra(),
+                                          device=self._device)
+            entry = compile_cache.lookup(key, target=target,
+                                         device=self._device)
+        if entry is None and cache_only:
+            return None
         self._graph = self._static_out = self._sig = None
         self._graph_tables = []
         self._static_batch = _map(lambda t: t.clone(), placed)
         sig = _signature(placed)
         self._lr.fill_(self.optimizer.get_lr())
         tr = self._tracer
+        counted = entry is None
         with tr.span("train.compile", target=target), \
                 tr.span("compile", target=target):
             if self._device.type == "cuda":
-                launches, run, times, peak = self._capture(target)
+                launches, run, times, peak = self._capture(target, counted)
             else:
                 t0 = time.perf_counter()
                 with tr.span("compile.lower", target=target):
-                    run = self.count_cost(self._static_batch)
+                    run = self.count_cost(self._static_batch) if counted \
+                        else None
                 with tr.span("compile.xla", target=target):
                     pass
                 launches, peak = {}, 0
                 times = (time.perf_counter() - t0, 0.0)
         self._sig = sig
-        self._step_flops = float(run.total_flops) or None
         self._peak_flops = self._resolve_peak(target)
+        if not counted:
+            info = compile_cache.hit_info(
+                target, signature, entry, time.perf_counter() - t_hit,
+                self._graph is not None, launches)
+            self._step_flops = float(info.stats.flops) or None
+            return info
+        self._step_flops = float(run.total_flops) or None
         info = CompileInfo(
-            target=target, signature=signature_of(placed),
+            target=target, signature=signature,
             lower_s=times[0], compile_s=times[1],
             stats=ExecutableStats(flops=float(run.total_flops),
                                   bytes_accessed=float(run.total_bytes),
@@ -591,7 +672,26 @@ class TrainStep:
             graph=self._graph is not None, launches=launches,
             cost=run.summary())
         observe_compile(info)
+        if key is not None:
+            compile_cache.store(key, info, target=target,
+                                signature=signature,
+                                extra=self._cache_extra(),
+                                device=self._device)
         return info
+
+    def _probe_compile_cache(self, batch):
+        """The first plain call of a step never compiled: with the cache
+        on, a hit for this batch signature captures the step, which the
+        call then replays; a miss leaves the call eager.  Failures never
+        escape (a stale cache must not break a boot)."""
+        self._cache_probed = True
+        try:
+            from paddle_tpu_torch import compile_cache
+            if compile_cache.enabled():
+                self._compile(batch, cache_only=True)
+        except Exception:
+            self._graph = self._static_out = self._sig = None
+            self._graph_tables = []
 
     def _resolve_peak(self, target) -> Optional[float]:
         """The MFU gauge's denominator: the device's peak FLOP/s, or None
@@ -620,10 +720,11 @@ class TrainStep:
             gen.set_state(rng)
         return run
 
-    def _capture(self, target):
-        """Count, warm up and capture the body on the card: ``(launches a
-        replay makes, the count, (lower seconds, capture seconds), the
-        bytes the capture's memory pool reserved)``."""
+    def _capture(self, target, counted: bool = True):
+        """Count (unless `counted` is False: a compile-cache hit), warm
+        up and capture the body on the card: ``(launches a replay makes,
+        the count or None, (lower seconds, capture seconds), the bytes
+        the capture's memory pool reserved)``."""
         dev = self._device
         tr = self._tracer
         gen = _state.generator(dev)
@@ -633,8 +734,9 @@ class TrainStep:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                run = self.count_cost(self._static_batch)
-                for _ in range(_WARMUP - 1):
+                run = self.count_cost(self._static_batch) if counted \
+                    else None
+                for _ in range(_WARMUP - counted):
                     self._body(self._static_batch, apply=False)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
@@ -710,9 +812,13 @@ class TrainStep:
         for n, p in self._named:
             copy_into(p, state["params"][n], n)
             self.optimizer._load_state(p, n, state["opt_state"][n])
-        self.step_count = int(np.asarray(state["step"]))
+        step = state["step"]
+        self.step_count = int(step.item() if torch.is_tensor(step) else
+                              np.asarray(step))
         self._count.fill_(self.step_count)
         key = state.get("rng_key")
+        if torch.is_tensor(key):
+            key = key.detach().to("cpu").numpy()
         if key is not None and np.asarray(key).dtype == np.uint8:
             _state.generator(self._device).set_state(
                 torch.from_numpy(np.array(key, dtype=np.uint8)))

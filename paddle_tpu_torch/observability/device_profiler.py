@@ -225,8 +225,10 @@ class CompileInfo:
     seconds (``lower_s``: the count and the warm-up; ``compile_s``: the
     capture) and the program's :class:`ExecutableStats`; whether a CUDA
     graph was captured and the kernel launches one replay makes, by
-    wrapper.  ``cached`` is the JAX package's persistent-cache hit flag
-    (always False: the port has no persistent cache yet)."""
+    wrapper.  ``cached`` is the persistent compile cache's hit flag
+    (``compile_cache.py``: the program was captured from its entry,
+    without the counted warm-up; ``compile_s`` is the load-and-capture
+    wall time)."""
 
     target: str
     signature: str

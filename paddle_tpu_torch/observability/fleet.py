@@ -1,9 +1,9 @@
 """Fleet observability plane — cross-process metric federation, stitched
 multi-host traces, and the fleet table (a copy of
-``paddle_tpu/observability/fleet.py``).  The TCPStore behind
-:func:`_connect_store` and the CLI is not ported yet (ROADMAP.md, queue
-1, item 8): both raise; :class:`LocalStore` and any store object with
-the same contract work.
+``paddle_tpu/observability/fleet.py``).  :func:`_connect_store` and the
+CLI connect to the ported TCPStore (``distributed/tcp_store.py``);
+:class:`LocalStore` and any store object with the same contract work
+too.
 
 Everything built in the observability package so far is per-process: N
 replicas means N ``/metrics`` ports, N span rings, and no single answer
@@ -791,13 +791,27 @@ class FleetAggregator:
 
 
 # -- env / CLI ---------------------------------------------------------------
+def _parse_store_addr(addr: str) -> Tuple[str, int]:
+    addr = addr.strip()
+    if ":" in addr:
+        host, port = addr.rsplit(":", 1)
+        return host or "127.0.0.1", int(port)
+    return "127.0.0.1", int(addr)
+
+
 def _connect_store(addr: Optional[str]):
-    """A client of the TCPStore at `addr`: not ported yet, so it raises
-    (the fleet plane runs over :class:`LocalStore` or any store object
-    with its contract)."""
-    raise NotImplementedError(
-        f"fleet store {addr!r}: the TCPStore is not ported yet (ROADMAP.md,"
-        " queue 1, item 8); pass a LocalStore-contract store instead")
+    """A client of the TCPStore at `addr` (``host:port``; empty or a
+    truthy flag reads ``PADDLE_ELASTIC_STORE`` / ``PADDLE_STORE_PORT``)."""
+    if not addr or addr in ("1", "true", "yes"):
+        addr = os.environ.get("PADDLE_ELASTIC_STORE") \
+            or os.environ.get("PADDLE_STORE_PORT")
+    if not addr:
+        raise RuntimeError(
+            "no fleet store address: pass host:port (or set "
+            "PADDLE_TPU_FLEET_METRICS / PADDLE_ELASTIC_STORE)")
+    host, port = _parse_store_addr(str(addr))
+    from paddle_tpu_torch.distributed.tcp_store import TCPStore
+    return TCPStore(host, port, is_master=False)
 
 
 _ENV_PUBLISHER: Optional[MetricsPublisher] = None

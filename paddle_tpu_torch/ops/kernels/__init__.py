@@ -15,6 +15,7 @@ from paddle_tpu_torch.ops.kernels.fused_block import (GEMM_PATHS,
                                                       fused_rmsnorm_qkv)
 from paddle_tpu_torch.ops.kernels.grouped_matmul import grouped_expert_ffn
 from paddle_tpu_torch.ops.kernels.multi_tensor import (multi_tensor_adam,
+                                                       multi_tensor_digest,
                                                        multi_tensor_norm)
 from paddle_tpu_torch.ops.kernels.paged_attention import (
     PAGED_PATHS, paged_decode_attention, paged_decode_attention_int8)
@@ -34,13 +35,14 @@ from paddle_tpu_torch.ops.kernels.rmsnorm import fused_rmsnorm
 # cache-free scoring forward runs the block kernel alone; and
 # F.rms_norm_residual (the residual rmsnorm); and every training step's
 # optimizer with Adam or AdamW: the two multi-tensor kernels (the gradient
-# norm and the update), once a step each
+# norm and the update), once a step each; the SDC sentinel's parameter
+# digest (robustness/recovery.py), once a check
 KERNELS = (fused_rmsnorm_qkv, fused_mlp, paged_decode_attention,
            paged_decode_attention_int8, _qm.quant_matmul,
            flash_attention_fwd, flash_attention_bwd_dq,
            flash_attention_bwd_dkv, grouped_expert_ffn, cross_entropy_fwd,
            cross_entropy_bwd, fused_ffn, fused_rmsnorm, fused_decoder_block,
-           multi_tensor_norm, multi_tensor_adam)
+           multi_tensor_norm, multi_tensor_adam, multi_tensor_digest)
 SERVING = (fused_rmsnorm_qkv, fused_mlp, paged_decode_attention)
 SERVING_QUANT = (_qm.quant_matmul, paged_decode_attention_int8)
 MULTI_TENSOR = (multi_tensor_norm, multi_tensor_adam)
@@ -79,7 +81,8 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "paged_decode_attention",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "grouped_expert_ffn", "cross_entropy_fwd", "cross_entropy_bwd",
            "fused_ffn", "fused_rmsnorm", "fused_decoder_block",
-           "multi_tensor_norm", "multi_tensor_adam", "KERNELS", "SERVING",
-           "SERVING_QUANT", "MULTI_TENSOR", "TRAINING", "TRAINING_MOE",
+           "multi_tensor_norm", "multi_tensor_adam", "multi_tensor_digest",
+           "KERNELS", "SERVING", "SERVING_QUANT", "MULTI_TENSOR",
+           "TRAINING", "TRAINING_MOE",
            "TRAINING_GPT", "TRANSFORMER", "DECODER_TRAINING",
            "DECODER_SCORING", "NORM", "reset_launch_counts"]

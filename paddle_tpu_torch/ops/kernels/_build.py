@@ -8,6 +8,16 @@ first use, from the sources in this directory alone, into
 hash of its sources and flags is reused.  All sources build at once, one
 ``nvcc`` each, started together.
 
+With the persistent compile cache on (``PADDLE_TPU_COMPILE_CACHE=1``,
+``compile_cache.py``) a library missing from ``build/`` is looked for in
+``<cache dir>/kernels/`` under :func:`library_key` (its sources, flags
+and the nvcc version) before nvcc runs, and a library built, or found in
+``build/``, is stored there: a bundle carries them, and a process that
+installed one runs no nvcc.  Each cached library has the sha256 of its
+bytes beside it (``<library>.sha256``); one whose bytes do not match, or
+one that fails to load, is unlinked and rebuilt by nvcc.
+:data:`NVCC_RUNS` counts the nvcc compiles this process started.
+
 Every C entry point takes its pointers and the stream as ``c_void_p`` and
 returns the CUDA error of its launch, which :func:`check` raises on."""
 
@@ -29,7 +39,8 @@ import torch
 
 __all__ = ["library", "build_all", "ptxas_report", "parse_ptxas", "check",
            "stream_of", "tickets", "workspace", "frozen", "sm_count",
-           "charge", "plain",
+           "charge", "plain", "library_key", "nvcc_version", "nvcc_runs",
+           "file_sha256", "verified", "store_library",
            "DTYPE_CODES",
            "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR"]
 
@@ -94,6 +105,7 @@ _SIGNATURES = {
         "ptt_mt_norm": [_P, _I, _L, _P, _P, _P, _P],
         "ptt_mt_adam": [_P, _I, _L, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P,
                         _P, _P],
+        "ptt_mt_digest": [_P, _I, _L, _L, _P, _P, _P, _P],
     },
     "grouped_matmul": {
         "ptt_grouped_ffn_up": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -125,42 +137,151 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _source_hash(name: str) -> str:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_source_hash(name)[:16]}.so"
+
+
+NVCC_RUNS = 0           # nvcc compiles this process started
+_NVCC_VERSION: List[str] = []
+
+
+def nvcc_runs() -> int:
+    return NVCC_RUNS
+
+
+def nvcc_version() -> str:
+    """``nvcc --version``'s last line (its build), once a process;
+    ``"none"`` where there is no nvcc."""
+    if not _NVCC_VERSION:
+        try:
+            out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                                 text=True, timeout=60).stdout
+            lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+            _NVCC_VERSION.append(lines[-1] if lines else "unknown")
+        except (RuntimeError, OSError, subprocess.SubprocessError):
+            _NVCC_VERSION.append("none")
+    return _NVCC_VERSION[0]
+
+
+def library_key(name: str) -> str:
+    """What names library `name` in the persistent cache: the hash of its
+    sources, the flags and the nvcc version."""
+    h = hashlib.sha256(_source_hash(name).encode())
+    h.update(nvcc_version().encode())
+    return h.hexdigest()[:16]
+
+
+def _cache_dir():
+    """``<compile cache dir>/kernels`` when the persistent cache is on."""
+    from paddle_tpu_torch import compile_cache
+    if not compile_cache.enabled():
+        return None
+    return Path(compile_cache.cache_dir()) / "kernels"
+
+
+def _cached(name: str, root: Path) -> Path:
+    return root / f"lib{name}-{library_key(name)}.so"
+
+
+def _copy(src: Path, dst: Path):
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+    shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
+
+
+def file_sha256(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _sidecar(lib: Path) -> Path:
+    return lib.with_name(lib.name + ".sha256")
+
+
+def verified(lib) -> bool:
+    """Whether cached library `lib` exists and its bytes match the sha256
+    recorded beside it."""
+    lib = Path(lib)
+    try:
+        return _sidecar(lib).read_text().strip() == file_sha256(lib)
+    except OSError:
+        return False
+
+
+def store_library(src, dst, sha256: str = ""):
+    """Copy library `src` to `dst` in a cache with its sha256 beside it
+    (`sha256` when the caller has checked it already)."""
+    dst = Path(dst)
+    _copy(Path(src), dst)
+    side = _sidecar(dst)
+    tmp = side.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_text(sha256 or file_sha256(dst))
+    os.replace(tmp, side)
+
+
+def _discard(lib: Path):
+    lib.unlink(missing_ok=True)
+    _sidecar(lib).unlink(missing_ok=True)
 
 
 def build_all() -> float:
     """Compile every source whose library is missing, all in parallel;
-    returns the wall seconds spent (0.0 when everything was cached).
-    A failed compile raises with nvcc's output."""
-    todo = [(n, _target(n)) for n in SOURCES if not _target(n).exists()]
-    if not todo:
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    procs = []
-    for name, out in todo:
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    errors = []
-    for name, out, tmp, p in procs:
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            errors.append(f"{name}.cu:\n{log.decode(errors='replace')}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)    # atomic: concurrent builds agree
-    seconds = time.perf_counter() - t0
-    if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    returns the wall seconds nvcc took (0.0 when every library was built
+    or cached).  With the compile cache on, libraries come from it first
+    and every library ends up in it.  A failed compile raises with
+    nvcc's output."""
+    global NVCC_RUNS
+    cache = _cache_dir()
+    todo = []
+    for n in SOURCES:
+        out = _target(n)
+        if not out.exists() and cache is not None:
+            if verified(_cached(n, cache)):
+                _copy(_cached(n, cache), out)
+            else:
+                _discard(_cached(n, cache))
+        if not out.exists():
+            todo.append((n, out))
+    seconds = 0.0
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        procs = []
+        for name, out in todo:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+            NVCC_RUNS += 1
+        errors = []
+        for name, out, tmp, p in procs:
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{name}.cu:\n{log.decode(errors='replace')}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)    # atomic: concurrent builds agree
+        seconds = time.perf_counter() - t0
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    if cache is not None:
+        for n in SOURCES:
+            if not verified(_cached(n, cache)):
+                store_library(_target(n), _cached(n, cache))
     return seconds
 
 
@@ -230,7 +351,17 @@ def library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         build_all()
-        lib = ctypes.CDLL(str(_target(name)))
+        try:
+            lib = ctypes.CDLL(str(_target(name)))
+        except OSError:
+            # a damaged library (a truncated copy, say): rebuilt by nvcc,
+            # counted, or this raises
+            _discard(_target(name))
+            cache = _cache_dir()
+            if cache is not None:
+                _discard(_cached(name, cache))
+            build_all()
+            lib = ctypes.CDLL(str(_target(name)))
         for fn, argtypes in _SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes

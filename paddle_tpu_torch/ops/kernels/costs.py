@@ -13,7 +13,8 @@ from __future__ import annotations
 
 __all__ = ["qkv", "mlp", "ffn", "paged", "quant_matmul", "flash_fwd",
            "flash_dq", "flash_dkv", "ce_fwd", "ce_bwd", "rmsnorm",
-           "grouped", "decoder", "mt_norm", "mt_adam", "MT_OPS"]
+           "grouped", "decoder", "mt_norm", "mt_adam", "mt_digest",
+           "MT_OPS"]
 
 # fp32 operations a parameter of the multi-tensor update: the clip's
 # multiply, the two moments (6), both bias corrections (2), sqrt, eps,
@@ -163,3 +164,11 @@ def mt_adam(params, grads, masters):
                      + (8 if ma is not None else p.element_size()))
         for p, g, ma in zip(params, grads, masters))
     return MT_OPS * n, nbytes, False
+
+
+def mt_digest(tensors):
+    """Every leaf read once, the per-leaf sums and the digest (4 bytes
+    each) written; one integer add an element."""
+    n = sum(t.numel() for t in tensors)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return n, nbytes + 4 * (len(tensors) + 1), False

@@ -1,6 +1,6 @@
-// Multi-tensor kernels of the optimizer step, for Hopper: the global
-// gradient norm and the Adam / AdamW update, each one launch over every
-// parameter.
+// Multi-tensor kernels, for Hopper: the optimizer step's global gradient
+// norm and Adam / AdamW update, and the SDC sentinel's parameter digest,
+// each one launch over every tensor.
 //
 // No Pallas kernel is replaced: the JAX package's step is one jitted
 // program (paddle_tpu/jit/train_step.py:491-571) in which XLA fuses the
@@ -39,7 +39,21 @@
 // the scaled gradient to its own dtype, as ClipGradByGlobalNorm casts it
 // back; Adam's L2 decay is folded into the gradient in the work tensor's
 // dtype (bf16 for a bf16 parameter without a master).
+// Digest (robustness/recovery.py's params_digest): the JAX package
+// jits it (paddle_tpu/robustness/recovery.py:503-520) and XLA fuses the
+// bitcast and the uint32 sum of each leaf.  Here one launch walks a table
+// of the leaves (pointer, bytes, first chunk, element size 1, 2 or 4):
+// each chunk of dchunk bytes (the caller's, a multiple of 16; the
+// table's first-chunk column counts in it) is summed as uint32 (every
+// element's bits
+// zero-extended; 16-byte vector loads where the leaf is 16-byte aligned),
+// the last block to finish sums each leaf's chunk partials, writes the
+// per-leaf sums and folds them in leaf order into the FNV digest
+// (acc = acc * 16777619 + sum, from 2166136261, all mod 2^32).  Integer
+// arithmetic: the result equals the plain version's bit for bit.  Bound:
+// bytes (every leaf read once).
 #include <algorithm>
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -258,6 +272,106 @@ adam_kernel(const AdamEntry* __restrict__ tab, int n, long long nchunks,
   }
 }
 
+struct DigestEntry {
+  const void* p;
+  long long nbytes;
+  long long chunk0;
+  long long esize;
+};
+
+__device__ __forceinline__ uint32_t word_sum(uint32_t w, long long esize) {
+  if (esize == 4) return w;
+  if (esize == 2) return (w & 0xFFFFu) + (w >> 16);
+  return (w & 0xFFu) + ((w >> 8) & 0xFFu) + ((w >> 16) & 0xFFu) + (w >> 24);
+}
+
+__device__ __forceinline__ uint32_t elem_at(const unsigned char* p,
+                                            long long b, long long esize) {
+  if (esize == 4) return *reinterpret_cast<const uint32_t*>(p + b);
+  if (esize == 2) return *reinterpret_cast<const uint16_t*>(p + b);
+  return p[b];
+}
+
+__device__ __forceinline__ uint32_t warp_usum(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// uint32 sum of bytes [lo, hi) of one leaf (lo a multiple of 16)
+__device__ uint32_t chunk_usum(const DigestEntry& e, long long lo,
+                               long long hi) {
+  const unsigned char* p = static_cast<const unsigned char*>(e.p);
+  uint32_t acc = 0;
+  long long tail = lo;
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint4* v = reinterpret_cast<const uint4*>(p + lo);
+    const long long nvec = (hi - lo) / 16;
+    for (long long i = threadIdx.x; i < nvec; i += UNROLL * NT) {
+      uint4 w[UNROLL];
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k) {
+        const long long j = i + (long long)k * NT;
+        w[k] = j < nvec ? __ldg(v + j) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int k = 0; k < UNROLL; ++k)
+        acc += word_sum(w[k].x, e.esize) + word_sum(w[k].y, e.esize) +
+               word_sum(w[k].z, e.esize) + word_sum(w[k].w, e.esize);
+    }
+    tail = lo + nvec * 16;
+  }
+  for (long long b = tail + threadIdx.x * e.esize; b < hi;
+       b += (long long)NT * e.esize)
+    acc += elem_at(p, b, e.esize);
+  return acc;
+}
+
+__global__ void __launch_bounds__(NT)
+digest_kernel(const DigestEntry* __restrict__ tab, int n, long long nchunks,
+              long long dchunk, uint32_t* part, int* ticket, uint32_t* out) {
+  __shared__ uint32_t red[NT / 32];
+  __shared__ bool last;
+  int t = 0;
+  for (long long c = blockIdx.x; c < nchunks; c += gridDim.x) {
+    t = entry_of(tab, n, t, c);
+    const DigestEntry e = tab[t];
+    const long long lo = (c - e.chunk0) * dchunk;
+    const long long hi = min(lo + dchunk, e.nbytes);
+    uint32_t s = warp_usum(chunk_usum(e, lo, hi));
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t tot = 0;
+      for (int w = 0; w < NT / 32; ++w) tot += red[w];
+      part[c] = tot;
+    }
+    __syncthreads();
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < n; i += NT / 32) {
+    const long long c0 = tab[i].chunk0;
+    const long long c1 = i + 1 < n ? tab[i + 1].chunk0 : nchunks;
+    uint32_t s = 0;
+    for (long long c = c0 + lane; c < c1; c += 32) s += __ldcg(part + c);
+    s = warp_usum(s);
+    if (lane == 0) out[i] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t acc = 2166136261u;
+    for (int i = 0; i < n; ++i) acc = acc * 16777619u + out[i];
+    out[n] = acc;
+    *ticket = 0;
+  }
+}
+
 int grid_for(long long nchunks) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -297,6 +411,24 @@ int ptt_mt_adam(const void* table, int n, long long nchunks, float b1,
       static_cast<const float*>(lr), static_cast<const int*>(step),
       static_cast<const float*>(scale),
       static_cast<const unsigned char*>(keep));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[i] = the uint32 sum of leaf i's elements' bits, out[n] their FNV
+// fold; the table cuts each leaf in chunks of dchunk bytes (a multiple of
+// 16), part holds nchunks uint32, ticket one int32 that is 0 between
+// launches
+int ptt_mt_digest(const void* table, int n, long long nchunks,
+                  long long dchunk, void* part, void* ticket, void* out,
+                  void* stream) {
+  if (dchunk <= 0 || dchunk % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0 || nchunks <= 0) return 0;
+  digest_kernel<<<grid_for(nchunks), NT, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const DigestEntry*>(table), n, nchunks, dchunk,
+      static_cast<uint32_t*>(part), static_cast<int*>(ticket),
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,10 @@
-"""The optimizer step's multi-tensor kernels — wrappers of
-``csrc/multi_tensor.cu`` and their plain PyTorch versions.
+"""The multi-tensor kernels — wrappers of ``csrc/multi_tensor.cu`` and
+their plain PyTorch versions.
 
 No Pallas kernel stands behind these: the JAX package jits the whole
-step, and XLA fuses the per-leaf gradient norm and the update rule.  The
-port's counterpart is one launch over every parameter:
+step (and the SDC sentinel's digest), and XLA fuses the per-leaf
+gradient norm, the update rule and the per-leaf bit sums.  The port's
+counterpart is one launch over every tensor:
 
 * ``multi_tensor_norm(tensors)``: the global L2 norm, a 0-d fp32 tensor,
   from an fp32 sum of squares (each tensor's sum, then the tensors in
@@ -12,6 +13,12 @@ port's counterpart is one launch over every parameter:
   parameter, with its moments and optional fp32 master, reading lr, the
   update count, the clip scale and the step guard's keep flag from
   0-d device tensors (a captured CUDA graph reads them at replay time).
+* ``multi_tensor_digest(tensors)``: the uint32 sum of each tensor's
+  element bits (1-, 2- or 4-byte elements, zero-extended) and their FNV
+  fold in tensor order, ``robustness/recovery.py``'s ``params_digest``;
+  integer arithmetic, so the kernel equals ``digest_reference`` bit for
+  bit.  The plain version sums in chunks of ``DIGEST_CHUNK`` elements,
+  so its int64 temporaries stay bounded.
 
 A tensor on the CPU takes the plain version: ``adam_reference`` is the
 per-parameter rule, in the reference's op order in fp32
@@ -41,9 +48,10 @@ import torch
 
 from paddle_tpu_torch.ops.kernels import _build, costs
 
-__all__ = ["multi_tensor_norm", "multi_tensor_adam", "norm_reference",
-           "adam_reference", "adam_rule", "bias_correction",
-           "finish_capture"]
+__all__ = ["multi_tensor_norm", "multi_tensor_adam", "multi_tensor_digest",
+           "norm_reference", "adam_reference", "adam_rule",
+           "bias_correction", "digest_reference", "finish_capture",
+           "FNV_BASIS", "FNV_PRIME"]
 
 _KEPT = 8                 # tables kept for eager calls, least recent out
 _tables: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
@@ -330,3 +338,97 @@ def multi_tensor_adam(params, grads, moment1, moment2, masters, *, lr, step,
 
 
 multi_tensor_adam.launches = 0
+
+
+FNV_BASIS = 2166136261
+FNV_PRIME = 16777619
+# elements a chunk of the plain digest (int64 temporaries of 128 MiB)
+DIGEST_CHUNK = 1 << 24
+# bytes a chunk of the digest kernel (a multiple of 16; passed to it)
+DIGEST_CHUNK_BYTES = 1 << 18
+_INTS = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+
+def _digest_check(tensors):
+    for i, t in enumerate(tensors):
+        if t.element_size() not in _INTS or not t.is_contiguous():
+            raise ValueError(
+                f"multi_tensor_digest: tensors[{i}] must be contiguous "
+                f"with 1-, 2- or 4-byte elements (got {t.dtype}, "
+                f"contiguous={t.is_contiguous()})")
+
+
+def fnv_fold(sums) -> int:
+    """The FNV fold of per-tensor uint32 sums, in order."""
+    acc = FNV_BASIS
+    for s in sums:
+        acc = (acc * FNV_PRIME + int(s)) & 0xFFFFFFFF
+    return acc
+
+
+def digest_reference(tensors: Sequence[torch.Tensor],
+                     chunk: int = DIGEST_CHUNK) -> torch.Tensor:
+    """The plain version: an int32 tensor of ``len(tensors) + 1`` on the
+    tensors' device holding (as bits) each tensor's uint32 sum of its
+    element bits, then their FNV fold.  Each sum runs over chunks of
+    `chunk` elements widened to int64 (masked to the element's width)."""
+    tensors = list(tensors)
+    _digest_check(tensors)
+    dev = tensors[0].device if tensors else torch.device("cpu")
+    sums = []
+    for t in tensors:
+        size = t.element_size()
+        flat = t.reshape(-1).view(_INTS[size])
+        mask = (1 << (8 * size)) - 1
+        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(0, flat.numel(), chunk):
+            part = flat[i:i + chunk].to(torch.int64)
+            if size > 1:
+                part = part & mask
+            acc = (acc + part.sum()) & 0xFFFFFFFF
+        sums.append(acc)
+    vals = [int(s) for s in sums]
+    out = np.array(vals + [fnv_fold(vals)], dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(out).to(dev)
+
+
+def multi_tensor_digest(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Each tensor's uint32 sum of its element bits and their FNV fold
+    (``digest_reference``'s result), one launch over every tensor on the
+    card; the tensors are read in place."""
+    tensors = list(tensors)
+    if not tensors or tensors[0].device.type == "cpu":
+        return _build.plain("multi_tensor_digest",
+                            lambda: costs.mt_digest(tensors),
+                            digest_reference, tensors)
+    what = "multi_tensor_digest"
+    dev = tensors[0].device
+    _check(what, [(f"tensors[{i}]", t) for i, t in enumerate(tensors)], dev)
+    _digest_check(tensors)
+    n = len(tensors)
+    nbytes = [t.numel() * t.element_size() for t in tensors]
+    counts = [(b + DIGEST_CHUNK_BYTES - 1) // DIGEST_CHUNK_BYTES
+              for b in nbytes]
+    starts = np.cumsum([0] + counts)
+    nchunks = int(starts[-1])
+    if nchunks == 0:
+        return digest_reference(tensors)
+    rows = np.zeros((n, 4), dtype=np.int64)
+    for i, t in enumerate(tensors):
+        rows[i] = (t.data_ptr(), nbytes[i], starts[i], t.element_size())
+    out = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    lib = _build.library("multi_tensor")
+    table = _table("digest", rows, dev)
+    part = _build.workspace(what, dev, 4 * nchunks)
+    ticket = _build.tickets(what, dev, 1)
+    err = lib.ptt_mt_digest(table.data_ptr(), n, nchunks, DIGEST_CHUNK_BYTES,
+                            part,
+                            ticket.data_ptr(), out.data_ptr(),
+                            _build.stream_of(out))
+    _build.check(lib, err, what)
+    _build.charge(what, costs.mt_digest, tensors)
+    multi_tensor_digest.launches += 1
+    return out
+
+
+multi_tensor_digest.launches = 0

@@ -267,6 +267,10 @@ def _case(name, monkeypatch):
         return (lambda: K.multi_tensor_adam(ps, gs, ms, vs, masters, lr=1e-3,
                                             step=1, multi_precision=True),
                 chip_smoke.adam_io(ps, gs, masters))
+    if name == "multi_tensor_digest":
+        ts = [_bf16(rng, 64, 32), torch.ones(100),
+              torch.zeros(7, dtype=torch.int8)]
+        return (lambda: K.multi_tensor_digest(ts), chip_smoke.digest_io(ts))
     raise KeyError(name)
 
 
@@ -274,7 +278,7 @@ WRAPPERS = [fn.__name__ for fn in K.KERNELS]
 
 
 def test_every_wrapper_is_charged_here():
-    assert len(WRAPPERS) == 16 and len(set(WRAPPERS)) == 16
+    assert len(WRAPPERS) == 17 and len(set(WRAPPERS)) == 17
 
 
 @pytest.mark.parametrize("name", WRAPPERS + ["qkv_train"])
@@ -290,7 +294,7 @@ def test_kernel_charge_equals_chip_smoke_bound(name, monkeypatch):
     assert counted == {what}, counted
     products = what not in ("cross_entropy_fwd", "cross_entropy_bwd",
                             "fused_rmsnorm", "multi_tensor_norm",
-                            "multi_tensor_adam")
+                            "multi_tensor_adam", "multi_tensor_digest")
     assert run.product_flops == (flops if products else 0)
 
 

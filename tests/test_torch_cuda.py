@@ -1975,6 +1975,98 @@ def test_multi_tensor_norm_matches_plain(dev):
     assert not torch.isfinite(MT.multi_tensor_norm(nan))
 
 
+def test_multi_tensor_digest_matches_plain_bitwise(dev, monkeypatch):
+    """The digest over uneven leaves of every element size (fp32, bf16,
+    fp16, int8, uint8 from bool, fp8, int32; sizes off the chunk and the
+    16-byte vector, an empty leaf, a leaf not 16-byte aligned) against
+    its plain version on the same card: bitwise (integer sums), one
+    launch a call, at the default chunk and at a small one (the chunk
+    size is the kernel's argument), and params_digest's integer equal to
+    the CPU's."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    from paddle_tpu_torch.robustness import recovery as rec
+    g = torch.Generator(device="cpu").manual_seed(41)
+    big = torch.randn(1 << 18 | 7, generator=g)
+    leaves = [big.to(dev), big[:70001].to(dev, torch.bfloat16),
+              torch.randn(333, generator=g).half().to(dev),
+              torch.randint(-128, 128, (5000,), generator=g,
+                            dtype=torch.int8).to(dev),
+              (torch.rand(77, generator=g) > 0.5).to(dev).view(torch.uint8),
+              torch.randn(4096, generator=g).to(dev, torch.float8_e4m3fn
+                                                ).view(torch.uint8),
+              torch.zeros(0, device=dev),
+              torch.randint(-2 ** 31, 2 ** 31 - 1, (9999,), generator=g,
+                            dtype=torch.int32).to(dev),
+              big.to(dev)[1:1001]]              # 4 bytes off alignment
+    n0 = MT.multi_tensor_digest.launches
+    got = MT.multi_tensor_digest(leaves)
+    again = MT.multi_tensor_digest(leaves)
+    assert MT.multi_tensor_digest.launches == n0 + 2
+    ref = MT.digest_reference(leaves)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    cpu = MT.digest_reference([t.cpu() for t in leaves])
+    assert torch.equal(got.cpu(), cpu)
+    tree = {"w": leaves[0], "h": leaves[1], "q": leaves[3]}
+    assert rec.params_digest(tree) == rec.params_digest(
+        {k: v.cpu() for k, v in tree.items()})
+    monkeypatch.setattr(MT, "DIGEST_CHUNK_BYTES", 4096)
+    n1 = MT.multi_tensor_digest.launches
+    assert torch.equal(MT.multi_tensor_digest(leaves), ref)
+    assert MT.multi_tensor_digest.launches == n1 + 1
+
+
+def test_params_digest_with_host_leaves_runs_on_the_card(dev):
+    """A tree of card tensors with host leaves beside them (a Python
+    int, a float, a numpy array: what ``SDCSentinel.publish(...,
+    extra=...)`` digests) is digested by one launch on the card, and its
+    integer equals the CPU path's."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    from paddle_tpu_torch.robustness import recovery as rec
+    g = torch.Generator(device="cpu").manual_seed(43)
+    params = {"w": torch.randn(3000, generator=g).to(dev, torch.bfloat16),
+              "b": torch.randn(17, generator=g).to(dev)}
+    tree = (params, {"step": 12, "lr": 0.5,
+                     "ids": np.arange(5, dtype=np.int64)})
+    host = ({k: v.cpu() for k, v in params.items()}, tree[1])
+    n0 = MT.multi_tensor_digest.launches
+    got = rec.params_digest(tree)
+    assert MT.multi_tensor_digest.launches == n0 + 1
+    assert got == rec.params_digest(host)
+
+
+def test_load_bundle_into_an_empty_cache_runs_no_nvcc(dev, tmp_path,
+                                                      monkeypatch):
+    """A bundle built here, loaded into an empty cache by a process
+    whose build/ is empty: the libraries come from the bundle (no nvcc
+    run), the entry hits (no counted warm-up) and the program's result
+    equals the first capture's."""
+    from paddle_tpu_torch import compile_cache as CC
+    monkeypatch.setenv("PADDLE_TPU_COMPILE_CACHE", "1")
+    monkeypatch.setenv("PADDLE_TPU_COMPILE_CACHE_DIR", str(tmp_path / "a"))
+    CC.reset_memory()
+    _build.build_all()                 # stores every library in a/
+    x = torch.randn(64, 512, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(512, device=dev, dtype=torch.bfloat16)
+    g, info, hit = CC.aot_compile_cached(RN.fused_rmsnorm, x, w,
+                                         target="norm")
+    assert not hit and info.launches == {"fused_rmsnorm": 1}
+    first = g()[0].clone()
+    CC.bundle(str(tmp_path / "bundle"), state_dict={"x": x})
+    monkeypatch.setenv("PADDLE_TPU_COMPILE_CACHE_DIR", str(tmp_path / "b"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    CC.reset_memory()
+    out = CC.load_bundle(str(tmp_path / "bundle"), device=dev)
+    assert out["installed"] == ["norm"] and out["skipped"] == 0
+    assert torch.equal(out["state_dict"]["x"], x)
+    runs = _build.nvcc_runs()
+    g2, info2, hit2 = CC.aot_compile_cached(RN.fused_rmsnorm, x, w,
+                                            target="norm")
+    assert hit2 and info2.cached and _build.nvcc_runs() == runs
+    assert torch.equal(g2()[0], first)
+
+
 @pytest.mark.parametrize("decoupled", [False, True])
 @pytest.mark.parametrize("clip", [False, True])
 @pytest.mark.parametrize("keep", [None, True, False])

@@ -221,6 +221,12 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.ops.kernels.costs\n"
         "import paddle_tpu_torch.jit.train_step\n"
         "import paddle_tpu_torch.generation\n"
+        "import paddle_tpu_torch.compile_cache\n"
+        "import paddle_tpu_torch.distributed.checkpoint\n"
+        "import paddle_tpu_torch.distributed.tcp_store\n"
+        "import paddle_tpu_torch.distributed.elastic\n"
+        "import paddle_tpu_torch.robustness.recovery\n"
+        "import paddle_tpu_torch.utils.cpp_extension\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"

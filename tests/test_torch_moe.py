@@ -286,10 +286,18 @@ def test_unported_moe_options_name_the_roadmap(monkeypatch):
         TM.MoELayer(16, 4, dropless=True)
     with pytest.raises(ValueError, match="unknown dispatch_mode"):
         TM.MoELayer(16, 4, dispatch_mode="nope")
+    # the moe.expert_imbalance fault point is ported: it biases every
+    # token to expert 0 (tests/test_torch_compile_cache.py holds it
+    # against JAX's)
     layer = TM.MoELayer(16, 4, d_hidden=8)
-    monkeypatch.setenv("PADDLE_TPU_FAULTS", "moe.expert_imbalance:p=1")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        layer(torch.zeros(1, 4, 16))
+    from paddle_tpu_torch import robustness as trob
+    trob.inject("moe.expert_imbalance", times=1)
+    try:
+        layer(torch.randn(1, 4, 16))
+    finally:
+        trob.clear_faults()
+    load = layer.router_stats["load"]
+    assert int(load[0]) == int(load.max())
 
 
 # -- the ERNIE 4.5 decoder ----------------------------------------------------

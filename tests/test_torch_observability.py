@@ -225,12 +225,24 @@ def test_trace_export_shape_equal_jaxs():
     assert outs[0] == outs[1]
 
 
-def test_fleet_store_and_cli_raise_naming_item_8():
+def test_fleet_store_and_cli_raise_naming_item_8(capsys):
+    """The fleet store is the ported TCPStore now: ``_connect_store``
+    returns a client of it and the CLI renders the fleet table from it
+    (the name stays from when both raised, naming item 8)."""
+    from paddle_tpu_torch.distributed.elastic import free_port
+    from paddle_tpu_torch.distributed.tcp_store import TCPStore
     from paddle_tpu_torch.observability import fleet as F
-    with pytest.raises(NotImplementedError, match="item 8"):
-        F._connect_store("127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        F.main(["--store", "127.0.0.1:1"])
+    server = TCPStore("127.0.0.1", free_port(), is_master=True, timeout=1.0)
+    try:
+        addr = f"127.0.0.1:{server.port}"
+        client = F._connect_store(addr)
+        server.set("obs/x", b"1")
+        assert client.get("obs/x", wait=False) == b"1"
+        client.close()
+        assert F.main(["--store", addr]) == 0
+        assert capsys.readouterr().out.strip()
+    finally:
+        server.close()
 
 
 def test_publish_and_aggregate_over_a_local_store():

@@ -288,10 +288,20 @@ def test_paged_kv_none_follows_the_env_as_jax(pair, env, monkeypatch):
     assert te.paged == je.paged == (env in ("1", "true"))
 
 
-def test_cache_only_warmup_names_the_roadmap(pair):
+def test_cache_only_warmup_names_the_roadmap(pair, monkeypatch):
+    """``aot_warmup(cache_only=True)`` with the persistent cache off
+    captures nothing (every program a miss, as in JAX) and the engine
+    keeps serving eagerly, the tokens of an engine never warmed."""
+    monkeypatch.setenv("PADDLE_TPU_COMPILE_CACHE", "0")
     te = ContinuousBatchingEngine(pair[1], **PAGED)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        te.aot_warmup(cache_only=True)
+    st = te.aot_warmup(cache_only=True)
+    assert set(st) == {"serving.decode", "serving.prefill_chunk"}
+    assert all(v["eager"] and not v["graph"] for v in st.values())
+    ref = ContinuousBatchingEngine(pair[1], **PAGED)
+    for eng in (te, ref):
+        eng.add_request([3, 1, 4, 1, 5, 9, 2, 6], max_new_tokens=4)
+    assert [t for _, t in te.run().values()] == \
+        [t for _, t in ref.run().values()]
 
 
 def test_static_graph_binds_its_buffers_and_refuses_other_shapes():
