@@ -260,6 +260,37 @@ train_moe two, one per engine or dispatch mode):
             third empty cache captures nothing and serves equal tokens
             eagerly.  Seconds from process start to the first token,
             split into build, load, capture and first step.
+16. op_surface (after the kernel phases): every op of the surface on
+            CUDA tensors against the port's CPU run on the same inputs:
+            the 304 generated ops (each schema entry's first test case,
+            SCHEMA_EXTRA's inputs for the entries with none) within the
+            entry's tolerance (fp32's 1e-5 / 1e-6 by default), the
+            hand-written ops of ops/creation, manipulation, linalg,
+            search, stat, math, logic and array_ops (surface_cases(),
+            the cases tests/test_torch_ops_surface.py holds against the
+            JAX package) within theirs, sorts, gathers and indices
+            exactly, decompositions through their products; the random
+            ops' shapes and dtypes against the CPU's, two draws under
+            seed(7) equal.  Counts by module, failures by name.
+17. amp     (after train_state) Paddle's dygraph AMP recipe on the Train
+            cell's model, built in fp32 (Llama-3-8B width, 4 of 32
+            layers, b=4, s=2048, AdamW).  amp_o1: auto_cast(O1, bf16) +
+            GradScaler, 3 steps: the first loss within AMP_LOSS_TOL of
+            an fp32 forward's on the same weights and batch, the
+            operator stats of the first step equal to a CPU run's at one
+            and two layers scaled to four (linear and the attention
+            bf16, rms_norm fp32), launches exact by wrapper and dtype
+            (bf16 flash forward, dq and dk/dv, fp32 QKV training variant
+            and MLP: 4 a step each), an inf written into one gradient
+            skipping the step (every parameter bitwise equal, the scale
+            halved), then one step profiled: the fp32 first designs'
+            device share.  amp_o2: decorate(model, AdamW, O2, bf16), the
+            same loop, the first loss against the plain bf16 model's,
+            bf16 QKV and MLP, fp32 masters.  Step time and peak beside
+            the Train cell's 0.2923 s.  kernels_train carries the fp32
+            QKV training variant and MLP at T = 8192 (their bound at the
+            fp32 rate, the fp32 library chain) and the kernels line
+            their rows and every AMP wrapper's launches_amp_o1 / _o2.
 
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
@@ -3528,7 +3559,9 @@ def train_gpt(dev, kernels):
          step_s_median=dt, tokens_per_s=tokens / dt,
          mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S, peak_mem_gb=peak,
          losses=losses, launches=launches,
-         launches_per_step={k: v / GPT_STEPS for k, v in launches.items()})
+         launches_per_step={k: v / GPT_STEPS for k, v in launches.items()},
+         hook_off_vs_before={"step_s": dt,
+                             "before_hook_s": HOOK_REF["train_gpt_s"]})
     train_profile(step, batch, phase="train_gpt_profile", top_n=20,
                   families=("ce_fwd_kernel", "ce_bwd_kernel",
                             "flash_fwd_hopper", "flash_dq_hopper",
@@ -3618,7 +3651,9 @@ def transformer_infer(dev, kernels):
          launches_per_forward={k: v / TRANSFORMER_FWDS
                                for k, v in launches.items()},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-         parity_fp32=transformer_parity(dev))
+         parity_fp32=transformer_parity(dev),
+         hook_off_vs_before={"fwd_ms": dt * 1e3,
+                             "before_hook_ms": HOOK_REF["transformer_ms"]})
     profile_call(fwd, "transformer_profile",
                  families=("mlp_gemm_kernel",), top_n=15)
     del model, out, ref
@@ -5480,6 +5515,842 @@ def cold_start():
 
 
 
+# -- phase 16: the op surface on the card ------------------------------------
+
+# the eager timings before the op hook existed, on this card (PERF.md
+# section 5): Transformer-base's bf16 forward and Train-GPT's eager
+# step; the hook's fast path should not move them
+HOOK_REF = {"transformer_ms": 13.5, "train_gpt_s": 0.1236}
+
+
+def _surface_rand(shape, lo=-1.0, hi=1.0):
+    """The JAX package's OpTest inputs (``paddle_tpu/testing:_rand``): a
+    generator seeded by the shape and dtype."""
+    import zlib
+    seed = zlib.crc32(repr((tuple(shape), str(np.float32))).encode())
+    return np.random.default_rng(seed).uniform(lo, hi, shape).astype(
+        np.float32)
+
+
+def surface_dsl(seed=0):
+    """The schema's input DSL (``kind: expr`` entries' ``inputs``)."""
+    rng = np.random.default_rng(seed)
+
+    def rand_(*shape, lo=-1.0, hi=1.0, dtype=np.float32):
+        return rng.uniform(lo, hi, shape).astype(dtype)
+
+    def randint(lo, hi, shape, dtype=np.int64):
+        return rng.integers(lo, hi, shape).astype(dtype)
+
+    def mask(*shape, p=0.5):
+        return rng.uniform(0, 1, shape) < p
+
+    def perm(n):
+        return rng.permutation(n).astype(np.int64)
+
+    def sorted_(*shape, lo=-1.0, hi=1.0):
+        return np.sort(rng.uniform(lo, hi, shape).astype(np.float32), -1)
+
+    def posdef(n):
+        a = rng.standard_normal((n, n)).astype(np.float32)
+        return a @ a.T + n * np.eye(n, dtype=np.float32)
+
+    return {"np": np, "rand": rand_, "randint": randint, "mask": mask,
+            "perm": perm, "sorted": sorted_, "posdef": posdef}
+
+
+# inputs (the DSL) and attrs of the schema entries whose test is "skip"
+# or that carry no oracle, so every generated op runs
+SCHEMA_EXTRA = {
+    "gcd": ({"x": "randint(1, 20, (3, 4))", "y": "randint(1, 20, (3, 4))"},
+            {}),
+    "lcm": ({"x": "randint(1, 20, (3, 4))", "y": "randint(1, 20, (3, 4))"},
+            {}),
+    "ldexp": ({"x": "rand(3, 4)", "y": "randint(-3, 3, (3, 4))"}, {}),
+    "inner": ({"x": "rand(3, 4)", "y": "rand(2, 4)"}, {}),
+    "outer": ({"x": "rand(3)", "y": "rand(4)"}, {}),
+    "kron": ({"x": "rand(2, 2)", "y": "rand(2, 3)"}, {}),
+    "lerp": ({"x": "rand(3, 4)", "y": "rand(3, 4)", "weight": "rand(3, 4)"},
+             {}),
+    "all": ({"x": "mask(3, 4)"}, {"axis": 1}),
+    "any": ({"x": "mask(3, 4)"}, {"axis": 1}),
+    "addmm": ({"input": "rand(3, 5)", "x": "rand(3, 4)",
+               "y": "rand(4, 5)"}, {"beta": 0.5, "alpha": 2.0}),
+    "bitwise_and": ({"x": "randint(0, 16, (3, 4))",
+                     "y": "randint(0, 16, (3, 4))"}, {}),
+    "bitwise_or": ({"x": "randint(0, 16, (3, 4))",
+                    "y": "randint(0, 16, (3, 4))"}, {}),
+    "bitwise_xor": ({"x": "randint(0, 16, (3, 4))",
+                     "y": "randint(0, 16, (3, 4))"}, {}),
+    "bitwise_not": ({"x": "randint(0, 16, (3, 4))"}, {}),
+    "bitwise_left_shift": ({"x": "randint(0, 16, (3, 4))",
+                            "y": "randint(0, 3, (3, 4))"}, {}),
+    "bitwise_right_shift": ({"x": "randint(0, 16, (3, 4))",
+                             "y": "randint(0, 3, (3, 4))"}, {}),
+    "take": ({"x": "rand(3, 4)", "index": "randint(-12, 12, (5,))"}, {}),
+    "vander": ({"x": "rand(4)"}, {"n": 3}),
+    "cdist": ({"x": "rand(3, 4)", "y": "rand(5, 4)"}, {}),
+    "diag_embed": ({"x": "rand(2, 3)"}, {"offset": 1}),
+    "fill_diagonal": ({"x": "rand(4, 3)"}, {"value": 2.0}),
+    "concat": ({"x": "[rand(2, 3), rand(4, 3)]"}, {}),
+    "stack": ({"x": "[rand(2, 3), rand(2, 3)]"}, {"axis": 1}),
+    "hstack": ({"x": "[rand(2, 3), rand(2, 1)]"}, {}),
+    "vstack": ({"x": "[rand(2, 3), rand(1, 3)]"}, {}),
+    "dstack": ({"x": "[rand(2, 3), rand(2, 3)]"}, {}),
+    "column_stack": ({"x": "[rand(3), rand(3)]"}, {}),
+    "row_stack": ({"x": "[rand(3), rand(3)]"}, {}),
+    "bincount": ({"x": "randint(0, 5, (10,))"}, {}),
+    "qr": ({"x": "rand(4, 3)"}, {}),
+    "svd": ({"x": "rand(4, 3)"}, {}),
+    "eigh": ({"x": "posdef(4)"}, {}),
+    "multi_dot": ({"tensors": "[rand(3, 4), rand(4, 5), rand(5, 2)]"}, {}),
+    "householder_product": ({"x": "rand(4, 3)", "tau": "rand(3)"}, {}),
+    "slice": ({"x": "rand(4, 5)"}, {"axes": [0, 1], "starts": [1, 0],
+                                    "ends": [3, -1]}),
+}
+# decompositions: vectors are defined up to sign or phase, so a case
+# holds the products (and the values)
+RECON = {"qr", "svd", "eigh", "eig", "eigvals"}
+# ops whose outputs are copies or positions of inputs: equal exactly
+EXACT = {"sort", "argsort", "topk", "kthvalue", "mode", "argmax",
+         "argmin", "cummax", "cummin", "searchsorted", "bucketize",
+         "unique", "unique_consecutive", "median-min", "nonzero",
+         "masked_select", "where-nonzero", "gather", "gather_nd",
+         "index_select", "take_along_axis", "masked_argmax"}
+
+
+def schema_case(name, spec):
+    """(inputs, attrs, rtol, atol) of a schema entry's first case: its
+    test's inputs where it has them (SCHEMA_EXTRA's for the others)."""
+    kind = spec.get("kind", "skip")
+    if name in SCHEMA_EXTRA:
+        ns = surface_dsl()
+        src, attrs = SCHEMA_EXTRA[name]
+        return ({n: eval(e, dict(ns)) for n, e in src.items()},  # noqa: S307
+                dict(attrs), spec.get("rtol"), spec.get("atol"))
+    lo, hi = spec.get("lo", -1.0), spec.get("hi", 1.0)
+    if kind == "expr":
+        ns = surface_dsl()
+        inputs = {n: eval(e, dict(ns))  # noqa: S307 — in-repo schema
+                  for n, e in (spec.get("inputs") or {}).items()}
+    elif kind == "binary":
+        inputs = {"x": _surface_rand((3, 4), lo, hi),
+                  "y": _surface_rand((3, 4), lo, hi)}
+    else:
+        inputs = {a: _surface_rand((3, 4), lo, hi) for a in spec["args"]}
+    return inputs, dict(spec.get("attrs") or {}), spec.get("rtol"), \
+        spec.get("atol")
+
+
+class AsTensor:
+    """A case input that the JAX package must get as its Tensor."""
+
+    def __init__(self, v):
+        self.v = v
+
+
+def surface_cases():
+    """The hand-written ops' cases: (module, op, args, kwargs, id, rtol,
+    atol), one at least per public function of creation, manipulation,
+    linalg, search, stat, array_ops, logic's predicates and math's
+    hand-written ops, from a seeded numpy generator.  Sorts run on
+    inputs with ties; median on an even count; shapes as lists and as
+    tensors; ``name=`` given once.  tests/test_torch_ops_surface.py holds
+    these cases against the JAX package."""
+    rng = np.random.default_rng(19)
+
+    def R(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def I(lo, hi, *shape):
+        return rng.integers(lo, hi, shape).astype(np.int64)
+
+    def B(*shape):
+        return rng.uniform(0, 1, shape) < 0.5
+
+    def PD(n):
+        a = rng.standard_normal((n, n)).astype(np.float32)
+        return (a @ a.T + n * np.eye(n)).astype(np.float32)
+
+    def T(*shape):
+        return I(0, 3, *shape).astype(np.float32)
+
+    out = []
+
+    def C(mod_, op_, *args, id=None, rtol=1e-5, atol=1e-6, **kwargs):
+        out.append((mod_, op_, args, kwargs, id or op_, rtol, atol))
+
+    pd4, pd3, sq = PD(4), PD(3), R(3, 3)
+    mask_rows = B(3, 4)
+    mask_rows[:, 0] = True
+    nan = R(3, 6)
+    nan[0, 1] = nan[2, 4] = np.nan
+    C("creation", "to_tensor", R(3, 4))
+    C("creation", "zeros", [2, 3])
+    C("creation", "ones", np.array([2, 3]), id="ones-shape-tensor")
+    C("creation", "full", [2, 3], 7)
+    C("creation", "zeros_like", R(2, 3))
+    C("creation", "ones_like", R(2, 3), dtype="int32")
+    C("creation", "full_like", R(2, 3), 0.25)
+    C("creation", "empty", [2, 2], dtype="float32")
+    C("creation", "empty_like", R(2, 3))
+    C("creation", "arange", 1, 10, 3)
+    C("creation", "linspace", 0.0, 1.0, 5)
+    C("creation", "logspace", 0.0, 2.0, 4)
+    C("creation", "eye", 3, 4)
+    C("creation", "diag", R(4), 1, 2.0)
+    C("creation", "diagflat", R(2, 2))
+    C("creation", "tril", R(4, 4), -1)
+    C("creation", "triu", R(4, 4), 1)
+    C("creation", "meshgrid", R(2), R(3))
+    C("creation", "assign", R(3, 4))
+    C("creation", "clone", R(3, 4))
+    C("creation", "tril_indices", 4, 5, 1)
+    C("creation", "triu_indices", 4, None, -1)
+    C("creation", "complex", R(3), R(3))
+    C("creation", "polar", R(3, lo=0.1), R(3))
+    C("manipulation", "reshape", R(3, 4), [2, -1], name="r")
+    C("manipulation", "reshape", R(3, 4), np.array([6, 2]),
+      id="reshape-shape-tensor")
+    C("manipulation", "cast", R(3, 4, lo=-4, hi=4), "int32")
+    C("manipulation", "flatten", R(2, 3, 4), 1)
+    C("manipulation", "transpose", R(2, 3, 4), [2, 0, 1])
+    C("manipulation", "moveaxis", R(2, 3, 4), 0, 2)
+    C("manipulation", "swapaxes", R(2, 3, 4), 0, 2)
+    C("manipulation", "t", R(2, 3, 4))
+    C("manipulation", "squeeze", R(3, 1, 4, 1), [1, 3])
+    C("manipulation", "unsqueeze", R(3, 4), [0, -1])
+    C("manipulation", "concat", [R(2, 3), R(4, 3)], 0)
+    C("manipulation", "stack", [R(2, 3), R(2, 3)], 1)
+    C("manipulation", "unstack", R(3, 4), 1)
+    C("manipulation", "split", R(6, 4), [2, -1], 0)
+    C("manipulation", "chunk", R(5, 4), 2)
+    C("manipulation", "tile", R(2, 3), [2, 1])
+    C("manipulation", "expand", R(1, 3), [4, -1])
+    C("manipulation", "expand_as", R(1, 3), R(4, 3))
+    C("manipulation", "broadcast_to", R(3, 1), [3, 4])
+    C("manipulation", "broadcast_tensors", [R(3, 1), R(1, 4)])
+    C("manipulation", "flip", R(3, 4), [0, 1])
+    C("manipulation", "rot90", R(3, 4), 3)
+    C("manipulation", "roll", R(3, 4), [1, 2], [0, 1])
+    C("manipulation", "slice", R(4, 5), [0, 1], [1, 0], [3, -1])
+    C("manipulation", "strided_slice", R(8, 4), [0], [7], [0], [-2])
+    C("manipulation", "gather", R(5, 4), I(0, 5, 3))
+    C("manipulation", "gather_nd", R(4, 5), I(0, 4, 3, 1))
+    C("manipulation", "take_along_axis", R(3, 5), I(0, 5, 3, 2), 1)
+    C("manipulation", "put_along_axis", R(3, 5),
+      np.array([[0, 3], [1, 4], [2, 0]]), R(3, 2), 1)
+    C("manipulation", "scatter", R(5, 3), np.array([0, 2, 2]), R(3, 3),
+      overwrite=False)
+    C("manipulation", "scatter_nd_add", R(4, 5), I(0, 4, 3, 1), R(3, 5))
+    C("manipulation", "scatter_nd", I(0, 4, 3, 1), R(3, 5), [4, 5])
+    C("manipulation", "index_select", R(5, 4), I(0, 4, 3), 1)
+    C("manipulation", "index_sample", R(3, 5), I(0, 5, 3, 2))
+    C("manipulation", "index_add", R(5, 3), np.array([0, 2, 2]), 0, R(3, 3))
+    C("manipulation", "index_put", R(4, 5),
+      (np.array([0, 2]), np.array([1, 3])), R(2))
+    C("manipulation", "repeat_interleave", R(3, 4), 2, 1)
+    C("manipulation", "unbind", R(3, 4), 1)
+    C("manipulation", "as_complex", R(3, 2))
+    C("manipulation", "as_real",
+      (R(3, 4) + 1j * R(3, 4)).astype(np.complex64))
+    C("manipulation", "masked_select", R(3, 4), B(3, 4))
+    C("manipulation", "masked_fill", R(3, 4), B(3, 4), 0.5)
+    C("manipulation", "where", B(3, 4), R(3, 4), R(3, 4))
+    C("manipulation", "where", B(3, 4), id="where-nonzero")
+    C("manipulation", "pad", R(2, 3, 4), [1, 2], mode="reflect")
+    C("manipulation", "pad", R(2, 3), [1, 0, 2, 1], mode="constant",
+      value=0.5, id="pad-constant")
+    C("manipulation", "crop", R(4, 5), [2, 3], [1, 1])
+    C("manipulation", "unique", I(0, 5, 10), True, True, True)
+    C("manipulation", "unique_consecutive", np.array([1, 1, 2, 2, 3, 1, 1]),
+      True, True)
+    C("manipulation", "rot90_", R(3, 4), 1)
+    C("manipulation", "view", R(3, 4), [4, 3])
+    C("manipulation", "numel", R(3, 4))
+    C("manipulation", "shard_index", I(0, 10, 6), 10, 2, 0)
+    C("manipulation", "atleast_1d", np.float32(2.0))
+    C("manipulation", "atleast_2d", R(3))
+    C("manipulation", "atleast_3d", R(3, 4))
+    C("manipulation", "column_stack", [R(3), R(3)])
+    C("manipulation", "row_stack", [R(3), R(3)])
+    C("manipulation", "hstack", [R(2, 3), R(2, 1)])
+    C("manipulation", "vstack", [R(2, 3), R(1, 3)])
+    C("manipulation", "dstack", [R(2, 3), R(2, 3)])
+    C("manipulation", "hsplit", R(4, 6), 3)
+    C("manipulation", "vsplit", R(6, 4), 3)
+    C("manipulation", "dsplit", R(2, 3, 4), 2)
+    C("manipulation", "tensor_split", R(5, 4), 2)
+    C("manipulation", "block_diag", [R(2, 2), R(3, 1)])
+    C("manipulation", "select_scatter", R(3, 4), R(3), 1, 2)
+    C("manipulation", "slice_scatter", R(6, 4), R(3, 4), [0], [0], [6], [2])
+    C("manipulation", "rank", R(3, 4))
+    C("manipulation", "masked_scatter", R(3, 4), B(3, 4), R(12))
+    C("manipulation", "view_as", R(3, 4), R(2, 6))
+    C("linalg", "matmul", R(2, 3, 4), R(2, 5, 4), transpose_y=True)
+    C("linalg", "mm", R(3, 4), R(4, 5))
+    C("linalg", "bmm", R(2, 3, 4), R(2, 4, 5))
+    C("linalg", "dot", R(3, 4), R(3, 4))
+    C("linalg", "mv", R(3, 4), R(4))
+    C("linalg", "dist", R(3, 4), R(3, 4), 3.0)
+    C("linalg", "norm", R(3, 4), 2.0, 1)
+    C("linalg", "norm", R(3, 4), id="norm-fro")
+    C("linalg", "cross", R(2, 3), R(2, 3))
+    C("linalg", "cholesky", pd4, True, rtol=1e-4, atol=1e-5)
+    C("linalg", "cholesky_solve", R(4, 2),
+      np.linalg.cholesky(pd4).astype(np.float32), rtol=1e-4, atol=1e-5)
+    C("linalg", "triangular_solve", np.triu(pd4), R(4, 2), transpose=True,
+      rtol=1e-4, atol=1e-5)
+    C("linalg", "solve", pd4, R(4, 2), rtol=1e-4, atol=1e-5)
+    C("linalg", "lstsq", R(5, 3), R(5, 2), rtol=1e-4, atol=1e-5)
+    C("linalg", "inverse", pd4, rtol=1e-4, atol=1e-5)
+    C("linalg", "pinv", R(4, 3), rtol=1e-4, atol=1e-5)
+    C("linalg", "det", pd3, rtol=1e-4, atol=1e-4)
+    C("linalg", "slogdet", pd3, rtol=1e-4, atol=1e-5)
+    C("linalg", "matrix_rank", R(4, 3))
+    C("linalg", "matrix_power", pd3, 3, rtol=1e-4, atol=1e-3)
+    C("linalg", "qr", R(4, 3))
+    C("linalg", "svd", R(4, 3))
+    C("linalg", "eig", sq)
+    C("linalg", "eigh", pd4)
+    C("linalg", "eigvals", sq)
+    C("linalg", "eigvalsh", pd4, rtol=1e-5, atol=1e-5)
+    C("linalg", "lu", R(4, 4))
+    C("linalg", "multi_dot", [R(3, 4), R(4, 5), R(5, 2)])
+    C("linalg", "histogram", R(20), 5)
+    C("linalg", "bincount", I(0, 5, 10))
+    C("linalg", "corrcoef", R(3, 8))
+    C("linalg", "cov", R(3, 8))
+    C("linalg", "einsum", "ij,jk->ik", R(3, 4), R(4, 5))
+    C("linalg", "tensordot", R(3, 4, 5), R(4, 5, 2), 2)
+    C("linalg", "vecdot", R(3, 4), R(3, 4))
+    C("linalg", "cartesian_prod", R(2), R(3))
+    C("linalg", "combinations", R(4), 2)
+    C("linalg", "pdist", R(4, 3))
+    C("linalg", "matrix_exp", R(3, 3, lo=-0.5, hi=0.5))
+    C("search", "argmax", R(3, 4), 1)
+    C("search", "argmin", R(3, 4))
+    C("search", "argsort", T(3, 6), -1, True)
+    C("search", "argsort", T(3, 6), -1, True, False, id="argsort-unstable")
+    C("search", "sort", T(3, 6), -1, True)
+    C("search", "topk", T(3, 6), 3)
+    C("search", "topk", T(3, 6), 2, 0, False, id="topk-smallest")
+    C("search", "kthvalue", T(3, 6), 2)
+    C("search", "mode", T(3, 6))
+    C("search", "nonzero", B(3, 4))
+    C("search", "masked_argmax", R(3, 4), mask_rows, 1)
+    C("search", "searchsorted", np.sort(R(3, 8), -1), R(3, 5))
+    C("search", "bucketize", R(3, 4), np.sort(R(6)))
+    C("search", "index_fill", R(4, 3), np.array([0, 2]), 0, 0.5)
+    C("stat", "var", R(3, 4), 1, False)
+    C("stat", "std", R(3, 4))
+    C("stat", "median", R(3, 6), 1)
+    C("stat", "median", T(3, 6), 1, mode="min", id="median-min")
+    C("stat", "nanmedian", nan, 1)
+    C("stat", "quantile", R(3, 5), [0.25, 0.5], 1)
+    C("stat", "nanquantile", nan, 0.5, 1)
+    C("stat", "histogramdd", R(20, 2), 3)
+    C("math", "mod", R(3, 4, lo=-3, hi=3), R(3, 4, lo=0.5, hi=2))
+    C("math", "floor_mod", R(3, 4, lo=-3, hi=3), R(3, 4, lo=0.5, hi=2))
+    C("math", "rsqrt_", R(3, 4, lo=0.5, hi=2))
+    C("math", "multiplex", [R(3, 4), R(3, 4)], np.array([[0], [1], [0]]))
+    C("math", "renorm", R(3, 4), 2.0, 0, 1.0)
+    C("math", "cumulative_trapezoid", R(3, 5), axis=1)
+    C("math", "histogram_bin_edges", R(20), 4)
+    C("logic", "is_tensor", AsTensor(R(3)))
+    C("logic", "is_floating_point", AsTensor(R(3)))
+    C("logic", "is_integer", AsTensor(I(0, 3, 3)))
+    C("logic", "is_complex", AsTensor(R(3)))
+    C("array_ops", "create_array", "float32", [R(2), R(2)])
+    C("array_ops", "array_write", R(2), 0, [R(2)])
+    C("array_ops", "array_read", [R(2), R(3)], 1)
+    C("array_ops", "array_length", [R(2), R(3)])
+    return out
+
+
+def to_device(v, dev):
+    """A case's numpy inputs as tensors on `dev` (lists and tuples kept)."""
+    if isinstance(v, AsTensor):
+        v = v.v
+    if isinstance(v, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.array(v)).to(dev)
+    if isinstance(v, (list, tuple)):
+        return type(v)(to_device(a, dev) for a in v)
+    return v
+
+
+def leaves(out):
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in leaves(o)]
+    return [out]
+
+
+def _np_out(t):
+    t = t.detach().cpu().resolve_conj()
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def recon_check(op, x, ref, got):
+    """Decompositions against a reference run (numpy leaves `ref`): the
+    values and the products they must reproduce, up to sign or phase."""
+    got = [_np_out(g) for g in leaves(got)]
+
+    def close(a, b, what, tol=1e-4):
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=what)
+
+    def csort(v):
+        v = np.asarray(v)
+        return v[np.lexsort((v.imag, v.real))]
+
+    if op == "qr":
+        close(got[0] @ got[1], x, "q @ r")
+        close(np.abs(got[1]), np.abs(ref[1]), "|r|")
+    elif op == "svd":
+        close(got[1], ref[1], "s", 1e-5)
+        close((got[0] * got[1]) @ got[2], x, "u s vh")
+    elif op == "eigh":
+        close(got[0], ref[0], "w", 1e-5)
+        close(got[1] @ np.diag(got[0]) @ got[1].T, x, "v w v^T")
+    elif op == "eig":
+        close(csort(got[0]), csort(ref[0]), "w")
+        close(x.astype(np.complex64) @ got[1], got[1] * got[0], "A v = v w")
+    elif op == "eigvals":
+        close(csort(got[0]), csort(ref[0]), "w")
+
+
+def compare_out(what, ref, got, rtol, atol, exact=False):
+    """Raise unless `got` equals the reference run `ref` leaf for leaf:
+    dtype and shape, integers and bools exactly, floats within (rtol,
+    atol) or exactly with `exact`."""
+    rl, gl = leaves(ref), leaves(got)
+    if len(rl) != len(gl):
+        raise AssertionError(f"{what}: {len(gl)} outputs, {len(rl)} wanted")
+    for i, (r, g) in enumerate(zip(rl, gl)):
+        if not isinstance(g, torch.Tensor):
+            if g != r:
+                raise AssertionError(f"{what} out{i}: {g} != {r}")
+            continue
+        if g.dtype != r.dtype or tuple(g.shape) != tuple(r.shape):
+            raise AssertionError(f"{what} out{i}: {g.dtype} "
+                                 f"{tuple(g.shape)} against {r.dtype} "
+                                 f"{tuple(r.shape)}")
+        gn, rn = _np_out(g), _np_out(r)
+        if exact or gn.dtype == bool or np.issubdtype(gn.dtype, np.integer):
+            np.testing.assert_array_equal(gn, rn, err_msg=what)
+        else:
+            np.testing.assert_allclose(gn, rn, rtol=rtol, atol=atol,
+                                       err_msg=what)
+
+
+RANDOM_CASES = (("rand", ([64, 32],), {}), ("randn", ([64, 32],), {}),
+                ("standard_normal", ([64],), {}),
+                ("normal", (), {"mean": 1.0, "std": 2.0, "shape": [64]}),
+                ("uniform", ([64],), {"min": -2.0, "max": 3.0}),
+                ("randint", (0, 10, [64]), {}),
+                ("randint_like", ("x", 0, 5), {}), ("randperm", (64,), {}),
+                ("shuffle", ("x",), {}), ("bernoulli", ("p",), {}),
+                ("poisson", ("lam",), {}),
+                ("multinomial", ("probs", 2), {}),
+                ("rand_like", ("x",), {}), ("randn_like", ("x",), {}),
+                ("exponential_", ("x",), {"lam": 2.0}))
+
+
+def op_surface(dev):
+    """Every op of the surface on CUDA tensors against the port's CPU run
+    on the same inputs: the 304 generated ops (their schema tests' first
+    case, SCHEMA_EXTRA's for the rest) within their entry's tolerance
+    (fp32's 1e-5 / 1e-6 where it states none), the hand-written ops'
+    surface_cases() within theirs, sort-like ops and gathers exactly,
+    decompositions through their products; the random ops' shapes and
+    dtypes against the CPU's and their draws repeated under seed on the
+    card.  Counts by module; any failure by name fails the phase."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.ops import (array_ops, creation, generated_math,
+                                      linalg, logic, manipulation, search,
+                                      stat)
+    from paddle_tpu_torch.ops import math as omath
+    from paddle_tpu_torch.ops import random as orandom
+    mods = {"creation": creation, "manipulation": manipulation,
+            "linalg": linalg, "search": search, "stat": stat,
+            "math": omath, "logic": logic, "array_ops": array_ops}
+    t0 = time.perf_counter()
+    counts, failures = {}, []
+
+    def run(label, fn, args, kwargs):
+        tp.set_device("cpu")
+        try:
+            ref = fn(*to_device(args, "cpu"), **kwargs)
+        finally:
+            tp.set_device("gpu")
+        got = fn(*to_device(args, dev), **kwargs)
+        for g in leaves(got):
+            if isinstance(g, torch.Tensor) and \
+                    g.device.type != torch.device(dev).type:
+                raise AssertionError(f"{label}: output on {g.device}")
+        return ref, got
+
+    for name, spec in generated_math.OP_TESTS.items():
+        inputs, attrs, rtol, atol = schema_case(name, spec)
+        label = f"generated.{name}"
+        try:
+            ref, got = run(label, getattr(generated_math, name),
+                           list(inputs.values()), attrs)
+            if name in RECON:
+                recon_check(name, next(iter(inputs.values())),
+                            [_np_out(r) for r in leaves(ref)], got)
+            else:
+                compare_out(label, ref, got, rtol or 1e-5, atol or 1e-6,
+                            exact=name in EXACT)
+            counts["generated"] = counts.get("generated", 0) + 1
+        except Exception as e:  # noqa: BLE001 — listed, then raised
+            failures.append({"op": label, "error": repr(e)[:300]})
+    for mod, op, args, kwargs, cid, rtol, atol in surface_cases():
+        label = f"{mod}.{cid}"
+        try:
+            ref, got = run(label, getattr(mods[mod], op), args, kwargs)
+            if op in RECON:
+                recon_check(op, args[0], [_np_out(r) for r in leaves(ref)],
+                            got)
+            else:
+                compare_out(label, ref, got, rtol, atol,
+                            exact=op in EXACT or cid in EXACT)
+            counts[mod] = counts.get(mod, 0) + 1
+        except Exception as e:  # noqa: BLE001 — listed, then raised
+            failures.append({"op": label, "error": repr(e)[:300]})
+    named = {"x": np.random.default_rng(4).standard_normal(
+        (64, 8)).astype(np.float32),
+        "p": np.full((64,), 0.3, np.float32),
+        "lam": np.full((64,), 3.0, np.float32),
+        "probs": np.array([0.1, 0.2, 0.3, 0.4], np.float32)}
+    for op, args, kwargs in RANDOM_CASES:
+        label = f"random.{op}"
+        fn = getattr(orandom, op)
+        try:
+            draws = []
+            for device in ("cpu", dev, dev):
+                tp.set_device("cpu" if device == "cpu" else "gpu")
+                try:
+                    tp.seed(7)
+                    real = [to_device(named[a], device)
+                            if isinstance(a, str) else a for a in args]
+                    draws.append(fn(*real, **kwargs))
+                finally:
+                    tp.set_device("gpu")
+            cpu, a, b = draws
+            if a.device.type != torch.device(dev).type or \
+                    a.dtype != cpu.dtype or \
+                    a.shape != cpu.shape:
+                raise AssertionError(f"{a.device} {a.dtype} "
+                                     f"{tuple(a.shape)} against the CPU's "
+                                     f"{cpu.dtype} {tuple(cpu.shape)}")
+            if not torch.equal(a, b):
+                raise AssertionError("two draws under seed(7) differ")
+            counts["random"] = counts.get("random", 0) + 1
+        except Exception as e:  # noqa: BLE001 — listed, then raised
+            failures.append({"op": label, "error": repr(e)[:300]})
+    emit("op_surface", counts=counts, total=sum(counts.values()),
+         failures=failures, seconds=time.perf_counter() - t0)
+    if failures:
+        raise AssertionError(f"op_surface: {len(failures)} ops failed: "
+                             f"{[f['op'] for f in failures]}")
+    return counts
+
+
+# -- phase 17: AMP, Paddle's dygraph recipe on the Train cell's model --------
+
+AMP_STEPS = 3
+# the plain Train cell's step (PERF.md section 5), beside which the
+# AMP steps are printed
+TRAIN_STEP_REF_S = 0.2923
+# AMP's loss against its reference on the same weights and batch
+AMP_LOSS_TOL = 2e-2
+# the fp32 first designs under O1 (gemm_tile.cuh's gemm_kernel<float>)
+AMP_FAMILIES = ("gemm_kernel", "flash_fwd_hopper", "flash_dq_hopper",
+                "flash_dkv_hopper", "adam_kernel")
+
+
+@contextlib.contextmanager
+def quiet():
+    """Swallow what a block prints (the operator stats' table)."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        yield
+
+
+def amp_stats_cpu(level, layers):
+    """The operator stats (op -> dtype -> calls) of the recipe's forward
+    on the CPU: a tiny fp32 Llama of `layers` layers under
+    auto_cast(level, bfloat16), decorated first at O2."""
+    from paddle_tpu_torch import amp, seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(hidden_size=128, intermediate_size=256,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           num_hidden_layers=layers)
+    seed(0)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    if level == "O2":
+        amp.decorate(model, level="O2", dtype="bfloat16")
+    ids = torch.randint(0, cfg.vocab_size, (2, 16))
+    with quiet(), amp.debugging.collect_operator_stats() as s:
+        with amp.auto_cast(level=level, dtype="bfloat16"):
+            model.loss(ids, ids)
+    return s.dtypes
+
+
+def amp_expected_stats(level, layers):
+    """A card step's stats from the CPU's at one and two layers: the
+    per-layer ops times `layers` plus the rest."""
+    one, two = amp_stats_cpu(level, 1), amp_stats_cpu(level, 2)
+    out = {}
+    for op in set(one) | set(two):
+        for dt in set(one.get(op, {})) | set(two.get(op, {})):
+            a, b = one.get(op, {}).get(dt, 0), two.get(op, {}).get(dt, 0)
+            out.setdefault(op, {})[dt] = a - (b - a) + layers * (b - a)
+    return out
+
+
+def amp_steps(level, model, opt, scaler, batch, kernels):
+    """AMP_STEPS of the recipe: ``with auto_cast: loss = model.loss``,
+    ``scaler.scale(loss).backward()``, ``scaler.step(opt)``,
+    ``opt.clear_grad()``; the first under the operator stats."""
+    from paddle_tpu_torch import amp
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, stats = [], [], None
+    for i in range(AMP_STEPS):
+        t0 = time.perf_counter()
+        collect = amp.debugging.collect_operator_stats() if i == 0 \
+            else contextlib.nullcontext()
+        with quiet(), collect as s:
+            with amp.auto_cast(level=level, dtype="bfloat16"):
+                loss = model.loss(batch["input_ids"], batch["labels"])
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            stats = s.dtypes
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {fn.__name__: dict(fn.launches_by_dtype)
+                for fn in kernels.BY_DTYPE}
+    launches["multi_tensor_adam"] = kernels.multi_tensor_adam.launches
+    return losses, times, stats, peak, launches
+
+
+def amp_gates(phase, level, losses, ref_loss, scaler, stats, launches,
+              layers):
+    """The phase's checks: finite losses and scale, the first loss
+    within AMP_LOSS_TOL of its reference, the stats a CPU run predicts
+    (white ops bf16, black fp32), and the launches by wrapper and dtype,
+    exact (QKV and the MLP fp32 at O1, bf16 at O2; flash bf16 both)."""
+    if not (np.all(np.isfinite(losses)) and
+            np.isfinite(scaler.get_loss_scaling())):
+        raise AssertionError(f"{phase}: non-finite loss {losses} or scale "
+                             f"{scaler.get_loss_scaling()}")
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    if rel > AMP_LOSS_TOL:
+        raise AssertionError(f"{phase}: first loss {losses[0]} vs "
+                             f"{ref_loss}: {rel:.3g} > {AMP_LOSS_TOL}")
+    want = amp_expected_stats(level, layers)
+    if stats != want:
+        raise AssertionError(f"{phase}: operator stats {stats}, the CPU "
+                             f"run predicts {want}")
+    for op in ("linear", "scaled_dot_product_attention"):
+        if set(stats.get(op, {})) != {"bfloat16"}:
+            raise AssertionError(f"{phase}: white op {op} ran {stats}")
+    if set(stats.get("rms_norm", {})) != {"float32"}:
+        raise AssertionError(f"{phase}: black rms_norm ran {stats}")
+    n = layers * AMP_STEPS
+    gemm = "float32" if level == "O1" else "bfloat16"
+    want_l = {"fused_rmsnorm_qkv": {gemm: n}, "fused_mlp": {gemm: n},
+              "fused_ffn": {}, "flash_attention_fwd": {"bfloat16": n},
+              "flash_attention_bwd_dq": {"bfloat16": n},
+              "flash_attention_bwd_dkv": {"bfloat16": n},
+              "multi_tensor_adam": AMP_STEPS}
+    if launches != want_l:
+        raise AssertionError(f"{phase}: launches {launches}, expected "
+                             f"{want_l}")
+    return rel
+
+
+def amp_skip_check(model, opt, scaler, batch):
+    """An inf written into one gradient: ``scaler.step`` must leave every
+    parameter bitwise equal and multiply the scale by decr_ratio."""
+    from paddle_tpu_torch import amp
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = model.loss(batch["input_ids"], batch["labels"])
+    scaler.scale(loss).backward()
+    params = [p for p in model.parameters()]
+    params[len(params) // 2].grad.view(-1)[0] = float("inf")
+    before = [p.detach().clone() for p in params]
+    scale0 = scaler.get_loss_scaling()
+    scaler.step(opt)
+    opt.clear_grad()
+    same = all(torch.equal(a, p.detach()) for a, p in zip(before, params))
+    want = max(scale0 * scaler._decr_ratio, 1.0)
+    if not same or not scaler._found_inf or \
+            scaler.get_loss_scaling() != want:
+        raise AssertionError(f"amp_o1: the inf step changed parameters "
+                             f"({not same}) or the scale "
+                             f"{scaler.get_loss_scaling()} != {want}")
+    del before
+    return {"skipped": True, "params_bitwise_equal": same,
+            "scale_before": scale0, "scale_after": scaler.get_loss_scaling()}
+
+
+def amp_phases(dev, kernels):
+    """Paddle's dygraph AMP recipe on the Train cell's model:
+    LlamaConfig.llama3_8b() width, 4 of 32 layers, b=4, s=2048, built in
+    fp32 from seed 0, AdamW.  amp_o1: auto_cast(O1, bf16) + GradScaler,
+    AMP_STEPS steps; its first loss against an fp32 forward on the same
+    weights and batch; the skip check; one more step profiled (the fp32
+    first designs' share).  amp_o2: decorate(model, AdamW, O2, bf16) (a
+    fresh optimizer, fp32 masters), the same loop; its first loss
+    against the plain bf16 model's (norms bf16, where O2 runs them in
+    fp32).  Returns each level's launches by wrapper and dtype."""
+    from paddle_tpu_torch import amp, seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig.llama3_8b()
+    cfg.num_hidden_layers = TRAIN_LAYERS
+    cfg.dtype = "float32"
+    seed(0)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (TRAIN_B, TRAIN_S + 1))
+    batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+             "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+    tokens = TRAIN_B * TRAIN_S
+    flops_tok = 6 * n_params + 12 * TRAIN_LAYERS * TRAIN_S * cfg.hidden_size
+    out = {}
+    with torch.no_grad():
+        ref32 = float(model.loss(batch["input_ids"], batch["labels"]))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = amp.GradScaler()
+    losses, times, stats, peak, launches = amp_steps(
+        "O1", model, opt, scaler, batch, kernels)
+    rel = amp_gates("amp_o1", "O1", losses, ref32, scaler, stats, launches,
+                    TRAIN_LAYERS)
+    skip = amp_skip_check(model, opt, scaler, batch)
+
+    def one_step():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model.loss(batch["input_ids"], batch["labels"])
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+    prof = profile_call(one_step, "amp_o1_profile", AMP_FAMILIES, top_n=12,
+                        steps=1)
+    busy = prof["device_busy_s"] or float("nan")
+    fp32_ms = prof["port_kernels"]["gemm_kernel"]["ms"]
+    dt = float(np.median(times[1:]))
+    # fp32 parameters, gradients and AdamW's two moments: 16 bytes each
+    emit("amp_o1", level="O1", dtype="bfloat16", params=n_params,
+         param_dtype="float32", layers=TRAIN_LAYERS, batch=TRAIN_B,
+         seq=TRAIN_S, recipe="auto_cast(O1) + GradScaler + AdamW",
+         model_build_s=build_s, fp32_forward_loss=ref32, losses=losses,
+         first_loss_rel_err=rel, loss_tol=AMP_LOSS_TOL,
+         scale=scaler.get_loss_scaling(), skip_check=skip, step_s=times,
+         step_s_median=dt, train_cell_step_s=TRAIN_STEP_REF_S,
+         tokens_per_s=tokens / dt,
+         mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S,
+         peak_mem_gb=peak, reckoned_state_gb=16 * n_params / 2 ** 30,
+         operator_stats=stats, launches_by_dtype=launches,
+         fp32_kernels_ms=fp32_ms,
+         fp32_kernels_share_of_device=fp32_ms / 1e3 / busy,
+         fp32_kernels_share_of_step=fp32_ms / 1e3 / prof["wall_s"])
+    out["amp_o1"] = launches
+    del opt, scaler
+    torch.cuda.empty_cache()
+
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    with torch.no_grad():
+        ref_bf16 = float(model.loss(batch["input_ids"], batch["labels"]))
+    scaler = amp.GradScaler()
+    losses, times, stats, peak, launches = amp_steps(
+        "O2", model, opt, scaler, batch, kernels)
+    rel = amp_gates("amp_o2", "O2", losses, ref_bf16, scaler, stats,
+                    launches, TRAIN_LAYERS)
+    masters = all(opt._accumulators[id(p)]["_master"].dtype == torch.float32
+                  for p in model.parameters())
+    if not masters or any(p.dtype != torch.bfloat16
+                          for p in model.parameters()):
+        raise AssertionError("amp_o2: decorate left fp32 parameters or no "
+                             "fp32 masters")
+    dt = float(np.median(times[1:]))
+    emit("amp_o2", level="O2", dtype="bfloat16", params=n_params,
+         param_dtype="bfloat16", masters="float32", layers=TRAIN_LAYERS,
+         batch=TRAIN_B, seq=TRAIN_S,
+         recipe="decorate(O2) + auto_cast(O2) + GradScaler + AdamW",
+         plain_bf16_forward_loss=ref_bf16, losses=losses,
+         first_loss_rel_err=rel, loss_tol=AMP_LOSS_TOL,
+         scale=scaler.get_loss_scaling(), step_s=times, step_s_median=dt,
+         train_cell_step_s=TRAIN_STEP_REF_S, tokens_per_s=tokens / dt,
+         mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S, peak_mem_gb=peak,
+         operator_stats=stats, launches_by_dtype=launches)
+    out["amp_o2"] = launches
+    del model, opt, scaler
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_amp_fp32(FB, dev, timer, T=TRAIN_B * TRAIN_S):
+    """The fp32 first designs that O1 puts on a user path: the QKV
+    kernel's training variant and the MLP pair at the Train step's T,
+    against their plain versions, timed beside them, the fp32 library
+    chain (F.rms_norm then the products; the MLP's three products) and
+    the bound at the fp32 rate (TF32 off)."""
+    g = torch.Generator(device=dev).manual_seed(T + 19)
+    dt = torch.float32
+    F_ = torch.nn.functional
+    x = rand(g, (T, D), dt, dev)
+    wn = rand(g, (D,), dt, dev, 0.1) + 1
+    s = (2.0 / (D + DQ)) ** 0.5
+    wq, wk, wv = (rand(g, (D, n), dt, dev, s) for n in (DQ, DKV, DKV))
+    got = FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, EPS, residuals=True)
+    ref = FB.qkv_reference(x, wn, wq, wk, wv, EPS, residuals=True)
+    err = max(check_close(f"fused_rmsnorm_qkv train fp32 {n}", a, b_, dt)
+              for n, a, b_ in zip(("q", "k", "v", "xn", "inv"), got, ref))
+    del got, ref
+
+    def qkv_lib():
+        xn = F_.rms_norm(x, (D,), wn, EPS)
+        return xn @ wq, xn @ wk, xn @ wv
+    qkv = {"ms": timer(lambda: FB.fused_rmsnorm_qkv(
+        x, wn, wq, wk, wv, EPS, residuals=True), iters=5),
+        "plain_ms": timer(lambda: FB.qkv_reference(
+            x, wn, wq, wk, wv, EPS, residuals=True), iters=3, warmup=1),
+        "library_ms": timer(qkv_lib, iters=5), "max_abs_err": err,
+        "shape": f"T={T} d={D} dq={DQ} dkv={DKV} fp32",
+        "kernel_path": "tile"}
+    qkv["bound_ms"], qkv["bound_by"] = bound_ms(
+        *qkv_io(T, item=4, train=True), FP32_FLOP_PER_S)
+    del wq, wk, wv
+    s = (2.0 / (D + F)) ** 0.5
+    wg, wu = rand(g, (D, F), dt, dev, s), rand(g, (D, F), dt, dev, s)
+    wd = rand(g, (F, D), dt, dev, s)
+    err = check_close("fused_mlp fp32 T=8192", FB.fused_mlp(x, wg, wu, wd),
+                      FB.mlp_reference(x, wg, wu, wd), dt)
+    mlp = {"ms": timer(lambda: FB.fused_mlp(x, wg, wu, wd), iters=5),
+           "plain_ms": timer(lambda: FB.mlp_reference(x, wg, wu, wd),
+                             iters=3, warmup=1),
+           "library_ms": timer(lambda: (F_.silu(x @ wg) * (x @ wu)) @ wd,
+                               iters=5),
+           "max_abs_err": err, "shape": f"T={T} d={D} f={F} fp32",
+           "kernel_path": "tile"}
+    mlp["bound_ms"], mlp["bound_by"] = bound_ms(*mlp_io(T, item=4),
+                                                FP32_FLOP_PER_S)
+    return {"fused_rmsnorm_qkv_train_fp32": qkv, "fused_mlp_train_fp32": mlp}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5543,6 +6414,7 @@ def main():
     train_rows["fused_mlp_train"] = kernel_mlp(FB, dev, timer,
                                                TRAIN_B * TRAIN_S,
                                                plain_iters=3)
+    train_rows.update(kernel_amp_fp32(FB, dev, timer))
     emit("kernels_train", results=train_rows)
     quant_rows = kernel_quant_rows(QM, quantize_linear_weight, dev, timer)
     quant_rows["paged_decode_attention_int8"] = kernel_paged_int8(
@@ -5561,6 +6433,8 @@ def main():
     mt_rows = kernel_multi_tensor(MT, dev, timer)
     emit("kernels_multi_tensor", results=mt_rows)
     del timer
+    torch.cuda.empty_cache()
+    op_surface(dev)
     torch.cuda.empty_cache()
 
     card, host, prompt = parity(dev)
@@ -5603,6 +6477,8 @@ def main():
     graph_launches = train_graph(dev, kernels)
     torch.cuda.empty_cache()
     train_state(dev)
+    torch.cuda.empty_cache()
+    amp_launches = amp_phases(dev, kernels)
     torch.cuda.empty_cache()
     decoder_parity(dev, kernels)
     torch.cuda.empty_cache()
@@ -5704,7 +6580,28 @@ def main():
             entry["flash_delta_ms"] = train_rows["flash_delta"]["ms"]
             entry["gpt_shape"]["flash_delta_ms"] = \
                 train_rows["flash_delta_gpt"]["ms"]
+        # AMP's steps (amp_o1, amp_o2): this wrapper's launches by dtype
+        for phase, got in amp_launches.items():
+            entry[f"launches_{phase}"] = got[wrapper]
         line.append(entry)
+    # the fp32 first designs that amp_o1 launches (QKV's training variant
+    # and the MLP at T = 8192): launches from amp_o1's steps
+    for name, rep in (("fused_rmsnorm_qkv_train_fp32",
+                       "paddle_tpu/ops/pallas/fused_block.py:249"),
+                      ("fused_mlp_train_fp32",
+                       "paddle_tpu/ops/pallas/fused_block.py:494")):
+        row = train_rows[name]
+        wrapper = name.removesuffix("_train_fp32")
+        line.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/ops/kernels/csrc/"
+                               "fused_block.cu", "replaces": rep,
+                     "launches": amp_launches["amp_o1"][wrapper].get(
+                         "float32", 0),
+                     **{k: row[k] for k in keys}, "shape": row["shape"],
+                     "path": "amp_o1 (auto_cast O1: fp32, a gray op)",
+                     "kernel_path": row["kernel_path"],
+                     "launches_amp_o1": amp_launches["amp_o1"][wrapper],
+                     "launches_amp_o2": amp_launches["amp_o2"][wrapper]})
     # the quantized serving path: the gate/up shape at decode stands for
     # the quant matmul (its other shapes are in the kernels_quant line);
     # launches from each engine's serve_quant run
@@ -5854,6 +6751,9 @@ def main():
     # every kernel the two new paths launched, on its row
     for entry in line:
         w = entry["name"].removesuffix("_train").removesuffix("_fp8")
+        for phase, got in amp_launches.items():
+            if w in got:
+                entry.setdefault(f"launches_{phase}", got[w])
         if drill_launches.get(w):
             entry["launches_recovery_drill"] = drill_launches[w]
         if cold_launches["A"].get(w) or cold_launches["B"].get(w):

@@ -17,7 +17,32 @@ _NAME_TO_TORCH = {
     "int32": torch.int32,
     "int64": torch.int64,
     "bool": torch.bool,
+    "complex64": torch.complex64,
+    "complex128": torch.complex128,
+    "float8_e5m2": torch.float8_e5m2,
 }
+
+# the top level's dtype names (``paddle_tpu/core/dtypes.py:44-55``): a
+# dtype is spelled as its name, as users spell it in paddle
+float32 = "float32"
+float64 = "float64"
+float16 = "float16"
+bfloat16 = "bfloat16"
+int8 = "int8"
+uint8 = "uint8"
+int16 = "int16"
+int32 = "int32"
+int64 = "int64"
+bool_ = "bool"
+complex64 = "complex64"
+complex128 = "complex128"
+
+
+def is_floating(dtype) -> bool:
+    """Whether `dtype` (a name or a torch dtype) is a float or complex
+    type (``paddle_tpu/core/dtypes.py:76``)."""
+    dt = to_torch(dtype)
+    return dt.is_floating_point or dt.is_complex
 
 
 def to_torch(dtype) -> torch.dtype:

@@ -1,5 +1,5 @@
 """Process state: the global seed, one ``torch.Generator`` per device,
-the default device, and the backend fingerprint.
+the default device and float dtype, and the backend fingerprint.
 
 The JAX package keeps one splitting key (``paddle_tpu/core/state.py``);
 here each device gets its own generator, all seeded from the same
@@ -20,11 +20,43 @@ _seed = 0
 _generators: Dict[str, torch.Generator] = {}
 
 
+_default_device = "cuda"
+_default_dtype = "float32"
+
+
+def set_default_device(device) -> str:
+    """The device :func:`resolve_device` gives when the caller names
+    none (``device.set_device``); ``"cuda"`` until changed."""
+    global _default_device
+    _default_device = str(torch.device(device))
+    return _default_device
+
+
+def get_default_device() -> str:
+    return _default_device
+
+
+def set_default_dtype(dtype):
+    """The float dtype of creation ops given no dtype
+    (``paddle_tpu/core/state.py:24``)."""
+    global _default_dtype
+    name = str(dtype).replace("paddle.", "").replace("torch.", "")
+    if name not in ("float16", "bfloat16", "float32", "float64"):
+        raise ValueError(f"default dtype must be floating, got {dtype}")
+    _default_dtype = name
+
+
+def get_default_dtype() -> str:
+    return _default_dtype
+
+
 def resolve_device(device=None) -> torch.device:
     """The entry points' device rule: ``cuda`` unless the caller asks for
-    another device.  Asking for CUDA (explicitly or by default) on a
-    machine without it raises — nothing quietly carries on on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
+    another device, or :func:`set_default_device` (``set_device("cpu")``)
+    named another default.  Asking for CUDA (explicitly or by default) on
+    a machine without it raises — nothing quietly carries on on the
+    CPU."""
+    dev = torch.device(_default_device if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")

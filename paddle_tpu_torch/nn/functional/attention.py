@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core.dispatch import eager_op
 from paddle_tpu_torch.core import state as _state
 from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention
 
@@ -66,6 +67,7 @@ def _flash_eligible(query, head_dim):
         s >= 128 and s % 128 == 0
 
 
+@eager_op
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, scale=None):
@@ -109,6 +111,7 @@ def rotary_freqs(head_dim, max_position, base=10000.0, device="cpu"):
     return torch.cos(freqs), torch.sin(freqs)
 
 
+@eager_op
 def apply_rotary_emb(x, cos, sin, position_offset=0):
     """Rotary embedding, Llama/NeoX half-rotation, computed in fp32 and
     cast back.

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core.dispatch import eager_op
 from paddle_tpu_torch.ops.kernels import fused_block as _FB
 
 __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
@@ -23,6 +24,7 @@ def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+@eager_op
 def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5):
     """``q, k, v = (rmsnorm(x) * norm_weight) @ (wq | wk | wv)``; x
     ``[..., d]``, weights ``[in, out]``.  Differentiable in every
@@ -36,6 +38,7 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5):
             v.reshape(*lead, -1))
 
 
+@eager_op
 def fused_mlp(x, w_gate, w_up, w_down):
     """``(silu(x @ w_gate) * (x @ w_up)) @ w_down`` (SwiGLU); x
     ``[..., d]``.  Differentiable in every tensor."""
@@ -46,6 +49,7 @@ def fused_mlp(x, w_gate, w_up, w_down):
     return y.reshape(x.shape)
 
 
+@eager_op
 def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
     """``act(x @ w1 + b1) @ w2 + b2`` with relu, exact-erf gelu or silu;
     x ``[..., d]``, b1/b2 may be None (zeros).  Differentiable in x, the
@@ -57,6 +61,7 @@ def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
     return y.reshape(x.shape)
 
 
+@eager_op
 def fused_decoder_block(x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
                         norm2_weight, wg, wu, wd, num_heads, num_kv_heads,
                         epsilon=1e-5):

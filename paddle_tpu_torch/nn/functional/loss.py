@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core.dispatch import eager_op
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.ops.kernels.cross_entropy import (
     fused_softmax_cross_entropy)
@@ -32,6 +33,7 @@ def _is_int(t):
         t.dtype != torch.bool
 
 
+@eager_op
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
@@ -211,6 +213,7 @@ class _FusedCE(torch.autograd.Function):
         return dh.to(h.dtype), dw, None, None
 
 
+@eager_op
 def fused_linear_cross_entropy(hidden, weight, labels, chunk_size=8192,
                                reduction="mean", ignore_index=-100):
     """Fused lm-head + softmax cross-entropy over vocab chunks.

@@ -4,12 +4,14 @@ from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core.dispatch import eager_op
 from paddle_tpu_torch.nn.functional.fused import _needs_grad
 from paddle_tpu_torch.ops.kernels import rmsnorm as _RN
 
 __all__ = ["layer_norm", "rms_norm", "rms_norm_residual"]
 
 
+@eager_op
 def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
                epsilon: float = 1e-5) -> torch.Tensor:
     """Layer norm over the trailing ``normalized_shape`` axes, statistics
@@ -30,6 +32,7 @@ def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
     return out
 
 
+@eager_op
 def rms_norm(x: torch.Tensor, weight=None, epsilon: float = 1e-6,
              axis: int = -1) -> torch.Tensor:
     """RMS norm over ``axis``, statistics in fp32.  The cast points are
@@ -44,6 +47,7 @@ def rms_norm(x: torch.Tensor, weight=None, epsilon: float = 1e-6,
     return out
 
 
+@eager_op
 def rms_norm_residual(x: torch.Tensor, weight: torch.Tensor, residual=None,
                       epsilon: float = 1e-5):
     """``(y, h)``: h = x (+ residual), y = RMSNorm(h) * weight in the fused

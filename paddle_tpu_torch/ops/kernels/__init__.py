@@ -58,6 +58,10 @@ DECODER_TRAINING = (fused_decoder_block, fused_rmsnorm, fused_rmsnorm_qkv,
                     flash_attention_bwd_dkv)
 DECODER_SCORING = (fused_decoder_block,)
 NORM = (fused_rmsnorm,)
+# the wrappers that also count their launches by io dtype
+# (`launches_by_dtype`): AMP's O1 sends QKV and the MLP fp32, O2 bf16
+BY_DTYPE = (fused_rmsnorm_qkv, fused_mlp, fused_ffn, flash_attention_fwd,
+            flash_attention_bwd_dq, flash_attention_bwd_dkv)
 
 
 def reset_launch_counts():
@@ -74,6 +78,8 @@ def reset_launch_counts():
     for fn in (paged_decode_attention, paged_decode_attention_int8):
         fn.launches_by_path = dict.fromkeys(PAGED_PATHS, 0)
     fused_decoder_block.routes = dict.fromkeys(("decoder", "segments"), 0)
+    for fn in BY_DTYPE:
+        fn.launches_by_dtype = {}
 
 
 __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "paged_decode_attention",
@@ -85,4 +91,4 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "paged_decode_attention",
            "KERNELS", "SERVING", "SERVING_QUANT", "MULTI_TENSOR",
            "TRAINING", "TRAINING_MOE",
            "TRAINING_GPT", "TRANSFORMER", "DECODER_TRAINING",
-           "DECODER_SCORING", "NORM", "reset_launch_counts"]
+           "DECODER_SCORING", "NORM", "BY_DTYPE", "reset_launch_counts"]

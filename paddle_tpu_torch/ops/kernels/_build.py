@@ -41,7 +41,7 @@ __all__ = ["library", "build_all", "ptxas_report", "parse_ptxas", "check",
            "stream_of", "tickets", "workspace", "frozen", "sm_count",
            "charge", "plain", "library_key", "nvcc_version", "nvcc_runs",
            "file_sha256", "verified", "store_library",
-           "DTYPE_CODES",
+           "DTYPE_CODES", "FP16_ENTRY", "dtype_error", "count_dtype",
            "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -57,6 +57,27 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 WEIGHT_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 FLOAT16_CODE = 4
+# where float16 waits for the kernels that AMP's float16 reaches
+FP16_ENTRY = ("ROADMAP.md, queue 1, item 11: fp16 instantiations of "
+              "flash, QKV, MLP and the CE for AMP float16")
+
+
+def count_dtype(fn, dtype):
+    """Count one launch of wrapper `fn` under its io dtype in
+    ``fn.launches_by_dtype`` (beside ``fn.launches``): AMP's levels send
+    the same wrapper fp32 or bf16."""
+    key = str(dtype).replace("torch.", "")
+    fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
+
+
+def dtype_error(what, dtype) -> TypeError:
+    """The error of a wrapper given a dtype it has no kernel for: a
+    CUDA tensor never takes the plain version instead."""
+    if dtype == torch.float16:
+        return TypeError(f"{what}: float16 has no kernel yet ({FP16_ENTRY});"
+                         f" on the card run AMP with dtype='bfloat16'")
+    return TypeError(f"{what}: dtype {dtype} not supported (float32, "
+                     "bfloat16)")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -129,8 +129,7 @@ def _check(what, q, k, v, extra=()):
     if s % 64:
         raise ValueError(f"{what}: seq {s} must be a multiple of 64")
     if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{what}: dtype {q.dtype} not supported (float32, "
-                        "bfloat16)")
+        raise _build.dtype_error(what, q.dtype)
     for name, t, dt in (("q", q, q.dtype), ("k", k, q.dtype),
                         ("v", v, q.dtype)) + tuple(extra):
         if t.device != q.device:
@@ -168,10 +167,12 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     _build.check(lib, err, what)
     _build.charge(what, costs.flash_fwd, q, k, v, causal)
     flash_attention_fwd.launches += 1
+    _build.count_dtype(flash_attention_fwd, q.dtype)
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_dtype = {}
 
 
 def _bwd_extra(q, dout, lse, delta):
@@ -209,10 +210,12 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
     _build.check(lib, err, what)
     _build.charge(what, costs.flash_dq, q, k, v, causal)
     flash_attention_bwd_dq.launches += 1
+    _build.count_dtype(flash_attention_bwd_dq, q.dtype)
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_dtype = {}
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
@@ -237,10 +240,12 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
     _build.check(lib, err, what)
     _build.charge(what, costs.flash_dkv, q, k, v, causal)
     flash_attention_bwd_dkv.launches += 1
+    _build.count_dtype(flash_attention_bwd_dkv, q.dtype)
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_dtype = {}
 
 
 @torch.library.custom_op("ptt::flash_attention_fwd", mutates_args=())

@@ -220,8 +220,7 @@ def _check_cuda(what, tensors, dtype):
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
     if dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{what}: dtype {dtype} not supported (float32, "
-                        "bfloat16)")
+        raise _build.dtype_error(what, dtype)
 
 
 def _check_width(what, **dims):
@@ -305,6 +304,7 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
         _build.charge(what, costs.qkv, x, norm_weight, wq, wk, wv,
                       residuals)
         fused_rmsnorm_qkv.launches += 1
+        _build.count_dtype(fused_rmsnorm_qkv, x.dtype)
         fused_rmsnorm_qkv.launches_by_path[GEMM_PATHS[design.value]] += 1
     out = (q.reshape(*lead, dq), k.reshape(*lead, dkv),
            v.reshape(*lead, dkv))
@@ -314,6 +314,7 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
 
 
 fused_rmsnorm_qkv.launches = 0
+fused_rmsnorm_qkv.launches_by_dtype = {}
 fused_rmsnorm_qkv.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
@@ -355,6 +356,7 @@ def _mlp_launch(fn, x, w1, wu, w2, b1, b2, act):
             _build.charge(what, costs.mlp, x, w1, wu, w2)
         fn.launches += 1
         fn.launches_by_path[GEMM_PATHS[design.value]] += 1
+        _build.count_dtype(fn, x.dtype)
     return y.reshape(x.shape)
 
 
@@ -388,6 +390,7 @@ def fused_mlp(x, w_gate, w_up, w_down):
 
 
 fused_mlp.launches = 0
+fused_mlp.launches_by_dtype = {}
 fused_mlp.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
@@ -428,6 +431,7 @@ def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
 
 
 fused_ffn.launches = 0
+fused_ffn.launches_by_dtype = {}
 fused_ffn.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 

@@ -2872,3 +2872,92 @@ def test_train_step_compile_counts_and_arms_mfu(dev):
     step(_ids(cfg, 1))
     mfu = default_registry().get("paddle_tpu_train_mfu").value()
     assert 0 < mfu < 1
+
+
+# -- the op surface, AMP and the float16 guard (the op hook's slice) --------
+
+def test_op_surface_on_the_card(dev):
+    """chip_smoke.py's op_surface: every generated and hand-written op on
+    CUDA tensors against the CPU run on the same inputs, the random ops
+    repeated under seed on the card."""
+    import chip_smoke
+    counts = chip_smoke.op_surface(dev)
+    assert counts["generated"] == 304 and counts["random"] == 15
+
+
+def test_amp_o2_step_at_small_width(dev):
+    """One decorate(O2) + auto_cast + GradScaler step of a Llama at head
+    dim 128 on the card: bf16 QKV, MLP and flash launched, fp32 masters,
+    the loss within 2e-2 of the plain bf16 model's."""
+    from paddle_tpu_torch import amp, seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_attention_heads=2, num_key_value_heads=1,
+                           num_hidden_layers=2)
+    seed(0)
+    model = LlamaForCausalLM(cfg, device=dev)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    ids = torch.randint(0, cfg.vocab_size, (2, 128), device=dev)
+    with torch.no_grad():
+        plain = float(model.loss(ids, ids))
+    kernels.reset_launch_counts()
+    scaler = amp.GradScaler()
+    with amp.auto_cast(level="O2"):
+        loss = model.loss(ids, ids)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    opt.clear_grad()
+    assert abs(float(loss) - plain) / abs(plain) < 2e-2
+    for fn in (kernels.fused_rmsnorm_qkv, kernels.fused_mlp,
+               kernels.flash_attention_fwd, kernels.flash_attention_bwd_dq,
+               kernels.flash_attention_bwd_dkv):
+        assert fn.launches_by_dtype == {"bfloat16": 2}, fn.__name__
+    assert all(opt._accumulators[id(p)]["_master"].dtype == torch.float32
+               for p in model.parameters())
+
+
+def test_grad_scaler_finds_nan_and_inf_on_the_card(dev):
+    """The found-inf flag (inf-norms of the unscaled gradients) sees a
+    NaN and an inf in CUDA gradients of each dtype."""
+    from paddle_tpu_torch import amp
+    for bad in (float("nan"), float("inf")):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            p = torch.nn.Parameter(torch.ones(64, device=dev, dtype=dtype))
+            p.grad = torch.ones_like(p)
+            p.grad[7] = bad
+
+            class Opt:
+                _parameters = [p]
+
+                def step(self):
+                    raise AssertionError("a non-finite step was taken")
+            s = amp.GradScaler(init_loss_scaling=4.0)
+            s.step(Opt())
+            assert s._found_inf and s.get_loss_scaling() == 2.0
+
+
+@pytest.mark.parametrize("wrapper", ["flash", "qkv", "mlp"])
+def test_float16_raises_naming_the_queue_entry(dev, wrapper):
+    """float16 has no kernel yet: a CUDA tensor raises a TypeError that
+    names ROADMAP.md's queue 1 entry, and never takes the plain
+    version."""
+    rng = np.random.default_rng(0)
+    h = torch.float16
+    with pytest.raises(TypeError, match="queue 1, item 11"):
+        if wrapper == "flash":
+            q = _t(rng, (1, 128, 2, 128), h, dev)
+            FA.flash_attention(q, q, q, causal=True)
+        elif wrapper == "qkv":
+            x = _t(rng, (32, 128), h, dev)
+            FB.fused_rmsnorm_qkv(x, _t(rng, (128,), h, dev),
+                                 _t(rng, (128, 128), h, dev),
+                                 _t(rng, (128, 64), h, dev),
+                                 _t(rng, (128, 64), h, dev))
+        else:
+            x = _t(rng, (32, 128), h, dev)
+            FB.fused_mlp(x, _t(rng, (128, 256), h, dev),
+                         _t(rng, (128, 256), h, dev),
+                         _t(rng, (256, 128), h, dev))

@@ -459,16 +459,20 @@ def test_chunked_ce_reads_the_flag_from_the_environment(ce_case,
     assert flags.get("default_matmul_precision") == "default"
 
 
-@pytest.mark.parametrize("name", ["check_nan_inf", "FLAGS_benchmark",
-                                  "log_level"])
+@pytest.mark.parametrize("name", ["use_deterministic_ops",
+                                  "FLAGS_benchmark", "log_level"])
 def test_set_flags_refuses_a_flag_that_nothing_reads(name):
     """Only flags with a reader are defined: setting any other raises
-    rather than passing in silence, and the defined flag is untouched."""
+    rather than passing in silence, and the defined flags are untouched
+    (the op hook reads the two NaN/Inf flags, the chunked CE the matmul
+    precision)."""
     before = flags.get_flags()
     with pytest.raises(KeyError, match="Unknown flag"):
         flags.set_flags({name: 1})
     with pytest.raises(KeyError, match="Unknown flag"):
         flags.get(name)
     assert flags.get_flags() == before == {
+        "FLAGS_check_nan_inf": flags.get("check_nan_inf"),
+        "FLAGS_check_nan_inf_level": flags.get("check_nan_inf_level"),
         "FLAGS_default_matmul_precision":
             flags.get("default_matmul_precision")}

@@ -227,6 +227,9 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.distributed.elastic\n"
         "import paddle_tpu_torch.robustness.recovery\n"
         "import paddle_tpu_torch.utils.cpp_extension\n"
+        "import paddle_tpu_torch.ops.gen.generate\n"
+        "import paddle_tpu_torch.amp.debugging, paddle_tpu_torch.fft\n"
+        "import paddle_tpu_torch.device, paddle_tpu_torch.core.dispatch\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"
