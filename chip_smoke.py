@@ -281,15 +281,19 @@ train_moe two, one per engine or dispatch mode):
             and two layers scaled to four (linear and the attention
             bf16, rms_norm fp32), launches exact by wrapper and dtype
             (bf16 flash forward, dq and dk/dv, fp32 QKV training variant
-            and MLP: 4 a step each), an inf written into one gradient
-            skipping the step (every parameter bitwise equal, the scale
-            halved), then one step profiled: the fp32 first designs'
-            device share.  amp_o2: decorate(model, AdamW, O2, bf16), the
-            same loop, the first loss against the plain bf16 model's,
-            bf16 QKV and MLP, fp32 masters.  Step time and peak beside
-            the Train cell's 0.2923 s.  kernels_train carries the fp32
-            QKV training variant and MLP at T = 8192 (their bound at the
-            fp32 rate, the fp32 library chain) and the kernels line
+            and MLP: 4 a step each, all on the 3xTF32 design), an inf
+            written into one gradient skipping the step (every parameter
+            bitwise equal, the scale halved), then one step profiled: the
+            fp32 kernels' device share (the split pre-pass, the row pass
+            and the 3xTF32 GEMMs).  amp_o2: decorate(model, AdamW, O2,
+            bf16), the same loop, the first loss against the plain bf16
+            model's, bf16 QKV and MLP, fp32 masters.  Step time and peak
+            beside the Train cell's 0.2923 s.  kernels_train carries the
+            fp32 QKV training variant and MLP at T = 8192 and fused_ffn's
+            fp32 row (the design each launched, the bound at its rate
+            and the fp32 CUDA cores' beside it, the errors against
+            float64 beside the plain version's, the memory a call
+            allocates, the fp32 library chain) and the kernels line
             their rows and every AMP wrapper's launches_amp_o1 / _o2.
 
 Then the kernels line, the card's name and power limit, and the last
@@ -317,6 +321,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores
+TF32X3_FLOP_PER_S = 495e12 / 3   # fp32 products as three TF32 passes
 D, DQ, DKV, F = 4096, 4096, 1024, 14336
 EPS = 1e-5
 # kernel vs plain version, (atol, rtol): fp32 differs by summation order
@@ -357,7 +362,8 @@ PTXAS_KERNELS = ("flash_fwd_hopper", "flash_dq_hopper", "flash_dkv_hopper",
                  "quant_splitk_kernel", "quant_wgmma_kernel",
                  "decoder_hopper", "grouped_hopper", "qkv_splitk_kernel",
                  "paged_split_kernel", "mlp_splitk_kernel",
-                 "rmsnorm_regs_kernel")
+                 "rmsnorm_regs_kernel", "tf32x3_gemm_kernel",
+                 "tf32_split_t_kernel", "tf32_split_kernel")
 # the chunked CE at FLAGS_default_matmul_precision="default" (TF32 chunk
 # products on the card) against "float32" (exact fp32): TF32 rounds each
 # operand to a 10-bit mantissa (2^-11 relative), so a logit moves by a few
@@ -517,6 +523,26 @@ def bound_ms(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / flop_per_s * 1e3
     return max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
+def fp32_rate(path):
+    """The peak rate of an fp32 QKV / MLP / fused_ffn launch's products on
+    `path`: the tensor cores' TF32 rate over three passes on ``tf32x3``,
+    the CUDA cores' fp32 rate on the tile."""
+    return TF32X3_FLOP_PER_S if path == "tf32x3" else FP32_FLOP_PER_S
+
+
+def call_alloc_bytes(fn):
+    """The most device memory `fn` held at once beyond what was allocated
+    before it (its outputs and the buffers it allocated for the call),
+    from the caching allocator's peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
 
 
 # the bounds' inputs, (bytes, flops) of each kernel's function at a shape:
@@ -1263,11 +1289,14 @@ def kernel_ffn(FB, dev, timer, act, dtype, T=TB * TS):
     isz = x.element_size()
     out["bound_ms"], out["bound_by"] = bound_ms(
         *ffn_io(T, isz, TD, TF_),
-        BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S)
+        BF16_FLOP_PER_S if dtype == torch.bfloat16 else fp32_rate(path))
     out["max_abs_err"] = err
     out["tolerance"] = dict(zip(("atol", "rtol"), TOL[dtype]))
     out["limit_used"] = used[what]
-    out["workspace_bytes"] = 2 * T * TF_ * isz
+    if path == "tf32x3":
+        out["call_alloc_bytes"] = call_alloc_bytes(kernel)
+    else:
+        out["workspace_bytes"] = 2 * T * TF_ * isz
     out["library"] = "addmm(b1, x, w1) -> act -> addmm(b2, h, w2)"
     out["shape"] = f"T={T} d={TD} f={TF_} {act} {str(dtype)[6:]}"
     out["path"] = path
@@ -6064,9 +6093,13 @@ AMP_STEPS = 3
 TRAIN_STEP_REF_S = 0.2923
 # AMP's loss against its reference on the same weights and batch
 AMP_LOSS_TOL = 2e-2
-# the fp32 first designs under O1 (gemm_tile.cuh's gemm_kernel<float>)
-AMP_FAMILIES = ("gemm_kernel", "flash_fwd_hopper", "flash_dq_hopper",
-                "flash_dkv_hopper", "adam_kernel")
+# the fp32 kernels under O1: QKV's and the MLP's 3xTF32 design (the split
+# pre-pass, QKV's row pass, the GEMMs) and the tile (gemm_tile.cuh's
+# gemm_kernel<float>, which O1 at T > 16 no longer launches)
+AMP_FP32_FAMILIES = ("tf32x3_gemm_kernel", "tf32_split_t_kernel",
+                     "tf32_split_kernel", "qkv_rows_kernel", "gemm_kernel")
+AMP_FAMILIES = AMP_FP32_FAMILIES + ("flash_fwd_hopper", "flash_dq_hopper",
+                                    "flash_dkv_hopper", "adam_kernel")
 
 
 @contextlib.contextmanager
@@ -6137,15 +6170,18 @@ def amp_steps(level, model, opt, scaler, batch, kernels):
     launches = {fn.__name__: dict(fn.launches_by_dtype)
                 for fn in kernels.BY_DTYPE}
     launches["multi_tensor_adam"] = kernels.multi_tensor_adam.launches
-    return losses, times, stats, peak, launches
+    paths = {fn.__name__: dict(fn.launches_by_path)
+             for fn in (kernels.fused_rmsnorm_qkv, kernels.fused_mlp)}
+    return losses, times, stats, peak, launches, paths
 
 
 def amp_gates(phase, level, losses, ref_loss, scaler, stats, launches,
-              layers):
+              layers, paths):
     """The phase's checks: finite losses and scale, the first loss
     within AMP_LOSS_TOL of its reference, the stats a CPU run predicts
-    (white ops bf16, black fp32), and the launches by wrapper and dtype,
-    exact (QKV and the MLP fp32 at O1, bf16 at O2; flash bf16 both)."""
+    (white ops bf16, black fp32), the launches by wrapper and dtype,
+    exact (QKV and the MLP fp32 at O1, bf16 at O2; flash bf16 both), and
+    QKV's and the MLP's by design, exact (3xTF32 at O1, wgmma at O2)."""
     if not (np.all(np.isfinite(losses)) and
             np.isfinite(scaler.get_loss_scaling())):
         raise AssertionError(f"{phase}: non-finite loss {losses} or scale "
@@ -6173,6 +6209,11 @@ def amp_gates(phase, level, losses, ref_loss, scaler, stats, launches,
     if launches != want_l:
         raise AssertionError(f"{phase}: launches {launches}, expected "
                              f"{want_l}")
+    design = "tf32x3" if level == "O1" else "wgmma"
+    for name, got in paths.items():
+        if got[design] != n or sum(got.values()) != n:
+            raise AssertionError(f"{phase}: {name} launched {got}, expected "
+                                 f"{n} on {design}")
     return rel
 
 
@@ -6234,10 +6275,10 @@ def amp_phases(dev, kernels):
         ref32 = float(model.loss(batch["input_ids"], batch["labels"]))
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
     scaler = amp.GradScaler()
-    losses, times, stats, peak, launches = amp_steps(
+    losses, times, stats, peak, launches, paths = amp_steps(
         "O1", model, opt, scaler, batch, kernels)
     rel = amp_gates("amp_o1", "O1", losses, ref32, scaler, stats, launches,
-                    TRAIN_LAYERS)
+                    TRAIN_LAYERS, paths)
     skip = amp_skip_check(model, opt, scaler, batch)
 
     def one_step():
@@ -6249,7 +6290,7 @@ def amp_phases(dev, kernels):
     prof = profile_call(one_step, "amp_o1_profile", AMP_FAMILIES, top_n=12,
                         steps=1)
     busy = prof["device_busy_s"] or float("nan")
-    fp32_ms = prof["port_kernels"]["gemm_kernel"]["ms"]
+    fp32_ms = sum(prof["port_kernels"][f]["ms"] for f in AMP_FP32_FAMILIES)
     dt = float(np.median(times[1:]))
     # fp32 parameters, gradients and AdamW's two moments: 16 bytes each
     emit("amp_o1", level="O1", dtype="bfloat16", params=n_params,
@@ -6263,7 +6304,7 @@ def amp_phases(dev, kernels):
          mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S,
          peak_mem_gb=peak, reckoned_state_gb=16 * n_params / 2 ** 30,
          operator_stats=stats, launches_by_dtype=launches,
-         fp32_kernels_ms=fp32_ms,
+         launches_by_path=paths, fp32_kernels_ms=fp32_ms,
          fp32_kernels_share_of_device=fp32_ms / 1e3 / busy,
          fp32_kernels_share_of_step=fp32_ms / 1e3 / prof["wall_s"])
     out["amp_o1"] = launches
@@ -6275,10 +6316,10 @@ def amp_phases(dev, kernels):
     with torch.no_grad():
         ref_bf16 = float(model.loss(batch["input_ids"], batch["labels"]))
     scaler = amp.GradScaler()
-    losses, times, stats, peak, launches = amp_steps(
+    losses, times, stats, peak, launches, paths = amp_steps(
         "O2", model, opt, scaler, batch, kernels)
     rel = amp_gates("amp_o2", "O2", losses, ref_bf16, scaler, stats,
-                    launches, TRAIN_LAYERS)
+                    launches, TRAIN_LAYERS, paths)
     masters = all(opt._accumulators[id(p)]["_master"].dtype == torch.float32
                   for p in model.parameters())
     if not masters or any(p.dtype != torch.bfloat16
@@ -6295,19 +6336,49 @@ def amp_phases(dev, kernels):
          scale=scaler.get_loss_scaling(), step_s=times, step_s_median=dt,
          train_cell_step_s=TRAIN_STEP_REF_S, tokens_per_s=tokens / dt,
          mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S, peak_mem_gb=peak,
-         operator_stats=stats, launches_by_dtype=launches)
+         operator_stats=stats, launches_by_dtype=launches,
+         launches_by_path=paths)
     out["amp_o2"] = launches
     del model, opt, scaler
     torch.cuda.empty_cache()
     return out
 
 
+def launched_path(fn, before):
+    """The one design `fn` launched since its ``launches_by_path`` was
+    `before` (raises unless exactly one launch was counted)."""
+    moved = {k: v - before.get(k, 0) for k, v in fn.launches_by_path.items()
+             if v != before.get(k, 0)}
+    if list(moved.values()) != [1]:
+        raise AssertionError(f"{fn.__name__}: launches by design moved by "
+                             f"{moved}, expected one launch")
+    return next(iter(moved))
+
+
+def f64_errors(got, plain, ref64):
+    """Largest abs errors of the kernel's and the plain version's outputs
+    against the float64 ones, and their ratio (the kernel's over the
+    plain's; the 3xTF32 rows must stay within FB.TF32X3_F64_FACTOR)."""
+    torch.cuda.synchronize()
+    e = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref64))
+    e32 = max(float((p.double() - r).abs().max())
+              for p, r in zip(plain, ref64))
+    return {"max_abs_err_f64": e, "plain_max_abs_err_f64": e32,
+            "f64_ratio": e / e32}
+
+
 def kernel_amp_fp32(FB, dev, timer, T=TRAIN_B * TRAIN_S):
-    """The fp32 first designs that O1 puts on a user path: the QKV
-    kernel's training variant and the MLP pair at the Train step's T,
-    against their plain versions, timed beside them, the fp32 library
-    chain (F.rms_norm then the products; the MLP's three products) and
-    the bound at the fp32 rate (TF32 off)."""
+    """The fp32 kernels that O1 puts on a user path: the QKV kernel's
+    training variant and the MLP pair at the Train step's T (3xTF32 on
+    wgmma), against their plain versions and against the
+    same functions in float64 (within FB.TF32X3_F64_FACTOR of the plain
+    version's own error), timed beside them and the fp32 library chain
+    (F.rms_norm then the products; the MLP's three products), with the
+    bound at the rate of the design each launched (``launches_by_path``;
+    3xTF32: 165 TFLOP/s) and, beside it, the fp32 CUDA cores' (67, the
+    tile's), and the memory a call allocates (its outputs and split
+    operands); and fused_ffn's fp32 row (Transformer-base width at
+    T = 8192)."""
     g = torch.Generator(device=dev).manual_seed(T + 19)
     dt = torch.float32
     F_ = torch.nn.functional
@@ -6315,11 +6386,18 @@ def kernel_amp_fp32(FB, dev, timer, T=TRAIN_B * TRAIN_S):
     wn = rand(g, (D,), dt, dev, 0.1) + 1
     s = (2.0 / (D + DQ)) ** 0.5
     wq, wk, wv = (rand(g, (D, n), dt, dev, s) for n in (DQ, DKV, DKV))
+    n0 = dict(FB.fused_rmsnorm_qkv.launches_by_path)
     got = FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, EPS, residuals=True)
+    path = launched_path(FB.fused_rmsnorm_qkv, n0)
     ref = FB.qkv_reference(x, wn, wq, wk, wv, EPS, residuals=True)
     err = max(check_close(f"fused_rmsnorm_qkv train fp32 {n}", a, b_, dt)
               for n, a, b_ in zip(("q", "k", "v", "xn", "inv"), got, ref))
-    del got, ref
+    xf = x.double()
+    xn64 = (xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + EPS)) \
+        * wn.double()
+    f64 = f64_errors(got[:3], ref[:3],
+                     [xn64 @ w.double() for w in (wq, wk, wv)])
+    del got, ref, xf, xn64
 
     def qkv_lib():
         xn = F_.rms_norm(x, (D,), wn, EPS)
@@ -6330,25 +6408,72 @@ def kernel_amp_fp32(FB, dev, timer, T=TRAIN_B * TRAIN_S):
             x, wn, wq, wk, wv, EPS, residuals=True), iters=3, warmup=1),
         "library_ms": timer(qkv_lib, iters=5), "max_abs_err": err,
         "shape": f"T={T} d={D} dq={DQ} dkv={DKV} fp32",
-        "kernel_path": "tile"}
+        "kernel_path": path, **f64,
+        "call_alloc_bytes": call_alloc_bytes(lambda: FB.fused_rmsnorm_qkv(
+            x, wn, wq, wk, wv, EPS, residuals=True))}
     qkv["bound_ms"], qkv["bound_by"] = bound_ms(
+        *qkv_io(T, item=4, train=True), fp32_rate(path))
+    qkv["bound_ms_fp32_cores"], _ = bound_ms(
         *qkv_io(T, item=4, train=True), FP32_FLOP_PER_S)
     del wq, wk, wv
     s = (2.0 / (D + F)) ** 0.5
     wg, wu = rand(g, (D, F), dt, dev, s), rand(g, (D, F), dt, dev, s)
     wd = rand(g, (F, D), dt, dev, s)
-    err = check_close("fused_mlp fp32 T=8192", FB.fused_mlp(x, wg, wu, wd),
-                      FB.mlp_reference(x, wg, wu, wd), dt)
+    n0 = dict(FB.fused_mlp.launches_by_path)
+    y = FB.fused_mlp(x, wg, wu, wd)
+    mpath = launched_path(FB.fused_mlp, n0)
+    plain = FB.mlp_reference(x, wg, wu, wd)
+    err = check_close("fused_mlp fp32 T=8192", y, plain, dt)
+    xf = x.double()
+    g64 = xf @ wg.double()
+    h64 = g64 * torch.sigmoid(g64) * (xf @ wu.double())
+    del g64
+    mf64 = f64_errors([y], [plain], [h64 @ wd.double()])
+    del y, plain, xf, h64
     mlp = {"ms": timer(lambda: FB.fused_mlp(x, wg, wu, wd), iters=5),
            "plain_ms": timer(lambda: FB.mlp_reference(x, wg, wu, wd),
                              iters=3, warmup=1),
            "library_ms": timer(lambda: (F_.silu(x @ wg) * (x @ wu)) @ wd,
                                iters=5),
            "max_abs_err": err, "shape": f"T={T} d={D} f={F} fp32",
-           "kernel_path": "tile"}
+           "kernel_path": mpath, **mf64,
+           "call_alloc_bytes": call_alloc_bytes(
+               lambda: FB.fused_mlp(x, wg, wu, wd))}
     mlp["bound_ms"], mlp["bound_by"] = bound_ms(*mlp_io(T, item=4),
-                                                FP32_FLOP_PER_S)
-    return {"fused_rmsnorm_qkv_train_fp32": qkv, "fused_mlp_train_fp32": mlp}
+                                                fp32_rate(mpath))
+    mlp["bound_ms_fp32_cores"], _ = bound_ms(*mlp_io(T, item=4),
+                                             FP32_FLOP_PER_S)
+    del x, wg, wu, wd
+    ffn = kernel_ffn(FB, dev, timer, "relu", dt)
+    ffn["bound_ms_fp32_cores"], _ = bound_ms(*ffn_io(T, 4, TD, TF_),
+                                             FP32_FLOP_PER_S)
+    gf = torch.Generator(device=dev).manual_seed(T + 23)
+    x = rand(gf, (T, TD), dt, dev)
+    w1, w2 = rand(gf, (TD, TF_), dt, dev, TD ** -0.5), \
+        rand(gf, (TF_, TD), dt, dev, TF_ ** -0.5)
+    b1, b2 = rand(gf, (TF_,), dt, dev, 0.1), rand(gf, (TD,), dt, dev, 0.1)
+    x64, a, c, b, e = (t.double() for t in (x, w1, b1, w2, b2))
+    ffn.update(f64_errors([FB.fused_ffn(x, w1, w2, b1, b2, "relu")],
+                          [FB.ffn_reference(x, w1, b1, w2, b2, "relu")],
+                          [torch.relu(x64 @ a + c) @ b + e]))
+    return {"fused_rmsnorm_qkv_train_fp32": qkv, "fused_mlp_train_fp32": mlp,
+            "fused_ffn_fp32": ffn}
+
+
+def amp_fp32_gates(FB, rows):
+    """kernel_amp_fp32's checks, once its rows are printed: each row on
+    the 3xTF32 design, its error against float64 within
+    FB.TF32X3_F64_FACTOR times the plain fp32 version's."""
+    factor = FB.TF32X3_F64_FACTOR
+    for name, row in rows.items():
+        if row.get("kernel_path", row.get("path")) != "tf32x3":
+            raise AssertionError(f"{name}: fp32 at T = 8192 not on the "
+                                 f"3xTF32 design: {row}")
+        if row["f64_ratio"] > factor:
+            raise AssertionError(f"{name}: error against float64 "
+                                 f"{row['max_abs_err_f64']}, over "
+                                 f"{factor}x the plain fp32 version's "
+                                 f"{row['plain_max_abs_err_f64']}")
 
 
 def main():
@@ -6414,8 +6539,10 @@ def main():
     train_rows["fused_mlp_train"] = kernel_mlp(FB, dev, timer,
                                                TRAIN_B * TRAIN_S,
                                                plain_iters=3)
-    train_rows.update(kernel_amp_fp32(FB, dev, timer))
+    fp32_rows = kernel_amp_fp32(FB, dev, timer)
+    train_rows.update(fp32_rows)
     emit("kernels_train", results=train_rows)
+    amp_fp32_gates(FB, fp32_rows)
     quant_rows = kernel_quant_rows(QM, quantize_linear_weight, dev, timer)
     quant_rows["paged_decode_attention_int8"] = kernel_paged_int8(
         PA, _quantize_kv, dev, timer)
@@ -6584,8 +6711,10 @@ def main():
         for phase, got in amp_launches.items():
             entry[f"launches_{phase}"] = got[wrapper]
         line.append(entry)
-    # the fp32 first designs that amp_o1 launches (QKV's training variant
-    # and the MLP at T = 8192): launches from amp_o1's steps
+    # the fp32 kernels that amp_o1 launches (QKV's training variant and
+    # the MLP at T = 8192, 3xTF32, bound at the 3xTF32 rate): launches
+    # from amp_o1's steps; the float64 errors beside the row's
+    extra = ("max_abs_err_f64", "plain_max_abs_err_f64", "f64_ratio")
     for name, rep in (("fused_rmsnorm_qkv_train_fp32",
                        "paddle_tpu/ops/pallas/fused_block.py:249"),
                       ("fused_mlp_train_fp32",
@@ -6600,6 +6729,7 @@ def main():
                      **{k: row[k] for k in keys}, "shape": row["shape"],
                      "path": "amp_o1 (auto_cast O1: fp32, a gray op)",
                      "kernel_path": row["kernel_path"],
+                     **{k: row[k] for k in extra},
                      "launches_amp_o1": amp_launches["amp_o1"][wrapper],
                      "launches_amp_o2": amp_launches["amp_o2"][wrapper]})
     # the quantized serving path: the gate/up shape at decode stands for

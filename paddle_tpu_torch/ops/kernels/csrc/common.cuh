@@ -23,7 +23,12 @@ enum DType {
 // the design a launch took, written by the C entries that report it
 // (ops/kernels/fused_block.py GEMM_PATHS, in this order; paged_attention.cu
 // has its own)
-enum Design { DESIGN_WGMMA = 0, DESIGN_TILE = 1, DESIGN_SPLITK = 2 };
+enum Design {
+  DESIGN_WGMMA = 0,
+  DESIGN_TILE = 1,
+  DESIGN_SPLITK = 2,
+  DESIGN_TF32X3 = 3
+};
 
 // err, and the design behind `out` (an int) where the launch went out
 inline int launched(int err, void* out, int d) {
@@ -93,6 +98,21 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// x rounded to TF32 by cvt.rna (to nearest, ties away from zero), as an
+// fp32 value whose 13 low mantissa bits are zero
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
+// x = hi + lo + r: hi = x in TF32, lo = the remainder x - hi (exact in
+// fp32) in TF32, |r| <= 2^-22 |x|
+__device__ __forceinline__ void tf32_split(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
 }
 
 }  // namespace ptt

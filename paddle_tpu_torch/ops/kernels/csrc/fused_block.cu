@@ -37,13 +37,13 @@
 // (T * f * itemsize bytes each way: 32 MB at T = 8192, f = 2048 in bf16).
 //
 // The first design, kept for QKV's training variant at T <= 16 and for
-// fp32: at decode (T = 8 rows) the weights are read once for very few
+// fp32 at T <= 16: at decode (T = 8 rows) the weights are read once for very few
 // operations, so the launch is bound by device-memory bytes.  The tile
 // keeps several 64-deep weight tiles in flight per block through a cp.async
 // ring (6 stages for 16-row tiles, 3 for 64-row tiles; rows past T are
 // zero-filled), so each block streams its weight columns without waiting on
-// every load.  Row tiles are 16 rows at decode (one wmma row) and 64 rows
-// past 16 (fp32 only: bf16 there is the wgmma GEMM below).  bf16 runs on the tensor cores through nvcuda::wmma
+// every load.  Row tiles are 16 rows at decode (one wmma row); past 16 rows
+// bf16 is the wgmma GEMM and fp32 3xTF32 (below).  bf16 runs on the tensor cores through nvcuda::wmma
 // 16x16x16 with fp32 accumulators; fp32 runs on the CUDA cores with fp32
 // FMAs (no TF32).  The tile itself is gemm_tile.cuh's, which the fp32
 // whole-block decoder kernel (fused_decoder.cu) calls too.
@@ -110,8 +110,8 @@
 // permutes.  The splits' fp32 partials are summed in split order by the
 // last block of each column tile (its own tickets, not the quant
 // matmul's), so two calls give the same bits.
-// The training variant at T <= 16, and fp32, keep the wmma / fp32 tile
-// below, as one launch.
+// The training variant at T <= 16, and fp32 at T <= 16, keep the wmma /
+// fp32 tile below, as one launch.
 //
 // The MLP and fused_ffn in bf16 at T <= 16 (decode steps; Llama-3-8B's MLP
 // reads 352 MB of weights, 0.105 ms at 3.35 TB/s) are split-K too, two
@@ -130,10 +130,32 @@
 // the down product adds its bias to the merged sum before the one cast.
 // Two calls give the same bits.
 //
+// fp32 at T > 16 (AMP O1's gray QKV and MLP in an fp32 model, fp32
+// training and scoring) is 3xTF32 on wgmma (tf32x3.cuh says why three TF32
+// products and what bounds them: 165 TFLOP/s for the products, 3.35 TB/s
+// for the split pre-pass), on the same ring roles as bf16 with four boxes
+// a slot, since tf32 wgmma reads both operands K-major only:
+//   RMSNorm+QKV (qkv_tf32x3): the three weights' W^T hi / lo (one
+//     tf32_split_t_kernel launch), the row pass (qkv_rows_kernel<float>:
+//     xn in x's type, fp32 here, the cast point of _qkv_reference, and
+//     inv, in the training variant; xn's TF32 hi and lo always), then the
+//     GEMM over q | k | v (tf32x3_gemm_kernel, MODE_QKV, fp32 stores);
+//   the MLP / fused_ffn (mlp_tf32x3): W1 (gated: Wg's and Wu's rows
+//     interleaved in groups of 64, so one B tile holds g and u of the same
+//     64 outputs) and W2 split in one launch, x split (tf32_split_kernel),
+//     the up product whose epilogue writes h's hi and lo straight into the
+//     down product's operand workspaces (silu(g) * u, or act(u + b1), on
+//     the fp32 sums; h itself is never written), then the down product
+//     (+ b2).
+// 128 x 128 tiles where every SM gets one, else 64 rows; persistent, the
+// tiles walked in bands of 4 row tiles (kTf32Band: the split A rows are
+// twice bf16's bytes twice over, and a band of 16 outgrew L2).
+//
 #include "gemm_tile.cuh"
 #include "hopper_gemm.cuh"
 #include "rmsnorm_row.cuh"
 #include "splitk.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -194,13 +216,16 @@ constexpr int kRowPassMinT = 17;
 constexpr int kStages = 4;   // 64-deep K slices in flight
 constexpr int kBand = 16;    // row tiles a band of the tile walk covers
 
+// bf16: xn (and inv); fp32 (SPLIT, the 3xTF32 path): also xn's TF32 hi
+// and lo, and xn itself only where the training variant asks for it
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(ptt::norm::NT)
-qkv_rows_kernel(const bf16* x, const bf16* wn, bf16* xn, float* inv,
-                int rows, int d, float eps) {
+qkv_rows_kernel(const T* x, const T* wn, T* xn, float* inv, float* hi,
+                float* lo, int rows, int d, float eps) {
   const int r = blockIdx.x * ptt::norm::ROWS + threadIdx.x / 32;
   if (r >= rows) return;
-  ptt::norm::rmsnorm_row<bf16, true, false>(x, nullptr, wn, xn, nullptr, inv,
-                                           r, d, eps);
+  ptt::norm::rmsnorm_row<T, true, false, SPLIT>(x, nullptr, wn, xn, nullptr,
+                                                inv, r, d, eps, hi, lo);
 }
 
 struct QkvParams {
@@ -288,9 +313,11 @@ int qkv_hopper(const void* x, const void* wn, const void* const w[3],
                int dkv, float eps, cudaStream_t stream) {
   if (xn == nullptr || d % 64 != 0) return (int)cudaErrorInvalidValue;
   constexpr int ROWS = ptt::norm::ROWS;
-  qkv_rows_kernel<<<(T + ROWS - 1) / ROWS, ptt::norm::NT, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wn),
-      static_cast<bf16*>(xn), static_cast<float*>(inv), T, d, eps);
+  qkv_rows_kernel<bf16, false>
+      <<<(T + ROWS - 1) / ROWS, ptt::norm::NT, 0, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(wn),
+          static_cast<bf16*>(xn), static_cast<float*>(inv), nullptr,
+          nullptr, T, d, eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   QkvParams p{};
@@ -966,6 +993,289 @@ int mlp_hopper(const void* a, const void* b0, const void* b1,
   return launch_mlp_gemm<1, 128, MODE, ACT>(p, a, b0, b1, stream);
 }
 
+// -- fp32 at T > 16: 3xTF32 on wgmma (tf32x3.cuh) ----------------------------
+
+struct Tf32Params {
+  ptt::tf32x3::Tf32Maps m;   // A split; B^T split
+  float* out[3];   // QKV: q, k, v; PLAIN: y; GATEUP, FFN_UP: h's hi, lo
+  int n[3];        // each part's output columns (QKV: dq, dkv, dkv; else N)
+  int boff[3];     // each part's first row of B^T (QKV: 0, dq, dq + dkv)
+  int tiles[3];    // each part's column tiles
+  const float* bias;   // FFN_UP: b1 [N]; PLAIN: b [N] or null
+  int T, K, row_tiles, col_tiles;
+};
+
+// row tiles a band of the 3xTF32 walk covers: the A rows of a band
+// (4 x 128 rows x K x hi and lo: 16.8 MB at K = 4096) stay in L2 while the
+// band's column tiles pass; bands of 16, the bf16 ring's, did not fit and
+// ran the MLP's products markedly slower on an H100 (tf32_band_sweep.py
+// builds this file with -DPTT_TF32_BAND=n for each band it times)
+#ifndef PTT_TF32_BAND
+#define PTT_TF32_BAND 4
+#endif
+constexpr int kTf32Band = PTT_TF32_BAND;
+
+// The output tiles of MODE_QKV (the columns of q | k | v, a tile inside
+// one part), MODE_GATEUP (B^T the gate's and the up's rows interleaved in
+// groups of 64: a tile's accumulator columns 0..63 are g, 64..127 u, of
+// its 64 outputs), MODE_FFN_UP or MODE_PLAIN on tf32x3.cuh's ring, the
+// epilogue of the bf16 ring's mode on the fp32 sums.  GATEUP and FFN_UP
+// write h's TF32 hi and lo (the down product's A) in place of h.
+// Persistent: block b takes tiles b, b + gridDim.x, ... in bands of
+// kTf32Band row tiles, and its producer loads the next tile while the
+// consumers store this one.
+template <int NC, int MODE, int ACT>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+tf32x3_gemm_kernel(const __grid_constant__ Tf32Params p) {
+  using namespace ptt::hopper;
+  using namespace ptt::tf32x3;
+  using P = Tf32Plan<NC>;
+  constexpr int BN = P::BN;
+  // output columns a tile: gate/up's B tile holds g and u of half as many
+  constexpr int ON = MODE == MODE_GATEUP ? BN / 2 : BN;
+  extern __shared__ unsigned char smem_raw[];
+  const auto ring = tf32_ring<NC>(smem_raw);
+  const int tiles = p.row_tiles * p.col_tiles;
+  auto origin = [&](int t, int& m0, int& part, int& ct) {
+    int rt;
+    band_tile(t, p.row_tiles, p.col_tiles, kTf32Band, rt, ct);
+    m0 = rt * P::BM;
+    part = 0;
+    if constexpr (MODE == MODE_QKV)
+      while (part < 2 && ct >= p.tiles[part]) ct -= p.tiles[part++];
+  };
+  int it = 0, m0, part, ct;
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    if constexpr (NC == 2) regs_dec<40>();
+    if (threadIdx.x == 0)
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        origin(t, m0, part, ct);
+        tf32_produce(ring, p.m, m0, p.boff[part] + ct * BN, p.K, it);
+      }
+    return;
+  }
+  if constexpr (NC == 2) regs_inc<232>();
+  const int c = threadIdx.x / 128 - 1;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32 % 4;
+  float acc[BN / 2];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    origin(t, m0, part, ct);
+    tf32_consume(ring, p.K, c, acc, it);
+    // epilogue: fp32 pairs from the fragment, masked past T and past the
+    // part's width
+    const int n = p.n[part], n0 = ct * ON;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + 64 * c + 16 * w + lane / 4 + 8 * hh;
+      if (row >= p.T) continue;
+      const size_t o = (size_t)row * n;
+#pragma unroll
+      for (int i = 0; i < ON / 8; ++i) {
+        const int col = n0 + 8 * i + 2 * (lane % 4);
+        if (col >= n) continue;
+        float v[2] = {acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]};
+        if constexpr (MODE == MODE_GATEUP || MODE == MODE_FFN_UP) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if constexpr (MODE == MODE_GATEUP) {
+              const float sg = 1.f / (1.f + expf(-v[e]));
+              v[e] = (v[e] * sg) * acc[4 * (i + ON / 8) + 2 * hh + e];
+            } else {
+              v[e] = activate(v[e] + p.bias[col + e], ACT);
+            }
+          }
+          float2 hi, lo;
+          ptt::tf32_split(v[0], hi.x, lo.x);
+          ptt::tf32_split(v[1], hi.y, lo.y);
+          *reinterpret_cast<float2*>(p.out[0] + o + col) = hi;
+          *reinterpret_cast<float2*>(p.out[1] + o + col) = lo;
+        } else {
+          if (MODE == MODE_PLAIN && p.bias != nullptr) {
+            v[0] += p.bias[col];
+            v[1] += p.bias[col + 1];
+          }
+          *reinterpret_cast<float2*>(p.out[part] + o + col) =
+              make_float2(v[0], v[1]);
+        }
+      }
+    }
+  }
+}
+
+template <int NC, int MODE, int ACT>
+int launch_tf32x3(Tf32Params& p, const float* a_hi, const float* a_lo,
+                  const float* b_hi, const float* b_lo, int brows,
+                  cudaStream_t stream) {
+  using P = ptt::tf32x3::Tf32Plan<NC>;
+  constexpr int ON = MODE == MODE_GATEUP ? P::BN / 2 : P::BN;
+  const uint64_t adims[2] = {(uint64_t)p.K, (uint64_t)p.T};
+  const uint64_t bdims[2] = {(uint64_t)p.K, (uint64_t)brows};
+  const uint64_t stride[1] = {(uint64_t)p.K * 4};
+  const uint32_t abox[2] = {32, (uint32_t)P::BM};
+  const uint32_t bbox[2] = {32, (uint32_t)P::BN};
+  using ptt::hopper::make_map_f32;
+  cudaError_t e = make_map_f32(&p.m.a_hi, a_hi, 2, adims, stride, abox);
+  if (e == cudaSuccess)
+    e = make_map_f32(&p.m.a_lo, a_lo, 2, adims, stride, abox);
+  if (e == cudaSuccess)
+    e = make_map_f32(&p.m.b_hi, b_hi, 2, bdims, stride, bbox);
+  if (e == cudaSuccess)
+    e = make_map_f32(&p.m.b_lo, b_lo, 2, bdims, stride, bbox);
+  if (e != cudaSuccess) return (int)e;
+  p.row_tiles = (p.T + P::BM - 1) / P::BM;
+  p.col_tiles = 0;
+  for (int i = 0; i < (MODE == MODE_QKV ? 3 : 1); ++i)
+    p.col_tiles += p.tiles[i] = (p.n[i] + ON - 1) / ON;
+  auto kern = tf32x3_gemm_kernel<NC, MODE, ACT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)P::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int grid =
+      min(p.row_tiles * p.col_tiles, ptt::hopper::sm_count());
+  kern<<<grid, P::THREADS, P::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// C = A . B with MODE's epilogue over the split operands (B^T: `brows`
+// rows of K), on 128-column tiles of B^T (gate/up: 64 outputs, g and u):
+// 128 rows (two consumers) where the tiles give every SM one, else 64.
+template <int MODE, int ACT>
+int tf32x3_gemm(Tf32Params& p, const float* a_hi, const float* a_lo,
+                const float* b_hi, const float* b_lo, int brows,
+                cudaStream_t stream) {
+  constexpr int ON = MODE == MODE_GATEUP ? 64 : 128;
+  int cols = 0;
+  for (int i = 0; i < (MODE == MODE_QKV ? 3 : 1); ++i)
+    cols += (p.n[i] + ON - 1) / ON;
+  if ((p.T + 127) / 128 * cols >= ptt::hopper::sm_count())
+    return launch_tf32x3<2, MODE, ACT>(p, a_hi, a_lo, b_hi, b_lo, brows,
+                                       stream);
+  return launch_tf32x3<1, MODE, ACT>(p, a_hi, a_lo, b_hi, b_lo, brows,
+                                     stream);
+}
+
+// The fp32 workspace (floats) of the 3xTF32 QKV: W^T's hi and lo of q | k
+// | v, then xn's hi and lo (ops/kernels/fused_block.py, tf32x3_qkv_floats)
+inline long long qkv_tf32x3_floats(int T, int d, int dq, int dkv) {
+  return 2LL * (dq + 2 * dkv) * d + 2LL * T * d;
+}
+
+// The fp32 workspace of the 3xTF32 MLP / fused_ffn: W1^T's (and Wu^T's)
+// hi and lo, W2^T's, x's, then h's (fused_block.py, tf32x3_mlp_floats)
+inline long long mlp_tf32x3_floats(int T, int d, int f, bool gated) {
+  return 2LL * (gated ? 3 : 2) * f * d + 2LL * T * (d + f);
+}
+
+int qkv_tf32x3(const void* x, const void* wn, const void* const w[3],
+               void* const out[3], void* xn, void* inv, void* ws, int T,
+               int d, int dq, int dkv, float eps, cudaStream_t stream) {
+  if (ws == nullptr || d % 64 != 0 || (xn == nullptr) != (inv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int ntot = dq + 2 * dkv;
+  float* wt_hi = static_cast<float*>(ws);
+  float* wt_lo = wt_hi + (size_t)ntot * d;
+  float* x_hi = wt_lo + (size_t)ntot * d;
+  float* x_lo = x_hi + (size_t)T * d;
+  // W^T's hi and lo of the three weights, rows 0, dq and dq + dkv
+  ptt::tf32x3::SplitT st{};
+  st.parts = 3;
+  const int n[3] = {dq, dkv, dkv}, off[3] = {0, dq, dq + dkv};
+  for (int i = 0; i < 3; ++i) {
+    st.src[i] = static_cast<const float*>(w[i]);
+    st.hi[i] = wt_hi + (size_t)off[i] * d;
+    st.lo[i] = wt_lo + (size_t)off[i] * d;
+    st.K[i] = d;
+    st.N[i] = n[i];
+  }
+  int e = ptt::tf32x3::split_t(st, stream);
+  if (e != 0) return e;
+  // the row pass: inv and xn (the training variant's), xn's hi and lo
+  constexpr int ROWS = ptt::norm::ROWS;
+  qkv_rows_kernel<float, true>
+      <<<(T + ROWS - 1) / ROWS, ptt::norm::NT, 0, stream>>>(
+          static_cast<const float*>(x), static_cast<const float*>(wn),
+          static_cast<float*>(xn), static_cast<float*>(inv), x_hi, x_lo, T,
+          d, eps);
+  e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  Tf32Params p{};
+  for (int i = 0; i < 3; ++i) {
+    p.out[i] = static_cast<float*>(out[i]);
+    p.n[i] = n[i];
+    p.boff[i] = off[i];
+  }
+  p.T = T;
+  p.K = d;
+  return tf32x3_gemm<MODE_QKV, 0>(p, x_hi, x_lo, wt_hi, wt_lo, ntot, stream);
+}
+
+int mlp_tf32x3(int act, const void* x, const void* w1, const void* wu,
+               const void* w2, const void* b1, const void* b2, void* y,
+               void* ws, long long ws_floats, int T, int d, int f,
+               cudaStream_t stream) {
+  const bool gated = wu != nullptr;
+  const int nb = gated ? 2 : 1;
+  if (ws == nullptr || ws_floats < mlp_tf32x3_floats(T, d, f, gated))
+    return (int)cudaErrorInvalidValue;
+  float* w1_hi = static_cast<float*>(ws);
+  float* w1_lo = w1_hi + (size_t)nb * f * d;
+  float* w2_hi = w1_lo + (size_t)nb * f * d;
+  float* w2_lo = w2_hi + (size_t)d * f;
+  float* x_hi = w2_lo + (size_t)d * f;
+  float* x_lo = x_hi + (size_t)T * d;
+  float* h_hi = x_lo + (size_t)T * d;
+  float* h_lo = h_hi + (size_t)T * f;
+  // W1^T (gated: the gate's and the up's rows interleaved in groups of
+  // 64, the gate's first) and W2^T, hi and lo, in one launch; then x's hi
+  // and lo
+  ptt::tf32x3::SplitT st{};
+  const void* src[3] = {w1, gated ? wu : w2, w2};
+  for (int i = 0; i <= nb; ++i) {
+    const bool down = i == nb;
+    st.src[i] = static_cast<const float*>(src[i]);
+    st.hi[i] = down ? w2_hi : w1_hi + (size_t)i * 64 * d;
+    st.lo[i] = down ? w2_lo : w1_lo + (size_t)i * 64 * d;
+    st.K[i] = down ? f : d;
+    st.N[i] = down ? d : f;
+    if (gated && !down) {
+      st.group[i] = 64;
+      st.stride[i] = 128;
+    }
+  }
+  st.parts = nb + 1;
+  int e = ptt::tf32x3::split_t(st, stream);
+  if (e == 0)
+    e = ptt::tf32x3::split(static_cast<const float*>(x), x_hi, x_lo,
+                           (long long)T * d, stream);
+  if (e != 0) return e;
+  Tf32Params up{};
+  up.out[0] = h_hi;
+  up.out[1] = h_lo;
+  up.n[0] = f;
+  up.bias = static_cast<const float*>(b1);
+  up.T = T;
+  up.K = d;
+  e = gated ? tf32x3_gemm<MODE_GATEUP, 0>(up, x_hi, x_lo, w1_hi, w1_lo,
+                                          2 * f, stream)
+      : act == ACT_RELU
+          ? tf32x3_gemm<MODE_FFN_UP, ACT_RELU>(up, x_hi, x_lo, w1_hi, w1_lo,
+                                               f, stream)
+      : act == ACT_GELU
+          ? tf32x3_gemm<MODE_FFN_UP, ACT_GELU>(up, x_hi, x_lo, w1_hi, w1_lo,
+                                               f, stream)
+          : tf32x3_gemm<MODE_FFN_UP, ACT_SILU>(up, x_hi, x_lo, w1_hi, w1_lo,
+                                               f, stream);
+  if (e != 0) return e;
+  Tf32Params down{};
+  down.out[0] = static_cast<float*>(y);
+  down.n[0] = d;
+  down.bias = static_cast<const float*>(b2);
+  down.T = T;
+  down.K = f;
+  return tf32x3_gemm<MODE_PLAIN, 0>(down, h_hi, h_lo, w2_hi, w2_lo, d,
+                                    stream);
+}
+
 // -- the descriptor check of hopper.cuh ---------------------------------------
 
 // C [64, N] fp32 = A [64, 64] . B on one warpgroup, the operands through
@@ -1060,6 +1370,69 @@ wgmma_check_kernel(const __grid_constant__ CheckParams p) {
           acc[4 * i + e];
 }
 
+// Mode 5: C [64, N] fp32 = A [64, 32] . B, one tf32 product (four k8
+// steps) with both operands K-major, as the 3xTF32 GEMM reads them: A and
+// B^T [N, 32] fp32 through TMA (boxes {32, 64} and {32, N}, 128-byte
+// swizzle).  The caller passes TF32 values (low 13 bits zero), so the
+// product is exact and only the fp32 sums' order differs from a matmul.
+template <int N>
+__global__ void __launch_bounds__(128)
+wgmma_tf32_check_kernel(const __grid_constant__ CheckParams p) {
+  using namespace ptt::hopper;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bar;
+  unsigned char* As = align1024(smem_raw);
+  unsigned char* Bs = As + 8192;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(&bar, 8192 + N * 128);
+    tma_load_2d(As, &p.a, &bar, 0, 0);
+    tma_load_2d(Bs, &p.b, &bar, 0, 0);
+  }
+  mbar_wait(&bar, 0);
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ptt::tf32x3::tf32_mma<N>(acc, desc_kmajor(As + 32 * kk),
+                             desc_kmajor(Bs + 32 * kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  const int t = threadIdx.x, lane = t % 32, r0 = 16 * (t / 32) + lane / 4;
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p.c[(r0 + 8 * (e / 2)) * N + 8 * i + 2 * (lane % 4) + e % 2] =
+          acc[4 * i + e];
+}
+
+template <int N>
+int launch_tf32_check(CheckParams& p, const void* a, const void* b,
+                      cudaStream_t stream) {
+  const uint64_t adims[2] = {32, 64}, bdims[2] = {32, N}, stride[1] = {128};
+  const uint32_t abox[2] = {32, 64}, bbox[2] = {32, N};
+  cudaError_t e = ptt::hopper::make_map_f32(&p.a, a, 2, adims, stride, abox);
+  if (e == cudaSuccess)
+    e = ptt::hopper::make_map_f32(&p.b, b, 2, bdims, stride, bbox);
+  if (e != cudaSuccess) return (int)e;
+  auto kern = wgmma_tf32_check_kernel<N>;
+  const int smem = 1024 + 8192 + N * 128;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<1, 128, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int N, int MODE>
 int launch_check(CheckParams& p, cudaStream_t stream) {
   auto kern = wgmma_check_kernel<N, MODE>;
@@ -1096,7 +1469,10 @@ int ptt_qkv_splits(int dtype, int T, int d, int dq, int dkv, int train) {
 // forward variant in bf16 at T <= 16 (xn its workspace, inv null) is the
 // row pass, then split-K: ws and tickets are its workspace
 // (ptt_qkv_splits), the tickets zero before the launch (and again after
-// it).  *design: the Design launched.
+// it).  fp32 at T >= 17 is 3xTF32: the weights' split, the row pass (xn
+// and inv in the training variant, null both in the forward variant) and
+// the GEMM, three launches; ws is its fp32 workspace, at least
+// qkv_tf32x3_floats(T, d, dq, dkv) values.  *design: the Design launched.
 int ptt_rmsnorm_qkv(int dtype, const void* x, const void* wn, const void* wq,
                     const void* wk, const void* wv, void* q, void* k, void* v,
                     void* xn, void* inv, void* ws, void* tickets, int T,
@@ -1105,6 +1481,12 @@ int ptt_rmsnorm_qkv(int dtype, const void* x, const void* wn, const void* wq,
   const void* w[3] = {wq, wk, wv};
   void* const out[3] = {q, k, v};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::DT_FLOAT32 && T >= kRowPassMinT) {
+    if (dq % 64 != 0 || dkv % 64 != 0) return (int)cudaErrorInvalidValue;
+    return ptt::launched(
+        qkv_tf32x3(x, wn, w, out, xn, inv, ws, T, d, dq, dkv, eps, s),
+        design, ptt::DESIGN_TF32X3);
+  }
   if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT) {
     // the row pass, then the GEMM; xn is the training variant's output or
     // the forward variant's workspace, inv null in the forward variant
@@ -1140,8 +1522,10 @@ int ptt_rmsnorm_qkv(int dtype, const void* x, const void* wn, const void* wq,
 // launch's splits * NB * ceil(N / 256) * 256 * NTOK by mlp_splits, NB = 2
 // for the gated gate/up, NTOK = 8 at T <= 8, else 16, refused if fewer;
 // tickets: as many as the wider product's 256-column tiles, zero before
-// the call and again after it), fp32 the tile.  d and f multiples of 64.
-// *design: the Design launched.
+// the call and again after it), fp32 at T >= kRowPassMinT 3xTF32 (ws:
+// ws_floats fp32 values, at least mlp_tf32x3_floats, refused if fewer; h
+// unused: the up product writes h's hi and lo into ws) and fp32 below it
+// the tile.  d and f multiples of 64.  *design: the Design launched.
 int ptt_mlp(int dtype, int act, const void* x, const void* w1,
             const void* wu, const void* w2, const void* b1, const void* b2,
             void* h, void* y, void* ws, long long ws_floats, void* tickets,
@@ -1187,6 +1571,9 @@ int ptt_mlp(int dtype, int act, const void* x, const void* w1,
       e = mlp_splitk<MODE_PLAIN, 0>(h, w2, nullptr, b2, y, ws, ws_floats,
                                     tickets, T, f, d, true, s);
     used = ptt::DESIGN_SPLITK;
+  } else if (dtype == ptt::DT_FLOAT32 && T >= kRowPassMinT) {
+    e = mlp_tf32x3(act, x, w1, wu, w2, b1, b2, y, ws, ws_floats, T, d, f, s);
+    used = ptt::DESIGN_TF32X3;
   } else {
     GemmArgs up{x, w1, wu, nullptr, nullptr, h, nullptr, nullptr, T, d, f, 0,
                 0.f};
@@ -1208,10 +1595,12 @@ int ptt_mlp(int dtype, int act, const void* x, const void* w1,
 // hopper.cuh's descriptor check: c [64, n] fp32 = a [64, 64] . b (bf16);
 // b is [n, 64] (B^T) in mode 0, [64, n] in modes 1 and 2 (mode 2: a from
 // registers, n = 128 only), [64, n] int8 (mode 3) or e4m3 (mode 4) bytes
-// converted by the threads; n 128 or 256, and 64 in mode 0.
+// converted by the threads; n 128 or 256, and 64 in mode 0.  Mode 5: c
+// [64, n] = a [64, 32] . b, tf32 (fp32 arrays of TF32 values), b given as
+// B^T [n, 32]; n 128 or 256.
 int ptt_wgmma_check(int mode, const void* a, const void* b, void* c, int n,
                     void* stream) {
-  if (!((mode == 0 || mode == 1 || mode == 3 || mode == 4) &&
+  if (!((mode == 0 || mode == 1 || mode == 3 || mode == 4 || mode == 5) &&
         (n == 128 || n == 256)) &&
       !(mode == 2 && n == 128) && !(mode == 0 && n == 64))
     return (int)cudaErrorInvalidValue;
@@ -1219,11 +1608,14 @@ int ptt_wgmma_check(int mode, const void* a, const void* b, void* c, int n,
   p.a_raw = static_cast<const bf16*>(a);
   p.b_raw = static_cast<const unsigned char*>(b);
   p.c = static_cast<float*>(c);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 5)
+    return n == 128 ? launch_tf32_check<128>(p, a, b, s)
+                    : launch_tf32_check<256>(p, a, b, s);
   const uint64_t adims[2] = {64, 64}, astride[1] = {128};
   const uint32_t abox[2] = {64, 64};
   cudaError_t e = ptt::hopper::make_map(&p.a, a, 2, adims, astride, abox);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode >= 3) {
     if (mode == 3) return n == 128 ? launch_check<128, 3>(p, s)
                                    : launch_check<256, 3>(p, s);

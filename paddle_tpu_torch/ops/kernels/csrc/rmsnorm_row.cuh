@@ -8,7 +8,9 @@
 //   y = (h * inv) * w in fp32, cast to T.
 // h is written in T where `h` is non-null, inv in fp32 where `inv` is.
 // VEC: every row of every operand starts on a 16-byte boundary, so the
-// row moves in 16-byte vectors; else element by element.
+// row moves in 16-byte vectors; else element by element.  SPLIT (fp32,
+// VEC; fused_block.cu's 3xTF32 QKV): y's TF32 hi and lo (common.cuh's
+// tf32_split) are written too, and y itself only where `y` is non-null.
 #pragma once
 
 #include "common.cuh"
@@ -19,11 +21,13 @@ namespace norm {
 constexpr int ROWS = 8;           // rows (warps) per block
 constexpr int NT = 32 * ROWS;
 
-template <typename T, bool VEC, bool RES>
+template <typename T, bool VEC, bool RES, bool SPLIT = false>
 __device__ __forceinline__ void rmsnorm_row(const T* x, const T* res,
                                             const T* w, T* y, T* h,
                                             float* inv, int r, int d,
-                                            float eps) {
+                                            float eps, float* hi = nullptr,
+                                            float* lo = nullptr) {
+  static_assert(!SPLIT || (VEC && sizeof(T) == 4), "SPLIT: fp32 vectors");
   const int lane = threadIdx.x % 32;
   const size_t off = (size_t)r * d;
   constexpr int V = VEC ? 16 / sizeof(T) : 1;
@@ -78,6 +82,16 @@ __device__ __forceinline__ void rmsnorm_row(const T* x, const T* res,
       float v = ptt::to_f(xe[i]);
       if constexpr (RES) v += ptt::to_f(re[i]);
       ye[i] = ptt::from_f<T>((v * iv) * ptt::to_f(we[i]));
+    }
+    if constexpr (SPLIT) {
+      float4 hv, lv;
+      ptt::tf32_split(ptt::to_f(ye[0]), hv.x, lv.x);
+      ptt::tf32_split(ptt::to_f(ye[1]), hv.y, lv.y);
+      ptt::tf32_split(ptt::to_f(ye[2]), hv.z, lv.z);
+      ptt::tf32_split(ptt::to_f(ye[3]), hv.w, lv.w);
+      *reinterpret_cast<float4*>(hi + off + c) = hv;
+      *reinterpret_cast<float4*>(lo + off + c) = lv;
+      if (y == nullptr) continue;
     }
     if constexpr (VEC)
       *reinterpret_cast<uint4*>(y + off + c) =

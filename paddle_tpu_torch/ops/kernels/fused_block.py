@@ -56,7 +56,8 @@ __all__ = ["fused_rmsnorm_qkv", "fused_mlp", "fused_ffn",
            "decoder_workspace_bytes", "FusedRMSNormQKV", "FusedMLP",
            "FusedFFN", "FusedDecoderBlock", "SUPPORTED_ACTS", "GEMM_PATHS",
            "gemm_path", "qkv_path", "qkv_column_tiles", "qkv_splits",
-           "mlp_workspace", "record_path"]
+           "mlp_workspace", "record_path", "tf32x3_qkv_floats",
+           "tf32x3_mlp_floats", "TF32X3_F64_FACTOR"]
 
 # the smallest row count at which the bf16 QKV kernel runs as a row pass
 # and a wgmma GEMM (csrc/fused_block.cu, kRowPassMinT); the forward
@@ -71,17 +72,39 @@ QKV_SPLIT_FACTOR = 4
 # the designs a launch of QKV, the MLP, fused_ffn, the decoder block or the
 # grouped expert FFN takes, counted in each wrapper's `launches_by_path`
 # (csrc/common.cuh, enum Design, in its order); QKV, the MLP and fused_ffn
-# take ``splitk`` at decode rows
-GEMM_PATHS = ("wgmma", "tile", "splitk")
+# take ``splitk`` at decode rows in bf16 and ``tf32x3`` past them in fp32
+GEMM_PATHS = ("wgmma", "tile", "splitk", "tf32x3")
+
+
+# a 3xTF32 output's largest error against the same function in float64,
+# at most this many times the plain fp32 version's own (the card tests and
+# chip_smoke.py hold the kernels to it)
+TF32X3_F64_FACTOR = 8
+
+
+def tf32x3_qkv_floats(T: int, d: int, dq: int, dkv: int) -> int:
+    """The fp32 values of 3xTF32 QKV's split operands: W^T's hi and lo of
+    q | k | v, then xn's hi and lo (``qkv_tf32x3_floats`` in
+    ``csrc/fused_block.cu``)."""
+    return 2 * (dq + 2 * dkv) * d + 2 * T * d
+
+
+def tf32x3_mlp_floats(T: int, d: int, f: int, gated: bool) -> int:
+    """The fp32 values of the 3xTF32 MLP's (or fused_ffn's) split
+    operands: W1^T's (and Wu^T's) hi and lo, W2^T's, x's, then h's
+    (``mlp_tf32x3_floats``)."""
+    return 2 * (3 if gated else 2) * f * d + 2 * T * (d + f)
 
 
 def gemm_path(T: int, dtype) -> str:
     """The MLP's and fused_ffn's design: in bf16 ``wgmma`` (the TMA /
     wgmma ring of ``csrc/hopper_gemm.cuh``) at ``ROW_PASS_MIN_T`` rows or
     more and ``splitk`` (splitk.cuh's strip stream) below; in fp32
-    ``tile`` (the fp32 tile of ``csrc/gemm_tile.cuh``)."""
+    ``tf32x3`` (three TF32 products on wgmma, ``csrc/tf32x3.cuh``) at
+    ``ROW_PASS_MIN_T`` rows or more and ``tile`` (the fp32 tile of
+    ``csrc/gemm_tile.cuh``) below."""
     if dtype != torch.bfloat16:
-        return "tile"
+        return "tf32x3" if T >= ROW_PASS_MIN_T else "tile"
     return "wgmma" if T >= ROW_PASS_MIN_T else "splitk"
 
 
@@ -244,9 +267,15 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     ``SPLITK_MAX_T`` rows or fewer is the same row pass and a split-K
     launch (its fp32 partials in a workspace of ``splits * T * tiles *
     128 * 4`` bytes, 2.1 MB at Llama-3-8B width and T = 8); the training
-    variant at fewer rows, and fp32, are one launch of the wmma / fp32
-    tile.  At decode rows the forward variant's workspaces are kept per
-    device (``_build.workspace``) and reused by the next call.
+    variant at fewer rows, and fp32 at fewer rows, are one launch of the
+    wmma / fp32 tile.  fp32 at ``ROW_PASS_MIN_T`` rows or more is 3xTF32
+    (``tf32x3``): the weights split into W^T's TF32 hi and lo, the row
+    pass (also xn's hi and lo), then the GEMM on wgmma, three launches,
+    the split operands in a buffer of ``tf32x3_qkv_floats`` fp32 values
+    (470 MB at Llama-3-8B width and T = 8192) allocated for the call, as
+    the bf16 ring's h is.  At decode rows the forward variant's
+    workspaces are kept per device (``_build.workspace``) and reused by
+    the next call.
     ``launches_by_path`` counts the design the C entry reports."""
     if x.device.type == "cpu":
         return _build.plain(
@@ -283,7 +312,12 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
         code = _build.DTYPE_CODES[x.dtype]
         xn_ptr = None if xn is None else xn.data_ptr()
         ws = tickets = None
-        if qkv_path(T, x.dtype, residuals) == "splitk":
+        path = qkv_path(T, x.dtype, residuals)
+        if path == "tf32x3":
+            split = torch.empty(tf32x3_qkv_floats(T, d, dq, dkv),
+                                dtype=torch.float32, device=dev)
+            ws = split.data_ptr()
+        elif path == "splitk":
             # decode rows: the row pass's output and the partials in
             # workspaces kept for the next call
             xn_ptr = _build.workspace("fused_rmsnorm_qkv.xn", dev, 2 * T * d)
@@ -319,9 +353,11 @@ fused_rmsnorm_qkv.launches_by_path = dict.fromkeys(GEMM_PATHS, 0)
 
 
 def _mlp_launch(fn, x, w1, wu, w2, b1, b2, act):
-    """One ``ptt_mlp`` call (its two launches) over x's rows, counted on
-    `fn`: the gated form with `wu`, else fused_ffn's; at decode rows
-    (split-K) h and the partials in workspaces kept per device."""
+    """One ``ptt_mlp`` call (its two GEMM launches) over x's rows,
+    counted on `fn`: the gated form with `wu`, else fused_ffn's; at decode
+    rows (split-K) h and the partials in workspaces kept per device, and
+    in fp32 past them (3xTF32) the split operands, h's among them, in one
+    buffer of ``tf32x3_mlp_floats`` fp32 values allocated for the call."""
     what = fn.__name__
     d, f = x.shape[-1], w1.shape[1]
     x2 = x.reshape(-1, d)
@@ -332,7 +368,13 @@ def _mlp_launch(fn, x, w1, wu, w2, b1, b2, act):
         lib = _build.library("fused_block")
         ws = tickets = None
         floats = 0
-        if gemm_path(T, x.dtype) == "splitk":
+        path = gemm_path(T, x.dtype)
+        if path == "tf32x3":
+            h = None
+            floats = tf32x3_mlp_floats(T, d, f, wu is not None)
+            split = torch.empty(floats, dtype=torch.float32, device=dev)
+            ws = split.data_ptr()
+        elif path == "splitk":
             h = _build.workspace(what + ".h", dev, 2 * T * f)
             floats, tiles = mlp_workspace(T, d, f, wu is not None,
                                           _build.sm_count(dev))
@@ -368,8 +410,10 @@ def fused_mlp(x, w_gate, w_up, w_down):
     product written to a ``[T, f]`` workspace in x's dtype, then the down
     product (``csrc/fused_block.cu`` says why); in bf16 on the wgmma /
     TMA ring at ``ROW_PASS_MIN_T`` rows or more and split-K below
-    (``gemm_path``), in fp32 on the fp32 tile.  ``launches_by_path``
-    counts the design the C entry reports."""
+    (``gemm_path``), in fp32 as 3xTF32 on wgmma at ``ROW_PASS_MIN_T``
+    rows or more (the weights and x split first; h's TF32 halves in place
+    of h) and on the fp32 tile below.  ``launches_by_path`` counts the
+    design the C entry reports."""
     if x.device.type == "cpu":
         return _build.plain(
             "fused_mlp", lambda: costs.mlp(x, w_gate, w_up, w_down),

@@ -1875,6 +1875,178 @@ def test_mlp_splits_agree_with_the_model(dev, T, d, f):
             assert not tickets.any()
 
 
+# -- fp32 at T > 16: 3xTF32 on wgmma (csrc/tf32x3.cuh) --------------------------
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_wgmma_tf32_matches_matmul(dev, n):
+    """hopper.cuh's tf32 pieces (ptt_wgmma_check mode 5): one 64 x n x 32
+    product, A and B^T K-major through TMA's 128-byte swizzle, of TF32
+    values (exact products; the 13 low mantissa bits cleared) against
+    torch.matmul in fp32: the sums' order alone differs (1e-5 of |C| ~
+    6)."""
+    def tf32(t):
+        return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    rng = np.random.default_rng(n + 5)
+    a = tf32(_t(rng, (64, 32), torch.float32, dev))
+    bt = tf32(_t(rng, (n, 32), torch.float32, dev))
+    c = torch.empty((64, n), dtype=torch.float32, device=dev)
+    lib = _build.library("fused_block")
+    _build.check(lib, lib.ptt_wgmma_check(5, a.data_ptr(), bt.data_ptr(),
+                                          c.data_ptr(), n,
+                                          _build.stream_of(a)),
+                 "ptt_wgmma_check")
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(c.cpu().numpy(), (a @ bt.t()).cpu().numpy(),
+                               atol=1e-4, rtol=1e-5)
+
+
+# (T, d, dq, dkv, f): T = 17 (one partial 64-row tile), 150 (a partial
+# last tile) and 8192 (128-row tiles); dq = 192 and dkv = 64 end q and k
+# / v in a partial 128-column tile, d = 320 the down product's
+TF32X3_SHAPES = [(17, 320, 192, 64, 448), (150, 256, 256, 128, 320),
+                 (8192, 512, 512, 128, 1408)]
+
+
+def _f64_err(got, ref64):
+    torch.cuda.synchronize()
+    return float((got.double() - ref64).abs().max())
+
+
+def _tf32x3_case(kind, rng, T, d, dq, dkv, f, dev):
+    """(kernel, plain version, the same function in float64 throughout)
+    of one case (the plain versions compute in fp32 whatever their
+    inputs' dtype)."""
+    dt = torch.float32
+    x = _t(rng, (T, d), dt, dev)
+    if kind.startswith("qkv"):
+        wn = _t(rng, (d,), dt, dev, 0.5) + 1.0
+        w = [_t(rng, (d, n), dt, dev, d ** -0.5) for n in (dq, dkv, dkv)]
+        res = kind == "qkv_train"
+        args = (x, wn, *w, 1e-5)
+
+        def f64():
+            xf = x.double()
+            inv = torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + 1e-5)
+            xn = (xf * inv) * wn.double()
+            return tuple(xn @ t.double() for t in w)
+        return (lambda: FB.fused_rmsnorm_qkv(*args, residuals=res),
+                lambda: FB.qkv_reference(*args, residuals=res), f64)
+    if kind == "mlp":
+        wg, wu = (_t(rng, (d, f), dt, dev, d ** -0.5) for _ in range(2))
+        wd = _t(rng, (f, d), dt, dev, f ** -0.5)
+        args = (x, wg, wu, wd)
+
+        def f64():
+            x64, g64, u64, d64 = (t.double() for t in args)
+            g = x64 @ g64
+            return (g * torch.sigmoid(g) * (x64 @ u64)) @ d64
+        return (lambda: FB.fused_mlp(*args),
+                lambda: FB.mlp_reference(*args), f64)
+    act = kind.split("_")[1]
+    w1 = _t(rng, (d, f), dt, dev, d ** -0.5)
+    w2 = _t(rng, (f, d), dt, dev, f ** -0.5)
+    b1 = _t(rng, (f,), dt, dev, 0.5)
+    b2 = _t(rng, (d,), dt, dev, 0.5)
+
+    def f64():
+        x64, a, c, b, e = (t.double() for t in (x, w1, b1, w2, b2))
+        return FB._act(act, x64 @ a + c) @ b + e
+    return (lambda: FB.fused_ffn(x, w1, w2, b1, b2, act),
+            lambda: FB.ffn_reference(x, w1, b1, w2, b2, act), f64)
+
+
+@pytest.mark.parametrize("kind", ["qkv_fwd", "qkv_train", "mlp", "ffn_relu",
+                                  "ffn_gelu", "ffn_silu"])
+@pytest.mark.parametrize("T,d,dq,dkv,f", TF32X3_SHAPES)
+def test_fp32_tf32x3_matches_plain_and_float64(dev, kind, T, d, dq, dkv, f):
+    """fp32 at T >= 17: each output within TOL of the plain fp32 version,
+    and its largest error against the float64 plain version within
+    FB.TF32X3_F64_FACTOR times the fp32 version's own (the products: q,
+    k, v or y); one call counted under ``tf32x3``."""
+    fn = {"qkv": FB.fused_rmsnorm_qkv, "mlp": FB.fused_mlp,
+          "ffn": FB.fused_ffn}[kind.split("_")[0]]
+    kern, plain, plain64 = _tf32x3_case(kind, np.random.default_rng(T + d),
+                                        T, d, dq, dkv, f, dev)
+    n0 = dict(fn.launches_by_path)
+    got = kern()
+    n0["tf32x3"] += 1
+    assert fn.launches_by_path == n0
+    got, ref, ref64 = (o if isinstance(o, tuple) else (o,)
+                       for o in (got, plain(), plain64()))
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        _close(g, r, torch.float32)
+    for g, r, r64 in zip(got, ref, ref64):   # q, k, v or y
+        e, e32 = _f64_err(g, r64), _f64_err(r, r64)
+        assert e <= FB.TF32X3_F64_FACTOR * e32, (e, e32)
+
+
+def test_fp32_paths_by_rows(dev):
+    """fp32 at 16 rows keeps the tile (QKV's two variants, the MLP,
+    fused_ffn), at 17 takes 3xTF32, and bf16's paths are unmoved: one
+    launch each on the design ``gemm_path`` / ``qkv_path`` name."""
+    rng = np.random.default_rng(3)
+    d, f = 256, 320
+    for dtype in (torch.float32, torch.bfloat16):
+        for T in (16, 17):
+            x = _t(rng, (T, d), dtype, dev)
+            wn = _t(rng, (d,), dtype, dev, 0.5) + 1.0
+            w = [_t(rng, (d, d), dtype, dev, d ** -0.5) for _ in range(3)]
+            w1, wu = (_t(rng, (d, f), dtype, dev, d ** -0.5)
+                      for _ in range(2))
+            w2 = _t(rng, (f, d), dtype, dev, f ** -0.5)
+            for res in (False, True):
+                n0 = dict(FB.fused_rmsnorm_qkv.launches_by_path)
+                FB.fused_rmsnorm_qkv(x, wn, *w, 1e-5, residuals=res)
+                n0[FB.qkv_path(T, dtype, res)] += 1
+                assert FB.fused_rmsnorm_qkv.launches_by_path == n0
+            n0 = dict(FB.fused_mlp.launches_by_path)
+            FB.fused_mlp(x, w1, wu, w2)
+            n0[FB.gemm_path(T, dtype)] += 1
+            assert FB.fused_mlp.launches_by_path == n0
+            n0 = dict(FB.fused_ffn.launches_by_path)
+            FB.fused_ffn(x, w1, w2, activation="gelu")
+            n0[FB.gemm_path(T, dtype)] += 1
+            assert FB.fused_ffn.launches_by_path == n0
+    assert [FB.gemm_path(T, torch.float32) for T in (16, 17)] == \
+        ["tile", "tf32x3"]
+
+
+def test_tf32x3_refuses_what_it_does_not_take(dev):
+    """The C entries' 3xTF32 branches raise through the wrappers' check
+    and launch nothing where their workspace is missing or short: QKV
+    without one, the MLP with one value fewer than its split operands
+    take."""
+    lib = _build.library("fused_block")
+    T, d, f = 32, 128, 192
+    x = torch.zeros((T, d), device=dev)
+    w = torch.zeros((d, d), device=dev)
+    q = torch.full((T, d), 7.0, device=dev)
+    err = lib.ptt_rmsnorm_qkv(0, x.data_ptr(), w[0].data_ptr(), w.data_ptr(),
+                              w.data_ptr(), w.data_ptr(), q.data_ptr(),
+                              q.data_ptr(), q.data_ptr(), None, None, None,
+                              None, T, d, d, d, 1e-5, _build.stream_of(x),
+                              ctypes.byref(ctypes.c_int()))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _build.check(lib, err, "fused_rmsnorm_qkv")
+    w1 = torch.zeros((d, f), device=dev)
+    w2 = torch.zeros((f, d), device=dev)
+    floats = FB.tf32x3_mlp_floats(T, d, f, True)
+    ws = torch.empty(floats, device=dev)
+    y = torch.full((T, d), 7.0, device=dev)
+    for n, want in ((floats - 1, 1), (floats, 0)):
+        design = ctypes.c_int(-1)
+        err = lib.ptt_mlp(0, 0, x.data_ptr(), w1.data_ptr(), w1.data_ptr(),
+                          w2.data_ptr(), None, None, None, y.data_ptr(),
+                          ws.data_ptr(), n, None, T, d, f,
+                          _build.stream_of(x), ctypes.byref(design))
+        assert err == want
+    torch.cuda.synchronize()
+    assert FB.GEMM_PATHS[design.value] == "tf32x3"
+    assert not y.any() and (q == 7.0).all()
+
+
 # rmsnorm's register design: a row of eight warps (d = 4096 bf16, two
 # vectors a thread; fp32 four), four vectors a thread (d = 8192 bf16), one
 # warp (d = 512), and past the registers (d = 16384) the two-pass design

@@ -324,8 +324,8 @@ def test_ffn_ring_model_matches_pallas(act, T):
 def test_gemm_paths_agree_with_the_kernel_source():
     """The MLP / FFN entry (``ptt_mlp``, both products of a call) routes
     bf16 at kRowPassMinT rows or more to the wgmma ring and below it to
-    split-K, fp32 to the tile; the wrapper's ``gemm_path`` by the same
-    threshold."""
+    split-K, fp32 at kRowPassMinT rows or more to 3xTF32 and below it to
+    the tile; the wrapper's ``gemm_path`` by the same threshold."""
     src = (CSRC / "fused_block.cu").read_text()
     body = src[src.index("int ptt_mlp(int dtype,"):]
     body = body[:body.index("\n}\n")]
@@ -334,4 +334,7 @@ def test_gemm_paths_agree_with_the_kernel_source():
     t = FB.ROW_PASS_MIN_T
     assert [FB.gemm_path(n, torch.bfloat16) for n in (t - 1, t)] == \
         ["splitk", "wgmma"]
-    assert FB.gemm_path(8192, torch.float32) == "tile"
+    assert "} else if (dtype == ptt::DT_FLOAT32 && T >= kRowPassMinT) {" \
+        in body and "mlp_tf32x3(" in body
+    assert [FB.gemm_path(n, torch.float32) for n in (t - 1, t, 8192)] == \
+        ["tile", "tf32x3", "tf32x3"]
