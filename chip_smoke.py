@@ -296,6 +296,60 @@ train_moe two, one per engine or dispatch mode):
             allocates, the fp32 library chain) and the kernels line
             their rows and every AMP wrapper's launches_amp_o1 / _o2.
 
+18. sparse_embed (after norm_residual) the Train cell's model (Llama-
+            3-8B width, 4 of 32 layers, bf16, b=4, s=2048) in eager steps
+            (``autograd.backward(loss)``, ``AdamW(multi_precision=True,
+            lazy_mode=True)``) on batches A, B, A, B (B: A with its last
+            sequence new), run twice from the same weights: dense
+            embedding, then ``sparse_embed``.  Gates: step 1's loss
+            equal; the embedding's gradient a sparse COO tensor of b*s
+            rows, the port's and torch's ``coalesce()`` within k - 1 bf16
+            roundings of an fp32 sum (exact for a row met once); memory
+            allocated after backward lower in the sparse run by
+            SPARSE_SAVE_GB; the fp32 master and moments of the touched
+            rows after every step against a float64 reference of the
+            lazy rule on the gradient it took (SPARSE_MOMENT_TOL,
+            SPARSE_MASTER_ULPS), the watched rows it did not touch
+            (batch A's at B's steps, a sample that no batch touches)
+            bitwise kept, the dense rule changing them; the same state
+            against the dense rule's: the dense run's after step 1 on
+            the rows met once, and multi_tensor_adam replayed on the
+            sparse run's gradients after every step on the rows every
+            step touched (SPARSE_DENSE_*); the untouched bf16
+            rows unchanged, every other parameter within the bf16
+            tolerance of the dense run's; each batch's loss falling; QKV,
+            the MLP (wgmma, never the tile) and flash launched each step,
+            multi_tensor_adam once.  Reported: step seconds and peak
+            memory of each run, the sparse rule's CUDA-event ms, its
+            bound from its bytes and its kernel launches, unique rows.
+            Then a 2-layer sparse_embed model's TrainStep.compile runs
+            the embedding dense in its graph: two replays bitwise equal
+            to the dense model's.
+19. autograd grad(create_graph=True) (a gradient penalty through a
+            2-layer MLP at d=4096, fp32), a user PyLayer, jacobian and
+            hessian on CUDA tensors against the same calls on the CPU,
+            within AUTOGRAD_TOL relative (TF32 off).
+20. resnet50 vision.models.resnet50() (25.6 M parameters, fp32) on the
+            card, on the CPU in fp32 and in float64, from one state, at
+            b=RESNET_PARITY_B, RESNET_PARITY_HW^2: a training-mode pass,
+            then an eval-mode pass on the running statistics it left.
+            The CPU runs take the card's side of every ReLU and of the
+            stem pool (KinkPattern; the elements where their own choice
+            differed reported).  The logits, the loss and the running
+            statistics within RESNET_TOL of the CPU's fp32 run (cuDNN
+            sums in other orders); a sample of gradients in both passes
+            within RESNET_TOL of float64's, or RESNET_F64_FACTOR times
+            the CPU fp32 run's own error.  Then eager training steps at
+            b=RESNET_B, 224 x 224, with Momentum(0.9, weight_decay=1e-4):
+            images/s, step seconds, peak memory; the loss goes through
+            the CE kernels (the only ones launched: once a step each,
+            gated), held against their plain versions on the step's
+            logits within CE_TOL.
+21. rnn     nn.LSTM(1024, 1024, num_layers=2) and nn.GRU at s=128, b=32:
+            outputs, final states and the input's gradient on the card
+            against the CPU within RNN_TOL relative; forward and
+            backward timed.
+
 Then the kernels line, the card's name and power limit, and the last
 line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so it does where CUDA is
@@ -1241,7 +1295,10 @@ def kernels_ce(CE, dev, timer):
             "fp32 T=1024 V=50304": kernel_ce(CE, dev, timer, 1024, GPT_V,
                                              torch.float32),
             "bf16 T=1000 V=50257": kernel_ce(CE, dev, timer, 1000, 50257,
-                                             torch.bfloat16, ignored=40)}
+                                             torch.bfloat16, ignored=40),
+            # ResNet-50's training step (resnet50): b = 64, 1000 classes
+            "fp32 T=64 V=1000": kernel_ce(CE, dev, timer, RESNET_B, 1000,
+                                          torch.float32)}
 
 
 # -- phase 10, kernel rows: the act + bias feed-forward -----------------------
@@ -6476,6 +6533,906 @@ def amp_fp32_gates(FB, rows):
                                  f"{row['plain_max_abs_err_f64']}")
 
 
+# -- phases 18-21: autograd, sparse embeddings, the conv side ---------------
+
+SPARSE_STEPS = 4
+SPARSE_SAVE_GB = 0.9        # the 1.05 GB dense gradient less the rows
+                            # (decimal GB, 1e9 bytes)
+SPARSE_GRAPH_LAYERS, SPARSE_GRAPH_STEPS = 2, 2
+SPARSE_UNTOUCHED = 2048     # rows neither batch touches, watched too
+SPARSE_STATE = ("_master", "moment1", "moment2")
+# The lazy rule's fp32 state against a float64 reference of the rule on
+# the coalesced gradient it took and its own previous state: the
+# moments within SPARSE_MOMENT_TOL of their row's largest magnitude (a
+# few fp32 roundings a step); the master within SPARSE_MASTER_ULPS
+# units in its last place, plus lr * 2^-21 (Adam's update is ~1 at the
+# first steps, and its fp32 roundings scale with lr).
+SPARSE_MOMENT_TOL = 1e-6
+SPARSE_MASTER_ULPS = 2
+# The same state against the dense rule's (multi_tensor_adam, AdamW's
+# kernel for a dense gradient): the dense run's after step 1 on the rows
+# met once (the same bf16 gradient row in both runs; a row met k times
+# sums k - 1 bf16 roundings apart, which Adam's first update g / (|g| +
+# eps) amplifies where g nearly cancels), and the dense rule replayed
+# on the sparse run's own gradients, densified, after every step on the
+# rows every step touched.  The kernel forms 1 - beta^t from fp32 betas with powf
+# (1 - beta2 is 1.3e-5 from 0.001, and powf's ulp near 1 is ~1.5e-5 of
+# 1 - beta2^4), which moves its update by up to ~1.4e-5 of lr a step
+# (|update| <= ~1): the master's unit here is t x (an ulp plus
+# lr * 2^-15) after t steps, each step rounding the two masters apart
+# by up to an ulp and the difference carried into the next.
+SPARSE_DENSE_MOMENT_TOL = 1e-6
+SPARSE_DENSE_MASTER_ULPS = 2
+SPARSE_DENSE_STEP_REL = 2 ** -15
+
+
+def _leaf(t, device):
+    """A fresh leaf copy of `t` on `device` that requires grad (`to` of
+    a tensor already there would return `t` itself)."""
+    return t.detach().to(device).clone().requires_grad_(True)
+
+
+def _scaled_err(got, ref):
+    """The largest |got - ref| over the largest |ref| (fp32, on the
+    host)."""
+    g, r = got.detach().float().cpu(), ref.detach().float().cpu()
+    return float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+
+
+def _row_err(got, ref):
+    """The largest, over rows, of a row's largest |got - ref| over its
+    largest |ref| (float64)."""
+    d = (got.double() - ref.double()).abs().amax(1)
+    return float((d / ref.double().abs().amax(1).clamp_min(1e-300)).max()) \
+        if len(d) else 0.0
+
+
+def _ulp_err(got, ref, lr, rel=2 ** -21, steps=1):
+    """The largest |got - ref| in units of `steps` times (got's last fp32
+    place plus lr * rel) (float64)."""
+    if not got.numel():
+        return 0.0
+    a = got.float().abs()
+    ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+    return float(((got.double() - ref.double()).abs()
+                  / (steps * (ulp + lr * rel))).max())
+
+
+def sparse_rule_bytes(rows, unique, d):
+    """The lazy AdamW rule's least traffic: the raw bf16 rows read once
+    (values and int64 indices), the touched rows of the fp32 moments and
+    master read and written once, the bf16 weight rows written once."""
+    return rows * (d * 2 + 8) + unique * d * (3 * 4 * 2 + 2)
+
+
+def coalesce_check(g):
+    """The port's coalesce and torch's (its bf16 ``coalesce()``) of the
+    sparse COO gradient `g` against an fp32 sum of the same rows: the
+    same unique rows, and each element within k - 1 bf16 roundings
+    (2^-8 each) of the sum of its k values' magnitudes, so a row met
+    once is exact.  Returns the unique rows and each side's largest
+    share of its limit."""
+    from paddle_tpu_torch.core.sparse_grad import RowSparseGrad
+    rs = RowSparseGrad.of(g)
+    uniq, k = torch.unique(rs.rows, return_counts=True)
+    vals = rs.values.float()
+    ref = RowSparseGrad(rs.rows, vals, rs.shape).coalesce().values
+    mag = RowSparseGrad(rs.rows, vals.abs(), rs.shape).coalesce().values
+    limit = ((k - 1)[:, None] * 2 ** -8 + 2 ** -22) * mag
+    limit = limit.clamp_min(torch.finfo(torch.float32).tiny)
+    out = {"unique_rows": int(uniq.shape[0]),
+           "rows_met_more_than_once": int((k > 1).sum()),
+           "most_occurrences": int(k.max())}
+    for side, c in (("port", rs.coalesce()),
+                    ("torch", RowSparseGrad.of(g.coalesce()))):
+        if not torch.equal(c.rows, uniq):
+            raise AssertionError(f"sparse_embed: {side} coalesce's rows "
+                                 f"differ from the unique ids")
+        out[f"{side}_share_of_limit"] = float(
+            ((c.values.float() - ref).abs() / limit).max())
+    return out
+
+
+def sparse_run(model, opt, batches, init, kernels, sparse, watch):
+    """SPARSE_STEPS eager steps of `model` from the weights `init` with a
+    fresh `opt`, step i on batches[i % 2]: what the gates read (after
+    each step, outside its time, the embedding's fp32 master and moments
+    at the rows `watch` and the coalesced gradient the sparse rule took,
+    on the host) and the sparse rule's timings."""
+    from paddle_tpu_torch import autograd
+    from paddle_tpu_torch.core.sparse_grad import RowSparseGrad
+    emb = model.model.embed_tokens
+    emb._sparse = sparse
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), init):
+            p.copy_(v)
+    events, taken = [], []
+    apply_sparse = opt._apply_sparse
+
+    def timed(name, p, g, lr, step):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g = g.coalesce()          # the rule's first op, timed with it
+        apply_sparse(name, p, g, lr, step)
+        e1.record()
+        events.append((e0, e1))
+        taken.append((g, lr, step, opt._decoupled_wd(name)))
+
+    opt._apply_sparse = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = {"losses": [], "step_s": [], "states": [], "taken": []}
+    out["allocated_before_gb"] = torch.cuda.memory_allocated() / 1e9
+    for i in range(SPARSE_STEPS):
+        batch = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        loss = model.loss(batch["input_ids"], batch["labels"])
+        autograd.backward(loss)
+        if i == 0:
+            torch.cuda.synchronize()
+            out["allocated_after_backward_gb"] = \
+                torch.cuda.memory_allocated() / 1e9     # decimal GB
+            g = emb.weight.grad
+            out["grad_layout"] = str(g.layout)
+            if sparse:
+                out["grad_rows"] = RowSparseGrad.of(g).nnz_rows
+                out["coalesce"] = coalesce_check(g)
+            del g
+        opt.step()
+        opt.clear_grad()
+        out["losses"].append(float(loss.detach()))
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        st = opt._state_of(emb.weight)
+        out["states"].append({k: st[k][watch].cpu() for k in SPARSE_STATE})
+        if taken:
+            g, lr, step, wd = taken.pop()
+            out["taken"].append({"rows": g.rows.cpu(),
+                                 "values": g.values.cpu(), "lr": float(lr),
+                                 "step": int(step), "wd": float(wd)})
+        if i == 0:
+            out["after_step1"] = [p.detach().cpu()
+                                  for p in model.parameters()]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["launches"] = {fn.__name__: fn.launches
+                       for fn in kernels.TRAINING + kernels.MULTI_TENSOR}
+    out["launches_by_path"] = gemm_paths(kernels)
+    out["rule_ms"] = [a.elapsed_time(b) for a, b in events]
+    del opt._apply_sparse
+    return out
+
+
+def lazy_rule_errors(states, taken, start, betas, eps):
+    """The sparse run's embedding state after each step (at the watched
+    rows) against a float64 reference of the lazy AdamW rule from the
+    step before's state (`start` before step 1) and the coalesced
+    gradient the rule took.  Returns the moments' row errors, the
+    master's in ulps, and whether every watched row the gradient did not
+    touch kept its state bit for bit."""
+    b1, b2 = betas
+    errs = {"moment1": 0.0, "moment2": 0.0, "master_ulps": 0.0}
+    untouched_kept = True
+    prev = start
+    for st, t in zip(states, taken):
+        watch = start["rows"]
+        pos = torch.searchsorted(watch, t["rows"])
+        if not torch.equal(watch[pos], t["rows"]):
+            raise AssertionError("sparse_embed: a gradient row outside the "
+                                 "watched rows")
+        hit = torch.zeros(len(watch), dtype=torch.bool)
+        hit[pos] = True
+        untouched_kept &= all(torch.equal(st[k][~hit], prev[k][~hit])
+                              for k in SPARSE_STATE)
+        g, s = t["values"].double(), t["step"]
+        w = prev["_master"][pos].double()
+        m = b1 * prev["moment1"][pos].double() + (1 - b1) * g
+        v = b2 * prev["moment2"][pos].double() + (1 - b2) * g * g
+        upd = (m / (1 - b1 ** s)) / ((v / (1 - b2 ** s)).sqrt() + eps)
+        new = w - t["lr"] * (upd + t["wd"] * w)
+        errs["moment1"] = max(errs["moment1"], _row_err(st["moment1"][pos],
+                                                        m))
+        errs["moment2"] = max(errs["moment2"], _row_err(st["moment2"][pos],
+                                                        v))
+        errs["master_ulps"] = max(errs["master_ulps"], _ulp_err(
+            st["_master"][pos], new, t["lr"]))
+        prev = st
+    return errs, untouched_kept
+
+
+def sparse_vs_dense(sp, dense, rows, lr, steps):
+    """The sparse run's embedding state against the dense rule's at the
+    watched rows selected by `rows` (a bool mask) after `steps` steps:
+    moments' row errors, the master in SPARSE_DENSE units."""
+    return {"moment1": _row_err(sp["moment1"][rows], dense["moment1"][rows]),
+            "moment2": _row_err(sp["moment2"][rows], dense["moment2"][rows]),
+            "master_ulps": _ulp_err(sp["_master"][rows],
+                                    dense["_master"][rows], lr,
+                                    SPARSE_DENSE_STEP_REL, steps)}
+
+
+def dense_replay(weight, taken, watch):
+    """AdamW's dense rule (multi_tensor_adam, as in the dense run) from
+    the bf16 `weight` on the sparse run's coalesced gradients `taken`,
+    each densified: the fp32 master and moments at the rows `watch`
+    after each step (on the host)."""
+    from paddle_tpu_torch.core.sparse_grad import RowSparseGrad
+    from paddle_tpu_torch.optimizer import AdamW
+    w = torch.nn.Parameter(weight.detach().clone())
+    opt = AdamW(learning_rate=taken[0]["lr"], multi_precision=True,
+                lazy_mode=True, parameters=[w])
+    states = []
+    for t in taken:
+        w.grad = RowSparseGrad(t["rows"].to(w.device),
+                               t["values"].to(w.device), tuple(w.shape),
+                               coalesced=True).to_dense()
+        opt.step()
+        opt.clear_grad()
+        st = opt._state_of(w)
+        states.append({k: st[k][watch].cpu() for k in SPARSE_STATE})
+    del opt, w
+    torch.cuda.empty_cache()
+    return states
+
+
+def sparse_rule_launches(model, batch):
+    """Device kernels one call of the sparse rule launches (a profiled
+    extra step's rule on a scratch optimizer state)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import autograd
+    from paddle_tpu_torch.core.sparse_grad import RowSparseGrad
+    from paddle_tpu_torch.optimizer import AdamW
+    emb = model.model.embed_tokens
+    opt = AdamW(learning_rate=1e-4, multi_precision=True, lazy_mode=True,
+                parameters=[emb.weight])
+    autograd.backward(model.loss(batch["input_ids"], batch["labels"]))
+    g = RowSparseGrad.of(emb.weight.grad)
+    opt._state_of(emb.weight, "embed")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        opt._apply_sparse("embed", emb.weight, g, 1e-4, 1)
+        torch.cuda.synchronize()
+    model.clear_gradients()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    del opt
+    return n
+
+
+def sparse_graph(dev):
+    """TrainStep.compile of a SPARSE_GRAPH_LAYERS-layer sparse_embed
+    model runs the embedding dense inside its graph: its parameters after
+    SPARSE_GRAPH_STEPS replays bitwise equal to the dense model's."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    ids = np.random.default_rng(1).integers(0, 128256, (TRAIN_B, TRAIN_S + 1))
+    batch = {"input_ids": torch.as_tensor(ids[:, :-1]).to(dev),
+             "labels": torch.as_tensor(ids[:, 1:]).to(dev)}
+    host, losses = [], []
+    for sparse in (True, False):
+        cfg, model = train_model(dev, SPARSE_GRAPH_LAYERS)
+        model.model.embed_tokens._sparse = sparse
+        step = TrainStep(model, AdamW(learning_rate=1e-4,
+                                      multi_precision=True))
+        info = step.compile(batch)
+        if not info.graph:
+            raise AssertionError("sparse_embed: compile() captured no graph")
+        losses.append([float(step(batch))
+                       for _ in range(SPARSE_GRAPH_STEPS)])
+        if any(p.grad is not None and p.grad.layout != torch.strided
+               for p in model.parameters()):
+            raise AssertionError("sparse_embed: a sparse gradient in the "
+                                 "captured step")
+        host.append([p.detach().cpu() for p in model.parameters()])
+        del step, model
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(*host))
+    if not same or losses[0] != losses[1]:
+        raise AssertionError(f"sparse_embed: the graphed sparse_embed "
+                             f"model differs from the dense one: losses "
+                             f"{losses}, parameters bitwise equal {same}")
+    return {"layers": SPARSE_GRAPH_LAYERS, "replays": SPARSE_GRAPH_STEPS,
+            "losses": losses[0], "bitwise_equal": same}
+
+
+def sparse_embed(dev, kernels):
+    """Phase 18 (see the module's docstring)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    t0 = time.perf_counter()
+    cfg, model = train_model(dev)
+    build_s = time.perf_counter() - t0
+    init = [p.detach().clone() for p in model.parameters()]
+    V = cfg.vocab_size
+    ids = np.random.default_rng(0).integers(0, V, (TRAIN_B, TRAIN_S + 1))
+    ids_b = ids.copy()          # batch B: A with its last sequence new
+    ids_b[-1] = np.random.default_rng(3).integers(0, V, TRAIN_S + 1)
+    batches = [{"input_ids": torch.as_tensor(x[:, :-1]).to(dev),
+                "labels": torch.as_tensor(x[:, 1:]).to(dev)}
+               for x in (ids, ids_b)]
+    count_a = np.bincount(ids[:, :-1].ravel(), minlength=V)
+    count_b = np.bincount(ids_b[:, :-1].ravel(), minlength=V)
+    free = np.flatnonzero((count_a == 0) & (count_b == 0))
+    sample = np.random.default_rng(4).choice(free, SPARSE_UNTOUCHED,
+                                             replace=False)
+    watch = np.union1d(np.flatnonzero(count_a + count_b), sample)
+    watch_t = torch.as_tensor(watch)
+    ca, cb = count_a[watch], count_b[watch]
+    names = [n for n, _ in model.named_parameters()]
+    e = names.index("model.embed_tokens.weight")
+    start = {"rows": watch_t,
+             "_master": init[e][watch_t.to(dev)].float().cpu(),
+             "moment1": torch.zeros(len(watch), cfg.hidden_size),
+             "moment2": torch.zeros(len(watch), cfg.hidden_size)}
+    runs = {}
+    for sparse in (False, True):
+        opt = AdamW(learning_rate=1e-4, multi_precision=True, lazy_mode=True,
+                    parameters=model.parameters())
+        betas, eps = (opt._beta1, opt._beta2), opt._eps
+        runs[sparse] = sparse_run(model, opt, batches, init, kernels, sparse,
+                                  watch_t.to(dev))
+        del opt
+        torch.cuda.empty_cache()
+    dense, sp = runs[False], runs[True]
+    n_rows = TRAIN_B * TRAIN_S
+    save = dense["allocated_after_backward_gb"] - \
+        sp["allocated_after_backward_gb"]
+    mask = torch.zeros(V, dtype=torch.bool)
+    mask[torch.as_tensor(np.flatnonzero(count_a))] = True
+    w0 = init[e].cpu()
+    untouched_same = torch.equal(sp["after_step1"][e][~mask], w0[~mask])
+    other = max(
+        check_close(f"sparse_embed {n}", sp["after_step1"][i].to(dev),
+                    dense["after_step1"][i].to(dev), torch.bfloat16)
+        for i, n in enumerate(names) if i != e)
+    del w0
+    lr = sp["taken"][0]["lr"]
+    rule, untouched_kept = lazy_rule_errors(sp["states"], sp["taken"], start,
+                                            betas, eps)
+    replay = dense_replay(init[e], sp["taken"], watch_t.to(dev))
+    s1, d1 = sp["states"][0], dense["states"][0]
+    touched = torch.as_tensor(ca > 0)
+    every = [touched] + [torch.as_tensor((ca > 0) & (cb > 0))] * (
+        SPARSE_STEPS - 1)           # the rows every step so far touched
+    vs_dense = {"dense_run_step1_rows_met_once": sparse_vs_dense(
+        s1, d1, torch.as_tensor(ca == 1), lr, 1)}
+    for i, (a, b) in enumerate(zip(sp["states"], replay)):
+        vs_dense[f"replay_step{i + 1}_rows_every_step_touched"] = \
+            sparse_vs_dense(a, b, every[i], lr, i + 1)
+    # reported, not gated: the two runs' trajectories part after step 1
+    # (a few bf16 embedding values round apart, so step 2's gradients
+    # differ; the replay above shares the sparse run's)
+    both = torch.as_tensor((ca == 1) & (cb == 1))
+    dense_run_last = sparse_vs_dense(sp["states"][-1], dense["states"][-1],
+                                     both, lr, SPARSE_STEPS)
+    # rows of batch A that B lacks: step 2 leaves them alone in the
+    # sparse run (lazy, checked above) and the dense rule decays their
+    # moments; the dense run moves the master of rows no batch touches
+    a_only = torch.as_tensor((ca > 0) & (cb == 0))
+    none = torch.as_tensor((ca == 0) & (cb == 0))
+    r2, r1 = replay[1]["moment1"][a_only], replay[0]["moment1"][a_only]
+    dense_decays = {
+        "replay_moment1_rows_a_only_step2_vs_b1_step1": _row_err(
+            r2, betas[0] * r1.double()),
+        "replay_moment1_rows_a_only_changed": not torch.equal(r2, r1),
+        "dense_run_master_untouched_rows_moved": not torch.equal(
+            d1["_master"][none], start["_master"][none])}
+    del r2, r1, replay
+    L = TRAIN_LAYERS * SPARSE_STEPS
+    fails = []
+    if dense["losses"][0] != sp["losses"][0]:
+        fails.append(f"step-1 losses differ {dense['losses'][0]} vs "
+                     f"{sp['losses'][0]}")
+    if sp["grad_layout"] != "torch.sparse_coo" or sp["grad_rows"] != n_rows:
+        fails.append(f"embedding grad {sp['grad_layout']} with "
+                     f"{sp.get('grad_rows')} rows, expected {n_rows}")
+    if dense["grad_layout"] != "torch.strided":
+        fails.append(f"dense run's gradient {dense['grad_layout']}")
+    co = sp["coalesce"]
+    if not max(co["port_share_of_limit"], co["torch_share_of_limit"]) <= 1:
+        fails.append(f"coalesce outside its bf16 limit: {co}")
+    if co["unique_rows"] != int((count_a > 0).sum()):
+        fails.append(f"coalesce kept {co['unique_rows']} rows")
+    if save < SPARSE_SAVE_GB:
+        fails.append(f"sparse run saves {save:.3f} GB after backward, "
+                     f"expected >= {SPARSE_SAVE_GB}")
+    if not untouched_same:
+        fails.append("untouched embedding rows moved in the sparse run")
+    if not untouched_kept:
+        fails.append("the sparse rule changed the state of rows its "
+                     "gradient did not touch")
+    if not (rule["moment1"] <= SPARSE_MOMENT_TOL
+            and rule["moment2"] <= SPARSE_MOMENT_TOL
+            and rule["master_ulps"] <= SPARSE_MASTER_ULPS):
+        fails.append(f"the lazy rule against its float64 reference {rule}")
+    for k, errs in vs_dense.items():
+        errs = errs if isinstance(errs, dict) else {"master_ulps": errs}
+        if not (errs.get("moment1", 0) <= SPARSE_DENSE_MOMENT_TOL
+                and errs.get("moment2", 0) <= SPARSE_DENSE_MOMENT_TOL
+                and errs["master_ulps"] <= SPARSE_DENSE_MASTER_ULPS):
+            fails.append(f"{k} against the dense rule {errs}")
+    if not (dense_decays["replay_moment1_rows_a_only_changed"]
+            and dense_decays["replay_moment1_rows_a_only_step2_vs_b1_step1"]
+            <= SPARSE_MOMENT_TOL
+            and dense_decays["dense_run_master_untouched_rows_moved"]):
+        fails.append(f"the dense rule left untouched rows alone "
+                     f"{dense_decays}: the comparison sees no lazy rule")
+    ls = sp["losses"]
+    if not (ls[2] < ls[0] and ls[3] < ls[1]):
+        fails.append(f"sparse run's loss on a batch did not fall {ls}")
+    got = sp["launches"]
+    for name in ("fused_rmsnorm_qkv", "fused_mlp", "flash_attention_fwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        if got.get(name) != L:
+            fails.append(f"{name} launched {got.get(name)}, expected {L}")
+    if got["multi_tensor_adam"] != SPARSE_STEPS:
+        fails.append(f"multi_tensor_adam launched "
+                     f"{got['multi_tensor_adam']}, expected {SPARSE_STEPS}")
+    for name in ("fused_rmsnorm_qkv", "fused_mlp"):
+        paths = sp["launches_by_path"][name]
+        if paths["wgmma"] != L or paths["tile"]:
+            fails.append(f"{name} paths {paths}")
+    if len(sp["rule_ms"]) != SPARSE_STEPS or dense["rule_ms"]:
+        fails.append(f"sparse rule calls {len(sp['rule_ms'])} / dense "
+                     f"{len(dense['rule_ms'])}")
+    if fails:
+        raise AssertionError("sparse_embed: " + "; ".join(fails))
+    rule_launches = sparse_rule_launches(model, batches[0])
+    d = cfg.hidden_size
+    nbytes = sparse_rule_bytes(n_rows, co["unique_rows"], d)
+    bound, by = bound_ms(nbytes, 0)
+    rule_ms = float(np.median(sp["rule_ms"][1:]))
+    del model, init
+    torch.cuda.empty_cache()
+    graph = sparse_graph(dev)
+    result = {
+        "layers": TRAIN_LAYERS, "dtype": cfg.dtype, "batch": TRAIN_B,
+        "seq": TRAIN_S, "optimizer": "AdamW(lr=1e-4, multi_precision=True, "
+        "lazy_mode=True)", "batches": "A, B, A, B (B: A with its last "
+        "sequence new)", "model_build_s": build_s,
+        "losses": {"dense": dense["losses"], "sparse": sp["losses"]},
+        "step_s": {"dense": dense["step_s"], "sparse": sp["step_s"]},
+        "step_s_median": {"dense": float(np.median(dense["step_s"][1:])),
+                          "sparse": float(np.median(sp["step_s"][1:]))},
+        "peak_gib": {"dense": dense["peak_gib"], "sparse": sp["peak_gib"]},
+        "allocated_before_step1_gb": {
+            "dense": dense["allocated_before_gb"],
+            "sparse": sp["allocated_before_gb"]},
+        "allocated_after_backward_gb": {
+            "dense": dense["allocated_after_backward_gb"],
+            "sparse": sp["allocated_after_backward_gb"]},
+        "saved_gb": save, "grad_rows": sp["grad_rows"],
+        "unique_rows": co["unique_rows"], "coalesce": co,
+        "watched_rows": len(watch),
+        "untouched_rows_bitwise_unchanged": untouched_same,
+        "untouched_state_bitwise_kept": untouched_kept,
+        "rule_vs_float64": rule, "rule_tol": {
+            "moment": SPARSE_MOMENT_TOL, "master_ulps": SPARSE_MASTER_ULPS},
+        "vs_dense": vs_dense, "vs_dense_tol": {
+            "moment": SPARSE_DENSE_MOMENT_TOL,
+            "master_ulps": SPARSE_DENSE_MASTER_ULPS,
+            "master_step_rel": SPARSE_DENSE_STEP_REL},
+        "dense_decays": dense_decays,
+        f"dense_run_step{SPARSE_STEPS}_rows_met_once_in_each_batch":
+            dense_run_last,
+        "other_parameters_max_abs_err_vs_dense": other,
+        "sparse_rule": {"ms": sp["rule_ms"], "ms_median": rule_ms,
+                        "bound_ms": bound, "bound_by": by,
+                        "bytes": nbytes, "launches_a_call": rule_launches,
+                        "calls_a_step": 1},
+        "launches": sp["launches"], "launches_by_path": {
+            k: sp["launches_by_path"][k]
+            for k in ("fused_rmsnorm_qkv", "fused_mlp")},
+        "train_step_graph": graph}
+    del runs, dense, sp, s1, d1
+    emit("sparse_embed", **result)
+    return result["launches"]
+
+
+AUTOGRAD_TOL = 1e-4
+AUTOGRAD_D, AUTOGRAD_B = 4096, 16
+
+
+def autograd_phase(dev):
+    """Phase 19: the autograd API on CUDA tensors against the CPU."""
+    from paddle_tpu_torch import autograd, grad, nn
+    cpu = torch.device("cpu")
+    torch.manual_seed(0)
+    errs = {}
+
+    def close(what, got, ref):
+        got = got if isinstance(got, (list, tuple)) else [got]
+        ref = ref if isinstance(ref, (list, tuple)) else [ref]
+        e = max(_scaled_err(g, r) for g, r in zip(got, ref))
+        errs[what] = e
+        if not e <= AUTOGRAD_TOL:
+            raise AssertionError(f"autograd {what}: {e} of the largest "
+                                 f"magnitude, limit {AUTOGRAD_TOL}")
+
+    def mlp(device):
+        m = nn.Sequential(nn.Linear(AUTOGRAD_D, AUTOGRAD_D, device=device),
+                          nn.Tanh(),
+                          nn.Linear(AUTOGRAD_D, 1, device=device))
+        return m
+
+    card, host = mlp(dev), mlp(cpu)
+    host.set_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    x = torch.randn(AUTOGRAD_B, AUTOGRAD_D)
+    outs = []
+    t0 = time.perf_counter()
+    for m, device in ((card, dev), (host, cpu)):
+        xi = _leaf(x, device)
+        (gx,) = grad(m(xi).sum(), xi, create_graph=True)
+        penalty = (gx * gx).sum()
+        gw = grad(penalty, [m[0].weight, m[2].weight])
+        outs.append((gx, penalty, gw))
+        if device == dev:
+            torch.cuda.synchronize()
+            penalty_s = time.perf_counter() - t0
+    close("penalty_dx", outs[0][0], outs[1][0])
+    close("penalty", outs[0][1], outs[1][1])
+    close("penalty_dW", outs[0][2], outs[1][2])
+
+    class Cube(autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, v, k):
+            ctx.save_for_backward(v)
+            ctx.k = k
+            return v * v * v * k
+
+        @staticmethod
+        def backward(ctx, gy):
+            (v,) = ctx.saved_tensor
+            return gy * 3 * v * v * ctx.k
+
+    v0 = torch.randn(1024)
+    res = []
+    for device in (dev, cpu):
+        v = _leaf(v0, device)
+        (g1,) = grad(Cube.apply(v, 0.5).sum(), v, create_graph=True)
+        (g2,) = grad(g1.sum(), v)
+        res.append((g1, g2))
+    close("pylayer_grad", res[0][0], res[1][0])
+    close("pylayer_double_grad", res[0][1], res[1][1])
+
+    A = torch.randn(6, 5)
+    q = torch.randn(5, 5)
+    q = q + q.T
+    x5 = torch.randn(5)
+    jh = []
+    for device in (dev, cpu):
+        xv = _leaf(x5, device)
+        J = autograd.jacobian(torch.tanh(A.to(device) @ xv), xv)
+        xb = _leaf(torch.randn(3, 4, generator=torch.Generator()
+                               .manual_seed(1)), device)
+        Jb = autograd.jacobian(torch.sin(xb) * xb, xb, batch_axis=0)
+        H = autograd.hessian(0.5 * xv @ (q.to(device) @ xv)
+                             + torch.sin(xv).sum(), xv)
+        jh.append((J, Jb, H))
+    close("jacobian", jh[0][0], jh[1][0])
+    close("jacobian_batched", jh[0][1], jh[1][1])
+    close("hessian", jh[0][2], jh[1][2])
+    if tuple(jh[0][1].shape) != (3, 4, 4) or tuple(jh[0][2].shape) != (5, 5):
+        raise AssertionError(f"autograd: shapes {jh[0][1].shape}, "
+                             f"{jh[0][2].shape}")
+    emit("autograd", d=AUTOGRAD_D, batch=AUTOGRAD_B,
+         gradient_penalty_card_s=penalty_s, scaled_err=errs,
+         tol=AUTOGRAD_TOL, matmul_allow_tf32=
+         torch.backends.cuda.matmul.allow_tf32)
+
+
+RESNET_TOL = 1e-3
+RESNET_F64_FACTOR = 8       # the card's error against float64 over the
+                            # CPU fp32 run's, where the latter exceeds TOL
+# the parity batch: 16 images of 112 x 112, both BatchNorm modes.  The
+# CPU runs take the card's side of every ReLU and of the stem pool
+# (KinkPattern): left free, an input within rounding of a kink switches
+# a whole gradient term, and fp32 runs land 2-16% from float64 in
+# training mode (154 ReLUs switch at this batch) and up to 3e-3 in eval
+# mode (one ReLU of the last block)
+RESNET_PARITY_B, RESNET_PARITY_HW = 16, 112
+RESNET_B, RESNET_STEPS = 64, 5
+RESNET_GRADS = ("conv1.weight", "layer1.0.conv2.weight",
+                "layer3.2.bn2.weight", "layer4.2.conv3.weight", "fc.weight",
+                "fc.bias")
+RESNET_STATS = ("bn1._mean", "bn1._variance", "layer4.2.bn3._mean",
+                "layer4.2.bn3._variance")
+
+
+def stat(m, name):
+    """The buffer `name` (a state-dict name) of `m`."""
+    return m.state_dict()[name]
+
+
+def resnet_pass(m, x, y, device, dtype):
+    """Logits, loss and RESNET_GRADS' gradients of one forward and
+    backward of `m` (cleared first) on x, y."""
+    from paddle_tpu_torch.nn import functional as F
+    m.clear_gradients()
+    logits = m(x.to(device, dtype))
+    loss = F.cross_entropy(logits, y.to(device))
+    loss.backward()
+    params = dict(m.named_parameters())
+    return {"logits": logits.detach(), "loss": loss.detach(),
+            **{n: params[n].grad for n in RESNET_GRADS}}
+
+
+class KinkPattern:
+    """Which side of each kink the card's run took: the on/off of every
+    ReLU (the stem's, read at bn1's output, and each residual block's,
+    in call order) and the stem max-pool's chosen elements.  Recorded
+    from the card's run and imposed on a CPU run, where each ReLU
+    becomes a product with the recorded mask (the stem's: a value of
+    the recorded sign with the input's gradient) and the pool a gather
+    of the recorded elements: an input within rounding of a kink then
+    cannot move a whole gradient term between the runs.  `flips` counts
+    the elements where the CPU run's own choice differed."""
+
+    def __init__(self):
+        self.masks, self.i = [], 0
+        self.flips = {"relu": 0, "pool": 0}
+        self.stem = self.pool = None
+        self.recording = True
+
+    def _relu(self, x):
+        from paddle_tpu_torch.nn import functional as F
+        if self.recording:
+            self.masks.append((x > 0).cpu())
+            return F.relu(x)
+        m = self.masks[self.i].to(x.device)
+        self.i += 1
+        self.flips["relu"] += int(((x > 0) != m).sum())
+        return x * m.to(x.dtype)
+
+    def _stem_relu(self, mod, args, out):
+        if self.recording:
+            self.stem = (out > 0).cpu()
+            return None
+        m = self.stem.to(out.device)
+        self.flips["relu"] += int(((out > 0) != m).sum())
+        a = out.detach().abs() + torch.finfo(out.dtype).tiny
+        return out - out.detach() + torch.where(m, a, -a)
+
+    def _max_pool(self, mod, args, out):
+        x = args[0]
+        if self.recording:     # ResNet's stem pool: 3 x 3, stride 2, pad 1
+            v, idx = torch.nn.functional.max_pool2d(x, 3, 2, 1,
+                                                    return_indices=True)
+            if not torch.equal(v, out):
+                raise AssertionError("resnet50: the stem pool is not a "
+                                     "3 x 3 / 2 max-pool")
+            self.pool = idx.cpu()
+            return None
+        got = x.flatten(2).gather(2, self.pool.to(x.device).flatten(
+            2)).view_as(out)
+        self.flips["pool"] += int((got != out).sum())
+        return got
+
+    @contextlib.contextmanager
+    def on(self, model, recording):
+        """`model`'s ReLUs and stem pool record (the card's run) or
+        impose the pattern, for the block."""
+        from paddle_tpu_torch.nn import functional as F
+        blocks = [b for layer in (model.layer1, model.layer2, model.layer3,
+                                  model.layer4) for b in layer]
+        self.recording, self.i = recording, 0
+        self.flips = {"relu": 0, "pool": 0}
+        hooks = [model.bn1.register_forward_hook(self._stem_relu),
+                 model.maxpool.register_forward_hook(self._max_pool)]
+        for b in blocks:
+            b._relu = self._relu
+        try:
+            yield
+        finally:
+            for h in hooks:
+                h.remove()
+            for b in blocks:
+                b._relu = F.relu
+
+
+def resnet_grads(runs, bad, tag):
+    """RESNET_GRADS of the card (runs[0]) and the CPU's fp32 run
+    (runs[1]) against float64 (runs[2]); an error over max(RESNET_TOL,
+    RESNET_F64_FACTOR x the CPU's) goes into `bad`."""
+    out = {}
+    for n in RESNET_GRADS:
+        card_e = _scaled_err(runs[0][n], runs[2][n])
+        host_e = _scaled_err(runs[1][n], runs[2][n])
+        limit = max(RESNET_TOL, RESNET_F64_FACTOR * host_e)
+        out[n] = {"card_vs_f64": card_e, "cpu_fp32_vs_f64": host_e,
+                  "limit": limit}
+        if not card_e <= limit:
+            bad[f"{tag} {n}"] = out[n]
+    return out
+
+
+def resnet_parity(dev):
+    """ResNet-50 on the card, in fp32 on the CPU and in float64 on the
+    CPU, from one state: a training-mode pass (BatchNorm on the batch's
+    statistics, updating the running ones), then an eval-mode pass on
+    the running statistics it left, the CPU runs taking the card's side
+    of every ReLU and of the stem pool (KinkPattern).  The
+    card's logits, loss and running statistics within RESNET_TOL of the
+    CPU's fp32 ones (cuDNN sums in other orders), its gradients within
+    resnet_grads' limit of float64's in both passes.  Returns the report
+    and what failed."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.vision import models
+    seed(0)
+    cpu = torch.device("cpu")
+    card = models.resnet50(device=dev)
+    state = {k: v.cpu() for k, v in card.state_dict().items()}
+    host = models.resnet50(device="cpu")
+    host.set_state_dict(state)
+    host64 = models.resnet50(device="cpu")
+    host64.set_state_dict(state)
+    host64.astype("float64")
+    rng = np.random.default_rng(0)
+    b, hw = RESNET_PARITY_B, RESNET_PARITY_HW
+    x = torch.from_numpy(rng.standard_normal((b, 3, hw, hw)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.integers(0, 1000, b))
+    runs = ((card, dev, torch.float32), (host, cpu, torch.float32),
+            (host64, cpu, torch.float64))
+    report, bad = {"batch": b, "image": hw}, {}
+    for mode in ("train", "eval_after_train"):
+        got, flips = [], {}
+        pattern = KinkPattern()
+        for (m, d, t), side in zip(runs, ("card", "cpu_fp32", "cpu_f64")):
+            m.train(mode == "train")
+            with pattern.on(m, recording=side == "card"):
+                got.append(resnet_pass(m, x, y, d, t))
+            if side != "card":
+                flips[side] = pattern.flips
+        errs = {k: _scaled_err(got[0][k], got[1][k])
+                for k in ("logits", "loss")}
+        if mode == "train":
+            errs.update({k: _scaled_err(stat(runs[0][0], k),
+                                        stat(runs[1][0], k))
+                         for k in RESNET_STATS})
+        bad.update({f"{mode} {k}": e for k, e in errs.items()
+                    if not e <= RESNET_TOL})
+        report[mode] = {"scaled_err_vs_cpu": errs,
+                        "grads": resnet_grads(got, bad, mode),
+                        "kinks_switched_against_the_card": flips}
+        del got
+    return card, report, bad
+
+
+def resnet50_phase(dev, kernels):
+    """Phase 20 (see the module's docstring)."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.kernels import cross_entropy as CE
+    from paddle_tpu_torch.optimizer import Momentum
+    card, parity, bad = resnet_parity(dev)
+    if bad:
+        raise AssertionError(f"resnet50: outside its limit: {bad}")
+    n_params = sum(p.numel() for p in card.parameters())
+    card.train()
+    card.clear_gradients()
+    opt = Momentum(learning_rate=0.1, momentum=0.9, weight_decay=1e-4,
+                   parameters=card.parameters())
+    xb = torch.randn(RESNET_B, 3, 224, 224, device=dev)
+    yb = torch.randint(0, 1000, (RESNET_B,), device=dev)
+
+    def step():
+        loss = F.cross_entropy(card(xb), yb)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses = [float(step().detach())]         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step().detach()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNELS
+                if fn.launches}
+    want = {"cross_entropy_fwd": RESNET_STEPS,
+            "cross_entropy_bwd": RESNET_STEPS}
+    if launches != want:
+        raise AssertionError(f"resnet50: kernel launches {launches}, "
+                             f"expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"resnet50: non-finite loss {losses}")
+    # the CE pair against its plain versions on the step's logits (these
+    # launches come after the counts were read)
+    with torch.no_grad():
+        logits = card(xb)
+    used = {}
+    loss_k, lse = CE.cross_entropy_fwd(logits, yb)
+    rloss, rlse = CE.ce_fwd_reference(logits, yb)
+    cot = torch.full((RESNET_B,), 1.0 / RESNET_B, device=dev)
+    ce_err = {
+        "loss": check_close("resnet50 ce loss", loss_k, rloss, torch.float32,
+                            CE_TOL["loss"], used),
+        "lse": check_close("resnet50 ce lse", lse, rlse, torch.float32,
+                           CE_TOL["lse"], used),
+        "dx": check_close("resnet50 ce dx",
+                          CE.cross_entropy_bwd(logits, yb, lse, cot),
+                          CE.ce_bwd_reference(logits, yb, lse, cot),
+                          torch.float32, CE_TOL["dx_fp32"], used)}
+    dt = float(np.median(times))
+    emit("resnet50", params=n_params, parity=parity, tol=RESNET_TOL,
+         f64_factor=RESNET_F64_FACTOR, batch=RESNET_B, image=224,
+         dtype="float32", optimizer="Momentum(lr=0.1, 0.9, "
+         "weight_decay=1e-4)", step_s=times, step_s_median=dt,
+         images_per_s=RESNET_B / dt, peak_gib=peak, losses=losses,
+         launches=launches, ce_vs_plain={
+             "shape": f"T={RESNET_B} V=1000 float32", "max_abs_err": ce_err,
+             "share_of_limit": used},
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         cudnn_benchmark=torch.backends.cudnn.benchmark,
+         cudnn_deterministic=torch.backends.cudnn.deterministic)
+    del card, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+RNN_TOL = 1e-4
+RNN_H, RNN_S, RNN_B, RNN_ITERS = 1024, 128, 32, 3
+
+
+def rnn_phase(dev):
+    """Phase 21: LSTM and GRU on the card against the CPU, timed."""
+    from paddle_tpu_torch import nn, seed
+    out = {}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (RNN_B, RNN_S, RNN_H)).astype(np.float32))
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (RNN_B, RNN_S, RNN_H)).astype(np.float32))
+    for name in ("LSTM", "GRU"):
+        seed(0)
+        card = getattr(nn, name)(RNN_H, RNN_H, num_layers=2, device=dev)
+        host = getattr(nn, name)(RNN_H, RNN_H, num_layers=2, device="cpu")
+        host.set_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        res = {}
+        for m, device, side in ((card, dev, "card"),
+                                (host, torch.device("cpu"), "host")):
+            xi = _leaf(x, device)
+            o, finals = m(xi)
+            (o * g.to(device)).sum().backward()
+            last = finals[-1][0] if name == "LSTM" else finals[-1]
+            res[side] = (o.detach(), last.detach(), xi.grad,
+                         m.rnns[0].cell.weight_hh.grad)
+        errs = {k: _scaled_err(a, b) for k, a, b in zip(
+            ("out", "final_h", "dx", "dW_hh0"), res["card"], res["host"])}
+        bad = {k: e for k, e in errs.items() if not e <= RNN_TOL}
+        if bad:
+            raise AssertionError(f"rnn {name}: outside {RNN_TOL} of the "
+                                 f"largest magnitude: {bad}")
+        xc, gc = _leaf(x, dev), g.to(dev)
+        timer_f, timer_b = [], []
+        for _ in range(RNN_ITERS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o, _ = card(xc)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (o * gc).sum().backward()
+            torch.cuda.synchronize()
+            timer_f.append(t1 - t0)
+            timer_b.append(time.perf_counter() - t1)
+        out[name] = {"scaled_err": errs,
+                     "forward_s": float(np.median(timer_f[1:])),
+                     "backward_s": float(np.median(timer_b[1:])),
+                     "tokens_per_s": RNN_B * RNN_S / float(
+                         np.median(timer_f[1:]) + np.median(timer_b[1:]))}
+        del card, host
+    emit("rnn", hidden=RNN_H, layers=2, seq=RNN_S, batch=RNN_B,
+         tol=RNN_TOL, loop="Python over the cell, the input projection "
+         "of every step in one product", results=out)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6628,6 +7585,12 @@ def main():
     torch.cuda.empty_cache()
     norm_launches = norm_residual(dev, kernels)
     torch.cuda.empty_cache()
+    sparse_launches = sparse_embed(dev, kernels)
+    torch.cuda.empty_cache()
+    autograd_phase(dev)
+    resnet_launches = resnet50_phase(dev, kernels)
+    rnn_phase(dev)
+    torch.cuda.empty_cache()
     demo_phase()
 
     where = {
@@ -6710,6 +7673,8 @@ def main():
         # AMP's steps (amp_o1, amp_o2): this wrapper's launches by dtype
         for phase, got in amp_launches.items():
             entry[f"launches_{phase}"] = got[wrapper]
+        # the sparse_embed phase's eager steps (its sparse run)
+        entry["launches_sparse_embed"] = sparse_launches[wrapper]
         line.append(entry)
     # the fp32 kernels that amp_o1 launches (QKV's training variant and
     # the MLP at T = 8192, 3xTF32, bound at the 3xTF32 rate): launches
@@ -6804,11 +7769,16 @@ def main():
                        ("cross_entropy_bwd",
                         "paddle_tpu/ops/pallas/cross_entropy.py:145")):
         r = ce_rows["bf16 T=8192 V=50304"][name]
+        r64 = ce_rows["fp32 T=64 V=1000"][name]
         line.append({"name": name, "route": "cuda",
                      "source": src + "cross_entropy.cu", "replaces": rep_,
                      "launches": gpt_launches[name],
                      **{k: r[k] for k in keys}, "shape": r["shape"],
-                     "path": "train_gpt"})
+                     "path": "train_gpt",
+                     "launches_resnet50": resnet_launches[name],
+                     "resnet50_shape": {**{k: r64[k] for k in keys},
+                                        "shape": r64["shape"],
+                                        "path": "resnet50"}})
     # the nn.Transformer path: relu bf16 at its FFN shape; launches from
     # transformer_infer
     r, r8 = ffn_rows["relu bf16"], ffn_rows["relu bf16 T=8"]
@@ -6881,6 +7851,8 @@ def main():
     # every kernel the two new paths launched, on its row
     for entry in line:
         w = entry["name"].removesuffix("_train").removesuffix("_fp8")
+        if w in sparse_launches:
+            entry.setdefault("launches_sparse_embed", sparse_launches[w])
         for phase, got in amp_launches.items():
             if w in got:
                 entry.setdefault(f"launches_{phase}", got[w])

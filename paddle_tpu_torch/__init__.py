@@ -10,8 +10,10 @@ never jax, and nothing of ``paddle_tpu``.
 The top level is JAX's (``paddle_tpu/__init__.py:12-39``): the dtype
 names, the op surface (the generated ops, then the hand-written op
 modules over them, in JAX's order, so each name is the same op), the
-``linalg`` and ``fft`` namespaces, ``amp``, ``set_device`` /
-``get_device``.  Ops take and return ``torch.Tensor``s.
+``linalg`` and ``fft`` namespaces, ``amp``, ``autograd`` and ``grad``,
+``set_device`` / ``get_device``.  Ops take and return ``torch.Tensor``s;
+the names of the op surface that ``torch.Tensor`` lacks are installed on
+it as methods (``core/tensor_methods.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or calls ``set_device("cpu")``; on the CPU every kernel wrapper takes
@@ -48,12 +50,17 @@ from paddle_tpu_torch.ops.random import (  # noqa: F401,E402
     randint_like, randn, randn_like, randperm, standard_normal, uniform,
 )
 
+# the op surface as torch.Tensor methods, where torch has no such name
+import paddle_tpu_torch.core.tensor_methods  # noqa: F401,E402
+
 from paddle_tpu_torch import amp  # noqa: F401,E402
+from paddle_tpu_torch import autograd  # noqa: F401,E402
 # `import` (not `from ... import`): the generated top-level `fft` OP is
 # already bound on the package; importing the submodule rebinds the
 # attribute to the module (paddle.fft is the namespace, paddle.fft.fft
 # the transform), as in the JAX package
 import paddle_tpu_torch.fft  # noqa: F401,E402
 from paddle_tpu_torch.device import get_device, set_device  # noqa: F401,E402
+from paddle_tpu_torch.autograd import grad  # noqa: F401,E402
 
 __version__ = "0.1.0"

@@ -190,15 +190,20 @@ class GradScaler:
     def unscale_(self, optimizer):
         """Multiply every gradient by 1 / scale (one ``_foreach_mul_``
         a device and dtype) and read one found-inf flag: the inf-norms
-        of the unscaled gradients, stacked, checked on the device."""
+        of the unscaled gradients, stacked, checked on the device.  A
+        row-sparse gradient's values are unscaled in place (the JAX
+        package's GradScaler fails on one: ROADMAP.md, queue 3)."""
         if not self._enable or self._already_unscaled:
             return
         inv = 1.0 / self._scale
         groups = {}
         for p in optimizer._parameters or []:
-            if p.grad is not None:
-                groups.setdefault((p.grad.device, p.grad.dtype),
-                                  []).append(p.grad)
+            g = p.grad
+            if g is None:
+                continue
+            if g.layout == torch.sparse_coo:
+                g = g._values()
+            groups.setdefault((g.device, g.dtype), []).append(g)
         flags = []
         for grads in groups.values():
             torch._foreach_mul_(grads, inv)

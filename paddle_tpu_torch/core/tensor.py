@@ -2,8 +2,10 @@
 417-432``).
 
 Torch tensors are the port's tensors, so the JAX package's ``Tensor``
-wrapper and its ``GradNode`` tape have no counterpart here (they wait
-with autograd, ROADMAP.md, queue 1, item 7.2).  Grad mode is torch's:
+wrapper and its ``GradNode`` tape have no counterpart here: torch's
+autograd is the tape (``autograd/``), and the op surface's methods are
+installed on ``torch.Tensor`` where torch lacks the name
+(``core/tensor_methods.py``).  Grad mode is torch's:
 :func:`no_grad` and :func:`enable_grad` are context managers,
 :func:`set_grad_enabled` sets it (and, as torch's, also works as a
 context manager), :func:`is_grad_enabled` reads it.

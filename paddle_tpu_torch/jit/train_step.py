@@ -95,6 +95,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core import functional as _func
 from paddle_tpu_torch.core import state as _state
 from paddle_tpu_torch.distributed.moe import router_metrics_paused
 from paddle_tpu_torch.io.device_prefetch import as_tensor
@@ -401,8 +402,11 @@ class TrainStep:
         norm, skip code)``, all 0-d device tensors.  With ``apply``
         False the update keeps nothing (the capture's warm-up).  The MoE
         router metrics, which read the device on the host, record
-        nothing in it (JAX skips them under its trace)."""
-        with router_metrics_paused():
+        nothing in it (JAX skips them under its trace).  The body runs
+        under the substitution flag (``core.functional``), so a sparse
+        embedding takes its dense path, as under the JAX step's
+        ``functional_call``."""
+        with router_metrics_paused(), _func.substitute():
             return self._step(batch, apply)
 
     def _step(self, batch, apply):

@@ -70,6 +70,10 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    # sparse_embed=True gives the embedding a row-sparse gradient in eager
+    # training (rows-touched optimizer update, no dense [vocab, d]
+    # gradient: core/sparse_grad.py); TrainStep keeps dense gradients
+    sparse_embed: bool = False
     dtype: str = "float32"
 
     def __post_init__(self):
@@ -279,6 +283,7 @@ class LlamaModel(Layer):
         super().__init__(dtype=config.dtype, device=device)
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      sparse=config.sparse_embed,
                                       dtype=config.dtype, device=device)
         self.layers = []
         for i in range(config.num_hidden_layers):

@@ -16,23 +16,48 @@ clip is called on pairs, as an optimizer's eager ``step`` calls it;
 ``TrainStep`` clips every gradient, as the JAX ``TrainStep``'s
 ``apply_pytree`` does.
 
-Row-sparse gradients (the reference's ``_call_with_sparse``) wait with
-sparse gradients themselves (ROADMAP.md, queue 1, item 7)."""
+A row-sparse gradient (an embedding's with ``sparse=True``: a sparse
+COO tensor or a ``RowSparseGrad``) is clipped as the JAX package clips
+one (``clip.py:46-159``): coalesced first, so duplicate rows sum before
+the norm or the clamp, then its values scaled or clamped; it comes back
+coalesced and in the form it came in, never densified.  Its coalesced
+values join the dense gradients in the global norm's one
+``multi_tensor_norm`` launch."""
 
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core.sparse_grad import RowSparseGrad, is_row_sparse
+
 __all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue"]
 
 
-def _dense(grads):
-    for g in grads:
-        if g.layout != torch.strided:
-            raise NotImplementedError(
-                "clipping a row-sparse gradient is not ported yet "
-                "(ROADMAP.md, queue 1, item 7)")
-    return grads
+def _values(grads):
+    """Each gradient as a tensor of its values: a dense gradient
+    itself, a row-sparse one its coalesced values; and the coalesced
+    row-sparse gradients by position."""
+    vals, sparse = [], {}
+    for i, g in enumerate(grads):
+        if is_row_sparse(g):
+            sparse[i] = RowSparseGrad.of(g).coalesce()
+            vals.append(sparse[i].values)
+        else:
+            vals.append(g)
+    return vals, sparse
+
+
+def _rebuild(grads, vals, sparse):
+    """New values back into their gradients' forms."""
+    out = []
+    for i, (g, v) in enumerate(zip(grads, vals)):
+        if i in sparse:
+            rs = RowSparseGrad(sparse[i].rows, v, sparse[i].shape,
+                               coalesced=True)
+            out.append(rs if isinstance(g, RowSparseGrad) else rs.to_torch())
+        else:
+            out.append(v)
+    return out
 
 
 def clip_scale(norm: torch.Tensor, clip_norm: float) -> torch.Tensor:
@@ -81,12 +106,13 @@ class ClipGradByGlobalNorm(ClipGradBase):
         if norm is None:
             from paddle_tpu_torch.ops.kernels.multi_tensor import \
                 multi_tensor_norm
-            norm = multi_tensor_norm(_dense(grads))
+            norm = multi_tensor_norm(_values(grads)[0])
         return clip_scale(norm, self.clip_norm)
 
     def clip(self, grads, norm=None):
-        s = self.scale(_dense(grads), norm)
-        return [scaled(g, s) for g in grads]
+        vals, sparse = _values(grads)
+        s = self.scale(vals, norm)
+        return _rebuild(grads, [scaled(v, s) for v in vals], sparse)
 
 
 class ClipGradByNorm(ClipGradBase):
@@ -94,9 +120,10 @@ class ClipGradByNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
 
     def clip(self, grads, norm=None):
-        return [scaled(g, clip_scale(torch.linalg.vector_norm(g.float()),
-                                     self.clip_norm))
-                for g in _dense(grads)]
+        vals, sparse = _values(grads)
+        return _rebuild(grads, [
+            scaled(v, clip_scale(torch.linalg.vector_norm(v.float()),
+                                 self.clip_norm)) for v in vals], sparse)
 
 
 class ClipGradByValue(ClipGradBase):
@@ -105,4 +132,6 @@ class ClipGradByValue(ClipGradBase):
         self.min = float(min) if min is not None else -self.max
 
     def clip(self, grads, norm=None):
-        return [torch.clamp(g, self.min, self.max) for g in _dense(grads)]
+        vals, sparse = _values(grads)
+        return _rebuild(grads, [torch.clamp(v, self.min, self.max)
+                                for v in vals], sparse)

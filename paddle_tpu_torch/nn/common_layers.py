@@ -1,13 +1,14 @@
 """Common layers (``paddle_tpu/nn/common_layers.py``): Linear, Embedding,
-the dropouts, the containers, Flatten / Identity, Bilinear,
-CosineSimilarity, the activation layers and PReLU.
+the dropouts, the containers, Flatten / Identity, the Upsample layers,
+the pads (``Pad1D/2D/3D``, ``ZeroPad2D``), Bilinear, CosineSimilarity,
+``PixelShuffle`` / ``PixelUnshuffle``, ``ChannelShuffle``, ``Unfold`` /
+``Fold``, the activation layers and PReLU.
 
 Constructors take the JAX package's arguments (``weight_attr`` /
 ``bias_attr`` read duck-typed by ``Layer.create_parameter``; a
 ``bias_attr`` of False drops the bias) plus ``dtype`` and ``device``
 where the layer has parameters.  State-dict names are the JAX
-package's.  Upsample, the pads, Fold / Unfold and the pixel / channel
-shuffles come with conv (ROADMAP.md, queue 1, item 7.3)."""
+package's."""
 
 from __future__ import annotations
 
@@ -22,7 +23,10 @@ from paddle_tpu_torch.nn.layer import Layer
 __all__ = [
     "Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
     "AlphaDropout", "Sequential", "LayerList", "LayerDict", "ParameterList",
-    "Flatten", "Identity", "CosineSimilarity", "Bilinear",
+    "Flatten", "Identity", "Upsample", "UpsamplingBilinear2D",
+    "UpsamplingNearest2D", "Pad1D", "Pad2D", "Pad3D", "ZeroPad2D",
+    "CosineSimilarity", "Bilinear", "PixelShuffle", "PixelUnshuffle",
+    "ChannelShuffle", "Unfold", "Fold",
     "ReLU", "ReLU6", "GELU", "SiLU", "Swish", "Mish", "Sigmoid", "Tanh",
     "LeakyReLU", "ELU", "CELU", "SELU", "Hardswish", "Hardsigmoid",
     "Hardtanh", "Hardshrink", "Softshrink", "Tanhshrink", "ThresholdedReLU",
@@ -54,16 +58,13 @@ class Embedding(Layer):
     """Row lookup into a ``[num_embeddings, embedding_dim]`` table,
     initialised N(0, 1) (Xavier-normal when a ``weight_attr`` is given
     without an initializer, as in the JAX package); the ``padding_idx``
-    row starts at zero and looks up as zero."""
+    row starts at zero and looks up as zero.  ``sparse=True`` gives the
+    weight a row-sparse gradient where ``F.embedding`` allows one."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, dtype="float32",
                  device=None):
         super().__init__(dtype=dtype, device=device)
-        if sparse:
-            raise NotImplementedError(
-                "Embedding(sparse=True): row-sparse gradients are not "
-                "ported yet (ROADMAP.md, queue 1, item 7.2)")
         self._padding_idx = padding_idx
         self._sparse = sparse
         self.weight = self.create_parameter(
@@ -75,7 +76,8 @@ class Embedding(Layer):
                 self.weight[padding_idx] = 0.0
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight, padding_idx=self._padding_idx)
+        return F.embedding(ids, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
 
 class Dropout(Layer):
@@ -272,6 +274,116 @@ class Identity(Layer):
 
     def forward(self, x):
         return x
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, size=self.size, scale_factor=self.scale_factor,
+                             mode=self.mode, align_corners=self.align_corners,
+                             data_format=self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True,
+                         data_format=data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False,
+                         data_format=data_format)
+
+
+class _PadN(Layer):
+    def __init__(self, padding, mode="constant", value=0.0, data_format=None):
+        super().__init__()
+        self.padding, self.mode, self.value = padding, mode, value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value)
+
+
+class Pad1D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_PadN):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.factor, self.data_format = downscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)
 
 
 class CosineSimilarity(Layer):

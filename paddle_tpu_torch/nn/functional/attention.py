@@ -51,12 +51,18 @@ def _sdpa_reference(q, k, v, attn_mask=None, is_causal=False, scale=None,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     if dropout_p > 0.0:
         keep = torch.rand(probs.shape, device=probs.device,
-                          generator=_state.generator(probs.device)) \
+                          generator=_dropout_generator(probs.device)) \
             < (1.0 - dropout_p)
         probs = torch.where(keep, probs / (1.0 - dropout_p),
                             torch.zeros((), dtype=probs.dtype,
                                         device=probs.device)).to(q.dtype)
     return torch.matmul(probs, vt).transpose(1, 2)
+
+
+def _dropout_generator(device):
+    from paddle_tpu_torch.core import functional as _func
+    return _func.next_functional_generator("dropout", device) or \
+        _state.generator(device)
 
 
 def _flash_eligible(query, head_dim):

@@ -17,8 +17,7 @@ JAX in them.
   attribution.
 * **fleet** — snapshot publishing, type-correct merging across hosts
   and the fleet table, over :class:`LocalStore` or any store of its
-  contract (the TCPStore is not ported yet: ROADMAP.md, queue 1, item
-  8).
+  contract (``distributed/tcp_store.py``'s TCPStore among them).
 * **goodput** — goodput and SLO attainment.
 * **device profiler** — compile records and the compile series, segment
   timing on the card with roofline-gap attribution against the cost

@@ -23,8 +23,18 @@ changes.  ``learning_rate`` may be an ``LRScheduler``; the eager
 scalar before each call.  The eager ``step`` skips a parameter whose
 ``stop_gradient`` is set (``requires_grad`` False) and, when one of its
 parameters has ``need_clip`` False, clips through the clip's own call,
-which leaves that gradient alone.  A row-sparse gradient raises
-(ROADMAP.md, queue 1, item 7)."""
+which leaves that gradient alone.
+
+A row-sparse gradient (an embedding's with ``sparse=True``; a sparse COO
+tensor or a ``RowSparseGrad``) takes :meth:`Optimizer._update_sparse`
+(``optimizer.py:79-88, 121-148``): on the fp32 master where one is kept,
+with no weight decay folded into the gradient.  The default densifies
+the gradient and runs the dense rule; SGD, Adam and AdamW override it
+with rows-touched rules, gathers and scatters that never build a
+``[vocab, d]`` gradient.  Adam and AdamW still put every dense
+parameter in their one multi-tensor launch.  The step guard's ``keep``
+(``TrainStep``, which never meets a sparse gradient) is refused with
+one."""
 
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.sparse_grad import RowSparseGrad, is_row_sparse
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm, scaled
 
 __all__ = ["Optimizer"]
@@ -129,44 +140,82 @@ class Optimizer:
         (1 for the first), clip first unless `clip` is False.  `norm`:
         the gradients' global norm where the caller has it (the global
         clip reads it)."""
-        for g in grads:
-            if g.layout != torch.strided:
-                raise NotImplementedError(
-                    "a row-sparse gradient is not ported yet (ROADMAP.md, "
-                    "queue 1, item 7)")
+        grads = [RowSparseGrad.of(g) if is_row_sparse(g) else g
+                 for g in grads]
+        if keep is not None and any(isinstance(g, RowSparseGrad)
+                                    for g in grads):
+            raise NotImplementedError(
+                "the step guard's keep with a row-sparse gradient: "
+                "TrainStep runs the embedding dense")
         scale = None
         if not clip:
             pass
         elif isinstance(self._grad_clip, ClipGradByGlobalNorm):
+            grads = [g.coalesce() if isinstance(g, RowSparseGrad) else g
+                     for g in grads]
             scale = self._grad_clip.scale(grads, norm)
         elif self._grad_clip is not None:
             grads = self._grad_clip.clip(grads)
-        self._update_all(names, params, grads, lr, step, scale, keep)
+        dense = [i for i, g in enumerate(grads)
+                 if not isinstance(g, RowSparseGrad)]
+        if dense:
+            self._update_all([names[i] for i in dense],
+                             [params[i] for i in dense],
+                             [grads[i] for i in dense], lr, step, scale, keep)
+        for i, g in enumerate(grads):
+            if isinstance(g, RowSparseGrad):
+                if scale is not None:
+                    g = RowSparseGrad(g.rows, scaled(g.values, scale),
+                                      g.shape, coalesced=g.coalesced)
+                self._apply_sparse(names[i], params[i], g, lr, step)
 
     def _update_all(self, names, params, grads, lr, step, scale, keep):
         """The rule, parameter by parameter (see the module's docstring)."""
         for name, p, g in zip(names, params, grads):
-            st = self._state_of(p, name)
             if scale is not None:
                 g = scaled(g, scale)
-            if self._multi_precision:
-                g = g.float()
-            master = st.get("_master")
-            work = master if master is not None else p
-            if not self._decoupled:
-                g = self._apply_weight_decay(work, g)
-            inner = {k: v for k, v in st.items() if k != "_master"}
-            self._current_param_name = name
-            new_w, new_inner = self._update(work, g, inner, lr, step)
-            pairs = [(inner[k], new_inner[k]) for k in inner]
-            pairs.append((p, new_w))
-            if master is not None:
-                pairs.append((master, new_w))
-            for dst, new in pairs:
-                new = new.to(dst.dtype)
-                if keep is not None:
-                    new = torch.where(keep, new, dst)
-                dst.copy_(new)
+            self._apply_rule(name, p, g, lr, step, keep)
+
+    def _apply_rule(self, name, p, g, lr, step, keep=None, decay=True):
+        """The dense rule on one parameter, written in place."""
+        st = self._state_of(p, name)
+        if self._multi_precision:
+            g = g.float()
+        master = st.get("_master")
+        work = master if master is not None else p
+        if decay and not self._decoupled:
+            g = self._apply_weight_decay(work, g)
+        inner = {k: v for k, v in st.items() if k != "_master"}
+        self._current_param_name = name
+        new_w, new_inner = self._update(work, g, inner, lr, step)
+        pairs = [(inner[k], new_inner[k]) for k in inner]
+        pairs.append((p, new_w))
+        if master is not None:
+            pairs.append((master, new_w))
+        for dst, new in pairs:
+            new = new.to(dst.dtype)
+            if keep is not None:
+                new = torch.where(keep, new, dst)
+            dst.copy_(new)
+
+    @torch.no_grad()
+    def _apply_sparse(self, name, p, g: RowSparseGrad, lr, step):
+        """A row-sparse gradient's update of `p`, in place."""
+        st = self._state_of(p, name)
+        master = st.get("_master")
+        inner = {k: v for k, v in st.items() if k != "_master"}
+        self._current_param_name = name
+        self._update_sparse(p, master, g, inner, lr, step)
+
+    def _update_sparse(self, p, master, g: RowSparseGrad, state, lr, step):
+        """The rule for a row-sparse gradient (the reference's
+        selected_rows kernel slot): by default the gradient densified
+        through the dense rule, with no weight decay (the JAX package's
+        decay under sparse gradients is the sparse rules' own).  SGD,
+        Adam and AdamW override it with rows-touched rules."""
+        self._apply_rule(self._current_param_name, p, g.to_dense(), lr, step,
+                         decay=False)
+
 
     # -- eager step ----------------------------------------------------------
     @torch.no_grad()

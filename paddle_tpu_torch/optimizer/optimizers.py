@@ -4,12 +4,18 @@ reference's operations in its order, in fp32 (a bf16 parameter without a
 master keeps the reference's bf16 roundings where its rule has them:
 Momentum's velocity, the L2 decay).
 
-Adam and AdamW update every parameter in one multi-tensor launch on the
-card (``multi_tensor_adam``); the other rules run parameter by parameter,
-on the card too.  ``Adam(lazy_mode=True)`` changes only the reference's
-row-sparse rule, so on dense gradients it is the same update; a
-row-sparse gradient waits (ROADMAP.md, queue 1, item 7).  AdamW takes
-``lr_ratio`` and, as the reference does, never reads it."""
+Adam and AdamW update every dense parameter in one multi-tensor launch
+on the card (``multi_tensor_adam``); the other rules run parameter by
+parameter, on the card too.  A row-sparse gradient takes its own rule
+(``paddle_tpu/optimizer/optimizers.py:19-30, 75-110``), as eager gather /
+rule / scatter ops: SGD scatter-adds ``-lr`` times the rows (each
+touched row decayed once where there is an L2 decay); Adam and AdamW
+with ``lazy_mode=True`` move the moments and the weights of the touched
+rows only, and without it decay the moments everywhere and move every
+row, as dense Adam does.  Adam folds its L2 decay into the sparse
+gradient's rows; AdamW's decay stays decoupled.  ``Adam(lazy_mode=True)``
+changes nothing on dense gradients.  AdamW takes ``lr_ratio`` and, as
+the reference does, never reads it."""
 
 from __future__ import annotations
 
@@ -30,6 +36,19 @@ def _zeros(p):
 class SGD(Optimizer):
     def _update(self, p, g, s, lr, step):
         return p.float() - g.to(p.dtype).float() * lr, s
+
+    def _update_sparse(self, p, master, g, s, lr, step):
+        """Rows-touched scatter-add (``optimizers.py:19-30``)."""
+        work = master if master is not None else p
+        if self._weight_decay:
+            g = g.coalesce()   # the decay hits each touched row once
+            vals = g.values.to(work.dtype) + \
+                work[g.rows] * self._weight_decay
+        else:
+            vals = g.values.to(work.dtype)
+        work.index_add_(0, g.rows, vals * (-lr))
+        if master is not None:
+            p.index_copy_(0, g.rows, master[g.rows].to(p.dtype))
 
 
 class Momentum(Optimizer):
@@ -69,8 +88,51 @@ class Adam(Optimizer):
         Adam, whose weight decay is L2 folded into the gradient."""
         return None
 
+    def _update_sparse(self, p, master, g, s, lr, step):
+        """The reference's selected_rows Adam (``optimizers.py:75-110``):
+        moments and weights of the touched rows only under
+        ``lazy_mode``, else moments decayed everywhere and every row
+        moved.  The bias corrections are the JAX sparse rule's (Python
+        floats, rounded to fp32 where they meet a tensor)."""
+        g = g.coalesce()
+        r = g.rows
+        work = master if master is not None else p
+        gf = g.values.float()
+        if not self._decoupled and self._weight_decay:
+            gf = gf + work[r].float() * self._weight_decay
+        m, v = s["moment1"], s["moment2"]
+        b1, b2, eps = self._beta1, self._beta2, self._eps
+        bc1 = 1 - b1 ** step
+        bc2 = 1 - b2 ** step
+        wd = self._decoupled_wd(self._current_param_name) \
+            if self._decoupled else None
+        if self._lazy:
+            pr = work[r].float()
+            m_r = m[r] * b1 + gf * (1 - b1)
+            v_r = v[r] * b2 + torch.square(gf) * (1 - b2)
+            upd = (m_r / bc1) / (torch.sqrt(v_r / bc2) + eps)
+            if wd:
+                upd = upd + pr * wd
+            m.index_copy_(0, r, m_r)
+            v.index_copy_(0, r, v_r)
+            new = pr - upd * lr
+            if master is not None:
+                master.index_copy_(0, r, new)
+            p.index_copy_(0, r, new.to(p.dtype))
+            return
+        m.mul_(b1).index_add_(0, r, gf * (1 - b1))
+        v.mul_(b2).index_add_(0, r, torch.square(gf) * (1 - b2))
+        pf = work.float()
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        if wd:
+            upd = upd + pf * wd
+        new = pf - upd * lr
+        if master is not None:
+            master.copy_(new)
+        p.copy_(new.to(p.dtype))
+
     def _update_all(self, names, params, grads, lr, step, scale, keep):
-        """Every parameter in one ``multi_tensor_adam`` call."""
+        """Every dense parameter in one ``multi_tensor_adam`` call."""
         states = [self._state_of(p, n) for n, p in zip(names, params)]
         if self._decoupled:
             wds = [self._decoupled_wd(n) for n in names]

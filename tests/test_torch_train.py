@@ -208,9 +208,9 @@ def test_adam_l2_decay_folds_into_the_gradient():
 
 def test_unported_options_name_the_roadmap():
     """What stays unported raises, naming its queue 1 item: meshes,
-    ``param_specs`` and ``shardings`` (item 8), and a row-sparse
-    gradient, in the optimizer (``lazy_mode`` itself is ported: dense
-    gradients take the same update) and in the global clip (item 7)."""
+    ``param_specs`` and ``shardings`` (item 8).  A row-sparse gradient
+    is ported (item 7.2): the lazy optimizer moves its rows only and the
+    global clip keeps it sparse."""
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     _, tm = _pair()
     opt = AdamW()
@@ -220,10 +220,11 @@ def test_unported_options_name_the_roadmap():
             TrainStep(tm, opt, **kw)
     p = torch.zeros(4, 3, requires_grad=True)
     p.grad = torch.sparse_coo_tensor([[0, 2]], torch.ones(2, 3), (4, 3))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        Adam(parameters=[p], lazy_mode=True).step()
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        ClipGradByGlobalNorm(1.0)([(p, p.grad)])
+    Adam(parameters=[p], lazy_mode=True).step()
+    assert not p[1].any() and not p[3].any()
+    assert p[0].lt(0).all() and p[2].lt(0).all()
+    ((_, g),) = ClipGradByGlobalNorm(1.0)([(p, p.grad)])
+    assert g.layout == torch.sparse_coo
 
 
 # -- the training step --------------------------------------------------------
