@@ -60,7 +60,7 @@ train_moe two, one per engine or dispatch mode):
 4. parity   a 2-layer model at full Llama-3-8B width (bf16, seeded random
             weights) on the card against the same weights through the
             plain path (the CPU, fp32): the last prefill chunk's logits
-            within a stated tolerance, and 8 greedy tokens.  Then
+            within a stated tolerance, and PARITY_NEW greedy tokens.  Then
             parity_quant: the same two models converted with
             quantize_for_serving, the host carrying the card's qweight /
             w_scale buffers: int8 weights with int8 KV pools, then fp8
@@ -236,10 +236,12 @@ train_moe two, one per engine or dispatch mode):
             fp32 masters, the step captured by TrainStep.compile): a
             TCPStore on a free port, ranks 0 and 1 in this process (rank
             1 mirrors rank 0's snapshot), an AutoCheckpoint in a temp dir;
-            8 steps, a peer snapshot, a checkpoint and an SDC check every
-            3, recovery.rank_kill at step 7; then a fresh captured step
+            DRILL_STEPS steps, a peer snapshot, a checkpoint and an SDC
+            check every DRILL_EVERY, recovery.rank_kill at DRILL_KILL (5,
+            3, 4: one snapshot; the reference's drill takes 8 steps and
+            kills at 7); then a fresh captured step
             restored from the peer snapshot and, with recovery.peer_fetch
-            armed, from disk, each resumed to step 8: losses bitwise equal
+            armed, from disk, each resumed to the last step: losses bitwise equal
             to the uninterrupted run's on both paths.  A train.sdc_flip on
             one of three sentinels detected, blamed and quarantined; with
             two, the replay breaks the tie.  multi_tensor_digest on the
@@ -350,8 +352,43 @@ train_moe two, one per engine or dispatch mode):
             against the CPU within RNN_TOL relative; forward and
             backward timed.
 
-Then the kernels line, the card's name and power limit, and the last
-line ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+22. losses  every loss functional of nn/functional/loss.py but the two
+            kernel-routed ones, each reduction, flash_attn_unpadded and
+            flash_attention
+            (loss_cases(), the cases tests/test_torch_losses.py holds
+            against the JAX package) on CUDA tensors against the same
+            call on the CPU: values and input gradients within LOSS_TOL;
+            each loss layer equal to its functional on the card.
+23. hapi    paddle's Model.fit fed by io.DataLoader.  hapi_resnet50:
+            Model(vision.models.resnet50()) in fp32, Momentum(0.1, 0.9,
+            weight_decay=1e-4), nn.CrossEntropyLoss(), Accuracy(topk=(1,
+            5)), HAPI_RESNET_TRAIN training and HAPI_RESNET_EVAL
+            evaluation batches of RESNET_B seeded host images (224 x 224),
+            fit(epochs=1, num_workers=2, LRScheduler, EarlyStopping,
+            ModelCheckpoint), then evaluate, predict(stack_outputs=True),
+            save / load and summary.  Gates: the pool's batches (workers
+            from a fork server) bitwise equal to one process's; the first two fit
+            losses within HAPI_RESNET_LOSS_TOL of the eager step's on the
+            same weights and batches; the CE launches exact (forward: the
+            train steps and every evaluated batch, backward: the train
+            steps); Accuracy equal to a torch.topk count over predict's
+            logits; the save / load round trip bitwise, weights and
+            optimizer state; summary's count equal to the parameters'.
+            hapi_gpt: GPT-2 medium (24 layers, bf16, b=8, s=1024,
+            AdamW(multi_precision)) fitted on HAPI_GPT_BATCHES batches of
+            the native token feed (write_token_file, TokenFileDataset
+            shuffled, seed 0) through a user adapter giving (input_ids,
+            labels) and DataLoader(batch_size=None).  Gates: every batch
+            fit consumed bitwise equal to a numpy rebuild of the feed's
+            windows; flash forward / dq / dk-dv 24 and the CE pair 1 a
+            step; the losses within HAPI_GPT_LOSS_TOL of TrainStep's on
+            the same weights and batches.  Each reports its step seconds
+            beside the resnet50 and train_gpt phases' of the same run.
+
+Every phase's wall seconds follow it on a line of their own
+(``{"phase": "phase_s", "name": ..., "seconds": ...}``).  Then the
+kernels line, the card's name and power limit, and the last line
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without the last line; so it does where CUDA is
 missing or the package is not beside it.  Imports nothing of JAX or of
 ``paddle_tpu``."""
@@ -437,8 +474,22 @@ CE_TF32_TOL = {"bfloat16": {"loss_rel": 4e-6, "grad_of_max": 1e-2},
                "float32": {"loss_rel": 4e-6, "grad_of_max": 1.5e-3}}
 
 
+# the eager resnet50 and the train_gpt steps' medians in this run, read
+# by the hapi phase
+REF_STEP_S = {}
+
+
 def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+@contextlib.contextmanager
+def timed(name):
+    """Print the block's wall seconds on a line of its own (a
+    ``phase_s`` line naming it)."""
+    t0 = time.perf_counter()
+    yield
+    emit("phase_s", name=name, seconds=time.perf_counter() - t0)
 
 
 def gemm_paths(kernels):
@@ -1381,6 +1432,12 @@ def kernels_ffn(FB, dev, timer):
 
 # -- phase 4: full-width parity against the plain path -----------------------
 
+# greedy tokens of the parity phases' drives (the CPU side decodes each
+# through the full-width 2-layer model; the gate is the last chunk's
+# logits, the tokens are reported)
+PARITY_NEW = 4
+
+
 def drive(model, prompt, chunk, n_new, quant_kv=None):
     """Chunked prefill then greedy decode of one sequence through the
     model's paged-cache forward (int8 pools with `quant_kv`); returns
@@ -1425,8 +1482,8 @@ def parity(dev):
                          for k, v in card.state_dict().items()})
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, 300)
     t0 = time.perf_counter()
-    got, toks = drive(card, prompt, 256, 8)
-    ref, ref_toks = drive(host, prompt, 256, 8)
+    got, toks = drive(card, prompt, 256, PARITY_NEW)
+    ref, ref_toks = drive(host, prompt, 256, PARITY_NEW)
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
     # bf16 weights and activations on the card against fp32 on the
@@ -1458,10 +1515,11 @@ def parity_quant(card, host, prompt, kernels):
         quantize_for_serving(host, wmode)
         host.set_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
         kernels.reset_launch_counts()
-        got, toks = drive(card, prompt, 256, 8, quant_kv=kvq)
+        got, toks = drive(card, prompt, 256, PARITY_NEW, quant_kv=kvq)
         launched = {fn.__name__: fn.launches
                     for fn in kernels.SERVING + kernels.SERVING_QUANT}
-        ref, ref_toks = drive(host, prompt, 256, 8, quant_kv=kvq)
+        ref, ref_toks = drive(host, prompt, 256, PARITY_NEW,
+                              quant_kv=kvq)
         restore_from_serving(card)
         restore_from_serving(host)
         err = float((got - ref).abs().max())
@@ -1862,10 +1920,10 @@ def parity_int8w(card, host, prompt, kernels):
     quantize_int8_weights(host)
     host.set_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     kernels.reset_launch_counts()
-    got, toks = drive(card, prompt, 256, 8)
+    got, toks = drive(card, prompt, 256, PARITY_NEW)
     launched = {fn.__name__: fn.launches
                 for fn in kernels.SERVING + kernels.SERVING_QUANT}
-    ref, ref_toks = drive(host, prompt, 256, 8)
+    ref, ref_toks = drive(host, prompt, 256, PARITY_NEW)
     restore_from_serving(card)
     restore_from_serving(host)
     err = float((got - ref).abs().max())
@@ -3634,6 +3692,7 @@ def train_gpt(dev, kernels):
                                  f"steps, expected {per_step} a step")
     launches.update(require_mt("train_gpt", kernels, GPT_STEPS))
     dt = float(np.median(times))
+    REF_STEP_S["train_gpt"] = dt
     tokens = GPT_B * GPT_S
     # bench.py:1141-1144: 6N + 12 L s d FLOPs a token over the bf16 peak
     flops_tok = 6 * n_params + 12 * L * GPT_S * cfg.hidden_size
@@ -4314,9 +4373,11 @@ def kernel_multi_tensor(MT, dev, timer):
     for i, ref in enumerate(plain):
         for name, t, r in zip(names, (x[i] for x in state), ref):
             got = t.cpu()
+            if torch.equal(got, r):       # the error of equal bits is 0
+                continue
+            bitwise[name] = False
             err[name] = max(err[name],
                             float((got.float() - r.float()).abs().max()))
-            bitwise[name] = bitwise[name] and torch.equal(got, r)
     del plain
     for name in names:
         if not bitwise[name]:
@@ -5062,7 +5123,7 @@ def train_state(dev):
 # the recovery drill: JAX's bench.py --recovery-drill at GPT-2 medium's
 # full size; a snapshot, a checkpoint and an SDC check every DRILL_EVERY
 # steps, the rank killed at DRILL_KILL
-DRILL_STEPS, DRILL_KILL, DRILL_EVERY = 8, 7, 3
+DRILL_STEPS, DRILL_KILL, DRILL_EVERY = 5, 4, 3
 
 
 def _counter_sum(name, **labels):
@@ -7361,6 +7422,7 @@ def resnet50_phase(dev, kernels):
                           CE.ce_bwd_reference(logits, yb, lse, cot),
                           torch.float32, CE_TOL["dx_fp32"], used)}
     dt = float(np.median(times))
+    REF_STEP_S["resnet50"] = dt
     emit("resnet50", params=n_params, parity=parity, tol=RESNET_TOL,
          f64_factor=RESNET_F64_FACTOR, batch=RESNET_B, image=224,
          dtype="float32", optimizer="Momentum(lr=0.1, 0.9, "
@@ -7433,6 +7495,709 @@ def rnn_phase(dev):
          "of every step in one product", results=out)
 
 
+# -- phase 22: the losses ----------------------------------------------------
+
+# card against the CPU, fp32 values and input gradients: exp / log and the
+# sums round differently on the card
+LOSS_TOL = (1e-4, 1e-5)
+LOSS_REDUCTIONS = ("mean", "sum", "none")
+
+
+def loss_cases(seed=0):
+    """``(id, functional name, numpy args, indices of the arguments whose
+    gradient is compared, keyword arguments)``: every loss of
+    ``nn/functional/loss.py`` but the kernel-routed two and
+    ``flash_attn_unpadded``, at small shapes, with each reduction the
+    function takes.  ``tests/test_torch_losses.py`` holds the same cases
+    against the JAX package; the losses phase holds the card against the
+    CPU.  Integer arrays are int64 (JAX takes them as int32)."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def u(*shape, lo=0.05, hi=0.95):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def sign(*shape):
+        return np.where(rng.random(shape) < 0.5, -1.0, 1.0).astype(
+            np.float32)
+
+    def ints(hi, *shape):
+        return rng.integers(0, hi, shape).astype(np.int64)
+
+    def logp(*shape):
+        x = f(*shape)
+        return (x - np.log(np.exp(x).sum(1, keepdims=True))).astype(
+            np.float32)
+
+    def softmax(x, axis=-1):
+        e = np.exp(x - x.max(axis, keepdims=True))
+        return (e / e.sum(axis, keepdims=True)).astype(np.float32)
+
+    x, y = f(6, 5), f(6, 5)
+    lbl = ints(5, 6)
+    lbl_ign = lbl.copy()
+    lbl_ign[2] = -100
+    cases = []
+    for red in LOSS_REDUCTIONS:
+        r = {"reduction": red}
+        cases += [
+            (f"mse_loss-{red}", "mse_loss", [x, y], [0, 1], r),
+            (f"l1_loss-{red}", "l1_loss", [x, y], [0, 1], r),
+            (f"smooth_l1_loss-{red}", "smooth_l1_loss", [x, y], [0, 1],
+             {**r, "delta": 0.5}),
+            (f"huber_loss-{red}", "huber_loss", [x, y], [0, 1],
+             {**r, "delta": 0.7}),
+            (f"nll_loss-{red}", "nll_loss", [logp(6, 5), lbl_ign], [0],
+             {**r, "ignore_index": -100}),
+            (f"nll_loss-weight-{red}", "nll_loss",
+             [logp(6, 5), lbl_ign, u(5, lo=0.5, hi=2.0)], [0], r),
+            (f"nll_loss-3d-{red}", "nll_loss", [logp(2, 5, 3), ints(5, 2, 3)],
+             [0], r),
+            (f"binary_cross_entropy-{red}", "binary_cross_entropy",
+             [u(6, 5), (rng.random((6, 5)) < 0.5).astype(np.float32),
+              u(6, 5, lo=0.5, hi=1.5)], [0], r),
+            (f"binary_cross_entropy_with_logits-{red}",
+             "binary_cross_entropy_with_logits",
+             [x, u(6, 5, lo=0.0, hi=1.0)], [0], r),
+            (f"binary_cross_entropy_with_logits-pos_weight-{red}",
+             "binary_cross_entropy_with_logits",
+             [x, u(6, 5, lo=0.0, hi=1.0), u(6, 5, lo=0.5, hi=1.5)], [0],
+             {**r, "pos_weight": u(5, lo=0.5, hi=3.0)}),
+            (f"kl_div-{red}", "kl_div", [logp(6, 5), softmax(y)], [0], r),
+            (f"kl_div-log_target-{red}", "kl_div",
+             [logp(6, 5), logp(6, 5)], [0, 1], {**r, "log_target": True}),
+            (f"margin_ranking_loss-{red}", "margin_ranking_loss",
+             [f(8), f(8), sign(8)], [0, 1], {**r, "margin": 0.1}),
+            (f"hinge_embedding_loss-{red}", "hinge_embedding_loss",
+             [f(8), sign(8)], [0], {**r, "margin": 0.8}),
+            (f"cosine_embedding_loss-{red}", "cosine_embedding_loss",
+             [f(6, 8), f(6, 8), np.where(sign(6) > 0, 1, -1)], [0, 1],
+             {**r, "margin": 0.2}),
+            (f"triplet_margin_loss-{red}", "triplet_margin_loss",
+             [f(6, 8), f(6, 8), f(6, 8)], [0, 1, 2], r),
+            (f"triplet_margin_loss-swap-p1-{red}", "triplet_margin_loss",
+             [f(6, 8), f(6, 8), f(6, 8)], [0, 1, 2],
+             {**r, "swap": True, "p": 1.0, "margin": 2.0}),
+            (f"sigmoid_focal_loss-{red}", "sigmoid_focal_loss",
+             [x, (rng.random((6, 5)) < 0.3).astype(np.float32)], [0], r),
+            (f"poisson_nll_loss-{red}", "poisson_nll_loss",
+             [f(6, 5, scale=0.5), rng.poisson(2.0, (6, 5)).astype(
+                 np.float32)], [0], r),
+            (f"poisson_nll_loss-full-{red}", "poisson_nll_loss",
+             [u(6, 5, lo=0.5, hi=3.0), rng.poisson(2.0, (6, 5)).astype(
+                 np.float32)], [0], {**r, "log_input": False, "full": True}),
+            (f"gaussian_nll_loss-{red}", "gaussian_nll_loss",
+             [x, y, u(6, 5, lo=0.2, hi=2.0)], [0, 1, 2], r),
+            (f"gaussian_nll_loss-full-{red}", "gaussian_nll_loss",
+             [x, y, u(6, 5, lo=0.2, hi=2.0)], [0, 2], {**r, "full": True}),
+            (f"multi_margin_loss-{red}", "multi_margin_loss", [x, lbl], [0],
+             r),
+            (f"multi_margin_loss-p2-weight-{red}", "multi_margin_loss",
+             [x, lbl], [0], {**r, "p": 2, "margin": 0.5,
+                             "weight": u(5, lo=0.5, hi=2.0)}),
+            (f"margin_cross_entropy-{red}", "margin_cross_entropy",
+             [u(6, 5, lo=-0.9, hi=0.9), lbl], [0], r),
+            (f"ctc_loss-{red}", "ctc_loss",
+             [_ctc_logp(rng, 12, 2, 30), ints(29, 2, 4) + 1, np.array([12, 9]), np.array([4, 3])],
+             [0], r),
+        ]
+    cases += [
+        ("kl_div-batchmean", "kl_div", [logp(6, 5), softmax(y)], [0],
+         {"reduction": "batchmean"}),
+        ("softmax_with_cross_entropy", "softmax_with_cross_entropy",
+         [x, lbl_ign[:, None]], [0], {}),
+        ("softmax_with_cross_entropy-return_softmax",
+         "softmax_with_cross_entropy", [x, lbl[:, None]], [0],
+         {"return_softmax": True}),
+        ("softmax_with_cross_entropy-soft", "softmax_with_cross_entropy",
+         [x, softmax(y)], [0], {"soft_label": True}),
+        ("softmax_with_cross_entropy-axis0", "softmax_with_cross_entropy",
+         [f(5, 6), ints(5, 1, 6)], [0], {"axis": 0}),
+        ("sigmoid_focal_loss-normalizer", "sigmoid_focal_loss",
+         [x, (rng.random((6, 5)) < 0.3).astype(np.float32),
+          np.array(4.0, np.float32)], [0], {"alpha": 0.4, "gamma": 1.5}),
+        ("square_error_cost", "square_error_cost", [x, y], [0, 1], {}),
+        ("log_loss", "log_loss", [u(6, 1), (rng.random((6, 1)) < 0.5)
+                                  .astype(np.float32)], [0], {}),
+        ("dice_loss", "dice_loss", [softmax(f(2, 4, 3)), ints(3, 2, 4, 1)],
+         [0], {}),
+        ("npair_loss", "npair_loss",
+         [f(6, 8, scale=0.5), f(6, 8, scale=0.5),
+          np.array([0, 1, 0, 2, 1, 3], np.float32)], [0, 1], {}),
+        ("pairwise_distance", "pairwise_distance", [x, y], [0, 1], {}),
+        ("pairwise_distance-p1-keepdim", "pairwise_distance", [x, y],
+         [0, 1], {"p": 1.0, "keepdim": True}),
+        ("pairwise_distance-inf", "pairwise_distance", [x, y], [0, 1],
+         {"p": float("inf")}),
+        ("pairwise_distance-neg_inf", "pairwise_distance", [x, y], [0, 1],
+         {"p": float("-inf")}),
+        ("margin_cross_entropy-return_softmax", "margin_cross_entropy",
+         [u(6, 5, lo=-0.9, hi=0.9), lbl], [0],
+         {"margin1": 0.9, "margin2": 0.3, "margin3": 0.1, "scale": 16.0,
+          "return_softmax": True}),
+    ]
+    # JAX's CTC cases (tests/test_ctc_loss.py): full lengths, repeats,
+    # and an infeasible alignment (more labels than frames) at ~1e30
+    for T, b, K, L in ((16, 2, 97, 4), (25, 3, 40, 10), (12, 4, 30, 6),
+                       (8, 2, 12, 3)):
+        cases.append((f"ctc_loss-T{T}-L{L}", "ctc_loss",
+                      [_ctc_logp(rng, T, b, K), ints(K - 2, b, L) + 1,
+                       np.full((b,), T), np.full((b,), L)], [0],
+                      {"reduction": "mean"}))
+    cases += [
+        ("ctc_loss-repeats", "ctc_loss",
+         [_ctc_logp(rng, 12, 1, 10), np.array([[2, 2, 3, 3]]),
+          np.array([12]), np.array([4])], [0], {"reduction": "sum"}),
+        ("ctc_loss-infeasible", "ctc_loss",
+         [_ctc_logp(rng, 3, 2, 10), np.array([[1, 2, 3, 4], [5, 6, 7, 8]]),
+          np.array([3, 3]), np.array([4, 2])], [0], {"reduction": "none"}),
+        ("ctc_loss-norm_by_times", "ctc_loss",
+         [_ctc_logp(rng, 10, 2, 8), ints(7, 2, 3) + 1, np.array([10, 7]),
+          np.array([3, 2])], [0], {"reduction": "mean",
+                                   "norm_by_times": True}),
+    ]
+    # packed attention: 2 sequences of 3 + 4 queries over 5 + 6 keys
+    cu_q, cu_k = np.array([0, 3, 7], np.int32), np.array([0, 5, 11], np.int32)
+    qkv = [f(7, 2, 8), f(11, 2, 8), f(11, 2, 8)]
+    same = [f(7, 2, 8), f(7, 2, 8), f(7, 2, 8)]
+    for causal in (False, True):
+        cases += [
+            (f"flash_attn_unpadded-causal{int(causal)}",
+             "flash_attn_unpadded", qkv + [cu_q, cu_k, 4, 6], [0, 1, 2],
+             {"causal": causal, "return_softmax": True}),
+            (f"flash_attn_unpadded-self-causal{int(causal)}",
+             "flash_attn_unpadded", same + [cu_q, cu_q, 4, 4], [0, 1, 2],
+             {"causal": causal, "scale": 0.3, "dropout": 0.0}),
+        ]
+    # paddle's flash_attention functional: (out, None) over [b, s, h, d]
+    for causal in (False, True):
+        cases.append((f"flash_attention-causal{int(causal)}",
+                      "flash_attention", [f(2, 6, 2, 8), f(2, 6, 2, 8),
+                                          f(2, 6, 2, 8)], [0, 1, 2],
+                      {"causal": causal}))
+    return cases
+
+
+def loss_layer_cases(seed=1):
+    """``(layer, constructor kwargs, functional name, numpy args,
+    functional kwargs)``: each loss layer of ``nn/loss_layers.py`` against
+    its functional on the same inputs (bitwise: one code path)."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    x, y = f(6, 5), f(6, 5)
+    lbl = rng.integers(0, 5, 6)
+    p = rng.uniform(0.05, 0.95, (6, 5)).astype(np.float32)
+    t = (rng.random((6, 5)) < 0.5).astype(np.float32)
+    sign = np.where(rng.random(8) < 0.5, -1.0, 1.0).astype(np.float32)
+    logp = _ctc_logp(rng, 10, 2, 8)
+    return [
+        ("CrossEntropyLoss", {"reduction": "sum"}, "cross_entropy",
+         [x, lbl], {"reduction": "sum"}),
+        ("MSELoss", {"reduction": "sum"}, "mse_loss", [x, y],
+         {"reduction": "sum"}),
+        ("L1Loss", {}, "l1_loss", [x, y], {}),
+        ("NLLLoss", {"ignore_index": 1, "reduction": "none"}, "nll_loss",
+         [np.log(p), lbl], {"ignore_index": 1, "reduction": "none"}),
+        ("BCELoss", {"reduction": "sum"}, "binary_cross_entropy", [p, t],
+         {"reduction": "sum"}),
+        ("BCEWithLogitsLoss", {"reduction": "none"},
+         "binary_cross_entropy_with_logits", [x, t], {"reduction": "none"}),
+        ("KLDivLoss", {"reduction": "batchmean"}, "kl_div", [np.log(p), p],
+         {"reduction": "batchmean"}),
+        ("SmoothL1Loss", {"delta": 0.5}, "smooth_l1_loss", [x, y],
+         {"delta": 0.5}),
+        ("MarginRankingLoss", {"margin": 0.3}, "margin_ranking_loss",
+         [f(8), f(8), sign], {"margin": 0.3}),
+        ("HingeEmbeddingLoss", {"margin": 0.5}, "hinge_embedding_loss",
+         [f(8), sign], {"margin": 0.5}),
+        ("CosineEmbeddingLoss", {"margin": 0.1}, "cosine_embedding_loss",
+         [f(8, 4), f(8, 4), sign], {"margin": 0.1}),
+        ("TripletMarginLoss", {"swap": True}, "triplet_margin_loss",
+         [f(6, 4), f(6, 4), f(6, 4)], {"swap": True}),
+        ("CTCLoss", {"blank": 0, "reduction": "sum"}, "ctc_loss",
+         [logp, rng.integers(1, 8, (2, 3)), np.array([10, 8]),
+          np.array([3, 2])], {"blank": 0, "reduction": "sum"}),
+    ]
+
+
+def _ctc_logp(rng, T, b, K):
+    raw = rng.standard_normal((T, b, K)).astype(np.float32)
+    return (raw - np.log(np.exp(raw).sum(-1, keepdims=True))).astype(
+        np.float32)
+
+
+def loss_cot(shape, seed=5):
+    """The cotangent of a loss case's first output."""
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def loss_run(name, args, diff, kw, device):
+    """A loss case through the port on `device`: its float outputs and
+    the gradients of ``sum(out[0] * cot)`` in the `diff` arguments, as
+    CPU tensors."""
+    from paddle_tpu_torch.nn import functional as F
+    ts = [torch.from_numpy(a).to(device) if isinstance(a, np.ndarray)
+          else a for a in args]
+    for i in diff:
+        ts[i] = ts[i].clone().requires_grad_(True)
+    tkw = {k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
+           else v for k, v in kw.items()}
+    out = getattr(F, name)(*ts, **tkw)
+    outs = out if isinstance(out, tuple) else (out,)
+    cot = torch.from_numpy(loss_cot(tuple(outs[0].shape))).to(device)
+    grads = torch.autograd.grad((outs[0] * cot).sum(),
+                                [ts[i] for i in diff]) if diff else ()
+    return ([o.detach().cpu() for o in outs if o is not None],
+            [g.cpu() for g in grads])
+
+
+def losses_phase(dev):
+    """Phase 22: every loss case and layer on CUDA tensors against the
+    port's CPU run on the same inputs."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    cpu = torch.device("cpu")
+    rtol, atol = LOSS_TOL
+    worst, bad, n_grads = {}, {}, 0
+    for cid, name, args, diff, kw in loss_cases():
+        card = loss_run(name, args, diff, kw, dev)
+        host = loss_run(name, args, diff, kw, cpu)
+        for what, got, ref in (("out", card[0], host[0]),
+                               ("grad", card[1], host[1])):
+            for i, (g, r) in enumerate(zip(got, ref)):
+                if g.shape != r.shape or not torch.allclose(
+                        g, r, rtol=rtol, atol=atol, equal_nan=True):
+                    bad[f"{cid} {what}{i}"] = float((g - r).abs().max()) \
+                        if g.shape == r.shape else "shape"
+                    continue
+                scale = float(r.abs().max()) or 1.0
+                worst[name] = max(worst.get(name, 0.0),
+                                  float((g - r).abs().max()) / scale)
+            n_grads += len(got) if what == "grad" else 0
+    layers = 0
+    for layer, ckw, name, args, fkw in loss_layer_cases():
+        ts = [torch.from_numpy(a).to(dev) for a in args]
+        got = getattr(nn, layer)(**ckw)(*ts)
+        if not torch.equal(got, getattr(F, name)(*ts, **fkw)):
+            bad[f"layer {layer}"] = "differs from its functional"
+        layers += 1
+    if bad:
+        raise AssertionError(f"losses: outside {LOSS_TOL} of the CPU: "
+                             f"{bad}")
+    emit("losses", cases=len(loss_cases()), layers=layers,
+         gradients=n_grads, tol={"rtol": rtol, "atol": atol},
+         worst_scaled_err=worst)
+
+
+# -- phase 23: hapi (Model.fit over io.DataLoader) ---------------------------
+
+_M64 = (1 << 64) - 1
+
+
+def _splitmix64(x):
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def _permute_index(i, n, seed):
+    """``csrc/datafeed/datafeed.cpp``'s ``permute_index``: a 4-round
+    Feistel bijection over [0, n), cycle-walked back into range."""
+    if n <= 1:
+        return 0
+    half = ((n - 1).bit_length() + 1) // 2
+    mask = (1 << half) - 1
+    x = i
+    while True:
+        lo, hi = x & mask, x >> half
+        for rnd in range(4):
+            lo, hi = hi, lo ^ (_splitmix64((hi + seed + rnd) & _M64) & mask)
+        x = (hi << half) | lo
+        if x < n:
+            return x
+
+
+def datafeed_windows(tokens, seq_len, batch, seed, shuffle, n_batches,
+                     epoch=0):
+    """The ``[batch, seq_len + 1]`` windows of the token feed's first
+    `n_batches` batches of `epoch`, rebuilt in numpy from the flat token
+    array (windows of seq_len + 1 tokens, batch b holding windows b *
+    batch .. b * batch + batch - 1, each through the shuffle of (seed +
+    epoch))."""
+    w = seq_len + 1
+    n_windows = len(tokens) // w
+    out = []
+    for b in range(n_batches):
+        rows = []
+        for s in range(batch):
+            idx = b * batch + s
+            if shuffle:
+                idx = _permute_index(idx, n_windows, seed + epoch)
+            rows.append(tokens[idx * w:(idx + 1) * w])
+        out.append(np.stack(rows))
+    return out
+
+
+def lm_pairs(feed, record=None):
+    """The user adapter of hapi's LM path: an iterable dataset over the
+    token feed's dict batches yielding ``(input_ids, labels)``, since
+    ``Model`` gives a dict batch no labels; each pair is appended to
+    `record` when one is given."""
+    from paddle_tpu_torch.io import IterableDataset
+
+    class LMPairs(IterableDataset):
+        def __iter__(self):
+            for b in feed:
+                pair = (b["input_ids"], b["labels"])
+                if record is not None:
+                    record.append(pair)
+                yield pair
+    return LMPairs()
+
+
+class SeededImages:
+    """A map-style dataset of `n` host images (`channels` x `hw` x `hw`
+    fp32) and labels over `classes`, each made from its own seed when
+    asked for: the object pickles small, as a worker process receives
+    it."""
+
+    def __init__(self, n, seed, hw=224, classes=1000, channels=3):
+        self.n, self.seed, self.hw, self.classes = n, seed, hw, classes
+        self.channels = channels
+
+    def __getitem__(self, i):
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        rng = np.random.default_rng(self.seed * 1_000_003 + i)
+        img = rng.standard_normal((self.channels, self.hw, self.hw),
+                                  dtype=np.float32)
+        return img, np.int64(rng.integers(0, self.classes))
+
+    def __len__(self):
+        return self.n
+
+
+class SlowItems:
+    """A dataset whose item `slow` takes `sleep_s` seconds (a stuck
+    worker, for the loader's timeout)."""
+
+    def __init__(self, n, slow, sleep_s):
+        self.n, self.slow, self.sleep_s = n, slow, sleep_s
+
+    def __getitem__(self, i):
+        if i == self.slow:
+            time.sleep(self.sleep_s)
+        return np.full((4,), i, np.int64)
+
+    def __len__(self):
+        return self.n
+
+
+def loss_log():
+    """A hapi callback recording each train batch's loss."""
+    from paddle_tpu_torch.hapi import Callback
+
+    class LossLog(Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+    return LossLog()
+
+
+HAPI_RESNET_TRAIN, HAPI_RESNET_EVAL = 6, 2      # batches of RESNET_B
+HAPI_RESNET_LOSS_TOL = 1e-4     # TrainStep vs eager step, relative
+HAPI_GPT_BATCHES = 10
+HAPI_GPT_LOSS_TOL = 1e-3        # Model.fit vs TrainStep, bf16, relative
+
+
+def _bitwise(what, a, b):
+    """Raise unless two (nested) batches are bitwise equal."""
+    if isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: structure differs")
+        for x, y in zip(a, b):
+            _bitwise(what, x, y)
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != b.dtype or a.shape != b.shape or \
+            a.tobytes() != b.tobytes():
+        raise AssertionError(f"{what}: batches differ")
+
+
+def _launches(kernels):
+    return {fn.__name__: fn.launches for fn in kernels.KERNELS
+            if fn.launches}
+
+
+def hapi_resnet(dev, kernels, tmp):
+    """hapi-ResNet-50 (module docstring, 23)."""
+    import io as _io
+    from paddle_tpu_torch import Model, metric, nn, seed
+    from paddle_tpu_torch import summary as pt_summary
+    from paddle_tpu_torch.hapi import EarlyStopping, LRScheduler, \
+        ModelCheckpoint
+    from paddle_tpu_torch.io import DataLoader, default_collate_fn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models
+    B = RESNET_B
+    train = SeededImages(HAPI_RESNET_TRAIN * B, 1)
+    evald = SeededImages(HAPI_RESNET_EVAL * B, 2)
+
+    # the worker pool's batches against one process's, bitwise (forkserver
+    # workers, after this process initialised CUDA)
+    t0 = time.perf_counter()
+    single = []
+    for batch in DataLoader(train, batch_size=B, num_workers=0):
+        single.append(batch)
+    single_s = time.perf_counter() - t0
+    pool = DataLoader(train, batch_size=B, num_workers=2)
+    t0 = time.perf_counter()
+    pooled = list(pool)
+    pooled_s = time.perf_counter() - t0
+    pool.close()
+    if len(pooled) != len(single) != HAPI_RESNET_TRAIN:
+        raise AssertionError("hapi resnet50: batch counts differ")
+    for a, b in zip(pooled, single):
+        _bitwise("hapi resnet50 workers", a, b)
+    samples = [train[i] for i in range(B)]
+    t0 = time.perf_counter()
+    default_collate_fn(samples)
+    collate_s = time.perf_counter() - t0
+
+    def optimizer(net):
+        return Momentum(learning_rate=0.1, momentum=0.9, weight_decay=1e-4,
+                        parameters=net.parameters())
+
+    seed(0)
+    net = models.resnet50(device=dev)
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    model = Model(net)
+    model.prepare(optimizer(net), nn.CrossEntropyLoss(),
+                  metric.Accuracy(topk=(1, 5)))
+    log = loss_log()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = model.fit(train, evald, batch_size=B, epochs=1, shuffle=False,
+                     num_workers=2, verbose=0,
+                     callbacks=[LRScheduler(), EarlyStopping(),
+                                ModelCheckpoint(save_dir=str(tmp)), log])
+    fit_s = time.perf_counter() - t0
+    logs = model.evaluate(evald, batch_size=B, verbose=0)
+    launches = _launches(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = model.last_fit_stats
+    n_train, n_eval = HAPI_RESNET_TRAIN, 2 * HAPI_RESNET_EVAL
+    want = {"cross_entropy_fwd": n_train + n_eval,
+            "cross_entropy_bwd": n_train, "multi_tensor_norm": n_train}
+    if launches != want:
+        raise AssertionError(f"hapi resnet50: launches {launches}, "
+                             f"expected {want}")
+    if model._train_step._device.type != "cuda":
+        raise AssertionError("hapi resnet50: the step is not on the card")
+    files = sorted(os.listdir(tmp))
+    if files != ["0.pdopt", "0.pdparams", "final.pdopt", "final.pdparams"]:
+        raise AssertionError(f"hapi resnet50: checkpoint files {files}")
+
+    # Accuracy against a torch.topk count over the same logits
+    logits = torch.from_numpy(model.predict(evald, batch_size=B,
+                                            stack_outputs=True)).to(dev)
+    labels = torch.as_tensor([evald[i][1] for i in range(len(evald))],
+                             device=dev)
+    top = torch.topk(logits, 5, dim=1).indices == labels[:, None]
+    counted = [float(top[:, :k].any(1).float().mean()) for k in (1, 5)]
+    if [logs["acc_top1"], logs["acc_top5"]] != counted:
+        raise AssertionError(f"hapi resnet50: accuracy {logs} against the "
+                             f"topk count {counted}")
+
+    # save -> load into a fresh model: weights and optimizer state bitwise
+    model.save(str(tmp / "round"))
+    seed(1)
+    net2 = models.resnet50(device=dev)
+    model2 = Model(net2)
+    model2.prepare(optimizer(net2), nn.CrossEntropyLoss())
+    model2.load(str(tmp / "round"))
+    for (k, a), b in zip(net.state_dict().items(),
+                         net2.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"hapi resnet50: {k} after save / load")
+    s1, s2 = model._train_step.state_dict(), model2._train_step.state_dict()
+    if s1["step"] != s2["step"] or any(
+            np.asarray(v).tobytes() != np.asarray(
+                s2["opt_state"][n][k]).tobytes()
+            for n, st in s1["opt_state"].items() for k, v in st.items()):
+        raise AssertionError("hapi resnet50: optimizer state after "
+                             "save / load")
+    del model2, net2, s1, s2
+    with contextlib.redirect_stdout(_io.StringIO()):
+        info = model.summary(input_size=(1, 3, 224, 224))
+        shape = pt_summary(net, (1, 3, 224, 224))["output_shape"]
+    n_params = sum(p.numel() for p in net.parameters())
+    if info["total_params"] != n_params or shape != (1, 1000):
+        raise AssertionError(f"hapi resnet50: summary {info}, {shape}; "
+                             f"{n_params} parameters")
+
+    # the first two losses against the eager step on the same weights and
+    # batches (the resnet50 phase's loop)
+    net.set_state_dict(init)
+    net.train()
+    opt = optimizer(net)
+    eager = []
+    for x, y in single[:2]:
+        loss = F.cross_entropy(net(torch.from_numpy(x).to(dev)),
+                               torch.from_numpy(y).to(dev))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        eager.append(float(loss.detach()))
+    fit_losses = log.losses[:2]
+    rel = [abs(a - b) / abs(b) for a, b in zip(fit_losses, eager)]
+    if not max(rel) <= HAPI_RESNET_LOSS_TOL:
+        raise AssertionError(f"hapi resnet50: fit losses {fit_losses} vs "
+                             f"eager {eager}")
+    loop = [a + b + c for a, b, c in zip(stats["data_s"], stats["h2d_s"],
+                                         stats["step_s"])]
+    dt = float(np.median(loop[1:]))           # the first: pool start-up
+    eager_s = REF_STEP_S.get("resnet50")
+    emit("hapi_resnet50", batch=B, train_batches=n_train,
+         eval_batches=HAPI_RESNET_EVAL, num_workers=2,
+         worker_start="forkserver", fit_s=fit_s, history=hist,
+         losses=log.losses, eager_losses=eager, loss_rel_err=rel,
+         loss_tol=HAPI_RESNET_LOSS_TOL, evaluate=logs,
+         accuracy_topk_count=counted, launches=launches,
+         step_s=loop, step_s_median=dt, images_per_s=B / dt,
+         step_parts_median={k: float(np.median(v[1:]))
+                            for k, v in stats.items()},
+         eager_step_s_median=eager_s,
+         vs_eager=dt / eager_s if eager_s else None,
+         collate_s_a_batch=collate_s,
+         h2d_bytes_a_step=B * 3 * 224 * 224 * 4 + B * 8,
+         loader_s={"one_process": single_s, "two_workers": pooled_s,
+                   "batches": n_train},
+         peak_gib=peak, params=n_params, checkpoint_files=files)
+    del model, net, init, opt, single, pooled
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hapi_gpt(dev, kernels, tmp):
+    """hapi-GPT-2 medium (module docstring, 23)."""
+    from paddle_tpu_torch import Model, nn, seed
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.io.token_dataset import (TokenFileDataset,
+                                                   write_token_file)
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = GPTConfig(dtype="bfloat16", hidden_dropout_prob=0.0,
+                    attention_dropout_prob=0.0)
+    L = cfg.num_hidden_layers
+    n = HAPI_GPT_BATCHES
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, n * GPT_B * (GPT_S + 1)).astype(np.int32)
+    path = write_token_file(str(tmp / "tokens.bin"), toks)
+    feed = TokenFileDataset(path, seq_len=GPT_S, batch_size=GPT_B,
+                            shuffle=True, seed=0)
+    try:
+        seen = []
+        pairs = lm_pairs(feed, record=seen)
+        seed(0)
+        net = GPTForCausalLM(cfg, device=dev)
+        model = Model(net)
+        model.prepare(AdamW(learning_rate=1e-4, multi_precision=True),
+                      nn.CrossEntropyLoss())
+        log = loss_log()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model.fit(DataLoader(pairs, batch_size=None), epochs=1,
+                  verbose=0, callbacks=[log])
+        fit_s = time.perf_counter() - t0
+        launches = _launches(kernels)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats = model.last_fit_stats
+        if model._train_step._device.type != "cuda":
+            raise AssertionError("hapi gpt: the step is not on the card")
+    finally:
+        feed.close()
+    if len(seen) != n or len(log.losses) != n:
+        raise AssertionError(f"hapi gpt: {len(seen)} batches, "
+                             f"{len(log.losses)} losses, expected {n}")
+    ref = datafeed_windows(toks, GPT_S, GPT_B, 0, True, n)
+    for (ids, labels), w in zip(seen, ref):
+        if ids.dtype != np.int32 or ids.tobytes() != w[:, :-1].tobytes() \
+                or labels.tobytes() != w[:, 1:].tobytes():
+            raise AssertionError("hapi gpt: a feed batch differs from the "
+                                 "numpy windows")
+    want = {"cross_entropy_fwd": n, "cross_entropy_bwd": n,
+            "flash_attention_fwd": L * n, "flash_attention_bwd_dq": L * n,
+            "flash_attention_bwd_dkv": L * n, "multi_tensor_norm": n,
+            "multi_tensor_adam": n}
+    if launches != want:
+        raise AssertionError(f"hapi gpt: launches {launches}, expected "
+                             f"{want}")
+    del model, net
+    torch.cuda.empty_cache()
+    # the same weights and batches through TrainStep directly
+    seed(0)
+    net = GPTForCausalLM(cfg, device=dev)
+    step = TrainStep(net, AdamW(learning_rate=1e-4, multi_precision=True))
+    direct = []
+    for ids, labels in seen:
+        direct.append(float(step({"input_ids": torch.from_numpy(ids).to(dev),
+                                  "labels": torch.from_numpy(labels).to(
+                                      dev)})))
+    rel = [abs(a - b) / abs(b) for a, b in zip(log.losses, direct)]
+    if not max(rel) <= HAPI_GPT_LOSS_TOL or not np.all(
+            np.isfinite(log.losses)):
+        raise AssertionError(f"hapi gpt: fit losses {log.losses} vs "
+                             f"TrainStep {direct}")
+    loop = [a + b + c for a, b, c in zip(stats["data_s"], stats["h2d_s"],
+                                         stats["step_s"])]
+    dt = float(np.median(loop[1:]))
+    ref_s = REF_STEP_S.get("train_gpt")
+    emit("hapi_gpt", layers=L, batch=GPT_B, seq=GPT_S, batches=n,
+         feed={"tokens": int(toks.size), "shuffle": True, "seed": 0,
+               "threads": 2}, fit_s=fit_s, losses=log.losses,
+         trainstep_losses=direct, loss_rel_err=rel,
+         loss_tol=HAPI_GPT_LOSS_TOL, launches=launches,
+         launches_per_step={k: v / n for k, v in launches.items()},
+         step_s=loop, step_s_median=dt, tokens_per_s=GPT_B * GPT_S / dt,
+         step_parts_median={k: float(np.median(v[1:]))
+                            for k, v in stats.items()},
+         train_gpt_step_s_median=ref_s,
+         vs_train_gpt=dt / ref_s if ref_s else None, peak_gib=peak)
+    del step, net
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hapi_phase(dev, kernels):
+    """Phase 23: the two hapi runs, each in a temporary directory."""
+    import pathlib
+    out = {}
+    for name, run in (("resnet50", hapi_resnet), ("gpt", hapi_gpt)):
+        tmp = pathlib.Path(tempfile.mkdtemp(prefix=f"ptt_hapi_{name}_"))
+        try:
+            out[name] = run(dev, kernels, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7482,116 +8247,166 @@ def main():
                                  f"{sorted(report)}")
 
     timer = Timer(dev)
-    res = {"fused_rmsnorm_qkv": {T: kernel_qkv(FB, dev, timer, T)
-                                 for T in (1, 8, 16, 256)},
-           "fused_mlp": {T: kernel_mlp(FB, dev, timer, T)
-                         for T in (1, 8, 16, 256)},
-           "paged_decode_attention": {8: kernel_paged(PA, dev, timer)}}
-    emit("kernels", results={k: {str(t): v for t, v in r.items()}
-                             for k, r in res.items()})
-    train_rows = kernel_flash(FA, dev, timer)
-    train_rows["fused_rmsnorm_qkv_train"] = kernel_qkv_train(FB, dev, timer)
-    train_rows["fused_rmsnorm_qkv_fwd_T8192"] = kernel_qkv(
-        FB, dev, timer, TRAIN_B * TRAIN_S, plain_iters=3)
-    train_rows["fused_mlp_train"] = kernel_mlp(FB, dev, timer,
-                                               TRAIN_B * TRAIN_S,
-                                               plain_iters=3)
-    fp32_rows = kernel_amp_fp32(FB, dev, timer)
-    train_rows.update(fp32_rows)
-    emit("kernels_train", results=train_rows)
-    amp_fp32_gates(FB, fp32_rows)
-    quant_rows = kernel_quant_rows(QM, quantize_linear_weight, dev, timer)
-    quant_rows["paged_decode_attention_int8"] = kernel_paged_int8(
-        PA, _quantize_kv, dev, timer)
-    emit("kernels_quant", results=quant_rows)
-    moe_rows = kernels_moe(GM, TM, dev, timer)
-    emit("kernels_moe", results=moe_rows)
-    ce_rows = kernels_ce(CE, dev, timer)
-    emit("kernels_ce", results=ce_rows)
-    ffn_rows = kernels_ffn(FB, dev, timer)
-    emit("kernels_ffn", results=ffn_rows)
-    dec_rows = kernel_decoder(FB, dev, timer)
-    norm_rows = kernel_rmsnorm(RN, dev, timer)
-    emit("kernels_decoder", results={"fused_decoder_block": dec_rows,
-                                     "fused_rmsnorm": norm_rows})
-    mt_rows = kernel_multi_tensor(MT, dev, timer)
-    emit("kernels_multi_tensor", results=mt_rows)
+    with timed("kernels"):
+        res = {"fused_rmsnorm_qkv": {T: kernel_qkv(FB, dev, timer, T)
+                                     for T in (1, 8, 16, 256)},
+               "fused_mlp": {T: kernel_mlp(FB, dev, timer, T)
+                             for T in (1, 8, 16, 256)},
+               "paged_decode_attention": {8: kernel_paged(PA, dev, timer)}}
+        emit("kernels", results={k: {str(t): v for t, v in r.items()}
+                                 for k, r in res.items()})
+    with timed("kernels_train"):
+        train_rows = kernel_flash(FA, dev, timer)
+        train_rows["fused_rmsnorm_qkv_train"] = kernel_qkv_train(FB, dev,
+                                                                 timer)
+        train_rows["fused_rmsnorm_qkv_fwd_T8192"] = kernel_qkv(
+            FB, dev, timer, TRAIN_B * TRAIN_S, plain_iters=3)
+        train_rows["fused_mlp_train"] = kernel_mlp(FB, dev, timer,
+                                                   TRAIN_B * TRAIN_S,
+                                                   plain_iters=3)
+        fp32_rows = kernel_amp_fp32(FB, dev, timer)
+        train_rows.update(fp32_rows)
+        emit("kernels_train", results=train_rows)
+        amp_fp32_gates(FB, fp32_rows)
+    with timed("kernels_quant"):
+        quant_rows = kernel_quant_rows(QM, quantize_linear_weight, dev,
+                                       timer)
+        quant_rows["paged_decode_attention_int8"] = kernel_paged_int8(
+            PA, _quantize_kv, dev, timer)
+        emit("kernels_quant", results=quant_rows)
+    with timed("kernels_moe"):
+        moe_rows = kernels_moe(GM, TM, dev, timer)
+        emit("kernels_moe", results=moe_rows)
+    with timed("kernels_ce"):
+        ce_rows = kernels_ce(CE, dev, timer)
+        emit("kernels_ce", results=ce_rows)
+    with timed("kernels_ffn"):
+        ffn_rows = kernels_ffn(FB, dev, timer)
+        emit("kernels_ffn", results=ffn_rows)
+    with timed("kernels_decoder"):
+        dec_rows = kernel_decoder(FB, dev, timer)
+        norm_rows = kernel_rmsnorm(RN, dev, timer)
+        emit("kernels_decoder", results={"fused_decoder_block": dec_rows,
+                                         "fused_rmsnorm": norm_rows})
+    with timed("kernels_multi_tensor"):
+        mt_rows = kernel_multi_tensor(MT, dev, timer)
+        emit("kernels_multi_tensor", results=mt_rows)
     del timer
     torch.cuda.empty_cache()
-    op_surface(dev)
+    with timed("op_surface"):
+        op_surface(dev)
     torch.cuda.empty_cache()
 
-    card, host, prompt = parity(dev)
-    parity_quant(card, host, prompt, kernels)
-    parity_int8w(card, host, prompt, kernels)
-    static_parity(card, host, prompt)
-    concat_cache(card, kernels)
-    ptq_qat(card, host, kernels)
+    with timed("parity"):
+        card, host, prompt = parity(dev)
+        parity_quant(card, host, prompt, kernels)
+        parity_int8w(card, host, prompt, kernels)
+        static_parity(card, host, prompt)
+        concat_cache(card, kernels)
+    with timed("ptq_qat"):
+        ptq_qat(card, host, kernels)
     del card, host
     torch.cuda.empty_cache()
-    train_parity(dev)
+    with timed("train_parity"):
+        train_parity(dev)
     torch.cuda.empty_cache()
-    launches, model, prompts, bf16_tokens, eager = serve(dev, kernels)
+    with timed("serve"):
+        launches, model, prompts, bf16_tokens, eager = serve(dev, kernels)
     torch.cuda.empty_cache()
-    quant_launches = serve_quant(dev, kernels, model, prompts, bf16_tokens)
+    with timed("serve_quant"):
+        quant_launches = serve_quant(dev, kernels, model, prompts,
+                                     bf16_tokens)
     torch.cuda.empty_cache()
-    int8w_launches = serve_int8w(kernels, model, prompts, bf16_tokens)
+    with timed("serve_int8w"):
+        int8w_launches = serve_int8w(kernels, model, prompts, bf16_tokens)
     torch.cuda.empty_cache()
     graphed = {}
-    graphed["serve_graph"], chunk_launches = serve_graph(
-        dev, kernels, model, prompts, bf16_tokens, eager)
-    serve_spec(kernels, model)
-    graphed["serve_static"] = serve_static(kernels, model, prompts,
-                                           bf16_tokens)
-    fleet_launches = serve_fleet(kernels, model, prompts, bf16_tokens)
-    graphed["generate"] = generate_phase(
-        kernels, model, "llama3_8b", 4, 512, 64,
-        (kernels.SERVING[0], kernels.SERVING[1]))
-    score_launches = score_decoder(model, kernels)
+    with timed("serve_graph"):
+        graphed["serve_graph"], chunk_launches = serve_graph(
+            dev, kernels, model, prompts, bf16_tokens, eager)
+    with timed("serve_spec"):
+        serve_spec(kernels, model)
+    with timed("serve_static"):
+        graphed["serve_static"] = serve_static(kernels, model, prompts,
+                                               bf16_tokens)
+    with timed("serve_fleet"):
+        fleet_launches = serve_fleet(kernels, model, prompts, bf16_tokens)
+    with timed("generate"):
+        graphed["generate"] = generate_phase(
+            kernels, model, "llama3_8b", 4, 512, 64,
+            (kernels.SERVING[0], kernels.SERVING[1]))
+    with timed("score_decoder"):
+        score_launches = score_decoder(model, kernels)
     torch.cuda.empty_cache()
-    import tempfile
-    with tempfile.TemporaryDirectory() as ledger:
+    with timed("device_profile"), \
+            tempfile.TemporaryDirectory() as ledger:
         reports = device_profile(dev, kernels, ledger)
         measured_tier(model, kernels, ledger, reports)
     del model
     torch.cuda.empty_cache()
-    generate_gpt(dev, kernels)
-    train_launches, train_peak = train(dev, kernels)
+    with timed("generate_gpt"):
+        generate_gpt(dev, kernels)
+    with timed("train"):
+        train_launches, train_peak = train(dev, kernels)
     torch.cuda.empty_cache()
-    graph_launches = train_graph(dev, kernels)
+    with timed("train_graph"):
+        graph_launches = train_graph(dev, kernels)
     torch.cuda.empty_cache()
-    train_state(dev)
+    with timed("train_state"):
+        train_state(dev)
     torch.cuda.empty_cache()
-    amp_launches = amp_phases(dev, kernels)
+    with timed("amp"):
+        amp_launches = amp_phases(dev, kernels)
     torch.cuda.empty_cache()
-    decoder_parity(dev, kernels)
+    with timed("decoder_parity"):
+        decoder_parity(dev, kernels)
     torch.cuda.empty_cache()
-    dec_launches = train_decoder(dev, kernels, train_peak)
+    with timed("train_decoder"):
+        dec_launches = train_decoder(dev, kernels, train_peak)
     torch.cuda.empty_cache()
-    moe_parity(GM, TM, dev)
+    with timed("moe_parity"):
+        moe_parity(GM, TM, dev)
     torch.cuda.empty_cache()
-    moe_launches = train_moe(dev, kernels)
+    with timed("train_moe"):
+        moe_launches = train_moe(dev, kernels)
     torch.cuda.empty_cache()
-    gpt_parity(dev, kernels)
+    with timed("gpt_parity"):
+        gpt_parity(dev, kernels)
     torch.cuda.empty_cache()
-    gpt_launches = train_gpt(dev, kernels)
+    with timed("train_gpt"):
+        gpt_launches = train_gpt(dev, kernels)
     torch.cuda.empty_cache()
-    gpt_graph_launches = train_gpt_graph(dev, kernels)
+    with timed("train_gpt_graph"):
+        gpt_graph_launches = train_gpt_graph(dev, kernels)
     torch.cuda.empty_cache()
-    drill_launches, digest_row = recovery_drill(dev, kernels)
+    with timed("recovery_drill"):
+        drill_launches, digest_row = recovery_drill(dev, kernels)
     torch.cuda.empty_cache()
-    cold_launches = cold_start()
-    ffn_launches = transformer_infer(dev, kernels)
+    with timed("cold_start"):
+        cold_launches = cold_start()
+    with timed("transformer_infer"):
+        ffn_launches = transformer_infer(dev, kernels)
     torch.cuda.empty_cache()
-    norm_launches = norm_residual(dev, kernels)
+    with timed("norm_residual"):
+        norm_launches = norm_residual(dev, kernels)
     torch.cuda.empty_cache()
-    sparse_launches = sparse_embed(dev, kernels)
+    with timed("sparse_embed"):
+        sparse_launches = sparse_embed(dev, kernels)
     torch.cuda.empty_cache()
-    autograd_phase(dev)
-    resnet_launches = resnet50_phase(dev, kernels)
-    rnn_phase(dev)
+    with timed("autograd"):
+        autograd_phase(dev)
+    with timed("resnet50"):
+        resnet_launches = resnet50_phase(dev, kernels)
+    with timed("rnn"):
+        rnn_phase(dev)
     torch.cuda.empty_cache()
-    demo_phase()
+    with timed("losses"):
+        losses_phase(dev)
+    with timed("hapi"):
+        hapi_launches = hapi_phase(dev, kernels)
+    torch.cuda.empty_cache()
+    with timed("demo"):
+        demo_phase()
 
     where = {
         "fused_rmsnorm_qkv": ("paddle_tpu_torch/ops/kernels/csrc/"
@@ -7666,6 +8481,8 @@ def main():
                                   **{k: gpt[k] for k in keys},
                                   "shape": gpt["shape"],
                                   "path": "train_gpt"}
+            entry["gpt_shape"]["launches_hapi_gpt"] = \
+                hapi_launches["gpt"].get(name, 0)
         if "_bwd_" in name:            # the reduction before each backward
             entry["flash_delta_ms"] = train_rows["flash_delta"]["ms"]
             entry["gpt_shape"]["flash_delta_ms"] = \
@@ -7776,6 +8593,8 @@ def main():
                      **{k: r[k] for k in keys}, "shape": r["shape"],
                      "path": "train_gpt",
                      "launches_resnet50": resnet_launches[name],
+                     "launches_hapi": {k: v.get(name, 0) for k, v in
+                                       hapi_launches.items()},
                      "resnet50_shape": {**{k: r64[k] for k in keys},
                                         "shape": r64["shape"],
                                         "path": "resnet50"}})

@@ -11,7 +11,8 @@ The top level is JAX's (``paddle_tpu/__init__.py:12-39``): the dtype
 names, the op surface (the generated ops, then the hand-written op
 modules over them, in JAX's order, so each name is the same op), the
 ``linalg`` and ``fft`` namespaces, ``amp``, ``autograd`` and ``grad``,
-``set_device`` / ``get_device``.  Ops take and return ``torch.Tensor``s;
+``framework``, ``hapi`` with ``Model``, ``summary`` and ``flops``, ``io``,
+``metric``, ``set_device`` / ``get_device``, ``save`` / ``load``.  Ops take and return ``torch.Tensor``s;
 the names of the op surface that ``torch.Tensor`` lacks are installed on
 it as methods (``core/tensor_methods.py``).
 
@@ -60,7 +61,14 @@ from paddle_tpu_torch import autograd  # noqa: F401,E402
 # attribute to the module (paddle.fft is the namespace, paddle.fft.fft
 # the transform), as in the JAX package
 import paddle_tpu_torch.fft  # noqa: F401,E402
+from paddle_tpu_torch import framework  # noqa: F401,E402
+from paddle_tpu_torch import hapi  # noqa: F401,E402
+from paddle_tpu_torch.hapi import Model  # noqa: F401,E402
+from paddle_tpu_torch.hapi.summary import flops, summary  # noqa: F401,E402
+from paddle_tpu_torch import io  # noqa: F401,E402
+from paddle_tpu_torch import metric  # noqa: F401,E402
 from paddle_tpu_torch.device import get_device, set_device  # noqa: F401,E402
+from paddle_tpu_torch.framework.io_ import load, save  # noqa: F401,E402
 from paddle_tpu_torch.autograd import grad  # noqa: F401,E402
 
 __version__ = "0.1.0"

@@ -14,7 +14,7 @@ context manager), :func:`is_grad_enabled` reads it.
 attributes: ``stop_gradient`` is ``not requires_grad`` (setting one sets
 the other), ``trainable`` (kept apart, as there), ``optimize_attr``
 (``{"learning_rate": 1.0}``), ``regularizer``, ``need_clip`` (read by the
-clips of an optimizer's eager ``step``) and ``is_distributed``.  The
+clips of an optimizer's eager ``step``), ``is_distributed`` and ``name``.  The
 optimizers skip a parameter whose ``stop_gradient`` is set."""
 
 from __future__ import annotations
@@ -69,6 +69,16 @@ class Parameter(nn.Parameter):
 
     def __init__(self, *args, **kwargs):
         pass
+
+    @property
+    def name(self):
+        """The parameter's name (None unless given); kept in the
+        instance, since torch's ``Tensor.name`` cannot be written."""
+        return self.__dict__.get("_ptt_name")
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["_ptt_name"] = value
 
     @property
     def stop_gradient(self) -> bool:

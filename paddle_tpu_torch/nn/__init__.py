@@ -11,7 +11,8 @@ from paddle_tpu_torch.nn import rnn as _rnn
 from paddle_tpu_torch.nn.common_layers import *  # noqa: F401,F403
 from paddle_tpu_torch.nn.conv_layers import *  # noqa: F401,F403
 from paddle_tpu_torch.nn.layer import Layer
-from paddle_tpu_torch.nn.loss_layers import CrossEntropyLoss
+from paddle_tpu_torch.nn import loss_layers as _loss
+from paddle_tpu_torch.nn.loss_layers import *  # noqa: F401,F403
 from paddle_tpu_torch.nn.norm_layers import *  # noqa: F401,F403
 from paddle_tpu_torch.nn.pooling_layers import *  # noqa: F401,F403
 from paddle_tpu_torch.nn.rnn import *  # noqa: F401,F403
@@ -22,8 +23,9 @@ from paddle_tpu_torch.nn.transformer import (MultiHeadAttention, Transformer,
                                              TransformerEncoderLayer)
 
 __all__ = list(_common.__all__) + list(_conv.__all__) + \
-    list(_norm.__all__) + list(_pool.__all__) + list(_rnn.__all__) + [
-        "Layer", "CrossEntropyLoss", "MultiHeadAttention",
+    list(_norm.__all__) + list(_pool.__all__) + list(_rnn.__all__) + \
+    list(_loss.__all__) + [
+        "Layer", "MultiHeadAttention",
         "TransformerEncoderLayer", "TransformerEncoder",
         "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
         "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",

@@ -5,7 +5,11 @@ Layout is the JAX package's: ``[batch, seq, num_heads, head_dim]``.
 JAX package sends to its flash kernel (``attention.py:55-132``) to the
 port's flash-attention kernels, whose backward is a kernel too; every
 other call, every call with active dropout and every call on the CPU
-takes the plain reference in torch ops (``matmul`` and ``softmax``)."""
+takes the plain reference in torch ops (``matmul`` and ``softmax``).
+
+``flash_attn_unpadded`` (packed variable-length sequences) is plain on
+every device, as in the JAX package (a dense masked product,
+``attention.py:154-212``): no kernel stands behind it there."""
 
 from __future__ import annotations
 
@@ -13,10 +17,11 @@ import torch
 
 from paddle_tpu_torch.core.dispatch import eager_op
 from paddle_tpu_torch.core import state as _state
-from paddle_tpu_torch.ops.kernels.flash_attention import flash_attention
+from paddle_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention as _flash_kernel)
 
-__all__ = ["scaled_dot_product_attention", "rotary_freqs",
-           "apply_rotary_emb"]
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "flash_attn_unpadded", "rotary_freqs", "apply_rotary_emb"]
 
 _NEG = -1e30
 
@@ -96,16 +101,78 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         pad = (0, 128 - hd)
         qp, kp, vp = (torch.nn.functional.pad(t, pad)
                       for t in (query, key, value))
-        out = flash_attention(qp, kp, vp, causal=is_causal,
+        out = _flash_kernel(qp, kp, vp, causal=is_causal,
                               scale=scale if scale is not None
                               else hd ** -0.5)
         return out[..., :hd]
     if same and _flash_eligible(query, hd):
         # no try/except: a failed build or launch surfaces
-        return flash_attention(query, key, value, causal=is_causal,
+        return _flash_kernel(query, key, value, causal=is_causal,
                                scale=scale)
     return _sdpa_reference(query, key, value, attn_mask, is_causal, scale,
                            dropout_p if use_dropout else 0.0)
+
+
+@eager_op
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True):
+    """``paddle.nn.functional.flash_attention`` (``attention.py:135-149``):
+    ``(out, None)`` over ``[b, s, h, d]``, routed as
+    :func:`scaled_dot_product_attention` without a mask (the flash kernel
+    on the card where eligible).  `dropout` is accepted and not applied,
+    as in the JAX package."""
+    return scaled_dot_product_attention(query, key, value,
+                                        is_causal=causal), None
+
+
+@eager_op
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale=None, dropout=0.0,
+                        causal=False, return_softmax=False, training=True):
+    """Attention over packed sequences: q / k / v ``[total_tokens, heads,
+    head_dim]``, sequences concatenated, ``cu_seqlens_*`` their ``[batch
+    + 1]`` prefix offsets.  Returns ``(out, softmax)``: ``out`` in q's
+    dtype, ``softmax`` the fp32 ``[heads, total_q, total_k]``
+    probabilities with `return_softmax`, else None.
+
+    A token attends to the keys of its own sequence (segment ids from
+    the offsets; tokens past the last offset match nothing); `causal`
+    masking is aligned bottom-right per sequence, so with fewer queries
+    than keys the last query sees the last key.  Scores and softmax in
+    fp32, masked positions at -1e30.  Dropout (with `training`) draws its
+    mask from the port's generator stream (a functional call's
+    ``rngs`` stream, else the device's generator), not JAX's threefry
+    key: the same rate drops other positions than JAX."""
+    tq, h, d = query.shape
+    tk = key.shape[0]
+    dev = query.device
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    cq = torch.as_tensor(cu_seqlens_q, device=dev).long()
+    ck = torch.as_tensor(cu_seqlens_k, device=dev).long()
+    pos_q = torch.arange(tq, device=dev)
+    pos_k = torch.arange(tk, device=dev)
+    seg_q = torch.searchsorted(cq, pos_q, right=True)
+    seg_k = torch.searchsorted(ck, pos_k, right=True)
+    rel_q = pos_q - cq[(seg_q - 1).clamp(min=0)]
+    rel_k = pos_k - ck[(seg_k - 1).clamp(min=0)]
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        nb = cq.shape[0] - 1
+        shift = ((ck[1:] - ck[:-1]) - (cq[1:] - cq[:-1]))[
+            (seg_q - 1).clamp(0, nb - 1)]
+        mask = mask & ((rel_q + shift)[:, None] >= rel_k[None, :])
+    qf = query.float() * scale
+    scores = torch.einsum("qhd,khd->hqk", qf, key.float())
+    scores = torch.where(mask[None], scores, _NEG)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout > 0.0 and training:
+        keep = torch.rand(probs.shape, device=dev,
+                          generator=_dropout_generator(dev)) < 1.0 - dropout
+        probs = probs * keep / (1.0 - dropout)
+    out = torch.einsum("hqk,khd->qhd", probs, value.float()).to(query.dtype)
+    return out, (probs if return_softmax else None)
 
 
 def rotary_freqs(head_dim, max_position, base=10000.0, device="cpu"):

@@ -12,12 +12,14 @@ import torch.nn.functional as TF
 
 from paddle_tpu_torch.core.dispatch import eager_op
 from paddle_tpu_torch.core import state as _state
+from paddle_tpu_torch.ops.manipulation import pad  # noqa: F401 (JAX's)
 
 __all__ = ["linear", "embedding", "dropout", "dropout2d", "dropout3d",
            "alpha_dropout", "cosine_similarity", "bilinear", "one_hot",
            "label_smooth", "normalize", "pixel_shuffle", "pixel_unshuffle",
            "channel_shuffle", "unfold", "fold", "interpolate", "upsample",
-           "affine_grid", "grid_sample", "zeropad2d", "temporal_shift"]
+           "affine_grid", "grid_sample", "zeropad2d", "temporal_shift",
+           "pad"]
 
 
 @eager_op

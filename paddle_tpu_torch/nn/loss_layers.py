@@ -1,11 +1,15 @@
-"""Loss layers (``paddle_tpu/nn/loss_layers.py``)."""
+"""Loss layers (``paddle_tpu/nn/loss_layers.py``): each holds its
+options and calls its functional (``nn/functional/loss.py``)."""
 
 from __future__ import annotations
 
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer import Layer
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss",
+           "MarginRankingLoss", "HingeEmbeddingLoss", "CosineEmbeddingLoss",
+           "TripletMarginLoss", "CTCLoss"]
 
 
 class CrossEntropyLoss(Layer):
@@ -15,7 +19,7 @@ class CrossEntropyLoss(Layer):
 
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
-                 label_smoothing=0.0):
+                 label_smoothing=0.0, name=None):
         super().__init__()
         self.weight = weight
         self.kw = dict(ignore_index=ignore_index, reduction=reduction,
@@ -25,3 +29,130 @@ class CrossEntropyLoss(Layer):
 
     def forward(self, input, label):
         return F.cross_entropy(input, label, weight=self.weight, **self.kw)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.l1_loss(input, label, self.reduction)
+
+
+class NLLLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.nll_loss(input, label, self.weight, self.ignore_index,
+                          self.reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, self.weight,
+                                      self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, self.weight, self.reduction, self.pos_weight)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean", log_target=False):
+        super().__init__()
+        self.reduction = reduction
+        self.log_target = log_target
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, self.reduction, self.log_target)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.kw = dict(margin=margin, p=p, epsilon=epsilon, swap=swap,
+                       reduction=reduction)
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative, **self.kw)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank, self.reduction = blank, reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)

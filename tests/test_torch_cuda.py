@@ -3133,3 +3133,112 @@ def test_float16_raises_naming_the_queue_entry(dev, wrapper):
             FB.fused_mlp(x, _t(rng, (128, 256), h, dev),
                          _t(rng, (128, 256), h, dev),
                          _t(rng, (256, 128), h, dev))
+
+
+# -- the losses, io and hapi on the card --------------------------------------
+
+import chip_smoke  # noqa: E402
+
+LOSS_CASES = chip_smoke.loss_cases()
+LOSS_LAYERS = chip_smoke.loss_layer_cases()
+
+
+@pytest.mark.parametrize("case", LOSS_CASES, ids=[c[0] for c in LOSS_CASES])
+def test_loss_on_the_card_equals_the_cpu(dev, case):
+    """Values and input gradients of every loss case within LOSS_TOL of
+    the same call on the CPU."""
+    _, name, args, diff, kw = case
+    card = chip_smoke.loss_run(name, args, diff, kw, dev)
+    host = chip_smoke.loss_run(name, args, diff, kw, "cpu")
+    rtol, atol = chip_smoke.LOSS_TOL
+    assert len(card[0]) == len(host[0]) and len(card[1]) == len(host[1])
+    for got, ref in zip(card[0] + card[1], host[0] + host[1]):
+        torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("case", LOSS_LAYERS,
+                         ids=[c[0] for c in LOSS_LAYERS])
+def test_loss_layer_on_the_card(dev, case):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    layer, ckw, name, args, fkw = case
+    ts = [torch.from_numpy(a).to(dev) for a in args]
+    assert torch.equal(getattr(nn, layer)(**ckw)(*ts),
+                       getattr(F, name)(*ts, **fkw))
+
+
+def _lenet_model(device, state=None):
+    from paddle_tpu_torch import Model, metric, nn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import LeNet
+    net = LeNet(device=device)
+    if state is not None:
+        net.set_state_dict(state)
+    m = Model(net)
+    m.prepare(Momentum(learning_rate=0.05, momentum=0.9,
+                       parameters=net.parameters()),
+              nn.CrossEntropyLoss(), metric.Accuracy(topk=(1, 5)))
+    return m
+
+
+def test_lenet_fit_on_the_card_counts_ce(dev):
+    """Model.fit on the card: the CE kernels once a train step (both) and
+    once an evaluated batch (forward); the history within 1e-4 of the
+    same weights' fit on the CPU."""
+    from paddle_tpu_torch.ops import kernels
+    train = chip_smoke.SeededImages(32, 1, hw=28, classes=10, channels=1)
+    evald = chip_smoke.SeededImages(16, 2, hw=28, classes=10, channels=1)
+    card = _lenet_model(dev)
+    state = {k: v.cpu() for k, v in card.network.state_dict().items()}
+    host = _lenet_model("cpu", state)
+    kernels.reset_launch_counts()
+    got = card.fit(train, evald, batch_size=8, epochs=2, shuffle=False,
+                   verbose=0)
+    logs = card.evaluate(evald, batch_size=8, verbose=0)
+    assert kernels.cross_entropy_fwd.launches == 2 * 4 + 2 * 2 + 2
+    assert kernels.cross_entropy_bwd.launches == 2 * 4
+    ref = host.fit(train, evald, batch_size=8, epochs=2, shuffle=False,
+                   verbose=0)
+    np.testing.assert_allclose(got["loss"], ref["loss"], rtol=1e-4)
+    ref_logs = host.evaluate(evald, batch_size=8, verbose=0)
+    np.testing.assert_allclose(logs["loss"], ref_logs["loss"], rtol=1e-4)
+
+
+def test_dataloader_workers_equal_one_process_on_the_card(dev):
+    """Workers from a fork server, started after this process initialised
+    CUDA, give one process's batches bit for bit; close() joins them."""
+    import multiprocessing
+
+    from paddle_tpu_torch.io import DataLoader
+    torch.zeros(1, device=dev)
+    ds = chip_smoke.SeededImages(40, 5, hw=16)
+    pool = DataLoader(ds, batch_size=8, num_workers=2)
+    pooled = list(pool)
+    pool.close()
+    single = list(DataLoader(ds, batch_size=8, num_workers=0))
+    assert len(pooled) == len(single) == 5
+    for (a, ya), (b, yb) in zip(pooled, single):
+        assert a.tobytes() == b.tobytes() and ya.tobytes() == yb.tobytes()
+    assert not multiprocessing.active_children()
+
+
+def test_dataloader_timeout_names_the_stuck_worker(dev):
+    """A batch past `timeout` raises naming the workers; close() then
+    returns without waiting for the stuck one, which exits by itself."""
+    import multiprocessing
+    import time
+
+    from paddle_tpu_torch.io import DataLoader
+    torch.zeros(1, device=dev)
+    loader = DataLoader(chip_smoke.SlowItems(4, 0, 4.0), batch_size=2,
+                        num_workers=2, timeout=1, use_buffer_reader=False)
+    with pytest.raises(RuntimeError, match="timeout=1s"):
+        list(loader)
+    t0 = time.perf_counter()
+    loader.close()
+    assert time.perf_counter() - t0 < 2.0
+    deadline = time.perf_counter() + 30
+    while multiprocessing.active_children() and \
+            time.perf_counter() < deadline:
+        time.sleep(0.2)
+    assert not multiprocessing.active_children()

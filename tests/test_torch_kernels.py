@@ -230,6 +230,12 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.ops.gen.generate\n"
         "import paddle_tpu_torch.amp.debugging, paddle_tpu_torch.fft\n"
         "import paddle_tpu_torch.device, paddle_tpu_torch.core.dispatch\n"
+        "import paddle_tpu_torch.framework, paddle_tpu_torch.framework.io_\n"
+        "import paddle_tpu_torch.io.dataset, paddle_tpu_torch.io.dataloader\n"
+        "import paddle_tpu_torch.io.token_dataset, paddle_tpu_torch.metric\n"
+        "import paddle_tpu_torch.hapi, paddle_tpu_torch.hapi.model\n"
+        "import paddle_tpu_torch.hapi.callbacks, paddle_tpu_torch.hapi.summary\n"
+        "import paddle_tpu_torch.nn.functional.loss\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"
