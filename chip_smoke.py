@@ -250,8 +250,8 @@ train_moe two, one per engine or dispatch mode):
             Snapshot bytes, ship and restore seconds, MTTR, checkpoint
             write and read GB/s.
 15. cold start  cold_start (after recovery_drill): two fresh processes
-            at Llama-3-8B width, 4 of 32 layers, bf16, Serve's paged
-            engine.  A (the repo, an empty cache) runs aot_warmup, serves
+            at Llama-3-8B width, COLD_LAYERS (2) of 32 layers, bf16,
+            Serve's paged engine.  A (the repo, an empty cache) runs aot_warmup, serves
             4 prompts with 32 greedy tokens, compiles the Train-shape
             TrainStep, bundles the weights, entries and kernel libraries,
             and takes one step.  B (a copy of paddle_tpu_torch without
@@ -384,6 +384,27 @@ train_moe two, one per engine or dispatch mode):
             step; the losses within HAPI_GPT_LOSS_TOL of TrainStep's on
             the same weights and batches.  Each reports its step seconds
             beside the resnet50 and train_gpt phases' of the same run.
+24. deploy  to_static -> jit.save (a torch.export program of the pure
+            function, ptt:: ops as nodes) -> inference.create_predictor.
+            kernels_deploy: the fp32 flash forward at ERNIE's shape (b=8,
+            s=1024, 12 heads, head_dim 64 padded to 128) against its plain
+            version, timed beside fp32 SDPA.  deploy_ernie: ERNIE-3.0-
+            medium-zh (fp32) behind FasterTokenizer over a seeded 40000-
+            entry vocab, saved at [None, 1024] and [None, 128], run at
+            batch 8 and 32 through the handles.  deploy_dit: DiT-XL/2
+            (fp32, dynamic batch) at batch 8.  deploy_llama: Llama-3-8B
+            width, 2 layers, bf16, at [1, 1024] through a PredictorPool
+            of 2.  Gates: the predictor's outputs equal the eager port's
+            (bitwise, or within 1e-6 of the largest); launches from the
+            loaded program exact (ERNIE s=1024: flash 6; s=128 and DiT:
+            none; Llama: QKV, MLP, flash 2 each); ERNIE row 0 within
+            FLASH_TOL of the CPU's plain version; the pool's slots equal.
+            Each artifact reports its trace, write and load seconds, its
+            bytes, the predictor run's, the program's and the eager
+            forward's device ms (CUDA events, median of DEPLOY_RUNS).
+            deploy_dy2static: to_static functions exported on this torch:
+            a traced `if` holds torch.cond; whether while_loop traces is
+            recorded.
 
 Every phase's wall seconds follow it on a line of their own
 (``{"phase": "phase_s", "name": ..., "seconds": ...}``).  Then the
@@ -1435,7 +1456,7 @@ def kernels_ffn(FB, dev, timer):
 # greedy tokens of the parity phases' drives (the CPU side decodes each
 # through the full-width 2-layer model; the gate is the last chunk's
 # logits, the tokens are reported)
-PARITY_NEW = 4
+PARITY_NEW = 2
 
 
 def drive(model, prompt, chunk, n_new, quant_kv=None):
@@ -2959,9 +2980,14 @@ DECODE_FAMILIES = ("paged_split_kernel", "qkv_decode_rows_kernel",
                    "mlp_splitk_kernel", "gemm_kernel")
 
 
+# new tokens a request in a serving profile window (the profiler's event
+# processing grows with the window)
+PROFILE_NEW = 8
+
+
 def profile(eng, cfg, rng, phase="profile"):
     """Where a serving window's time goes: 8 requests (64-token prompts,
-    16 new tokens) under torch.profiler; device time by kernel, the
+    PROFILE_NEW new tokens) under torch.profiler; device time by kernel, the
     decode kernels' device ms per decode step, and the device's busy
     share of the window's wall time.  Run after the measured serve run,
     so profiling costs nothing there."""
@@ -2969,7 +2995,7 @@ def profile(eng, cfg, rng, phase="profile"):
     from torch.profiler import profile as torch_profile
     for _ in range(8):
         eng.add_request(rng.integers(0, cfg.vocab_size, 64),
-                        max_new_tokens=16)
+                        max_new_tokens=PROFILE_NEW)
     steps0 = eng.stats["decode_steps"]
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
@@ -2984,7 +3010,7 @@ def profile(eng, cfg, rng, phase="profile"):
     busy_us = union_us(spans)
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
     fams = family_times(kernels, DECODE_FAMILIES, spans)
-    res = dict(requests=8, prompt=64, new_tokens=16, wall_s=wall,
+    res = dict(requests=8, prompt=64, new_tokens=PROFILE_NEW, wall_s=wall,
                device_busy_s=busy_us / 1e6 if kernels else None,
                device_busy_share=busy_us / 1e6 / wall if kernels else None,
                decode_steps=steps, port_kernels=fams,
@@ -4330,8 +4356,9 @@ def kernel_multi_tensor(MT, dev, timer):
     B bf16 parameters with fp32 masters and moments, bf16 gradients),
     each against its plain version on the same inputs: the max error and
     whether every output is bitwise equal (the plain version runs a
-    tensor at a time on copies, its results kept on the host, before the
-    kernel's one launch updates the originals); then each timed beside
+    tensor at a time on copies, its results kept on the card, 27 GB beside
+    the 31 GB of state, before the kernel's one launch updates the
+    originals); then each timed beside
     its plain version, a PyTorch yardstick (the norm: torch._foreach_norm
     in fp32, then the norm of those; the update: torch._fused_adamw_ on
     the fp32 masters with fp32 gradients, whose op order differs: a
@@ -4361,8 +4388,7 @@ def kernel_multi_tensor(MT, dev, timer):
     for i in range(len(params)):
         one = [t[i].clone() for t in state]
         plain_update([one[0]], [grads[i]], [one[1]], [one[2]], [one[3]])
-        plain.append([t.cpu() for t in one])
-        del one
+        plain.append(one)
     n0 = MT.multi_tensor_adam.launches
     MT.multi_tensor_adam(params, grads, m, v, masters,
                          weight_decays=[MT_WD] * len(params), **kw)
@@ -4372,12 +4398,11 @@ def kernel_multi_tensor(MT, dev, timer):
     err, bitwise = dict.fromkeys(names, 0.0), dict.fromkeys(names, True)
     for i, ref in enumerate(plain):
         for name, t, r in zip(names, (x[i] for x in state), ref):
-            got = t.cpu()
-            if torch.equal(got, r):       # the error of equal bits is 0
+            if torch.equal(t, r):         # the error of equal bits is 0
                 continue
             bitwise[name] = False
             err[name] = max(err[name],
-                            float((got.float() - r.float()).abs().max()))
+                            float((t.float() - r.float()).abs().max()))
     del plain
     for name in names:
         if not bitwise[name]:
@@ -4550,11 +4575,23 @@ def state_tensors(step):
             ] + [step._count]
 
 
+def pinned_copies(tensors, into=None):
+    """Host copies of `tensors` in pinned memory (`into`'s buffers reused
+    when given): Train's 27 GB state crosses PCIe at its full rate, where
+    pageable copies took ~40 s a graph phase."""
+    if into is None:
+        into = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+    for h, t in zip(into, tensors):
+        h.copy_(t)
+    return into
+
+
 def same_bits(tensors, host):
-    """Whether each tensor's bytes equal its host copy's (one tensor on
-    the host at a time)."""
-    return all(torch.equal(t.cpu().reshape(-1).view(torch.uint8),
-                           h.reshape(-1).view(torch.uint8))
+    """Whether each tensor's bytes equal its host copy's (the copy brought
+    to the tensor's device one tensor at a time)."""
+    return all(torch.equal(t.reshape(-1).view(torch.uint8),
+                           h.to(t.device).reshape(-1).view(torch.uint8))
                for t, h in zip(tensors, host))
 
 
@@ -4575,7 +4612,7 @@ def graph_phase(phase, model, batch, families, kernels, tokens, flops_tok,
     saved = step.state_dict()
     save_s = time.perf_counter() - t0
     eager_losses = [float(step(batch)) for _ in range(GRAPH_STEPS)]
-    eager_state = [t.cpu() for t in state_tensors(step)]
+    eager_state = pinned_copies(state_tensors(step))
     kernels.reset_launch_counts()
     eager_s = timed_steps(step, batch, GRAPH_TIMED)
     eager_launches = {fn.__name__: fn.launches / GRAPH_TIMED
@@ -4610,7 +4647,7 @@ def graph_phase(phase, model, batch, families, kernels, tokens, flops_tok,
                                           ref.reshape(-1).view(torch.uint8))
         state_err = max(state_err,
                         float((t.float() - ref.float()).abs().max()))
-    del eager_state, ref
+    del ref
     if not bitwise or graph_losses != eager_losses:
         raise AssertionError(f"{phase}: graphed against eager: losses "
                              f"{graph_losses} and {eager_losses}, the state "
@@ -4629,10 +4666,10 @@ def graph_phase(phase, model, batch, families, kernels, tokens, flops_tok,
     with torch.no_grad():
         keep = poisoned.view(-1)[0].clone()
         poisoned.view(-1)[0] = float("nan")
-    before = [t.cpu() for t in state_tensors(step)]
+    before = pinned_copies(state_tensors(step), into=eager_state)
     nan_loss = float(step(batch))
     unchanged = same_bits(state_tensors(step), before)
-    del before
+    del before, eager_state
     with torch.no_grad():
         poisoned.view(-1)[0] = keep
     if np.isfinite(nan_loss) or not unchanged or \
@@ -5378,7 +5415,7 @@ def recovery_drill(dev, kernels):
 
 # cold start: Llama-3-8B width cut to COLD_LAYERS, Serve's engine, the
 # first four Serve prompts, 32 greedy tokens
-COLD_LAYERS = 4
+COLD_LAYERS = 2
 COLD_PROMPTS = SERVE_LENGTHS[:4]
 COLD_TIMEOUT = 600
 # the kernels each cold-start process must launch: the engine's (QKV and
@@ -8198,6 +8235,400 @@ def hapi_phase(dev, kernels):
     return out
 
 
+
+# -- phase 24: deploy (to_static -> jit.save -> create_predictor) -----------
+
+DEPLOY_S = 1024                  # ERNIE's long-text signature (flash)
+DEPLOY_SHORT_S = 128             # its short-text one (plain attention)
+ERNIE_BATCHES = (8, 32)
+DEPLOY_RUNS = 10
+DEPLOY_SEED = 23
+
+
+def deploy_vocab(n):
+    """A synthetic WordPiece vocab of `n` entries (ERNIE's own vocab.txt is
+    not in the repo): the specials, ``##a``..``##z`` continuations, then
+    words ``w0``, ``w1``, ..."""
+    head = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + \
+        [f"##{c}" for c in "abcdefghijklmnopqrstuvwxyz"]
+    return head + [f"w{i}" for i in range(n - len(head))]
+
+
+def deploy_texts(n_words, count, rng):
+    """`count` seeded texts of `n_words` words, a tenth with a suffix the
+    vocab lacks as a word (``w12xy`` -> ``w12 ##x ##y``), and
+    punctuation, which the tokenizer splits off."""
+    texts = []
+    for _ in range(count):
+        ids = rng.integers(0, 30000, n_words)
+        words = [f"w{i}" + ("xy" if i % 10 == 0 else "")
+                 + ("," if i % 17 == 0 else "") for i in ids]
+        texts.append(" ".join(words))
+    return texts
+
+
+def median_ms(fn, n=DEPLOY_RUNS):
+    """The median device ms of `fn` over n calls, CUDA events around each
+    (after one warm call)."""
+    fn()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def feed(pred, arrays):
+    for name, arr in zip(pred.get_input_names(), arrays):
+        pred.get_input_handle(name).copy_from_cpu(arr)
+
+
+def fetch(pred):
+    pred.run()
+    return [pred.get_output_handle(n).copy_to_cpu()
+            for n in pred.get_output_names()]
+
+
+def artifact_bytes(prefix):
+    return sum(os.path.getsize(prefix + ext)
+               for ext in (".pdmodel", ".pdiparams.npz", ".pdmeta"))
+
+
+def save_and_load(model, prefix, specs, pool=0):
+    """jit.save then a predictor (or a pool of `pool`): the save's trace
+    and write seconds (from the meta), the load's seconds, the bytes."""
+    from paddle_tpu_torch import inference, jit
+    jit.save(model, prefix, input_spec=specs)
+    with open(prefix + ".pdmeta") as f:
+        meta = json.load(f)
+    t0 = time.perf_counter()
+    cfg = inference.Config(prefix + ".pdmodel")
+    pred = inference.PredictorPool(cfg, pool) if pool else \
+        inference.create_predictor(cfg)
+    stats = {"export_s": meta["export_s"], "write_s": meta["write_s"],
+             "load_s": time.perf_counter() - t0,
+             "artifact_bytes": artifact_bytes(prefix),
+             "platform": meta["platform"]}
+    return pred, stats
+
+
+def launched(kernels):
+    return {fn.__name__: fn.launches for fn in kernels.KERNELS
+            if fn.launches}
+
+
+def same_as_eager(what, got, eager):
+    """The predictor's output against the eager port's on the same
+    weights: bitwise, else within 1e-6 of the output's largest value
+    (an op the exported graph runs in another order)."""
+    err = float(np.abs(got - eager).max())
+    scale = float(np.abs(eager).max())
+    if not np.isfinite(got).all() or err > 1e-6 * scale:
+        raise AssertionError(f"{what}: predictor vs eager max abs err "
+                             f"{err} > 1e-6 * {scale}")
+    return err, bool(err == 0.0)
+
+
+def kernel_flash_ernie(FA, dev, timer):
+    """The fp32 flash forward at ERNIE-3.0-medium's shape (b=8, s=1024,
+    12 heads, head_dim 64 zero-padded to 128, not causal), as the
+    deploy path launches it: the kernel on the padded inputs against its
+    plain version, timed beside fp32 F.scaled_dot_product_attention on
+    the unpadded ones; the bound is the unpadded work at 67 TFLOP/s."""
+    b, s, h, d = 8, DEPLOY_S, 12, 64
+    g = torch.Generator(device=dev).manual_seed(DEPLOY_SEED)
+    q, k, v = (rand(g, (b, s, h, d), torch.float32, dev) for _ in range(3))
+    pad = (0, FA.KERNEL_HEAD_DIM - d)
+    qp, kp, vp = (torch.nn.functional.pad(t, pad).contiguous()
+                  for t in (q, k, v))
+    out = FA.flash_attention_fwd(qp, kp, vp, False, d ** -0.5)[0]
+    ref = FA.flash_fwd_reference(qp, kp, vp, False, d ** -0.5)[0]
+    err = check_close("flash_attention_fwd (ERNIE shape)", out, ref,
+                      torch.float32)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes = 4 * b * s * h * d * 4
+    flops = 4 * b * h * s * s * d
+    row = {"ms": timer(lambda: FA.flash_attention_fwd(qp, kp, vp, False,
+                                                      d ** -0.5)),
+           "plain_ms": timer(lambda: FA.flash_fwd_reference(
+               qp, kp, vp, False, d ** -0.5), iters=3, warmup=1),
+           "library_ms": timer(lambda: torch.nn.functional.
+                               scaled_dot_product_attention(qt, kt, vt)),
+           "library": "F.scaled_dot_product_attention (fp32, head_dim 64)",
+           "max_abs_err": err, "flops": flops,
+           "shape": f"b={b} s={s} h={h} d={d} padded to "
+                    f"{FA.KERNEL_HEAD_DIM}, not causal, fp32"}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                FP32_FLOP_PER_S)
+    del q, k, v, qp, kp, vp, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def deploy_ernie(dev, kernels, tmp, cfg=None):
+    """ERNIE-3.0-medium-zh (fp32, 6 x 768, 12 heads, vocab 40000) behind
+    FasterTokenizer: to_static -> jit.save at [None, 1024] and at [None,
+    128] -> create_predictor, run at batch 8 and 32 through the handles.
+    At s=1024 flash launches once a layer (6 a run) through the head_dim
+    pad; at 128 no kernel launches.  The logits equal the eager port's
+    and, row 0 at s=1024, the plain version's (the CPU) within
+    FLASH_TOL."""
+    from paddle_tpu_torch import jit, seed, text
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    cfg = cfg or ErnieConfig()
+    seed(DEPLOY_SEED)
+    model = ErnieForSequenceClassification(cfg, device=dev).eval()
+    t0 = time.perf_counter()
+    tok = text.FasterTokenizer(deploy_vocab(cfg.vocab_size))
+    texts = deploy_texts(1100, max(ERNIE_BATCHES),
+                         np.random.default_rng(DEPLOY_SEED))
+    enc = {s: tok(texts, max_seq_len=s) for s in (DEPLOY_S, DEPLOY_SHORT_S)}
+    tok_s = time.perf_counter() - t0
+    tok.close()
+    if not (enc[DEPLOY_S]["input_ids"] != tok.pad_id).all():
+        raise AssertionError("deploy: a text did not fill 1024 tokens")
+    out = {"tokenize_s": tok_s, "signatures": {}}
+    fa = kernels.flash_attention_fwd
+    for s in (DEPLOY_S, DEPLOY_SHORT_S):
+        specs = [jit.InputSpec([None, s], "int64", "input_ids"),
+                 jit.InputSpec([None, s], "int64", "token_type_ids")]
+        static = jit.to_static(model, input_spec=specs)
+        pred, stats = save_and_load(static, f"{tmp}/ernie_{s}", specs)
+        want = cfg.num_hidden_layers if s == DEPLOY_S else 0
+        for b in ERNIE_BATCHES:
+            ids = enc[s]["input_ids"][:b]
+            tt = enc[s]["token_type_ids"][:b]
+            feed(pred, (ids, tt))
+            kernels.reset_launch_counts()
+            got = fetch(pred)[0]
+            runs = launched(kernels)
+            if runs != ({fa.__name__: want} if want else {}):
+                raise AssertionError(f"deploy ernie s={s} b={b}: launches "
+                                     f"{runs}, expected flash {want}")
+            ids_t = torch.from_numpy(ids).to(dev)
+            tt_t = torch.from_numpy(tt).to(dev)
+            with torch.no_grad():
+                eager = model(ids_t, tt_t).float().cpu().numpy()
+            err, bitwise = same_as_eager(f"deploy ernie s={s} b={b}", got,
+                                         eager)
+            row = {"launches": runs, "logits_shape": list(got.shape),
+                   "eager_max_abs_err": err, "bitwise": bitwise,
+                   "predictor_run_ms": median_ms(lambda: fetch(pred)),
+                   "program_ms": median_ms(lambda: pred._layer(ids, tt))}
+            with torch.no_grad():
+                row["eager_ms"] = median_ms(lambda: model(ids_t, tt_t))
+            if s == DEPLOY_S and b == ERNIE_BATCHES[0]:
+                row["plain_max_abs_err"] = ernie_plain(model, cfg, ids, tt,
+                                                       got)
+            stats[f"b{b}"] = row
+        out["signatures"][str(s)] = stats
+        del pred
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def ernie_plain(model, cfg, ids, tt, got):
+    """Row 0's logits against the plain version: the same weights on the
+    CPU (fp32, plain attention), within FLASH_TOL["fwd"]."""
+    from paddle_tpu_torch.models import ErnieForSequenceClassification
+    host = ErnieForSequenceClassification(cfg, device="cpu").eval()
+    host.set_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        ref = host(torch.from_numpy(ids[:1]), torch.from_numpy(tt[:1]))
+    return check_close("deploy ernie vs plain", torch.from_numpy(got[:1]),
+                       ref, torch.float32, FLASH_TOL["fwd"])
+
+
+def deploy_dit(dev, kernels, tmp, cfg=None):
+    """DiT-XL/2 (fp32, 28 blocks, hidden 1152, 16 heads of 72, 256 tokens
+    from 4 x 32 x 32 latents), its zero-initialised adaLN and final
+    layers drawn from the seeded stream so the output is not zero: saved
+    with a dynamic batch, run at batch 8 through create_predictor; equal
+    to the eager port's; head_dim 72 takes plain attention, so no kernel
+    launches."""
+    from paddle_tpu_torch import jit, seed
+    from paddle_tpu_torch.models import DiT, DiTConfig
+    cfg = cfg or DiTConfig.dit_xl_2()
+    seed(DEPLOY_SEED)
+    model = DiT(cfg, device=dev).eval()
+    g = torch.Generator(device=dev).manual_seed(DEPLOY_SEED)
+    with torch.no_grad():
+        for lin in [blk.adaLN for blk in model.blocks] + [model.final]:
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=g,
+                                         device=dev) * 0.02)
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=g,
+                                       device=dev) * 0.02)
+    specs = [jit.InputSpec([None, cfg.in_channels, cfg.input_size,
+                            cfg.input_size], "float32", "x"),
+             jit.InputSpec([None], "float32", "t"),
+             jit.InputSpec([None], "int64", "y")]
+    pred, stats = save_and_load(model, f"{tmp}/dit", specs)
+    rng = np.random.default_rng(DEPLOY_SEED)
+    b = 8
+    x = rng.standard_normal((b, cfg.in_channels, cfg.input_size,
+                             cfg.input_size)).astype(np.float32)
+    t = rng.integers(0, 1000, b).astype(np.float32)
+    y = rng.integers(0, cfg.num_classes, b).astype(np.int64)
+    feed(pred, (x, t, y))
+    kernels.reset_launch_counts()
+    got = fetch(pred)[0]
+    if launched(kernels):
+        raise AssertionError(f"deploy dit: kernels launched "
+                             f"{launched(kernels)}, expected none")
+    xs = [torch.from_numpy(a).to(dev) for a in (x, t, y)]
+    with torch.no_grad():
+        eager = model(*xs).cpu().numpy()
+    err, bitwise = same_as_eager("deploy dit", got, eager)
+    stats.update(batch=b, out_shape=list(got.shape), eager_max_abs_err=err,
+                 bitwise=bitwise, out_abs_max=float(np.abs(got).max()),
+                 predictor_run_ms=median_ms(lambda: fetch(pred)),
+                 program_ms=median_ms(lambda: pred._layer(x, t, y)))
+    with torch.no_grad():
+        stats["eager_ms"] = median_ms(lambda: model(*xs))
+    del pred, model
+    torch.cuda.empty_cache()
+    return stats
+
+
+def deploy_llama(dev, kernels, tmp, cfg=None):
+    """Llama-3-8B width cut to 2 layers (bf16): the scoring forward saved
+    at [1, 1024] and run through a PredictorPool of 2: QKV, the MLP and
+    flash launch twice a run (once a layer) from the loaded program, the
+    logits equal the eager port's, both slots equal."""
+    from paddle_tpu_torch import jit, seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    if cfg is None:
+        cfg = LlamaConfig.llama3_8b()
+        cfg.num_hidden_layers = 2
+    seed(DEPLOY_SEED)
+    model = LlamaForCausalLM(cfg, device=dev)
+    specs = [jit.InputSpec([1, DEPLOY_S], "int64", "input_ids")]
+    pool, stats = save_and_load(model, f"{tmp}/llama", specs, pool=2)
+    ids = np.random.default_rng(DEPLOY_SEED).integers(
+        0, cfg.vocab_size, (1, DEPLOY_S))
+    with torch.no_grad():
+        eager = model(torch.from_numpy(ids).to(dev)).float().cpu().numpy()
+    want = {fn.__name__: cfg.num_hidden_layers
+            for fn in (kernels.fused_rmsnorm_qkv, kernels.fused_mlp,
+                       kernels.flash_attention_fwd)}
+    slots = []
+    for i in range(2):
+        pred = pool.retrieve(i)
+        feed(pred, (ids,))
+        kernels.reset_launch_counts()
+        got = fetch(pred)[0]
+        if launched(kernels) != want:
+            raise AssertionError(f"deploy llama slot {i}: launches "
+                                 f"{launched(kernels)}, expected {want}")
+        stats[f"slot{i}_eager_max_abs_err"], stats[f"slot{i}_bitwise"] = \
+            same_as_eager(f"deploy llama slot {i}", got, eager)
+        slots.append(got)
+    if not np.array_equal(slots[0], slots[1]):
+        raise AssertionError("deploy llama: the pool's slots differ")
+    pred = pool.retrieve(0)
+    ids_t = torch.from_numpy(ids).to(dev)
+    stats.update(launches=want, logits_shape=list(slots[0].shape),
+                 predictor_run_ms=median_ms(lambda: fetch(pred)),
+                 program_ms=median_ms(lambda: pred._layer(ids)))
+    with torch.no_grad():
+        stats["eager_ms"] = median_ms(lambda: model(ids_t))
+    del pool, pred, model, slots
+    torch.cuda.empty_cache()
+    return stats
+
+
+class _Dy2Static(torch.nn.Module):
+    """A module whose forward is a to_static (dy2static-converted)
+    function."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def _deploy_if(x):
+    if x.sum() > 0:
+        y = x * 2
+    else:
+        y = x - 1
+    return y
+
+
+def _deploy_while(x, n):
+    y = x
+    i = 0
+    while i < n:
+        y = y + 1
+        i = i + 1
+    return y
+
+
+def deploy_dy2static(dev):
+    """torch.export of to_static functions on the card's torch: a traced
+    `if` must become torch.cond and its program equal the eager call;
+    whether this torch traces while_loop (a loop bound that is data) is
+    recorded, and where it cannot the helper raises a TypeError at trace
+    time."""
+    from paddle_tpu_torch.jit import to_static
+    x = torch.randn(4, 8, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(DEPLOY_SEED))
+    n = torch.tensor(3, device=dev)
+    res = {"torch": torch.__version__}
+    for name, fn, args in (("cond", _deploy_if, (x,)),
+                           ("cond_negative", _deploy_if, (-x,)),
+                           ("while_loop", _deploy_while, (x, n))):
+        try:
+            ep = torch.export.export(_Dy2Static(to_static(fn)), args)
+        except TypeError as e:
+            if name != "while_loop":
+                raise
+            res[name] = False
+            res[name + "_error"] = str(e)[:300]
+            continue
+        hops = sorted({nd.target.name() for nd in ep.graph.nodes
+                       if isinstance(nd.target,
+                                     torch._ops.HigherOrderOperator)})
+        if not hops or not torch.equal(ep.module()(*args), fn(*args)):
+            raise AssertionError(f"deploy dy2static {name}: ops {hops}, "
+                                 "or the program differs from eager")
+        res[name] = hops
+    return res
+
+
+def deploy_phase(dev, kernels):
+    """Phase 24: the fp32 flash row at ERNIE's shape, then ERNIE, DiT and
+    Llama served from saved artifacts, and the dy2static export check;
+    the artifacts in a temporary directory."""
+    import pathlib
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    row = kernel_flash_ernie(FA, dev, Timer(dev))
+    emit("kernels_deploy", results={"flash_attention_fwd_ernie": row})
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="ptt_deploy_"))
+    out = {}
+    try:
+        for name, run in (("ernie", deploy_ernie), ("dit", deploy_dit),
+                          ("llama", deploy_llama)):
+            t0 = time.perf_counter()
+            out[name] = run(dev, kernels, tmp)
+            out[name]["seconds"] = time.perf_counter() - t0
+            emit(f"deploy_{name}", **out[name])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["dy2static"] = deploy_dy2static(dev)
+    emit("deploy_dy2static", **out["dy2static"])
+    return row, out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -8405,6 +8836,9 @@ def main():
     with timed("hapi"):
         hapi_launches = hapi_phase(dev, kernels)
     torch.cuda.empty_cache()
+    with timed("deploy"):
+        ernie_row, deploy = deploy_phase(dev, kernels)
+    torch.cuda.empty_cache()
     with timed("demo"):
         demo_phase()
 
@@ -8438,6 +8872,9 @@ def main():
         entry["graph_launches_a_replay"]["serve_graph.prefill_chunk"] = \
             chunk_launches.get(name, 0)
         entry["launches_serve_fleet"] = fleet_launches[name]
+        # the loaded Llama artifact's run (deploy)
+        entry["launches_deploy_llama"] = deploy["llama"]["launches"].get(
+            name, 0)
         if name == "fused_mlp":
             entry["path"] = decode["path"]
             entry["prefill_T256"]["path"] = by_t[256]["path"]
@@ -8483,6 +8920,17 @@ def main():
                                   "path": "train_gpt"}
             entry["gpt_shape"]["launches_hapi_gpt"] = \
                 hapi_launches["gpt"].get(name, 0)
+        if name == "flash_attention_fwd":
+            # ERNIE's shape, fp32 through the head_dim pad: launches from
+            # the loaded ERNIE artifact's run at batch 8, s = 1024; the
+            # Llama artifact's run beside them
+            entry["ernie_shape"] = {
+                "launches": deploy["ernie"]["signatures"][str(DEPLOY_S)][
+                    "b8"]["launches"].get(name, 0),
+                **{k: ernie_row[k] for k in keys},
+                "shape": ernie_row["shape"], "path": "deploy (ERNIE)"}
+            entry["launches_deploy_llama"] = deploy["llama"]["launches"][
+                name]
         if "_bwd_" in name:            # the reduction before each backward
             entry["flash_delta_ms"] = train_rows["flash_delta"]["ms"]
             entry["gpt_shape"]["flash_delta_ms"] = \

@@ -12,7 +12,9 @@ names, the op surface (the generated ops, then the hand-written op
 modules over them, in JAX's order, so each name is the same op), the
 ``linalg`` and ``fft`` namespaces, ``amp``, ``autograd`` and ``grad``,
 ``framework``, ``hapi`` with ``Model``, ``summary`` and ``flops``, ``io``,
-``metric``, ``set_device`` / ``get_device``, ``save`` / ``load``.  Ops take and return ``torch.Tensor``s;
+``jit`` (``to_static``, ``save`` / ``load``), ``metric``, ``text``,
+``static``, ``set_device`` / ``get_device``, ``save`` / ``load``.  Ops
+take and return ``torch.Tensor``s;
 the names of the op surface that ``torch.Tensor`` lacks are installed on
 it as methods (``core/tensor_methods.py``).
 
@@ -66,7 +68,10 @@ from paddle_tpu_torch import hapi  # noqa: F401,E402
 from paddle_tpu_torch.hapi import Model  # noqa: F401,E402
 from paddle_tpu_torch.hapi.summary import flops, summary  # noqa: F401,E402
 from paddle_tpu_torch import io  # noqa: F401,E402
+from paddle_tpu_torch import jit  # noqa: F401,E402
 from paddle_tpu_torch import metric  # noqa: F401,E402
+from paddle_tpu_torch import text  # noqa: F401,E402
+from paddle_tpu_torch import static  # noqa: F401,E402
 from paddle_tpu_torch.device import get_device, set_device  # noqa: F401,E402
 from paddle_tpu_torch.framework.io_ import load, save  # noqa: F401,E402
 from paddle_tpu_torch.autograd import grad  # noqa: F401,E402

@@ -6,8 +6,11 @@ from paddle_tpu_torch.models.llama import (LlamaAttention, LlamaConfig,
                                            LlamaModel)
 from paddle_tpu_torch.models.moe_llm import (MoEConfig, MoEDecoderLayer,
                                              MoEForCausalLM, MoEModel)
-from paddle_tpu_torch.models.ernie import (ErnieForCausalLM,
-                                           ernie45_moe_config)
+from paddle_tpu_torch.models.dit import DiT, DiTBlock, DiTConfig
+from paddle_tpu_torch.models.ernie import (ErnieConfig, ErnieForCausalLM,
+                                           ErnieForMaskedLM,
+                                           ErnieForSequenceClassification,
+                                           ErnieModel, ernie45_moe_config)
 from paddle_tpu_torch.models.gpt import (GPTAttention, GPTConfig,
                                          GPTDecoderLayer, GPTForCausalLM,
                                          GPTMLP, GPTModel)
@@ -15,6 +18,8 @@ from paddle_tpu_torch.models.gpt import (GPTAttention, GPTConfig,
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM",
            "MoEConfig", "MoEDecoderLayer", "MoEModel", "MoEForCausalLM",
-           "ErnieForCausalLM", "ernie45_moe_config",
+           "DiTConfig", "DiTBlock", "DiT",
+           "ErnieConfig", "ErnieModel", "ErnieForSequenceClassification",
+           "ErnieForMaskedLM", "ErnieForCausalLM", "ernie45_moe_config",
            "GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
            "GPTModel", "GPTForCausalLM"]

@@ -17,6 +17,7 @@ import torch
 
 from paddle_tpu_torch.core.dispatch import eager_op
 from paddle_tpu_torch.core import state as _state
+from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention as _flash_kernel)
 
@@ -24,6 +25,9 @@ __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "rotary_freqs", "apply_rotary_emb"]
 
 _NEG = -1e30
+# the shapes the flash kernels take (``_flash_eligible`` and the pad)
+FLASH_GATE = ("flash attention: seq >= 128 and seq % 128 == 0 at head_dim "
+              "128, seq >= 1024 and seq % 128 == 0 at head_dim 32 / 64")
 
 
 def _sdpa_reference(q, k, v, attn_mask=None, is_causal=False, scale=None,
@@ -96,6 +100,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     hd = query.shape[-1]
     same = attn_mask is None and not use_dropout and \
         query.shape[1] == key.shape[1]
+    if same and (hd in (32, 64) or hd % 128 == 0):
+        # an exported program's route must not hang on a dynamic length
+        _build.check_static(query.shape[1], FLASH_GATE)
     if same and hd in (32, 64) and query.shape[1] >= 1024 and \
             _flash_eligible(query, 128):
         pad = (0, 128 - hd)

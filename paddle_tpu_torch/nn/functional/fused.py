@@ -6,8 +6,10 @@ Where autograd needs a gradient (grad mode on and an input that requires
 one) the call goes through the custom VJP, whose forward launches the
 QKV kernel's training variant (``_qkv_fwd``); under ``inference_mode`` /
 ``no_grad`` it is the forward-only launch (``_qkv_core``'s primal), as
-the JAX package chooses between them (``fused_block.py:359-383``).  The
-kernel wrappers live in ``ops/kernels/fused_block.py``."""
+the JAX package chooses between them (``fused_block.py:359-383``).
+Either way the kernel is reached through its ``ptt::`` dispatcher op,
+which ``torch.export`` records as one node.  The kernel wrappers live
+in ``ops/kernels/fused_block.py``."""
 
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5):
     ``[..., d]``, weights ``[in, out]``.  Differentiable in every
     tensor."""
     if not _needs_grad(x, norm_weight, wq, wk, wv):
-        return _FB.fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon)
+        return _FB.qkv_op(x, norm_weight, wq, wk, wv, float(epsilon))
     lead, d = x.shape[:-1], x.shape[-1]
     q, k, v = _FB.FusedRMSNormQKV.apply(x.reshape(-1, d), norm_weight, wq,
                                         wk, wv, float(epsilon))
@@ -43,7 +45,7 @@ def fused_mlp(x, w_gate, w_up, w_down):
     """``(silu(x @ w_gate) * (x @ w_up)) @ w_down`` (SwiGLU); x
     ``[..., d]``.  Differentiable in every tensor."""
     if not _needs_grad(x, w_gate, w_up, w_down):
-        return _FB.fused_mlp(x, w_gate, w_up, w_down)
+        return _FB.mlp_op(x, w_gate, w_up, w_down)
     d = x.shape[-1]
     y = _FB.FusedMLP.apply(x.reshape(-1, d), w_gate, w_up, w_down)
     return y.reshape(x.shape)
@@ -55,7 +57,7 @@ def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
     x ``[..., d]``, b1/b2 may be None (zeros).  Differentiable in x, the
     weights and the biases given."""
     if not _needs_grad(*(t for t in (x, w1, w2, b1, b2) if t is not None)):
-        return _FB.fused_ffn(x, w1, w2, b1, b2, activation)
+        return _FB.ffn_op(x, w1, b1, w2, b2, activation)
     d = x.shape[-1]
     y = _FB.FusedFFN.apply(x.reshape(-1, d), w1, b1, w2, b2, activation)
     return y.reshape(x.shape)
@@ -78,7 +80,7 @@ def fused_decoder_block(x, norm1_weight, wq, wk, wv, rope_cos, rope_sin, wo,
             norm2_weight, wg, wu, wd)
     if not _needs_grad(x, norm1_weight, wq, wk, wv, wo, norm2_weight, wg,
                        wu, wd):
-        return _FB.fused_decoder_block(*args, num_heads, num_kv_heads,
-                                       epsilon)
+        return _FB.decoder_op(*args, int(num_heads), int(num_kv_heads),
+                              float(epsilon))
     return _FB.FusedDecoderBlock.apply(*args, int(num_heads),
                                        int(num_kv_heads), float(epsilon))

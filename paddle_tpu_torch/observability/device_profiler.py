@@ -904,11 +904,14 @@ def llama_step_segments(model, batch: Dict[str, Any], grad: bool = True,
 
 # -- live-memory census + watermark ------------------------------------------
 def _live_tensors(device: torch.device) -> List[torch.Tensor]:
-    """The tensors ``gc`` can reach on `device`."""
+    """The tensors ``gc`` can reach on `device`, less the fake ones a
+    ``torch.export`` trace leaves behind (they hold no storage)."""
+    from torch._subclasses.fake_tensor import is_fake
     out = []
     for obj in gc.get_objects():
         try:
-            if isinstance(obj, torch.Tensor) and obj.device == device:
+            if isinstance(obj, torch.Tensor) and obj.device == device \
+                    and not is_fake(obj):
                 out.append(obj)
         except Exception:      # objects mid-teardown
             continue

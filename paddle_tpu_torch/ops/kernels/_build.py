@@ -42,7 +42,8 @@ __all__ = ["library", "build_all", "ptxas_report", "parse_ptxas", "check",
            "charge", "plain", "library_key", "nvcc_version", "nvcc_runs",
            "file_sha256", "verified", "store_library",
            "DTYPE_CODES", "FP16_ENTRY", "dtype_error", "count_dtype",
-           "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR"]
+           "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR", "GatedDimError",
+           "check_static"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -68,6 +69,24 @@ def count_dtype(fn, dtype):
     the same wrapper fp32 or bf16."""
     key = str(dtype).replace("torch.", "")
     fn.launches_by_dtype[key] = fn.launches_by_dtype.get(key, 0) + 1
+
+
+class GatedDimError(ValueError):
+    """A symbolic size (a dynamic dim of a ``torch.export`` trace)
+    reached a kernel's gate: ``gate`` names the condition, ``symbols``
+    the size's free symbols (``jit.save`` names the dim from them)."""
+
+    def __init__(self, gate: str, size):
+        self.gate = gate
+        self.symbols = {str(s) for s in size.node.expr.free_symbols}
+        super().__init__(f"a dynamic size ({size}) reaches the gate {gate}")
+
+
+def check_static(size, gate: str):
+    """Raise :class:`GatedDimError` if `size` is symbolic: a route chosen
+    from a traced size would hold for the example only."""
+    if isinstance(size, torch.SymInt):
+        raise GatedDimError(gate, size)
 
 
 def dtype_error(what, dtype) -> TypeError:

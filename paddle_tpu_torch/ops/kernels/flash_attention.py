@@ -258,6 +258,14 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_fwd(q, k, v, causal, scale)
 
 
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    """The op's outputs for tracing (``torch.export``): out like q, lse
+    ``[b, h, s]`` fp32."""
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
 class FlashAttention(torch.autograd.Function):
     """``_flash_core``'s custom VJP: the forward kernel saves
     ``(q, k, v, out, lse)``; the backward is the dq and dk/dv kernels
@@ -285,6 +293,11 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal=False, scale=None):
     """Differentiable flash attention over ``[b, s, h, d]`` q and
     ``[b, s, hk, d]`` k/v (heads a multiple of kv heads); ``scale``
-    defaults to ``head_dim ** -0.5``.  Returns ``[b, s, h, d]``."""
-    return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                v.contiguous(), bool(causal), scale)
+    defaults to ``head_dim ** -0.5``.  Returns ``[b, s, h, d]``.  With
+    no gradient to take it is the forward op alone, so an exported
+    program records ``ptt::flash_attention_fwd`` as one node."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if not (torch.is_grad_enabled() and
+            (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_fwd_op(q, k, v, bool(causal), scale)[0]
+    return FlashAttention.apply(q, k, v, bool(causal), scale)

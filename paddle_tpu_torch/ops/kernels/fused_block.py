@@ -495,10 +495,39 @@ def qkv_train_op(x: T_, norm_weight: T_, wq: T_, wk: T_, wv: T_,
                              residuals=True)
 
 
+@qkv_train_op.register_fake
+def _qkv_train_fake(x, norm_weight, wq, wk, wv, epsilon):
+    lead = tuple(x.shape[:-1])
+    return (*_qkv_fwd_fake(x, norm_weight, wq, wk, wv, epsilon),
+            torch.empty_like(x), x.new_empty(lead + (1,),
+                                             dtype=torch.float32))
+
+
+@torch.library.custom_op("ptt::fused_rmsnorm_qkv_fwd", mutates_args=())
+def qkv_op(x: T_, norm_weight: T_, wq: T_, wk: T_, wv: T_,
+           epsilon: float) -> tuple[T_, T_, T_]:
+    """``fused_rmsnorm_qkv``'s forward-only variant: q, k, v (what an
+    inference forward runs, and an exported program records)."""
+    return fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon)
+
+
+@qkv_op.register_fake
+def _qkv_fwd_fake(x, norm_weight, wq, wk, wv, epsilon):
+    lead = tuple(x.shape[:-1])
+    return (x.new_empty(lead + (wq.shape[1],)),
+            x.new_empty(lead + (wk.shape[1],)),
+            x.new_empty(lead + (wv.shape[1],)))
+
+
 @torch.library.custom_op("ptt::fused_mlp", mutates_args=())
 def mlp_op(x: T_, w_gate: T_, w_up: T_, w_down: T_) -> T_:
     """``fused_mlp``."""
     return fused_mlp(x, w_gate, w_up, w_down)
+
+
+@mlp_op.register_fake
+def _mlp_fake(x, w_gate, w_up, w_down):
+    return x.new_empty(tuple(x.shape[:-1]) + (w_down.shape[1],))
 
 
 @torch.library.custom_op("ptt::fused_ffn", mutates_args=())
@@ -506,6 +535,11 @@ def ffn_op(x: T_, w1: T_, b1: T_ | None, w2: T_, b2: T_ | None,
            activation: str) -> T_:
     """``fused_ffn``."""
     return fused_ffn(x, w1, w2, b1, b2, activation)
+
+
+@ffn_op.register_fake
+def _ffn_fake(x, w1, b1, w2, b2, activation):
+    return x.new_empty(tuple(x.shape[:-1]) + (w2.shape[1],))
 
 
 # -- custom VJPs --------------------------------------------------------------
@@ -884,6 +918,12 @@ def decoder_op(x: T_, wn1: T_, wq: T_, wk: T_, wv: T_, rope_cos: T_,
     return fused_decoder_block(x, wn1, wq, wk, wv, rope_cos, rope_sin, wo,
                                wn2, wg, wu, wd, num_heads, num_kv_heads,
                                epsilon)
+
+
+@decoder_op.register_fake
+def _decoder_fake(x, wn1, wq, wk, wv, rope_cos, rope_sin, wo, wn2, wg, wu,
+                  wd, num_heads, num_kv_heads, epsilon):
+    return torch.empty_like(x)
 
 
 class FusedDecoderBlock(torch.autograd.Function):

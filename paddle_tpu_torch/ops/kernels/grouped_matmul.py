@@ -185,6 +185,11 @@ def grouped_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return grouped_expert_ffn(x, w1, b1, w2, b2, counts, act)
 
 
+@grouped_op.register_fake
+def _grouped_fake(x, w1, b1, w2, b2, counts, act):
+    return x.new_empty(tuple(x.shape[:-1]) + (w2.shape[-1],))
+
+
 class GroupedExpertFFN(torch.autograd.Function):
     """``_grouped_core``'s custom VJP: the forward is the wrapper (the
     kernel pair on the card); the backward is ``_grouped_bwd``

@@ -9,8 +9,10 @@ a name that carries the hash of its source and flags, so an edited
 source builds anew and an unchanged one is reused.  The compile writes a
 temporary file and renames it into place, so concurrent first uses
 agree.  The components ported are the TCPStore
-(``csrc/store/tcp_store.cpp``) and the token data feed
-(``csrc/datafeed/datafeed.cpp``, ``io/token_dataset.py``); the rest of
+(``csrc/store/tcp_store.cpp``), the token data feed
+(``csrc/datafeed/datafeed.cpp``, ``io/token_dataset.py``) and the
+WordPiece tokenizer (``csrc/tokenizer/tokenizer.cpp``,
+``text/tokenizer.py``); the rest of
 ``utils/cpp_extension.py`` waits (ROADMAP.md, item 7.8)."""
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ CSRC = _REPO / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "ops" / "kernels" / "build"
 # the components the port loads, by the JAX package's name
 SOURCES = {"store": Path("store") / "tcp_store.cpp",
-           "datafeed": Path("datafeed") / "datafeed.cpp"}
+           "datafeed": Path("datafeed") / "datafeed.cpp",
+           "tokenizer": Path("tokenizer") / "tokenizer.cpp"}
 FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread",
          "-shared")
 

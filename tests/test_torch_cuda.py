@@ -3242,3 +3242,71 @@ def test_dataloader_timeout_names_the_stuck_worker(dev):
             time.perf_counter() < deadline:
         time.sleep(0.2)
     assert not multiprocessing.active_children()
+
+
+# -- deploy: ptt:: ops inside exported artifacts ----------------------------
+
+class _MLPOp(torch.nn.Module):
+    """A module calling a ptt:: op directly."""
+
+    def forward(self, x, wg, wu, wd):
+        return torch.ops.ptt.fused_mlp(x, wg, wu, wd)
+
+
+def test_loaded_artifact_launches_its_kernel(dev, tmp_path):
+    """An exported program holding ``ptt::fused_mlp`` launches the MLP
+    kernel when it runs on the card: the wrapper's count moves at run
+    time, and the output is the eager op's, bitwise."""
+    rng = np.random.default_rng(23)
+    x = _t(rng, (40, 256), torch.bfloat16, dev)
+    wg, wu = (_t(rng, (256, 512), torch.bfloat16, dev, 0.05)
+              for _ in range(2))
+    wd = _t(rng, (512, 256), torch.bfloat16, dev, 0.05)
+    with torch.no_grad():
+        ep = torch.export.export(_MLPOp(), (x, wg, wu, wd))
+    path = tmp_path / "mlp.pt2"
+    torch.export.save(ep, str(path))
+    loaded = torch.export.load(str(path)).module()
+    before = FB.fused_mlp.launches
+    got = loaded(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert FB.fused_mlp.launches == before + 1
+    assert torch.equal(got, FB.fused_mlp(x, wg, wu, wd))
+
+
+def test_jit_save_on_the_card_runs_flash_from_the_artifact(dev, tmp_path):
+    """A 1-layer ERNIE at head_dim 64 saved at s = 1024 on the card: the
+    predictor's run launches flash once (through the pad), and its
+    logits equal the eager port's."""
+    from paddle_tpu_torch import inference, jit, seed
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    cfg = ErnieConfig.tiny(hidden_size=128, num_attention_heads=2,
+                           num_hidden_layers=1, max_position_embeddings=1024)
+    seed(0)
+    model = ErnieForSequenceClassification(cfg, device=dev)
+    spec = [jit.InputSpec([None, 1024], "int64", "input_ids")]
+    jit.save(model, str(tmp_path / "ernie"), input_spec=spec)
+    pred = inference.create_predictor(
+        inference.Config(str(tmp_path / "ernie")))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 1024))
+    before = FA.flash_attention_fwd.launches
+    got = pred.run([ids])[0]
+    assert FA.flash_attention_fwd.launches == before + 1
+    with torch.no_grad():
+        eager = model(torch.from_numpy(ids).to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(got, eager)
+
+
+def test_cpu_artifact_is_refused_on_the_card(dev, tmp_path):
+    """An artifact traced on the CPU (plain versions inline) does not load
+    on the card; the same artifact loads on the CPU."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import DiT, DiTConfig
+    model = DiT(DiTConfig.tiny(), device="cpu")
+    spec = [jit.InputSpec([None, 4, 8, 8]), jit.InputSpec([None]),
+            jit.InputSpec([None], "int64")]
+    jit.save(model, str(tmp_path / "dit"), input_spec=spec)
+    with pytest.raises(ValueError, match="exported on 'cpu'"):
+        jit.load(str(tmp_path / "dit"), device=dev)
+    assert jit.load(str(tmp_path / "dit"), device="cpu").device.type == "cpu"

@@ -166,5 +166,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
                 "nn/rnn.py", "nn/conv_layers.py", "framework/io_.py",
                 "io/dataset.py", "io/dataloader.py", "io/token_dataset.py",
                 "metric/__init__.py", "hapi/model.py", "hapi/callbacks.py",
-                "hapi/summary.py"):
+                "hapi/summary.py", "jit/save_load.py", "jit/dy2static.py",
+                "static/__init__.py", "static/nn.py", "text/__init__.py",
+                "text/tokenizer.py", "models/dit.py"):
         assert (root / mod).exists(), mod

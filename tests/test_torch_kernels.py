@@ -236,6 +236,10 @@ def test_package_imports_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.hapi, paddle_tpu_torch.hapi.model\n"
         "import paddle_tpu_torch.hapi.callbacks, paddle_tpu_torch.hapi.summary\n"
         "import paddle_tpu_torch.nn.functional.loss\n"
+        "import paddle_tpu_torch.jit.save_load, paddle_tpu_torch.jit.dy2static\n"
+        "import paddle_tpu_torch.static, paddle_tpu_torch.static.nn\n"
+        "import paddle_tpu_torch.text, paddle_tpu_torch.text.tokenizer\n"
+        "import paddle_tpu_torch.models.dit, paddle_tpu_torch.models.ernie\n"
         "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu') or\n"
         "       m.startswith(('jax.', 'jaxlib', 'paddle_tpu.'))]\n"
         "print(bad)\n"
