@@ -16,9 +16,10 @@ train_moe two, one per engine or dispatch mode):
 2. build    nvcc builds the port's CUDA kernels from ``paddle_tpu_torch/
             ops/kernels/csrc`` (or finds them built); beside it, ptxas
             reports the Hopper kernels (the bf16 flash forward, dq and
-            dk/dv, the QKV row pass and wgmma GEMM, the MLP / fused_ffn
-            wgmma GEMM and split-K, the quant matmul's split-K and wgmma
-            kernels, the rmsnorm's register design):
+            dk/dv, the fp32 flash forward and its split pre-pass, the QKV
+            row pass and wgmma GEMM, the MLP / fused_ffn wgmma GEMM and
+            split-K, the quant matmul's split-K and wgmma kernels, the
+            rmsnorm's register design):
             registers, shared memory, spills (none allowed) and any wgmma
             serialisation (-Xptxas -v).
 3. kernels  every kernel of the serving path at the path's own shapes
@@ -386,11 +387,14 @@ train_moe two, one per engine or dispatch mode):
             beside the resnet50 and train_gpt phases' of the same run.
 24. deploy  to_static -> jit.save (a torch.export program of the pure
             function, ptt:: ops as nodes) -> inference.create_predictor.
-            kernels_deploy: the fp32 flash forward at ERNIE's shape (b=8,
-            s=1024, 12 heads, head_dim 64 padded to 128) against its plain
-            version, timed beside fp32 SDPA.  deploy_ernie: ERNIE-3.0-
-            medium-zh (fp32) behind FasterTokenizer over a seeded 40000-
-            entry vocab, saved at [None, 1024] and [None, 128], run at
+            kernels_deploy: the fp32 flash forward (3xTF32 on wgmma) at
+            ERNIE's shape (b=8, s=1024, 12 heads, head_dim 64, unpadded)
+            and at b=2 s=2048 16 / 4 heads head_dim 128 causal, against
+            its plain version and float64 (TF32X3_F64_FACTOR), timed
+            beside fp32 SDPA and its split pre-pass.  deploy_ernie:
+            ERNIE-3.0-medium-zh (fp32) behind FasterTokenizer over a
+            seeded 40000-entry vocab, saved at [None, 1024] and [None,
+            128] (the loaded program holding no pad), run at
             batch 8 and 32 through the handles.  deploy_dit: DiT-XL/2
             (fp32, dynamic batch) at batch 8.  deploy_llama: Llama-3-8B
             width, 2 layers, bf16, at [1, 1024] through a PredictorPool
@@ -475,7 +479,8 @@ PTXAS_KERNELS = ("flash_fwd_hopper", "flash_dq_hopper", "flash_dkv_hopper",
                  "decoder_hopper", "grouped_hopper", "qkv_splitk_kernel",
                  "paged_split_kernel", "mlp_splitk_kernel",
                  "rmsnorm_regs_kernel", "tf32x3_gemm_kernel",
-                 "tf32_split_t_kernel", "tf32_split_kernel")
+                 "tf32_split_t_kernel", "tf32_split_kernel",
+                 "flash_fwd_tf32x3", "flash_split_vt_kernel")
 # the chunked CE at FLAGS_default_matmul_precision="default" (TF32 chunk
 # products on the card) against "float32" (exact fp32): TF32 rounds each
 # operand to a 10-bit mantissa (2^-11 relative), so a logit moves by a few
@@ -8322,6 +8327,22 @@ def launched(kernels):
             if fn.launches}
 
 
+def program_flash(pred):
+    """What the loaded program holds around flash: the head_dim of each
+    ``ptt::flash_attention_fwd`` node's q (from its traced value) and the
+    number of pad nodes (``aten.constant_pad_nd`` / ``aten.pad``)."""
+    dims, pads = [], 0
+    for node in pred._layer._program.graph.nodes:
+        if node.op != "call_function":
+            continue
+        target = str(node.target)
+        if "flash_attention_fwd" in target:
+            dims.append(int(node.args[0].meta["val"].shape[-1]))
+        elif "constant_pad_nd" in target or target.startswith("aten.pad"):
+            pads += 1
+    return {"flash_head_dims": dims, "pad_nodes": pads}
+
+
 def same_as_eager(what, got, eager):
     """The predictor's output against the eager port's on the same
     weights: bitwise, else within 1e-6 of the output's largest value
@@ -8334,48 +8355,106 @@ def same_as_eager(what, got, eager):
     return err, bool(err == 0.0)
 
 
-def kernel_flash_ernie(FA, dev, timer):
-    """The fp32 flash forward at ERNIE-3.0-medium's shape (b=8, s=1024,
-    12 heads, head_dim 64 zero-padded to 128, not causal), as the
-    deploy path launches it: the kernel on the padded inputs against its
-    plain version, timed beside fp32 F.scaled_dot_product_attention on
-    the unpadded ones; the bound is the unpadded work at 67 TFLOP/s."""
-    b, s, h, d = 8, DEPLOY_S, 12, 64
-    g = torch.Generator(device=dev).manual_seed(DEPLOY_SEED)
-    q, k, v = (rand(g, (b, s, h, d), torch.float32, dev) for _ in range(3))
-    pad = (0, FA.KERNEL_HEAD_DIM - d)
-    qp, kp, vp = (torch.nn.functional.pad(t, pad).contiguous()
-                  for t in (q, k, v))
-    out = FA.flash_attention_fwd(qp, kp, vp, False, d ** -0.5)[0]
-    ref = FA.flash_fwd_reference(qp, kp, vp, False, d ** -0.5)[0]
-    err = check_close("flash_attention_fwd (ERNIE shape)", out, ref,
-                      torch.float32)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    nbytes = 4 * b * s * h * d * 4
-    flops = 4 * b * h * s * s * d
-    row = {"ms": timer(lambda: FA.flash_attention_fwd(qp, kp, vp, False,
-                                                      d ** -0.5)),
-           "plain_ms": timer(lambda: FA.flash_fwd_reference(
-               qp, kp, vp, False, d ** -0.5), iters=3, warmup=1),
-           "library_ms": timer(lambda: torch.nn.functional.
-                               scaled_dot_product_attention(qt, kt, vt)),
-           "library": "F.scaled_dot_product_attention (fp32, head_dim 64)",
-           "max_abs_err": err, "flops": flops,
-           "shape": f"b={b} s={s} h={h} d={d} padded to "
-                    f"{FA.KERNEL_HEAD_DIM}, not causal, fp32"}
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
-                                                FP32_FLOP_PER_S)
-    del q, k, v, qp, kp, vp, out, ref
-    torch.cuda.empty_cache()
-    return row
+# the fp32 flash forward's rows (3xTF32 on wgmma): ERNIE-3.0-medium's
+# attention as the deploy path launches it, and a head_dim-128 causal GQA
+# shape; (b, s, h, hk, d, causal)
+FLASH_FP32_ROWS = {"ernie": (8, 1024, 12, 12, 64, False),
+                   "d128_causal_gqa": (2, 2048, 16, 4, 128, True)}
+
+
+def flash_f64(q, k, v, causal, scale):
+    """``(out, lse)`` of the same attention in float64 throughout."""
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    qd = q.double().reshape(b, s, hk, h // hk, d)
+    sc = torch.einsum("bqgrd,bkgd->bgrqk", qd, k.double()) * scale
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(sc, -1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", torch.exp(sc - lse[..., None]),
+                       v.double())
+    return out.reshape(b, s, h, d), lse.reshape(b, h, s)
+
+
+def kernel_flash_fp32(FA, FB, dev, timer):
+    """The fp32 flash forward (3xTF32 on wgmma, csrc/flash_tf32x3.cuh) at
+    each FLASH_FP32_ROWS shape, unpadded: out and lse against the plain
+    version (TOL) and against float64 (out and lse within
+    FB.TF32X3_F64_FACTOR times the plain version's own error), timed
+    beside the plain version, fp32 F.scaled_dot_product_attention (the
+    library) and its split pre-pass alone (``split_ms``, included in
+    ``ms``); the bound at the 3xTF32 rate (the design's, 165 TFLOP/s)
+    and at 67 (``bound_ms_fp32_cores``), over the products this run's
+    mask leaves (s (s + 1) / 2 pairs a head when causal)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    lib = _build.library("flash_attention")
+    F_ = torch.nn.functional
+    rows = {}
+    for name, (b, s, h, hk, d, causal) in FLASH_FP32_ROWS.items():
+        g = torch.Generator(device=dev).manual_seed(DEPLOY_SEED + d)
+        q = rand(g, (b, s, h, d), torch.float32, dev)
+        k, v = (rand(g, (b, s, hk, d), torch.float32, dev) for _ in "kv")
+        scale = d ** -0.5
+        out, lse = FA.flash_attention_fwd(q, k, v, causal, scale)
+        ref, ref_lse = FA.flash_fwd_reference(q, k, v, causal, scale)
+        err = max(check_close(f"flash fp32 {name} {n}", a, r_,
+                              torch.float32)
+                  for n, a, r_ in (("out", out, ref), ("lse", lse, ref_lse)))
+        o64, l64 = flash_f64(q, k, v, causal, scale)
+        f64 = f64_errors([out], [ref], [o64])
+        f64.update({"lse_" + k_: v_ for k_, v_ in
+                    f64_errors([lse], [ref_lse], [l64]).items()})
+        if max(f64["f64_ratio"], f64["lse_f64_ratio"]) > \
+                FB.TF32X3_F64_FACTOR:
+            raise AssertionError(f"flash fp32 {name}: error against float64 "
+                                 f"{f64}, over {FB.TF32X3_F64_FACTOR}x the "
+                                 "plain version's")
+        del o64, l64
+        del out, lse, ref, ref_lse
+        torch.cuda.empty_cache()
+        work = torch.empty(FA.flash_fp32_floats(b, s, h, hk, d),
+                           dtype=torch.float32, device=dev)
+
+        def split():
+            _build.check(lib, lib.ptt_flash_fp32_split(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), work.data_ptr(),
+                work.numel(), b, s, h, hk, d, _build.stream_of(q)),
+                "ptt_flash_fp32_split")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = s * (s + 1) // 2 if causal else s * s
+        flops = 4 * b * h * pairs * d
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel() + b * h * s)
+        row = {"ms": timer(lambda: FA.flash_attention_fwd(q, k, v, causal,
+                                                          scale)),
+               "split_ms": timer(split),
+               "plain_ms": timer(lambda: FA.flash_fwd_reference(
+                   q, k, v, causal, scale), iters=3, warmup=1),
+               "library_ms": timer(lambda: F_.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=hk != h)),
+               "library": "F.scaled_dot_product_attention (fp32)",
+               "max_abs_err": err, **f64, "flops": flops,
+               "split_bytes": 3 * 4 * (q.numel() + 2 * k.numel()),
+               "shape": f"b={b} s={s} h={h} hk={hk} d={d}, "
+                        f"{'causal' if causal else 'not causal'}, fp32, "
+                        "unpadded"}
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                    TF32X3_FLOP_PER_S)
+        row["bound_ms_fp32_cores"], _ = bound_ms(nbytes, flops,
+                                                 FP32_FLOP_PER_S)
+        rows[name] = row
+        del q, k, v, qt, kt, vt, work
+        torch.cuda.empty_cache()
+    return rows
 
 
 def deploy_ernie(dev, kernels, tmp, cfg=None):
     """ERNIE-3.0-medium-zh (fp32, 6 x 768, 12 heads, vocab 40000) behind
     FasterTokenizer: to_static -> jit.save at [None, 1024] and at [None,
     128] -> create_predictor, run at batch 8 and 32 through the handles.
-    At s=1024 flash launches once a layer (6 a run) through the head_dim
-    pad; at 128 no kernel launches.  The logits equal the eager port's
+    At s=1024 flash launches once a layer (6 a run) on the unpadded
+    head_dim-64 inputs (the loaded program holds no pad); at 128 no
+    kernel launches.  The logits equal the eager port's
     and, row 0 at s=1024, the plain version's (the CPU) within
     FLASH_TOL."""
     from paddle_tpu_torch import jit, seed, text
@@ -8401,6 +8480,15 @@ def deploy_ernie(dev, kernels, tmp, cfg=None):
         static = jit.to_static(model, input_spec=specs)
         pred, stats = save_and_load(static, f"{tmp}/ernie_{s}", specs)
         want = cfg.num_hidden_layers if s == DEPLOY_S else 0
+        stats["program"] = program_flash(pred)
+        # fp32 at head_dim 64 runs the kernel as it is: no pad
+        if stats["program"] != {"flash_head_dims": [cfg.hidden_size //
+                                                    cfg.num_attention_heads]
+                                * want, "pad_nodes": 0}:
+            raise AssertionError(f"deploy ernie s={s}: the loaded program "
+                                 f"holds {stats['program']}, expected "
+                                 f"{want} flash nodes at head_dim 64 and "
+                                 "no pad")
         for b in ERNIE_BATCHES:
             ids = enc[s]["input_ids"][:b]
             tt = enc[s]["token_type_ids"][:b]
@@ -8611,8 +8699,10 @@ def deploy_phase(dev, kernels):
     the artifacts in a temporary directory."""
     import pathlib
     from paddle_tpu_torch.ops.kernels import flash_attention as FA
-    row = kernel_flash_ernie(FA, dev, Timer(dev))
-    emit("kernels_deploy", results={"flash_attention_fwd_ernie": row})
+    from paddle_tpu_torch.ops.kernels import fused_block as FB
+    rows = kernel_flash_fp32(FA, FB, dev, Timer(dev))
+    emit("kernels_deploy", results={f"flash_attention_fwd_fp32_{k}": r
+                                    for k, r in rows.items()})
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="ptt_deploy_"))
     out = {}
     try:
@@ -8626,7 +8716,7 @@ def deploy_phase(dev, kernels):
         shutil.rmtree(tmp, ignore_errors=True)
     out["dy2static"] = deploy_dy2static(dev)
     emit("deploy_dy2static", **out["dy2static"])
-    return row, out
+    return rows, out
 
 
 def main():
@@ -8837,7 +8927,7 @@ def main():
         hapi_launches = hapi_phase(dev, kernels)
     torch.cuda.empty_cache()
     with timed("deploy"):
-        ernie_row, deploy = deploy_phase(dev, kernels)
+        flash32_rows, deploy = deploy_phase(dev, kernels)
     torch.cuda.empty_cache()
     with timed("demo"):
         demo_phase()
@@ -8921,14 +9011,7 @@ def main():
             entry["gpt_shape"]["launches_hapi_gpt"] = \
                 hapi_launches["gpt"].get(name, 0)
         if name == "flash_attention_fwd":
-            # ERNIE's shape, fp32 through the head_dim pad: launches from
-            # the loaded ERNIE artifact's run at batch 8, s = 1024; the
-            # Llama artifact's run beside them
-            entry["ernie_shape"] = {
-                "launches": deploy["ernie"]["signatures"][str(DEPLOY_S)][
-                    "b8"]["launches"].get(name, 0),
-                **{k: ernie_row[k] for k in keys},
-                "shape": ernie_row["shape"], "path": "deploy (ERNIE)"}
+            # the loaded Llama artifact's run (bf16)
             entry["launches_deploy_llama"] = deploy["llama"]["launches"][
                 name]
         if "_bwd_" in name:            # the reduction before each backward
@@ -8941,6 +9024,22 @@ def main():
         # the sparse_embed phase's eager steps (its sparse run)
         entry["launches_sparse_embed"] = sparse_launches[wrapper]
         line.append(entry)
+    # the fp32 forward (3xTF32 on wgmma): launches from the loaded ERNIE
+    # artifact's run at batch 8, s = 1024, all unpadded fp32 at head_dim
+    # 64; the d=128 causal GQA row beside it
+    ernie = flash32_rows["ernie"]
+    line.append({
+        "name": "flash_attention_fwd_fp32", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/flash_tf32x3.cuh",
+        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:71",
+        "launches": deploy["ernie"]["signatures"][str(DEPLOY_S)]["b8"][
+            "launches"].get("flash_attention_fwd", 0),
+        **{k: ernie[k] for k in keys}, "shape": ernie["shape"],
+        "path": "deploy (ERNIE)", "split_ms": ernie["split_ms"],
+        "bound_ms_fp32_cores": ernie["bound_ms_fp32_cores"],
+        "d128_causal_gqa": {
+            k: flash32_rows["d128_causal_gqa"][k]
+            for k in keys + ("shape", "split_ms", "bound_ms_fp32_cores")}})
     # the fp32 kernels that amp_o1 launches (QKV's training variant and
     # the MLP at T = 8192, 3xTF32, bound at the 3xTF32 rate): launches
     # from amp_o1's steps; the float64 errors beside the row's

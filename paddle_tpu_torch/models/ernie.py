@@ -7,9 +7,9 @@
   ``fused_multi_transformer``.  Same config fields, layer names and
   ``[in, out]`` weights as the JAX package.  Attention is
   ``F.scaled_dot_product_attention``: at head_dim 64 and seq >= 1024
-  with no mask a CUDA tensor goes to the flash kernel through the
-  head_dim pad (fp32 and bf16), as the JAX package gates it; the
-  projections and the FFN are separate Linears, as in JAX.  The
+  with no mask a CUDA tensor goes to the flash kernel (fp32 at head_dim
+  64 as it is, bf16 through the pad to 128), as the JAX package gates
+  it; the projections and the FFN are separate Linears, as in JAX.  The
   masked-LM loss runs through the chunked ``fused_linear_cross_entropy``.
 * **ErnieForCausalLM** — the ERNIE 4.5 text decoder: the MoE decoder of
   ``models/moe_llm.py`` at ERNIE-4.5-21B-A3B's public shape.

@@ -25,9 +25,11 @@ __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "rotary_freqs", "apply_rotary_emb"]
 
 _NEG = -1e30
-# the shapes the flash kernels take (``_flash_eligible`` and the pad)
+# the shapes the flash kernels take (``_flash_eligible``, fp32's head_dim
+# 64 and the pad)
 FLASH_GATE = ("flash attention: seq >= 128 and seq % 128 == 0 at head_dim "
-              "128, seq >= 1024 and seq % 128 == 0 at head_dim 32 / 64")
+              "128, seq >= 1024 and seq % 128 == 0 at head_dim 32 / 64 "
+              "(fp32's 64 unpadded)")
 
 
 def _sdpa_reference(q, k, v, attn_mask=None, is_causal=False, scale=None,
@@ -94,8 +96,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     CUDA tensor goes through flash attention (heads a multiple of kv
     heads, KV never repeated); active dropout takes the plain path, as in
     the JAX package (``attention.py:77, 96``).  head_dim 32 or 64 at seq
-    >= 1024 is zero-padded to 128 and sliced back (exact: the pad adds
-    nothing to q k^T or p v, and the scale keeps the true head_dim)."""
+    >= 1024 goes too: fp32 at 64 as it is (the fp32 kernels are built for
+    it), every other dtype zero-padded to 128 and sliced back (exact: the
+    pad adds nothing to q k^T or p v, and the scale keeps the true
+    head_dim)."""
     use_dropout = dropout_p > 0.0 and training
     hd = query.shape[-1]
     same = attn_mask is None and not use_dropout and \
@@ -103,8 +107,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if same and (hd in (32, 64) or hd % 128 == 0):
         # an exported program's route must not hang on a dynamic length
         _build.check_static(query.shape[1], FLASH_GATE)
-    if same and hd in (32, 64) and query.shape[1] >= 1024 and \
-            _flash_eligible(query, 128):
+    long_seq = same and hd in (32, 64) and query.shape[1] >= 1024 and \
+        _flash_eligible(query, 128)
+    if long_seq and hd == 64 and query.dtype == torch.float32:
+        return _flash_kernel(query, key, value, causal=is_causal,
+                             scale=scale)
+    if long_seq:
         pad = (0, 128 - hd)
         qp, kp, vp = (torch.nn.functional.pad(t, pad)
                       for t in (query, key, value))

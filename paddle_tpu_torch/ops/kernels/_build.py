@@ -117,8 +117,10 @@ _SIGNATURES = {
         "ptt_paged_splits": [_I, _I],
     },
     "flash_attention": {
-        "ptt_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                          _P],
+        "ptt_flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                          _I, _F, _I, _P],
+        "ptt_flash_fp32_split": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                 _P],
         "ptt_flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _F, _I, _P],
         "ptt_flash_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

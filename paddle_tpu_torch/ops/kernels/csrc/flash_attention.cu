@@ -1,8 +1,8 @@
 // Flash attention forward and backward (dq, dk/dv), for Hopper.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-//   `_fwd_kernel` (:71)      -> flash_fwd_hopper (bf16), flash_fwd_kernel
-//                               (fp32)
+//   `_fwd_kernel` (:71)      -> flash_fwd_hopper (bf16), flash_fwd_tf32x3
+//                               (fp32, flash_tf32x3.cuh)
 //   `_bwd_dq_kernel` (:192)  -> flash_dq_hopper (bf16), flash_dq_kernel
 //                               (fp32)
 //   `_bwd_dkv_kernel` (:242) -> flash_dkv_hopper (bf16), flash_dkv_kernel
@@ -69,42 +69,35 @@
 // 5 of a fused backward that gives up deterministic sums).  The times
 // are in PERF.md.
 //
-// fp32 (a parity path on no main path) uses a simpler design (one CTA of
-// 4 warps per tile; every product a GEMM between tiles in shared memory
-// on the CUDA cores with fp32 FMAs, no TF32; every accumulator an fp32
-// tile in shared memory; BQ = BK = 32):
-//   forward  per (q block, query head, batch): key blocks up to the
-//            diagonal in order; S = Q K^T * scale, the online softmax
-//            (running max and sum, fp32) rescales the O tile, O += P V.
-//            Writes out and lse = m + log(l) (fp32, [b, h, s]).
+// The fp32 forward runs on the tensor cores too: 3xTF32 on wgmma, after a
+// pre-pass that splits q, k and v^T into TF32 hi and lo
+// (flash_tf32x3.cuh says how), at head_dim 64 and 128.  ERNIE's deploy
+// path (head_dim 64, fp32) launches it.  The fp32 backward keeps the
+// first, shared-memory design (flash_tile.cuh's pieces: one CTA of 4
+// warps per tile; every product a GEMM between tiles in shared memory on
+// the CUDA cores with fp32 FMAs, no TF32; every accumulator an fp32 tile
+// in shared memory; BQ = BK = 32), at head_dim 64 and 128:
 //   dq       per (q block, query head, batch), looping over key blocks:
 //            P = exp(S - lse), dP = dO V^T, dS = P * (dP - delta) * scale,
 //            dQ += dS K.
 //   dk/dv    per (key block, kv head, batch), walking every (group head,
 //            q block) pair: dV += P^T dO, dK += dS^T Q over the whole
 //            group.
-// head_dim is a template parameter of the fp32 kernels and a constant of
-// the bf16 ones; 128 is built (the Llama path), 256 waits (ROADMAP.md,
-// queue 2).
+// bf16 is built at head_dim 128 (the Llama path); 64 and 256 wait
+// (ROADMAP.md, queue 2, ID 9), and SDPA pads bf16's head_dim 64 to 128.
 //
 // Precision: the TPU backward takes the P^T dO, dS K and dS^T Q products
 // in fp32 (:277-288).  The bf16 kernels here round P and dS to bf16 for
 // the tensor-core products, as FlashAttention-2 does (accumulation stays
-// fp32); in fp32 nothing is rounded.
+// fp32).  In fp32 the backward rounds nothing, and the forward's 3xTF32
+// products keep fp32-grade error (flash_tf32x3.cuh).
 #include "flash_hopper.cuh"
+#include "flash_tf32x3.cuh"
 #include "flash_tile.cuh"
 
 namespace {
 
 using namespace ptt::flash;
-
-// -- forward -----------------------------------------------------------------
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  flash_fwd_tile<T, HD>(a, blockIdx.x, blockIdx.y, blockIdx.z, smem);
-}
 
 // -- forward, bf16: wgmma, TMA and an mbarrier ring ---------------------------
 
@@ -712,16 +705,13 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(Args a) {
 
 enum Which { FWD = 0, DQ = 1, DKV = 2 };
 
+// an fp32 backward kernel (dq or dk/dv), first design
 template <typename T, int HD, int W>
 int launch(const Args& a, int B, cudaStream_t stream) {
   using P = Plan<T, HD>;
-  constexpr size_t smem = W == FWD ? P::FWD : W == DQ ? P::DQ : P::DKV;
+  constexpr size_t smem = W == DQ ? P::DQ : P::DKV;
   static_assert(smem <= 232448, "shared memory plan exceeds 227 KB");
-  auto kern = [] {
-    if constexpr (W == FWD) return flash_fwd_kernel<T, HD>;
-    else if constexpr (W == DQ) return flash_dq_kernel<T, HD>;
-    else return flash_dkv_kernel<T, HD>;
-  }();
+  auto kern = W == DQ ? flash_dq_kernel<T, HD> : flash_dkv_kernel<T, HD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -730,18 +720,25 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// every block size divides 64; bf16 is instantiated at head_dim 128, fp32
+// at 64 and 128; the fp32 forward takes a workspace for its split
+// operands (work_floats values)
 template <int W>
-int dispatch(int dtype, const Args& a, int B, int D, void* stream) {
-  // every block size divides 64; D is the one instantiated head_dim
-  if (B <= 0 || a.S <= 0 || a.S % 64 != 0 || a.HK <= 0 || a.H % a.HK != 0 ||
-      D != 128)
+int dispatch(int dtype, const Args& a, int B, int D, void* stream,
+             float* work = nullptr, long long work_floats = 0) {
+  if (B <= 0 || a.S <= 0 || a.S % 64 != 0 || a.HK <= 0 || a.H % a.HK != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::DT_BFLOAT16) {
+  if (dtype == ptt::DT_BFLOAT16 && D == 128) {
     if constexpr (W == FWD) return hop::launch(a, B, s);
     else return hop::launch_bwd(a, B, W == DKV, s);
   }
-  if (dtype == ptt::DT_FLOAT32) return launch<float, 128, W>(a, B, s);
+  if (dtype == ptt::DT_FLOAT32 && (D == 64 || D == 128)) {
+    if constexpr (W == FWD)
+      return ptt::fwd32::run(a, B, D, work, work_floats, s);
+    else if (D == 64) return launch<float, 64, W>(a, B, s);
+    else return launch<float, 128, W>(a, B, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -750,13 +747,32 @@ int dispatch(int dtype, const Args& a, int B, int D, void* stream) {
 extern "C" {
 
 // out = softmax(q k^T * scale [causal]) v per query head; lse = m + log(l).
-// q/out [B, S, H, D]; k/v [B, S, HK, D]; lse [B, H, S] fp32.
+// q/out [B, S, H, D]; k/v [B, S, HK, D]; lse [B, H, S] fp32.  fp32 takes a
+// workspace of fwd32::floats values (flash_tf32x3.cuh; bf16 none: null,
+// 0).
 int ptt_flash_fwd(int dtype, const void* q, const void* k, const void* v,
-                  void* out, void* lse, int B, int S, int H, int HK, int D,
-                  float scale, int causal, void* stream) {
+                  void* out, void* lse, void* work, long long work_floats,
+                  int B, int S, int H, int HK, int D, float scale, int causal,
+                  void* stream) {
   Args a{q, k, v, out, nullptr, static_cast<float*>(lse), nullptr, nullptr,
          nullptr, nullptr, S, H, HK, scale, causal};
-  return dispatch<FWD>(dtype, a, B, D, stream);
+  return dispatch<FWD>(dtype, a, B, D, stream, static_cast<float*>(work),
+                       work_floats);
+}
+
+// the fp32 forward's split pre-pass alone (ptt_flash_fwd runs it first),
+// for timing it apart
+int ptt_flash_fp32_split(const void* q, const void* k, const void* v,
+                         void* work, long long work_floats, int B, int S,
+                         int H, int HK, int D, void* stream) {
+  Args a{q, k, v, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+         nullptr, S, H, HK, 0.f, 0};
+  if (B <= 0 || S <= 0 || S % 64 != 0 || HK <= 0 || H % HK != 0 ||
+      (D != 64 && D != 128) || work == nullptr ||
+      work_floats < ptt::fwd32::floats(B, S, H, HK, D))
+    return (int)cudaErrorInvalidValue;
+  return ptt::fwd32::split(a, B, D, static_cast<float*>(work),
+                           static_cast<cudaStream_t>(stream));
 }
 
 // dq from the saved lse and delta = rowsum(dout * out) ([B, H, S] fp32).

@@ -81,19 +81,22 @@ __device__ __forceinline__ void issue_pv(float (&o)[64],
   wgmma_commit();
 }
 
-// The online softmax of one score tile in registers, in the exp2 domain:
-// scores times scale * log2 e (masked above the diagonal where `edge`),
-// the row max across the 4 threads of a row by shuffles, sc = 2^(s2 - m2)
-// in place, l rescaled and this thread's share of the row sums added;
-// corr = 2^(m2_old - m2_new) for O.  row: the first of the thread's two
-// rows (the other is row + 8).
-__device__ __forceinline__ void softmax(float (&sc)[32], float (&m)[2],
+// The online softmax of one score tile of 2 N keys in registers (wgmma's
+// accumulator fragment, N values a thread), in the exp2 domain: scores
+// times scale * log2 e (masked above the diagonal where `edge`), the row
+// max across the 4 threads of a row by shuffles, sc = 2^(s2 - m2) in
+// place, l rescaled and this thread's share of the row sums added; corr =
+// 2^(m2_old - m2_new) for O.  row: the first of the thread's two rows
+// (the other is row + 8).  bf16 takes 64-key tiles (N = 32), the fp32
+// forward 64 or 32 (N = 32 or 16, flash_tf32x3.cuh).
+template <int N>
+__device__ __forceinline__ void softmax(float (&sc)[N], float (&m)[2],
                                         float (&l)[2], float (&corr)[2],
                                         bool edge, int k0, int row, int cq,
                                         float scale2) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < N / 4; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float v = sc[4 * i + e] * scale2;
@@ -113,7 +116,7 @@ __device__ __forceinline__ void softmax(float (&sc)[32], float (&m)[2],
     l[r] *= corr[r];
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < N / 4; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float pe = ex2(sc[4 * i + e] - base[e >> 1]);

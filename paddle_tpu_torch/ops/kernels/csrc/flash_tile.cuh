@@ -1,10 +1,12 @@
-// The pieces of the first flash-attention kernels, which fp32 runs
-// (flash_attention.cu's forward, dq and dk/dv, and the fp32 whole-block
-// decoder kernel of fused_decoder.cu): the shared-memory tile GEMM, the
-// row loads, the argument block and shared-memory plans, and the forward's
-// work for one (q block, head, batch) tile as a device function.
-// flash_attention.cu says what the design is and what bounds it; bf16
-// runs the wgmma kernels (flash_hopper.cuh and flash_attention.cu).
+// The pieces of the first flash-attention kernels, which fp32 runs in
+// flash_attention.cu's dq and dk/dv and in the fp32 whole-block decoder
+// kernel of fused_decoder.cu: the shared-memory tile GEMM, the row loads,
+// the argument block and shared-memory plans, and the forward's work for
+// one (q block, head, batch) tile as a device function (the decoder's
+// attention phase).  flash_attention.cu says what the design is and what
+// bounds it; bf16 runs the wgmma kernels (flash_hopper.cuh and
+// flash_attention.cu), the fp32 flash forward 3xTF32 on wgmma
+// (flash_tf32x3.cuh).
 #pragma once
 
 #include "common.cuh"

@@ -1375,7 +1375,9 @@ wgmma_check_kernel(const __grid_constant__ CheckParams p) {
 // B^T [N, 32] fp32 through TMA (boxes {32, 64} and {32, N}, 128-byte
 // swizzle).  The caller passes TF32 values (low 13 bits zero), so the
 // product is exact and only the fp32 sums' order differs from a matmul.
-template <int N>
+// Mode 6 (RS): A from registers instead, each thread's fragment read from
+// device memory (hopper.cuh's layout), as the fp32 flash forward holds P.
+template <int N, bool RS>
 __global__ void __launch_bounds__(128)
 wgmma_tf32_check_kernel(const __grid_constant__ CheckParams p) {
   using namespace ptt::hopper;
@@ -1393,6 +1395,19 @@ wgmma_tf32_check_kernel(const __grid_constant__ CheckParams p) {
     tma_load_2d(As, &p.a, &bar, 0, 0);
     tma_load_2d(Bs, &p.b, &bar, 0, 0);
   }
+  const int t = threadIdx.x, lane = t % 32, r0 = 16 * (t / 32) + lane / 4;
+  uint32_t af[4][4];
+  if constexpr (RS) {
+    const uint32_t* a32 = reinterpret_cast<const uint32_t*>(p.a_raw);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 8 * kk + lane % 4;
+      af[kk][0] = a32[r0 * 32 + k];
+      af[kk][1] = a32[(r0 + 8) * 32 + k];
+      af[kk][2] = a32[r0 * 32 + k + 4];
+      af[kk][3] = a32[(r0 + 8) * 32 + k + 4];
+    }
+  }
   mbar_wait(&bar, 0);
   float acc[N / 2];
 #pragma unroll
@@ -1400,13 +1415,15 @@ wgmma_tf32_check_kernel(const __grid_constant__ CheckParams p) {
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ptt::tf32x3::tf32_mma<N>(acc, desc_kmajor(As + 32 * kk),
-                             desc_kmajor(Bs + 32 * kk));
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (RS)
+      wgmma_tf32_rs<N>(acc, af[kk], desc_kmajor(Bs + 32 * kk));
+    else
+      wgmma_tf32<N>(acc, desc_kmajor(As + 32 * kk), desc_kmajor(Bs + 32 * kk));
+  }
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
-  const int t = threadIdx.x, lane = t % 32, r0 = 16 * (t / 32) + lane / 4;
 #pragma unroll
   for (int i = 0; i < N / 8; ++i)
 #pragma unroll
@@ -1415,7 +1432,7 @@ wgmma_tf32_check_kernel(const __grid_constant__ CheckParams p) {
           acc[4 * i + e];
 }
 
-template <int N>
+template <int N, bool RS>
 int launch_tf32_check(CheckParams& p, const void* a, const void* b,
                       cudaStream_t stream) {
   const uint64_t adims[2] = {32, 64}, bdims[2] = {32, N}, stride[1] = {128};
@@ -1424,7 +1441,7 @@ int launch_tf32_check(CheckParams& p, const void* a, const void* b,
   if (e == cudaSuccess)
     e = ptt::hopper::make_map_f32(&p.b, b, 2, bdims, stride, bbox);
   if (e != cudaSuccess) return (int)e;
-  auto kern = wgmma_tf32_check_kernel<N>;
+  auto kern = wgmma_tf32_check_kernel<N, RS>;
   const int smem = 1024 + 8192 + N * 128;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
@@ -1597,12 +1614,15 @@ int ptt_mlp(int dtype, int act, const void* x, const void* w1,
 // registers, n = 128 only), [64, n] int8 (mode 3) or e4m3 (mode 4) bytes
 // converted by the threads; n 128 or 256, and 64 in mode 0.  Mode 5: c
 // [64, n] = a [64, 32] . b, tf32 (fp32 arrays of TF32 values), b given as
-// B^T [n, 32]; n 128 or 256.
+// B^T [n, 32]; n 32, 64, 128 or 256.  Mode 6: mode 5 with a from
+// registers; n 64 or 128.
 int ptt_wgmma_check(int mode, const void* a, const void* b, void* c, int n,
                     void* stream) {
+  const bool tf32_ok = (mode == 5 && (n == 32 || n == 64)) ||
+                       (mode == 6 && (n == 64 || n == 128));
   if (!((mode == 0 || mode == 1 || mode == 3 || mode == 4 || mode == 5) &&
         (n == 128 || n == 256)) &&
-      !(mode == 2 && n == 128) && !(mode == 0 && n == 64))
+      !(mode == 2 && n == 128) && !(mode == 0 && n == 64) && !tf32_ok)
     return (int)cudaErrorInvalidValue;
   CheckParams p{};
   p.a_raw = static_cast<const bf16*>(a);
@@ -1610,8 +1630,13 @@ int ptt_wgmma_check(int mode, const void* a, const void* b, void* c, int n,
   p.c = static_cast<float*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mode == 5)
-    return n == 128 ? launch_tf32_check<128>(p, a, b, s)
-                    : launch_tf32_check<256>(p, a, b, s);
+    return n == 32    ? launch_tf32_check<32, false>(p, a, b, s)
+           : n == 64  ? launch_tf32_check<64, false>(p, a, b, s)
+           : n == 128 ? launch_tf32_check<128, false>(p, a, b, s)
+                      : launch_tf32_check<256, false>(p, a, b, s);
+  if (mode == 6)
+    return n == 64 ? launch_tf32_check<64, true>(p, a, b, s)
+                   : launch_tf32_check<128, true>(p, a, b, s);
   const uint64_t adims[2] = {64, 64}, astride[1] = {128};
   const uint32_t abox[2] = {64, 64};
   cudaError_t e = ptt::hopper::make_map(&p.a, a, 2, adims, astride, abox);

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's wgmma / TMA kernels, shared
 // by flash_attention.cu (the bf16 flash forward, dq and dk/dv, the forward
-// through flash_hopper.cuh), quant_matmul.cu (the bf16 prefill GEMM over
-// 8-bit weights) and, through hopper_gemm.cuh, fused_block.cu (the QKV, MLP
-// and fused_ffn GEMMs), grouped_matmul.cu (the grouped expert FFN) and
-// fused_decoder.cu (the whole-block decoder, flash_hopper.cuh too):
+// through flash_hopper.cuh; the fp32 forward through flash_tf32x3.cuh),
+// quant_matmul.cu (the bf16 prefill GEMM over 8-bit weights) and, through
+// hopper_gemm.cuh, fused_block.cu (the QKV, MLP and fused_ffn GEMMs),
+// grouped_matmul.cu (the grouped expert FFN) and fused_decoder.cu (the
+// whole-block decoder, flash_hopper.cuh too):
 //   - mbarriers: init, expect-tx, arrive and a parity wait;
 //   - TMA: cp.async.bulk.tensor loads of 2-d, 3-d and 4-d boxes into shared
 //     memory and 1-d bulk copies, completed on an mbarrier, and the
@@ -13,7 +14,8 @@
 //     fence / commit / wait, and the m64nNk16 bf16 products with fp32
 //     accumulators in registers (A from shared memory or from registers);
 //     the m64nNk8 tf32 products (both operands K-major, from shared
-//     memory) of tf32x3.cuh's 3xTF32 GEMM;
+//     memory, or A from registers) of tf32x3.cuh's 3xTF32 GEMM and
+//     flash_tf32x3.cuh's fp32 flash forward;
 //   - setmaxnreg, to move registers from a producer warpgroup to the
 //     consumers;
 //   - tiles that threads write for wgmma: 8-bit weights up-converted to
@@ -476,6 +478,123 @@ __device__ __forceinline__ void wgmma_tf32_n256(float (&d)[128], uint64_t da,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(acc));
+}
+
+// The same products at the widths the fp32 flash forward takes
+// (flash_tf32x3.cuh): n32 and n64 with both operands from shared memory,
+// and n64 and n128 with A from registers.  A's register fragment of a k8
+// step (warp w of the warpgroup, lane l): a[0] = row 16 w + l / 4, column
+// l % 4; a[1] = row + 8; a[2] = column + 4; a[3] = both, as fp32 bit
+// patterns of TF32 values.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// one tf32 product of N columns (32, 64, 128 or 256), A from shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int acc = 1) {
+  if constexpr (N == 32) wgmma_tf32_n32(d, da, db, acc);
+  else if constexpr (N == 64) wgmma_tf32_n64(d, da, db, acc);
+  else if constexpr (N == 128) wgmma_tf32_n128(d, da, db, acc);
+  else wgmma_tf32_n256(d, da, db, acc);
+}
+
+// one tf32 product of N columns (64 or 128), A from registers
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int acc = 1) {
+  if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, db, acc);
+  else wgmma_tf32_rs_n128(d, a, db, acc);
 }
 
 // -- programmatic dependent launch -------------------------------------------

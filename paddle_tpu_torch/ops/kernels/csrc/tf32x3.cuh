@@ -257,10 +257,7 @@ __device__ __forceinline__ void tf32_produce(const Tf32Ring<NC>& r,
 template <int BN>
 __device__ __forceinline__ void tf32_mma(float (&d)[BN / 2], uint64_t da,
                                          uint64_t db, int acc = 1) {
-  if constexpr (BN == 256)
-    wgmma_tf32_n256(d, da, db, acc);
-  else
-    wgmma_tf32_n128(d, da, db, acc);
+  wgmma_tf32<BN>(d, da, db, acc);
 }
 
 // The four k8 steps of one slot, three products each, in the order of the

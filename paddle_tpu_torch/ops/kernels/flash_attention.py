@@ -12,15 +12,20 @@ kernels.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.  There is no fallback between the two.  The kernels
-take float32 and bfloat16, head_dim 128, sequences that are a multiple
-of 64, and heads a multiple of kv heads; every operand contiguous and
-16-byte aligned.  In bf16 all three are Hopper kernels (wgmma fed by TMA
-through mbarrier rings, a producer warpgroup and two consumers, scores
-and accumulators in registers, 128-row tiles, P in the exp2 domain from
-the natural-log lse): the forward and dq per q tile, dk/dv per key tile
-walking its GQA group in one block, so its sums are deterministic.
-fp32, a parity path, runs the first, shared-memory design.  Each wrapper
-counts its launches (``.launches``)."""
+take float32 at head_dim 64 or 128 and bfloat16 at 128
+(:data:`KERNEL_HEAD_DIMS`), sequences that are a multiple of 64, and
+heads a multiple of kv heads; every operand contiguous and 16-byte
+aligned.  In bf16 all three are Hopper kernels (wgmma fed by TMA through
+mbarrier rings, a producer warpgroup and two consumers, scores and
+accumulators in registers, 128-row tiles, P in the exp2 domain from the
+natural-log lse): the forward and dq per q tile, dk/dv per key tile
+walking its GQA group in one block, so its sums are deterministic.  The
+fp32 forward is the same design on 3xTF32 wgmma products (fp32-grade
+error; ERNIE's deploy path runs it at head_dim 64), after a pre-pass
+that splits q, k and v^T into TF32 halves in a workspace each call
+allocates (:func:`flash_fp32_floats`).  The fp32 dq and dk/dv run the
+first, shared-memory design.  Each wrapper counts its launches
+(``.launches``)."""
 
 from __future__ import annotations
 
@@ -30,11 +35,15 @@ from paddle_tpu_torch.ops.kernels import _build, costs
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_fwd_reference",
-           "flash_bwd_reference", "flash_delta", "FlashAttention"]
+           "flash_bwd_reference", "flash_delta", "flash_fp32_floats",
+           "FlashAttention", "KERNEL_HEAD_DIM", "KERNEL_HEAD_DIMS"]
 
 _NEG = -1e30
-# the one head_dim the kernels are instantiated for (csrc header)
+# the head_dim every dtype's kernels are instantiated for (the decoder
+# block's route reads it), and each dtype's head dims
+# (csrc/flash_attention.cu, dispatch)
 KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (128,)}
 
 
 # -- plain versions (the CPU path and the kernels' reference) ---------------
@@ -122,14 +131,15 @@ def _check(what, q, k, v, extra=()):
                          f"{k.shape[2]}")
     if q.device.type == "cpu":
         return
-    if d != KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"{what}: the CUDA kernels are built for head_dim "
-            f"{KERNEL_HEAD_DIM}; head_dim {d} waits (ROADMAP.md, queue 2)")
-    if s % 64:
-        raise ValueError(f"{what}: seq {s} must be a multiple of 64")
     if q.dtype not in _build.DTYPE_CODES:
         raise _build.dtype_error(what, q.dtype)
+    if d not in KERNEL_HEAD_DIMS[q.dtype]:
+        raise NotImplementedError(
+            f"{what}: the CUDA kernels take head_dim "
+            f"{KERNEL_HEAD_DIMS[q.dtype]} in {q.dtype}; head_dim {d} waits "
+            "(ROADMAP.md, queue 2)")
+    if s % 64:
+        raise ValueError(f"{what}: seq {s} must be a multiple of 64")
     for name, t, dt in (("q", q, q.dtype), ("k", k, q.dtype),
                         ("v", v, q.dtype)) + tuple(extra):
         if t.device != q.device:
@@ -147,6 +157,13 @@ def _scale(q, scale):
     return float(scale) if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
 
 
+def flash_fp32_floats(b, s, h, hk, d):
+    """The fp32 values of the fp32 forward's workspace: q's and k's TF32
+    hi and lo, then v^T's (``fwd32::floats`` in
+    ``csrc/flash_tf32x3.cuh``)."""
+    return 2 * b * s * d * (h + 2 * hk)
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """``(out [b, s, h, d], lse [b, h, s] fp32)``; q ``[b, s, h, d]``,
     k/v ``[b, s, hk, d]``."""
@@ -156,14 +173,22 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
         return _build.plain(what, lambda: costs.flash_fwd(q, k, v, causal),
                             flash_fwd_reference, q, k, v, causal, scale)
     b, s, h, d = q.shape
+    hk = k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # fp32: the split operands, for this call (the caching allocator
+    # reuses the block)
+    floats = flash_fp32_floats(b, s, h, hk, d) \
+        if q.dtype == torch.float32 else 0
+    work = torch.empty(floats, dtype=torch.float32, device=q.device) \
+        if floats else None
     lib = _build.library("flash_attention")
     err = lib.ptt_flash_fwd(_build.DTYPE_CODES[q.dtype], q.data_ptr(),
                             k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                            lse.data_ptr(), b, s, h, k.shape[2], d,
-                            _scale(q, scale), int(bool(causal)),
-                            _build.stream_of(q))
+                            lse.data_ptr(),
+                            None if work is None else work.data_ptr(),
+                            floats, b, s, h, hk, d, _scale(q, scale),
+                            int(bool(causal)), _build.stream_of(q))
     _build.check(lib, err, what)
     _build.charge(what, costs.flash_fwd, q, k, v, causal)
     flash_attention_fwd.launches += 1

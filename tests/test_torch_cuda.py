@@ -297,8 +297,7 @@ FLASH_SHAPES = [(1, 128, 4, 4), (2, 256, 12, 4), (1, 192, 8, 2)]
 FLASH_BWD_EDGES = [(1, 320, 4, 1), (2, 192, 8, 8)]
 
 
-def _flash_inputs(rng, b, s, h, hk, dtype, dev):
-    d = 128
+def _flash_inputs(rng, b, s, h, hk, dtype, dev, d=128):
     return (_t(rng, (b, s, h, d), dtype, dev), _t(rng, (b, s, hk, d), dtype,
                                                   dev),
             _t(rng, (b, s, hk, d), dtype, dev), _t(rng, (b, s, h, d), dtype,
@@ -366,8 +365,9 @@ def test_sdpa_routes_eligible_cuda_shapes_to_flash(dev):
 
 @pytest.mark.parametrize("hd", [32, 64])
 def test_sdpa_pads_small_head_dims_to_flash_at_long_seq(dev, hd):
-    """head_dim 32/64 at seq >= 1024 is zero-padded to 128, run through
-    flash with the true head_dim's scale, and sliced back (exact)."""
+    """fp32 head_dim 32/64 at seq >= 1024 runs flash once: 32 zero-padded
+    to 128 with the true head_dim's scale and sliced back (exact), 64 as
+    it is (the fp32 kernels take it)."""
     from paddle_tpu_torch.nn import functional as F
     rng = np.random.default_rng(hd)
     q = _t(rng, (1, 1024, 4, hd), torch.float32, dev)
@@ -378,6 +378,152 @@ def test_sdpa_pads_small_head_dims_to_flash_at_long_seq(dev, hd):
     assert FA.flash_attention_fwd.launches == n0 + 1
     assert got.shape == q.shape
     _close(got, FA.flash_fwd_reference(q, k, v, True)[0], torch.float32)
+
+
+# -- the fp32 flash forward: 3xTF32 on wgmma (csrc/flash_tf32x3.cuh) ------------
+
+def _flash_f64(q, k, v, causal, scale=None):
+    """``(out, lse)`` of the same attention in float64 throughout."""
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qd = q.double().reshape(b, s, hk, h // hk, d)
+    sc = torch.einsum("bqgrd,bkgd->bgrqk", qd, k.double()) * scale
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(sc, -1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", torch.exp(sc - lse[..., None]),
+                       v.double())
+    return out.reshape(b, s, h, d), lse.reshape(b, h, s)
+
+
+def _fp32_flash_check(q, k, v, causal, scale=None):
+    """The fp32 forward, one launch, against flash_fwd_reference within
+    TOL (out and lse) and against float64 within
+    FB.TF32X3_F64_FACTOR times the plain version's own error."""
+    n0 = FA.flash_attention_fwd.launches
+    out, lse = FA.flash_attention_fwd(q, k, v, causal, scale)
+    assert FA.flash_attention_fwd.launches == n0 + 1
+    ref, ref_lse = FA.flash_fwd_reference(q, k, v, causal, scale)
+    _close(out, ref, torch.float32)
+    _close(lse, ref_lse, torch.float32)
+    o64, l64 = _flash_f64(q, k, v, causal, scale)
+    for got, plain, r64 in ((out, ref, o64), (lse, ref_lse, l64)):
+        e = _f64_err(got, r64)
+        e32 = _f64_err(plain, r64)
+        assert e <= FB.TF32X3_F64_FACTOR * e32, (e, e32)
+    return out, lse
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,hk", FLASH_SHAPES + FLASH_BWD_EDGES +
+                         [(1, 64, 4, 1)])
+def test_flash_fwd_fp32_tf32x3_matches_plain_and_float64(dev, d, causal, b,
+                                                         s, h, hk):
+    """fp32 at head_dim 64 and 128 (3xTF32 on wgmma; s = 64, 192 and 320
+    end in a 64-row tile, one consumer): out and lse within TOL of
+    flash_fwd_reference and within TF32X3_F64_FACTOR of its error
+    against float64."""
+    rng = np.random.default_rng(b * s + h + d + causal)
+    q, k, v, _ = _flash_inputs(rng, b, s, h, hk, torch.float32, dev, d)
+    _fp32_flash_check(q, k, v, causal)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_fp32_ernie_shape_and_a_scale(dev, d):
+    """ERNIE-3.0-medium's attention (b=8, s=1024, 12 heads, not causal)
+    at head_dim 64 and 128, and a scale other than head_dim ** -0.5."""
+    rng = np.random.default_rng(1024 + d)
+    q, k, v, _ = _flash_inputs(rng, 8, 1024, 12, 12, torch.float32, dev, d)
+    _fp32_flash_check(q, k, v, False)
+    _fp32_flash_check(q[:2], k[:2], v[:2], True, scale=0.3)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,hk", FLASH_SHAPES + FLASH_BWD_EDGES)
+def test_flash_bwd_fp32_head_dim_64_matches_plain(dev, causal, b, s, h, hk):
+    """The fp32 dq and dk/dv (first design) instantiated at head_dim 64,
+    one launch each, against flash_bwd_reference."""
+    rng = np.random.default_rng(b * s + h + 64 + causal)
+    q, k, v, g = _flash_inputs(rng, b, s, h, hk, torch.float32, dev, 64)
+    out, lse = FA.flash_fwd_reference(q, k, v, causal)
+    delta = FA.flash_delta(out, g)
+    n0 = (FA.flash_attention_bwd_dq.launches,
+          FA.flash_attention_bwd_dkv.launches)
+    dq = FA.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    assert (FA.flash_attention_bwd_dq.launches,
+            FA.flash_attention_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    for got, ref in zip((dq, dk, dv), FA.flash_bwd_reference(
+            q, k, v, g, lse, delta, causal)):
+        _close(got, ref, torch.float32)
+
+
+def _spy_fwd(monkeypatch):
+    """Record the q shape of every call of the forward op (the no-grad
+    branch and the autograd Function both call it)."""
+    seen, real = [], FA.flash_fwd_op
+
+    def spy(q, *args):
+        seen.append(tuple(q.shape))
+        return real(q, *args)
+    monkeypatch.setattr(FA, "flash_fwd_op", spy)
+    return seen
+
+
+def test_sdpa_fp32_head_dim_64_runs_flash_unpadded(dev, monkeypatch):
+    """fp32 at head_dim 64, s = 1024: one forward launch on the unpadded
+    inputs, equal to the plain version; a backward through it runs the
+    head_dim-64 dq and dk/dv kernels."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(64)
+    q, k, v, g = _flash_inputs(rng, 1, 1024, 4, 2, torch.float32, dev, 64)
+    seen = _spy_fwd(monkeypatch)
+    n0 = (FA.flash_attention_fwd.launches, FA.flash_attention_bwd_dq.launches,
+          FA.flash_attention_bwd_dkv.launches)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    assert seen == [(1, 1024, 4, 64)]
+    _close(got.detach(), FA.flash_fwd_reference(q, k, v, True)[0],
+           torch.float32)
+    got.backward(g)
+    assert (FA.flash_attention_fwd.launches,
+            FA.flash_attention_bwd_dq.launches,
+            FA.flash_attention_bwd_dkv.launches) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    out, lse = FA.flash_fwd_reference(q, k, v, True)
+    ref = FA.flash_bwd_reference(q, k, v, g, lse, FA.flash_delta(out, g),
+                                 True)
+    for t, r in zip(leaves, ref):
+        _close(t.grad, r, torch.float32)
+
+
+def test_sdpa_bf16_head_dim_64_keeps_the_pad(dev, monkeypatch):
+    """bf16 has no head_dim-64 kernel (queue 2, ID 9): SDPA pads it to
+    128, and the wrapper raises on it directly (no fallback)."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.default_rng(65)
+    q, k, v, _ = _flash_inputs(rng, 1, 1024, 4, 2, torch.bfloat16, dev, 64)
+    seen = _spy_fwd(monkeypatch)
+    got = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert seen == [(1, 1024, 4, 128)] and got.shape == q.shape
+    _close(got, FA.flash_fwd_reference(q, k, v, True)[0], torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="head_dim 64"):
+        FA.flash_attention_fwd(q, k, v, True)
+
+
+def test_flash_float16_and_fp32_head_dim_32_raise(dev):
+    """float16 raises its TypeError at head_dim 64 too, before the head
+    dim is looked at; fp32 at head_dim 32 raises NotImplementedError."""
+    rng = np.random.default_rng(66)
+    q = _t(rng, (1, 128, 2, 64), torch.float16, dev)
+    with pytest.raises(TypeError, match="queue 1, item 11"):
+        FA.flash_attention(q, q, q, causal=True)
+    q = _t(rng, (1, 128, 2, 32), torch.float32, dev)
+    with pytest.raises(NotImplementedError, match="head_dim 32"):
+        FA.flash_attention_fwd(q, q, q, True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1337,8 +1483,8 @@ def test_hopper_kernels_raise_on_a_refused_launch(dev):
     lse = torch.zeros((1, 2, 128), device=dev)
     fl = _build.library("flash_attention")
     err = fl.ptt_flash_fwd(1, q.data_ptr(), q.data_ptr(), q.data_ptr(),
-                           q.data_ptr(), lse.data_ptr(), 1, 128, 2, 2, 64,
-                           0.125, 1, _build.stream_of(q))
+                           q.data_ptr(), lse.data_ptr(), None, 0, 1, 128, 2,
+                           2, 64, 0.125, 1, _build.stream_of(q))
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         _build.check(fl, err, "flash_attention_fwd")
     err = fl.ptt_flash_bwd_dq(1, q.data_ptr(), q.data_ptr(), q.data_ptr(),
@@ -1877,27 +2023,41 @@ def test_mlp_splits_agree_with_the_model(dev, T, d, f):
 
 # -- fp32 at T > 16: 3xTF32 on wgmma (csrc/tf32x3.cuh) --------------------------
 
-@pytest.mark.parametrize("n", [128, 256])
-def test_wgmma_tf32_matches_matmul(dev, n):
-    """hopper.cuh's tf32 pieces (ptt_wgmma_check mode 5): one 64 x n x 32
-    product, A and B^T K-major through TMA's 128-byte swizzle, of TF32
-    values (exact products; the 13 low mantissa bits cleared) against
-    torch.matmul in fp32: the sums' order alone differs (1e-5 of |C| ~
-    6)."""
+def _tf32_check(dev, mode, n, seed):
+    """ptt_wgmma_check's tf32 product (mode 5 or 6) against torch.matmul
+    in fp32."""
     def tf32(t):
         return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
-    rng = np.random.default_rng(n + 5)
+    rng = np.random.default_rng(seed)
     a = tf32(_t(rng, (64, 32), torch.float32, dev))
     bt = tf32(_t(rng, (n, 32), torch.float32, dev))
     c = torch.empty((64, n), dtype=torch.float32, device=dev)
     lib = _build.library("fused_block")
-    _build.check(lib, lib.ptt_wgmma_check(5, a.data_ptr(), bt.data_ptr(),
+    _build.check(lib, lib.ptt_wgmma_check(mode, a.data_ptr(), bt.data_ptr(),
                                           c.data_ptr(), n,
                                           _build.stream_of(a)),
                  "ptt_wgmma_check")
     torch.cuda.synchronize()
     np.testing.assert_allclose(c.cpu().numpy(), (a @ bt.t()).cpu().numpy(),
                                atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [128, 256, 32, 64])
+def test_wgmma_tf32_matches_matmul(dev, n):
+    """hopper.cuh's tf32 pieces (ptt_wgmma_check mode 5): one 64 x n x 32
+    product, A and B^T K-major through TMA's 128-byte swizzle, of TF32
+    values (exact products; the 13 low mantissa bits cleared) against
+    torch.matmul in fp32: the sums' order alone differs (1e-5 of |C| ~
+    6).  n 32 and 64 are the fp32 flash forward's S widths."""
+    _tf32_check(dev, 5, n, n + 5)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_wgmma_tf32_registers_match_matmul(dev, n):
+    """Mode 6: the same product with A from registers, in the fragment
+    layout the fp32 flash forward gives P (n 64 and 128: its P V
+    widths)."""
+    _tf32_check(dev, 6, n, n + 12)
 
 
 # (T, d, dq, dkv, f): T = 17 (one partial 64-row tile), 150 (a partial
@@ -3276,8 +3436,8 @@ def test_loaded_artifact_launches_its_kernel(dev, tmp_path):
 
 def test_jit_save_on_the_card_runs_flash_from_the_artifact(dev, tmp_path):
     """A 1-layer ERNIE at head_dim 64 saved at s = 1024 on the card: the
-    predictor's run launches flash once (through the pad), and its
-    logits equal the eager port's."""
+    predictor's run launches flash once (fp32 at head_dim 64, unpadded),
+    and its logits equal the eager port's."""
     from paddle_tpu_torch import inference, jit, seed
     from paddle_tpu_torch.models import (ErnieConfig,
                                          ErnieForSequenceClassification)
