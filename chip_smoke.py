@@ -443,7 +443,14 @@ EPS = 1e-5
 # kernel vs plain version, (atol, rtol): fp32 differs by summation order
 # only; bf16 outputs carry a final bf16 rounding (2^-8 relative) of fp32
 # sums taken in another order, and bf16-rounded intermediates (xn, h)
-TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (3e-2, 3e-2)}
+TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (3e-2, 3e-2),
+       torch.float16: (5e-4, 2 ** -10)}
+# (fp16: AMP float16's kernels.  Kernel and plain version round fp32
+# values that differ by summation order, so they differ by at most one
+# fp16 step, 2^-10 of the value: rtol 2^-10 passes it at any magnitude.
+# A bf16 rounding is up to 2^-9 of the value, twice that, and an
+# intermediate at bf16 grade moves near-zero outputs past atol:
+# kernel_amp_fp16's bf16 controls must fail the limit, FP16_CONTROL_MIN)
 # the flash rows' bf16 limits, (atol, rtol).  Each output is a bf16
 # rounding of an fp32 sum, so kernel and plain version may differ by one
 # bf16 step, at most 2^-7 of the value; atol covers the P and dS
@@ -452,6 +459,9 @@ TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (3e-2, 3e-2)}
 # sqrt(e/n), 0.035 median at s=2048); dk and dv reach ~8.
 FLASH_TOL = {"fwd": (4e-3, 2 ** -7), "dq": (4e-3, 2 ** -7),
              "dkv": (8e-3, 2 ** -7)}
+# the same bounds in fp16, whose rounding step (2^-11 relative, P and dS
+# rounded to fp16) is 2^-3 of bf16's
+FLASH_TOL_FP16 = {k: (a / 8, r / 8) for k, (a, r) in FLASH_TOL.items()}
 # the paged decode rows' bf16 limit (fp and int8 pools): the same one-step
 # bound; an output is a softmax average over n tokens of unit-normal V, so
 # |out| ~ sqrt(e/n), 0.035-0.09 for most rows at lengths 147..1024
@@ -784,6 +794,31 @@ def check_close(what, got, ref, dtype, tol=None, used=None):
     return err
 
 
+def limit_share(got, ref, tol):
+    """The largest share of its limit atol + rtol |ref| (`tol`) that an
+    element of `got` takes against `ref`."""
+    atol, rtol = tol
+    g, r = got.float(), ref.float()
+    return float(((g - r).abs() / (atol + rtol * r.abs())).max())
+
+
+def bf16_grade(t):
+    """`t` rounded to bf16 and back: its values at bf16's precision."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def bf16_controls(refs, mids):
+    """Two bf16-grade controls of an fp16 row, as shares of TOL[float16]
+    against the plain outputs `refs`: the outputs rounded to bf16
+    ("output", an epilogue at bf16 grade) and `mids`, the plain version
+    with its intermediate (xn, h) rounded to bf16 ("intermediate", a row
+    pass or an h at bf16 grade).  The row's limit must reject both."""
+    tol = TOL[torch.float16]
+    return {"output": max(limit_share(bf16_grade(r), r, tol) for r in refs),
+            "intermediate": max(limit_share(m, r, tol)
+                                for m, r in zip(mids, refs))}
+
+
 def rand(g, shape, dtype, dev, scale=1.0):
     return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
@@ -1006,9 +1041,10 @@ def flash_parity(FA, dev, dtype, b, s, h, hk, used):
     do = rand(g, (b, s, h, FD), dtype, dev)
 
     def close(what, got, ref, row):
-        if dtype != torch.bfloat16:
+        if dtype == torch.float32:
             return check_close(what, got, ref, dtype)
-        return check_close(what, got, ref, dtype, FLASH_TOL[row],
+        tol = FLASH_TOL if dtype == torch.bfloat16 else FLASH_TOL_FP16
+        return check_close(what, got, ref, dtype, tol[row],
                            used.setdefault(row, {}))
 
     out, lse = FA.flash_attention_fwd(q, k, v, True)
@@ -1033,13 +1069,15 @@ def flash_parity(FA, dev, dtype, b, s, h, hk, used):
 
 
 def flash_timed(FA, timer, tensors, shape, errs, used):
-    """The three kernels timed in bf16 at one shape beside their plain
-    versions and F.scaled_dot_product_attention (forward; its autograd
-    backward, dq, dk and dv together, for the two backward rows), with
-    their bounds; and flash_delta, the reduction before every
-    backward."""
+    """The three kernels timed in bf16 (or fp16, the tensors' dtype) at
+    one shape beside their plain versions and
+    F.scaled_dot_product_attention (forward; its autograd backward, dq,
+    dk and dv together, for the two backward rows), with their bounds;
+    and flash_delta, the reduction before every backward."""
     F_ = torch.nn.functional
     q, k, v, do, lse, delta = tensors
+    tag = {torch.bfloat16: "bf16", torch.float16: "fp16"}[q.dtype]
+    tols = FLASH_TOL if q.dtype == torch.bfloat16 else FLASH_TOL_FP16
     b, s, h, hk = shape
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_in = [t.detach().clone().requires_grad_(True) for t in (qt, kt, vt)]
@@ -1076,10 +1114,10 @@ def flash_timed(FA, timer, tensors, shape, errs, used):
         out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
         out["max_abs_err"] = errs[name]
         row = name.rsplit("_", 1)[-1]
-        out["tolerance_bf16"] = dict(zip(("atol", "rtol"), FLASH_TOL[row]))
-        out["limit_used_bf16"] = used[row]
+        out[f"tolerance_{tag}"] = dict(zip(("atol", "rtol"), tols[row]))
+        out[f"limit_used_{tag}"] = used[row]
         out["flops"] = flops
-        out["shape"] = f"b={b} s={s} h={h} hk={hk} d={FD} causal bf16"
+        out["shape"] = f"b={b} s={s} h={h} hk={hk} d={FD} causal {tag}"
         res[name] = out
         torch.cuda.empty_cache()
     res["flash_attention_fwd"]["library"] = \
@@ -1094,7 +1132,7 @@ def flash_timed(FA, timer, tensors, shape, errs, used):
         "ms": timer(lambda: FA.flash_delta(out, do)),
         "bound_ms": bound_ms(2 * q.numel() * 2 + 4 * b * h * s, 0)[0],
         "bound_by": "bytes",
-        "shape": f"b={b} s={s} h={h} d={FD} bf16 -> fp32 [b, h, s]"}
+        "shape": f"b={b} s={s} h={h} d={FD} {tag} -> fp32 [b, h, s]"}
     del lib_out, lib_in, out
     torch.cuda.empty_cache()
     return res
@@ -1404,8 +1442,16 @@ def kernel_ffn(FB, dev, timer, act, dtype, T=TB * TS):
     n0[path] += 1
     if FB.fused_ffn.launches_by_path != n0:
         raise AssertionError(f"{what}: not on its {path} path")
-    err = check_close(what, got, FB.ffn_reference(x, w1, b1, w2, b2, act),
-                      dtype, None, used)
+    ref = FB.ffn_reference(x, w1, b1, w2, b2, act)
+    err = check_close(what, got, ref, dtype, None, used)
+    ctl = None
+    if dtype == torch.float16:          # the control: h rounded to bf16
+        hb = FB._act(act, x.float() @ w1.float() + b1.float()).to(
+            torch.bfloat16).to(dtype)
+        ctl = bf16_controls([ref], [(hb.float() @ w2.float()
+                                     + b2.float()).to(dtype)])
+        del hb
+    del ref
     if path == "splitk" and not torch.equal(
             got, FB.fused_ffn(x, w1, w2, b1, b2, act)):
         raise AssertionError(f"{what}: split-K differs between two calls")
@@ -1423,10 +1469,12 @@ def kernel_ffn(FB, dev, timer, act, dtype, T=TB * TS):
     isz = x.element_size()
     out["bound_ms"], out["bound_by"] = bound_ms(
         *ffn_io(T, isz, TD, TF_),
-        BF16_FLOP_PER_S if dtype == torch.bfloat16 else fp32_rate(path))
+        fp32_rate(path) if dtype == torch.float32 else BF16_FLOP_PER_S)
     out["max_abs_err"] = err
     out["tolerance"] = dict(zip(("atol", "rtol"), TOL[dtype]))
     out["limit_used"] = used[what]
+    if ctl is not None:
+        out["bf16_control_limit_used"] = ctl
     if path == "tf32x3":
         out["call_alloc_bytes"] = call_alloc_bytes(kernel)
     else:
@@ -4356,30 +4404,28 @@ def train_model(dev, layers=TRAIN_LAYERS, seed_=0):
     return cfg, LlamaForCausalLM(cfg, device=dev)
 
 
-def kernel_multi_tensor(MT, dev, timer):
-    """Both multi-tensor kernels on the Train model's parameter set (1.92
-    B bf16 parameters with fp32 masters and moments, bf16 gradients),
-    each against its plain version on the same inputs: the max error and
-    whether every output is bitwise equal (the plain version runs a
-    tensor at a time on copies, its results kept on the card, 27 GB beside
-    the 31 GB of state, before the kernel's one launch updates the
-    originals); then each timed beside
-    its plain version, a PyTorch yardstick (the norm: torch._foreach_norm
-    in fp32, then the norm of those; the update: torch._fused_adamw_ on
-    the fp32 masters with fp32 gradients, whose op order differs: a
-    timing only) and its bound (bytes: every gradient read once; grad,
-    moments and master read once, param, moments and master written once:
-    with a master the kernel never reads the bf16 param, without one it
-    does)."""
-    cfg, model = train_model(dev)
-    params = [p.detach() for p in model.parameters()]
+def mt_adam_case(MT, dev, timer, params, g):
+    """multi_tensor_adam over `params` (16-bit, with fp32 masters and
+    moments; gradients of the parameters' dtype) against its plain
+    version on the same inputs: the max error and whether every output
+    is bitwise equal (the plain version runs a tensor at a time on
+    copies, its results kept on the card, 27 GB beside the 31 GB of
+    state, before the kernel's one launch updates the originals); then the
+    kernel, the plain version and a PyTorch yardstick (torch._fused_adamw_
+    on the fp32 masters with fp32 gradients, whose op order differs: a
+    timing only) timed, and the bound (bytes: grad, moments and master
+    read once, param, moments and master written once; with a master the
+    kernel never reads the 16-bit param).  multi_tensor_ab.py times the
+    update against another tree's (the first design's).  Returns (row,
+    grads)."""
+    dt = params[0].dtype
     n = sum(p.numel() for p in params)
-    g = torch.Generator(device=dev).manual_seed(13)
-    grads = [rand(g, p.shape, torch.bfloat16, dev, 0.01) for p in params]
+    grads = [rand(g, p.shape, dt, dev, 0.01) for p in params]
     kw = dict(lr=torch.tensor(MT_LR, device=dev),
               step=torch.tensor(MT_STEP, dtype=torch.int32, device=dev),
               scale=torch.tensor(0.5, device=dev),
-              keep=torch.tensor(True, device=dev), **MT_ARGS)
+              keep=torch.tensor(True, device=dev), **MT_ARGS,
+              weight_decays=[MT_WD] * len(params))
     masters = [p.float() for p in params]
     m = [rand(g, p.shape, torch.float32, dev, 1e-3) for p in params]
     v = [rand(g, p.shape, torch.float32, dev, 1e-3).square_() for p in params]
@@ -4387,17 +4433,21 @@ def kernel_multi_tensor(MT, dev, timer):
 
     def plain_update(ps, gs, ms_, vs, mast):
         for p, gg, mm, vv, ma in zip(ps, gs, ms_, vs, mast):
-            MT.adam_reference(p, gg, mm, vv, ma, weight_decay=MT_WD, **kw)
+            MT.adam_reference(p, gg, mm, vv, ma, weight_decay=MT_WD,
+                              **{k: x for k, x in kw.items()
+                                 if k != "weight_decays"})
 
+    # one update, then the plain version on copies of the updated state
+    # and the kernel's second update: 27 GB of copies at a time
+    n0 = MT.multi_tensor_adam.launches
+    MT.multi_tensor_adam(params, grads, m, v, masters, **kw)
     plain = []
     for i in range(len(params)):
         one = [t[i].clone() for t in state]
         plain_update([one[0]], [grads[i]], [one[1]], [one[2]], [one[3]])
         plain.append(one)
-    n0 = MT.multi_tensor_adam.launches
-    MT.multi_tensor_adam(params, grads, m, v, masters,
-                         weight_decays=[MT_WD] * len(params), **kw)
-    if MT.multi_tensor_adam.launches != n0 + 1:
+    MT.multi_tensor_adam(params, grads, m, v, masters, **kw)
+    if MT.multi_tensor_adam.launches != n0 + 2:
         raise AssertionError("multi_tensor_adam: not one launch a call")
     names = ("params", "moment1", "moment2", "master")
     err, bitwise = dict.fromkeys(names, 0.0), dict.fromkeys(names, True)
@@ -4411,13 +4461,12 @@ def kernel_multi_tensor(MT, dev, timer):
     del plain
     for name in names:
         if not bitwise[name]:
-            raise AssertionError(f"multi_tensor_adam: {name} differs from "
-                                 f"its plain version (max abs err "
+            raise AssertionError(f"multi_tensor_adam {dt}: {name} differs "
+                                 f"from its plain version (max abs err "
                                  f"{err[name]})")
     adam_bytes, adam_ops = adam_io(params, grads, masters)
-    ms = timer(lambda: MT.multi_tensor_adam(
-        params, grads, m, v, masters, weight_decays=[MT_WD] * len(params),
-        **kw))
+    ms = timer(lambda: MT.multi_tensor_adam(params, grads, m, v, masters,
+                                            **kw))
     plain_ms = timer(lambda: plain_update(params, grads, m, v, masters),
                      iters=3, warmup=1)
     grads32 = [gg.float() for gg in grads]
@@ -4427,14 +4476,36 @@ def kernel_multi_tensor(MT, dev, timer):
         weight_decay=MT_WD, eps=1e-8, amsgrad=False, maximize=False))
     del grads32, steps
     b, by = bound_ms(adam_bytes, adam_ops, FP32_FLOP_PER_S)
-    rows = {"multi_tensor_adam": {
-        "shape": f"{len(params)} tensors, {n} params: bf16 with fp32 "
-                 "master and moments, bf16 grads",
-        "max_abs_err": err["params"], "errors": err, "bitwise": bitwise,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-        "library": "torch._fused_adamw_ (fp32 masters, fp32 grads; other "
-                   "op order)", "bound_ms": b, "bound_by": by,
-        "tb_per_s": adam_bytes / ms / 1e9}}
+    tag = str(dt).replace("torch.", "")
+    row = {"shape": f"{len(params)} tensors, {n} params: {tag} with fp32 "
+                    f"master and moments, {tag} grads",
+           "max_abs_err": err["params"], "errors": err, "bitwise": bitwise,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": "torch._fused_adamw_ (fp32 masters, fp32 grads; other "
+                      "op order)", "bound_ms": b, "bound_by": by,
+           "bound_share": b / ms, "tb_per_s": adam_bytes / ms / 1e9}
+    del masters, m, v, state
+    torch.cuda.empty_cache()
+    return row, grads
+
+
+def kernel_multi_tensor(MT, dev, timer):
+    """Both multi-tensor kernels on the Train model's parameter set (1.92
+    B bf16 parameters with fp32 masters and moments, bf16 gradients):
+    the update by mt_adam_case, then the norm against its plain version
+    (the max error, two launches bitwise equal), timed beside it, a
+    PyTorch yardstick (torch._foreach_norm in fp32, then the norm of
+    those) and its bound (bytes: every gradient read once); the digest;
+    then AMP float16's set (the same parameters in fp16, fp32 masters,
+    fp16 gradients): the update again and the norm of the fp16
+    gradients against its plain version."""
+    cfg, model = train_model(dev)
+    params = [p.detach() for p in model.parameters()]
+    n = sum(p.numel() for p in params)
+    g = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+    rows["multi_tensor_adam"], grads = mt_adam_case(MT, dev, timer, params,
+                                                    g)
     norm = MT.multi_tensor_norm(grads)
     again = MT.multi_tensor_norm(grads)
     ref = MT.norm_reference(grads)
@@ -4459,7 +4530,31 @@ def kernel_multi_tensor(MT, dev, timer):
     row["tb_per_s"] = norm_bytes / row["ms"] / 1e9
     rows["multi_tensor_digest_train"] = kernel_digest(
         MT, timer, params, "the Train model's 1.92 B bf16 parameters")
-    del model, params, grads, masters, m, v, state
+    del grads
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.half()
+    params = [p.detach() for p in model.parameters()]
+    row, grads = mt_adam_case(MT, dev, timer, params, g)
+    rows["multi_tensor_adam_fp16"] = row
+    norm, ref = MT.multi_tensor_norm(grads), MT.norm_reference(grads)
+    rel = float((norm - ref).abs() / ref)
+    if not rel <= MT_TOL["norm_rel"]:
+        raise AssertionError(f"multi_tensor_norm fp16: {float(norm)} against "
+                             f"{float(ref)} (rel {rel})")
+    norm_bytes, norm_ops = norm_io(grads)
+    b, by = bound_ms(norm_bytes, norm_ops, FP32_FLOP_PER_S)
+    rows["multi_tensor_norm_fp16"] = {
+        "shape": f"{len(params)} fp16 grads, {n} elements",
+        "max_abs_err": float((norm - ref).abs()), "rel_err": rel,
+        "ms": timer(lambda: MT.multi_tensor_norm(grads)),
+        "plain_ms": timer(lambda: MT.norm_reference(grads), iters=3,
+                          warmup=1),
+        "library_ms": timer(lambda: torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads, 2, dtype=torch.float32)))),
+        "bound_ms": b, "bound_by": by}
+    del model, params, grads
     torch.cuda.empty_cache()
     return rows
 
@@ -6270,10 +6365,10 @@ def quiet():
         yield
 
 
-def amp_stats_cpu(level, layers):
+def amp_stats_cpu(level, layers, dtype="bfloat16"):
     """The operator stats (op -> dtype -> calls) of the recipe's forward
     on the CPU: a tiny fp32 Llama of `layers` layers under
-    auto_cast(level, bfloat16), decorated first at O2."""
+    auto_cast(level, dtype), decorated first at O2."""
     from paddle_tpu_torch import amp, seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.tiny(hidden_size=128, intermediate_size=256,
@@ -6282,18 +6377,18 @@ def amp_stats_cpu(level, layers):
     seed(0)
     model = LlamaForCausalLM(cfg, device="cpu")
     if level == "O2":
-        amp.decorate(model, level="O2", dtype="bfloat16")
+        amp.decorate(model, level="O2", dtype=dtype)
     ids = torch.randint(0, cfg.vocab_size, (2, 16))
     with quiet(), amp.debugging.collect_operator_stats() as s:
-        with amp.auto_cast(level=level, dtype="bfloat16"):
+        with amp.auto_cast(level=level, dtype=dtype):
             model.loss(ids, ids)
     return s.dtypes
 
 
-def amp_expected_stats(level, layers):
+def amp_expected_stats(level, layers, dtype="bfloat16"):
     """A card step's stats from the CPU's at one and two layers: the
     per-layer ops times `layers` plus the rest."""
-    one, two = amp_stats_cpu(level, 1), amp_stats_cpu(level, 2)
+    one, two = amp_stats_cpu(level, 1, dtype), amp_stats_cpu(level, 2, dtype)
     out = {}
     for op in set(one) | set(two):
         for dt in set(one.get(op, {})) | set(two.get(op, {})):
@@ -6302,24 +6397,29 @@ def amp_expected_stats(level, layers):
     return out
 
 
-def amp_steps(level, model, opt, scaler, batch, kernels):
-    """AMP_STEPS of the recipe: ``with auto_cast: loss = model.loss``,
-    ``scaler.scale(loss).backward()``, ``scaler.step(opt)``,
-    ``opt.clear_grad()``; the first under the operator stats."""
+def amp_steps(level, model, opt, scaler, batch, kernels, dtype="bfloat16",
+              steps=None):
+    """`steps` (AMP_STEPS) of the recipe at `dtype`: ``with auto_cast:
+    loss = model.loss``, ``scaler.scale(loss).backward()``,
+    ``scaler.step(opt)``, ``opt.clear_grad()``; the first under the
+    operator stats.  Returns the losses, each step's seconds, the stats,
+    the peak memory (GiB), the launches by wrapper and dtype, QKV's and
+    the MLP's by design, and whether the scaler skipped each step."""
     from paddle_tpu_torch import amp
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, times, stats = [], [], None
-    for i in range(AMP_STEPS):
+    losses, times, stats, skips = [], [], None, []
+    for i in range(steps or AMP_STEPS):
         t0 = time.perf_counter()
         collect = amp.debugging.collect_operator_stats() if i == 0 \
             else contextlib.nullcontext()
         with quiet(), collect as s:
-            with amp.auto_cast(level=level, dtype="bfloat16"):
+            with amp.auto_cast(level=level, dtype=dtype):
                 loss = model.loss(batch["input_ids"], batch["labels"])
         scaler.scale(loss).backward()
         scaler.step(opt)
+        skips.append(bool(scaler._found_inf))
         opt.clear_grad()
         losses.append(float(loss.detach()))
         torch.cuda.synchronize()
@@ -6329,19 +6429,35 @@ def amp_steps(level, model, opt, scaler, batch, kernels):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {fn.__name__: dict(fn.launches_by_dtype)
                 for fn in kernels.BY_DTYPE}
-    launches["multi_tensor_adam"] = kernels.multi_tensor_adam.launches
     paths = {fn.__name__: dict(fn.launches_by_path)
              for fn in (kernels.fused_rmsnorm_qkv, kernels.fused_mlp)}
-    return losses, times, stats, peak, launches, paths
+    # the steps the scaler skipped (an overflow), which launch no update
+    launches["skipped_steps"] = sum(skips)
+    return losses, times, stats, peak, launches, paths, skips
+
+
+def amp_step_median(phase, times, skips):
+    """The median seconds of the steps after the first that the scaler
+    did not skip (a skipped step launches no update and moves no
+    parameter); raises unless at least two such steps were timed."""
+    timed = [t for t, skip in zip(times[1:], skips[1:]) if not skip]
+    if len(timed) < 2:
+        raise AssertionError(f"{phase}: {len(timed)} timed steps that the "
+                             f"scaler did not skip (skips {skips}), fewer "
+                             "than 2")
+    return float(np.median(timed))
 
 
 def amp_gates(phase, level, losses, ref_loss, scaler, stats, launches,
-              layers, paths):
+              layers, paths, dtype="bfloat16", steps=None):
     """The phase's checks: finite losses and scale, the first loss
     within AMP_LOSS_TOL of its reference, the stats a CPU run predicts
-    (white ops bf16, black fp32), the launches by wrapper and dtype,
-    exact (QKV and the MLP fp32 at O1, bf16 at O2; flash bf16 both), and
-    QKV's and the MLP's by design, exact (3xTF32 at O1, wgmma at O2)."""
+    (white ops in `dtype`, black fp32), the launches by wrapper and
+    dtype, exact (QKV and the MLP fp32 at O1, `dtype` at O2; flash
+    `dtype` both; the update under its parameters' dtype, fp32 at O1),
+    and QKV's and the MLP's by design, exact (3xTF32 at O1, wgmma at
+    O2)."""
+    steps = steps or AMP_STEPS
     if not (np.all(np.isfinite(losses)) and
             np.isfinite(scaler.get_loss_scaling())):
         raise AssertionError(f"{phase}: non-finite loss {losses} or scale "
@@ -6350,22 +6466,30 @@ def amp_gates(phase, level, losses, ref_loss, scaler, stats, launches,
     if rel > AMP_LOSS_TOL:
         raise AssertionError(f"{phase}: first loss {losses[0]} vs "
                              f"{ref_loss}: {rel:.3g} > {AMP_LOSS_TOL}")
-    want = amp_expected_stats(level, layers)
+    want = amp_expected_stats(level, layers, dtype)
     if stats != want:
         raise AssertionError(f"{phase}: operator stats {stats}, the CPU "
                              f"run predicts {want}")
     for op in ("linear", "scaled_dot_product_attention"):
-        if set(stats.get(op, {})) != {"bfloat16"}:
+        if set(stats.get(op, {})) != {dtype}:
             raise AssertionError(f"{phase}: white op {op} ran {stats}")
     if set(stats.get("rms_norm", {})) != {"float32"}:
         raise AssertionError(f"{phase}: black rms_norm ran {stats}")
-    n = layers * AMP_STEPS
-    gemm = "float32" if level == "O1" else "bfloat16"
+    n = layers * steps
+    # bf16 has fp32's range: no step may overflow; fp16 may skip a step
+    # at the scaler's first scale (amp_step_median times only the steps
+    # it did not skip, and wants two of them)
+    if launches["skipped_steps"] >= (1 if dtype == "bfloat16" else steps):
+        raise AssertionError(f"{phase}: the scaler skipped "
+                             f"{launches['skipped_steps']} of {steps} steps")
+    gemm = "float32" if level == "O1" else dtype
     want_l = {"fused_rmsnorm_qkv": {gemm: n}, "fused_mlp": {gemm: n},
-              "fused_ffn": {}, "flash_attention_fwd": {"bfloat16": n},
-              "flash_attention_bwd_dq": {"bfloat16": n},
-              "flash_attention_bwd_dkv": {"bfloat16": n},
-              "multi_tensor_adam": AMP_STEPS}
+              "fused_ffn": {}, "flash_attention_fwd": {dtype: n},
+              "flash_attention_bwd_dq": {dtype: n},
+              "flash_attention_bwd_dkv": {dtype: n},
+              "multi_tensor_adam": {gemm: steps - launches["skipped_steps"]}
+              if steps > launches["skipped_steps"] else {},
+              "skipped_steps": launches["skipped_steps"]}
     if launches != want_l:
         raise AssertionError(f"{phase}: launches {launches}, expected "
                              f"{want_l}")
@@ -6377,11 +6501,12 @@ def amp_gates(phase, level, losses, ref_loss, scaler, stats, launches,
     return rel
 
 
-def amp_skip_check(model, opt, scaler, batch):
+def amp_skip_check(model, opt, scaler, batch, phase="amp_o1", level="O1",
+                   dtype="bfloat16"):
     """An inf written into one gradient: ``scaler.step`` must leave every
     parameter bitwise equal and multiply the scale by decr_ratio."""
     from paddle_tpu_torch import amp
-    with amp.auto_cast(level="O1", dtype="bfloat16"):
+    with amp.auto_cast(level=level, dtype=dtype):
         loss = model.loss(batch["input_ids"], batch["labels"])
     scaler.scale(loss).backward()
     params = [p for p in model.parameters()]
@@ -6394,7 +6519,7 @@ def amp_skip_check(model, opt, scaler, batch):
     want = max(scale0 * scaler._decr_ratio, 1.0)
     if not same or not scaler._found_inf or \
             scaler.get_loss_scaling() != want:
-        raise AssertionError(f"amp_o1: the inf step changed parameters "
+        raise AssertionError(f"{phase}: the inf step changed parameters "
                              f"({not same}) or the scale "
                              f"{scaler.get_loss_scaling()} != {want}")
     del before
@@ -6435,7 +6560,7 @@ def amp_phases(dev, kernels):
         ref32 = float(model.loss(batch["input_ids"], batch["labels"]))
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
     scaler = amp.GradScaler()
-    losses, times, stats, peak, launches, paths = amp_steps(
+    losses, times, stats, peak, launches, paths, skips = amp_steps(
         "O1", model, opt, scaler, batch, kernels)
     rel = amp_gates("amp_o1", "O1", losses, ref32, scaler, stats, launches,
                     TRAIN_LAYERS, paths)
@@ -6451,7 +6576,7 @@ def amp_phases(dev, kernels):
                         steps=1)
     busy = prof["device_busy_s"] or float("nan")
     fp32_ms = sum(prof["port_kernels"][f]["ms"] for f in AMP_FP32_FAMILIES)
-    dt = float(np.median(times[1:]))
+    dt = amp_step_median("amp_o1", times, skips)
     # fp32 parameters, gradients and AdamW's two moments: 16 bytes each
     emit("amp_o1", level="O1", dtype="bfloat16", params=n_params,
          param_dtype="float32", layers=TRAIN_LAYERS, batch=TRAIN_B,
@@ -6476,7 +6601,7 @@ def amp_phases(dev, kernels):
     with torch.no_grad():
         ref_bf16 = float(model.loss(batch["input_ids"], batch["labels"]))
     scaler = amp.GradScaler()
-    losses, times, stats, peak, launches, paths = amp_steps(
+    losses, times, stats, peak, launches, paths, skips = amp_steps(
         "O2", model, opt, scaler, batch, kernels)
     rel = amp_gates("amp_o2", "O2", losses, ref_bf16, scaler, stats,
                     launches, TRAIN_LAYERS, paths)
@@ -6486,7 +6611,7 @@ def amp_phases(dev, kernels):
                           for p in model.parameters()):
         raise AssertionError("amp_o2: decorate left fp32 parameters or no "
                              "fp32 masters")
-    dt = float(np.median(times[1:]))
+    dt = amp_step_median("amp_o2", times, skips)
     emit("amp_o2", level="O2", dtype="bfloat16", params=n_params,
          param_dtype="bfloat16", masters="float32", layers=TRAIN_LAYERS,
          batch=TRAIN_B, seq=TRAIN_S,
@@ -6500,6 +6625,82 @@ def amp_phases(dev, kernels):
          launches_by_path=paths)
     out["amp_o2"] = launches
     del model, opt, scaler
+    torch.cuda.empty_cache()
+    out.update(amp_fp16_phases(dev, kernels, cfg, batch, flops_tok))
+    return out
+
+
+# the steps of each float16 level (the bf16 levels take AMP_STEPS)
+AMP_FP16_STEPS = 3
+
+
+def amp_fp16_phases(dev, kernels, cfg, batch, flops_tok):
+    """The recipe at ``dtype="float16"`` on a fresh fp32 model from seed
+    0 (amp_phases' config and batch).  amp_o1_fp16: auto_cast(O1, fp16)
+    + GradScaler, AMP_FP16_STEPS steps, the first loss against the fp32
+    forward, flash launched in fp16 and QKV / the MLP in fp32 (3xTF32),
+    then the skip check (an inf gradient: no parameter moves, the scale
+    halves).  amp_o2_fp16: decorate(O2, fp16) with a fresh AdamW (fp32
+    masters), the same loop, its first loss against the plain fp16
+    model's, QKV, the MLP, flash and the update launched in fp16, and
+    the skip check again.  Returns each level's launches."""
+    from paddle_tpu_torch import amp, seed
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    seed(0)
+    model = LlamaForCausalLM(cfg, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = TRAIN_B * TRAIN_S
+    out = {}
+    with torch.no_grad():
+        ref32 = float(model.loss(batch["input_ids"], batch["labels"]))
+    for level in ("O1", "O2"):
+        phase = f"amp_{level.lower()}_fp16"
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        if level == "O2":
+            model, opt = amp.decorate(model, opt, level="O2",
+                                      dtype="float16")
+            with torch.no_grad():
+                ref = float(model.loss(batch["input_ids"],
+                                       batch["labels"]))
+        else:
+            ref = ref32
+        scaler = amp.GradScaler()
+        losses, times, stats, peak, launches, paths, skips = amp_steps(
+            level, model, opt, scaler, batch, kernels, "float16",
+            AMP_FP16_STEPS)
+        rel = amp_gates(phase, level, losses, ref, scaler, stats, launches,
+                        TRAIN_LAYERS, paths, "float16", AMP_FP16_STEPS)
+        if level == "O2" and (any(p.dtype != torch.float16
+                                  for p in model.parameters()) or
+                              any(opt._accumulators[id(p)]["_master"].dtype
+                                  != torch.float32
+                                  for p in model.parameters())):
+            raise AssertionError(f"{phase}: decorate left non-fp16 "
+                                 "parameters or no fp32 masters")
+        skip = amp_skip_check(model, opt, scaler, batch, phase, level,
+                              "float16")
+        dt = amp_step_median(phase, times, skips)
+        emit(phase, level=level, dtype="float16", params=n_params,
+             param_dtype="float32" if level == "O1" else "float16",
+             masters=None if level == "O1" else "float32",
+             layers=TRAIN_LAYERS, batch=TRAIN_B, seq=TRAIN_S,
+             recipe=("auto_cast(O1, float16)" if level == "O1" else
+                     "decorate(O2, float16) + auto_cast(O2, float16)")
+             + " + GradScaler + AdamW",
+             reference_loss=ref, reference=("fp32 forward" if level == "O1"
+                                            else "plain fp16 forward"),
+             losses=losses, first_loss_rel_err=rel, loss_tol=AMP_LOSS_TOL,
+             scale=scaler.get_loss_scaling(), skip_check=skip,
+             step_s=times, step_skipped=skips, step_s_median=dt,
+             train_cell_step_s=TRAIN_STEP_REF_S, tokens_per_s=tokens / dt,
+             mfu=flops_tok * tokens / dt / BF16_FLOP_PER_S,
+             peak_mem_gb=peak, operator_stats=stats,
+             launches_by_dtype=launches, launches_by_path=paths)
+        out[phase] = launches
+        del opt, scaler
+        torch.cuda.empty_cache()
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -6634,6 +6835,133 @@ def amp_fp32_gates(FB, rows):
                                  f"{row['max_abs_err_f64']}, over "
                                  f"{factor}x the plain fp32 version's "
                                  f"{row['plain_max_abs_err_f64']}")
+
+
+# the overflow check's MLP: T rows, every 8th scaled so that h = silu(g) u
+# passes fp16's 65504 in some elements: g, u ~ N(0, 100) there, |g u| >
+# 6.55 sigma^2 for ~2e-4 of a row's elements (~100 of the scaled rows'),
+# while y = h wd stays ~N(0, 8.7e3), far inside fp16 where h is finite
+FP16_OVERFLOW_T, FP16_OVERFLOW_SCALE = 256, 150.0
+# the least share of TOL[float16]'s limit that each bf16-grade control of
+# an fp16 row must take: past 1, so the row would fail it
+FP16_CONTROL_MIN = 1.0
+
+
+def kernel_amp_fp16(FA, FB, dev, timer, T=TRAIN_B * TRAIN_S):
+    """The kernels that AMP float16 reaches on the Train step, in fp16 at
+    its shapes: flash forward, dq and dk/dv at b=4 s=2048 h=32 hk=8 d=128
+    causal (flash_parity / flash_timed, within FLASH_TOL_FP16); QKV's
+    training variant and the MLP at T = 8192, and fused_ffn's relu row
+    (Transformer-base width), each on the wgmma design within
+    TOL[float16], timed beside its plain version and the fp16 library
+    chain (F.rms_norm and cuBLAS products; SDPA), bound at the fp16
+    tensor-core rate (989 TFLOP/s); and the MLP at FP16_OVERFLOW_T rows
+    whose h overflows: the kernel's non-finite outputs exactly where the
+    plain version's are (nothing saturates), the rest within
+    TOL[float16].  QKV, the MLP and fused_ffn record the share of
+    TOL[float16]'s limit they take and that of two bf16-grade controls
+    (bf16_controls), each of which must pass FP16_CONTROL_MIN."""
+    h = torch.float16
+    F_ = torch.nn.functional
+    used = {}
+    shape = (FB_, FS, FH, FHK)
+    errs, tensors = flash_parity(FA, dev, h, *shape, used)
+    rows = {k + "_fp16": r for k, r in
+            flash_timed(FA, timer, tensors, shape, errs, used).items()}
+    del tensors
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(T + 29)
+    x = rand(g, (T, D), h, dev)
+    wn = rand(g, (D,), h, dev, 0.1) + 1
+    s = (2.0 / (D + DQ)) ** 0.5
+    wq, wk, wv = (rand(g, (D, n), h, dev, s) for n in (DQ, DKV, DKV))
+    n0 = dict(FB.fused_rmsnorm_qkv.launches_by_path)
+    got = FB.fused_rmsnorm_qkv(x, wn, wq, wk, wv, EPS, residuals=True)
+    path = launched_path(FB.fused_rmsnorm_qkv, n0)
+    ref = FB.qkv_reference(x, wn, wq, wk, wv, EPS, residuals=True)
+    what = "fused_rmsnorm_qkv train fp16 "
+    err = max(check_close(what + n, a, b_,
+                          torch.float32 if n == "inv" else h, None,
+                          None if n == "inv" else used)
+              for n, a, b_ in zip(("q", "k", "v", "xn", "inv"), got, ref))
+    qkv_used = max(used.pop(what + n) for n in ("q", "k", "v", "xn"))
+    # the control: xn rounded to bf16 before the products
+    xn_b = ((x.float() * ref[4]) * wn.float()).to(torch.bfloat16).to(h)
+    qkv_ctl = bf16_controls(ref[:4], [(xn_b.float() @ w.float()).to(h)
+                                      for w in (wq, wk, wv)] + [xn_b])
+    del got, ref, xn_b
+
+    def qkv_lib():
+        xn = F_.rms_norm(x, (D,), wn, EPS)
+        return xn @ wq, xn @ wk, xn @ wv
+    qkv = {"ms": timer(lambda: FB.fused_rmsnorm_qkv(
+        x, wn, wq, wk, wv, EPS, residuals=True)),
+        "plain_ms": timer(lambda: FB.qkv_reference(
+            x, wn, wq, wk, wv, EPS, residuals=True), iters=3, warmup=1),
+        "library_ms": timer(qkv_lib),
+        "library": "F.rms_norm then three fp16 products (cuBLAS)",
+        "max_abs_err": err, "tolerance": dict(zip(("atol", "rtol"), TOL[h])),
+        "limit_used": qkv_used, "bf16_control_limit_used": qkv_ctl,
+        "shape": f"T={T} d={D} dq={DQ} dkv={DKV} fp16", "kernel_path": path}
+    qkv["bound_ms"], qkv["bound_by"] = bound_ms(*qkv_io(T, train=True))
+    rows["fused_rmsnorm_qkv_train_fp16"] = qkv
+    del wq, wk, wv
+    s = (2.0 / (D + F)) ** 0.5
+    wg, wu = rand(g, (D, F), h, dev, s), rand(g, (D, F), h, dev, s)
+    wd = rand(g, (F, D), h, dev, s)
+    n0 = dict(FB.fused_mlp.launches_by_path)
+    y = FB.fused_mlp(x, wg, wu, wd)
+    mpath = launched_path(FB.fused_mlp, n0)
+    ref = FB.mlp_reference(x, wg, wu, wd)
+    err = check_close("fused_mlp fp16 T=8192", y, ref, h, None, used)
+    # the control: h rounded to bf16 before the down product
+    gx, ux = x.float() @ wg.float(), x.float() @ wu.float()
+    hb = (gx * torch.sigmoid(gx) * ux).to(torch.bfloat16).to(h)
+    del gx, ux
+    mlp_ctl = bf16_controls([ref], [(hb.float() @ wd.float()).to(h)])
+    del y, ref, hb
+    mlp = {"ms": timer(lambda: FB.fused_mlp(x, wg, wu, wd)),
+           "plain_ms": timer(lambda: FB.mlp_reference(x, wg, wu, wd),
+                             iters=3, warmup=1),
+           "library_ms": timer(lambda: (F_.silu(x @ wg) * (x @ wu)) @ wd),
+           "library": "silu(x @ wg) * (x @ wu) @ wd (cuBLAS, fp16)",
+           "max_abs_err": err,
+           "tolerance": dict(zip(("atol", "rtol"), TOL[h])),
+           "limit_used": used.pop("fused_mlp fp16 T=8192"),
+           "bf16_control_limit_used": mlp_ctl,
+           "shape": f"T={T} d={D} f={F} fp16", "kernel_path": mpath}
+    mlp["bound_ms"], mlp["bound_by"] = bound_ms(*mlp_io(T))
+    rows["fused_mlp_train_fp16"] = mlp
+    # the overflow: rows 0, 8, 16, ... of x scaled
+    xo = x[:FP16_OVERFLOW_T].clone()
+    xo[::8] *= FP16_OVERFLOW_SCALE
+    got, ref = FB.fused_mlp(xo, wg, wu, wd), FB.mlp_reference(xo, wg, wu, wd)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(ref)
+    if not bad.any() or not torch.equal(~torch.isfinite(got), bad):
+        raise AssertionError(f"fused_mlp fp16 overflow: kernel non-finite "
+                             f"{int((~torch.isfinite(got)).sum())}, plain "
+                             f"{int(bad.sum())}, not the same elements")
+    keep = ~bad.any(-1)
+    mlp["overflow"] = {
+        "rows": FP16_OVERFLOW_T, "scaled_rows": FP16_OVERFLOW_T // 8,
+        "scale": FP16_OVERFLOW_SCALE, "nonfinite_rows": int((~keep).sum()),
+        "nonfinite_same_elements": True,
+        "max_abs_err_finite_rows": check_close(
+            "fused_mlp fp16 overflow rows", got[keep], ref[keep], h)}
+    del x, xo, wg, wu, wd, got, ref
+    torch.cuda.empty_cache()
+    rows["fused_ffn_fp16"] = kernel_ffn(FB, dev, timer, "relu", h)
+    for name in ("fused_rmsnorm_qkv_train_fp16", "fused_mlp_train_fp16",
+                 "fused_ffn_fp16"):
+        if rows[name].get("kernel_path", rows[name].get("path")) != "wgmma":
+            raise AssertionError(f"{name}: not on the wgmma design "
+                                 f"{rows[name]}")
+        ctl = rows[name]["bf16_control_limit_used"]
+        if min(ctl.values()) <= FP16_CONTROL_MIN:
+            raise AssertionError(f"{name}: TOL[float16] passes a bf16-grade "
+                                 f"control (shares of its limit {ctl})")
+    return rows
 
 
 # -- phases 18-21: autograd, sparse embeddings, the conv side ---------------
@@ -8443,8 +8771,73 @@ def kernel_flash_fp32(FA, FB, dev, timer):
         row["bound_ms_fp32_cores"], _ = bound_ms(nbytes, flops,
                                                  FP32_FLOP_PER_S)
         rows[name] = row
-        del q, k, v, qt, kt, vt, work
+        del work
+        if name == "ernie":
+            rows.update(flash_bwd_fp32_rows(FA, timer, q, k, v, causal,
+                                            scale, g))
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    return rows
+
+
+def flash_bwd_fp32_rows(FA, timer, q, k, v, causal, scale, g):
+    """The fp32 dq and dk/dv (the first, shared-memory design) at the
+    forward row's shape: each against its plain version (TOL), timed
+    beside it and the autograd backward of fp32
+    F.scaled_dot_product_attention (dq, dk and dv together), bound at
+    the fp32 CUDA-core rate, the design's (bytes: q, k, v, dO and the
+    two statistics read once, the gradients written once; operations:
+    dq takes S, dP and dS K, dk/dv S, dP, P^T dO and dS^T Q, 2 d
+    operations a (query, key) pair each)."""
+    F_ = torch.nn.functional
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    do = rand(g, q.shape, torch.float32, q.device)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal, scale)
+    delta = FA.flash_delta(out, do)
+    del out
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                        scale)
+    rdq, rdk, rdv = FA.flash_bwd_reference(q, k, v, do, lse, delta, causal,
+                                           scale)
+    errs = {"dq": check_close("flash fp32 dq", dq, rdq, torch.float32),
+            "dkv": max(check_close("flash fp32 dk", dk, rdk, torch.float32),
+                       check_close("flash fp32 dv", dv, rdv,
+                                   torch.float32))}
+    del dq, dk, dv, rdq, rdk, rdv
+    lib_in = [t.detach().transpose(1, 2).clone().requires_grad_(True)
+              for t in (q, k, v)]
+    lib_out = F_.scaled_dot_product_attention(*lib_in, is_causal=causal,
+                                              enable_gqa=hk != h)
+    do_t = do.transpose(1, 2)
+    lib_ms = timer(lambda: torch.autograd.grad(lib_out, lib_in, do_t,
+                                               retain_graph=True))
+    pairs = s * (s + 1) // 2 if causal else s * s
+    stats = 2 * 4 * b * h * s
+    rows = {}
+    for name, kern, nout, prods in (
+            ("dq", lambda: FA.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, causal, scale), q.numel(), 3),
+            ("dkv", lambda: FA.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, causal, scale), 2 * k.numel(), 4)):
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel() + nout) + stats
+        flops = prods * 2 * b * h * pairs * d
+        row = {"ms": timer(kern),
+               "plain_ms": timer(lambda: FA.flash_bwd_reference(
+                   q, k, v, do, lse, delta, causal, scale), iters=3,
+                   warmup=1),
+               "library_ms": lib_ms,
+               "library": "autograd backward of fp32 "
+                          "F.scaled_dot_product_attention (dq, dk and dv "
+                          "together)",
+               "max_abs_err": errs[name], "flops": flops,
+               "shape": f"b={b} s={s} h={h} hk={hk} d={d}, "
+                        f"{'causal' if causal else 'not causal'}, fp32"}
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                    FP32_FLOP_PER_S)
+        rows[f"ernie_bwd_{name}"] = row
+    del lib_in, lib_out, do, lse, delta
     return rows
 
 
@@ -8787,6 +9180,7 @@ def main():
                                                    plain_iters=3)
         fp32_rows = kernel_amp_fp32(FB, dev, timer)
         train_rows.update(fp32_rows)
+        train_rows.update(kernel_amp_fp16(FA, FB, dev, timer))
         emit("kernels_train", results=train_rows)
         amp_fp32_gates(FB, fp32_rows)
     with timed("kernels_quant"):
@@ -9023,7 +9417,28 @@ def main():
             entry[f"launches_{phase}"] = got[wrapper]
         # the sparse_embed phase's eager steps (its sparse run)
         entry["launches_sparse_embed"] = sparse_launches[wrapper]
+        if "_bwd_" in name:            # fp32 at ERNIE's shape (d = 64)
+            key = "ernie_bwd_" + name.rsplit("_", 1)[-1]
+            entry["fp32_ernie_shape"] = {
+                **{k: flash32_rows[key][k] for k in keys},
+                "shape": flash32_rows[key]["shape"], "launches": 0,
+                "path": "none (ERNIE's deploy path runs no backward)"}
         line.append(entry)
+    # AMP float16 (kernel_amp_fp16's rows): launches in fp16 from the
+    # amp_o1_fp16 and amp_o2_fp16 steps (flash at both levels; QKV's
+    # training variant and the MLP at O2, O1 keeping them fp32)
+    for name, (src, rep) in train_where.items():
+        row = train_rows[name + "_fp16"]
+        wrapper = name.removesuffix("_train")
+        by = {ph: amp_launches[ph][wrapper].get("float16", 0)
+              for ph in ("amp_o1_fp16", "amp_o2_fp16")}
+        line.append({"name": name + "_fp16", "route": "cuda", "source": src,
+                     "replaces": rep, "launches": sum(by.values()),
+                     **{k: row[k] for k in keys}, "shape": row["shape"],
+                     "path": "amp_o1_fp16, amp_o2_fp16",
+                     "launches_by_phase": by,
+                     **{k: row[k] for k in ("kernel_path", "overflow")
+                        if k in row}})
     # the fp32 forward (3xTF32 on wgmma): launches from the loaded ERNIE
     # artifact's run at batch 8, s = 1024, all unpadded fp32 at head_dim
     # 64; the d=128 causal GQA row beside it
@@ -9148,6 +9563,7 @@ def main():
     # the nn.Transformer path: relu bf16 at its FFN shape; launches from
     # transformer_infer
     r, r8 = ffn_rows["relu bf16"], ffn_rows["relu bf16 T=8"]
+    r16 = train_rows["fused_ffn_fp16"]
     line.append({"name": "fused_ffn", "route": "cuda",
                  "source": src + "fused_block.cu",
                  "replaces": "paddle_tpu/ops/pallas/fused_block.py:494",
@@ -9155,7 +9571,11 @@ def main():
                  **{k: r[k] for k in keys}, "shape": r["shape"],
                  "path": "transformer_infer",
                  "decode_T8": {**{k: r8[k] for k in keys},
-                               "kernel_path": r8["path"]}})
+                               "kernel_path": r8["path"]},
+                 # fp16 (no path runs it: the Transformer cell is bf16)
+                 "fp16": {**{k: r16[k] for k in keys},
+                          "shape": r16["shape"], "kernel_path": r16["path"],
+                          "launches": 0}})
     # the decoder tier: the block at the train shape (bf16), launches from
     # train_decoder's forwards, score_decoder's beside them; the rmsnorm
     # kernel at T=8192 d=4096 bf16 with a residual, launches from
@@ -9188,16 +9608,34 @@ def main():
                        ("multi_tensor_adam",
                         "paddle_tpu/optimizer/optimizers.py:144")):
         r = mt_rows[name]
-        line.append({"name": name, "route": "cuda",
-                     "source": src + "multi_tensor.cu", "replaces": rep_,
-                     "launches": train_launches[name],
-                     **{k: r[k] for k in keys}, "shape": r["shape"],
-                     "path": "train (eager), train_graph (one graph)",
-                     "bitwise": r["bitwise"],
-                     "launches_train_gpt": gpt_launches[name],
-                     "graph_launches_a_replay": {
-                         "train_graph": graph_launches[name],
-                         "train_gpt_graph": gpt_graph_launches[name]}})
+        entry = {"name": name, "route": "cuda",
+                 "source": src + "multi_tensor.cu", "replaces": rep_,
+                 "launches": train_launches[name],
+                 **{k: r[k] for k in keys}, "shape": r["shape"],
+                 "path": "train (eager), train_graph (one graph)",
+                 "bitwise": r["bitwise"],
+                 "launches_train_gpt": gpt_launches[name],
+                 "graph_launches_a_replay": {
+                     "train_graph": graph_launches[name],
+                     "train_gpt_graph": gpt_graph_launches[name]}}
+        if name == "multi_tensor_adam":
+            entry.update({k: r[k] for k in ("bound_share", "tb_per_s")})
+        else:                             # fp16 gradients (no clip on
+            r16 = mt_rows["multi_tensor_norm_fp16"]   # the AMP path)
+            entry["fp16"] = {**{k: r16.get(k) for k in keys},
+                             "shape": r16["shape"], "launches": 0}
+        line.append(entry)
+    # the update in AMP float16 (fp16 params, fp32 masters, fp16 grads):
+    # launches from amp_o2_fp16's steps
+    r = mt_rows["multi_tensor_adam_fp16"]
+    line.append({"name": "multi_tensor_adam_fp16", "route": "cuda",
+                 "source": src + "multi_tensor.cu",
+                 "replaces": "paddle_tpu/optimizer/optimizers.py:144",
+                 "launches": amp_launches["amp_o2_fp16"][
+                     "multi_tensor_adam"].get("float16", 0),
+                 **{k: r[k] for k in keys}, "shape": r["shape"],
+                 "path": "amp_o2_fp16", "bitwise": r["bitwise"],
+                 **{k: r[k] for k in ("bound_share", "tb_per_s")}})
     # the recovery drill's digest (the SDC sentinels' check): the drill's
     # shape, the Train model's beside it; launches from the drill and
     # from both cold-start processes (the weights' digest)

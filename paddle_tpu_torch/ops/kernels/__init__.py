@@ -59,9 +59,11 @@ DECODER_TRAINING = (fused_decoder_block, fused_rmsnorm, fused_rmsnorm_qkv,
 DECODER_SCORING = (fused_decoder_block,)
 NORM = (fused_rmsnorm,)
 # the wrappers that also count their launches by io dtype
-# (`launches_by_dtype`): AMP's O1 sends QKV and the MLP fp32, O2 bf16
+# (`launches_by_dtype`): AMP's O1 sends QKV and the MLP fp32, O2 bf16 or
+# fp16; the update counts under its parameters' dtypes
 BY_DTYPE = (fused_rmsnorm_qkv, fused_mlp, fused_ffn, flash_attention_fwd,
-            flash_attention_bwd_dq, flash_attention_bwd_dkv)
+            flash_attention_bwd_dq, flash_attention_bwd_dkv,
+            multi_tensor_adam)
 
 
 def reset_launch_counts():

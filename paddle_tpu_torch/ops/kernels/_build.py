@@ -41,7 +41,8 @@ __all__ = ["library", "build_all", "ptxas_report", "parse_ptxas", "check",
            "stream_of", "tickets", "workspace", "frozen", "sm_count",
            "charge", "plain", "library_key", "nvcc_version", "nvcc_runs",
            "file_sha256", "verified", "store_library",
-           "DTYPE_CODES", "FP16_ENTRY", "dtype_error", "count_dtype",
+           "DTYPE_CODES", "FP16_CODES", "FP16_ENTRY", "dtype_error",
+           "count_dtype",
            "WEIGHT_CODES", "FLOAT16_CODE", "BUILD_DIR", "GatedDimError",
            "check_static"]
 
@@ -54,13 +55,19 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of the C interface (csrc/common.cuh, enum DType): the io
 # types every kernel takes, the stored types of quantized weights, and
-# float16, which only the cross-entropy kernels take
+# float16
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 WEIGHT_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 FLOAT16_CODE = 4
-# where float16 waits for the kernels that AMP's float16 reaches
-FP16_ENTRY = ("ROADMAP.md, queue 1, item 11: fp16 instantiations of "
-              "flash, QKV, MLP and the CE for AMP float16")
+# the io types of the kernels that AMP's float16 reaches on a training
+# step, which take float16 too: flash at head_dim 128, QKV, the MLP and
+# fused_ffn past 16 rows, the cross-entropy pair and the multi-tensor
+# norm and update
+FP16_CODES = {**DTYPE_CODES, torch.float16: FLOAT16_CODE}
+# where float16 waits for the rest: the serving kernels
+FP16_ENTRY = ("ROADMAP.md, queue 1, item 11: float16 for serving (paged "
+              "decode, the quant matmul, split-K QKV / MLP at 16 rows or "
+              "fewer, rmsnorm, the decoder block, the grouped FFN)")
 
 
 def count_dtype(fn, dtype):
@@ -93,8 +100,8 @@ def dtype_error(what, dtype) -> TypeError:
     """The error of a wrapper given a dtype it has no kernel for: a
     CUDA tensor never takes the plain version instead."""
     if dtype == torch.float16:
-        return TypeError(f"{what}: float16 has no kernel yet ({FP16_ENTRY});"
-                         f" on the card run AMP with dtype='bfloat16'")
+        return TypeError(f"{what}: float16 has no kernel here yet "
+                         f"({FP16_ENTRY}); on the card run it in bfloat16")
     return TypeError(f"{what}: dtype {dtype} not supported (float32, "
                      "bfloat16)")
 

@@ -35,7 +35,7 @@ __all__ = ["cross_entropy_fwd", "cross_entropy_bwd", "ce_fwd_reference",
            "fused_softmax_cross_entropy"]
 
 _NEG_INIT = -1e30     # the TPU kernel's _NEG_INF: the online max's start
-_CODES = {**_build.DTYPE_CODES, torch.float16: _build.FLOAT16_CODE}
+_CODES = _build.FP16_CODES
 
 
 # -- plain versions (the CPU path and the kernels' reference) ---------------

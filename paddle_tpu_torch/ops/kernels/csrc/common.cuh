@@ -10,8 +10,8 @@
 namespace ptt {
 
 // dtype codes of the C interface (ops/kernels/_build.py DTYPE_CODES for
-// the io types, WEIGHT_CODES for quantized weights)
-// (float16: the cross-entropy kernels only)
+// the io types, WEIGHT_CODES for quantized weights; float16: flash, QKV
+// and the MLP past 16 rows, the cross-entropy and multi-tensor kernels)
 enum DType {
   DT_FLOAT32 = 0,
   DT_BFLOAT16 = 1,

@@ -1,18 +1,20 @@
 // Flash attention forward and backward (dq, dk/dv), for Hopper.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-//   `_fwd_kernel` (:71)      -> flash_fwd_hopper (bf16), flash_fwd_tf32x3
-//                               (fp32, flash_tf32x3.cuh)
-//   `_bwd_dq_kernel` (:192)  -> flash_dq_hopper (bf16), flash_dq_kernel
-//                               (fp32)
-//   `_bwd_dkv_kernel` (:242) -> flash_dkv_hopper (bf16), flash_dkv_kernel
-//                               (fp32)
+//   `_fwd_kernel` (:71)      -> flash_fwd_hopper (bf16, fp16),
+//                               flash_fwd_tf32x3 (fp32, flash_tf32x3.cuh)
+//   `_bwd_dq_kernel` (:192)  -> flash_dq_hopper (bf16, fp16),
+//                               flash_dq_kernel (fp32)
+//   `_bwd_dkv_kernel` (:242) -> flash_dkv_hopper (bf16, fp16),
+//                               flash_dkv_kernel (fp32)
 // Inputs keep the API's [batch, seq, heads, head_dim] layout and are read
 // through their row strides (heads * head_dim), so nothing is transposed
 // first as the TPU wrapper does (:529-535).  Query head h reads kv head
 // h / (H / HK): KV is never repeated for GQA.
 //
-// The bf16 kernels are built for this card: one block of three
+// The bf16 kernels are built for this card (fp16 is the same code with
+// the element type a template argument: wgmma's f16 products, TMA's
+// FLOAT16 maps, round-to-nearest half conversions): one block of three
 // warpgroups each, warpgroup 0 the producer (one thread issues TMA loads
 // over 4-d tensor maps of the [b, s, h, d] tensors: boxes of 64 d x 1
 // head x 128 or 64 rows, 128-byte swizzle, rows past s zero-filled, into
@@ -83,14 +85,18 @@
 //   dk/dv    per (key block, kv head, batch), walking every (group head,
 //            q block) pair: dV += P^T dO, dK += dS^T Q over the whole
 //            group.
-// bf16 is built at head_dim 128 (the Llama path); 64 and 256 wait
-// (ROADMAP.md, queue 2, ID 9), and SDPA pads bf16's head_dim 64 to 128.
+// bf16 and fp16 are built at head_dim 128 (the Llama path); 64 and 256
+// wait (ROADMAP.md, queue 2, ID 9), and SDPA pads their head_dim 64 to
+// 128.
 //
 // Precision: the TPU backward takes the P^T dO, dS K and dS^T Q products
-// in fp32 (:277-288).  The bf16 kernels here round P and dS to bf16 for
-// the tensor-core products, as FlashAttention-2 does (accumulation stays
-// fp32).  In fp32 the backward rounds nothing, and the forward's 3xTF32
-// products keep fp32-grade error (flash_tf32x3.cuh).
+// in fp32 (:277-288).  The bf16 kernels here round P and dS to bf16 (the
+// fp16 ones to fp16) for the tensor-core products, as FlashAttention-2
+// does (accumulation stays fp32).  fp16's range: a dS or an output past
+// 65504 rounds to inf, as the plain version's cast does, and nothing
+// clamps it, so a loss scaler sees the overflow.  In fp32 the backward
+// rounds nothing, and the forward's 3xTF32 products keep fp32-grade
+// error (flash_tf32x3.cuh).
 #include "flash_hopper.cuh"
 #include "flash_tf32x3.cuh"
 #include "flash_tile.cuh"
@@ -99,11 +105,10 @@ namespace {
 
 using namespace ptt::flash;
 
-// -- forward, bf16: wgmma, TMA and an mbarrier ring ---------------------------
+// -- forward, bf16 / fp16: wgmma, TMA and an mbarrier ring -------------------
 
 namespace hop {
 
-using bf16 = __nv_bfloat16;
 using namespace ptt::hopper;
 // the forward's constants and product helpers (flash_hopper.cuh)
 using ptt::fwd::BK;
@@ -125,13 +130,15 @@ constexpr size_t SMEM = 1024 + ptt::fwd::BYTES;
 struct Params {
   CUtensorMap q;         // 4-d {d, heads, s, b}, boxes {64, 1, 128, 1}
   CUtensorMap k, v;      // boxes {64, 1, 64, 1}
-  bf16* o;
+  void* o;               // E [b, s, h, d]
   float* lse;
   int S, H, HK, nq;
   float scale2;          // scale * log2 e
   int causal;
 };
 
+// E: the operands' type (bf16 or fp16)
+template <typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_hopper(const __grid_constant__ Params p) {
   extern __shared__ unsigned char smem_raw[];
@@ -156,28 +163,31 @@ flash_fwd_hopper(const __grid_constant__ Params p) {
     return;
   }
   regs_inc<232>();
-  ptt::fwd::consume<false>(r, w, 0, kv, threadIdx.x / 128 - 1, p.S, p.H, p.scale2,
-                    p.causal, p.o, p.lse);
+  ptt::fwd::consume<false>(r, w, 0, kv, threadIdx.x / 128 - 1, p.S, p.H,
+                           p.scale2, p.causal, static_cast<E*>(p.o),
+                           p.lse);
 }
 
-// the tensor map of a [B, S, heads, 128] bf16 tensor, boxes of 64 d x 1
+// the tensor map of a [B, S, heads, 128] tensor of E, boxes of 64 d x 1
 // head x `rows` rows
+template <typename E>
 cudaError_t map_bshd(CUtensorMap* map, const void* base, int B, int S,
                      int heads, int rows) {
   const uint64_t dims[4] = {HD, (uint64_t)heads, (uint64_t)S, (uint64_t)B};
   const uint64_t strides[3] = {HD * 2, (uint64_t)heads * HD * 2,
                                (uint64_t)S * heads * HD * 2};
   const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
-  return ptt::hopper::make_map(map, base, 4, dims, strides, box);
+  return ptt::hopper::make_map<E>(map, base, 4, dims, strides, box);
 }
 
+template <typename E>
 int launch(const ptt::flash::Args& a, int B, cudaStream_t stream) {
   Params p{};
-  cudaError_t e = map_bshd(&p.q, a.q, B, a.S, a.H, BQ);
-  if (e == cudaSuccess) e = map_bshd(&p.k, a.k, B, a.S, a.HK, BK);
-  if (e == cudaSuccess) e = map_bshd(&p.v, a.v, B, a.S, a.HK, BK);
+  cudaError_t e = map_bshd<E>(&p.q, a.q, B, a.S, a.H, BQ);
+  if (e == cudaSuccess) e = map_bshd<E>(&p.k, a.k, B, a.S, a.HK, BK);
+  if (e == cudaSuccess) e = map_bshd<E>(&p.v, a.v, B, a.S, a.HK, BK);
   if (e != cudaSuccess) return (int)e;
-  p.o = static_cast<bf16*>(a.o);
+  p.o = a.o;
   p.lse = a.lse;
   p.S = a.S;
   p.H = a.H;
@@ -185,16 +195,16 @@ int launch(const ptt::flash::Args& a, int B, cudaStream_t stream) {
   p.nq = (a.S + BQ - 1) / BQ;
   p.scale2 = a.scale * 1.4426950408889634f;
   p.causal = a.causal;
-  e = cudaFuncSetAttribute(flash_fwd_hopper,
+  e = cudaFuncSetAttribute(flash_fwd_hopper<E>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * a.H, p.nq);
-  flash_fwd_hopper<<<grid, THREADS, SMEM, stream>>>(p);
+  flash_fwd_hopper<E><<<grid, THREADS, SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// -- backward, bf16: dq and dk/dv on wgmma, TMA and mbarrier rings -----------
+// -- backward, bf16 / fp16: dq and dk/dv on wgmma, TMA and mbarrier rings ----
 
 constexpr int BST = 4;   // ring slots of both backward kernels
 constexpr float LOG2E = 1.4426950408889634f;
@@ -208,7 +218,7 @@ struct BwdParams {
   CUtensorMap k, v;      // boxes of 64 rows (dq), 128 (dk/dv)
   const float* lse;      // [b, h, s], natural log
   const float* delta;    // [b, h, s]
-  bf16 *dq, *dk, *dv;
+  void *dq, *dk, *dv;    // E
   int S, H, HK, ntiles;
   float scale, scale2;   // scale, scale * log2 e
   int causal;
@@ -237,7 +247,9 @@ __device__ __forceinline__ void ds_rows(float (&sc)[32], const float (&dp)[32],
 // One block of three warpgroups per (q tile of 128 rows, query head,
 // batch): warpgroup 0 loads Q and dO once and streams the K and V tiles
 // of each 64-key block through a ring; warpgroups 1 and 2 own 64 query
-// rows each and keep S, dP, dS and dQ in registers.
+// rows each and keep S, dP, dS and dQ in registers.  E: the operands'
+// type (bf16 or fp16).
+template <typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dq_hopper(const __grid_constant__ BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -316,23 +328,23 @@ flash_dq_hopper(const __grid_constant__ BwdParams p) {
 
   // key block 0: S and dP, then dS
   mbar_wait(&kfull[0], 0);
-  issue_qk(sc, Qc, Ks(0));
+  issue_qk<E>(sc, Qc, Ks(0));
   mbar_wait(&vfull[0], 0);
-  issue_qk(dp, Gc, Vs(0));
+  issue_qk<E>(dp, Gc, Vs(0));
   wgmma_wait<0>();
   fence_regs(sc);
   fence_regs(dp);
   ds_rows(sc, dp, lse2, dl, edge(0), 0, q0 + r0, cq, p.scale2, p.scale);
-  to_frags(sc, da);
+  to_frags<E>(sc, da);
   // key block j: S_j, dP_j and dQ += dS_{j-1} K_{j-1} in flight together;
   // dS_j is computed under the dQ product
   for (int j = 1; j < nkc; ++j) {
     const int s = j % BST, sp = (j - 1) % BST;
     mbar_wait(&kfull[s], (j / BST) & 1);
-    issue_qk(sc, Qc, Ks(s));
+    issue_qk<E>(sc, Qc, Ks(s));
     mbar_wait(&vfull[s], (j / BST) & 1);
-    issue_qk(dp, Gc, Vs(s));
-    issue_pv(acc, da, Ks(sp));
+    issue_qk<E>(dp, Gc, Vs(s));
+    issue_pv<E>(acc, da, Ks(sp));
     wgmma_wait<1>();   // S_j and dP_j
     fence_regs(sc);
     fence_regs(dp);
@@ -341,9 +353,9 @@ flash_dq_hopper(const __grid_constant__ BwdParams p) {
     wgmma_wait<0>();   // dQ: block j - 1's slot and da are free
     fence_regs(acc);
     if (lane == 0) mbar_arrive(&empty[sp]);
-    to_frags(sc, da);
+    to_frags<E>(sc, da);
   }
-  issue_pv(acc, da, Ks((nkc - 1) % BST));
+  issue_pv<E>(acc, da, Ks((nkc - 1) % BST));
   wgmma_wait<0>();
   fence_regs(acc);
 
@@ -352,11 +364,11 @@ flash_dq_hopper(const __grid_constant__ BwdParams p) {
     const int row = q0 + r0 + 8 * r;
     if (row >= p.S) continue;
     uint32_t* dg = reinterpret_cast<uint32_t*>(
-        p.dq + (((size_t)b * p.S + row) * p.H + h) * HD);
+        static_cast<E*>(p.dq) + (((size_t)b * p.S + row) * p.H + h) * HD);
 #pragma unroll
     for (int i = 0; i < 16; ++i)
-      dg[(8 * i + cq) / 2] = pack_bf16(acc[4 * i + 2 * r],
-                                       acc[4 * i + 2 * r + 1]);
+      dg[(8 * i + cq) / 2] = Elem<E>::pack(acc[4 * i + 2 * r],
+                                           acc[4 * i + 2 * r + 1]);
   }
 }
 
@@ -365,7 +377,8 @@ flash_dq_hopper(const __grid_constant__ BwdParams p) {
 // streams (Q, dO, lse, delta) of every (group head, q block of 64 rows)
 // pair through a ring; warpgroups 1 and 2 own 64 key rows each and keep
 // S^T, dP^T, P^T, dS^T, dK and dV in registers.  The GQA sum stays in
-// the block: no atomics, one order.
+// the block: no atomics, one order.  E: the operands' type.
+template <typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_hopper(const __grid_constant__ BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -446,9 +459,9 @@ flash_dkv_hopper(const __grid_constant__ BwdParams p) {
       continue;
     }
     const bool edge = p.causal && k0 + 64 * c + 63 > q0;
-    issue_qk(sc, Kc, Qb(s));   // S^T = K Q^T
+    issue_qk<E>(sc, Kc, Qb(s));   // S^T = K Q^T
     mbar_wait(&gfull[s], ph);
-    issue_qk(dp, Vc, Gb(s));   // dP^T = V dO^T
+    issue_qk<E>(dp, Vc, Gb(s));   // dP^T = V dO^T
     wgmma_wait<1>();
     fence_regs(sc);
     // P^T = 2^(S^T scale2 - lse2) with lse per column (query), from the
@@ -466,8 +479,8 @@ flash_dkv_hopper(const __grid_constant__ BwdParams p) {
         sc[4 * n + e] = pe;
       }
     }
-    to_frags(sc, pa);
-    issue_pv(dv, pa, Gb(s));   // dV += P^T dO
+    to_frags<E>(sc, pa);
+    issue_pv<E>(dv, pa, Gb(s));   // dV += P^T dO
     wgmma_wait<1>();           // dP^T
     fence_regs(dp);
 #pragma unroll
@@ -480,8 +493,8 @@ flash_dkv_hopper(const __grid_constant__ BwdParams p) {
         dp[4 * n + e] = sc[4 * n + e] * (dp[4 * n + e] - de) * p.scale;
       }
     }
-    to_frags(dp, da);
-    issue_pv(dk, da, Qb(s));   // dK += dS^T Q
+    to_frags<E>(dp, da);
+    issue_pv<E>(dk, da, Qb(s));   // dK += dS^T Q
     wgmma_wait<0>();           // the slot is free
     fence_regs(dv);
     fence_regs(dk);
@@ -493,32 +506,33 @@ flash_dkv_hopper(const __grid_constant__ BwdParams p) {
     const int row = key + 8 * r;
     if (row >= p.S) continue;
     const size_t o = (((size_t)b * p.S + row) * p.HK + kh) * HD;
-    uint32_t* kg = reinterpret_cast<uint32_t*>(p.dk + o);
-    uint32_t* vg = reinterpret_cast<uint32_t*>(p.dv + o);
+    uint32_t* kg = reinterpret_cast<uint32_t*>(static_cast<E*>(p.dk) + o);
+    uint32_t* vg = reinterpret_cast<uint32_t*>(static_cast<E*>(p.dv) + o);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int a = 4 * i + 2 * r;
-      kg[(8 * i + cq) / 2] = pack_bf16(dk[a], dk[a + 1]);
-      vg[(8 * i + cq) / 2] = pack_bf16(dv[a], dv[a + 1]);
+      kg[(8 * i + cq) / 2] = Elem<E>::pack(dk[a], dk[a + 1]);
+      vg[(8 * i + cq) / 2] = Elem<E>::pack(dv[a], dv[a + 1]);
     }
   }
 }
 
-// dq (dkv = 0) or dk/dv (dkv = 1) of a bf16 backward
+// dq (dkv = 0) or dk/dv (dkv = 1) of a bf16 or fp16 (E) backward
+template <typename E>
 int launch_bwd(const ptt::flash::Args& a, int B, int dkv,
                cudaStream_t stream) {
   BwdParams p{};
   const int qrows = dkv ? 64 : BQ, krows = dkv ? BQ : BK;
-  cudaError_t e = map_bshd(&p.q, a.q, B, a.S, a.H, qrows);
-  if (e == cudaSuccess) e = map_bshd(&p.g, a.dout, B, a.S, a.H, qrows);
-  if (e == cudaSuccess) e = map_bshd(&p.k, a.k, B, a.S, a.HK, krows);
-  if (e == cudaSuccess) e = map_bshd(&p.v, a.v, B, a.S, a.HK, krows);
+  cudaError_t e = map_bshd<E>(&p.q, a.q, B, a.S, a.H, qrows);
+  if (e == cudaSuccess) e = map_bshd<E>(&p.g, a.dout, B, a.S, a.H, qrows);
+  if (e == cudaSuccess) e = map_bshd<E>(&p.k, a.k, B, a.S, a.HK, krows);
+  if (e == cudaSuccess) e = map_bshd<E>(&p.v, a.v, B, a.S, a.HK, krows);
   if (e != cudaSuccess) return (int)e;
   p.lse = a.lse;
   p.delta = a.delta;
-  p.dq = static_cast<bf16*>(a.dq);
-  p.dk = static_cast<bf16*>(a.dk);
-  p.dv = static_cast<bf16*>(a.dv);
+  p.dq = a.dq;
+  p.dk = a.dk;
+  p.dv = a.dv;
   p.S = a.S;
   p.H = a.H;
   p.HK = a.HK;
@@ -526,7 +540,7 @@ int launch_bwd(const ptt::flash::Args& a, int B, int dkv,
   p.scale = a.scale;
   p.scale2 = a.scale * LOG2E;
   p.causal = a.causal;
-  auto kern = dkv ? flash_dkv_hopper : flash_dq_hopper;
+  auto kern = dkv ? flash_dkv_hopper<E> : flash_dq_hopper<E>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)BWD_SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -720,9 +734,9 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// every block size divides 64; bf16 is instantiated at head_dim 128, fp32
-// at 64 and 128; the fp32 forward takes a workspace for its split
-// operands (work_floats values)
+// every block size divides 64; bf16 and fp16 are instantiated at head_dim
+// 128, fp32 at 64 and 128; the fp32 forward takes a workspace for its
+// split operands (work_floats values)
 template <int W>
 int dispatch(int dtype, const Args& a, int B, int D, void* stream,
              float* work = nullptr, long long work_floats = 0) {
@@ -730,8 +744,12 @@ int dispatch(int dtype, const Args& a, int B, int D, void* stream,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::DT_BFLOAT16 && D == 128) {
-    if constexpr (W == FWD) return hop::launch(a, B, s);
-    else return hop::launch_bwd(a, B, W == DKV, s);
+    if constexpr (W == FWD) return hop::launch<__nv_bfloat16>(a, B, s);
+    else return hop::launch_bwd<__nv_bfloat16>(a, B, W == DKV, s);
+  }
+  if (dtype == ptt::DT_FLOAT16 && D == 128) {
+    if constexpr (W == FWD) return hop::launch<__half>(a, B, s);
+    else return hop::launch_bwd<__half>(a, B, W == DKV, s);
   }
   if (dtype == ptt::DT_FLOAT32 && (D == 64 || D == 128)) {
     if constexpr (W == FWD)

@@ -1,9 +1,9 @@
-// The bf16 flash forward on wgmma, TMA and an mbarrier ring, as device
-// functions for one work item (a q tile of 128 rows of one query head of
-// one batch row): flash_attention.cu's flash_fwd_hopper runs one item a
-// block, fused_decoder.cu's block kernel walks many items a block in its
-// attention phase.  flash_attention.cu's backward kernels share the
-// constants and the product helpers.
+// The bf16 (and fp16) flash forward on wgmma, TMA and an mbarrier ring,
+// as device functions for one work item (a q tile of 128 rows of one
+// query head of one batch row): flash_attention.cu's flash_fwd_hopper
+// runs one item a block, fused_decoder.cu's block kernel walks many
+// items a block in its attention phase.  flash_attention.cu's backward
+// kernels share the constants and the product helpers.
 //
 // An item: Q once (128 rows, two 64-column chunks), K and V of each
 // 64-key block through a ring of ST slots (separate mbarriers, so S = Q
@@ -51,7 +51,8 @@ __device__ __forceinline__ float ex2(float x) {
 
 // S = A B^T for a consumer's 64 rows of a 128-row tile (A: Q, dO, K or V)
 // and a 64-row tile (B: K, V, Q or dO), reduced over d; zeroed, issued and
-// committed as one wgmma group
+// committed as one wgmma group.  E: the operands' type (bf16 or fp16).
+template <typename E = bf16>
 __device__ __forceinline__ void issue_qk(float (&sc)[32],
                                          const unsigned char* Qc,
                                          const unsigned char* Kt) {
@@ -62,13 +63,14 @@ __device__ __forceinline__ void issue_qk(float (&sc)[32],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_ss_n64<0>(sc, desc_kmajor(Qc + (kk / 4) * QCHUNK + (kk % 4) * 32),
+    wgmma_ss_n64<0, E>(sc, desc_kmajor(Qc + (kk / 4) * QCHUNK + (kk % 4) * 32),
                     desc_kmajor(Kt + (kk / 4) * KCHUNK + (kk % 4) * 32));
   wgmma_commit();
 }
 
 // O += P V for a 64-row tile read MN-major (V; K for dQ, dO for dV, Q for
 // dK), P as wgmma's A fragments (P; dS, P^T, dS^T): one wgmma group
+template <typename E = bf16>
 __device__ __forceinline__ void issue_pv(float (&o)[64],
                                          const uint32_t (&pa)[4][4],
                                          const unsigned char* Vt) {
@@ -77,7 +79,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[64],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs_n128<1>(o, pa[kk], desc_mnmajor(Vt + kk * 2048, KCHUNK));
+    wgmma_rs_n128<1, E>(o, pa[kk], desc_mnmajor(Vt + kk * 2048, KCHUNK));
   wgmma_commit();
 }
 
@@ -125,17 +127,18 @@ __device__ __forceinline__ void softmax(float (&sc)[N], float (&m)[2],
     }
 }
 
-// P in V's type as wgmma's A fragments: k16 step kk is the n8 blocks
+// P in V's type E as wgmma's A fragments: k16 step kk is the n8 blocks
 // 2 kk and 2 kk + 1 of S
+template <typename E = bf16>
 __device__ __forceinline__ void to_frags(const float (&sc)[32],
                                          uint32_t (&pa)[4][4]) {
-  using ptt::hopper::pack_bf16;
+  using X = ptt::hopper::Elem<E>;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    pa[kk][0] = X::pack(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = X::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = X::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = X::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
   }
 }
 
@@ -211,11 +214,12 @@ __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* q,
 
 // Consumer warpgroup c (0, 1: rows 64 c .. of the tile) of one item, the
 // n-th of this block, kv the running key-block count: out [B, S, H, HD]
-// bf16 rows below S, lse [B, H, S] (natural log) unless null.
-template <bool WALK>
+// in the operands' type E (bf16 or fp16) rows below S, lse [B, H, S]
+// (natural log) unless null.
+template <bool WALK, typename E = bf16>
 __device__ __forceinline__ void consume(const Ring& r, const Item& w, int n,
                                         int& kv, int c, int S, int H,
-                                        float scale2, bool causal, bf16* out,
+                                        float scale2, bool causal, E* out,
                                         float* lse) {
   using namespace ptt::hopper;
   const int t = threadIdx.x % 128, lane = t % 32;
@@ -234,20 +238,20 @@ __device__ __forceinline__ void consume(const Ring& r, const Item& w, int n,
 
   // key block 0: S, then its softmax
   mbar_wait(&r.kfull[kv % ST], (kv / ST) & 1);
-  issue_qk(sc, Qc, r.k(kv % ST));
+  issue_qk<E>(sc, Qc, r.k(kv % ST));
   wgmma_wait<0>();
   fence_regs(sc);
   if (WALK && nk == 1 && lane == 0) mbar_arrive(r.qempty);   // Q's last read
   softmax(sc, m, l, corr, edge(0), 0, q0 + r0, cq, scale2);
-  to_frags(sc, pa);
+  to_frags<E>(sc, pa);
   // key block j: S_j = Q K_j^T and O += P_{j-1} V_{j-1} in flight
   // together; the softmax of S_j runs under the P V product
   for (int j = 1; j < nk; ++j) {
     const int s = (kv + j) % ST, sp = (kv + j - 1) % ST;
     mbar_wait(&r.kfull[s], ((kv + j) / ST) & 1);
-    issue_qk(sc, Qc, r.k(s));
+    issue_qk<E>(sc, Qc, r.k(s));
     mbar_wait(&r.vfull[sp], ((kv + j - 1) / ST) & 1);
-    issue_pv(o, pa, r.v(sp));
+    issue_pv<E>(o, pa, r.v(sp));
     wgmma_wait<1>();   // S_j
     fence_regs(sc);
     if (WALK && j == nk - 1 && lane == 0) mbar_arrive(r.qempty);
@@ -257,17 +261,17 @@ __device__ __forceinline__ void consume(const Ring& r, const Item& w, int n,
     if (lane == 0) mbar_arrive(&r.empty[sp]);
 #pragma unroll
     for (int i = 0; i < 64; ++i) o[i] *= corr[(i >> 1) & 1];
-    to_frags(sc, pa);
+    to_frags<E>(sc, pa);
   }
   const int sl = (kv + nk - 1) % ST;
   mbar_wait(&r.vfull[sl], ((kv + nk - 1) / ST) & 1);
-  issue_pv(o, pa, r.v(sl));
+  issue_pv<E>(o, pa, r.v(sl));
   wgmma_wait<0>();
   fence_regs(o);
   if (WALK && lane == 0) mbar_arrive(&r.empty[sl]);
   kv += nk;
 
-  // out = O / l in bf16; lse in natural log
+  // out = O / l in E; lse in natural log
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
@@ -282,8 +286,8 @@ __device__ __forceinline__ void consume(const Ring& r, const Item& w, int n,
         out + (((size_t)w.b * S + row) * H + w.h) * HD);
 #pragma unroll
     for (int i = 0; i < 16; ++i)
-      og[(8 * i + cq) / 2] = pack_bf16(o[4 * i + 2 * rr] / safe_l,
-                                       o[4 * i + 2 * rr + 1] / safe_l);
+      og[(8 * i + cq) / 2] = Elem<E>::pack(o[4 * i + 2 * rr] / safe_l,
+                                           o[4 * i + 2 * rr + 1] / safe_l);
     if (lane % 4 == 0 && lse != nullptr)
       lse[((size_t)w.b * H + w.h) * S + row] =
           (m[rr] + log2f(safe_l)) * 0.69314718055994531f;

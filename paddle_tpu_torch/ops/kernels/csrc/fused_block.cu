@@ -151,6 +151,15 @@
 // tiles walked in bands of 4 row tiles (kTf32Band: the split A rows are
 // twice bf16's bytes twice over, and a band of 16 outgrew L2).
 //
+// fp16 (AMP float16) at T > 16 runs the bf16 designs above with the
+// element type a template argument (qkv_hopper<E>, mlp_hopper_pair<E>:
+// the row pass in E, wgmma's f16 products, TMA's FLOAT16 maps, the
+// epilogue's one round-to-nearest cast).  A value past 65504 (h =
+// silu(g) u under a large activation, say) becomes inf as JAX's
+// astype(float16) makes it: nothing saturates.  fp16 at T <= 16 (decode
+// rows: split-K, and the training variant's tile) has no kernel and the
+// wrapper raises (ROADMAP.md, queue 1, item 11).
+//
 #include "gemm_tile.cuh"
 #include "hopper_gemm.cuh"
 #include "rmsnorm_row.cuh"
@@ -183,7 +192,7 @@ int launch_bm(const GemmArgs& g, int ncols, cudaStream_t stream) {
 template <typename T, int MODE>
 int launch_t(const GemmArgs& g, int ncols, cudaStream_t stream) {
   // decode-sized row counts take one 16-row wmma tile; longer chunks 64
-  // (bf16 past 16 rows is qkv_hopper's and mlp_hopper's)
+  // (bf16 and fp16 past 16 rows are qkv_hopper's and mlp_hopper's)
   if (g.T <= 16) return launch_bm<T, 16, MODE>(g, ncols, stream);
   if constexpr (sizeof(T) == 2)
     return (int)cudaErrorInvalidValue;
@@ -230,13 +239,14 @@ qkv_rows_kernel(const T* x, const T* wn, T* xn, float* inv, float* hi,
 
 struct QkvParams {
   CUtensorMap xn, wq, wk, wv;   // A, and B of each column part
-  bf16* out[3];                 // q, k, v
+  void* out[3];                 // q, k, v (E)
   int n[3];                     // dq, dkv, dkv
   int tiles[3];                 // column tiles of each part
   int T, K, row_tiles;
 };
 
-template <int NC, int BN>
+// E: the operands' type (bf16 or fp16)
+template <typename E, int NC, int BN>
 __global__ void __launch_bounds__(128 * (NC + 1), NC == 2 ? 1 : 2)
 qkv_gemm_kernel(const __grid_constant__ QkvParams p) {
   using namespace ptt::hopper;
@@ -260,12 +270,12 @@ qkv_gemm_kernel(const __grid_constant__ QkvParams p) {
   if constexpr (NC == 2) regs_inc<232>();
   const int c = threadIdx.x / 128 - 1;
   float acc[BN / 2];
-  gemm_consume(ring, p.K, c, acc);
-  // epilogue: one cast, bf16 pairs from the fragment, masked past T and
-  // past the part's width
+  gemm_consume<E>(ring, p.K, c, acc);
+  // epilogue: one cast, E pairs from the fragment, masked past T and past
+  // the part's width
   const int t = threadIdx.x % 128, lane = t % 32;
   const int n = p.n[part];
-  bf16* out = p.out[part];
+  E* out = static_cast<E*>(p.out[part]);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = m0 + 64 * c + 16 * (t / 32) + lane / 4 + 8 * hh;
@@ -276,30 +286,31 @@ qkv_gemm_kernel(const __grid_constant__ QkvParams p) {
       const int col = n0 + 8 * i + 2 * (lane % 4);
       if (col < n)
         orow[col / 2] =
-            pack_bf16(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
+            Elem<E>::pack(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
     }
   }
 }
 
-template <int NC, int BN>
+template <typename E, int NC, int BN>
 int launch_qkv_gemm(QkvParams& p, const void* xn, const void* const w[3],
                     cudaStream_t stream) {
   using P = ptt::hopper::GemmPlan<NC, BN, kStages>;
   const uint64_t adims[2] = {(uint64_t)p.K, (uint64_t)p.T};
   const uint64_t astride[1] = {(uint64_t)p.K * 2};
   const uint32_t abox[2] = {64, (uint32_t)P::BM};
-  cudaError_t e = ptt::hopper::make_map(&p.xn, xn, 2, adims, astride, abox);
+  cudaError_t e =
+      ptt::hopper::make_map<E>(&p.xn, xn, 2, adims, astride, abox);
   CUtensorMap* maps[3] = {&p.wq, &p.wk, &p.wv};
   for (int i = 0; i < 3 && e == cudaSuccess; ++i) {
     const uint64_t dims[2] = {(uint64_t)p.n[i], (uint64_t)p.K};
     const uint64_t stride[1] = {(uint64_t)p.n[i] * 2};
     const uint32_t box[2] = {64, 64};
-    e = ptt::hopper::make_map(maps[i], w[i], 2, dims, stride, box);
+    e = ptt::hopper::make_map<E>(maps[i], w[i], 2, dims, stride, box);
     p.tiles[i] = (p.n[i] + BN - 1) / BN;
   }
   if (e != cudaSuccess) return (int)e;
   p.row_tiles = (p.T + P::BM - 1) / P::BM;
-  auto kern = qkv_gemm_kernel<NC, BN>;
+  auto kern = qkv_gemm_kernel<E, NC, BN>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)P::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -308,20 +319,22 @@ int launch_qkv_gemm(QkvParams& p, const void* xn, const void* const w[3],
   return (int)cudaGetLastError();
 }
 
+// E: bf16 or fp16, every operand (the norm weight too)
+template <typename E>
 int qkv_hopper(const void* x, const void* wn, const void* const w[3],
                void* const out[3], void* xn, void* inv, int T, int d, int dq,
                int dkv, float eps, cudaStream_t stream) {
   if (xn == nullptr || d % 64 != 0) return (int)cudaErrorInvalidValue;
   constexpr int ROWS = ptt::norm::ROWS;
-  qkv_rows_kernel<bf16, false>
+  qkv_rows_kernel<E, false>
       <<<(T + ROWS - 1) / ROWS, ptt::norm::NT, 0, stream>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(wn),
-          static_cast<bf16*>(xn), static_cast<float*>(inv), nullptr,
-          nullptr, T, d, eps);
+          static_cast<const E*>(x), static_cast<const E*>(wn),
+          static_cast<E*>(xn), static_cast<float*>(inv), nullptr, nullptr,
+          T, d, eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   QkvParams p{};
-  for (int i = 0; i < 3; ++i) p.out[i] = static_cast<bf16*>(out[i]);
+  for (int i = 0; i < 3; ++i) p.out[i] = out[i];
   p.n[0] = dq;
   p.n[1] = p.n[2] = dkv;
   p.T = T;
@@ -331,8 +344,8 @@ int qkv_hopper(const void* x, const void* wn, const void* const w[3],
   const int big =
       (T + 127) / 128 * ((dq + 255) / 256 + 2 * ((dkv + 255) / 256));
   if (big >= 2 * ptt::hopper::sm_count())
-    return launch_qkv_gemm<2, 256>(p, xn, w, stream);
-  return launch_qkv_gemm<1, 128>(p, xn, w, stream);
+    return launch_qkv_gemm<E, 2, 256>(p, xn, w, stream);
+  return launch_qkv_gemm<E, 1, 128>(p, xn, w, stream);
 }
 
 // -- RMSNorm+QKV at T <= 16 in bf16: split-K --------------------------------
@@ -858,8 +871,8 @@ int mlp_splitk(const void* x, const void* w0, const void* w1,
 
 struct MlpParams {
   CUtensorMap a, b0, b1;   // A; B (the gate, or the one weight); the up
-  bf16* out;               // [T, N]
-  const bf16* bias;        // FFN_UP: b1 [N]; PLAIN: b [N] or null
+  void* out;               // [T, N], E
+  const void* bias;        // E; FFN_UP: b1 [N]; PLAIN: b [N] or null
   int T, K, N, row_tiles, col_tiles;
 };
 
@@ -871,8 +884,8 @@ struct MlpParams {
 // the next tile while the consumers store this one.  FFN_UP's activation
 // is a template argument: with all three inlined into the unrolled
 // epilogue, the relu kernel ran several times slower than the plain
-// product.
-template <int NC, int BN, int MODE, int ACT>
+// product.  E: the operands' type (bf16 or fp16).
+template <typename E, int NC, int BN, int MODE, int ACT>
 __global__ void __launch_bounds__(128 * (NC + 1),
                                   NC == 1 && MODE != MODE_GATEUP ? 2 : 1)
 mlp_gemm_kernel(const __grid_constant__ MlpParams p) {
@@ -905,14 +918,15 @@ mlp_gemm_kernel(const __grid_constant__ MlpParams p) {
   float acc1[NB == 2 ? BN / 2 : 1];
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     origin(t, m0, n0);
-    gemm_consume(ring, p.K, c, acc, acc1, it);
-    // epilogue: fp32 values, one cast, bf16 pairs from the fragment,
-    // masked past T and past N
+    gemm_consume<E>(ring, p.K, c, acc, acc1, it);
+    // epilogue: fp32 values, one cast, E pairs from the fragment, masked
+    // past T and past N
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = m0 + 64 * c + 16 * w + lane / 4 + 8 * hh;
       if (row >= p.T) continue;
-      uint32_t* orow = reinterpret_cast<uint32_t*>(p.out + (size_t)row * p.N);
+      uint32_t* orow = reinterpret_cast<uint32_t*>(static_cast<E*>(p.out) +
+                                                   (size_t)row * p.N);
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) {
         const int col = n0 + 8 * i + 2 * (lane % 4);
@@ -925,17 +939,18 @@ mlp_gemm_kernel(const __grid_constant__ MlpParams p) {
             const float sg = 1.f / (1.f + expf(-v[e]));
             v[e] = (v[e] * sg) * acc1[NB == 2 ? 4 * i + 2 * hh + e : 0];
           } else {
-            if (p.bias != nullptr) v[e] += __bfloat162float(p.bias[col + e]);
+            if (p.bias != nullptr)
+              v[e] += Elem<E>::to(static_cast<const E*>(p.bias)[col + e]);
             if constexpr (MODE == MODE_FFN_UP) v[e] = activate(v[e], ACT);
           }
         }
-        orow[col / 2] = ptt::hopper::pack_bf16(v[0], v[1]);
+        orow[col / 2] = Elem<E>::pack(v[0], v[1]);
       }
     }
   }
 }
 
-template <int NC, int BN, int MODE, int ACT>
+template <typename E, int NC, int BN, int MODE, int ACT>
 int launch_mlp_gemm(MlpParams& p, const void* a, const void* b0,
                     const void* b1, cudaStream_t stream) {
   constexpr int NB = MODE == MODE_GATEUP ? 2 : 1;
@@ -943,18 +958,18 @@ int launch_mlp_gemm(MlpParams& p, const void* a, const void* b0,
   const uint64_t adims[2] = {(uint64_t)p.K, (uint64_t)p.T};
   const uint64_t astride[1] = {(uint64_t)p.K * 2};
   const uint32_t abox[2] = {64, (uint32_t)P::BM};
-  cudaError_t e = ptt::hopper::make_map(&p.a, a, 2, adims, astride, abox);
+  cudaError_t e = ptt::hopper::make_map<E>(&p.a, a, 2, adims, astride, abox);
   const uint64_t bdims[2] = {(uint64_t)p.N, (uint64_t)p.K};
   const uint64_t bstride[1] = {(uint64_t)p.N * 2};
   const uint32_t bbox[2] = {64, 64};
   if (e == cudaSuccess)
-    e = ptt::hopper::make_map(&p.b0, b0, 2, bdims, bstride, bbox);
+    e = ptt::hopper::make_map<E>(&p.b0, b0, 2, bdims, bstride, bbox);
   if (e == cudaSuccess && NB == 2)
-    e = ptt::hopper::make_map(&p.b1, b1, 2, bdims, bstride, bbox);
+    e = ptt::hopper::make_map<E>(&p.b1, b1, 2, bdims, bstride, bbox);
   if (e != cudaSuccess) return (int)e;
   p.row_tiles = (p.T + P::BM - 1) / P::BM;
   p.col_tiles = (p.N + BN - 1) / BN;
-  auto kern = mlp_gemm_kernel<NC, BN, MODE, ACT>;
+  auto kern = mlp_gemm_kernel<E, NC, BN, MODE, ACT>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)P::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -972,25 +987,46 @@ int launch_mlp_gemm(MlpParams& p, const void* a, const void* b0,
 // weight) where every SM gets two tiles; else 128 x 128 where every SM
 // gets one; else 64 x 128 (a down product of few columns at a 256-row
 // chunk: 128 tiles), so a chunk bound by the weight bytes still spreads
-// over the card.
-template <int MODE, int ACT>
+// over the card.  E: bf16 or fp16, every operand.
+template <typename E, int MODE, int ACT>
 int mlp_hopper(const void* a, const void* b0, const void* b1,
                const void* bias, void* out, int T, int K, int N,
                cudaStream_t stream) {
   if (K % 64 != 0 || N % 64 != 0) return (int)cudaErrorInvalidValue;
   MlpParams p{};
-  p.out = static_cast<bf16*>(out);
-  p.bias = static_cast<const bf16*>(bias);
+  p.out = out;
+  p.bias = bias;
   p.T = T;
   p.K = K;
   p.N = N;
   constexpr int WIDE = MODE == MODE_GATEUP ? 128 : 256;
   const int rows = (T + 127) / 128, sms = ptt::hopper::sm_count();
   if (rows * ((N + WIDE - 1) / WIDE) >= 2 * sms)
-    return launch_mlp_gemm<2, WIDE, MODE, ACT>(p, a, b0, b1, stream);
+    return launch_mlp_gemm<E, 2, WIDE, MODE, ACT>(p, a, b0, b1, stream);
   if (rows * ((N + 127) / 128) >= sms)
-    return launch_mlp_gemm<2, 128, MODE, ACT>(p, a, b0, b1, stream);
-  return launch_mlp_gemm<1, 128, MODE, ACT>(p, a, b0, b1, stream);
+    return launch_mlp_gemm<E, 2, 128, MODE, ACT>(p, a, b0, b1, stream);
+  return launch_mlp_gemm<E, 1, 128, MODE, ACT>(p, a, b0, b1, stream);
+}
+
+// both products of the MLP (gated: wu non-null) or of fused_ffn (act) at
+// T > 16 on the ring, h [T, f] between them, in E
+template <typename E>
+int mlp_hopper_pair(int act, const void* x, const void* w1, const void* wu,
+                    const void* w2, const void* b1, const void* b2, void* h,
+                    void* y, int T, int d, int f, cudaStream_t s) {
+  int e = wu != nullptr
+      ? mlp_hopper<E, MODE_GATEUP, 0>(x, w1, wu, nullptr, h, T, d, f, s)
+      : act == ACT_RELU
+          ? mlp_hopper<E, MODE_FFN_UP, ACT_RELU>(x, w1, nullptr, b1, h, T,
+                                                 d, f, s)
+      : act == ACT_GELU
+          ? mlp_hopper<E, MODE_FFN_UP, ACT_GELU>(x, w1, nullptr, b1, h, T,
+                                                 d, f, s)
+          : mlp_hopper<E, MODE_FFN_UP, ACT_SILU>(x, w1, nullptr, b1, h, T,
+                                                 d, f, s);
+  if (e == 0)
+    e = mlp_hopper<E, MODE_PLAIN, 0>(h, w2, nullptr, b2, y, T, f, d, s);
+  return e;
 }
 
 // -- fp32 at T > 16: 3xTF32 on wgmma (tf32x3.cuh) ----------------------------
@@ -1480,8 +1516,8 @@ int ptt_qkv_splits(int dtype, int T, int d, int dq, int dkv, int train) {
 // q, k, v = (rmsnorm(x) * wn) @ (wq | wk | wv); x [T, d], wq [d, dq],
 // wk/wv [d, dkv]; outputs row-major [T, dq], [T, dkv], [T, dkv].  With
 // non-null xn [T, d] (x's type) and inv [T] (fp32) the training variant
-// also writes the normalised rows and the inverse RMS.  bf16 at T >= 17
-// needs xn in both variants (the forward variant's is a workspace) and
+// also writes the normalised rows and the inverse RMS.  bf16 and fp16 at
+// T >= 17 need xn in both variants (the forward variant's is a workspace) and
 // runs two launches on `stream`: the row pass, then the wgmma GEMM.  The
 // forward variant in bf16 at T <= 16 (xn its workspace, inv null) is the
 // row pass, then split-K: ws and tickets are its workspace
@@ -1504,13 +1540,18 @@ int ptt_rmsnorm_qkv(int dtype, const void* x, const void* wn, const void* wq,
         qkv_tf32x3(x, wn, w, out, xn, inv, ws, T, d, dq, dkv, eps, s),
         design, ptt::DESIGN_TF32X3);
   }
-  if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT) {
+  if ((dtype == ptt::DT_BFLOAT16 || dtype == ptt::DT_FLOAT16) &&
+      T >= kRowPassMinT) {
     // the row pass, then the GEMM; xn is the training variant's output or
     // the forward variant's workspace, inv null in the forward variant
     if (dq % 64 != 0 || dkv % 64 != 0) return (int)cudaErrorInvalidValue;
     return ptt::launched(
-        qkv_hopper(x, wn, w, out, xn, inv, T, d, dq, dkv, eps, s), design,
-        ptt::DESIGN_WGMMA);
+        dtype == ptt::DT_FLOAT16
+            ? qkv_hopper<__half>(x, wn, w, out, xn, inv, T, d, dq, dkv, eps,
+                                 s)
+            : qkv_hopper<bf16>(x, wn, w, out, xn, inv, T, d, dq, dkv, eps,
+                               s),
+        design, ptt::DESIGN_WGMMA);
   }
   if (dtype == ptt::DT_BFLOAT16 && T > 0 && T <= kSplitKMaxT &&
       xn != nullptr && inv == nullptr) {
@@ -1534,10 +1575,11 @@ int ptt_rmsnorm_qkv(int dtype, const void* x, const void* wn, const void* wq,
 // [d, f], w2 [f, d], y [T, d].  Two launches on `stream` with h [T, f]
 // between them: the epilogue of the first (the gate's activation times
 // the up, or the bias and activation) applied to fp32 sums, cast once to
-// the io type.  bf16 at T >= kRowPassMinT runs the wgmma ring, bf16 at T
-// <= kSplitKMaxT split-K (ws: ws_floats fp32 values, at least the larger
-// launch's splits * NB * ceil(N / 256) * 256 * NTOK by mlp_splits, NB = 2
-// for the gated gate/up, NTOK = 8 at T <= 8, else 16, refused if fewer;
+// the io type.  bf16 and fp16 at T >= kRowPassMinT run the wgmma ring,
+// bf16 at T <= kSplitKMaxT split-K (ws: ws_floats fp32 values, at least
+// the larger launch's splits * NB * ceil(N / 256) * 256 * NTOK by
+// mlp_splits, NB = 2 for the gated gate/up, NTOK = 8 at T <= 8, else 16,
+// refused if fewer;
 // tickets: as many as the wider product's 256-column tiles, zero before
 // the call and again after it), fp32 at T >= kRowPassMinT 3xTF32 (ws:
 // ws_floats fp32 values, at least mlp_tf32x3_floats, refused if fewer; h
@@ -1554,18 +1596,13 @@ int ptt_mlp(int dtype, int act, const void* x, const void* w1,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e, used;
-  if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT) {
-    e = gated ? mlp_hopper<MODE_GATEUP, 0>(x, w1, wu, nullptr, h, T, d, f, s)
-        : act == ACT_RELU
-            ? mlp_hopper<MODE_FFN_UP, ACT_RELU>(x, w1, nullptr, b1, h, T, d,
-                                                f, s)
-        : act == ACT_GELU
-            ? mlp_hopper<MODE_FFN_UP, ACT_GELU>(x, w1, nullptr, b1, h, T, d,
-                                                f, s)
-            : mlp_hopper<MODE_FFN_UP, ACT_SILU>(x, w1, nullptr, b1, h, T, d,
-                                                f, s);
-    if (e == 0)
-      e = mlp_hopper<MODE_PLAIN, 0>(h, w2, nullptr, b2, y, T, f, d, s);
+  if ((dtype == ptt::DT_BFLOAT16 || dtype == ptt::DT_FLOAT16) &&
+      T >= kRowPassMinT) {
+    e = dtype == ptt::DT_FLOAT16
+            ? mlp_hopper_pair<__half>(act, x, w1, wu, w2, b1, b2, h, y, T, d,
+                                      f, s)
+            : mlp_hopper_pair<bf16>(act, x, w1, wu, w2, b1, b2, h, y, T, d,
+                                    f, s);
     used = ptt::DESIGN_WGMMA;
   } else if (dtype == ptt::DT_BFLOAT16 && T <= kSplitKMaxT) {
     // the down product a dependent of the first: it streams its weight

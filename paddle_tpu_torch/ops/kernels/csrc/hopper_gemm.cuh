@@ -1,21 +1,22 @@
 // C = A . B on wgmma, fed by TMA through an mbarrier ring: the GEMM of the
 // port's Hopper kernels, as device functions that a kernel calls for one
 // output tile (csrc/hopper.cuh has the PTX pieces and the tile layouts).
-// fused_block.cu runs it for bf16 at T > 16: the RMSNorm+QKV projection,
-// the MLP's gate/up (two B operands a slot), fused_ffn's up and the down
-// product of both; grouped_matmul.cu for the grouped expert FFN's two
-// products in bf16 (3-d maps, a group and an expert a tile); fused_decoder.cu
-// for the four GEMM phases of the bf16 decoder block (one ring for all).
+// fused_block.cu runs it for bf16 and fp16 at T > 16: the RMSNorm+QKV
+// projection, the MLP's gate/up (two B operands a slot), fused_ffn's up
+// and the down product of both; grouped_matmul.cu for the grouped expert
+// FFN's two products in bf16 (3-d maps, a group and an expert a tile);
+// fused_decoder.cu for the four GEMM phases of the bf16 decoder block
+// (one ring for all).
 // The wmma tile of gemm_tile.cuh is left to decode rows (T <= 16) and fp32.
 //
-//   A [M, K] bf16, K contiguous (x, xn, h): a 2-d tensor map {K, M} with
-//     boxes {64, BM}; K-major operand.  Grouped: [G, C, K], a 3-d map
-//     {K, C, G} with boxes {64, BM, 1} (rows past C zero-filled, so a tile
-//     never reads the next group).
-//   B [K, N] bf16, N contiguous (a weight in the [in, out] layout): a 2-d
-//     tensor map {N, K} with boxes {64, 64}; MN-major operand (wgmma's
-//     transpose bit), so no weight is transposed.  Grouped: [E, K, N], a
-//     3-d map {N, K, E} with boxes {64, 64, 1}.
+//   A [M, K] bf16 or fp16, K contiguous (x, xn, h): a 2-d tensor map
+//     {K, M} with boxes {64, BM}; K-major operand.  Grouped: [G, C, K], a
+//     3-d map {K, C, G} with boxes {64, BM, 1} (rows past C zero-filled,
+//     so a tile never reads the next group).
+//   B [K, N] of A's type, N contiguous (a weight in the [in, out]
+//     layout): a 2-d tensor map {N, K} with boxes {64, 64}; MN-major
+//     operand (wgmma's transpose bit), so no weight is transposed.
+//     Grouped: [E, K, N], a 3-d map {N, K, E} with boxes {64, 64, 1}.
 // A block is NC + 1 warpgroups.  Warpgroup 0 is the producer: one thread
 // issues every TMA load.  Warpgroups 1..NC are the consumers; consumer c
 // owns rows 64 c .. 64 c + 63 of the BM = 64 NC-row tile and all BN
@@ -158,8 +159,9 @@ __device__ __forceinline__ void gemm_produce(
   gemm_produce<NC, BN, STAGES, 1>(r, a, b, m0, n0, K, nullptr, it);
 }
 
-// the k16 products of one slot: acc += A (64 rows from as) . B (bs)
-template <int BN>
+// the k16 products of one slot: acc += A (64 rows from as) . B (bs), E
+// the operands' type (bf16 or fp16)
+template <int BN, typename E = __nv_bfloat16>
 __device__ __forceinline__ void gemm_slot(float (&acc)[BN / 2],
                                           const unsigned char* as,
                                           const unsigned char* bs) {
@@ -168,17 +170,17 @@ __device__ __forceinline__ void gemm_slot(float (&acc)[BN / 2],
     const uint64_t da = desc_kmajor(as + 32 * kk);
     const uint64_t db = desc_mnmajor(bs + 2048 * kk, 8192);
     if constexpr (BN == 256)
-      wgmma_ss_n256<1>(acc, da, db);
+      wgmma_ss_n256<1, E>(acc, da, db);
     else
-      wgmma_ss_n128<1>(acc, da, db);
+      wgmma_ss_n128<1, E>(acc, da, db);
   }
 }
 
 // Consumer warpgroup c (0..NC-1): acc = A[m0 + 64 c .., :] . B[:, n0 ..
 // n0 + BN) and, where NB = 2, acc1 = the same rows . B1, in wgmma's
 // accumulator layout (hopper.cuh).  All 128 threads of the warpgroup call
-// it.
-template <int NC, int BN, int STAGES, int NB>
+// it.  E: the operands' type (bf16 unless given).
+template <typename E = __nv_bfloat16, int NC, int BN, int STAGES, int NB>
 __device__ __forceinline__ void gemm_consume(
     const GemmRing<NC, BN, STAGES, NB>& r, int K, int c, float (&acc)[BN / 2],
     float (&acc1)[NB == 2 ? BN / 2 : 1], int& it) {
@@ -196,8 +198,8 @@ __device__ __forceinline__ void gemm_consume(
     fence_regs(acc);
     fence_regs(acc1);
     wgmma_fence();
-    gemm_slot<BN>(acc, as, r.b(s));
-    if constexpr (NB == 2) gemm_slot<BN>(acc1, as, r.b(s, 1));
+    gemm_slot<BN, E>(acc, as, r.b(s));
+    if constexpr (NB == 2) gemm_slot<BN, E>(acc1, as, r.b(s, 1));
     wgmma_commit();
     wgmma_wait<1>();   // the previous slice's group is done with its slot
     fence_regs(acc);
@@ -211,13 +213,13 @@ __device__ __forceinline__ void gemm_consume(
 }
 
 // one output tile, one B operand
-template <int NC, int BN, int STAGES>
+template <typename E = __nv_bfloat16, int NC, int BN, int STAGES>
 __device__ __forceinline__ void gemm_consume(
     const GemmRing<NC, BN, STAGES, 1>& r, int K, int c,
     float (&acc)[BN / 2]) {
   float none[1];
   int it = 0;
-  gemm_consume<NC, BN, STAGES, 1>(r, K, c, acc, none, it);
+  gemm_consume<E, NC, BN, STAGES, 1>(r, K, c, acc, none, it);
 }
 
 }  // namespace hopper

@@ -16,13 +16,28 @@
 // and writes param, moments and master (28 bytes a bf16 parameter with a
 // master: 53.8 GB, 16.1 ms).
 //
-// Design (first, simple): the tensors are cut into chunks of 2^16
-// elements; the table gives each tensor its pointers, element count,
-// first chunk index and dtypes.  Blocks of 256 threads stride over the
-// chunk indices (a block walks the table forward as its chunks grow),
-// and each thread takes four elements 256 apart a round, loads first.
+// The tensors are cut into chunks of 2^16 elements; the table gives each
+// tensor its pointers, element count, first chunk index and dtypes.
+// Blocks of 256 threads stride over the chunk indices (a block walks the
+// table forward as its chunks grow).
 //
-// Norm: each chunk's fp32 sum of squares lands in a partial (a fixed
+// The update, redesigned for HBM3.  The first design took four scalar
+// elements 256 apart a thread a round: a warp's request on a 16-bit
+// stream was 64 bytes, and with seven streams an element few bytes were
+// in flight an SM; it reached 71-76% of the bound (PERF.md).  Now every
+// stream moves in 16-byte vectors: a thread takes 8 elements a vector,
+// one uint4 of a 16-bit stream and two of an fp32 stream, and issues
+// every load of kRounds (2) vectors (grad, both moments, the master or
+// the param) before any arithmetic.  Chunk edges are multiples of 8
+// elements, so a tensor whose pointers are 16-byte aligned runs whole
+// vectors up to its last numel % 8 elements, which (with every element
+// of an unaligned tensor) take the scalar loop.  The grid is persistent:
+// the resident blocks an SM (the occupancy query) times the SMs.  One,
+// three or four vectors a round and streaming cache hints measured no
+// faster (PERF.md).
+//
+// Norm (gradients fp32, bf16 or fp16; an inf or NaN propagates to the
+// result): each chunk's fp32 sum of squares lands in a partial (a fixed
 // tree inside the block); the last block to finish (an int32 ticket,
 // reset by that block) sums each tensor's partials in chunk order, a
 // warp a tensor, then the tensors in table order, and writes sqrt of the
@@ -38,7 +53,11 @@
 // count), as the reference's traced step takes them.  The clip rounds
 // the scaled gradient to its own dtype, as ClipGradByGlobalNorm casts it
 // back; Adam's L2 decay is folded into the gradient in the work tensor's
-// dtype (bf16 for a bf16 parameter without a master).
+// dtype (the 16-bit type of a 16-bit parameter without a master).
+// Parameters and gradients are fp32, bf16 or fp16 in any pairing (AMP
+// float16: fp16 parameters with fp32 masters, fp16 gradients); the
+// master is written back to the parameter by one round-to-nearest cast
+// (__float2half_rn for fp16), so a value past 65504 becomes inf.
 // Digest (robustness/recovery.py's params_digest): the JAX package
 // jits it (paddle_tpu/robustness/recovery.py:503-520) and XLA fuses the
 // bitcast and the uint32 sum of each leaf.  Here one launch walks a table
@@ -90,10 +109,7 @@ struct Hyper {
 };
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float rb(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
+using f16 = __half;
 
 // the table index of chunk c, walking forward from t (a block's chunks
 // only grow); empty tensors own no chunk and are stepped over
@@ -147,6 +163,8 @@ norm_kernel(const NormEntry* __restrict__ tab, int n, long long nchunks,
     const long long hi = min(lo + CHUNK, e.numel);
     float s = e.dt == ptt::DT_BFLOAT16
                   ? chunk_sumsq(static_cast<const bf16*>(e.g), lo, hi)
+              : e.dt == ptt::DT_FLOAT16
+                  ? chunk_sumsq(static_cast<const f16*>(e.g), lo, hi)
                   : chunk_sumsq(static_cast<const float*>(e.g), lo, hi);
     s = block_sum(s, red);
     if (threadIdx.x == 0) part[c] = s;
@@ -176,61 +194,169 @@ norm_kernel(const NormEntry* __restrict__ tab, int n, long long nchunks,
   }
 }
 
-// one chunk of one tensor: P the parameter's type, G the gradient's,
-// MASTER whether an fp32 master is the work tensor
+// what a launch of the update reads once from device memory
+struct Step {
+  float lr, bc1, bc2, scale;
+  bool clip;
+};
+
+// x rounded to T's precision (an identity for fp32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return ptt::to_f(ptt::from_f<T>(x));
+}
+
+// One element's update: gradient x (fp32 from G), moments
+// mk, vk, work value w (the master, or the parameter), the tensor's decay
+// wd; returns the new moments and work value.  P the parameter's type, G
+// the gradient's, MASTER whether an fp32 master is the work tensor.
+template <typename P, typename G, bool MASTER>
+__device__ __forceinline__ void adam_elem(float x, float mk, float vk,
+                                          float w, float wd, const Hyper& h,
+                                          const Step& st, float& mn,
+                                          float& vn, float& nw) {
+  constexpr bool G16 = !std::is_same<G, float>::value;
+  // the work tensor is 16-bit for a 16-bit parameter without a master
+  constexpr bool W16 = !std::is_same<P, float>::value && !MASTER;
+  if (st.clip) {                      // (g * scale).astype(g.dtype)
+    x = __fmul_rn(x, st.scale);
+    if (G16) x = round_to<G>(x);
+  }
+  if (!h.decoupled && wd != 0.f) {    // Adam's L2: g + wd * work
+    float t = __fmul_rn(wd, w);
+    if (W16) t = round_to<P>(t);
+    x = __fadd_rn(x, t);
+    // g + t stays 16-bit where both are the same 16-bit type
+    if (W16 && std::is_same<G, P>::value && !h.mp) x = round_to<P>(x);
+  }
+  mn = __fadd_rn(__fmul_rn(h.b1, mk), __fmul_rn(h.omb1, x));
+  vn = __fadd_rn(__fmul_rn(h.b2, vk), __fmul_rn(h.omb2, __fmul_rn(x, x)));
+  const float mhat = __fdiv_rn(mn, st.bc1);
+  const float vhat = __fdiv_rn(vn, st.bc2);
+  float upd = __fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), h.eps));
+  if (h.decoupled) upd = __fadd_rn(upd, __fmul_rn(wd, w));
+  nw = __fsub_rn(w, __fmul_rn(st.lr, upd));
+}
+
+// one element at index i, scalar loads and stores (the tails)
+template <typename P, typename G, bool MASTER>
+__device__ __forceinline__ void adam_one(const AdamEntry& e, long long i,
+                                         const Hyper& h, const Step& st) {
+  P* p = static_cast<P*>(e.p);
+  const float w = MASTER ? e.master[i] : ptt::to_f(p[i]);
+  float mn, vn, nw;
+  adam_elem<P, G, MASTER>(ptt::to_f(static_cast<const G*>(e.g)[i]), e.m[i],
+                          e.v[i], w, e.wd, h, st, mn, vn, nw);
+  e.m[i] = mn;
+  e.v[i] = vn;
+  if (MASTER) e.master[i] = nw;
+  p[i] = ptt::from_f<P>(nw);
+}
+
+// -- 16-byte vectors -------------------------------------------------------
+
+constexpr int VEC = 8;   // elements a thread a vector
+// vectors whose loads a thread issues together before any arithmetic
+constexpr int kRounds = 2;
+
+// 8 elements of T as loaded: one uint4 of a 16-bit type, two of fp32
+template <typename T>
+struct Vec8 {
+  uint4 u[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ Vec8<T> load8(const T* p) {
+  Vec8<T> v;
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(T) / 2); ++k) v.u[k] = q[k];
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ float at(const Vec8<T>& v, int i) {
+  return ptt::to_f(reinterpret_cast<const T*>(v.u)[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&x)[VEC]) {
+  Vec8<T> v;
+  T* e = reinterpret_cast<T*>(v.u);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) e[i] = ptt::from_f<T>(x[i]);
+  uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(T) / 2); ++k) q[k] = v.u[k];
+}
+
+// elements [lo, hi) of one tensor (lo a multiple of VEC)
 template <typename P, typename G, bool MASTER>
 __device__ void adam_chunk(const AdamEntry& e, long long lo, long long hi,
-                           const Hyper& h, float lr, float bc1, float bc2,
-                           bool clip, float s) {
-  constexpr bool GB = std::is_same<G, bf16>::value;
-  // the work tensor is bf16 for a bf16 parameter without a master
-  constexpr bool WB = std::is_same<P, bf16>::value && !MASTER;
-  P* __restrict__ p = static_cast<P*>(e.p);
-  const G* __restrict__ g = static_cast<const G*>(e.g);
-  float* __restrict__ m = e.m;
-  float* __restrict__ v = e.v;
-  float* __restrict__ ms = e.master;
-  const float wd = e.wd;
-  for (long long base = lo + threadIdx.x; base < hi; base += UNROLL * NT) {
-    float gf[UNROLL], mk[UNROLL], vk[UNROLL], w[UNROLL];
+                           const Hyper& h, const Step& st) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(e.p) |
+                        reinterpret_cast<uintptr_t>(e.g) |
+                        reinterpret_cast<uintptr_t>(e.m) |
+                        reinterpret_cast<uintptr_t>(e.v) |
+                        reinterpret_cast<uintptr_t>(e.master);
+  const long long vend = any % 16 == 0 ? lo + (hi - lo) / VEC * VEC : lo;
+  P* p = static_cast<P*>(e.p);
+  const G* g = static_cast<const G*>(e.g);
+  constexpr long long STEP = (long long)VEC * NT;
+  for (long long i = lo + (long long)VEC * threadIdx.x; i < vend;
+       i += STEP * kRounds) {
+    // every load of the round's kRounds vectors first
+    Vec8<G> gv[kRounds];
+    Vec8<float> mv[kRounds], vv[kRounds], wm[kRounds];
+    Vec8<P> wp[kRounds];
 #pragma unroll
-    for (int k = 0; k < UNROLL; ++k) {
-      const long long i = base + (long long)k * NT;
-      if (i < hi) {
-        gf[k] = ptt::to_f(g[i]);
-        mk[k] = m[i];
-        vk[k] = v[i];
-        w[k] = MASTER ? ms[i] : ptt::to_f(p[i]);
-      }
+    for (int r = 0; r < kRounds; ++r) {
+      const long long j = i + r * STEP;
+      if (j >= vend) break;
+      gv[r] = load8(g + j);
+      mv[r] = load8(e.m + j);
+      vv[r] = load8(e.v + j);
+      if constexpr (MASTER) wm[r] = load8(e.master + j);
+      else wp[r] = load8(p + j);
     }
 #pragma unroll
-    for (int k = 0; k < UNROLL; ++k) {
-      const long long i = base + (long long)k * NT;
-      if (i >= hi) continue;
-      float x = gf[k];
-      if (clip) {                         // (g * scale).astype(g.dtype)
-        x = __fmul_rn(x, s);
-        if (GB) x = rb(x);
-      }
-      if (!h.decoupled && wd != 0.f) {    // Adam's L2: g + wd * work
-        float t = __fmul_rn(wd, w[k]);
-        if (WB) t = rb(t);
-        x = __fadd_rn(x, t);
-        if (WB && GB && !h.mp) x = rb(x);
-      }
-      const float mn = __fadd_rn(__fmul_rn(h.b1, mk[k]), __fmul_rn(h.omb1, x));
-      const float vn = __fadd_rn(__fmul_rn(h.b2, vk[k]),
-                                 __fmul_rn(h.omb2, __fmul_rn(x, x)));
-      const float mhat = __fdiv_rn(mn, bc1);
-      const float vhat = __fdiv_rn(vn, bc2);
-      float upd = __fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), h.eps));
-      if (h.decoupled) upd = __fadd_rn(upd, __fmul_rn(wd, w[k]));
-      const float nw = __fsub_rn(w[k], __fmul_rn(lr, upd));
-      m[i] = mn;
-      v[i] = vn;
-      if (MASTER) ms[i] = nw;
-      p[i] = ptt::from_f<P>(nw);
+    for (int r = 0; r < kRounds; ++r) {
+      const long long j = i + r * STEP;
+      if (j >= vend) break;
+      float mn[VEC], vn[VEC], nw[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        adam_elem<P, G, MASTER>(at(gv[r], k), at(mv[r], k), at(vv[r], k),
+                                MASTER ? at(wm[r], k) : at(wp[r], k), e.wd,
+                                h, st, mn[k], vn[k], nw[k]);
+      store8(e.m + j, mn);
+      store8(e.v + j, vn);
+      if constexpr (MASTER) store8(e.master + j, nw);
+      store8(p + j, nw);
     }
+  }
+  for (long long i = vend + threadIdx.x; i < hi; i += NT)
+    adam_one<P, G, MASTER>(e, i, h, st);
+}
+
+// a chunk of parameter type P: the gradient's type and the master from
+// the table entry
+template <typename P>
+__device__ __forceinline__ void adam_by_grad(const AdamEntry& e, long long lo,
+                                             long long hi, const Hyper& h,
+                                             const Step& st) {
+  const int gdt = (e.dt >> 8) & 0xff;
+  constexpr bool P16 = !std::is_same<P, float>::value;
+  const bool master = P16 && ((e.dt >> 16) & 1);
+  if (gdt == ptt::DT_FLOAT32) {
+    if (master) adam_chunk<P, float, P16>(e, lo, hi, h, st);
+    else adam_chunk<P, float, false>(e, lo, hi, h, st);
+  } else if (gdt == ptt::DT_BFLOAT16) {
+    if (master) adam_chunk<P, bf16, P16>(e, lo, hi, h, st);
+    else adam_chunk<P, bf16, false>(e, lo, hi, h, st);
+  } else {
+    if (master) adam_chunk<P, f16, P16>(e, lo, hi, h, st);
+    else adam_chunk<P, f16, false>(e, lo, hi, h, st);
   }
 }
 
@@ -239,36 +365,26 @@ adam_kernel(const AdamEntry* __restrict__ tab, int n, long long nchunks,
             Hyper h, const float* lr_p, const int* step_p,
             const float* scale_p, const unsigned char* keep_p) {
   if (keep_p != nullptr && *keep_p == 0) return;
-  const float lr = *lr_p;
-  const float st = static_cast<float>(*step_p);
-  const float bc1 = __fsub_rn(1.f, powf(h.b1, st));
-  const float bc2 = __fsub_rn(1.f, powf(h.b2, st));
-  const bool clip = scale_p != nullptr;
-  const float s = clip ? *scale_p : 1.f;
-  int t = 0;
+  Step st;
+  st.lr = *lr_p;
+  const float t = static_cast<float>(*step_p);
+  st.bc1 = __fsub_rn(1.f, powf(h.b1, t));
+  st.bc2 = __fsub_rn(1.f, powf(h.b2, t));
+  st.clip = scale_p != nullptr;
+  st.scale = st.clip ? *scale_p : 1.f;
+  int i = 0;
   for (long long c = blockIdx.x; c < nchunks; c += gridDim.x) {
-    t = entry_of(tab, n, t, c);
-    const AdamEntry e = tab[t];
+    i = entry_of(tab, n, i, c);
+    const AdamEntry e = tab[i];
     const long long lo = (c - e.chunk0) * CHUNK;
     const long long hi = min(lo + CHUNK, e.numel);
-    const int pdt = e.dt & 0xff, gdt = (e.dt >> 8) & 0xff;
-    const bool master = (e.dt >> 16) & 1;
-    if (pdt == ptt::DT_FLOAT32) {
-      if (gdt == ptt::DT_FLOAT32)
-        adam_chunk<float, float, false>(e, lo, hi, h, lr, bc1, bc2, clip, s);
-      else
-        adam_chunk<float, bf16, false>(e, lo, hi, h, lr, bc1, bc2, clip, s);
-    } else if (gdt == ptt::DT_BFLOAT16) {
-      if (master)
-        adam_chunk<bf16, bf16, true>(e, lo, hi, h, lr, bc1, bc2, clip, s);
-      else
-        adam_chunk<bf16, bf16, false>(e, lo, hi, h, lr, bc1, bc2, clip, s);
-    } else {
-      if (master)
-        adam_chunk<bf16, float, true>(e, lo, hi, h, lr, bc1, bc2, clip, s);
-      else
-        adam_chunk<bf16, float, false>(e, lo, hi, h, lr, bc1, bc2, clip, s);
-    }
+    const int pdt = e.dt & 0xff;
+    if (pdt == ptt::DT_FLOAT32)
+      adam_by_grad<float>(e, lo, hi, h, st);
+    else if (pdt == ptt::DT_BFLOAT16)
+      adam_by_grad<bf16>(e, lo, hi, h, st);
+    else
+      adam_by_grad<f16>(e, lo, hi, h, st);
   }
 }
 
@@ -372,11 +488,27 @@ digest_kernel(const DigestEntry* __restrict__ tab, int n, long long nchunks,
   }
 }
 
-int grid_for(long long nchunks) {
-  int dev = 0, sms = 0;
+int sms() {
+  int dev = 0, n = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return static_cast<int>(std::min(nchunks, 8LL * sms));
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+int grid_for(long long nchunks) {
+  return static_cast<int>(std::min(nchunks, 8LL * sms()));
+}
+
+// the redesign's persistent grid: the blocks resident at once (the
+// occupancy query, once a process), at most one a chunk
+int adam_grid(long long nchunks) {
+  static const int per_sm = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, adam_kernel, NT,
+                                                  0);
+    return b > 0 ? b : 1;
+  }();
+  return static_cast<int>(std::min(nchunks, (long long)per_sm * sms()));
 }
 
 }  // namespace
@@ -399,15 +531,17 @@ int ptt_mt_norm(const void* table, int n, long long nchunks, void* part,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the Adam / AdamW update of every tensor of the table (16-byte vectors,
+// the persistent grid)
 int ptt_mt_adam(const void* table, int n, long long nchunks, float b1,
                 float omb1, float b2, float omb2, float eps, int decoupled,
                 int mp, const void* lr, const void* step, const void* scale,
                 const void* keep, void* stream) {
   if (n <= 0 || nchunks <= 0) return 0;
-  Hyper h{b1, omb1, b2, omb2, eps, decoupled, mp};
-  adam_kernel<<<grid_for(nchunks), NT, 0,
+  adam_kernel<<<adam_grid(nchunks), NT, 0,
                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const AdamEntry*>(table), n, nchunks, h,
+      static_cast<const AdamEntry*>(table), n, nchunks,
+      Hyper{b1, omb1, b2, omb2, eps, decoupled, mp},
       static_cast<const float*>(lr), static_cast<const int*>(step),
       static_cast<const float*>(scale),
       static_cast<const unsigned char*>(keep));

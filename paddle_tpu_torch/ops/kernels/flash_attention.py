@@ -12,10 +12,12 @@ kernels.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.  There is no fallback between the two.  The kernels
-take float32 at head_dim 64 or 128 and bfloat16 at 128
+take float32 at head_dim 64 or 128, and bfloat16 and float16 at 128
 (:data:`KERNEL_HEAD_DIMS`), sequences that are a multiple of 64, and
 heads a multiple of kv heads; every operand contiguous and 16-byte
-aligned.  In bf16 all three are Hopper kernels (wgmma fed by TMA through
+aligned.  In bf16 and fp16 (AMP float16: the same code, wgmma's f16
+products, outputs rounded to nearest even, an overflow inf) all three are
+Hopper kernels (wgmma fed by TMA through
 mbarrier rings, a producer warpgroup and two consumers, scores and
 accumulators in registers, 128-row tiles, P in the exp2 domain from the
 natural-log lse): the forward and dq per q tile, dk/dv per key tile
@@ -43,7 +45,8 @@ _NEG = -1e30
 # block's route reads it), and each dtype's head dims
 # (csrc/flash_attention.cu, dispatch)
 KERNEL_HEAD_DIM = 128
-KERNEL_HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (128,)}
+KERNEL_HEAD_DIMS = {torch.float32: (64, 128), torch.bfloat16: (128,),
+                    torch.float16: (128,)}
 
 
 # -- plain versions (the CPU path and the kernels' reference) ---------------
@@ -131,7 +134,7 @@ def _check(what, q, k, v, extra=()):
                          f"{k.shape[2]}")
     if q.device.type == "cpu":
         return
-    if q.dtype not in _build.DTYPE_CODES:
+    if q.dtype not in _build.FP16_CODES:
         raise _build.dtype_error(what, q.dtype)
     if d not in KERNEL_HEAD_DIMS[q.dtype]:
         raise NotImplementedError(
@@ -183,7 +186,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     work = torch.empty(floats, dtype=torch.float32, device=q.device) \
         if floats else None
     lib = _build.library("flash_attention")
-    err = lib.ptt_flash_fwd(_build.DTYPE_CODES[q.dtype], q.data_ptr(),
+    err = lib.ptt_flash_fwd(_build.FP16_CODES[q.dtype], q.data_ptr(),
                             k.data_ptr(), v.data_ptr(), out.data_ptr(),
                             lse.data_ptr(),
                             None if work is None else work.data_ptr(),
@@ -228,7 +231,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
     dq = torch.empty_like(q)
     lib = _build.library("flash_attention")
     err = lib.ptt_flash_bwd_dq(
-        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        _build.FP16_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), b, s, h, k.shape[2], d, _scale(q, scale),
         int(bool(causal)), _build.stream_of(q))
@@ -258,7 +261,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.library("flash_attention")
     err = lib.ptt_flash_bwd_dkv(
-        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        _build.FP16_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, s, h, k.shape[2], d,
         _scale(q, scale), int(bool(causal)), _build.stream_of(q))

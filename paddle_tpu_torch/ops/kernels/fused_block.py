@@ -22,7 +22,8 @@ The TPU kernels route only where Mosaic can tile the shape
 (``fused_qkv_eligible``: rows a multiple of 8/16); the CUDA kernels mask
 ragged row tiles themselves and take any row count.  They need the
 feature widths (d, dq, dkv, f) to be multiples of 64, all operands of
-one dtype (float32 or bfloat16), contiguous and 16-byte aligned.
+one dtype (float32 or bfloat16; float16, AMP's, past 16 rows in QKV, the
+MLP and fused_ffn), contiguous and 16-byte aligned.
 
 The decoder tier (``PADDLE_TPU_FUSED_BLOCK=decoder``) routes a Llama
 layer to the block kernel where ``fused_decoder_eligible`` takes its
@@ -97,13 +98,13 @@ def tf32x3_mlp_floats(T: int, d: int, f: int, gated: bool) -> int:
 
 
 def gemm_path(T: int, dtype) -> str:
-    """The MLP's and fused_ffn's design: in bf16 ``wgmma`` (the TMA /
-    wgmma ring of ``csrc/hopper_gemm.cuh``) at ``ROW_PASS_MIN_T`` rows or
-    more and ``splitk`` (splitk.cuh's strip stream) below; in fp32
-    ``tf32x3`` (three TF32 products on wgmma, ``csrc/tf32x3.cuh``) at
-    ``ROW_PASS_MIN_T`` rows or more and ``tile`` (the fp32 tile of
-    ``csrc/gemm_tile.cuh``) below."""
-    if dtype != torch.bfloat16:
+    """The MLP's and fused_ffn's design: in bf16 and fp16 ``wgmma`` (the
+    TMA / wgmma ring of ``csrc/hopper_gemm.cuh``) at ``ROW_PASS_MIN_T``
+    rows or more and ``splitk`` (splitk.cuh's strip stream, bf16 only:
+    fp16 raises there) below; in fp32 ``tf32x3`` (three TF32 products on
+    wgmma, ``csrc/tf32x3.cuh``) at ``ROW_PASS_MIN_T`` rows or more and
+    ``tile`` (the fp32 tile of ``csrc/gemm_tile.cuh``) below."""
+    if dtype not in (torch.bfloat16, torch.float16):
         return "tf32x3" if T >= ROW_PASS_MIN_T else "tile"
     return "wgmma" if T >= ROW_PASS_MIN_T else "splitk"
 
@@ -230,7 +231,9 @@ def mlp_reference(x, w_gate, w_up, w_down):
 
 # -- wrappers -----------------------------------------------------------------
 
-def _check_cuda(what, tensors, dtype):
+def _check_cuda(what, tensors, dtype, codes=_build.DTYPE_CODES):
+    """Device, one dtype among `codes`, contiguity and alignment of every
+    operand of a launch."""
     for name, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{what}: {name} is on {t.device}, expected "
@@ -242,8 +245,15 @@ def _check_cuda(what, tensors, dtype):
             raise ValueError(f"{what}: {name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
-    if dtype not in _build.DTYPE_CODES:
+    if dtype not in codes:
         raise _build.dtype_error(what, dtype)
+
+
+def _check_fp16_rows(what, dtype, T):
+    """float16 has the wgmma designs only: at 16 rows or fewer (split-K,
+    the training variant's tile) it raises, naming where it waits."""
+    if dtype == torch.float16 and 0 < T < ROW_PASS_MIN_T:
+        raise _build.dtype_error(f"{what} at {T} rows", dtype)
 
 
 def _check_width(what, **dims):
@@ -261,9 +271,10 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     dims, in x's dtype; with ``residuals`` also the normalised rows
     ``xn`` (``[..., d]``, x's dtype) and the inverse RMS ``inv``
     (``[..., 1]`` fp32) from the same call (the training variant).  On
-    the card, bf16 at ``ROW_PASS_MIN_T`` rows or more is a row pass and
-    a wgmma GEMM over its ``xn`` (a workspace in the forward variant),
-    two launches of one call; the bf16 forward variant at
+    the card, bf16 and fp16 at ``ROW_PASS_MIN_T`` rows or more are a row
+    pass and a wgmma GEMM over its ``xn`` (a workspace in the forward
+    variant), two launches of one call (fp16 raises below that row
+    count); the bf16 forward variant at
     ``SPLITK_MAX_T`` rows or fewer is the same row pass and a split-K
     launch (its fp32 partials in a workspace of ``splits * T * tiles *
     128 * 4`` bytes, 2.1 MB at Llama-3-8B width and T = 8); the training
@@ -292,10 +303,11 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
             f"{tuple(norm_weight.shape)}, wq {tuple(wq.shape)}, wk "
             f"{tuple(wk.shape)}, wv {tuple(wv.shape)} do not agree")
     _check_cuda(what, dict(x=x, norm_weight=norm_weight, wq=wq, wk=wk,
-                           wv=wv), x.dtype)
+                           wv=wv), x.dtype, _build.FP16_CODES)
     _check_width(what, d=d, dq=dq, dkv=dkv)
     x2 = x.reshape(-1, d)
     T = x2.shape[0]
+    _check_fp16_rows(what, x.dtype, T)
     dev = x.device
     q = torch.empty((T, dq), dtype=x.dtype, device=dev)
     k = torch.empty((T, dkv), dtype=x.dtype, device=dev)
@@ -304,12 +316,12 @@ def fused_rmsnorm_qkv(x, norm_weight, wq, wk, wv, epsilon=1e-5,
     if residuals:
         xn = torch.empty((T, d), dtype=x.dtype, device=dev)
         inv = torch.empty((T, 1), dtype=torch.float32, device=dev)
-    elif x.dtype == torch.bfloat16 and qkv_path(T, x.dtype) == "wgmma":
+    elif qkv_path(T, x.dtype) == "wgmma":
         # the row pass's output, read by the GEMM: a workspace
         xn = torch.empty((T, d), dtype=x.dtype, device=dev)
     if T:
         lib = _build.library("fused_block")
-        code = _build.DTYPE_CODES[x.dtype]
+        code = _build.FP16_CODES[x.dtype]
         xn_ptr = None if xn is None else xn.data_ptr()
         ws = tickets = None
         path = qkv_path(T, x.dtype, residuals)
@@ -362,6 +374,7 @@ def _mlp_launch(fn, x, w1, wu, w2, b1, b2, act):
     d, f = x.shape[-1], w1.shape[1]
     x2 = x.reshape(-1, d)
     T = x2.shape[0]
+    _check_fp16_rows(what, x.dtype, T)
     dev = x.device
     y = torch.empty((T, d), dtype=x.dtype, device=dev)
     if T:
@@ -385,7 +398,7 @@ def _mlp_launch(fn, x, w1, wu, w2, b1, b2, act):
             h = hbuf.data_ptr()
         design = ctypes.c_int(-1)
         err = lib.ptt_mlp(
-            _build.DTYPE_CODES[x.dtype], act, x2.data_ptr(), w1.data_ptr(),
+            _build.FP16_CODES[x.dtype], act, x2.data_ptr(), w1.data_ptr(),
             None if wu is None else wu.data_ptr(), w2.data_ptr(),
             None if b1 is None else b1.data_ptr(),
             None if b2 is None else b2.data_ptr(), h, y.data_ptr(), ws,
@@ -408,8 +421,9 @@ def fused_mlp(x, w_gate, w_up, w_down):
     x ``[..., d]``; w_gate/w_up ``[d, f]``; w_down ``[f, d]``.  On the
     card this is two launches of one call: gate/up with the activation
     product written to a ``[T, f]`` workspace in x's dtype, then the down
-    product (``csrc/fused_block.cu`` says why); in bf16 on the wgmma /
-    TMA ring at ``ROW_PASS_MIN_T`` rows or more and split-K below
+    product (``csrc/fused_block.cu`` says why); in bf16 and fp16 on the
+    wgmma / TMA ring at ``ROW_PASS_MIN_T`` rows or more, in bf16 split-K
+    below (fp16 raises there)
     (``gemm_path``), in fp32 as 3xTF32 on wgmma at ``ROW_PASS_MIN_T``
     rows or more (the weights and x split first; h's TF32 halves in place
     of h) and on the fp32 tile below.  ``launches_by_path`` counts the
@@ -428,7 +442,7 @@ def fused_mlp(x, w_gate, w_up, w_down):
             f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}, w_down "
             f"{tuple(w_down.shape)} do not agree")
     _check_cuda(what, dict(x=x, w_gate=w_gate, w_up=w_up, w_down=w_down),
-                x.dtype)
+                x.dtype, _build.FP16_CODES)
     _check_width(what, d=d, f=f)
     return _mlp_launch(fused_mlp, x, w_gate, w_up, w_down, None, None, 0)
 
@@ -468,7 +482,8 @@ def fused_ffn(x, w1, w2, b1=None, b2=None, activation="relu"):
             f"{what}: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 "
             f"{tuple(w2.shape)}, b1 {tuple(b1.shape)}, b2 "
             f"{tuple(b2.shape)} do not agree")
-    _check_cuda(what, dict(x=x, w1=w1, w2=w2, b1=b1, b2=b2), x.dtype)
+    _check_cuda(what, dict(x=x, w1=w1, w2=w2, b1=b1, b2=b2), x.dtype,
+                _build.FP16_CODES)
     _check_width(what, d=d, f=f)
     return _mlp_launch(fused_ffn, x, w1, None, w2, b1, b2,
                        ACT_CODES[activation])

@@ -53,6 +53,7 @@ __all__ = ["multi_tensor_norm", "multi_tensor_adam", "multi_tensor_digest",
            "bias_correction", "digest_reference", "finish_capture",
            "FNV_BASIS", "FNV_PRIME"]
 
+_LOW = (torch.bfloat16, torch.float16)   # the parameters a master serves
 _KEPT = 8                 # tables kept for eager calls, least recent out
 _tables: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
 _pending: List[tuple] = []
@@ -68,6 +69,14 @@ def bias_correction(beta: float, step, device) -> torch.Tensor:
     return 1 - torch.pow(b, t.to(device))
 
 
+def _sqrt_rn(x):
+    """fp32 sqrt rounded to nearest, as the kernel's ``__fsqrt_rn`` and
+    XLA's: torch's CUDA sqrt is, its vectorised CPU sqrt is not (one ulp
+    off for about 1% of elements), so the CPU takes it in float64 and
+    rounds once (exact: a double holds more than twice fp32's bits)."""
+    return x.sqrt() if x.is_cuda else x.double().sqrt().float()
+
+
 def adam_rule(w, g, m, v, lr, bc1, bc2, beta1, beta2, eps, wd):
     """One Adam step on fp32 tensors, the reference's operations in its
     order, each rounded to fp32: ``m = b1 m + (1 - b1) g``, ``v = b2 v +
@@ -76,7 +85,7 @@ def adam_rule(w, g, m, v, lr, bc1, bc2, beta1, beta2, eps, wd):
     ``(w - lr upd, m, v)``."""
     m = m * beta1 + g * (1 - beta1)
     v = v * beta2 + g.square() * (1 - beta2)
-    upd = (m / bc1) / ((v / bc2).sqrt() + eps)
+    upd = (m / bc1) / (_sqrt_rn(v / bc2) + eps)
     if wd is not None:
         upd = upd + w * wd
     return w - upd * lr, m, v
@@ -201,16 +210,17 @@ def _check(what, named, device):
 
 
 def _dt(t, what, name):
-    code = _build.DTYPE_CODES.get(t.dtype)
+    code = _build.FP16_CODES.get(t.dtype)
     if code is None:
-        raise TypeError(f"{what}: {name} is {t.dtype} (float32 or bfloat16 "
-                        "only)")
+        raise TypeError(f"{what}: {name} is {t.dtype} (float32, bfloat16 "
+                        "or float16 only)")
     return code
 
 
 def multi_tensor_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The global L2 norm of `tensors` (float32 or bfloat16, one device),
-    a 0-d fp32 tensor on their device."""
+    """The global L2 norm of `tensors` (float32, bfloat16 or float16, one
+    device), a 0-d fp32 tensor on their device; an inf or NaN among them
+    makes it inf or NaN."""
     tensors = list(tensors)
     if not tensors or tensors[0].device.type == "cpu":
         return _build.plain("multi_tensor_norm",
@@ -258,12 +268,15 @@ def multi_tensor_adam(params, grads, moment1, moment2, masters, *, lr, step,
     """One Adam (``decoupled=False``: L2 decay folded into the gradient)
     or AdamW (decoupled decay) update of every parameter, in place.
 
-    params float32 or bfloat16; grads float32 or bfloat16, each its
-    parameter's shape; moment1 / moment2 fp32; masters a list holding an
-    fp32 master or None for each parameter.  lr (fp32) and step (the
-    update count, int32) are numbers or 0-d tensors; weight_decays one
-    float a parameter (None: no decay); scale the 0-d fp32 clip scale or
-    None; keep the guard's 0-d bool or None (always keep)."""
+    params float32, bfloat16 or float16; grads float32, bfloat16 or
+    float16, each its parameter's shape; moment1 / moment2 fp32; masters
+    a list holding an fp32 master (16-bit parameters only) or None for
+    each parameter.  lr (fp32) and step (the update count, int32) are
+    numbers or 0-d tensors; weight_decays one float a parameter (None: no
+    decay); scale the 0-d fp32 clip scale or None; keep the guard's 0-d
+    bool or None (always keep).  On the card one launch updates every
+    tensor; ``launches_by_dtype`` counts it under each parameter dtype it
+    updated."""
     n = len(params)
     if weight_decays is None:
         weight_decays = [0.0] * n
@@ -304,9 +317,9 @@ def multi_tensor_adam(params, grads, moment1, moment2, masters, *, lr, step,
         for name, t in named[2:]:
             if t.dtype != torch.float32:
                 raise TypeError(f"{what}: {name} must be float32")
-        if ms is not None and p.dtype != torch.bfloat16:
+        if ms is not None and p.dtype not in _LOW:
             raise TypeError(f"{what}: masters[{i}] given for a {p.dtype} "
-                            "parameter (bfloat16 only)")
+                            "parameter (bfloat16 or float16 only)")
         dt = (_dt(p, what, f"params[{i}]")
               | _dt(g, what, f"grads[{i}]") << 8
               | (ms is not None) << 16)
@@ -335,9 +348,12 @@ def multi_tensor_adam(params, grads, moment1, moment2, masters, *, lr, step,
     _build.check(lib, err, what)
     _build.charge(what, costs.mt_adam, params, grads, masters)
     multi_tensor_adam.launches += 1
+    for dt in {p.dtype for p in params}:
+        _build.count_dtype(multi_tensor_adam, dt)
 
 
 multi_tensor_adam.launches = 0
+multi_tensor_adam.launches_by_dtype = {}
 
 
 FNV_BASIS = 2166136261

@@ -103,8 +103,7 @@ def _check(what, q, k_pool, v_pool, block_table, lengths, tensors):
         raise ValueError(f"{what}: heads {h} / kv_heads {kvh} must be 1, 2, "
                          f"4 or 8 and head_dim {hd} one of 32, 64, 128, 256")
     if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{what}: dtype {q.dtype} not supported (float32, "
-                        "bfloat16)")
+        raise _build.dtype_error(what, q.dtype)
     for name, (t, dt) in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{what}: {name} is on {t.device}, q on "

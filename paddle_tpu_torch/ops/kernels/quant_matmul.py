@@ -103,8 +103,7 @@ def quant_matmul(x, qw, scale, mode: str = "int8"):
     if K % 64 or N % 64:
         raise ValueError(f"{what}: K={K} and N={N} must be multiples of 64")
     if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{what}: dtype {x.dtype} not supported (float32, "
-                        "bfloat16)")
+        raise _build.dtype_error(what, x.dtype)
     x2 = x.reshape(-1, K)
     for name, t, dt in (("x", x2, x.dtype), ("qw", qw, wdt),
                         ("scale", scale, torch.float32)):

@@ -56,8 +56,7 @@ def fused_rmsnorm(x, weight, residual=None, epsilon=1e-5):
             f"{None if residual is None else tuple(residual.shape)} do not "
             "agree")
     if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{what}: dtype {x.dtype} not supported (float32, "
-                        "bfloat16)")
+        raise _build.dtype_error(what, x.dtype)
     ops = dict(x=x, weight=weight)
     if residual is not None:
         ops["residual"] = residual

@@ -304,7 +304,8 @@ def _flash_inputs(rng, b, s, h, hk, dtype, dev, d=128):
                                                    dev))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,h,hk", FLASH_SHAPES)
 def test_flash_fwd_matches_plain(dev, dtype, causal, b, s, h, hk):
@@ -319,7 +320,8 @@ def test_flash_fwd_matches_plain(dev, dtype, causal, b, s, h, hk):
     _close(lse, ref_lse, torch.float32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,h,hk", FLASH_SHAPES + FLASH_BWD_EDGES)
 def test_flash_bwd_matches_plain(dev, dtype, causal, b, s, h, hk):
@@ -515,11 +517,27 @@ def test_sdpa_bf16_head_dim_64_keeps_the_pad(dev, monkeypatch):
 
 
 def test_flash_float16_and_fp32_head_dim_32_raise(dev):
-    """float16 raises its TypeError at head_dim 64 too, before the head
-    dim is looked at; fp32 at head_dim 32 raises NotImplementedError."""
+    """float16 runs its kernels at head_dim 128 (against the plain
+    version, through the autograd Function) and raises at head_dim 64,
+    which only SDPA's pad reaches; fp32 at head_dim 32 raises
+    NotImplementedError.  Neither takes the plain version."""
     rng = np.random.default_rng(66)
+    q, k, v, g = _flash_inputs(rng, 1, 128, 4, 2, torch.float16, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = FA.flash_attention_bwd_dkv.launches_by_dtype.get("float16", 0)
+    out = FA.flash_attention(*leaves, causal=True)
+    out.backward(g)
+    out = out.detach()
+    assert out.dtype == torch.float16
+    assert FA.flash_attention_bwd_dkv.launches_by_dtype["float16"] == n0 + 1
+    ref, lse = FA.flash_fwd_reference(q, k, v, True)
+    _close(out, ref, torch.float16)
+    refs = FA.flash_bwd_reference(q, k, v, g, lse, FA.flash_delta(ref, g),
+                                  True)
+    for t, r in zip(leaves, refs):
+        _close(t.grad, r, torch.float16)
     q = _t(rng, (1, 128, 2, 64), torch.float16, dev)
-    with pytest.raises(TypeError, match="queue 1, item 11"):
+    with pytest.raises(NotImplementedError, match="head_dim 64"):
         FA.flash_attention(q, q, q, causal=True)
     q = _t(rng, (1, 128, 2, 32), torch.float32, dev)
     with pytest.raises(NotImplementedError, match="head_dim 32"):
@@ -2445,6 +2463,80 @@ def test_multi_tensor_adam_matches_plain(dev, decoupled, clip, keep):
     assert not any(changed) if keep is False else all(changed)
 
 
+_ADAM_TRIPLES = [(p, g, m) for p in ("float32", "bfloat16", "float16")
+                 for g in ("float32", "bfloat16", "float16")
+                 for m in ((False,) if p == "float32" else (False, True))]
+
+
+@pytest.mark.parametrize("pdt,gdt,master", _ADAM_TRIPLES)
+def test_multi_tensor_adam_dtype_triples_bitwise(dev, pdt, gdt, master):
+    """Every (param, grad, master) dtype triple the update takes: the
+    kernel (16-byte vectors, a scalar tail) against the plain version,
+    Adam's L2 decay and AdamW's, two updates with a clip scale: bitwise
+    equal.  Lengths that
+    are not a multiple of 8, tensors spanning chunks, and views at
+    unaligned offsets (one element into a buffer), which take the scalar
+    loop whole."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    rng = np.random.default_rng(len(pdt + gdt) + master)
+    P, G = getattr(torch, pdt), getattr(torch, gdt)
+
+    def tensors(offset):
+        ps, gs, ms = [], [], []
+        for n in ((1 << 17) + 5, 8 * 300 + 7, 13, 64):
+            buf = _t(rng, (n + offset,), P, dev)
+            ps.append(buf[offset:])
+            gs.append(_t(rng, (n + offset,), G, dev, 0.1)[offset:])
+            ms.append(ps[-1].float() + 1e-3 if master else None)
+        return ps, gs, ms
+
+    fns = (MT.multi_tensor_adam, _plain_adam)
+    for offset in (0, 1):
+        ps, gs, ms = tensors(offset)
+        m0 = [torch.rand(p.shape, device=dev) * 0.01 for p in ps]
+        v0 = [torch.rand(p.shape, device=dev) * 1e-4 for p in ps]
+        def copy(t):                    # a copy at the same offset
+            if t is None:
+                return None
+            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+            return buf[offset:].copy_(t)
+        runs = [tuple([copy(t) for t in ts] for ts in (ps, m0, v0, ms))
+                for _ in fns]
+        for decoupled in (False, True):
+            for step in (1, 2):
+                for fn, (p_, m_, v_, mast) in zip(fns, runs):
+                    fn(p_, gs, m_, v_, mast,
+                       lr=torch.tensor(1e-2, device=dev),
+                       step=torch.tensor(step, dtype=torch.int32,
+                                         device=dev),
+                       beta1=0.9, beta2=0.95, epsilon=1e-8,
+                       weight_decays=[0.1, 0.0, 0.05, 0.1],
+                       decoupled=decoupled, multi_precision=master,
+                       scale=torch.tensor(0.6, device=dev))
+        assert all((t.data_ptr() % 16 == 0) == (offset == 0)
+                   for t in runs[0][0] + runs[0][1])
+        torch.cuda.synchronize()
+        new, plain = runs
+        for i in range(4):
+            for a, b in zip(new[i], plain[i]):
+                assert (a is None and b is None) or torch.equal(a, b), \
+                    (i, offset)
+        assert not torch.equal(new[0][0], ps[0])
+
+
+def test_multi_tensor_norm_takes_float16(dev):
+    """fp16 gradients: the fp32 sum of squares against the plain version
+    (1e-6 relative), and an inf among them makes the norm inf."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as MT
+    rng = np.random.default_rng(33)
+    grads = [_t(rng, (n,), torch.float16, dev, 0.1)
+             for n in ((1 << 17) + 3, 515, 8)]
+    np.testing.assert_allclose(float(MT.multi_tensor_norm(grads)),
+                               float(MT.norm_reference(grads)), rtol=1e-6)
+    grads[1][7] = float("inf")
+    assert float(MT.multi_tensor_norm(grads)) == float("inf")
+
+
 def _plain_adam(params, grads, m, v, masters, **kw):
     """multi_tensor_adam's plain version on CUDA tensors."""
     from paddle_tpu_torch.ops.kernels import multi_tensor as MT
@@ -2455,9 +2547,9 @@ def _plain_adam(params, grads, m, v, masters, **kw):
 
 def test_multi_tensor_kernels_refuse_what_they_do_not_take(dev):
     from paddle_tpu_torch.ops.kernels import multi_tensor as MT
-    half = torch.zeros(8, dtype=torch.float16, device=dev)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        MT.multi_tensor_norm([half])
+    wide = torch.zeros(8, dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        MT.multi_tensor_norm([wide])
     strided = torch.zeros(8, 8, device=dev).t()
     with pytest.raises(ValueError, match="contiguous"):
         MT.multi_tensor_norm([strided])
@@ -3271,28 +3363,104 @@ def test_grad_scaler_finds_nan_and_inf_on_the_card(dev):
             assert s._found_inf and s.get_loss_scaling() == 2.0
 
 
-@pytest.mark.parametrize("wrapper", ["flash", "qkv", "mlp"])
+@pytest.mark.parametrize("wrapper", ["qkv", "mlp", "ffn", "quant", "paged",
+                                     "rmsnorm"])
 def test_float16_raises_naming_the_queue_entry(dev, wrapper):
-    """float16 has no kernel yet: a CUDA tensor raises a TypeError that
-    names ROADMAP.md's queue 1 entry, and never takes the plain
-    version."""
+    """float16 where it has no kernel (serving: QKV, the MLP and
+    fused_ffn at 16 rows or fewer, the quant matmul, paged decode,
+    rmsnorm): a CUDA tensor raises a TypeError that names ROADMAP.md's
+    queue 1 entry, and never takes the plain version."""
     rng = np.random.default_rng(0)
     h = torch.float16
+    x = _t(rng, (8, 128), h, dev)
     with pytest.raises(TypeError, match="queue 1, item 11"):
-        if wrapper == "flash":
-            q = _t(rng, (1, 128, 2, 128), h, dev)
-            FA.flash_attention(q, q, q, causal=True)
-        elif wrapper == "qkv":
-            x = _t(rng, (32, 128), h, dev)
+        if wrapper == "qkv":
             FB.fused_rmsnorm_qkv(x, _t(rng, (128,), h, dev),
                                  _t(rng, (128, 128), h, dev),
                                  _t(rng, (128, 64), h, dev),
                                  _t(rng, (128, 64), h, dev))
-        else:
-            x = _t(rng, (32, 128), h, dev)
+        elif wrapper == "mlp":
             FB.fused_mlp(x, _t(rng, (128, 256), h, dev),
                          _t(rng, (128, 256), h, dev),
                          _t(rng, (256, 128), h, dev))
+        elif wrapper == "ffn":
+            FB.fused_ffn(x, _t(rng, (128, 256), h, dev),
+                         _t(rng, (256, 128), h, dev))
+        elif wrapper == "quant":
+            qw, scale = quantize_linear_weight(
+                _t(rng, (128, 128), torch.float32, dev), "int8")
+            QM.quant_matmul(x, qw, scale, mode="int8")
+        elif wrapper == "paged":
+            pool = _t(rng, (5, 16, 2, 128), h, dev)
+            PA.paged_decode_attention(
+                _t(rng, (2, 4, 128), h, dev), pool, pool,
+                torch.tensor([[1, 2], [3, 4]], dtype=torch.int32,
+                             device=dev),
+                torch.tensor([20, 9], dtype=torch.int32, device=dev))
+        else:
+            RN.fused_rmsnorm(x, _t(rng, (128,), h, dev))
+
+
+@pytest.mark.parametrize("what", ["qkv", "qkv_train", "mlp", "relu", "gelu",
+                                  "silu"])
+@pytest.mark.parametrize("T", [17, 300])
+def test_float16_kernels_match_plain_past_16_rows(dev, what, T):
+    """AMP float16's QKV (both variants), MLP and fused_ffn past 16 rows:
+    the bf16 wgmma designs in fp16, against the plain versions within
+    TOL[float16], each launch on ``wgmma`` and counted under float16."""
+    rng = np.random.default_rng(T + len(what))
+    h = torch.float16
+    d, f = 256, 512
+    x = _t(rng, (T, d), h, dev)
+    if what.startswith("qkv"):
+        fn, train = FB.fused_rmsnorm_qkv, what == "qkv_train"
+        args = (x, _t(rng, (d,), h, dev, 0.1) + 1,
+                _t(rng, (d, 256), h, dev, d ** -0.5),
+                _t(rng, (d, 128), h, dev, d ** -0.5),
+                _t(rng, (d, 128), h, dev, d ** -0.5))
+        n0 = dict(fn.launches_by_path)
+        got = fn(*args, 1e-5, residuals=train)
+        ref = FB.qkv_reference(*args, 1e-5, residuals=train)
+    elif what == "mlp":
+        fn = FB.fused_mlp
+        args = (x, _t(rng, (d, f), h, dev, d ** -0.5),
+                _t(rng, (d, f), h, dev, d ** -0.5),
+                _t(rng, (f, d), h, dev, f ** -0.5))
+        n0 = dict(fn.launches_by_path)
+        got, ref = (fn(*args),), (FB.mlp_reference(*args),)
+    else:
+        fn = FB.fused_ffn
+        w1, w2 = _t(rng, (d, f), h, dev, d ** -0.5), \
+            _t(rng, (f, d), h, dev, f ** -0.5)
+        b1, b2 = _t(rng, (f,), h, dev, 0.1), _t(rng, (d,), h, dev, 0.1)
+        n0 = dict(fn.launches_by_path)
+        got = (fn(x, w1, w2, b1, b2, what),)
+        ref = (FB.ffn_reference(x, w1, b1, w2, b2, what),)
+    n0["wgmma"] += 1
+    assert fn.launches_by_path == n0
+    assert fn.launches_by_dtype.get("float16", 0) >= 1
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype
+        _close(a, r, r.dtype if r.dtype == torch.float32 else h)
+
+
+def test_float16_mlp_overflow_is_inf_where_the_plain_version_is(dev):
+    """h = silu(g) u past 65504 rounds to inf in the kernel's epilogue as
+    in the plain version's cast (nothing saturates), so every output row
+    it reaches is non-finite in both, and the rest agree."""
+    rng = np.random.default_rng(71)
+    h = torch.float16
+    d, f, T = 256, 512, 64
+    x = _t(rng, (T, d), h, dev)
+    x[::8] *= 400                      # every 8th row overflows h
+    wg, wu = _t(rng, (d, f), h, dev, d ** -0.5), \
+        _t(rng, (d, f), h, dev, d ** -0.5)
+    wd = _t(rng, (f, d), h, dev, f ** -0.5)
+    got, ref = FB.fused_mlp(x, wg, wu, wd), FB.mlp_reference(x, wg, wu, wd)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(ref)
+    assert bad.any() and torch.equal(~torch.isfinite(got), bad)
+    _close(got[~bad.any(-1)], ref[~bad.any(-1)], h)
 
 
 # -- the losses, io and hapi on the card --------------------------------------

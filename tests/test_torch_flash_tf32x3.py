@@ -302,12 +302,14 @@ def test_ring_fits_shared_memory(hd):
 
 def test_instantiations_and_dispatch_agree_with_the_wrappers():
     """fp32 at head_dim 64 and 128 (the 3xTF32 forward, the first-design
-    dq and dk/dv), bf16 at 128 only; the first design's forward is gone;
+    dq and dk/dv), bf16 and fp16 at 128 only; the first design's forward
+    is gone;
     the three products of each k8 step small terms first, the slices in
     one group, summed after the wait."""
     src = _src("flash_attention.cu")
     assert "flash_fwd_kernel" not in src
     assert "if (dtype == ptt::DT_BFLOAT16 && D == 128) {" in src
+    assert "if (dtype == ptt::DT_FLOAT16 && D == 128) {" in src
     assert "if (dtype == ptt::DT_FLOAT32 && (D == 64 || D == 128)) {" in src
     assert "launch<float, 64, W>(a, B, s)" in src
     assert "launch<float, 128, W>(a, B, s)" in src
@@ -316,7 +318,8 @@ def test_instantiations_and_dispatch_agree_with_the_wrappers():
     assert ": launch<128>(a, B, work, stream);" in hdr
     assert re.search(r"constexpr int HD = 128;", _src("flash_hopper.cuh"))
     assert FA.KERNEL_HEAD_DIMS == {torch.float32: (64, 128),
-                                   torch.bfloat16: (128,)}
+                                   torch.bfloat16: (128,),
+                                   torch.float16: (128,)}
     assert FA.KERNEL_HEAD_DIM == 128
     body = hdr[hdr.index("__device__ __forceinline__ void consume("):]
     assert [ln.strip() for ln in body.splitlines()

@@ -353,16 +353,19 @@ def test_mlp_splitk_agrees_with_the_kernel_source():
     assert "(long long)a.splits * NB * tiles * kMlpBN * ntok > ws_floats" \
         in host
     entry = _body(src, "int ptt_mlp(int dtype,")
-    assert "if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT) {" in entry
+    assert ("if ((dtype == ptt::DT_BFLOAT16 || dtype == ptt::DT_FLOAT16) &&"
+            "\n      T >= kRowPassMinT) {") in entry
     assert ("} else if (dtype == ptt::DT_BFLOAT16 && T <= kSplitKMaxT) {"
             in entry)
-    for design, call in (("WGMMA", "mlp_hopper<"), ("SPLITK", "mlp_splitk<"),
+    for design, call in (("WGMMA", "mlp_hopper_pair<"),
+                         ("SPLITK", "mlp_splitk<"),
                          ("TILE", "launch<MODE_PLAIN>")):
         assert f"used = ptt::DESIGN_{design};" in entry and call in entry
     assert FB.ROW_PASS_MIN_T == SK.SPLITK_MAX_T + 1
     bf = torch.bfloat16
-    assert [FB.gemm_path(t, bf) for t in (1, 16, 17)] == \
-        ["splitk", "splitk", "wgmma"]
+    for dt in (bf, torch.float16):
+        assert [FB.gemm_path(t, dt) for t in (1, 16, 17)] == \
+            ["splitk", "splitk", "wgmma"]
     assert FB.gemm_path(8, torch.float32) == "tile"
 
 

@@ -323,17 +323,20 @@ def test_ffn_ring_model_matches_pallas(act, T):
 
 def test_gemm_paths_agree_with_the_kernel_source():
     """The MLP / FFN entry (``ptt_mlp``, both products of a call) routes
-    bf16 at kRowPassMinT rows or more to the wgmma ring and below it to
-    split-K, fp32 at kRowPassMinT rows or more to 3xTF32 and below it to
-    the tile; the wrapper's ``gemm_path`` by the same threshold."""
+    bf16 and fp16 at kRowPassMinT rows or more to the wgmma ring and bf16
+    below it to split-K, fp32 at kRowPassMinT rows or more to 3xTF32 and
+    below it to the tile; the wrapper's ``gemm_path`` by the same
+    threshold."""
     src = (CSRC / "fused_block.cu").read_text()
     body = src[src.index("int ptt_mlp(int dtype,"):]
     body = body[:body.index("\n}\n")]
-    assert "if (dtype == ptt::DT_BFLOAT16 && T >= kRowPassMinT) {" in body
-    assert "mlp_hopper<" in body and "mlp_splitk<" in body
+    assert ("if ((dtype == ptt::DT_BFLOAT16 || dtype == ptt::DT_FLOAT16) &&"
+            "\n      T >= kRowPassMinT) {") in body
+    assert "mlp_hopper_pair<" in body and "mlp_splitk<" in body
     t = FB.ROW_PASS_MIN_T
-    assert [FB.gemm_path(n, torch.bfloat16) for n in (t - 1, t)] == \
-        ["splitk", "wgmma"]
+    for dt in (torch.bfloat16, torch.float16):
+        assert [FB.gemm_path(n, dt) for n in (t - 1, t)] == \
+            ["splitk", "wgmma"]
     assert "} else if (dtype == ptt::DT_FLOAT32 && T >= kRowPassMinT) {" \
         in body and "mlp_tf32x3(" in body
     assert [FB.gemm_path(n, torch.float32) for n in (t - 1, t, 8192)] == \
